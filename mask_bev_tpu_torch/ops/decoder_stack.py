@@ -1,0 +1,282 @@
+"""Kernel 4: all Mask2Former decoder layers of the ``final_only`` path.
+
+Replaces ``mask_bev_tpu/ops/pallas_decoder_stack.py::fused_decoder_stack``.
+Per batch element and layer ``li = 3g + lvl`` (level ``lvl`` of the
+/32, /16, /8 memories):
+
+1. ``m = emb . feat_lvl^T`` in f32; the bias is -1e9 where ``m < 0``, except
+   on query rows where every position is blocked, which get 0;
+2. cross-attention: q from ``x + qpos``, k from ``mem + pe``, v from
+   ``mem``, ``heads`` heads with scale ``hd^-0.5``, then ``out``; LN1 of
+   ``x + y``;
+3. self-attention: q and k from ``x + qpos``, v from ``x``; LN2;
+4. ReLU FFN; LN3;
+5. the next mask embedding: decoder norm, then the 3-layer mask MLP,
+   rounded to the model dtype D.
+
+The query state stays in f32; every product takes D-rounded operands with
+f32 accumulation and an f32 bias, as the TPU kernel's ``_dot`` does.
+
+The CUDA counterpart is a short chain: the k and v projections of each
+level's memory do not depend on the queries, so one GEMM per level and
+projection computes them for all of that level's layers (``csrc/gemm.cuh``),
+and one cluster of 8 thread blocks per batch element
+(``csrc/decoder_stack.cu``) then runs every layer with the query state held
+in shared memory throughout (each block a replica, the work split between
+them). Every launch counts under ``decoder_stack``. The card path takes
+bf16 only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Sequence
+
+import torch
+
+from mask_bev_tpu_torch.kernels import build as kb
+from mask_bev_tpu_torch.ops.swin_block import EPI_BIAS, Dense, gemm
+
+NEG = -1e9
+
+
+class LayerWeights(NamedTuple):
+    """One decoder layer; matrices (in, out) in D, vectors f32."""
+
+    wq: torch.Tensor
+    bq: torch.Tensor
+    wk: torch.Tensor
+    bk: torch.Tensor
+    wv: torch.Tensor
+    bv: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+    sq: torch.Tensor
+    sbq: torch.Tensor
+    sk: torch.Tensor
+    sbk: torch.Tensor
+    sv: torch.Tensor
+    sbv: torch.Tensor
+    so: torch.Tensor
+    sbo: torch.Tensor
+    n1w: torch.Tensor
+    n1b: torch.Tensor
+    n2w: torch.Tensor
+    n2b: torch.Tensor
+    n3w: torch.Tensor
+    n3b: torch.Tensor
+    f1: torch.Tensor
+    fb1: torch.Tensor
+    f2: torch.Tensor
+    fb2: torch.Tensor
+
+
+class HeadWeights(NamedTuple):
+    """Decoder norm and mask MLP (shared by every layer)."""
+
+    dnw: torch.Tensor
+    dnb: torch.Tensor
+    m1: torch.Tensor
+    mb1: torch.Tensor
+    m2: torch.Tensor
+    mb2: torch.Tensor
+    m3: torch.Tensor
+    mb3: torch.Tensor
+
+
+def _ln(x32, w, b):
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return xc * torch.rsqrt(var + 1e-6) * w + b
+
+
+def _dot(a, w, b=None):
+    y = a.to(w.dtype).float() @ w.float()
+    return y if b is None else y + b
+
+
+def _attend(q, k, v, wo, bo, heads: int, bias, dtype):
+    b, nq, c = q.shape
+    hd = c // heads
+
+    def split(t):
+        return t.to(dtype).float().reshape(b, -1, heads, hd).transpose(1, 2)
+
+    attn = split(q * hd ** -0.5) @ split(k).transpose(-1, -2)
+    if bias is not None:
+        attn = attn + bias[:, None]
+    attn = torch.softmax(attn, dim=-1).to(dtype).float()
+    o = (attn @ split(v)).transpose(1, 2).reshape(b, nq, c)
+    return _dot(o.to(dtype), wo, bo)
+
+
+def blocked_positions(m: torch.Tensor) -> torch.Tensor:
+    """(B, Q, T) mask logits -> positions the bias blocks: ``m < 0``, except
+    on rows where every position is blocked."""
+    blocked = m < 0.0
+    return blocked & ~blocked.all(dim=-1, keepdim=True)
+
+
+def mask_embed(x32: torch.Tensor, hw: HeadWeights, dtype) -> torch.Tensor:
+    """Decoder norm + 3-layer mask MLP on the f32 query state -> D values."""
+    z = _ln(x32, hw.dnw, hw.dnb).to(dtype)
+    z = torch.relu(_dot(z, hw.m1, hw.mb1)).to(dtype)
+    z = torch.relu(_dot(z, hw.m2, hw.mb2)).to(dtype)
+    return _dot(z, hw.m3, hw.mb3).to(dtype)
+
+
+def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
+                        pes: Sequence[torch.Tensor],
+                        feats: Sequence[torch.Tensor],
+                        layers: Sequence[LayerWeights], head: HeadWeights,
+                        *, num_heads: int, return_logits: bool = False,
+                        blocked=None):
+    """Plain PyTorch version: final (B, Q, C) query state in D (and, with
+    ``return_logits``, every layer's f32 mask logits ``emb . feat^T``).
+    ``blocked``: per-layer (B, Q, T) positions to block instead of the ones
+    the logits give (to hold the kernel's arithmetic against this version
+    apart from its threshold decisions)."""
+    dtype = out0.dtype
+    nl = len(mems)
+    x32 = out0.float()
+    emb = emb0.float()
+    qp = qpos.float()
+    logits = []
+    for li, lw in enumerate(layers):
+        lvl = li % nl
+        m = emb @ feats[lvl].float().transpose(-1, -2)
+        logits.append(m)
+        bias = torch.where(blocked_positions(m) if blocked is None
+                           else blocked[li], NEG, 0.0)
+        mem = mems[lvl]
+        q = _dot(x32 + qp, lw.wq, lw.bq)
+        k = _dot(mem + pes[lvl].to(dtype), lw.wk, lw.bk)
+        v = _dot(mem, lw.wv, lw.bv)
+        y = _attend(q, k, v, lw.wo, lw.bo, num_heads, bias, dtype)
+        x32 = _ln(x32 + y, lw.n1w, lw.n1b)
+        xq = x32 + qp
+        y = _attend(_dot(xq, lw.sq, lw.sbq), _dot(xq, lw.sk, lw.sbk),
+                    _dot(x32, lw.sv, lw.sbv), lw.so, lw.sbo, num_heads,
+                    None, dtype)
+        x32 = _ln(x32 + y, lw.n2w, lw.n2b)
+        y = _dot(torch.relu(_dot(x32, lw.f1, lw.fb1)), lw.f2, lw.fb2)
+        x32 = _ln(x32 + y, lw.n3w, lw.n3b)
+        emb = mask_embed(x32, head, dtype).float()
+    out = x32.to(dtype)
+    return (out, logits) if return_logits else out
+
+
+# --------------------------------------------------------------- CUDA chain
+
+_THREADS = 512
+_CS = 8  # blocks per cluster, one cluster per batch element
+_TK = 16  # keys per shared-memory chunk (bf16)
+
+
+def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights):
+    """Query-side weights as one D buffer (per layer wq, wo, sq, sk, sv,
+    so, f1, f2; then m1, m2, m3) and one f32 buffer (per layer bq, bo,
+    sbq, sbk, sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then dnw,
+    dnb, mb1, mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
+    wd, wf = [], []
+    for lw in layers:
+        wd += [lw.wq, lw.wo, lw.sq, lw.sk, lw.sv, lw.so, lw.f1, lw.f2]
+        wf += [lw.bq, lw.bo, lw.sbq, lw.sbk, lw.sbv, lw.sbo, lw.n1w, lw.n1b,
+               lw.n2w, lw.n2b, lw.n3w, lw.n3b, lw.fb1, lw.fb2]
+    wd += [head.m1, head.m2, head.m3]
+    wf += [head.dnw, head.dnb, head.mb1, head.mb2, head.mb3]
+    return (torch.cat([t.reshape(-1) for t in wd]).contiguous(),
+            torch.cat([t.float().reshape(-1) for t in wf]).contiguous())
+
+
+def kv_weights(layers: Sequence[LayerWeights], nl: int) -> List[Dense]:
+    """Per level: the k and v projections of all that level's layers as
+    two (G*C, C) GEMM weights (layer 3g + lvl at rows g*C)."""
+    out = []
+    for lvl in range(nl):
+        ls = layers[lvl::nl]
+        out.append((
+            Dense(torch.cat([lw.wk.t() for lw in ls]).contiguous(),
+                  torch.cat([lw.bk for lw in ls]).float().contiguous()),
+            Dense(torch.cat([lw.wv.t() for lw in ls]).contiguous(),
+                  torch.cat([lw.bv for lw in ls]).float().contiguous())))
+    return out
+
+
+def smem_bytes(q: int, c: int, t_max: int) -> int:
+    """Shared memory of one block: four (Q, C) f32 replicas, the mask bits
+    of its key slice, the cluster's row flags, a bf16 k/v chunk."""
+    words_loc = (-(-t_max // _CS) + 31) // 32
+    return 4 * (4 * q * c + q * words_loc + _CS * q) + 2 * 2 * _TK * c
+
+
+def decoder_stack(out0, emb0, qpos, mems, pes, feats,
+                  layers: Sequence[LayerWeights], head: HeadWeights, *,
+                  num_heads: int, packed=None, return_bits: bool = False):
+    """Final (B, Q, C) query state: the CUDA chain for CUDA tensors, the
+    plain version for CPU tensors. ``packed``: cached
+    ``(pack_weights(...), kv_weights(...))``. ``return_bits`` (CUDA only):
+    also return the kernel's effective blocked positions, (B, L, Q, T_l)
+    bool per layer, to count disagreements with the plain version."""
+    if not out0.is_cuda:
+        return decoder_stack_plain(out0, emb0, qpos, mems, pes, feats,
+                                   layers, head, num_heads=num_heads)
+    b, q, c = out0.shape
+    nl = len(mems)
+    n_layers = len(layers)
+    if out0.dtype != torch.bfloat16:
+        raise ValueError("the decoder stack kernels take bf16; got "
+                         f"{out0.dtype}")
+    hd = c // num_heads
+    ffn = layers[0].f1.shape[1]
+    if (n_layers % nl or nl > 3 or q > 48 or c % num_heads
+            or hd not in (32, 64) or num_heads * q > _THREADS
+            or c > 256 or c % (4 * _CS) or c < 16 * num_heads
+            or ffn % _CS or ffn // _CS > c or emb0.shape[-1] != c
+            or -(-num_heads // _CS) * q * q > _TK * c):
+        raise ValueError(f"decoder stack kernel: unsupported shape Q={q} "
+                         f"C={c} heads={num_heads} levels={nl} "
+                         f"layers={n_layers}")
+    t = [m.shape[1] for m in mems]
+    smem = smem_bytes(q, c, max(t))
+    if smem > 227 * 1024:
+        raise ValueError(f"decoder stack kernel needs {smem} B of shared "
+                         "memory, over the 227 KB a block may use")
+    (wd, wf), kvw = packed if packed is not None else (
+        pack_weights(layers, head), kv_weights(layers, nl))
+    kb.check_cuda(wd, "wd", torch.bfloat16)
+    kb.check_cuda(wf, "wf", torch.float32)
+    groups = n_layers // nl
+    ks, vs = [], []
+    for lvl in range(nl):
+        mem = mems[lvl]
+        kb.check_cuda(mem, f"mems[{lvl}]", torch.bfloat16, (b, t[lvl], c))
+        kin = (mem + pes[lvl].to(mem.dtype)).reshape(b * t[lvl], c)
+        ks.append(gemm("decoder_stack", kin, kvw[lvl][0], EPI_BIAS))
+        vs.append(gemm("decoder_stack", mem.reshape(b * t[lvl], c),
+                       kvw[lvl][1], EPI_BIAS))
+    feats = [f.float().contiguous() for f in feats]
+    for lvl, f in enumerate(feats):
+        kb.check_cuda(f, f"feats[{lvl}]", torch.float32, (b, t[lvl], c))
+    x0 = out0.float().contiguous()
+    e0 = emb0.float().contiguous()
+    qp = qpos.float().contiguous()
+    out = torch.empty((b, q, c), dtype=torch.bfloat16, device=out0.device)
+    words = (max(t) + 31) // 32
+    bits = (torch.empty((b, n_layers, q, words), dtype=torch.int32,
+                        device=out0.device) if return_bits else None)
+    ptrs = (ctypes.c_void_p * 9)(*(
+        [k.data_ptr() for k in ks] + [0] * (3 - nl)
+        + [v.data_ptr() for v in vs] + [0] * (3 - nl)
+        + [f.data_ptr() for f in feats] + [0] * (3 - nl)))
+    tarr = (ctypes.c_int * 3)(*(t + [0] * (3 - nl)))
+    kb.launch("decoder_stack", "decoder_stack_forward", kb.ptr(x0),
+              kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl), kb.ci(groups),
+              kb.ptr(wd), kb.ptr(wf), kb.ptr(out), kb.ptr(bits), kb.ci(b),
+              kb.ci(q), kb.ci(c), kb.ci(ffn),
+              kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5), kb.stream())
+    if not return_bits:
+        return out
+    shifts = torch.arange(32, device=out0.device, dtype=torch.int32)
+    unpacked = ((bits[..., None] >> shifts) & 1).bool().reshape(
+        b, n_layers, q, words * 32)
+    return out, [unpacked[:, li, :, :t[li % nl]] for li in range(n_layers)]

@@ -1,0 +1,307 @@
+"""Kernel 3: one whole Swin block, for every stage.
+
+Replaces ``mask_bev_tpu/ops/pallas_swin_block.py::fused_swin_block_col``
+(stages 0-1) and ``::fused_swin_block`` (stages 2-3): the two TPU layouts
+are Mosaic workarounds, so one Hopper kernel chain serves both. One block
+computes ``x + proj(W-MSA(LN1 x))`` and then ``+ fc2(gelu(fc1(LN2 .)))`` on
+the unpadded (B, H*W, C) token grid:
+
+* windows, padding and the cyclic shift by ``win // 2`` are index math on
+  the (hp, wp) padded grid; the shift applies only when ``min(hp, wp) !=
+  win``. Pad tokens are zero after LN1 and still take part as keys and
+  values (k = b_k, v = b_v), exactly as ``jnp.pad`` after ``norm1`` does;
+* the relative-position bias and the -100 shift-region mask are added to
+  the f32 scores; LayerNorms are two-pass f32 with eps 1e-6; GELU is the
+  exact erf GELU that the reference XLA path computes;
+* with ``quant`` the four dense products (qkv, proj, fc1, fc2) follow
+  ``int8_sim_dense`` bit for bit: per-token activation scale
+  ``max|x| / 127`` floored at 1e-6, per-output-channel weight scale floored
+  at 1e-8, round half to even, clip to +-127, int32 accumulation, f32
+  dequantisation plus bias.
+
+Rounding follows the reference XLA block in the model dtype D: LN outputs,
+qkv, attention probabilities and outputs, projections and residual sums are
+rounded to D where XLA rounds them.
+
+The CUDA chain (``csrc/swin_block.cu``): LN1 (+quantise) -> qkv GEMM ->
+window attention -> (quantise) -> proj GEMM + residual -> LN2 (+quantise)
+-> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. Every launch counts
+under ``swin_block``. The card path takes bf16 only.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mask_bev_tpu_torch.kernels import build as kb
+
+EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
+EPI_ROUND_ACC = 16  # round the raw product to D before the bias (XLA order)
+
+
+class Dense(NamedTuple):
+    """A prepared dense layer: ``wt`` (N, K) in D, ``bias`` (N,) f32 holding
+    D values, and for int8 the quantised ``q8`` (N, K) with ``sw`` (N,)."""
+
+    wt: torch.Tensor
+    bias: torch.Tensor
+    q8: Optional[torch.Tensor] = None
+    sw: Optional[torch.Tensor] = None
+
+
+class BlockWeights(NamedTuple):
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    qkv: Dense
+    proj: Dense
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    fc1: Dense
+    fc2: Dense
+    rel_bias: torch.Tensor  # (heads, win², win²) f32 holding D values
+
+
+def quantize_weight(wt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, K) weight -> per-output-channel int8 (N, K) and scale (N,) f32,
+    as ``int8_sim_dense`` quantises the (K, N) kernel along K."""
+    w32 = wt.float()
+    sw = torch.clamp(w32.abs().amax(dim=1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / sw[:, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), sw.contiguous()
+
+
+def make_dense(weight: torch.Tensor, bias: Optional[torch.Tensor],
+               quant: bool) -> Dense:
+    """From a torch Linear ``weight`` (N, K) and ``bias``."""
+    wt = weight.detach().contiguous()
+    b = (torch.zeros(wt.shape[0], device=wt.device) if bias is None
+         else bias.detach().float().contiguous())
+    if quant:
+        q8, sw = quantize_weight(wt)
+        return Dense(wt, b, q8, sw)
+    return Dense(wt, b)
+
+
+def quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 quantisation (values as f32) and scale (..., 1)."""
+    x32 = x.float()
+    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+    return torch.clamp(torch.round(x32 / sx), -127.0, 127.0), sx
+
+
+def int8_sim_dense(x: torch.Tensor, d: Dense) -> torch.Tensor:
+    """``mask_bev_tpu.models.swin.int8_sim_dense``: int8 x int8 products
+    summed exactly (float64 holds every int32 sum), f32 dequant + bias."""
+    q, sx = quant_rows(x)
+    acc = (q.double() @ d.q8.double().t()).float()
+    return (acc * sx * d.sw + d.bias).to(x.dtype)
+
+
+def dense(x: torch.Tensor, d: Dense, quant: bool) -> torch.Tensor:
+    """``x @ kernel + bias`` in D (XLA order), or its int8 form."""
+    if quant:
+        return int8_sim_dense(x, d)
+    return x @ d.wt.t().to(x.dtype) + d.bias.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """flax LayerNorm: f32 statistics, two-pass variance, output in D."""
+    x32 = x.float()
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps) * w.float() + b.float()
+    return y.to(x.dtype)
+
+
+def rel_pos_index(wh: int, ww: int) -> np.ndarray:
+    """Static (wh*ww, wh*ww) index into the (2wh-1)*(2ww-1) bias table."""
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww),
+                                  indexing="ij")).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0)
+    rel = rel.astype(np.int64)
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
+    return rel.sum(-1)
+
+
+def shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
+    """Static additive mask (nW, w², w²) for shifted-window attention."""
+    img_mask = np.zeros((hp, wp), np.int32)
+    cnt = 0
+    for hs in (slice(0, -window), slice(-window, -shift),
+               slice(-shift, None)):
+        for ws in (slice(0, -window), slice(-window, -shift),
+                   slice(-shift, None)):
+            img_mask[hs, ws] = cnt
+            cnt += 1
+    mw = img_mask.reshape(hp // window, window, wp // window, window)
+    mw = mw.transpose(0, 2, 1, 3).reshape(-1, window * window)
+    diff = mw[:, None, :] != mw[:, :, None]
+    return np.where(diff, -100.0, 0.0).astype(np.float32)
+
+
+def rel_bias_from_table(table: torch.Tensor, win: int) -> torch.Tensor:
+    """((2w-1)², heads) table -> (heads, w², w²) f32 bias."""
+    n = win * win
+    idx = torch.as_tensor(rel_pos_index(win, win).reshape(-1),
+                          device=table.device)
+    return (table[idx].reshape(n, n, -1).permute(2, 0, 1).float()
+            .contiguous())
+
+
+def effective_shift(hw: Tuple[int, int], win: int, shifted: bool) -> int:
+    hp = -(-hw[0] // win) * win
+    wp = -(-hw[1] // win) * win
+    return 0 if (not shifted or min(hp, wp) == win) else win // 2
+
+
+def window_msa_plain(y: torch.Tensor, p: BlockWeights, hw, win: int,
+                     heads: int, shift: int, quant: bool) -> torch.Tensor:
+    """Port of ``ShiftWindowMSA`` + ``WindowMSA`` on LN1's output."""
+    h, w = hw
+    b, _, c = y.shape
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    x = F.pad(y.reshape(b, h, w, c), (0, 0, 0, wp - w, 0, hp - h))
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+    nwh, nww = hp // win, wp // win
+    n, hd = win * win, c // heads
+    xw = (x.reshape(b, nwh, win, nww, win, c).permute(0, 1, 3, 2, 4, 5)
+          .reshape(b * nwh * nww, n, c))
+    qkv = dense(xw, p.qkv, quant)
+    qkv = qkv.reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    attn = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2)
+    bias = p.rel_bias[None]
+    if shift:
+        mask = torch.as_tensor(shift_attn_mask(hp, wp, win, shift),
+                               device=y.device)
+        bias = (bias + mask[:, None]).repeat(b, 1, 1, 1)
+    attn = torch.softmax(attn + bias, dim=-1).to(y.dtype)
+    out = (attn.float() @ v.float()).to(y.dtype)
+    out = out.transpose(1, 2).reshape(-1, n, c)
+    out = dense(out, p.proj, quant)
+    x = (out.reshape(b, nwh, nww, win, win, c).permute(0, 1, 3, 2, 4, 5)
+         .reshape(b, hp, wp, c))
+    if shift:
+        x = torch.roll(x, (shift, shift), dims=(1, 2))
+    return x[:, :h, :w].reshape(b, h * w, c)
+
+
+def swin_block_plain(x: torch.Tensor, p: BlockWeights, hw, win: int,
+                     heads: int, shift: int, quant: bool) -> torch.Tensor:
+    """Plain PyTorch version of one block on (B, H*W, C) tokens in D."""
+    y = layer_norm(x, p.ln1_w, p.ln1_b)
+    x = x + window_msa_plain(y, p, hw, win, heads, shift, quant)
+    y = layer_norm(x, p.ln2_w, p.ln2_b)
+    y = F.gelu(dense(y, p.fc1, quant), approximate="none")
+    return x + dense(y, p.fc2, quant)
+
+
+# --------------------------------------------------------------- CUDA chain
+
+
+def _ln(x2, w, b, quant):
+    m, c = x2.shape
+    if quant:
+        q8 = torch.empty((m, c), dtype=torch.int8, device=x2.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+        out = None
+    else:
+        q8 = sx = None
+        out = torch.empty_like(x2)
+    kb.launch("swin_block", "swin_layernorm", kb.ptr(x2), kb.ptr(w),
+              kb.ptr(b), kb.ptr(out), kb.ptr(q8), kb.ptr(sx), kb.ci(m),
+              kb.ci(c), kb.cf(1e-6), kb.stream())
+    return (q8, sx) if quant else out
+
+
+def _quant(x2):
+    m, k = x2.shape
+    q8 = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    kb.launch("swin_block", "swin_quant_rows", kb.ptr(x2), kb.ptr(q8),
+              kb.ptr(sx), kb.ci(m), kb.ci(k), kb.stream())
+    return q8, sx
+
+
+def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None):
+    """out (M, N) bf16 = epilogue(a @ d^T): ``a`` is bf16 (M, K), or int8
+    with per-row scale ``sx`` (then ``d.q8``/``d.sw`` are used)."""
+    m, k = a.shape
+    n = d.wt.shape[0]
+    if k % 16 or n % 8:
+        raise ValueError(f"gemm kernel needs K % 16 == 0 and N % 8 == 0, "
+                         f"got K={k}, N={n}")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    if residual is not None:
+        kb.check_cuda(residual, "residual", torch.bfloat16, (m, n))
+    kb.check_cuda(d.bias, "bias", torch.float32, (n,))
+    if sx is not None:
+        kb.check_cuda(a, "a", torch.int8)
+        kb.check_cuda(d.q8, "w8", torch.int8, (n, k))
+        kb.launch(name, "gemm_s8", kb.ptr(a), kb.ptr(sx), kb.ptr(d.q8),
+                  kb.ptr(d.sw), kb.ptr(d.bias), kb.ptr(residual),
+                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
+                  kb.stream())
+    else:
+        kb.check_cuda(a, "a", torch.bfloat16)
+        kb.check_cuda(d.wt, "w", torch.bfloat16, (n, k))
+        kb.launch(name, "gemm_bf16", kb.ptr(a), kb.ptr(d.wt),
+                  kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
+                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream())
+    return out
+
+
+def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
+               win: int, heads: int, shift: int, quant: bool
+               ) -> torch.Tensor:
+    """One Swin block on (B, H*W, C): the CUDA chain for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not x.is_cuda:
+        return swin_block_plain(x, p, hw, win, heads, shift, quant)
+    if x.dtype != torch.bfloat16:
+        raise ValueError("the Swin block kernels take bf16 activations; "
+                         f"got {x.dtype}")
+    b, l, c = x.shape
+    h, w = hw
+    hd, n_pad = c // heads, -(-win * win // 16) * 16
+    if (l != h * w or c % heads or hd % 16 or win * win > 128
+            or n_pad > 2 * hd + 8):
+        raise ValueError(f"swin block kernel: bad shape {x.shape} for "
+                         f"hw={hw}, heads={heads}, win={win}")
+    kb.check_cuda(x, "x", torch.bfloat16)
+    x2 = x.reshape(b * l, c)
+    mode_d = EPI_BIAS if quant else EPI_BIAS | EPI_ROUND_ACC
+    if quant:
+        q8, sx = _ln(x2, p.ln1_w, p.ln1_b, True)
+        qkv = gemm("swin_block", q8, p.qkv, mode_d, sx=sx)
+    else:
+        qkv = gemm("swin_block", _ln(x2, p.ln1_w, p.ln1_b, False), p.qkv,
+                   mode_d)
+    o = torch.empty((b * l, c), dtype=torch.bfloat16, device=x.device)
+    kb.check_cuda(p.rel_bias, "rel_bias", torch.float32)
+    kb.launch("swin_block", "swin_window_attn", kb.ptr(qkv),
+              kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o), kb.ci(b),
+              kb.ci(h), kb.ci(w), kb.ci(c), kb.ci(heads), kb.ci(win),
+              kb.ci(shift), kb.cf((c // heads) ** -0.5), kb.stream())
+    res = EPI_RESIDUAL | (0 if quant else EPI_ROUND_ACC)
+    gelu = EPI_GELU | (0 if quant else EPI_ROUND_ACC)
+    if quant:
+        q8, sx = _quant(o)
+        x1 = gemm("swin_block", q8, p.proj, res, residual=x2, sx=sx)
+        q8, sx = _ln(x1, p.ln2_w, p.ln2_b, True)
+        hmid = gemm("swin_block", q8, p.fc1, gelu, sx=sx)
+        q8, sx = _quant(hmid)
+        out = gemm("swin_block", q8, p.fc2, res, residual=x1, sx=sx)
+    else:
+        x1 = gemm("swin_block", o, p.proj, res, residual=x2)
+        hmid = gemm("swin_block", _ln(x1, p.ln2_w, p.ln2_b, False), p.fc1,
+                    gelu)
+        out = gemm("swin_block", hmid, p.fc2, res, residual=x1)
+    return out.reshape(b, l, c)
