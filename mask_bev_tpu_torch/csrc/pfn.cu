@@ -117,27 +117,43 @@ __global__ void __launch_bounds__(512) pfn_kernel(
       const float* bb = gbs + d.boff[li];
       const bool last = li == d.nl - 1;
       float pooled[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int p = 0; p < n; ++p) {
-        TS* a = act + p * d.amax;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      // two points per pass: each weight read from shared memory serves
+      // both (the per-point arithmetic and its order are unchanged)
+      for (int p = 0; p < n; p += 2) {
+        const bool two = p + 1 < n;
+        TS* a0 = act + p * d.amax;
+        TS* a1 = a0 + d.amax;
+        float acc0[4] = {0.f, 0.f, 0.f, 0.f};
+        float acc1[4] = {0.f, 0.f, 0.f, 0.f};
         for (int k = 0; k < in; ++k) {
-          const float av = to_f(a[k]);
+          const float av0 = to_f(a0[k]);
+          const float av1 = two ? to_f(a1[k]) : 0.f;
           const TS* wr = W + k * u;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int c = lane + 32 * j;
-            if (c < u) acc[j] = fmaf(av, to_f(wr[c]), acc[j]);
+            if (c < u) {
+              const float w = to_f(wr[c]);
+              acc0[j] = fmaf(av0, w, acc0[j]);
+              acc1[j] = fmaf(av1, w, acc1[j]);
+            }
           }
         }
-        __syncwarp();  // every lane has read row p before it is overwritten
+        __syncwarp();  // every lane has read rows p, p+1 before they change
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = lane + 32 * j;
           if (c < u) {
-            const float zv =
-                fmaxf(__fadd_rn(__fmul_rn(acc[j], g[c]), bb[c]), 0.f);
-            pooled[j] = fmaxf(pooled[j], zv);
-            if (!last) a[c] = from_f<TS>(zv);
+            const float z0 =
+                fmaxf(__fadd_rn(__fmul_rn(acc0[j], g[c]), bb[c]), 0.f);
+            pooled[j] = fmaxf(pooled[j], z0);
+            if (!last) a0[c] = from_f<TS>(z0);
+            if (two) {
+              const float z1 =
+                  fmaxf(__fadd_rn(__fmul_rn(acc1[j], g[c]), bb[c]), 0.f);
+              pooled[j] = fmaxf(pooled[j], z1);
+              if (!last) a1[c] = from_f<TS>(z1);
+            }
           }
         }
         __syncwarp();
