@@ -53,8 +53,8 @@ class MaskBevConfig:
     # Encoder (reference mask_bev_encoders.py:21-92)
     pc_point_dim: int = 4
     max_num_points: int = 32  # per pillar
-    max_num_pillars: int = 32768  # fixed pillar capacity (TPU static shape)
-    max_points_per_scan: int = 131072  # fixed point capacity (TPU static shape)
+    max_num_pillars: int = 32768  # pillar cap of the JAX training path
+    max_points_per_scan: int = 131072  # point slots per padded scan
     encoder_feat_channels: Tuple[int, ...] = (128, 128, 128)
     encoder_encoding_type: str = "vanilla"  # vanilla | fourier | cosine
     encoder_fourier_enc_group: int = 1
@@ -82,16 +82,10 @@ class MaskBevConfig:
     head_num_points: int = 12544  # PointRend sampling
     head_oversample_ratio: float = 3.0
     head_importance_sample_ratio: float = 0.75
-    # loss point-sampling implementation: matmul-form bilinear (MXU) vs
-    # element gather/scatter, which runs at ~62 M elem/s on TPU and made
-    # the f32 train step 9.05 s/step (measurements/r3/train_time.log)
+    # loss point sampling (training; not used by the port yet): matmul-form
+    # bilinear sampling, and the operand dtype of those matmuls ("auto"
+    # follows compute_dtype)
     loss_sample_dense: bool = True
-    # operand dtype of the sampling matmuls: bfloat16 ~4x the f32 MXU rate
-    # at ~0.4% relative noise on boundary-interpolated values (accumulation
-    # is f32 either way); uncertainty RANKING always runs bf16.
-    # "auto" follows compute_dtype: the 500-grid GT sampling alone is
-    # ~2.3 TFLOP/layer, so f32 operands put ~24 TFLOP of quarter-rate
-    # matmuls in every train step (see measurements/r3/train_time.log)
     loss_sample_dtype: str = "auto"  # auto | float32 | bfloat16
     # sample GT masks through per-instance square crops of this size
     # (0 = off). EXACT whenever every instance's mask bbox fits the crop
@@ -135,42 +129,19 @@ class MaskBevConfig:
 
     # Precision / performance
     compute_dtype: str = "float32"  # float32 | bfloat16
-    use_pallas_encoder: bool = True  # fused VMEM pillar kernel (TPU inference)
-    # fused window-MSA kernel: measured NO faster than the XLA window path
-    # on v5e (36.3 vs 34.6 ms/batch-8 backbone — XLA already schedules the
-    # window matmuls well); kept as an experimental option, default off
+    # Options of the JAX package's TPU kernels. Of these the port reads only
+    # backbone_quantize ('int8': dynamic int8 quantisation of the backbone's
+    # dense products) and keeps the rest so that one YAML file configures
+    # both packages; the port runs its own kernels whatever they say.
+    use_pallas_encoder: bool = True
     use_pallas_attention: bool = False
-    # whole-Swin-block fused kernel (LN1 -> windowed MSA -> LN2 -> MLP, one
-    # HBM round-trip per block) used on TPU inference
     use_pallas_backbone: bool = True
-    # band layout of the fused backbone kernels for large unscanned stages:
-    # 'wpair' (default) = col-major bands + window-aligned chunk attention
-    # (~8x fewer attention FLOPs than 'row' at stage-0 flagship geometry;
-    # backbone 26.0 -> 23.5 ms/b8 in the r5 A/B, falls back to 'col'-style
-    # banded chunks when the window plan does not exist for a stage);
-    # 'col' = uniform banded chunks; 'row' = row-major full-band attention
     backbone_band_layout: str = "wpair"
-    # whole-stack fused decoder kernel on the final_only inference path
-    # (all layers in one pallas_call, queries carried in VMEM scratch;
-    # won its r5 A/B 6.46 vs 6.67 ms/b8)
     use_pallas_head: bool = True
-    # 'int8': dynamic int8 quantization of the fused backbone's dense
-    # matmuls (2x MXU throughput on v5e; fidelity bounds in ARCHITECTURE.md)
     backbone_quantize: str = "none"
-    # fused canvas -> patch-embed -> LayerNorm kernel on the TPU eval path
-    # (ops/pallas_patch_embed): consumes the canvas kernel's batch-minor
-    # flat output natively, skipping the conv custom-call's 0.5 GB/b8
-    # layout copy (~1.6 ms) and the separate patch_norm passes (~1 ms)
     fuse_patch_embed: bool = False
-    # fused-eval unroll of nn.scan-ned deep stages (stage 2): chain the
-    # fused block kernels directly over the stacked params instead of the
-    # lax.while step. Bitwise-same output; measured NEUTRAL on v5e (20.82
-    # vs 20.85 ms/b8 backbone, r5 session-2 A/B) — the scan step overhead
-    # is negligible at eval — so the smaller-compile scan form stays default
     backbone_unroll_eval: bool = False
-    # rematerialize backbone blocks in training (recompute instead of
-    # storing activations; bigger global batches fit HBM)
-    remat_backbone: bool = False
+    remat_backbone: bool = False  # training: recompute backbone blocks
     pseudo_image_norm: str = "full"  # 'full' = LayerNorm([C,H,W]) like reference; 'channel' = per-channel
 
     # Unknown YAML keys land here (reference swallows them via **kwargs)
@@ -243,11 +214,7 @@ def semantic_kitti_default() -> MaskBevConfig:
         name="semantic_kitti_default", dataset="semantic_kitti",
         x_range=(-40, 40), y_range=(-40, 40), z_range=(-20, 20),
         voxel_size=0.16, num_queries=45, head_num_classes=1,
-        # int8 eval backbone ON: validated at SIGNAL level in round 5 —
-        # 3-seed harness with torch at map_50 0.507+-0.14, int8-vs-f32
-        # delta of means {map +0.0002, map_50 +0.0003, miou -0.0006},
-        # two orders below the seed spread (~0.1); kernel-level fidelity
-        # ~1.3% max rel (tests). measurements/r5/accuracy_parity.json.
+        # int8 backbone products at eval, as in the JAX package
         backbone_quantize="int8",
     )
 
