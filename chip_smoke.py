@@ -196,9 +196,12 @@ def main() -> None:
         n_pil = float(P.sum())
         macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
         c_out = table.shape[-1]
+        # the products' type is the weights' (bf16 here: the kernel takes no
+        # other), with f32 accumulation
+        w_type = "bf16" if weights[0][0].dtype == torch.bfloat16 else "f32"
         bnd = bound(BATCH * cfg.max_points_per_scan * 16 + n_pil * 12
                     + n_pil * c_out * 2 + 8 * BATCH,
-                    2 * kept * macs / PEAK["f32"])
+                    2 * kept * macs / PEAK[w_type])
         record("pfn", "mask_bev_tpu_torch/csrc/pfn.cu",
                "mask_bev_tpu/ops/pallas_pfn.py:384", err, 2e-2 * scale,
                ms_k, ms_p, bnd,
@@ -266,11 +269,20 @@ def main() -> None:
         total = sum(m.numel() for m in plogits)
         err = float((out_k.float() - out_p.float()).abs().max())
         scale = float(out_p.float().abs().max())
-        same = kdec.decoder_stack_plain(*dargs[:8], num_heads=dkw["num_heads"],
-                                        blocked=kbits)
+        same, same_logits = kdec.decoder_stack_plain(
+            *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
+            return_logits=True)
         err_same = float((out_k.float() - same.float()).abs().max())
         if err_same > 2e-2 * scale:
             failures.append("decoder_stack on its own blocked positions")
+        # given the kernel's decisions, the plain version's own logits (its
+        # decoder norm and mask MLP) may decide otherwise only within
+        # rounding of 0; free-running flips compound, bounded more loosely
+        own = [int((kb_ != kdec.blocked_positions(m)).sum())
+               for kb_, m in zip(kbits, same_logits)]
+        for li, m in enumerate(plogits):
+            if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
+                failures.append(f"decoder_stack bias flips in layer {li}")
         ms_k = cuda_ms(torch, lambda: kdec.decoder_stack(*dargs, **dkw), 5)
         ms_p = cuda_ms(torch, lambda: kdec.decoder_stack_plain(
             *dargs[:8], num_heads=dkw["num_heads"]), 2)
@@ -290,8 +302,10 @@ def main() -> None:
                "mask_bev_tpu/ops/pallas_decoder_stack.py:200", err,
                5e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
                f"bias entries that differ: {sum(flips)} of {total}, per "
-               f"layer {flips}; max_abs_err on the kernel's own blocked "
-               f"positions {err_same:.6g} (tolerance {2e-2 * scale:.6g})")
+               f"layer {flips} (tolerance 5 % a layer), on the kernel's own "
+               f"decisions {own} (tolerance 1 % a layer); max_abs_err on "
+               f"the kernel's own blocked positions {err_same:.6g} "
+               f"(tolerance {2e-2 * scale:.6g})")
 
     # ---- the main path: serve requests through the predictor -------------
     staged = []

@@ -3,46 +3,35 @@
 // Replaces mask_bev_tpu/ops/pallas_canvas.py::canvas_from_table
 // (_canvas_kernel) with its pseudo-image LayerNorm epilogue. Every cell is
 // written: its pillar's row, or 0 for an empty cell, then
-// ((v - mean) * rsqrt(var + eps)) * scale + bias in f32, rounded once to T.
+// ((v - mean) * rsqrt(var + eps)) * scale + bias in f32, rounded once to
+// bf16 (table, affine and canvas are bf16; the wrapper raises on others).
 //
 // What bounds it on the H100: bytes. At the flagship (B 8, 500x500, C 128,
 // bf16) it writes 512 MB of canvas and reads 128 MB of full-mode affine
-// plus the occupied table rows (~15 MB): ~0.2 ms at 3.35 TB/s. Design: one
-// warp per cell, lanes over channels in 4-wide vectors (8 B bf16 / 16 B f32
-// accesses, coalesced per cell row); the cell's affine slice is read once
-// and applied to all B samples (the affine is shared across the batch, so
+// plus the occupied table rows (~96 MB for ~374k pillars): ~0.22 ms at
+// 3.35 TB/s. Design: one warp per cell, lanes over channels in 4-wide
+// vectors (8 B accesses, coalesced per cell row); the cell's affine slice is
+// read once and applied to all B samples (the affine is shared across the batch, so
 // it crosses HBM once, not B times). The cell -> row lookup is a binary
 // search over the sample's ascending cells (each cell holds at most one
 // pillar, so no selection matmul is needed); its reads hit L2.
 #include "common.cuh"
 
-template <typename T> struct Vec4;
-template <> struct Vec4<float> {
-  typedef float4 type;
-  static __device__ __forceinline__ void unpack(const float4& v, float* o) {
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ float4 pack(const float* o) {
-    return make_float4(o[0], o[1], o[2], o[3]);
-  }
-};
-template <> struct Vec4<bf16> {
-  typedef uint2 type;
-  static __device__ __forceinline__ void unpack(const uint2& v, float* o) {
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-    o[0] = __low2float(a); o[1] = __high2float(a);
-    o[2] = __low2float(b); o[3] = __high2float(b);
-  }
-  static __device__ __forceinline__ uint2 pack(const float* o) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
-    uint2 v;
-    v.x = *reinterpret_cast<unsigned int*>(&a);
-    v.y = *reinterpret_cast<unsigned int*>(&b);
-    return v;
-  }
-};
+// four bf16 values <-> one 8-byte word
+__device__ __forceinline__ void unpack4(const uint2& v, float* o) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+__device__ __forceinline__ uint2 pack4(const float* o) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<unsigned int*>(&a);
+  v.y = *reinterpret_cast<unsigned int*>(&b);
+  return v;
+}
 
 // first index in [0, n) with cells[i] >= key (n if none)
 __device__ __forceinline__ int lower_bound(const int* __restrict__ cells,
@@ -55,13 +44,11 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ cells,
   return lo;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(256) canvas_norm_kernel(
-    const T* __restrict__ table, const int* __restrict__ cells,
+    const bf16* __restrict__ table, const int* __restrict__ cells,
     const int* __restrict__ num_pillars, const float* __restrict__ mv,
-    const T* __restrict__ scale, const T* __restrict__ bias, int full,
-    T* __restrict__ out, int B, int N, int HW, int C, float eps) {
-  typedef typename Vec4<T>::type V;
+    const bf16* __restrict__ scale, const bf16* __restrict__ bias,
+    int full, bf16* __restrict__ out, int B, int N, int HW, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int warps_total = gridDim.x * (blockDim.x >> 5);
   for (int cell = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -69,16 +56,16 @@ __global__ void __launch_bounds__(256) canvas_norm_kernel(
     for (int c = lane * 4; c < C; c += 128) {
       float s[4], bi[4];
       const size_t aoff = full ? (size_t)cell * C + c : (size_t)c;
-      Vec4<T>::unpack(*reinterpret_cast<const V*>(scale + aoff), s);
-      Vec4<T>::unpack(*reinterpret_cast<const V*>(bias + aoff), bi);
+      unpack4(*reinterpret_cast<const uint2*>(scale + aoff), s);
+      unpack4(*reinterpret_cast<const uint2*>(bias + aoff), bi);
       for (int b = 0; b < B; ++b) {
         const int* cb = cells + (size_t)b * N;
         const int P = num_pillars[b];
         const int r = lower_bound(cb, P, cell);
         float v[4] = {0.f, 0.f, 0.f, 0.f};
         if (r < P && __ldg(cb + r) == cell)
-          Vec4<T>::unpack(*reinterpret_cast<const V*>(
-                              table + ((size_t)b * N + r) * C + c), v);
+          unpack4(*reinterpret_cast<const uint2*>(
+                      table + ((size_t)b * N + r) * C + c), v);
         const float mean = mv[2 * b];
         const float rstd = rsqrtf(mv[2 * b + 1] + eps);
         float o[4];
@@ -86,31 +73,23 @@ __global__ void __launch_bounds__(256) canvas_norm_kernel(
         for (int q = 0; q < 4; ++q)
           o[q] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[q], mean), rstd),
                                      s[q]), bi[q]);
-        *reinterpret_cast<V*>(out + ((size_t)b * HW + cell) * C + c) =
-            Vec4<T>::pack(o);
+        *reinterpret_cast<uint2*>(out + ((size_t)b * HW + cell) * C + c) =
+            pack4(o);
       }
     }
   }
 }
 
-MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
+MB_EXPORT int canvas_norm_forward(const bf16* table, const int* cells,
                                   const int* num_pillars, const float* mv,
-                                  const void* scale, const void* bias,
-                                  int full, void* out, int B, int N, int HW,
-                                  int C, float eps, int is_bf16,
-                                  cudaStream_t stream) {
+                                  const bf16* scale, const bf16* bias,
+                                  int full, bf16* out, int B, int N, int HW,
+                                  int C, float eps, cudaStream_t stream) {
   if (C % 4) return MB_BAD_ARGS;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks = sms * 8;
-  if (is_bf16)
-    canvas_norm_kernel<bf16><<<blocks, 256, 0, stream>>>(
-        (const bf16*)table, cells, num_pillars, mv, (const bf16*)scale,
-        (const bf16*)bias, full, (bf16*)out, B, N, HW, C, eps);
-  else
-    canvas_norm_kernel<float><<<blocks, 256, 0, stream>>>(
-        (const float*)table, cells, num_pillars, mv, (const float*)scale,
-        (const float*)bias, full, (float*)out, B, N, HW, C, eps);
+  canvas_norm_kernel<<<sms * 8, 256, 0, stream>>>(
+      table, cells, num_pillars, mv, scale, bias, full, out, B, N, HW, C, eps);
   return (int)cudaGetLastError();
 }

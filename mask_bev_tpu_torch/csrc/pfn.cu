@@ -11,20 +11,23 @@
 // fixed order, so the statistics repeat bit for bit (no float atomics).
 //
 // What bounds it on the H100: operations. At the flagship (3 layers,
-// 10->64, 128->64, 128->128) each kept point costs ~25k multiply-adds, about
-// 50 MFLOP per 1k points, on CUDA cores in f32 (67 TFLOP/s); its bytes (5
-// input columns of 4 B per point, 256 B bf16 per pillar row) are a few tens
-// of MB, under 0.02 ms at 3.35 TB/s. Design: one warp per pillar (K <= 32
-// points, lane = point for the decoration, lane = output channel for the
-// layers), all layers' weights in shared memory once per block (read by
-// every warp of the block; each lane reads consecutive channels, so no bank
-// conflicts), and each warp's point activations in shared memory, updated in
-// place layer by layer (bf16 weights and activations when the weights are
-// bf16: 16 warps a block instead of 4). The max over the pillar is a running
-// max in registers: no shuffles.
+// 10->64, 128->64, 128->128) each kept point costs ~25k multiply-adds; the
+// products are bf16 (bf16 weights, layer inputs rounded to bf16) with f32
+// accumulation, so their floor is the bf16 tensor-core rate (989 TFLOP/s):
+// ~0.05 ms for the ~940k kept points of 8 scans. Its bytes (4 input columns
+// and 3 directory ints per point slot, 256 B per pillar row) are ~120 MB,
+// ~0.035 ms at 3.35 TB/s. This first design runs the products as f32 FMAs
+// on CUDA cores, so it sits far above that floor: one warp per pillar
+// (K <= 32 points, lane = point for the decoration, lane = output channel
+// for the layers), all layers' weights in shared memory (bf16) once per
+// block (read by every warp of the block; each lane reads consecutive
+// channels, so no bank conflicts), and each warp's point activations in
+// shared memory (bf16: every layer input is rounded to bf16 before its
+// product anyway), updated in place layer by layer. The max over the pillar
+// is a running max in registers: no shuffles. Tensor-core tiles of pillars
+// are the next step. Only bf16 weights and a bf16 table are built: the
+// wrapper raises on other dtypes.
 #include "common.cuh"
-
-#include <type_traits>
 
 #define PFN_MAXL 4
 
@@ -43,26 +46,24 @@ struct PfnDims {
   int amax;             // widest activation row
 };
 
-// TS: storage type of the weights and point activations in shared memory.
-// With bf16 weights every layer input is rounded to bf16 before its
-// product (as the TPU kernel casts to the weight dtype), so activations
-// stored in bf16 lose nothing, and half the bytes fit twice the warps.
-template <typename TOut, typename TS>
+// Weights and point activations live in shared memory as bf16: every layer
+// input is rounded to bf16 before its product (as the TPU kernel casts to
+// the weight dtype), so bf16 storage loses nothing and fits 16 warps.
 __global__ void __launch_bounds__(512) pfn_kernel(
     const float* __restrict__ px_, const float* __restrict__ py_,
     const float* __restrict__ pz_, const float* __restrict__ pi_,
     const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ cells, const int* __restrict__ num_pillars,
-    const float* __restrict__ wpack, PfnDims d, TOut* __restrict__ table,
+    const float* __restrict__ wpack, PfnDims d, bf16* __restrict__ table,
     float* __restrict__ partials, int N, int K, int point_dim,
     int with_distance, int grid_w, float vs, float cx0, float cy0) {
   extern __shared__ float smem[];
   float* gbs = smem;
-  TS* wsm = reinterpret_cast<TS*>(smem + d.gb);
+  bf16* wsm = reinterpret_cast<bf16*>(smem + d.gb);
   for (int l = 0; l < d.nl; ++l) {
     const int u = d.units[l];
     for (int i = threadIdx.x; i < d.in[l] * u; i += blockDim.x)
-      wsm[d.woff[l] + i] = from_f<TS>(wpack[d.src_w[l] + i]);
+      wsm[d.woff[l] + i] = from_f<bf16>(wpack[d.src_w[l] + i]);
     for (int i = threadIdx.x; i < u; i += blockDim.x) {
       gbs[d.goff[l] + i] = wpack[d.src_g[l] + i];
       gbs[d.boff[l] + i] = wpack[d.src_b[l] + i];
@@ -72,7 +73,7 @@ __global__ void __launch_bounds__(512) pfn_kernel(
 
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  TS* act = wsm + d.wsz + (size_t)warp * K * d.amax;
+  bf16* act = wsm + d.wsz + (size_t)warp * K * d.amax;
   const int b = blockIdx.y;
   const int P = num_pillars[b];
   const size_t base = (size_t)b * N;
@@ -95,24 +96,24 @@ __global__ void __launch_bounds__(512) pfn_kernel(
     const float cx = __fadd_rn(__fmul_rn((float)(cell % grid_w), vs), cx0);
     const float cy = __fadd_rn(__fmul_rn((float)(cell / grid_w), vs), cy0);
     if (mine) {
-      TS* a = act + lane * d.amax;
+      bf16* a = act + lane * d.amax;
       const float raw[4] = {x, y, z, it};
       int j = 0;
-      for (int q = 0; q < point_dim; ++q) a[j++] = from_f<TS>(raw[q]);
-      a[j++] = from_f<TS>(x - mx);
-      a[j++] = from_f<TS>(y - my);
-      a[j++] = from_f<TS>(z - mz);
-      a[j++] = from_f<TS>(x - cx);
-      a[j++] = from_f<TS>(y - cy);
+      for (int q = 0; q < point_dim; ++q) a[j++] = from_f<bf16>(raw[q]);
+      a[j++] = from_f<bf16>(x - mx);
+      a[j++] = from_f<bf16>(y - my);
+      a[j++] = from_f<bf16>(z - mz);
+      a[j++] = from_f<bf16>(x - cx);
+      a[j++] = from_f<bf16>(y - cy);
       if (with_distance)
-        a[j++] = from_f<TS>(sqrtf(__fadd_rn(
+        a[j++] = from_f<bf16>(sqrtf(__fadd_rn(
             __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))));
     }
     __syncwarp();
 
     for (int li = 0; li < d.nl; ++li) {
       const int in = d.in[li], u = d.units[li];
-      const TS* W = wsm + d.woff[li];
+      const bf16* W = wsm + d.woff[li];
       const float* g = gbs + d.goff[li];
       const float* bb = gbs + d.boff[li];
       const bool last = li == d.nl - 1;
@@ -121,14 +122,14 @@ __global__ void __launch_bounds__(512) pfn_kernel(
       // both (the per-point arithmetic and its order are unchanged)
       for (int p = 0; p < n; p += 2) {
         const bool two = p + 1 < n;
-        TS* a0 = act + p * d.amax;
-        TS* a1 = a0 + d.amax;
+        bf16* a0 = act + p * d.amax;
+        bf16* a1 = a0 + d.amax;
         float acc0[4] = {0.f, 0.f, 0.f, 0.f};
         float acc1[4] = {0.f, 0.f, 0.f, 0.f};
         for (int k = 0; k < in; ++k) {
           const float av0 = to_f(a0[k]);
           const float av1 = two ? to_f(a1[k]) : 0.f;
-          const TS* wr = W + k * u;
+          const bf16* wr = W + k * u;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int c = lane + 32 * j;
@@ -147,12 +148,12 @@ __global__ void __launch_bounds__(512) pfn_kernel(
             const float z0 =
                 fmaxf(__fadd_rn(__fmul_rn(acc0[j], g[c]), bb[c]), 0.f);
             pooled[j] = fmaxf(pooled[j], z0);
-            if (!last) a0[c] = from_f<TS>(z0);
+            if (!last) a0[c] = from_f<bf16>(z0);
             if (two) {
               const float z1 =
                   fmaxf(__fadd_rn(__fmul_rn(acc1[j], g[c]), bb[c]), 0.f);
               pooled[j] = fmaxf(pooled[j], z1);
-              if (!last) a1[c] = from_f<TS>(z1);
+              if (!last) a1[c] = from_f<bf16>(z1);
             }
           }
         }
@@ -163,18 +164,18 @@ __global__ void __launch_bounds__(512) pfn_kernel(
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int c = lane + 32 * j;
-            if (c < u) act[p * d.amax + u + c] = from_f<TS>(pooled[j]);
+            if (c < u) act[p * d.amax + u + c] = from_f<bf16>(pooled[j]);
           }
         }
         __syncwarp();
       } else {
         float s1 = 0.f, s2 = 0.f;
-        TOut* row = table + (base + r) * (size_t)c_out;
+        bf16* row = table + (base + r) * (size_t)c_out;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = lane + 32 * j;
           if (c < u) {
-            const TOut v = from_f<TOut>(pooled[j]);
+            const bf16 v = from_f<bf16>(pooled[j]);
             row[c] = v;
             const float vf = to_f(v);
             s1 += vf;
@@ -219,45 +220,43 @@ __global__ void __launch_bounds__(1024) pfn_stats_kernel(
   }
 }
 
-template <typename TOut, typename TS>
 static int launch_pfn(const float* x, const float* y, const float* z,
                       const float* it, const int* starts, const int* counts,
                       const int* cells, const int* num_pillars,
-                      const float* wpack, const PfnDims& d, void* table,
+                      const float* wpack, const PfnDims& d, bf16* table,
                       float* partials, int B, int N, int K, int point_dim,
                       int with_distance, int grid_w, float vs, float cx0,
                       float cy0, int blocks_per_sample, int max_warps,
                       cudaStream_t stream) {
-  const size_t fixed = sizeof(float) * d.gb + sizeof(TS) * d.wsz;
-  const size_t per_warp = sizeof(TS) * (size_t)K * d.amax;
+  const size_t fixed = sizeof(float) * d.gb + sizeof(bf16) * d.wsz;
+  const size_t per_warp = sizeof(bf16) * (size_t)K * d.amax;
   const size_t budget = 232448;  // shared memory a block may opt in to
   if (fixed + per_warp > budget) return MB_BAD_ARGS;
   int warps = (int)((budget - fixed) / per_warp);
   warps = warps < max_warps ? warps : max_warps;
   const size_t smem = fixed + per_warp * warps;
   cudaError_t e = cudaFuncSetAttribute(
-      pfn_kernel<TOut, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      pfn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
   dim3 grid(blocks_per_sample, B);
-  pfn_kernel<TOut, TS><<<grid, warps * 32, smem, stream>>>(
+  pfn_kernel<<<grid, warps * 32, smem, stream>>>(
       x, y, z, it, starts, counts, cells, num_pillars, wpack, d,
-      (TOut*)table, partials, N, K, point_dim, with_distance, grid_w, vs,
+      table, partials, N, K, point_dim, with_distance, grid_w, vs,
       cx0, cy0);
   return (int)cudaGetLastError();
 }
 
 // dims: [n_layers, in_0, units_0, in_1, units_1, ...] (host memory);
-// wpack: per layer W (in x units, row-major), g (units), b (units), f32;
-// round_bf16: the weights are bf16 (layer inputs are rounded to bf16);
+// wpack: per layer W (in x units, row-major, bf16 values), g (units),
+// b (units), f32; table: (B, N, units of the last layer) bf16;
 // max_warps: pillars in flight per block (fewer if shared memory is short).
 MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* it, const int* starts,
                           const int* counts, const int* cells,
                           const int* num_pillars, const float* wpack,
-                          const int* dims, int round_bf16, void* table,
-                          int out_bf16, float* partials, int B, int N, int K,
-                          int point_dim, int with_distance, int grid_w,
+                          const int* dims, bf16* table, float* partials,
+                          int B, int N, int K, int point_dim,
+                          int with_distance, int grid_w,
                           float vs, float cx0, float cy0,
                           int blocks_per_sample, int max_warps,
                           cudaStream_t stream) {
@@ -289,18 +288,10 @@ MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
   d.gb = (gboff + 3) & ~3;
   d.wsz = (woff + 7) & ~7;
   d.amax = (amax + 1) & ~1;
-#define MB_PFN_LAUNCH(TO, TS_)                                               \
-  return launch_pfn<TO, TS_>(x, y, z, it, starts, counts, cells,             \
-                             num_pillars, wpack, d, table, partials, B, N, K, \
-                             point_dim, with_distance, grid_w, vs, cx0, cy0, \
-                             blocks_per_sample, max_warps, stream)
-  if (out_bf16) {
-    if (round_bf16) MB_PFN_LAUNCH(bf16, bf16);
-    MB_PFN_LAUNCH(bf16, float);
-  }
-  if (round_bf16) MB_PFN_LAUNCH(float, bf16);
-  MB_PFN_LAUNCH(float, float);
-#undef MB_PFN_LAUNCH
+  return launch_pfn(x, y, z, it, starts, counts, cells, num_pillars, wpack,
+                    d, table, partials, B, N, K, point_dim, with_distance,
+                    grid_w, vs, cx0, cy0, blocks_per_sample, max_warps,
+                    stream);
 }
 
 MB_EXPORT int pfn_stats(const float* partials, const int* num_pillars,

@@ -5,7 +5,7 @@ use (one ``nvcc`` process per source, all started together), linked into one
 shared library with a plain C interface, and loaded with ``ctypes``. The
 build goes to ``mask_bev_tpu_torch/_build/<hash of the sources>/``, which
 ``.gitignore`` lists, so a fresh checkout builds its kernels from its own
-sources and nothing else. ``MASKBEV_NVCC`` overrides the compiler path.
+sources and nothing else.
 
 Every exported C function returns ``cudaGetLastError()`` as an int; the
 ``launch`` helper raises when it is not 0. Launch counts live in
@@ -43,17 +43,14 @@ def reset_launches() -> None:
 
 
 def _nvcc() -> str:
-    env = os.environ.get("MASKBEV_NVCC")
-    if env:
-        return env
     found = shutil.which("nvcc")
     if found:
         return found
     cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                       "(set MASKBEV_NVCC or put nvcc on PATH)")
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
+                       "the CUDA kernels cannot be built")
 
 
 def _sources():

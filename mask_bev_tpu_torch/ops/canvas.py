@@ -41,8 +41,8 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
                 num_pillars: torch.Tensor, mean: torch.Tensor,
                 var: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 grid_hw: Tuple[int, int], eps: float = 1e-3) -> torch.Tensor:
-    """Normalised (B, H, W, C) canvas: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """Normalised (B, H, W, C) canvas: the CUDA kernel for CUDA tensors
+    (bf16 only), the plain version for CPU tensors."""
     if not table.is_cuda:
         return canvas_norm_plain(table, cells, mean, var, scale, bias,
                                  grid_hw, eps)
@@ -50,9 +50,10 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     h, w = grid_hw
     if c % 4:
         raise ValueError(f"canvas kernel needs C % 4 == 0, got {c}")
-    dt = table.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"canvas kernel takes f32 or bf16, not {dt}")
+    dt = torch.bfloat16
+    if table.dtype != dt:
+        raise ValueError(f"the canvas kernel takes a bf16 table, not "
+                         f"{table.dtype}; f32 runs only on the CPU")
     kb.check_cuda(table, "table", dt)
     kb.check_cuda(cells, "cells", torch.int32, (b, n))
     kb.check_cuda(num_pillars, "num_pillars", torch.int32, (b,))
@@ -69,6 +70,5 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     kb.launch("canvas_norm", "canvas_norm_forward", kb.ptr(table),
               kb.ptr(cells), kb.ptr(num_pillars), kb.ptr(mv), kb.ptr(scale),
               kb.ptr(bias), kb.ci(full), kb.ptr(out), kb.ci(b), kb.ci(n),
-              kb.ci(h * w), kb.ci(c), kb.cf(eps),
-              kb.ci(dt == torch.bfloat16), kb.stream())
+              kb.ci(h * w), kb.ci(c), kb.cf(eps), kb.stream())
     return out

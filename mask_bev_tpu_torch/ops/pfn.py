@@ -107,8 +107,9 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         with_distance: bool, grid_w: int, voxel_size: float, x0: float,
         y0: float, max_points_per_pillar: int, out_dtype: torch.dtype,
         packed=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pillar table + statistics: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. ``packed``: cached ``pack_weights``."""
+    """Pillar table + statistics: the CUDA kernel for CUDA tensors (bf16
+    weights and table only), the plain version for CPU tensors.
+    ``packed``: cached ``pack_weights``."""
     x = ps.cols[0]
     if not x.is_cuda:
         return pfn_plain(ps, weights, point_dim=point_dim,
@@ -123,8 +124,10 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
     if len(weights) > 4 or any(w.shape[1] > 128 for (w, _, _) in weights):
         raise ValueError("pfn kernel takes at most 4 layers of at most 128 "
                          "units")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"pfn kernel writes f32 or bf16, not {out_dtype}")
+    if out_dtype != torch.bfloat16 or any(
+            w.dtype != torch.bfloat16 for (w, _, _) in weights):
+        raise ValueError("the pfn kernel takes bf16 weights and writes a bf16 "
+                         "table; f32 runs only on the CPU")
     for t, name in ((ps.starts, "starts"), (ps.counts, "counts"),
                     (ps.cells, "cells")):
         kb.check_cuda(t, name, torch.int32, (b, n))
@@ -135,7 +138,6 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         weights, x.device)
     kb.check_cuda(wpack, "wpack", torch.float32)
     c_out = dims[-1]
-    round_bf16 = int(weights[0][0].dtype == torch.bfloat16)
     table = torch.empty((b, n, c_out), dtype=out_dtype, device=x.device)
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
@@ -145,9 +147,7 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
     kb.launch("pfn", "pfn_forward",
               *(kb.ptr(c) for c in ps.cols), kb.ptr(ps.starts),
               kb.ptr(ps.counts), kb.ptr(ps.cells), kb.ptr(ps.num_pillars),
-              kb.ptr(wpack), dims_arr, kb.ci(round_bf16),
-              kb.ptr(table), kb.ci(out_dtype == torch.bfloat16),
-              kb.ptr(partials), kb.ci(b), kb.ci(n), kb.ci(k),
+              kb.ptr(wpack), dims_arr, kb.ptr(table), kb.ptr(partials), kb.ci(b), kb.ci(n), kb.ci(k),
               kb.ci(point_dim), kb.ci(with_distance), kb.ci(grid_w),
               kb.cf(voxel_size), kb.cf(x0 + 0.5 * voxel_size),
               kb.cf(y0 + 0.5 * voxel_size), kb.ci(blocks_per_sample),

@@ -11,8 +11,8 @@ boundaries can move by a step between two f32 LayerNorms summed in another
 order), 2e-2 for the decoder's final queries given the same blocked positions (its
 hard ``m < 0`` threshold flips on tiny differences of the bf16 mask
 embedding and a flip moves every later layer, so the threshold decisions
-are counted per layer and the arithmetic is compared on the kernel's own
-decisions).
+are counted and bounded per layer, and the arithmetic, mask embedding
+included, is compared on the kernel's own decisions).
 """
 import pytest
 
@@ -113,6 +113,20 @@ def test_canvas_kernel(dev, mode):
     assert _rel(got, want) <= 2 ** -7
 
 
+def test_pfn_and_canvas_kernels_take_only_bf16(dev):
+    ps = _stream(dev, seed=7)
+    wts = [(w.float(), g, b) for (w, g, b) in _pfn_weights(dev)]
+    with pytest.raises(ValueError, match="bf16"):
+        kpfn.pfn(ps, wts, max_points_per_pillar=32, out_dtype=torch.float32,
+                 **_pfn_kw())
+    table = torch.zeros(ps.cells.shape + (128,), device=dev)
+    ones = torch.ones(2, device=dev)
+    affine = torch.ones(128, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        kcanvas.canvas_norm(table, ps.cells, ps.num_pillars, ones, ones,
+                            affine, affine, (H, W))
+
+
 def _block_weights(dev, c, heads, win, quant, seed):
     g = torch.Generator().manual_seed(seed)
 
@@ -189,15 +203,26 @@ def test_decoder_stack_kernel(dev):
     torch.cuda.synchronize()
     flips = [int((kb_ != kdec.blocked_positions(m)).sum())
              for kb_, m in zip(bits, logits)]
-    print(f"decoder stack: bias entries that differ per layer {flips} of "
-          f"{logits[0].numel()}..{logits[-1].numel()}")
+    same_bits, same_logits = kdec.decoder_stack_plain(
+        out0, emb0, qpos, mems, pes, feats, layers, head, num_heads=heads,
+        blocked=bits, return_logits=True)
+    # the plain version run on the kernel's decisions computes each layer's
+    # logits from its own decoder norm and mask MLP on a query state that
+    # follows the kernel's: only logits within rounding of 0 may decide
+    # otherwise, so a wrong mask embedding in any layer shows here
+    own = [int((kb_ != kdec.blocked_positions(m)).sum())
+           for kb_, m in zip(bits, same_logits)]
+    print(f"decoder stack: bias entries that differ per layer {flips}, on "
+          f"the kernel's own decisions {own}, of "
+          f"{[m.numel() for m in logits]}")
     # layer 0 sees identical inputs on both sides: only a logit within
     # rounding of 0 could differ. Later layers inherit bf16 rounding
     # differences of the query state through the mask embedding, and a
-    # flipped entry changes everything after it, so the arithmetic is held
-    # against the plain version run on the kernel's own blocked positions.
+    # flipped entry changes everything after it, so the free-running flips
+    # are held to 5 % a layer (3.4 % in the last layer on the card) and the
+    # arithmetic to the plain version run on the kernel's own decisions.
     assert flips[0] <= 1e-4 * logits[0].numel()
-    same_bits = kdec.decoder_stack_plain(
-        out0, emb0, qpos, mems, pes, feats, layers, head, num_heads=heads,
-        blocked=bits)
+    for li, m in enumerate(logits):
+        assert flips[li] <= 0.05 * m.numel(), (li, flips)
+        assert own[li] <= 0.01 * m.numel(), (li, own)
     assert _rel(got, same_bits) <= 2e-2
