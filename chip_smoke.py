@@ -17,7 +17,20 @@
    have launched; outputs must be finite and of the expected shapes;
 5. checks a small model on the card against the same model run by the plain
    PyTorch path on the CPU;
-6. prints one JSON line with every kernel's numbers, then, last, the device
+6. drives the training step (``train_step``) at the training envelope of
+   the JAX bench: the same configuration with ``max_num_pillars=32768``, a
+   bf16 forward over f32 master weights, batch 4, AdamW, synthetic scans of
+   ~120k points (``datasets/synthetic.py``), random weights from a seed;
+   captures the inputs of the training kernels (A: canvas scatter, B: its
+   gradient, C: the matcher) in one step and holds each against its plain
+   version (A and B exactly, C with equal assignments); then 2 warm and 5
+   timed steps with the launch counters reset just before and read just
+   after: every training kernel must have launched, losses and gradients
+   must be finite and the parameters must change; then one traced step;
+7. checks one small training step on the card against the same step on the
+   plain CPU path (same weights, batch and pinned loss points), in f32 and
+   in bf16;
+8. prints one JSON line with every kernel's numbers, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
@@ -34,6 +47,8 @@ import time
 SEED = 0
 BATCH = 8
 WARM, TIMED = 3, 10
+TRAIN_BATCH = 4
+TRAIN_WARM, TRAIN_TIMED = 2, 5
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
@@ -352,28 +367,8 @@ def main() -> None:
           f"{float(mask_p.mean()):.4f}", flush=True)
 
     # ---- where the time goes: one traced request --------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        pred.forward(*staged[0])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    from torch.autograd import DeviceType
-
-    # kernel rows only: an operator's row repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[profile] one request: device busy {busy_ms:.3f} ms of "
-          f"{wall_ms:.3f} ms wall (idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}) [{card}]", flush=True)
-    for e in events[:16]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    traced(torch, lambda: pred.forward(*staged[0]), "profile", "request",
+           card, 16)
 
     # ---- small model: the card against the plain CPU path -----------------
     small = tiny_test_config().replace(
@@ -396,13 +391,261 @@ def main() -> None:
     if not ok:
         failures.append("small model card vs CPU")
 
+    del pred, model, captured_blocks, captured_dec, staged, table, ps
+    torch.cuda.empty_cache()
+    train_phase(np, torch, card, results, failures, record)
+
     print(json.dumps({"kernels": [results[k] for k in (
-        "pfn", "canvas_norm", "swin_block", "decoder_stack")]}), flush=True)
+        "pfn", "canvas_norm", "swin_block", "decoder_stack", "canvas_scatter",
+        "canvas_scatter_bwd", "hungarian")]}), flush=True)
     if failures:
         fail("; ".join(failures))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def traced(torch, run, label: str, unit: str, card: str, top: int) -> None:
+    """Trace one call of ``run`` and print the device's busy time against
+    the wall time, then the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    # kernel rows only: an operator's row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[{label}] one {unit}: device busy {busy_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall (idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}) [{card}]", flush=True)
+    for e in events[:top]:
+        print(f"[{label}] {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+
+def grad_norms(grads):
+    """L2 norm of the gradients of each top-level module."""
+    out = {}
+    for k, g in grads.items():
+        top = k.split(".")[0]
+        out[top] = out.get(top, 0.0) + float(g.float().square().sum())
+    return {k: v ** 0.5 for k, v in out.items()}
+
+
+def train_phase(np, torch, card, results, failures, record):
+    from mask_bev_tpu_torch.config import (
+        semantic_kitti_default, tiny_test_config)
+    from mask_bev_tpu_torch.datasets.synthetic import make_batch
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+    from mask_bev_tpu_torch.ops import hungarian as khung
+    from mask_bev_tpu_torch.train.step import (
+        create_train_state, loss_and_grads, train_step)
+
+    cfg = semantic_kitti_default().replace(
+        max_points_per_scan=131072, max_num_pillars=32768,
+        pseudo_image_norm="full", compute_dtype="bfloat16",
+        batch_size=TRAIN_BATCH)
+    t0 = time.time()
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    batches = [make_batch(np.random.default_rng(200 + i), cfg,
+                          batch_size=TRAIN_BATCH, noise_points=115_000,
+                          points_per_instance=1500) for i in range(3)]
+    n_pts = [int(b["point_mask"].sum(1).mean()) for b in batches]
+    print(f"[train] state and 3 batches in {time.time() - t0:.1f} s; mean "
+          f"points per scan {n_pts}; GT instances per batch "
+          f"{[int(b['gt_valid'].sum()) for b in batches]}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    # ---- one step with the training kernels' inputs captured ------------
+    cap = {}
+    orig = (kcanvas.canvas_scatter_forward, kcanvas.canvas_scatter_backward,
+            khung.hungarian_rows)
+
+    def rec_fwd(table, cells, grid_hw):
+        cap["fwd"] = (table.detach().clone(), cells.clone(), grid_hw)
+        return orig[0](table, cells, grid_hw)
+
+    def rec_bwd(d_canvas, cells, grid_hw):
+        cap["bwd"] = (d_canvas.detach().contiguous().clone(), cells.clone(),
+                      grid_hw)
+        return orig[1](d_canvas, cells, grid_hw)
+
+    def rec_hung(cost, n_rows):
+        cap["hung"] = (cost.clone(), n_rows.clone())
+        return orig[2](cost, n_rows)
+
+    (kcanvas.canvas_scatter_forward, kcanvas.canvas_scatter_backward,
+     khung.hungarian_rows) = rec_fwd, rec_bwd, rec_hung
+    try:
+        t1 = time.perf_counter()
+        logs, _, grads = loss_and_grads(state, batches[0], gen)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        (kcanvas.canvas_scatter_forward, kcanvas.canvas_scatter_backward,
+         khung.hungarian_rows) = orig
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad or not np.isfinite(float(logs["loss"])):
+        failures.append(f"train: non-finite loss {float(logs['loss'])} or "
+                        f"gradients {bad[:5]}")
+    print(f"[train] first forward+backward {first_ms:.1f} ms, loss "
+          f"{float(logs['loss']):.4f}, {len(grads)} gradients finite: "
+          f"{not bad}; gradient norms {grad_norms(grads)}", flush=True)
+    state.opt_state = state.optimizer.step(
+        dict(state.model.named_parameters()), grads, state.opt_state)
+    state.step += 1
+    del grads
+
+    with torch.no_grad():
+        # ---- kernel A: canvas scatter ------------------------------------
+        table, cells, hw = cap["fwd"]
+        b, p, c = table.shape
+        got = kcanvas.canvas_scatter_forward(table, cells, hw)
+        want = kcanvas.canvas_scatter_plain(table, cells, hw)
+        err = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, want)
+        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_forward(
+            table, cells, hw), 20)
+        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_scatter_plain(
+            table, cells, hw), 5)
+        n_valid = int((cells < hw[0] * hw[1]).sum())
+        esz = table.element_size()
+        bnd = bound(b * hw[0] * hw[1] * c * esz + b * p * (c * esz + 4), 0.0)
+        record("canvas_scatter", "mask_bev_tpu_torch/csrc/canvas.cu",
+               "mask_bev_tpu/ops/pallas_canvas.py:216", err, 0.0, ms_k, ms_p,
+               bnd, f"table {tuple(table.shape)} {table.dtype}, {n_valid} "
+               f"valid pillars of {b * p} slots", ok=same)
+        # ---- kernel B: its gradient --------------------------------------
+        d_canvas, cells_b, hw = cap["bwd"]
+        got = kcanvas.canvas_scatter_backward(d_canvas, cells_b, hw)
+        want = kcanvas.canvas_gather_plain(d_canvas, cells_b, hw)
+        err = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, want)
+        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_backward(
+            d_canvas, cells_b, hw), 20)
+        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_gather_plain(
+            d_canvas, cells_b, hw), 5)
+        # the rows this run gathers (valid pillars), the table written, cells
+        bnd = bound(n_valid * c * esz + b * p * (c * esz + 4), 0.0)
+        record("canvas_scatter_bwd", "mask_bev_tpu_torch/csrc/canvas.cu",
+               "mask_bev_tpu/ops/pallas_canvas.py:230", err, 0.0, ms_k,
+               ms_p, bnd, f"d_canvas {tuple(d_canvas.shape)} "
+               f"{d_canvas.dtype}", ok=same)
+        # ---- kernel C: the matcher ---------------------------------------
+        cost, n_rows = cap["hung"]
+        got = khung.hungarian_rows(cost, n_rows)
+        want = khung.hungarian_rows_plain(cost, n_rows)
+        n_diff = int((got != want).sum())
+        err = float((got - want).abs().max())
+        ms_k = cuda_ms(torch, lambda: khung.hungarian_rows(cost, n_rows), 20)
+        ms_p = cuda_ms(torch, lambda: khung.hungarian_rows_plain(
+            cost, n_rows), 1, warm=0)
+        # bytes: the cost matrices read once, the assignment written; the
+        # operations (a few per column and tree step) take less time
+        bnd = bound(cost.numel() * 4 + n_rows.numel() * 4
+                    + cost.shape[0] * cost.shape[2] * 4, 0.0)
+        record("hungarian", "mask_bev_tpu_torch/csrc/hungarian.cu",
+               "mask_bev_tpu/ops/hungarian.py:95 (XLA while_loop, not a "
+               "TPU kernel)", err, 0.0, ms_k, ms_p, bnd,
+               f"{cost.shape[0]} problems of {tuple(cost.shape[1:])}, rows "
+               f"{n_rows.tolist()}; assignments that differ: {n_diff}",
+               ok=n_diff == 0)
+    del cap, table, cells, d_canvas, cells_b, got, want
+
+    # ---- the main path: warm and timed steps -------------------------------
+    before = {k: t.detach().clone()
+              for k, t in state.model.named_parameters()}
+    for i in range(TRAIN_WARM):
+        state, logs, _ = train_step(state, batches[(i + 1) % 3], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    times, losses = [], []
+    for i in range(TRAIN_TIMED):
+        t1 = time.perf_counter()
+        state, logs, out = train_step(state, batches[i % 3], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(logs["loss"]))
+    launches = dict(kb.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_step = float(np.median(times) * 1e3)
+    changed = sum(not torch.equal(t, before[k])
+                  for k, t in state.model.named_parameters())
+    print(f"[train] {TRAIN_TIMED} timed steps of batch {TRAIN_BATCH}: median "
+          f"{ms_step:.3f} ms/step, mean {np.mean(times) * 1e3:.3f} ms, "
+          f"{TRAIN_BATCH / (ms_step / 1e3):.3f} scans/s, peak memory "
+          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[train] losses {[round(x, 4) for x in losses]}; "
+          f"gt_crop_truncated {float(logs['gt_crop_truncated'])}; "
+          f"parameters changed {changed} of {len(before)}", flush=True)
+    print(f"[train] launches over the {TRAIN_TIMED} timed steps: "
+          f"{launches}", flush=True)
+    if not np.isfinite(losses).all():
+        failures.append(f"train: non-finite losses {losses}")
+    if changed == 0:
+        failures.append("train: no parameter changed")
+    exp = (cfg.num_decoder_outputs, TRAIN_BATCH, cfg.num_queries,
+           cfg.grid_hw[0] // 4, cfg.grid_hw[1] // 4)
+    if tuple(out.mask_logits.shape) != exp:
+        failures.append(f"train: mask logits {tuple(out.mask_logits.shape)}")
+    for k in ("canvas_scatter", "canvas_scatter_bwd", "hungarian"):
+        results[k]["launches"] = launches.get(k, 0)
+        if launches.get(k, 0) <= 0:
+            failures.append(f"{k} never launched in the timed train steps")
+    del before
+
+    # ---- where the time goes: one traced step -----------------------------
+    traced(torch, lambda: train_step(state, batches[0], gen),
+           "train profile", "step", card, 20)
+    del state, batches, out, logs
+    torch.cuda.empty_cache()
+
+    # ---- small training step: the card against the plain CPU path ---------
+    for dtype, tol_loss, tol_norm in (("float32", 1e-3, 1e-2),
+                                      ("bfloat16", 5e-2, 1e-1)):
+        small = tiny_test_config().replace(
+            head_num_attn_heads=2, compute_dtype=dtype, loss_gt_crop=48,
+            max_num_pillars=256)
+        batch = make_batch(np.random.default_rng(SEED + 3), small,
+                           noise_points=1200)
+        rng = np.random.default_rng(SEED + 4)
+        n_l, pts_n = small.num_decoder_outputs, small.head_num_points
+        mcs = rng.uniform(size=(n_l, small.batch_size, pts_n, 2))
+        lcs = rng.uniform(size=(n_l, small.batch_size * small.num_queries,
+                                pts_n, 2))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            st = create_train_state(small, seed=SEED + 5, device=dev)
+            coords = [(torch.as_tensor(m, dtype=torch.float32, device=dev),
+                       torch.as_tensor(c, dtype=torch.float32, device=dev))
+                      for m, c in zip(mcs, lcs)]
+            kb.reset_launches()
+            lg, _, gr = loss_and_grads(st, batch, coords=coords)
+            res[dev] = (float(lg["loss"]), grad_norms(gr),
+                        dict(kb.LAUNCHES))
+        (l_g, n_g, launch_g), (l_c, n_c, _) = res["cuda"], res["cpu"]
+        d_loss = abs(l_g - l_c) / abs(l_c)
+        d_norm = max(abs(n_g[k] - n_c[k]) / n_c[k] for k in n_c)
+        ok = (d_loss <= tol_loss and d_norm <= tol_norm and all(
+            launch_g[k] > 0 for k in ("canvas_scatter", "canvas_scatter_bwd",
+                                      "hungarian")))
+        print(f"[small train {dtype}] card vs CPU plain path: loss "
+              f"{l_g:.6f} vs {l_c:.6f} (relative diff {d_loss:.3g}, "
+              f"tolerance {tol_loss}), gradient norms per module, largest "
+              f"relative diff {d_norm:.3g} (tolerance {tol_norm}); card "
+              f"launches {launch_g} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"small train step {dtype} card vs CPU")
 
 
 if __name__ == "__main__":

@@ -82,7 +82,7 @@ class MaskBevConfig:
     head_num_points: int = 12544  # PointRend sampling
     head_oversample_ratio: float = 3.0
     head_importance_sample_ratio: float = 0.75
-    # loss point sampling (training; not used by the port yet): matmul-form
+    # loss point sampling (training): matmul-form
     # bilinear sampling, and the operand dtype of those matmuls ("auto"
     # follows compute_dtype)
     loss_sample_dense: bool = True
@@ -131,8 +131,9 @@ class MaskBevConfig:
     compute_dtype: str = "float32"  # float32 | bfloat16
     # Options of the JAX package's TPU kernels. Of these the port reads only
     # backbone_quantize ('int8': dynamic int8 quantisation of the backbone's
-    # dense products) and keeps the rest so that one YAML file configures
-    # both packages; the port runs its own kernels whatever they say.
+    # dense products at eval) and remat_backbone, and keeps the rest so that
+    # one YAML file configures both packages; the port runs its own kernels
+    # whatever they say.
     use_pallas_encoder: bool = True
     use_pallas_attention: bool = False
     use_pallas_backbone: bool = True

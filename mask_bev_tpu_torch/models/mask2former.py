@@ -1,13 +1,23 @@
-"""Mask2Former query decoder, ``final_only`` inference path.
+"""Mask2Former query decoder: the ``final_only`` inference path and the
+per-layer training path.
 
-Port of ``mask_bev_tpu/models/mask2former.py:321-425`` with the fused
-stack: the initial mask embedding and the per-level bilinear downsampling
-of ``mask_features`` (``antialias=False``, i.e. ``F.interpolate(bilinear,
-align_corners=False)``) run here; every decoder layer runs in
-``ops/decoder_stack.py`` (kernel 4); the final head pass (decoder norm,
-``cls_embed``, mask MLP and the full-resolution ``bqc,bhwc`` einsum) runs
-here in plain torch, as XLA runs it in JAX. The per-layer full path
-(``final_only=False``) waits for the training slice.
+Port of ``mask_bev_tpu/models/mask2former.py``. ``final_only`` (:321-425)
+runs the fused stack: the initial mask embedding and the per-level
+bilinear downsampling of ``mask_features`` (``antialias=False``, i.e.
+``F.interpolate(bilinear, align_corners=False)``) run here; every decoder
+layer runs in ``ops/decoder_stack.py`` (kernel 4); the final head pass
+(decoder norm, ``cls_embed``, mask MLP and the full-resolution
+``bqc,bhwc`` einsum) runs here in plain torch, as XLA runs it in JAX.
+
+``final_only=False`` (training, :463-489) is plain torch on the live
+parameters, as XLA runs it: the shared heads (``_heads_apply`` :122) run
+once on the learned queries and once after each layer; each layer's
+masked cross-attention bias comes from the previous head pass's
+full-resolution mask logits (``_make_attn_bias`` :203-211,
+``_bias_from_logits`` :189-200: bilinear resize with ``align_corners=False``
+and no antialias, blocked where sigmoid < 0.5, fully blocked rows cleared,
+detached); layer ``i`` reads memory level ``i % 3``; the L+1 head passes
+stack along a leading axis.
 
 Layer ``i`` is module ``layer{i}`` (``cross``, ``self_attn``, ``norm1..3``,
 ``ffn``); the weight bridge maps the JAX scan layout ``layers/lvl{l}_*``
@@ -24,24 +34,45 @@ from torch import nn
 from mask_bev_tpu_torch.models.positional import sine_positional_encoding_2d
 from mask_bev_tpu_torch.models.swin import LayerNorm, forget_packed, linear
 from mask_bev_tpu_torch.ops.decoder_stack import (
-    HeadWeights, LayerWeights, decoder_stack, kv_weights, pack_weights)
+    NEG, HeadWeights, LayerWeights, decoder_stack, kv_weights, pack_weights)
 
 
 class DecoderOutputs(NamedTuple):
-    """Stacked head passes (leading axis 1 on the ``final_only`` path)."""
+    """Stacked head passes: L+1 on the training path, 1 on the
+    ``final_only`` path."""
 
-    cls_logits: torch.Tensor  # (1, B, Q, num_classes + 1)
-    mask_logits: torch.Tensor  # (1, B, Q, H/4, W/4)
+    cls_logits: torch.Tensor  # (L+1 | 1, B, Q, num_classes + 1)
+    mask_logits: torch.Tensor  # (L+1 | 1, B, Q, H/4, W/4)
     height_logits: Optional[torch.Tensor]
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, num_heads: int = 8):
         super().__init__()
+        self.num_heads = num_heads
         self.q = nn.Linear(dim, dim)
         self.k = nn.Linear(dim, dim)
         self.v = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+
+    def forward(self, q, k, v, attn_bias=None):
+        """XLA order: projections in the model dtype, scores and the
+        weighted sum accumulated in f32, probabilities rounded to the
+        dtype; ``attn_bias`` (B, Q, K) f32."""
+        b, nq, c = q.shape
+        h = self.num_heads
+        hd = c // h
+        qp = linear(q, self.q).reshape(b, nq, h, hd)
+        kp = linear(k, self.k).reshape(b, k.shape[1], h, hd)
+        vp = linear(v, self.v).reshape(b, v.shape[1], h, hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", (qp * hd ** -0.5).float(),
+                            kp.float())
+        if attn_bias is not None:
+            attn = attn + attn_bias[:, None]
+        attn = torch.softmax(attn, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn.float(),
+                           vp.float()).to(q.dtype)
+        return linear(out.reshape(b, nq, c), self.out)
 
 
 class FFN(nn.Module):
@@ -52,14 +83,24 @@ class FFN(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, dim: int, ffn_dim: int):
+    def __init__(self, dim: int, ffn_dim: int, num_heads: int = 8):
         super().__init__()
-        self.cross = MultiHeadAttention(dim)
-        self.self_attn = MultiHeadAttention(dim)
+        self.cross = MultiHeadAttention(dim, num_heads)
+        self.self_attn = MultiHeadAttention(dim, num_heads)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
         self.ffn = FFN(dim, ffn_dim)
+
+    def forward(self, out, qpos, mem, pe, bias):
+        """Training form: masked cross-attention, self-attention, FFN, each
+        with a post-norm residual."""
+        y = self.cross(out + qpos, mem + pe, mem, attn_bias=bias)
+        out = self.norm1(out + y)
+        y = self.self_attn(out + qpos, out + qpos, out)
+        out = self.norm2(out + y)
+        y = linear(torch.relu(linear(out, self.ffn.fc1)), self.ffn.fc2)
+        return self.norm3(out + y)
 
     def weights(self) -> LayerWeights:
         def w(lin):  # (in, out) in the parameters' dtype
@@ -119,6 +160,19 @@ class MaskHeads(nn.Module):
             f(self.mask_mlp3.bias))
 
 
+def make_attn_bias(mask_logits: torch.Tensor, target_hw) -> torch.Tensor:
+    """(B, Q, H, W) mask logits -> detached additive bias (B, Q, hl*wl) f32:
+    -1e9 where sigmoid of the resized logit is < 0.5, except on rows that
+    would block every position."""
+    b, q = mask_logits.shape[:2]
+    with torch.no_grad():
+        m = F.interpolate(mask_logits, size=tuple(target_hw), mode="bilinear",
+                          align_corners=False, antialias=False)
+        blocked = (torch.sigmoid(m) < 0.5).reshape(b, q, -1)
+        blocked = blocked & ~blocked.all(dim=-1, keepdim=True)
+        return torch.where(blocked, NEG, 0.0).float()
+
+
 class Mask2FormerDecoder(nn.Module):
     """Queries x 3-level memories -> final (cls, mask) logits."""
 
@@ -135,7 +189,7 @@ class Mask2FormerDecoder(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(num_levels, c))
         self.heads = MaskHeads(num_classes, c, out_channels)
         for i in range(num_layers):
-            self.add_module(f"layer{i}", DecoderLayer(c, ffn_dim))
+            self.add_module(f"layer{i}", DecoderLayer(c, ffn_dim, num_heads))
         self._packed = None
         self.register_load_state_dict_post_hook(forget_packed)
 
@@ -148,22 +202,30 @@ class Mask2FormerDecoder(nn.Module):
                   for i in range(self.num_layers)]
         return layers, self.heads.weights()
 
+    def flat_memories(self, memories: Sequence[torch.Tensor]):
+        """Per level: the (B, T_l, C) memory plus its level embedding, the
+        sine PE (T_l, C) in the memory dtype, and (h_l, w_l)."""
+        c = self.query_feat.shape[1]
+        mems, pes, hws = [], [], []
+        for i, mem in enumerate(memories):
+            b, hl, wl, mc = mem.shape
+            hws.append((hl, wl))
+            mems.append((mem.reshape(b, hl * wl, mc)
+                         + self.level_embed[i]).contiguous())
+            pes.append(sine_positional_encoding_2d(
+                hl, wl, num_feats=c // 2, device=mem.device).to(mem.dtype))
+        return mems, pes, hws
+
     def stack_inputs(self, mask_features: torch.Tensor,
                      memories: Sequence[torch.Tensor]):
         """The decoder stack's data inputs: (queries (B, Q, C), initial mask
         embedding, query positions, flat memories with their level embedding,
         sine PEs (T_l, C), f32 resized mask features (B, T_l, C))."""
         b = mask_features.shape[0]
-        c = self.query_feat.shape[1]
-        dtype = mask_features.dtype
-        mems, pes, feats = [], [], []
+        mems, pes, hws = self.flat_memories(memories)
         f32feat = mask_features.float().permute(0, 3, 1, 2)
-        for i, mem in enumerate(memories):
-            _, hl, wl, mc = mem.shape
-            mems.append((mem.reshape(b, hl * wl, mc)
-                         + self.level_embed[i]).contiguous())
-            pes.append(sine_positional_encoding_2d(
-                hl, wl, num_feats=c // 2, device=mem.device).to(dtype))
+        feats = []
+        for hl, wl in hws:
             fr = F.interpolate(f32feat, size=(hl, wl), mode="bilinear",
                                align_corners=False, antialias=False)
             feats.append(fr.permute(0, 2, 3, 1).reshape(b, hl * wl, -1))
@@ -175,8 +237,7 @@ class Mask2FormerDecoder(nn.Module):
                 memories: Sequence[torch.Tensor], final_only: bool = True
                 ) -> DecoderOutputs:
         if not final_only:
-            raise NotImplementedError(
-                "only the final_only decoder path is ported yet")
+            return self.forward_layers(mask_features, memories)
         layers, head, packed = self.kernel_inputs(mask_features.is_cuda,
                                                   len(memories))
         out_f = decoder_stack(*self.stack_inputs(mask_features, memories),
@@ -184,6 +245,27 @@ class Mask2FormerDecoder(nn.Module):
                               packed=packed)
         cls_f, mask_f = self.heads(out_f, mask_features)
         return DecoderOutputs(cls_f[None], mask_f[None], None)
+
+    def forward_layers(self, mask_features: torch.Tensor,
+                       memories: Sequence[torch.Tensor]) -> DecoderOutputs:
+        """All L+1 head passes (training path)."""
+        b = mask_features.shape[0]
+        nl = len(memories)
+        mems, pes, hws = self.flat_memories(memories)
+        out = self.query_feat[None].expand(b, -1, -1)
+        qpos = self.query_embed[None]
+        cls_l, mask_l = self.heads(out, mask_features)
+        cls_all, mask_all = [cls_l], [mask_l]
+        for i in range(self.num_layers):
+            lvl = i % nl
+            bias = make_attn_bias(mask_l, hws[lvl])
+            out = getattr(self, f"layer{i}")(out, qpos, mems[lvl], pes[lvl],
+                                             bias)
+            cls_l, mask_l = self.heads(out, mask_features)
+            cls_all.append(cls_l)
+            mask_all.append(mask_l)
+        return DecoderOutputs(torch.stack(cls_all), torch.stack(mask_all),
+                              None)
 
     def kernel_inputs(self, cuda: bool, num_levels: int):
         """(layers, head, packed) for ``decoder_stack``; on CUDA built once

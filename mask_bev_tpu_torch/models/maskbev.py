@@ -1,7 +1,12 @@
-"""Full MaskBEV model, inference form: raw padded scans -> final logits.
+"""Full MaskBEV model: raw padded scans -> stacked (cls, mask) logits.
 
 Port of ``mask_bev_tpu/models/maskbev.py:24-117``: encoder -> Swin backbone
--> conv-FPN pixel decoder -> Mask2Former decoder (``final_only``).
+-> conv-FPN pixel decoder -> Mask2Former decoder. ``train=False,
+final_only=True`` is the serving path (kernels 1-4); ``train=True,
+final_only=False`` is the training forward (training encoder with kernel A
+and its backward B, plain-torch backbone and decoder, all L+1 head passes).
+Gradients are tracked as usual: the serving entry point
+(``inference.py::MaskBevPredictor.forward``) runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -34,14 +39,17 @@ class MaskBev(nn.Module):
             max_points_per_pillar=c.max_num_points,
             point_dim=c.pc_point_dim,
             pseudo_image_norm=c.pseudo_image_norm,
-            encoding_type=c.encoder_encoding_type)
+            encoding_type=c.encoder_encoding_type,
+            max_pillars=c.max_num_pillars)
         self.backbone = SwinTransformer(
             c.encoder_feat_channels[-1], embed_dim=c.backbone_embed_dim,
             depths=tuple(c.backbone_depths),
             num_heads=tuple(c.backbone_num_heads),
             window=c.backbone_window_size, patch_size=c.backbone_patch_size,
             patch_stride=strides[0], mlp_ratio=c.backbone_mlp_ratio,
-            quantize_int8=(c.backbone_quantize == "int8"))
+            quantize_int8=(c.backbone_quantize == "int8"),
+            drop_path_rate=c.backbone_drop_path_rate,
+            remat=c.remat_backbone)
         e = c.backbone_embed_dim
         self.pixel_decoder = PixelDecoder(
             [e, 2 * e, 4 * e, 8 * e], feat_channels=c.head_feat_channels,
@@ -85,10 +93,12 @@ class MaskBev(nn.Module):
             out[name] = v.to(t.dtype)
         return out
 
-    @torch.no_grad()
     def forward(self, points: torch.Tensor, point_mask: torch.Tensor,
-                final_only: bool = True) -> DecoderOutputs:
-        x = self.encoder(points, point_mask)
-        feats = self.backbone(x)
+                train: bool = False, final_only: bool = True,
+                generator=None) -> DecoderOutputs:
+        """``train``: training encoder (updates the batch-norm running
+        statistics) and backbone (drop path drawn from ``generator``)."""
+        x = self.encoder(points, point_mask, train=train)
+        feats = self.backbone(x, train=train, generator=generator)
         mask_features, memories = self.pixel_decoder(feats)
         return self.decoder(mask_features, memories, final_only=final_only)

@@ -1,4 +1,4 @@
-"""Swin-Transformer BEV backbone, eval form (NHWC in, 4-level NHWC pyramid out).
+"""Swin-Transformer BEV backbone (NHWC in, 4-level NHWC pyramid out).
 
 Port of ``mask_bev_tpu/models/swin.py``: patch embed with mmdet's 'corner'
 padding, stages of (shifted-)window blocks (``ops/swin_block.py``, kernel
@@ -6,8 +6,17 @@ padding, stages of (shifted-)window blocks (``ops/swin_block.py``, kernel
 x3]``, and per-stage output LayerNorms. Every block is a module
 ``stage{i}_block{d}``; the JAX package's ``nn.scan``-stacked
 ``stage{i}_pairs`` trees are split into those blocks by the weight bridge
-(``models/convert.py``). Drop path and remat are training-only and wait for
-the training slice.
+(``models/convert.py``).
+
+Training (``forward(x, train=True)``) runs the blocks as the JAX package
+trains them, the XLA form (``mask_bev_tpu/models/swin.py:222`` and :512 take
+the fused kernels only when not training): plain torch on the live
+parameters, so gradients reach them, never int8 (JAX :300), exact erf GELU,
+drop path with per-block rates linear over depth (JAX :286-297, :575-577;
+one per-sample mask for each residual branch, drawn from the caller's
+generator before the block runs) and, with ``remat``, each block
+recomputed in the backward pass by ``torch.utils.checkpoint`` (JAX
+:662-665, :701-704).
 """
 from __future__ import annotations
 
@@ -15,11 +24,12 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mask_bev_tpu_torch.ops.swin_block import (
-    BlockWeights, effective_shift, int8_sim_dense, layer_norm, make_dense,
-    rel_bias_from_table, swin_block)
+    BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm,
+    make_dense, rel_bias_from_table, swin_block, window_msa_plain)
 
 __all__ = ["LayerNorm", "SwinBlock", "PatchMerging", "SwinTransformer",
            "int8_sim_dense", "linear", "forget_packed"]
@@ -106,10 +116,35 @@ class SwinBlock(nn.Module):
                                         self.window))
         return self._packed
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    def live_weights(self) -> BlockWeights:
+        """The block's parameters as they are, in their dtype, not detached
+        (the training form differentiates through them)."""
+        msa = self.attn.w_msa
+        return BlockWeights(
+            self.norm1.weight, self.norm1.bias,
+            Dense(msa.qkv.weight, msa.qkv.bias),
+            Dense(msa.proj.weight, msa.proj.bias),
+            self.norm2.weight, self.norm2.bias,
+            Dense(self.ffn_1.weight, self.ffn_1.bias),
+            Dense(self.ffn_2.weight, self.ffn_2.bias),
+            rel_bias_from_table(msa.rel_pos_bias_table, self.window))
+
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                train: bool = False, drop=None) -> torch.Tensor:
+        """``drop`` (training): the two residual branches' per-sample drop
+        path factors, each (B, 1, 1) f32 ``mask / keep``, or None."""
         shift = effective_shift(hw, self.window, self.shift)
-        return swin_block(x, self.weights(), hw, self.window,
-                          self.num_heads, shift, self.quantize)
+        if not train:
+            return swin_block(x, self.weights(), hw, self.window,
+                              self.num_heads, shift, self.quantize)
+        p = self.live_weights()
+        y = window_msa_plain(layer_norm(x, p.ln1_w, p.ln1_b), p, hw,
+                             self.window, self.num_heads, shift, False)
+        x = x + (y if drop is None else y * drop[0].to(y.dtype))
+        y = layer_norm(x, p.ln2_w, p.ln2_b)
+        y = dense(F.gelu(dense(y, p.fc1, False), approximate="none"), p.fc2,
+                  False)
+        return x + (y if drop is None else y * drop[1].to(y.dtype))
 
 
 class PatchMerging(nn.Module):
@@ -139,8 +174,11 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window: int = 10, patch_size: int = 4,
                  patch_stride: int = None, mlp_ratio: int = 4,
-                 quantize_int8: bool = False):
+                 quantize_int8: bool = False, drop_path_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
+        self.remat = remat
         self.patch_size = patch_size
         self.stride = patch_stride or patch_size
         self.embed_dim = embed_dim
@@ -159,8 +197,28 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"merge{i}", PatchMerging(dim, 2 * dim))
                 dim *= 2
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def drop_factors(self, batch: int, device, generator=None):
+        """Per block, the training drop path factors of its two residual
+        branches (None where the block's rate is 0): rates linear over depth
+        up to ``drop_path_rate``, per-sample Bernoulli keep masks / keep."""
+        total = sum(self.depths)
+        out = []
+        for i in range(total):
+            rate = self.drop_path_rate * i / max(total - 1, 1)
+            if rate <= 0.0:
+                out.append(None)
+                continue
+            keep = 1.0 - rate
+            u = torch.rand((2, batch, 1, 1), generator=generator,
+                           device=device)
+            out.append((u < keep).float() / keep)
+        return out
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator=None) -> List[torch.Tensor]:
         b, h, w, _ = x.shape
+        drops = (self.drop_factors(b, x.device, generator) if train
+                 else [None] * sum(self.depths))
         p, s = self.patch_size, self.stride
         gh, gw = -(-h // s), -(-w // s)
         pad_h = max((gh - 1) * s + p - h, 0)
@@ -170,9 +228,16 @@ class SwinTransformer(nn.Module):
         x = self.patch_norm(x.reshape(b, gh * gw, self.embed_dim))
         hw = (gh, gw)
         outs = []
+        bi = 0
         for i, depth in enumerate(self.depths):
             for d in range(depth):
-                x = getattr(self, f"stage{i}_block{d}")(x, hw)
+                blk = getattr(self, f"stage{i}_block{d}")
+                if train and self.remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        blk, x, hw, True, drops[bi], use_reentrant=False)
+                else:
+                    x = blk(x, hw, train, drops[bi])
+                bi += 1
             y = getattr(self, f"out_norm{i}")(x)
             outs.append(y.reshape(b, hw[0], hw[1], -1))
             if i < len(self.depths) - 1:

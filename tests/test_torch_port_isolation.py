@@ -42,6 +42,7 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
     assert "mask_bev_tpu_torch.inference" in names
+    assert "mask_bev_tpu_torch.train.step" in names
     assert not [n for n in names if _forbidden(n)]
 
 
@@ -61,6 +62,21 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA was requested"):
             resolve_device("cuda")
     assert MaskBevPredictor(cfg, sd, device="cpu").device.type == "cpu"
+
+
+def test_train_state_defaults_to_cuda():
+    from mask_bev_tpu_torch.config import tiny_test_config
+    from mask_bev_tpu_torch.train.step import create_train_state
+
+    cfg = tiny_test_config()
+    if torch.cuda.is_available():
+        assert create_train_state(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            create_train_state(cfg)
+    st = create_train_state(cfg, device="cpu")
+    assert st.device.type == "cpu"
+    assert all(p.dtype == torch.float32 for p in st.model.parameters())
 
 
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu():

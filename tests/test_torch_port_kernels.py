@@ -12,7 +12,10 @@ order), 2e-2 for the decoder's final queries given the same blocked positions (i
 hard ``m < 0`` threshold flips on tiny differences of the bf16 mask
 embedding and a flip moves every later layer, so the threshold decisions
 are counted and bounded per layer, and the arithmetic, mask embedding
-included, is compared on the kernel's own decisions).
+included, is compared on the kernel's own decisions). The training
+kernels are held exactly: the canvas scatter (A) and its gradient (B) only
+move values, and the matcher (C) repeats the plain version's f32 steps, so
+its assignments are equal.
 """
 import pytest
 
@@ -21,11 +24,13 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from mask_bev_tpu_torch.ops import canvas as kcanvas  # noqa: E402
+from mask_bev_tpu_torch.kernels import build as kb  # noqa: E402
 from mask_bev_tpu_torch.ops import decoder_stack as kdec  # noqa: E402
+from mask_bev_tpu_torch.ops import hungarian as khung  # noqa: E402
 from mask_bev_tpu_torch.ops import pfn as kpfn  # noqa: E402
 from mask_bev_tpu_torch.ops import swin_block as kswin  # noqa: E402
 from mask_bev_tpu_torch.ops.stream_pillars import (  # noqa: E402
-    pillarize_stream_packed)
+    pillarize_stream, pillarize_stream_packed)
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +231,62 @@ def test_decoder_stack_kernel(dev):
         assert flips[li] <= 0.05 * m.numel(), (li, flips)
         assert own[li] <= 0.01 * m.numel(), (li, own)
     assert _rel(got, same_bits) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_canvas_scatter_kernels(dev, dtype):
+    """Kernel A (forward) and B (gradient) against their plain versions,
+    with a capped stream and an all-invalid sample."""
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-9.9, 9.9, (3, 4096, 4)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-3, 3, (3, 4096))
+    msk = np.ones((3, 4096), bool)
+    msk[2] = False  # no valid point: every slot unused
+    sp = pillarize_stream(torch.as_tensor(pts, device=dev),
+                          torch.as_tensor(msk, device=dev),
+                          max_points_per_pillar=8, max_pillars=2048, **GEO)
+    assert int(sp.valid[2].sum()) == 0 and bool(sp.valid[0].all())
+    g = torch.Generator().manual_seed(9)
+    table = torch.randn(3, 2048, 128, generator=g).to(dev, dtype)
+    table = torch.where(sp.valid[..., None], table, 0.0)
+    kb.reset_launches()
+    got = kcanvas.canvas_scatter_forward(table, sp.cells, (H, W))
+    want = kcanvas.canvas_scatter_plain(table, sp.cells, (H, W))
+    cot = torch.randn(3, H, W, 128, generator=g).to(dev, dtype)
+    d_got = kcanvas.canvas_scatter_backward(cot, sp.cells, (H, W))
+    d_want = kcanvas.canvas_gather_plain(cot, sp.cells, (H, W))
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["canvas_scatter"] == 1
+    assert kb.LAUNCHES["canvas_scatter_bwd"] == 1
+    assert torch.equal(got, want) and torch.equal(d_got, d_want)
+    assert float(got[2].abs().sum()) == 0 and float(d_got[2].abs().sum()) == 0
+    # through autograd
+    t = table.clone().requires_grad_(True)
+    kcanvas.canvas_scatter(t, sp.cells, (H, W)).backward(cot)
+    assert torch.equal(t.grad, d_want)
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "edge"])
+def test_matcher_kernel(dev, kind):
+    """Kernel C gives the plain version's assignment exactly, for G = 0,
+    G = Q, ties and padded columns."""
+    rng = np.random.default_rng({"random": 10, "tied": 11, "edge": 12}[kind])
+    n, q, g = 40, 45, 45
+    if kind == "tied":
+        cost = rng.integers(0, 3, (n, q, g)).astype(np.float32)
+        cost[0] = 0.5
+    else:
+        cost = (rng.normal(size=(n, q, g)) * 3).astype(np.float32)
+    nv = rng.integers(0, 7, n).astype(np.int32)
+    if kind == "edge":
+        nv[:4] = [0, g, g, 1]
+        cost[4:, :, 7:] = 1e6
+    c = torch.as_tensor(cost, device=dev)
+    v = torch.as_tensor(nv, device=dev)
+    kb.reset_launches()
+    got = khung.hungarian_rows(c.transpose(1, 2), v)
+    want = khung.hungarian_rows_plain(c.transpose(1, 2), v)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["hungarian"] == 1
+    assert torch.equal(got, want)
+    assert ((got >= 0).sum(1).cpu().numpy() == np.minimum(nv, q)).all()

@@ -96,7 +96,8 @@ def test_maskbev_matches_jax(dtype, quant):
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     model = load_flax(MaskBev(tiny_test_config().replace(
         compute_dtype=dtype, backbone_quantize=quant)), v).to(td)
-    got = model(torch.as_tensor(pts).to(td), torch.as_tensor(mask))
+    with torch.no_grad():
+        got = model(torch.as_tensor(pts).to(td), torch.as_tensor(mask))
     gc = got.cls_logits.float().numpy()
     gm = got.mask_logits.float().numpy()
     wc = np.asarray(want.cls_logits, np.float32)
