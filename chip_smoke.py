@@ -17,6 +17,14 @@
    have launched; outputs must be finite and of the expected shapes;
 5. checks a small model on the card against the same model run by the plain
    PyTorch path on the CPU;
+5b. drives the two serving paths of kernels 7-10 (``path_phase``): path K,
+   ``kitti_default()`` (800x800 grid, 3 classes) with the unfused backbone
+   (window MSA, kernel 7) and the fused patch embed (kernel 8), and path E,
+   ``semantic_kitti_default()`` with the capped eval encoder (kernel 10)
+   and the backbone's fused token LN (kernel 9); each captures its new
+   kernels' inputs in one forward, holds them against their plain versions,
+   serves 3 warm and 5 timed requests with the counters reset just before
+   and traces one request;
 6. drives the training step (``train_step``) at the training envelope of
    the JAX bench: the same configuration with ``max_num_pillars=32768``, a
    bf16 forward over f32 master weights, batch 4, AdamW, synthetic scans of
@@ -49,6 +57,7 @@ BATCH = 8
 WARM, TIMED = 3, 10
 TRAIN_BATCH = 4
 TRAIN_WARM, TRAIN_TIMED = 2, 5
+PATH_WARM, PATH_TIMED = 3, 5
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
@@ -147,11 +156,12 @@ def main() -> None:
     failures = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd, extra="",
-               ok=None):
+               ok=None, library_ms=None):
         ok = err <= tol if ok is None else ok
         tol_s = f"tolerance {tol:.6g}" if tol == tol else "see below"
+        lib_s = "" if library_ms is None else f" library {library_ms:.4f} ms"
         print(f"[{name}] max_abs_err {err:.6g} ({tol_s}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib_s} bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}) {extra} -> "
               f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
         if not ok:
@@ -160,7 +170,8 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=0, max_abs_err=float(err), ms=float(ms),
             plain_ms=float(plain_ms), bound_ms=float(bnd[0]),
-            bound_by=bnd[1], library_ms=None)
+            bound_by=bnd[1],
+            library_ms=None if library_ms is None else float(library_ms))
 
     # ---- capture every kernel's main-path inputs (one forward) ----------
     captured_blocks, captured_dec = [], []
@@ -393,16 +404,235 @@ def main() -> None:
 
     del pred, model, captured_blocks, captured_dec, staged, table, ps
     torch.cuda.empty_cache()
+    path_phase(np, torch, card, results, failures, record, "K")
+    path_phase(np, torch, card, results, failures, record, "E")
     train_phase(np, torch, card, results, failures, record)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "pfn", "canvas_norm", "swin_block", "decoder_stack", "canvas_scatter",
-        "canvas_scatter_bwd", "hungarian")]}), flush=True)
+        "canvas_scatter_bwd", "hungarian", "window_msa", "patch_embed",
+        "layer_norm", "stream_pfn")]}), flush=True)
     if failures:
         fail("; ".join(failures))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def path_phase(np, torch, card, results, failures, record, path: str):
+    """Path K (KITTI, unfused backbone: kernels 7 and 8 with the PFN, the
+    canvas and the decoder stack) or path E (the capped eval encoder with
+    the fused token LN: kernels 10 and 9 with the canvas, the Swin blocks
+    and the decoder stack) at full width: inputs of the path's new kernels
+    captured in one forward and held against their plain versions, then 3
+    warm and 5 timed requests with the launch counters reset just
+    before."""
+    import torch.nn.functional as F
+
+    from mask_bev_tpu_torch.config import kitti_default, semantic_kitti_default
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models import encoder as menc
+    from mask_bev_tpu_torch.models import swin as msw
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import layer_norm as kln
+    from mask_bev_tpu_torch.ops import patch_embed as kpe
+    from mask_bev_tpu_torch.ops import pfn as kpfn
+    from mask_bev_tpu_torch.ops import window_msa as kwmsa
+
+    if path == "K":
+        cfg = kitti_default().replace(
+            max_points_per_scan=131072, compute_dtype="bfloat16",
+            use_pallas_backbone=False, use_pallas_attention=True,
+            fuse_patch_embed=True)
+        names = ("window_msa", "patch_embed")
+        path_kernels = ("pfn", "canvas_norm", "decoder_stack") + names
+    else:
+        cfg = semantic_kitti_default().replace(
+            max_points_per_scan=131072, compute_dtype="bfloat16",
+            use_pallas_encoder=False)
+        names = ("layer_norm", "stream_pfn")
+        path_kernels = ("canvas_norm", "swin_block", "decoder_stack") + names
+    label = f"path {path}"
+    t0 = time.time()
+    pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(SEED + 10),
+                            device="cuda")
+    model = pred.model
+    if path == "E":
+        model.backbone.fuse_ln = True  # as the JAX SwinTransformer attribute
+    pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED + 11)
+    pts = torch.as_tensor(pts_np).cuda().to(torch.bfloat16)
+    msk = torch.as_tensor(mask_np).cuda()
+
+    # ---- capture the new kernels' inputs in one forward -------------------
+    cap = {n: [] for n in names}
+    orig = {"window_msa": (msw, msw.window_msa),
+            "patch_embed": (msw, msw.patch_embed),
+            "layer_norm": (msw, msw.layer_norm),
+            "stream_pfn": (menc, menc.stream_pfn)}
+
+    def recorder(name):
+        mod, fn = orig[name]
+
+        def rec(*a, **kw):
+            cap[name].append((tuple(t.clone() if torch.is_tensor(t) else t
+                                    for t in a), kw))
+            return fn(*a, **kw)
+        return rec
+
+    for n in names:
+        setattr(orig[n][0], n, recorder(n))
+    try:
+        with torch.no_grad():
+            model(pts, msk)
+    finally:
+        for n in names:
+            setattr(orig[n][0], n, orig[n][1])
+    torch.cuda.synchronize()
+    print(f"[{label}] {cfg.name}: grid {cfg.grid_hw}, captured "
+          f"{ {n: len(v) for n, v in cap.items()} } in "
+          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+
+    with torch.no_grad():
+        if path == "K":
+            # ---- kernel 7: window MSA, all blocks --------------------------
+            err_abs = err_rel = ms_k = ms_p = ops = byts = 0.0
+            for (a, kw) in cap["window_msa"]:
+                got = kwmsa.window_msa(*a, **kw)
+                want = kwmsa.window_msa_plain(*a, **kw)
+                e = float((got.float() - want.float()).abs().max())
+                err_abs = max(err_abs, e)
+                err_rel = max(err_rel, e / float(want.float().abs().max()))
+                ms_k += cuda_ms(torch, lambda: kwmsa.window_msa(*a, **kw), 5)
+                ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_plain(*a, **kw),
+                                1)
+                xw, _, _, qkv, _, _ = a
+                b_, nw_, n_, c_ = xw.shape
+                tokens = b_ * nw_ * n_
+                ops += 2.0 * tokens * (4 * c_ * c_ + 2 * n_ * c_)
+                byts += 2 * tokens * c_ * 2 + 4 * c_ * c_ * 2
+            record("window_msa", "mask_bev_tpu_torch/csrc/window_msa.cu",
+                   "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
+                   float("nan"), ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
+                   f"largest error relative to its block's max-abs "
+                   f"{err_rel:.4g} (tolerance 0.02); "
+                   f"{len(cap['window_msa'])} blocks summed",
+                   ok=err_rel <= 2e-2)
+            # ---- kernel 8: patch embed + patch_norm --------------------------
+            (a, kw), = cap["patch_embed"]
+            got = kpe.patch_embed(*a, **kw)
+            want = kpe.patch_embed_plain(*a, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            ms_k = cuda_ms(torch, lambda: kpe.patch_embed(*a, **kw), 10)
+            ms_p = cuda_ms(torch, lambda: kpe.patch_embed_plain(*a, **kw), 2)
+            canvas, wm, p_ = a[0], a[1], a[5]
+            b_, h_, w_, c_ = canvas.shape
+            e_ = wm.shape[0]
+            m_ = b_ * (h_ // p_) * (w_ // p_)
+            ops = 2.0 * m_ * p_ * p_ * c_ * e_
+            byts = canvas.numel() * 2 + m_ * e_ * 2 + wm.numel() * 2
+            record("patch_embed", "mask_bev_tpu_torch/csrc/patch_embed.cu",
+                   "mask_bev_tpu/ops/pallas_patch_embed.py:67", err,
+                   1e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
+                   f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, {e_})")
+        else:
+            # ---- kernel 9: token LayerNorm, patch_norm + out_norm0-3 ---------
+            err = scale = ms_k = ms_p = ms_l = byts = 0.0
+            for (a, kw) in cap["layer_norm"]:
+                got = kln.layer_norm(*a, **kw)
+                want = kln.layer_norm_plain(*a, **kw)
+                err = max(err, float((got.float() - want.float()).abs().max()))
+                scale = max(scale, float(want.float().abs().max()))
+                x_, w_, bb_ = a[:3]
+                ms_k += cuda_ms(torch, lambda: kln.layer_norm(*a, **kw), 20)
+                ms_p += cuda_ms(torch, lambda: kln.layer_norm_plain(*a, **kw),
+                                5)
+                ms_l += cuda_ms(torch, lambda: F.layer_norm(
+                    x_, (x_.shape[-1],), w_, bb_, 1e-6), 20)
+                byts += 2 * x_.numel() * 2
+            record("layer_norm", "mask_bev_tpu_torch/csrc/layer_norm.cu",
+                   "mask_bev_tpu/ops/pallas_layer_norm.py:33", err,
+                   1e-2 * scale, ms_k, ms_p, bound(byts, 0.0),
+                   f"{len(cap['layer_norm'])} calls summed: "
+                   f"{[tuple(a[0].shape) for a, _ in cap['layer_norm']]}",
+                   library_ms=ms_l)
+            # ---- kernel 10: v1 PFN on the capped stream ----------------------
+            (a, kw), = cap["stream_pfn"]
+            sp, weights = a[0], a[1]
+            plain_kw = {k: v for k, v in kw.items()
+                        if k not in ("num_valid", "packed")}
+            table, stats = kpfn.stream_pfn(*a, **kw)
+            want, wstats = kpfn.stream_pfn_plain(*a, **plain_kw)
+            err = float((table.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            st_err = float(((stats - wstats).abs()
+                            / wstats.abs().clamp(min=1)).max())
+            ms_k = cuda_ms(torch, lambda: kpfn.stream_pfn(*a, **kw), 10)
+            ms_p = cuda_ms(torch, lambda: kpfn.stream_pfn_plain(*a, **plain_kw),
+                           2)
+            kept = float(sp.kept.sum())
+            macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
+            b_, n_, d_ = sp.pts.shape
+            p_, c_ = table.shape[1], table.shape[2]
+            byts = (b_ * n_ * (d_ * 2 + 4 + 1) + b_ * p_ * (8 + c_ * 2 + 8))
+            record("stream_pfn", "mask_bev_tpu_torch/csrc/pfn.cu",
+                   "mask_bev_tpu/ops/pallas_pfn.py:168", err, 1e-2 * scale,
+                   ms_k, ms_p, bound(byts, 2 * kept * macs / PEAK["bf16"]),
+                   f"stats rel err {st_err:.3g}; slots {p_}, occupied "
+                   f"{kw['num_valid'].tolist()}, kept points {int(kept)}")
+            if st_err > 1e-3:
+                failures.append("stream_pfn stats")
+    del cap
+
+    # ---- the path: warm and timed requests ---------------------------------
+    staged = []
+    for s in range(4):
+        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 300 + s)
+        staged.append((torch.as_tensor(p_np).cuda(),
+                       torch.as_tensor(m_np).cuda()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    for i in range(PATH_WARM):
+        cls_p, mask_p = pred.forward(*staged[i % 4])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(PATH_TIMED):
+        t1 = time.perf_counter()
+        cls_p, mask_p = pred.forward(*staged[i % 4])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = dict(kb.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    requests = PATH_WARM + PATH_TIMED
+    ms_batch = float(np.median(times) * 1e3)
+    print(f"[e2e {label}] {requests} requests of batch {BATCH}: median "
+          f"{ms_batch:.3f} ms/batch, mean {np.mean(times) * 1e3:.3f} ms, "
+          f"{BATCH / (ms_batch / 1e3):.2f} scans/s, peak memory "
+          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[e2e {label}] launches over the {requests} requests: "
+          f"{launches}", flush=True)
+    for k in names:
+        results[k]["launches"] = launches.get(k, 0)
+    for k in path_kernels:
+        if launches.get(k, 0) <= 0:
+            failures.append(f"{k} never launched on {label}")
+    hg, wg = cfg.grid_hw
+    exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
+    exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)
+    if tuple(cls_p.shape) != exp_cls or tuple(mask_p.shape) != exp_mask:
+        failures.append(f"{label} output shapes {tuple(cls_p.shape)} "
+                        f"{tuple(mask_p.shape)}")
+    if not (torch.isfinite(cls_p).all() and torch.isfinite(mask_p).all()):
+        failures.append(f"{label}: non-finite outputs")
+    print(f"[e2e {label}] class probs {tuple(cls_p.shape)} mask probs "
+          f"{tuple(mask_p.shape)}; mean mask prob "
+          f"{float(mask_p.mean()):.4f}", flush=True)
+    traced(torch, lambda: pred.forward(*staged[0]), f"profile {label}",
+           "request", card, 12)
+    del pred, model, staged, cls_p, mask_p
+    torch.cuda.empty_cache()
 
 
 def traced(torch, run, label: str, unit: str, card: str, top: int) -> None:

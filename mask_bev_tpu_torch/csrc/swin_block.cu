@@ -18,7 +18,8 @@
 //   swin_quant_rows  (int8 path)
 //   gemm_*           out = x1 + fc2(h)
 // int8 follows int8_sim_dense bit for bit: scale max|x|/127 floored at
-// 1e-6, round half to even (rintf), clip to +-127.
+// 1e-6 (taken, as XLA takes it, as a product with the f32 reciprocal of
+// 127), round half to even (rintf), clip to +-127.
 //
 // What bounds it on the H100: operations. A block does ~12 C^2 multiply-
 // adds per token in the four products (int8 or bf16 tensor cores) plus
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(256) swin_layernorm_kernel(
     amax = fmaxf(amax, fabsf(y));
   }
   if (!q8) return;
-  const float scale = fmaxf(warp_max(amax), 1e-6f) / 127.f;
+  const float scale = __fmul_rn(fmaxf(warp_max(amax), 1e-6f), 1.f / 127.f);
   for (int c = lane; c < C; c += 32) {
     const float y = rd_bf16(__fadd_rn(
         __fmul_rn(__fmul_rn(__bfloat162float(xr[c]) - mean, rstd),
@@ -82,7 +83,7 @@ __global__ void __launch_bounds__(256) swin_quant_rows_kernel(
   float amax = 0.f;
   for (int c = lane; c < K; c += 32)
     amax = fmaxf(amax, fabsf(__bfloat162float(xr[c])));
-  const float scale = fmaxf(warp_max(amax), 1e-6f) / 127.f;
+  const float scale = __fmul_rn(fmaxf(warp_max(amax), 1e-6f), 1.f / 127.f);
   for (int c = lane; c < K; c += 32)
     q8[(size_t)row * K + c] = (signed char)fminf(
         fmaxf(rintf(__bfloat162float(xr[c]) / scale), -127.f), 127.f);

@@ -32,7 +32,8 @@ BUILD_ROOT = _PKG / "_build"
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "pfn": 0, "canvas_norm": 0, "swin_block": 0, "decoder_stack": 0,
-    "canvas_scatter": 0, "canvas_scatter_bwd": 0, "hungarian": 0}
+    "canvas_scatter": 0, "canvas_scatter_bwd": 0, "hungarian": 0,
+    "window_msa": 0, "patch_embed": 0, "layer_norm": 0, "stream_pfn": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

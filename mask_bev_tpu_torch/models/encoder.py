@@ -1,16 +1,24 @@
 """Pillar encoder: raw padded scans -> normalised BEV canvas (NHWC).
 
-Port of ``mask_bev_tpu/models/encoder.py``. The eval form is the path the
-TPU runs at inference: pid fusion + stable sort
-(``ops/stream_pillars.py``), the pillar feature net with eval-mode batch
-norm folded into an affine (``ops/pfn.py``, kernel 1), and the scatter
-with the pseudo-image LayerNorm fused in (``ops/canvas.py``, kernel 2).
-The norm statistics come from the pillar table: canvas cells are pillar
-features or exact zeros, so sum and sum of squares over the canvas equal
-those over the table.
+Port of ``mask_bev_tpu/models/encoder.py``. The eval form takes the path
+the JAX package takes (:meth:`MaskBevEncoder.uses_slot_path`, JAX
+:395-407 without the backend check):
 
-Every occupied cell is kept (no ``max_pillars`` cap), as on the TPU slot
-path.
+* the slot path, when ``use_pallas`` is set and the last PFN layer has a
+  multiple of 128 channels on a grid the TPU canvas kernel can tile: pid
+  fusion + stable sort (``ops/stream_pillars.py``), the pillar feature net
+  with eval-mode batch norm folded into an affine (``ops/pfn.py``, kernel
+  1). Every occupied cell is kept, as the reference voxelizer's
+  ``max_voxels`` equals the full grid;
+* otherwise the capped stream (JAX :460-490): only the first
+  ``max_pillars`` cells in pid order keep their points
+  (``ops/stream_pillars.py::pillarize_stream``), and the v1 PFN
+  (``ops/pfn.py::stream_pfn``, kernel 10) writes their (B, P, C) table.
+
+Both end in the scatter with the pseudo-image LayerNorm fused in
+(``ops/canvas.py``, kernel 2). The norm statistics come from the pillar
+table: canvas cells are pillar features or exact zeros, so sum and sum of
+squares over the canvas equal those over the table.
 
 The training form (``forward(..., train=True)``) is the JAX package's
 training path: the capped stream pillarizer
@@ -28,8 +36,9 @@ import torch
 from torch import nn
 
 from mask_bev_tpu_torch.models.swin import forget_packed
-from mask_bev_tpu_torch.ops.canvas import canvas_norm, canvas_scatter
-from mask_bev_tpu_torch.ops.pfn import pack_weights, pfn
+from mask_bev_tpu_torch.ops.canvas import (
+    canvas_norm, canvas_scatter, pick_rows_per_block)
+from mask_bev_tpu_torch.ops.pfn import pack_weights, pfn, stream_pfn
 from mask_bev_tpu_torch.ops.stream_pillars import (
     StreamPillars, gather_at_starts, grid_size, pillarize_stream,
     pillarize_stream_packed, windowed_segment_max, windowed_segment_sum)
@@ -176,13 +185,15 @@ class PseudoImageNorm(nn.Module):
 
 class MaskBevEncoder(nn.Module):
     """points (B, N, D) + mask -> normalised canvas (B, H, W, C).
-    ``max_pillars`` caps the pillars of the training form only."""
+    ``max_pillars`` caps the pillars of the training form and of the eval
+    form when the slot path is off."""
 
     def __init__(self, x_range, y_range, z_range, voxel_size: float,
                  feat_channels: Sequence[int] = (128, 128, 128),
                  max_points_per_pillar: int = 32, point_dim: int = 4,
                  pseudo_image_norm: str = "full",
-                 encoding_type: str = "vanilla", max_pillars: int = 32768):
+                 encoding_type: str = "vanilla", max_pillars: int = 32768,
+                 use_pallas: bool = True):
         super().__init__()
         if encoding_type != "vanilla":
             raise NotImplementedError(
@@ -192,6 +203,8 @@ class MaskBevEncoder(nn.Module):
         self.voxel_size = voxel_size
         self.k = max_points_per_pillar
         self.max_pillars = max_pillars
+        self.use_pallas = use_pallas
+        self.channels = feat_channels[-1]
         self.grid_hw = grid_size(x_range, y_range, voxel_size)
         self.pillar_feature_net = PillarFeatureNet(feat_channels, point_dim)
         self.norm = PseudoImageNorm(self.grid_hw, feat_channels[-1],
@@ -203,34 +216,71 @@ class MaskBevEncoder(nn.Module):
         self._packed = None  # weights moved or cast: re-pack for the kernel
         return super()._apply(fn, *args, **kwargs)
 
+    def uses_slot_path(self, train: bool) -> bool:
+        """True iff the eval form takes the slot path (kernel 1, every cell
+        kept); the JAX package's condition without its TPU check."""
+        h, w = self.grid_hw
+        return (self.use_pallas and not train
+                and self.pillar_feature_net.point_dim <= 4
+                and self.channels % 128 == 0
+                and bool(pick_rows_per_block(h, w)))
+
+    def _weights(self, device):
+        weights = self.pillar_feature_net.folded_weights()
+        if device.type == "cuda" and self._packed is None:
+            self._packed = pack_weights(weights, device)
+        return weights, (self._packed if device.type == "cuda" else None)
+
     def pillar_table(self, points: torch.Tensor, point_mask: torch.Tensor):
-        """Kernel 1's inputs and outputs: (stream, table, stats)."""
+        """Kernel 1's inputs and outputs: (stream, table, stats).
+        ``cells`` and ``num_pillars`` of the stream index the table."""
         ps = pillarize_stream_packed(
             points, point_mask, x_range=self.x_range, y_range=self.y_range,
             z_range=self.z_range, voxel_size=self.voxel_size,
             max_points_per_pillar=self.k)
-        weights = self.pillar_feature_net.folded_weights()
-        if points.is_cuda and self._packed is None:
-            self._packed = pack_weights(weights, points.device)
+        weights, packed = self._weights(points.device)
         table, stats = pfn(
             ps, weights, point_dim=self.pillar_feature_net.point_dim,
             with_distance=self.pillar_feature_net.with_distance,
             grid_w=self.grid_hw[1], voxel_size=self.voxel_size,
             x0=self.x_range[0], y0=self.y_range[0],
             max_points_per_pillar=self.k, out_dtype=points.dtype,
-            packed=self._packed if points.is_cuda else None)
+            packed=packed)
         return ps, table, stats
+
+    def capped_table(self, points: torch.Tensor, point_mask: torch.Tensor):
+        """Kernel 10's inputs and outputs: (capped stream, table, stats,
+        occupied slots per sample)."""
+        sp = pillarize_stream(
+            points, point_mask, x_range=self.x_range, y_range=self.y_range,
+            z_range=self.z_range, voxel_size=self.voxel_size,
+            max_points_per_pillar=self.k, max_pillars=self.max_pillars)
+        num_valid = sp.valid.sum(dim=1).to(torch.int32)
+        weights, packed = self._weights(points.device)
+        net = self.pillar_feature_net
+        table, stats = stream_pfn(
+            sp, weights, k=self.k, with_distance=net.with_distance,
+            grid_w=self.grid_hw[1], voxel_size=self.voxel_size,
+            x0=self.x_range[0], y0=self.y_range[0], out_dtype=points.dtype,
+            num_valid=num_valid, packed=packed)
+        return sp, table, stats, num_valid
 
     def forward(self, points: torch.Tensor, point_mask: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
         if train:
             return self.forward_train(points, point_mask)
-        ps, table, stats = self.pillar_table(points, point_mask)
+        if self.uses_slot_path(train):
+            ps, table, stats = self.pillar_table(points, point_mask)
+            cells, num_pillars = ps.cells, ps.num_pillars
+        else:
+            sp, table, stats, num_pillars = self.capped_table(points,
+                                                              point_mask)
+            cells = sp.cells
         h, w = self.grid_hw
         elems = float(h * w * table.shape[-1])
         mean = stats[:, 0] / elems
         var = stats[:, 1] / elems - mean * mean
-        return canvas_norm(table, ps.cells, ps.num_pillars, mean, var,
+        return canvas_norm(table, cells, num_pillars, mean, var,
                            self.norm.weight.detach(),
                            self.norm.bias.detach(), self.grid_hw,
                            self.norm.eps)

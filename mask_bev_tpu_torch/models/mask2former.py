@@ -87,9 +87,9 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.cross = MultiHeadAttention(dim, num_heads)
         self.self_attn = MultiHeadAttention(dim, num_heads)
-        self.norm1 = LayerNorm(dim)
-        self.norm2 = LayerNorm(dim)
-        self.norm3 = LayerNorm(dim)
+        self.norm1 = LayerNorm(dim, fast_variance=False)
+        self.norm2 = LayerNorm(dim, fast_variance=False)
+        self.norm3 = LayerNorm(dim, fast_variance=False)
         self.ffn = FFN(dim, ffn_dim)
 
     def forward(self, out, qpos, mem, pe, bias):
@@ -125,7 +125,7 @@ class MaskHeads(nn.Module):
                  out_channels: int):
         super().__init__()
         c = feat_channels
-        self.decoder_norm = LayerNorm(c)
+        self.decoder_norm = LayerNorm(c, fast_variance=False)
         self.cls_embed = nn.Linear(c, num_classes + 1)
         self.mask_mlp1 = nn.Linear(c, c)
         self.mask_mlp2 = nn.Linear(c, c)

@@ -2,7 +2,13 @@
 
 Port of ``mask_bev_tpu/models/maskbev.py:24-117``: encoder -> Swin backbone
 -> conv-FPN pixel decoder -> Mask2Former decoder. ``train=False,
-final_only=True`` is the serving path (kernels 1-4); ``train=True,
+final_only=True`` is the serving path; the config's switches choose its
+kernels as they choose the JAX package's (``use_pallas_encoder``: the slot
+PFN or the capped-stream PFN; ``use_pallas_backbone``: the whole-block
+kernel or the XLA-form blocks, whose attention is the window-MSA kernel
+with ``use_pallas_attention``; ``fuse_patch_embed``: the patch-embed
+kernel where :meth:`MaskBev.flat_embed_ok`; the canvas and decoder-stack
+kernels always). ``train=True,
 final_only=False`` is the training forward (training encoder with kernel A
 and its backward B, plain-torch backbone and decoder, all L+1 head passes).
 Gradients are tracked as usual: the serving entry point
@@ -40,7 +46,7 @@ class MaskBev(nn.Module):
             point_dim=c.pc_point_dim,
             pseudo_image_norm=c.pseudo_image_norm,
             encoding_type=c.encoder_encoding_type,
-            max_pillars=c.max_num_pillars)
+            max_pillars=c.max_num_pillars, use_pallas=c.use_pallas_encoder)
         self.backbone = SwinTransformer(
             c.encoder_feat_channels[-1], embed_dim=c.backbone_embed_dim,
             depths=tuple(c.backbone_depths),
@@ -49,7 +55,9 @@ class MaskBev(nn.Module):
             patch_stride=strides[0], mlp_ratio=c.backbone_mlp_ratio,
             quantize_int8=(c.backbone_quantize == "int8"),
             drop_path_rate=c.backbone_drop_path_rate,
-            remat=c.remat_backbone)
+            remat=c.remat_backbone, use_pallas=c.use_pallas_attention,
+            use_pallas_block=c.use_pallas_backbone)
+        self.cfg = c
         e = c.backbone_embed_dim
         self.pixel_decoder = PixelDecoder(
             [e, 2 * e, 4 * e, 8 * e], feat_channels=c.head_feat_channels,
@@ -93,12 +101,27 @@ class MaskBev(nn.Module):
             out[name] = v.to(t.dtype)
         return out
 
+    def flat_embed_ok(self, train: bool) -> bool:
+        """Kernel 8 for the patch embed: ``_flat_embed_ok`` of the JAX
+        package (:86-98) without its TPU check: ``fuse_patch_embed``, eval,
+        the encoder's slot path, stride == patch, whole patches, no
+        absolute embedding."""
+        c = self.cfg
+        h, w = self.encoder.grid_hw
+        p = c.backbone_patch_size
+        return (c.fuse_patch_embed and not train
+                and self.encoder.uses_slot_path(train)
+                and not c.backbone_use_abs_emb
+                and tuple(c.backbone_strides)[0] == p
+                and h % p == 0 and w % p == 0)
+
     def forward(self, points: torch.Tensor, point_mask: torch.Tensor,
                 train: bool = False, final_only: bool = True,
                 generator=None) -> DecoderOutputs:
         """``train``: training encoder (updates the batch-norm running
         statistics) and backbone (drop path drawn from ``generator``)."""
         x = self.encoder(points, point_mask, train=train)
-        feats = self.backbone(x, train=train, generator=generator)
+        feats = self.backbone(x, train=train, generator=generator,
+                              fused_embed=self.flat_embed_ok(train))
         mask_features, memories = self.pixel_decoder(feats)
         return self.decoder(mask_features, memories, final_only=final_only)

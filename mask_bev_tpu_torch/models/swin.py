@@ -1,12 +1,22 @@
 """Swin-Transformer BEV backbone (NHWC in, 4-level NHWC pyramid out).
 
 Port of ``mask_bev_tpu/models/swin.py``: patch embed with mmdet's 'corner'
-padding, stages of (shifted-)window blocks (``ops/swin_block.py``, kernel
-3, for every stage), patch merging with the concat order ``[x0, x1, x2,
-x3]``, and per-stage output LayerNorms. Every block is a module
-``stage{i}_block{d}``; the JAX package's ``nn.scan``-stacked
+padding, stages of (shifted-)window blocks, patch merging with the concat
+order ``[x0, x1, x2, x3]``, and per-stage output LayerNorms. Every block is
+a module ``stage{i}_block{d}``; the JAX package's ``nn.scan``-stacked
 ``stage{i}_pairs`` trees are split into those blocks by the weight bridge
 (``models/convert.py``).
+
+Eval takes the JAX package's switches (JAX :470-488, :511-527, :222-240):
+``use_pallas_block`` runs every block as kernel 3 (``ops/swin_block.py``);
+otherwise a block runs as the XLA form, its window attention as kernel 7
+(``ops/window_msa.py``) with ``use_pallas`` unless it is int8. ``fuse_ln``
+(with ``use_pallas_block``) runs ``patch_norm`` and ``out_norm{i}`` as
+kernel 9 (``ops/layer_norm.py``). ``forward(..., fused_embed=True)`` runs
+the patch embed and ``patch_norm`` as kernel 8 (``ops/patch_embed.py``);
+the caller checks the conditions (``models/maskbev.py``). The blocks' and
+the decoder's norms are the JAX ``LayerNormP`` (two-pass variance); the
+patch, output and merging norms are flax ``nn.LayerNorm`` (fast variance).
 
 Training (``forward(x, train=True)``) runs the blocks as the JAX package
 trains them, the XLA form (``mask_bev_tpu/models/swin.py:222`` and :512 take
@@ -27,25 +37,34 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from mask_bev_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+from mask_bev_tpu_torch.ops.patch_embed import embed_matrix, patch_embed
 from mask_bev_tpu_torch.ops.swin_block import (
-    BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm,
-    make_dense, rel_bias_from_table, swin_block, window_msa_plain)
+    BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm_p,
+    make_dense, merge_windows, partition_windows, rel_bias_from_table,
+    shift_mask, swin_block, window_msa_plain)
+from mask_bev_tpu_torch.ops.window_msa import window_msa
 
 __all__ = ["LayerNorm", "SwinBlock", "PatchMerging", "SwinTransformer",
            "int8_sim_dense", "linear", "forget_packed"]
 
 
 class LayerNorm(nn.Module):
-    """flax LayerNorm semantics: f32 statistics, eps 1e-6, input dtype out."""
+    """f32 statistics, eps 1e-6, input dtype out: flax ``nn.LayerNorm``'s
+    fast variance, or with ``fast_variance=False`` the two-pass form of the
+    JAX package's ``LayerNormP``."""
 
-    def __init__(self, features: int, eps: float = 1e-6):
+    def __init__(self, features: int, eps: float = 1e-6,
+                 fast_variance: bool = True):
         super().__init__()
         self.eps = eps
+        self.fast_variance = fast_variance
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        norm = layer_norm_plain if self.fast_variance else layer_norm_p
+        return norm(x, self.weight, self.bias, self.eps)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -86,9 +105,9 @@ class SwinBlock(nn.Module):
         self.window = window
         self.shift = shift
         self.quantize = quantize
-        self.norm1 = LayerNorm(dim)
+        self.norm1 = LayerNorm(dim, fast_variance=False)
         self.attn = ShiftWindowMSA(dim, num_heads, window)
-        self.norm2 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim, fast_variance=False)
         self.ffn_1 = nn.Linear(dim, dim * mlp_ratio)
         self.ffn_2 = nn.Linear(dim * mlp_ratio, dim)
         self._packed = None
@@ -130,20 +149,33 @@ class SwinBlock(nn.Module):
             rel_bias_from_table(msa.rel_pos_bias_table, self.window))
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                train: bool = False, drop=None) -> torch.Tensor:
+                train: bool = False, drop=None, fused: bool = True,
+                fused_attention: bool = False) -> torch.Tensor:
         """``drop`` (training): the two residual branches' per-sample drop
-        path factors, each (B, 1, 1) f32 ``mask / keep``, or None."""
+        path factors, each (B, 1, 1) f32 ``mask / keep``, or None. Eval:
+        ``fused`` runs the block as kernel 3; otherwise the XLA form, with
+        kernel 7's window attention if ``fused_attention`` and not int8."""
         shift = effective_shift(hw, self.window, self.shift)
-        if not train:
+        if not train and fused:
             return swin_block(x, self.weights(), hw, self.window,
                               self.num_heads, shift, self.quantize)
-        p = self.live_weights()
-        y = window_msa_plain(layer_norm(x, p.ln1_w, p.ln1_b), p, hw,
-                             self.window, self.num_heads, shift, False)
+        p = self.weights() if not train else self.live_weights()
+        quant = self.quantize and not train
+        y = layer_norm_p(x, p.ln1_w, p.ln1_b)
+        if (not train and fused_attention and not quant
+                and x.shape[-1] % self.num_heads == 0):
+            xw = window_msa(partition_windows(y, hw, self.window, shift),
+                            p.rel_bias,
+                            shift_mask(hw, self.window, shift, x.device),
+                            p.qkv, p.proj, self.num_heads)
+            y = merge_windows(xw, hw, self.window, shift)
+        else:
+            y = window_msa_plain(y, p, hw, self.window, self.num_heads,
+                                 shift, quant)
         x = x + (y if drop is None else y * drop[0].to(y.dtype))
-        y = layer_norm(x, p.ln2_w, p.ln2_b)
-        y = dense(F.gelu(dense(y, p.fc1, False), approximate="none"), p.fc2,
-                  False)
+        y = layer_norm_p(x, p.ln2_w, p.ln2_b)
+        y = dense(F.gelu(dense(y, p.fc1, quant), approximate="none"), p.fc2,
+                  quant)
         return x + (y if drop is None else y * drop[1].to(y.dtype))
 
 
@@ -175,10 +207,14 @@ class SwinTransformer(nn.Module):
                  window: int = 10, patch_size: int = 4,
                  patch_stride: int = None, mlp_ratio: int = 4,
                  quantize_int8: bool = False, drop_path_rate: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, use_pallas: bool = True,
+                 use_pallas_block: bool = True, fuse_ln: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.remat = remat
+        self.use_pallas = use_pallas
+        self.use_pallas_block = use_pallas_block
+        self.fuse_ln = fuse_ln
         self.patch_size = patch_size
         self.stride = patch_stride or patch_size
         self.embed_dim = embed_dim
@@ -196,6 +232,18 @@ class SwinTransformer(nn.Module):
             if i < len(self.depths) - 1:
                 self.add_module(f"merge{i}", PatchMerging(dim, 2 * dim))
                 dim *= 2
+        self._packed = None
+        self.register_load_state_dict_post_hook(forget_packed)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def embed_weights(self) -> torch.Tensor:
+        """Kernel 8's (E, p*p*C) patch-embed matrix, built once."""
+        if self._packed is None:
+            self._packed = embed_matrix(self.patch_embed.weight)
+        return self._packed
 
     def drop_factors(self, batch: int, device, generator=None):
         """Per block, the training drop path factors of its two residual
@@ -214,18 +262,38 @@ class SwinTransformer(nn.Module):
             out.append((u < keep).float() / keep)
         return out
 
+    def _norm(self, name: str, x: torch.Tensor, fuse_blocks: bool):
+        """``patch_norm``/``out_norm{i}``: kernel 9 with ``fuse_ln`` on the
+        fused eval path, else the module (JAX ``_ln``, :516-527)."""
+        ln = getattr(self, name)
+        if fuse_blocks and self.fuse_ln:
+            return layer_norm(x, ln.weight.detach(), ln.bias.detach(), ln.eps)
+        return ln(x)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator=None) -> List[torch.Tensor]:
+                generator=None, fused_embed: bool = False
+                ) -> List[torch.Tensor]:
+        """``fused_embed`` (eval): patch embed + ``patch_norm`` as kernel 8;
+        the caller guarantees stride == patch and a grid of whole
+        patches."""
         b, h, w, _ = x.shape
         drops = (self.drop_factors(b, x.device, generator) if train
                  else [None] * sum(self.depths))
+        fuse_blocks = self.use_pallas_block and not train
         p, s = self.patch_size, self.stride
         gh, gw = -(-h // s), -(-w // s)
-        pad_h = max((gh - 1) * s + p - h, 0)
-        pad_w = max((gw - 1) * s + p - w, 0)
-        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)).permute(0, 3, 1, 2)
-        x = self.patch_embed(x).permute(0, 2, 3, 1)
-        x = self.patch_norm(x.reshape(b, gh * gw, self.embed_dim))
+        if fused_embed and not train:
+            pe, pn = self.patch_embed, self.patch_norm
+            x = patch_embed(x, self.embed_weights(), pe.bias.detach(),
+                            pn.weight.detach(), pn.bias.detach(), p, pn.eps)
+        else:
+            pad_h = max((gh - 1) * s + p - h, 0)
+            pad_w = max((gw - 1) * s + p - w, 0)
+            x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)).permute(0, 3, 1, 2)
+            x = self.patch_embed(x).permute(0, 2, 3, 1)
+            x = self._norm("patch_norm", x.reshape(b, gh * gw,
+                                                   self.embed_dim),
+                           fuse_blocks)
         hw = (gh, gw)
         outs = []
         bi = 0
@@ -236,9 +304,10 @@ class SwinTransformer(nn.Module):
                     x = torch.utils.checkpoint.checkpoint(
                         blk, x, hw, True, drops[bi], use_reentrant=False)
                 else:
-                    x = blk(x, hw, train, drops[bi])
+                    x = blk(x, hw, train, drops[bi], fuse_blocks,
+                            self.use_pallas)
                 bi += 1
-            y = getattr(self, f"out_norm{i}")(x)
+            y = self._norm(f"out_norm{i}", x, fuse_blocks)
             outs.append(y.reshape(b, hw[0], hw[1], -1))
             if i < len(self.depths) - 1:
                 x, hw = getattr(self, f"merge{i}")(x, hw)

@@ -84,6 +84,23 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     return out
 
 
+def pick_rows_per_block(h: int, w: int) -> int:
+    """The port's copy of ``mask_bev_tpu/ops/pallas_canvas.py::
+    pick_rows_per_block`` (for dense tables, ``slots=0``): the TPU canvas
+    kernel's block height (r divides h, r*w a multiple of 8 and at most
+    4096, the first with h // r <= 128 if any), 0 if none exists. The
+    port's canvas kernel has no such block; the encoder uses it only to
+    choose the path the JAX package takes (``models/encoder.py::
+    uses_slot_path``)."""
+    first = 0
+    for r in range(1, h + 1):
+        if h % r == 0 and (r * w) % 8 == 0 and r * w <= 4096:
+            first = first or r
+            if h // r <= 128:
+                return r
+    return first
+
+
 # ------------------------------------------------- kernels A and B (training)
 
 

@@ -1,4 +1,4 @@
-"""Kernel 1: the pillar feature net on the sorted point stream.
+"""Kernels 1 and 10: the pillar feature net on the sorted point stream.
 
 Replaces ``mask_bev_tpu/ops/pallas_pfn.py::fused_stream_pfn_slots``. Where
 the TPU kernel emits one slot per sorted point, this one emits a dense
@@ -17,6 +17,16 @@ describe the rounded values that were written.
 
 Rows at and beyond ``ps.num_pillars[b]`` are left unspecified by the kernel
 (the canvas never reads them) and are zero in the plain version.
+
+Kernel 10 (:func:`stream_pfn`) replaces
+``mask_bev_tpu/ops/pallas_pfn.py::fused_stream_pfn``, the v1 PFN that the
+eval path runs when the slot path is off (``models/encoder.py:228-240,
+460-471``): the capped stream of ``ops/stream_pillars.py::
+pillarize_stream`` (only the first ``max_pillars`` cells keep their
+points), the same decoration and layers as kernel 1 with windowed
+reductions over contiguous pid runs, and the rows read at the pillar
+starts (``gather_at_starts``). Its output is that (B, P, C) pillar table,
+zero on unused slots, with the same statistics as kernel 1.
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ from typing import List, Sequence, Tuple
 import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
-from mask_bev_tpu_torch.ops.stream_pillars import PillarStream
+from mask_bev_tpu_torch.ops.stream_pillars import (
+    PillarStream, StreamPillars, gather_at_starts, windowed_segment_max,
+    windowed_segment_sum)
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -82,10 +94,14 @@ def pfn_plain(ps: PillarStream, weights: Weights, *, point_dim: int,
     occupied = (torch.arange(n, device=x.device)[None]
                 < ps.num_pillars[:, None].to(x.device))
     table = torch.where(occupied[..., None], x, 0.0).to(out_dtype)
+    return table, table_stats(table)
+
+
+def table_stats(table: torch.Tensor) -> torch.Tensor:
+    """(B, 2) f32 [sum, sum of squares] of a (B, P, C) table's values."""
     t32 = table.float()
-    stats = torch.stack([t32.sum(dim=(1, 2)), (t32 * t32).sum(dim=(1, 2))],
-                        dim=-1)
-    return table, stats
+    return torch.stack([t32.sum(dim=(1, 2)), (t32 * t32).sum(dim=(1, 2))],
+                       dim=-1)
 
 
 _WARPS = 16  # most pillars in flight per block, one warp each
@@ -154,4 +170,95 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
               kb.ci(_WARPS), kb.stream())
     kb.launch("pfn", "pfn_stats", kb.ptr(partials), kb.ptr(ps.num_pillars),
               kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream())
+    return table, stats
+
+
+# --------------------------------------------------------------- kernel 10
+
+
+def stream_pfn_plain(sp: StreamPillars, weights: Weights, *, k: int,
+                     with_distance: bool, grid_w: int, voxel_size: float,
+                     x0: float, y0: float, out_dtype: torch.dtype
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 10, the TPU kernel's function step
+    by step: (table (B, P, C) out_dtype, stats (B, 2) f32)."""
+    pts = sp.pts.float()
+    keptf = sp.kept.float()[..., None]
+    xyz = pts[..., :3]
+    w4 = torch.cat([xyz, torch.ones_like(xyz[..., :1])], -1) * keptf
+    sums = windowed_segment_sum(w4, sp.pid, k)
+    mean = sums[..., :3] / torch.clamp(sums[..., 3:], min=1.0)
+    pid = sp.pid.long()
+    ix = (pid % grid_w).float()
+    iy = torch.div(pid, grid_w, rounding_mode="floor").float()
+    cx = ix * voxel_size + (x0 + 0.5 * voxel_size)
+    cy = iy * voxel_size + (y0 + 0.5 * voxel_size)
+    parts = [pts, xyz - mean, torch.stack([xyz[..., 0] - cx,
+                                           xyz[..., 1] - cy], -1)]
+    if with_distance:
+        parts.append(torch.sqrt((xyz * xyz).sum(-1, keepdim=True)))
+    x = torch.cat(parts, -1) * keptf
+    nl = len(weights)
+    for li, (w, g, bias) in enumerate(weights):
+        z = torch.relu((x.to(w.dtype).float() @ w.float()) * g.float()
+                       + bias.float()) * keptf
+        pooled = windowed_segment_max(z, sp.pid, k, symmetric=li < nl - 1)
+        x = pooled if li == nl - 1 else torch.cat([z, pooled], -1)
+    table = gather_at_starts(x, sp.starts, sp.valid).to(out_dtype)
+    return table, table_stats(table)
+
+
+def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
+               with_distance: bool, grid_w: int, voxel_size: float,
+               x0: float, y0: float, out_dtype: torch.dtype,
+               num_valid: torch.Tensor, packed=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 10 for CUDA tensors (bf16 points, weights and table only),
+    the plain version for CPU tensors. ``num_valid`` (B,) int32: occupied
+    slots per sample; ``packed``: cached ``pack_weights``."""
+    if not sp.pts.is_cuda:
+        return stream_pfn_plain(sp, weights, k=k, with_distance=with_distance,
+                                grid_w=grid_w, voxel_size=voxel_size, x0=x0,
+                                y0=y0, out_dtype=out_dtype)
+    b, n, d = sp.pts.shape
+    p = sp.starts.shape[1]
+    if k > 32 or d not in (3, 4):
+        raise ValueError(f"stream pfn kernel takes at most 32 points per "
+                         f"pillar and 3 or 4 point columns, got k={k}, D={d}")
+    if len(weights) > 4 or any(w.shape[1] > 128 for (w, _, _) in weights):
+        raise ValueError("stream pfn kernel takes at most 4 layers of at "
+                         "most 128 units")
+    if (sp.pts.dtype != torch.bfloat16 or out_dtype != torch.bfloat16
+            or any(w.dtype != torch.bfloat16 for (w, _, _) in weights)):
+        raise ValueError("the stream pfn kernel takes bf16 points and "
+                         "weights and writes a bf16 table; f32 runs only on "
+                         "the CPU")
+    pts = sp.pts.contiguous()
+    starts = sp.starts.to(torch.int32).contiguous()
+    kb.check_cuda(pts, "pts", torch.bfloat16, (b, n, d))
+    kb.check_cuda(sp.pid, "pid", torch.int32, (b, n))
+    kb.check_cuda(sp.kept, "kept", torch.bool, (b, n))
+    kb.check_cuda(starts, "starts", torch.int32, (b, p))
+    kb.check_cuda(sp.cells, "cells", torch.int32, (b, p))
+    kb.check_cuda(num_valid, "num_valid", torch.int32, (b,))
+    wpack, dims = packed if packed is not None else pack_weights(
+        weights, pts.device)
+    kb.check_cuda(wpack, "wpack", torch.float32)
+    c_out = dims[-1]
+    table = torch.empty((b, p, c_out), dtype=out_dtype, device=pts.device)
+    partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
+    stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
+    dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
+    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+    blocks_per_sample = max(1, (2 * sms + b - 1) // b)
+    kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
+              kb.ptr(sp.pid), kb.ptr(sp.kept), kb.ptr(starts),
+              kb.ptr(sp.cells), kb.ptr(num_valid), kb.ptr(wpack), dims_arr,
+              kb.ptr(table), kb.ptr(partials), kb.ci(b), kb.ci(n), kb.ci(p),
+              kb.ci(k), kb.ci(d), kb.ci(with_distance), kb.ci(grid_w),
+              kb.cf(voxel_size), kb.cf(x0 + 0.5 * voxel_size),
+              kb.cf(y0 + 0.5 * voxel_size), kb.ci(blocks_per_sample),
+              kb.ci(_WARPS), kb.stream())
+    kb.launch("stream_pfn", "pfn_stats", kb.ptr(partials), kb.ptr(num_valid),
+              kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream())
     return table, stats

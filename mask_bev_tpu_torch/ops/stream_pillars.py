@@ -8,9 +8,10 @@ plus the pillar directory that the JAX slot kernel builds in-kernel
 run starts, per-pillar kept counts, and the ascending occupied cells with
 the ``H*W`` sentinel after the last pillar. All plain torch.
 
-Every occupied cell is kept, as the TPU slot path does (there is no
-``max_pillars`` cap on the eval path; the reference voxelizer's
-``max_voxels`` equals the full grid). "First K" is the first K points of a
+This directory keeps every occupied cell, as the TPU slot path does (the
+reference voxelizer's ``max_voxels`` equals the full grid); the encoder
+takes it only where the JAX package takes the slot path, and the capped
+``pillarize_stream`` below otherwise. "First K" is the first K points of a
 cell in input order: the sort is stable.
 
 Training form: port of ``pillarize_stream`` (:135-224) with its

@@ -11,13 +11,15 @@ the unpadded (B, H*W, C) token grid:
   win``. Pad tokens are zero after LN1 and still take part as keys and
   values (k = b_k, v = b_v), exactly as ``jnp.pad`` after ``norm1`` does;
 * the relative-position bias and the -100 shift-region mask are added to
-  the f32 scores; LayerNorms are two-pass f32 with eps 1e-6; GELU is the
+  the f32 scores; LayerNorms are two-pass f32 with eps 1e-6 (the JAX
+  block's ``LayerNormP`` and its TPU kernel's form); GELU is the
   exact erf GELU that the reference XLA path computes;
 * with ``quant`` the four dense products (qkv, proj, fc1, fc2) follow
   ``int8_sim_dense`` bit for bit: per-token activation scale
   ``max|x| / 127`` floored at 1e-6, per-output-channel weight scale floored
   at 1e-8, round half to even, clip to +-127, int32 accumulation, f32
-  dequantisation plus bias.
+  dequantisation plus bias. XLA computes ``/ 127.0`` as a product with the
+  f32 reciprocal of 127 (``INV127``), so both scales are taken that way.
 
 Rounding follows the reference XLA block in the model dtype D: LN outputs,
 qkv, attention probabilities and outputs, projections and residual sums are
@@ -40,6 +42,9 @@ from mask_bev_tpu_torch.kernels import build as kb
 
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
 EPI_ROUND_ACC = 16  # round the raw product to D before the bias (XLA order)
+# XLA rewrites a division by the constant 127 into a product with its f32
+# reciprocal; the int8 scales use that product to match it bit for bit
+INV127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 class Dense(NamedTuple):
@@ -68,7 +73,7 @@ def quantize_weight(wt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, K) weight -> per-output-channel int8 (N, K) and scale (N,) f32,
     as ``int8_sim_dense`` quantises the (K, N) kernel along K."""
     w32 = wt.float()
-    sw = torch.clamp(w32.abs().amax(dim=1), min=1e-8) / 127.0
+    sw = torch.clamp(w32.abs().amax(dim=1), min=1e-8) * INV127
     q = torch.clamp(torch.round(w32 / sw[:, None]), -127, 127)
     return q.to(torch.int8).contiguous(), sw.contiguous()
 
@@ -88,7 +93,7 @@ def make_dense(weight: torch.Tensor, bias: Optional[torch.Tensor],
 def quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 quantisation (values as f32) and scale (..., 1)."""
     x32 = x.float()
-    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-6) * INV127
     return torch.clamp(torch.round(x32 / sx), -127.0, 127.0), sx
 
 
@@ -107,9 +112,13 @@ def dense(x: torch.Tensor, d: Dense, quant: bool) -> torch.Tensor:
     return x @ d.wt.t().to(x.dtype) + d.bias.to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """flax LayerNorm: f32 statistics, two-pass variance, output in D."""
+def layer_norm_p(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """The JAX package's ``LayerNormP`` (``models/swin.py:71-92``; the
+    Swin blocks' and the decoder's norms, and the TPU block kernel's): f32
+    statistics, two-pass variance ``E[(x - E[x])^2]``, output in D. The
+    backbone's other norms are flax ``nn.LayerNorm``, whose fast-variance
+    form is ``ops/layer_norm.py::layer_norm_plain``."""
     x32 = x.float()
     xc = x32 - x32.mean(dim=-1, keepdim=True)
     var = (xc * xc).mean(dim=-1, keepdim=True)
@@ -160,9 +169,10 @@ def effective_shift(hw: Tuple[int, int], win: int, shifted: bool) -> int:
     return 0 if (not shifted or min(hp, wp) == win) else win // 2
 
 
-def window_msa_plain(y: torch.Tensor, p: BlockWeights, hw, win: int,
-                     heads: int, shift: int, quant: bool) -> torch.Tensor:
-    """Port of ``ShiftWindowMSA`` + ``WindowMSA`` on LN1's output."""
+def partition_windows(y: torch.Tensor, hw, win: int, shift: int
+                      ) -> torch.Tensor:
+    """(B, H*W, C) tokens -> (B, nW, win², C) windows of the zero-padded
+    grid, rolled by ``-shift`` first (``ShiftWindowMSA``'s partition)."""
     h, w = hw
     b, _, c = y.shape
     hp, wp = -(-h // win) * win, -(-w // win) * win
@@ -170,35 +180,62 @@ def window_msa_plain(y: torch.Tensor, p: BlockWeights, hw, win: int,
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
     nwh, nww = hp // win, wp // win
-    n, hd = win * win, c // heads
-    xw = (x.reshape(b, nwh, win, nww, win, c).permute(0, 1, 3, 2, 4, 5)
-          .reshape(b * nwh * nww, n, c))
-    qkv = dense(xw, p.qkv, quant)
-    qkv = qkv.reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    attn = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2)
-    bias = p.rel_bias[None]
-    if shift:
-        mask = torch.as_tensor(shift_attn_mask(hp, wp, win, shift),
-                               device=y.device)
-        bias = (bias + mask[:, None]).repeat(b, 1, 1, 1)
-    attn = torch.softmax(attn + bias, dim=-1).to(y.dtype)
-    out = (attn.float() @ v.float()).to(y.dtype)
-    out = out.transpose(1, 2).reshape(-1, n, c)
-    out = dense(out, p.proj, quant)
-    x = (out.reshape(b, nwh, nww, win, win, c).permute(0, 1, 3, 2, 4, 5)
+    return (x.reshape(b, nwh, win, nww, win, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, nwh * nww, win * win, c))
+
+
+def merge_windows(xw: torch.Tensor, hw, win: int, shift: int
+                  ) -> torch.Tensor:
+    """Inverse of :func:`partition_windows`: (B, nW, win², C) -> (B, H*W,
+    C), rolled back by ``shift`` and cropped to the grid."""
+    h, w = hw
+    b, _, _, c = xw.shape
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    nwh, nww = hp // win, wp // win
+    x = (xw.reshape(b, nwh, nww, win, win, c).permute(0, 1, 3, 2, 4, 5)
          .reshape(b, hp, wp, c))
     if shift:
         x = torch.roll(x, (shift, shift), dims=(1, 2))
     return x[:, :h, :w].reshape(b, h * w, c)
 
 
+def shift_mask(hw, win: int, shift: int, device) -> Optional[torch.Tensor]:
+    """The (nW, win², win²) f32 shift-region mask, or None unshifted."""
+    if not shift:
+        return None
+    hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
+    return torch.as_tensor(shift_attn_mask(hp, wp, win, shift),
+                           device=device)
+
+
+def window_msa_plain(y: torch.Tensor, p: BlockWeights, hw, win: int,
+                     heads: int, shift: int, quant: bool) -> torch.Tensor:
+    """Port of ``ShiftWindowMSA`` + ``WindowMSA`` (the XLA form) on LN1's
+    output: q scaled before its product, bf16 qkv and projection in XLA
+    order, or their int8 form."""
+    xw = partition_windows(y, hw, win, shift)
+    b, nw, n, c = xw.shape
+    hd = c // heads
+    qkv = dense(xw.reshape(b * nw, n, c), p.qkv, quant)
+    qkv = qkv.reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    attn = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2)
+    bias = p.rel_bias[None]
+    mask = shift_mask(hw, win, shift, y.device)
+    if mask is not None:
+        bias = (bias + mask[:, None]).repeat(b, 1, 1, 1)
+    attn = torch.softmax(attn + bias, dim=-1).to(y.dtype)
+    out = (attn.float() @ v.float()).to(y.dtype)
+    out = dense(out.transpose(1, 2).reshape(-1, n, c), p.proj, quant)
+    return merge_windows(out.reshape(b, nw, n, c), hw, win, shift)
+
+
 def swin_block_plain(x: torch.Tensor, p: BlockWeights, hw, win: int,
                      heads: int, shift: int, quant: bool) -> torch.Tensor:
     """Plain PyTorch version of one block on (B, H*W, C) tokens in D."""
-    y = layer_norm(x, p.ln1_w, p.ln1_b)
+    y = layer_norm_p(x, p.ln1_w, p.ln1_b)
     x = x + window_msa_plain(y, p, hw, win, heads, shift, quant)
-    y = layer_norm(x, p.ln2_w, p.ln2_b)
+    y = layer_norm_p(x, p.ln2_w, p.ln2_b)
     y = F.gelu(dense(y, p.fc1, quant), approximate="none")
     return x + dense(y, p.fc2, quant)
 

@@ -135,8 +135,9 @@ def test_table_and_stats_match_pallas_slot_kernels():
 
 def test_every_cell_kept_where_xla_caps_pillars():
     """The XLA stream path keeps only the first ``max_pillars`` cells by
-    ascending id; the port (like the TPU slot path) keeps every occupied
-    cell. With the cap on, the XLA table is the port's first rows."""
+    ascending id; the port's slot-path table (like the TPU slot path) keeps
+    every occupied cell. With the cap on, the XLA table is its first
+    rows."""
     pts, msk = _points(seed=4)
     cap = 64
     pfn = JaxPFN(feat_channels=FC, max_points_per_pillar=K, use_pallas=False,

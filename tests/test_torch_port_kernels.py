@@ -15,7 +15,11 @@ are counted and bounded per layer, and the arithmetic, mask embedding
 included, is compared on the kernel's own decisions). The training
 kernels are held exactly: the canvas scatter (A) and its gradient (B) only
 move values, and the matcher (C) repeats the plain version's f32 steps, so
-its assignments are equal.
+its assignments are equal. Kernels 7-10: 2e-2 for window MSA (as the Swin
+block: bf16 rounding of qkv, probabilities and heads on both sides, summed
+in another order), 1e-2 for the patch embed, the token LayerNorm and the
+capped PFN (each rounds once to bf16 from f32 values summed in another
+order).
 """
 import pytest
 
@@ -27,8 +31,11 @@ from mask_bev_tpu_torch.ops import canvas as kcanvas  # noqa: E402
 from mask_bev_tpu_torch.kernels import build as kb  # noqa: E402
 from mask_bev_tpu_torch.ops import decoder_stack as kdec  # noqa: E402
 from mask_bev_tpu_torch.ops import hungarian as khung  # noqa: E402
+from mask_bev_tpu_torch.ops import layer_norm as kln  # noqa: E402
+from mask_bev_tpu_torch.ops import patch_embed as kpe  # noqa: E402
 from mask_bev_tpu_torch.ops import pfn as kpfn  # noqa: E402
 from mask_bev_tpu_torch.ops import swin_block as kswin  # noqa: E402
+from mask_bev_tpu_torch.ops import window_msa as kwmsa  # noqa: E402
 from mask_bev_tpu_torch.ops.stream_pillars import (  # noqa: E402
     pillarize_stream, pillarize_stream_packed)
 
@@ -290,3 +297,94 @@ def test_matcher_kernel(dev, kind):
     assert kb.LAUNCHES["hungarian"] == 1
     assert torch.equal(got, want)
     assert ((got >= 0).sum(1).cpu().numpy() == np.minimum(nv, q)).all()
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,heads,hw", [
+    (192, 3, (23, 27)),  # KITTI stage-0 widths, pad tokens on both axes
+    (1536, 24, (7, 7)),  # stage-3 widths: Wqkv far beyond shared memory
+])
+def test_window_msa_kernel(dev, shifted, c, heads, hw):
+    win = 10 if c == 192 else 5
+    p = _block_weights(dev, c, heads, win, False, seed=11)
+    g = torch.Generator().manual_seed(12)
+    y = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, torch.bfloat16)
+    shift = kswin.effective_shift(hw, win, shifted)
+    xw = kswin.partition_windows(y, hw, win, shift)
+    mask = kswin.shift_mask(hw, win, shift, dev)
+    kb.reset_launches()
+    got = kwmsa.window_msa(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
+    want = kwmsa.window_msa_plain(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["window_msa"] == 3
+    assert _rel(got, want) <= 2e-2
+    with pytest.raises(ValueError, match="bf16"):
+        kwmsa.window_msa(xw.float(), p.rel_bias, mask, p.qkv, p.proj, heads)
+
+
+@pytest.mark.parametrize("b,h,w,c,e", [(2, 64, 48, 128, 192),
+                                       (1, 16, 24, 64, 64)])
+def test_patch_embed_kernel(dev, b, h, w, c, e):
+    g = torch.Generator().manual_seed(13)
+    canvas = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
+    weight = (torch.randn(e, c, 4, 4, generator=g) / (16 * c) ** 0.5).to(
+        dev, torch.bfloat16)
+    vecs = [(base + 0.1 * torch.randn(e, generator=g)).to(dev, torch.bfloat16)
+            for base in (0.0, 1.0, 0.0)]
+    wm = kpe.embed_matrix(weight)
+    kb.reset_launches()
+    got = kpe.patch_embed(canvas, wm, *vecs, 4)
+    want = kpe.patch_embed_plain(canvas, wm, *vecs, 4)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["patch_embed"] == 1
+    assert got.shape == (b, (h // 4) * (w // 4), e)
+    assert _rel(got, want) <= 1e-2
+    with pytest.raises(ValueError, match="bf16"):
+        kpe.patch_embed(canvas.float(), wm, *vecs, 4)
+
+
+@pytest.mark.parametrize("c", [192, 384, 768, 1536])
+def test_layer_norm_kernel(dev, c):
+    g = torch.Generator().manual_seed(14)
+    x = (0.5 + torch.randn(3, 517, c, generator=g)).to(dev, torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(dev, torch.bfloat16)
+    b = (0.1 * torch.randn(c, generator=g)).to(dev, torch.bfloat16)
+    kb.reset_launches()
+    got = kln.layer_norm(x, w, b)
+    want = kln.layer_norm_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["layer_norm"] == 1 and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 1e-2
+    with pytest.raises(ValueError, match="bf16"):
+        kln.layer_norm(x.float(), w, b)
+
+
+@pytest.mark.parametrize("cap", [256, 8192])
+def test_stream_pfn_kernel(dev, cap):
+    """Kernel 10 on a capped stream: the cap binds (256) or not (8192)."""
+    rng = np.random.default_rng(15)
+    pts = rng.uniform(-9.9, 9.9, (2, 8192, 4)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-3, 3, (2, 8192))
+    pts[0, :500, :2] = 1.1 + rng.uniform(0, 0.2, (500, 2))
+    msk = np.ones((2, 8192), bool)
+    msk[1, 6000:] = False
+    sp = pillarize_stream(torch.as_tensor(pts, device=dev).to(torch.bfloat16),
+                          torch.as_tensor(msk, device=dev),
+                          max_points_per_pillar=32, max_pillars=cap, **GEO)
+    nv = sp.valid.sum(1).to(torch.int32)
+    wts = _pfn_weights(dev)
+    kw = dict(k=32, with_distance=True, grid_w=W,
+              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
+              y0=GEO["y_range"][0], out_dtype=torch.bfloat16)
+    kb.reset_launches()
+    table, stats = kpfn.stream_pfn(sp, wts, num_valid=nv, **kw)
+    want, wstats = kpfn.stream_pfn_plain(sp, wts, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["stream_pfn"] == 2
+    assert (table.shape == want.shape == (2, cap, 128))
+    assert _rel(table, want) <= 1e-2
+    np.testing.assert_allclose(stats.cpu().numpy(), wstats.cpu().numpy(),
+                               rtol=1e-3)
+    with pytest.raises(ValueError, match="bf16"):
+        kpfn.stream_pfn(sp._replace(pts=sp.pts.float()), wts, num_valid=nv,
+                        **kw)

@@ -13,6 +13,21 @@ Tolerances on the final logits:
   through the backbone and the decoder layers: mean mask error 8 % of the
   mean magnitude, 97 % of signs agree, class logits to 0.25 (16 bf16 steps
   at magnitude 2).
+
+``test_path_matches_jax`` runs the two serving paths of kernels 7-10 at
+tiny size, with the same tolerances:
+
+* path K, the unfused backbone: ``use_pallas_backbone=False,
+  use_pallas_attention=True, fuse_patch_embed=True``, 3 classes, no int8,
+  a 128-channel encoder so the slot path (every occupied cell) and kernel 8
+  apply. The JAX package takes the slot path only on a TPU; on the CPU it
+  runs the capped stream, so it gets ``max_num_pillars = H*W``, where
+  capping keeps every cell as the slot path does;
+* path E, the capped eval encoder: ``use_pallas_encoder=False`` with a cap
+  that binds (256 of ~1500 occupied cells) on both sides, and the
+  backbone's ``fuse_ln`` (kernel 9 for ``patch_norm`` and ``out_norm0-3``).
+
+Each path runs its kernels' plain versions here (counted by wrapping them).
 """
 import pytest
 
@@ -29,9 +44,18 @@ from mask_bev_tpu.models.maskbev import MaskBev as JaxMaskBev  # noqa: E402
 from mask_bev_tpu.utils.precision import apply_compute_dtype  # noqa: E402
 from mask_bev_tpu_torch.config import tiny_test_config  # noqa: E402
 from mask_bev_tpu_torch.inference import MaskBevPredictor  # noqa: E402
+from mask_bev_tpu_torch.models import encoder as menc  # noqa: E402
+from mask_bev_tpu_torch.models import swin as mswin  # noqa: E402
 from mask_bev_tpu_torch.models.convert import (  # noqa: E402
     from_flax, load_flax)
 from mask_bev_tpu_torch.models.maskbev import MaskBev  # noqa: E402
+
+PATHS = {
+    "K": dict(encoder_feat_channels=(32, 128), use_pallas_backbone=False,
+              use_pallas_attention=True, fuse_patch_embed=True,
+              backbone_quantize="none", head_num_classes=3),
+    "E": dict(use_pallas_encoder=False, max_num_pillars=256),
+}
 
 
 def _scans(cfg, seed=0, b=2):
@@ -47,10 +71,18 @@ def _scans(cfg, seed=0, b=2):
 
 
 def _jax_cfg(**kw):
-    """The JAX package's CPU path caps pillars at ``max_num_pillars``; the
-    port keeps every occupied cell, like the TPU slot path, so the
-    reference runs uncapped (H*W)."""
+    """The tiny config's encoder has 32 channels, so both packages take the
+    capped stream; both get ``max_num_pillars = H*W``, where the cap keeps
+    every occupied cell. (A binding cap, the same on both sides, is held in
+    ``test_torch_port_paths.py`` and ``test_torch_port_stream_pfn.py``.)"""
     cfg = jax_tiny()
+    h, w = cfg.grid_hw
+    return cfg.replace(max_num_pillars=h * w, **kw)
+
+
+def _port_cfg(**kw):
+    """The port's tiny config on the JAX side's cap."""
+    cfg = tiny_test_config()
     h, w = cfg.grid_hw
     return cfg.replace(max_num_pillars=h * w, **kw)
 
@@ -94,7 +126,7 @@ def test_maskbev_matches_jax(dtype, quant):
         apply_compute_dtype(v, jcfg), jnp.asarray(pts).astype(jd),
         jnp.asarray(mask), train=False, final_only=True)
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    model = load_flax(MaskBev(tiny_test_config().replace(
+    model = load_flax(MaskBev(_port_cfg(
         compute_dtype=dtype, backbone_quantize=quant)), v).to(td)
     with torch.no_grad():
         got = model(torch.as_tensor(pts).to(td), torch.as_tensor(mask))
@@ -123,7 +155,7 @@ def test_predictor_decode_matches_jax():
         [-3.0, 3.0], np.float32)
     want = JaxPredictor(jcfg, v).predict_batch(pts, mask,
                                                score_threshold=0.3)
-    pred = MaskBevPredictor(tiny_test_config(), from_flax(v), device="cpu")
+    pred = MaskBevPredictor(_port_cfg(), from_flax(v), device="cpu")
     got = pred.predict_batch(pts, mask, score_threshold=0.3)
     assert sum(len(w.scores) for w in want) > 0
     for g, w in zip(got, want):
@@ -132,3 +164,62 @@ def test_predictor_decode_matches_jax():
         np.testing.assert_allclose(g.mask_probs, w.mask_probs, rtol=0,
                                    atol=1e-5)
         assert (g.masks == w.masks).mean() >= 0.999
+
+
+def _counting(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*a, **kw)
+    monkeypatch.setattr(module, name, wrapped)
+
+
+@pytest.mark.parametrize("path,dtype", [("K", "float32"), ("E", "float32"),
+                                        ("E", "bfloat16")])
+def test_path_matches_jax(monkeypatch, path, dtype):
+    kw = dict(PATHS[path], compute_dtype=dtype)
+    jcfg = jax_tiny().replace(**kw)
+    if path == "K":
+        h, w = jcfg.grid_hw
+        jcfg = jcfg.replace(max_num_pillars=h * w)
+    pts, mask = _scans(jcfg)
+    v = _variables(jcfg, pts, mask)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = JaxMaskBev(jcfg).apply(
+        apply_compute_dtype(v, jcfg), jnp.asarray(pts).astype(jd),
+        jnp.asarray(mask), train=False, final_only=True)
+
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    model = load_flax(MaskBev(tiny_test_config().replace(**kw)), v).to(td)
+    calls = {}
+    for name in ("window_msa", "patch_embed", "layer_norm", "swin_block"):
+        _counting(monkeypatch, mswin, name, calls)
+    for name in ("pfn", "stream_pfn"):
+        _counting(monkeypatch, menc, name, calls)
+    if path == "E":
+        model.backbone.fuse_ln = True
+    with torch.no_grad():
+        got = model(torch.as_tensor(pts).to(td), torch.as_tensor(mask))
+    if path == "K":
+        # every block's attention, one patch embed, the slot-path PFN
+        assert calls == {"window_msa": 5, "patch_embed": 1, "pfn": 1}
+    else:
+        # the capped PFN, the fused blocks, patch_norm + out_norm0-3
+        assert calls == {"stream_pfn": 1, "swin_block": 5, "layer_norm": 5}
+        assert int(model.encoder.capped_table(
+            torch.as_tensor(pts).to(td), torch.as_tensor(mask))[3].max()) \
+            == 256
+    gc = got.cls_logits.float().numpy()
+    gm = got.mask_logits.float().numpy()
+    wc = np.asarray(want.cls_logits, np.float32)
+    wm = np.asarray(want.mask_logits, np.float32)
+    assert gc.shape == wc.shape and gm.shape == wm.shape
+    assert gc.shape[-1] == jcfg.head_num_classes + 1
+    if dtype == "float32":
+        np.testing.assert_allclose(gc, wc, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(gm, wm, rtol=0, atol=1e-3)
+        return
+    assert np.abs(gc - wc).max() <= 0.25
+    assert np.abs(gm - wm).mean() <= 0.08 * np.abs(wm).mean()
+    assert ((gm > 0) == (wm > 0)).mean() >= 0.97
