@@ -11,7 +11,11 @@
    8 with 131072 point slots and ~120k real points per scan, random weights
    from a seed, and captures each kernel's inputs on the way;
 3. holds every kernel against its plain PyTorch version on those inputs
-   (stated tolerances; CUDA-event times of both);
+   (stated tolerances; CUDA-event times of both); for the Swin chain also
+   the times of its launches by kind and of ``torch._int_mm`` on one
+   stage-0 product (a yardstick for the
+   product alone), and for the decoder stack the number of clusters of 8,
+   12 and 16 blocks the card holds at once;
 4. serves warm and timed requests through ``MaskBevPredictor`` with the
    launch counters reset just before and read just after: every kernel must
    have launched; outputs must be finite and of the expected shapes;
@@ -283,6 +287,7 @@ def main() -> None:
                f"largest error relative to its block's max-abs {err_rel:.4g} "
                f"(tolerance 0.02); {len(captured_blocks)} blocks summed",
                ok=err_rel <= 2e-2)
+        swin_parts(torch, kswin, captured_blocks, card)
 
         # ---- kernel 4: decoder stack -------------------------------------
         (dargs, dkw) = captured_dec[0]
@@ -324,6 +329,7 @@ def main() -> None:
         ops += 2 * 2 * BATCH * sum(ts) * c_ * c_ * (n_l // len(ts))
         byts = (BATCH * sum(ts) * c_ * (2 + 4) + sum(ts) * c_ * 2
                 + n_l * (8 * c_ * c_ + 2 * c_ * f_) * 2 + BATCH * q_ * c_ * 2)
+        decoder_clusters(kb, kdec, dargs, card)
         record("decoder_stack", "mask_bev_tpu_torch/csrc/decoder_stack.cu",
                "mask_bev_tpu/ops/pallas_decoder_stack.py:200", err,
                5e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
@@ -417,6 +423,89 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def swin_parts(torch, kswin, blocks, card) -> None:
+    """Time the Swin chain's launches by kind over the captured blocks
+    (GEMM, attention, LayerNorm, int8 quantisation) and, as a yardstick
+    for one stage-0 product alone (no epilogue), ``torch._int_mm`` on the
+    fc1 product's int8 operands."""
+    ms = {"gemm": 0.0, "attention": 0.0, "layernorm": 0.0, "quantise": 0.0}
+    count = dict.fromkeys(ms, 0)
+
+    def timed(kind, fn, reps=5):
+        ms[kind] += cuda_ms(torch, fn, reps)
+        count[kind] += 1
+        return fn()
+
+    for (x, p, hw, win, heads, shift, quant) in blocks:
+        b, l, c = x.shape
+        x2 = x.reshape(b * l, c)
+        res = kswin.EPI_RESIDUAL | (0 if quant else kswin.EPI_ROUND_ACC)
+        gelu = kswin.EPI_GELU | (0 if quant else kswin.EPI_ROUND_ACC)
+        mode_d = kswin.EPI_BIAS | (0 if quant else kswin.EPI_ROUND_ACC)
+
+        def prod(a, d, mode, residual=None):
+            if quant:
+                q8, sx = a
+                return timed("gemm", lambda: kswin.gemm(
+                    "swin_block", q8, d, mode, residual=residual, sx=sx))
+            return timed("gemm", lambda: kswin.gemm(
+                "swin_block", a, d, mode, residual=residual))
+
+        def quantise(y):
+            return (timed("quantise", lambda: kswin._quant(y)) if quant
+                    else y)
+
+        y = timed("layernorm", lambda: kswin._ln(x2, p.ln1_w, p.ln1_b,
+                                                 quant))
+        qkv = prod(y, p.qkv, mode_d)
+        o = timed("attention", lambda: kswin.window_attention(
+            qkv, p, b, hw, heads, win, shift))
+        x1 = prod(quantise(o), p.proj, res, x2)
+        y = timed("layernorm", lambda: kswin._ln(x1, p.ln2_w, p.ln2_b,
+                                                 quant))
+        hmid = prod(y, p.fc1, gelu)
+        prod(quantise(hmid), p.fc2, res, x1)
+    print("[swin_block] launches by kind, summed over the blocks: "
+          + ", ".join(f"{k} {v:.4f} ms ({count[k]} launches)"
+                      for k, v in ms.items()) + f" [{card}]", flush=True)
+
+    x, p, hw, win, heads, shift, quant = blocks[0]
+    if quant:
+        b, l, c = x.shape
+        q8, sx = kswin._ln(x.reshape(b * l, c), p.ln2_w, p.ln2_b, True)
+        w8 = p.fc1.q8.t()  # (K, N) view of the (N, K) int8 weight
+        lib = cuda_ms(torch, lambda: torch._int_mm(q8, w8), 10)
+        own = cuda_ms(torch, lambda: kswin.gemm(
+            "swin_block", q8, p.fc1, kswin.EPI_GELU, sx=sx), 10)
+        print(f"[swin_block] yardstick, stage-0 fc1 product alone: "
+              f"torch._int_mm ({b * l} x {c}) . ({c} x {4 * c}) int8 -> "
+              f"int32 {lib:.4f} ms; the port's GEMM with its dequantise + "
+              f"bias + GELU epilogue and bf16 output {own:.4f} ms [{card}]",
+              flush=True)
+
+
+def decoder_clusters(kb, kdec, dargs, card) -> None:
+    """Print how many clusters of 8, 12 and 16 blocks the decoder stack's
+    kernel can hold at once at these shapes (the size that runs the batch
+    in one wave is the one built)."""
+    import ctypes
+
+    q_, c_ = dargs[0].shape[1], dargs[0].shape[2]
+    t_max = max(m.shape[1] for m in dargs[3])
+    cs = kdec.CLUSTER
+    smem = kdec.smem_bytes(q_, c_, t_max)
+    active = {}
+    for size in (8, 12, 16):
+        n = ctypes.c_int(-1)
+        rc = kb.lib().decoder_stack_max_clusters(
+            ctypes.c_int(size), ctypes.c_int(smem), ctypes.byref(n))
+        active[size] = n.value if rc == 0 else f"error {rc}"
+    print(f"[decoder_stack] clusters of {cs} blocks ({smem} B of shared "
+          f"memory a block) for batch {dargs[0].shape[0]}; most clusters "
+          f"resident at once, by cluster size: {active} [{card}]",
+          flush=True)
 
 
 def path_phase(np, torch, card, results, failures, record, path: str):

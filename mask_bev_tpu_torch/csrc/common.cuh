@@ -46,8 +46,73 @@ __device__ __forceinline__ float gelu_erf(float v) {
 
 static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// ---- tensor-core fragments (mma.sync m16n8k16, bf16 in, f32 out) --------
+// Lane (g, t) = (lane / 4, lane % 4). A (16 x 16, row-major): a0 = row g,
+// columns 2t, 2t+1; a1 = row g+8; a2, a3 = the same rows at columns + 8.
+// B (16 x 8, k x n): b0 = rows 2t, 2t+1 of column g; b1 = rows + 8.
+// C (16 x 8): c0, c1 = row g, columns 2t, 2t+1; c2, c3 = row g+8.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
 // Return codes of the exported functions: 0 or a cudaError_t from the
 // launch; MB_BAD_ARGS when the arguments fail the function's own checks;
-// MB_ATTR_FAILED + e when cudaFuncSetAttribute refused with error e.
+// MB_ATTR_FAILED + e when cudaFuncSetAttribute refused with error e;
+// MB_TMAP_FAILED + r when a TMA tensor map could not be encoded (r the
+// CUresult, 0 when cuTensorMapEncodeTiled could not be looked up).
 #define MB_BAD_ARGS 100000
 #define MB_ATTR_FAILED 200000
+#define MB_TMAP_FAILED 300000

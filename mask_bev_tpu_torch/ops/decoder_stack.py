@@ -21,10 +21,11 @@ The CUDA counterpart is a short chain: the k and v projections of each
 level's memory do not depend on the queries, so one GEMM per level and
 projection computes them for all of that level's layers (``csrc/gemm.cuh``),
 and one cluster of 8 thread blocks per batch element
-(``csrc/decoder_stack.cu``) then runs every layer with the query state held
-in shared memory throughout (each block a replica, the work split between
-them). Every launch counts under ``decoder_stack``. The card path takes
-bf16 only.
+(``csrc/decoder_stack.cu``) then runs every layer with the query state
+held in shared memory throughout (each block a replica, the work split
+between them), its products on the tensor cores with the weights in
+fragment order (:func:`pack_fragments`). Every launch counts under
+``decoder_stack``. The card path takes bf16 only.
 """
 from __future__ import annotations
 
@@ -167,16 +168,39 @@ def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
 
 # --------------------------------------------------------------- CUDA chain
 
-_THREADS = 512
-_CS = 8  # blocks per cluster, one cluster per batch element
-_TK = 16  # keys per shared-memory chunk (bf16)
+_THREADS = 384
+_WARPS = _THREADS // 32
+_TK = 32  # keys per cross-attention tile (bf16)
+_SLOTS = 2  # cross-attention tasks a warp holds
+# blocks per cluster, one cluster per batch element (``DS_CS`` in
+# ``csrc/decoder_stack.cu``): at the flagship's shared memory a block, the
+# H100 holds 15 clusters of 8 at once but 7 of 16, so 8 runs a batch of 8
+# in one wave (``PERF.md`` §6)
+CLUSTER = 8
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) weight -> the same values, flat, in ``mma.sync`` m16n8k16 B
+    fragment order: for each 8-column tile j and 16-row step ks, lane
+    ``4g + t`` holds rows ``16 ks + 2t, +1, +8, +9`` of column ``8j + g``
+    (one 8-byte load a lane). K % 16 == 0 and N % 8 == 0."""
+    k, n = w.shape
+    return (w.reshape(k // 16, 2, 4, 2, n // 8, 8)
+            .permute(4, 0, 5, 2, 1, 3).reshape(-1))
+
+
+def unpack_fragments(p: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_fragments`."""
+    return (p.reshape(n // 8, k // 16, 8, 4, 2, 2)
+            .permute(1, 4, 3, 5, 0, 2).reshape(k, n))
 
 
 def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights):
     """Query-side weights as one D buffer (per layer wq, wo, sq, sk, sv,
-    so, f1, f2; then m1, m2, m3) and one f32 buffer (per layer bq, bo,
-    sbq, sbk, sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then dnw,
-    dnb, mb1, mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
+    so, f1, f2; then m1, m2, m3; each matrix in fragment order,
+    :func:`pack_fragments`) and one f32 buffer (per layer bq, bo, sbq, sbk,
+    sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then dnw, dnb, mb1,
+    mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
     wd, wf = [], []
     for lw in layers:
         wd += [lw.wq, lw.wo, lw.sq, lw.sk, lw.sv, lw.so, lw.f1, lw.f2]
@@ -184,7 +208,7 @@ def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights):
                lw.n2w, lw.n2b, lw.n3w, lw.n3b, lw.fb1, lw.fb2]
     wd += [head.m1, head.m2, head.m3]
     wf += [head.dnw, head.dnb, head.mb1, head.mb2, head.mb3]
-    return (torch.cat([t.reshape(-1) for t in wd]).contiguous(),
+    return (torch.cat([pack_fragments(t) for t in wd]).contiguous(),
             torch.cat([t.float().reshape(-1) for t in wf]).contiguous())
 
 
@@ -202,11 +226,38 @@ def kv_weights(layers: Sequence[LayerWeights], nl: int) -> List[Dense]:
     return out
 
 
+def check_shape(q: int, c: int, ffn: int, heads: int, nl: int,
+                n_layers: int) -> None:
+    """Raise unless the kernel takes these widths (the C entry point's own
+    check): C splits into 8-column tiles per block of the cluster and the
+    FFN's hidden units into 16-row steps per block; the cross-attention
+    tasks (head, 16 queries) fit the warps' slots, the self-attention
+    scores the key-tile area."""
+    cs, mtq = CLUSTER, -(-q // 16)
+    if (c % (8 * cs) or ffn % (16 * cs) or ffn // cs > c
+            or n_layers % nl or nl > 3 or q > 48 or c % heads
+            or c // heads not in (32, 64) or heads * mtq > _WARPS * _SLOTS
+            or mtq * c // cs // 8 > _WARPS or 2 * cs * heads > c + 4
+            or -(-heads // cs) * q * q > _TK * (c + 8)):
+        raise ValueError(f"decoder stack kernel: unsupported shape Q={q} "
+                         f"C={c} FFN={ffn} heads={heads} levels={nl} "
+                         f"layers={n_layers} for clusters of {cs} blocks")
+
+
 def smem_bytes(q: int, c: int, t_max: int) -> int:
-    """Shared memory of one block: four (Q, C) f32 replicas, the mask bits
-    of its key slice, the cluster's row flags, a bf16 k/v chunk."""
-    words_loc = (-(-t_max // _CS) + 31) // 32
-    return 4 * (4 * q * c + q * words_loc + _CS * q) + 2 * 2 * _TK * c
+    """Shared memory of one block, as ``csrc/decoder_stack.cu`` lays it
+    out (4-byte words, every part 16-byte aligned): the f32 replicas X, QB,
+    OB (row stride C + 4) and XA (or the bf16 q copy, 16 ceil(Q/16) rows
+    of C + 8), the mask bits of its key slice, the cluster's row flags and
+    two bf16 key tiles (k and v, rows of C + 8)."""
+    words_loc = (-(-t_max // CLUSTER) + 31) // 32
+    qx = q * (c + 4)
+    xa = max(qx, 16 * -(-q // 16) * (c + 8) // 2)
+
+    def al(n):
+        return -(-n // 4) * 4
+    return 4 * (3 * qx + xa + al(q * words_loc) + al(CLUSTER * q)
+                + _TK * (c + 8))
 
 
 def decoder_stack(out0, emb0, qpos, mems, pes, feats,
@@ -228,14 +279,10 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                          f"{out0.dtype}")
     hd = c // num_heads
     ffn = layers[0].f1.shape[1]
-    if (n_layers % nl or nl > 3 or q > 48 or c % num_heads
-            or hd not in (32, 64) or num_heads * q > _THREADS
-            or c > 256 or c % (4 * _CS) or c < 16 * num_heads
-            or ffn % _CS or ffn // _CS > c or emb0.shape[-1] != c
-            or -(-num_heads // _CS) * q * q > _TK * c):
-        raise ValueError(f"decoder stack kernel: unsupported shape Q={q} "
-                         f"C={c} heads={num_heads} levels={nl} "
-                         f"layers={n_layers}")
+    if emb0.shape[-1] != c:
+        raise ValueError(f"decoder stack kernel: emb0 width "
+                         f"{emb0.shape[-1]} != C={c}")
+    check_shape(q, c, ffn, num_heads, nl, n_layers)
     t = [m.shape[1] for m in mems]
     smem = smem_bytes(q, c, max(t))
     if smem > 227 * 1024:

@@ -27,8 +27,10 @@ rounded to D where XLA rounds them.
 
 The CUDA chain (``csrc/swin_block.cu``): LN1 (+quantise) -> qkv GEMM ->
 window attention -> (quantise) -> proj GEMM + residual -> LN2 (+quantise)
--> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. Every launch counts
-under ``swin_block``. The card path takes bf16 only.
+-> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. The GEMMs are the
+persistent wgmma kernel of ``csrc/gemm.cuh`` (TMA loads, int8 or bf16); the
+attention keeps its scores in registers. Every launch counts under
+``swin_block``. The card path takes bf16 only.
 """
 from __future__ import annotations
 
@@ -245,6 +247,11 @@ def swin_block_plain(x: torch.Tensor, p: BlockWeights, hw, win: int,
 
 def _ln(x2, w, b, quant):
     m, c = x2.shape
+    # the kernel reads rows and the affine in 16-byte words
+    if c % 8 or x2.data_ptr() % 16:
+        raise ValueError(f"swin layernorm kernel: C={c} must be a multiple "
+                         "of 8 and the rows 16-byte aligned")
+    w, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, b))
     if quant:
         q8 = torch.empty((m, c), dtype=torch.int8, device=x2.device)
         sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
@@ -282,17 +289,56 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None):
     if sx is not None:
         kb.check_cuda(a, "a", torch.int8)
         kb.check_cuda(d.q8, "w8", torch.int8, (n, k))
+    else:
+        kb.check_cuda(a, "a", torch.bfloat16)
+        kb.check_cuda(d.wt, "w", torch.bfloat16, (n, k))
+    # TMA reads both operands, the epilogue reads 16-byte vectors
+    w = d.wt if sx is None else d.q8
+    for t, what in ((a, "a"), (w, "w"), (d.bias, "bias"),
+                    (d.sw if sx is not None else None, "sw"),
+                    (residual, "residual")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"gemm kernel: {what} must be 16-byte aligned")
+    if sx is not None:
         kb.launch(name, "gemm_s8", kb.ptr(a), kb.ptr(sx), kb.ptr(d.q8),
                   kb.ptr(d.sw), kb.ptr(d.bias), kb.ptr(residual),
                   kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
                   kb.stream())
     else:
-        kb.check_cuda(a, "a", torch.bfloat16)
-        kb.check_cuda(d.wt, "w", torch.bfloat16, (n, k))
         kb.launch(name, "gemm_bf16", kb.ptr(a), kb.ptr(d.wt),
                   kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
                   kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream())
     return out
+
+
+ATTN_HEAD_DIMS = (16, 32, 64)  # head widths the attention kernel is built for
+
+
+def attn_smem_bytes(win: int, hd: int) -> int:
+    """Shared memory of one attention block (``csrc/swin_block.cu``): q,
+    k, v rows of the padded window (stride hd + 8), the relative bias of
+    its head in bf16 (stride NP + 8) and the token and label rows. A block
+    takes one head over 4 windows, so it reads the bias once for them."""
+    n_pad = -(-win * win // 16) * 16
+    return 2 * (3 * n_pad * (hd + 8) + n_pad * (n_pad + 8)) + 8 * n_pad
+
+
+def window_attention(qkv: torch.Tensor, p: BlockWeights, b: int,
+                     hw: Tuple[int, int], heads: int, win: int, shift: int
+                     ) -> torch.Tensor:
+    """(B*H*W, 3C) bf16 qkv -> (B*H*W, C) bf16 window attention output
+    (one launch, counted under ``swin_block``)."""
+    c = qkv.shape[1] // 3
+    kb.check_cuda(qkv, "qkv", torch.bfloat16, (b * hw[0] * hw[1], 3 * c))
+    kb.check_cuda(p.rel_bias, "rel_bias", torch.float32,
+                  (heads, win * win, win * win))
+    o = torch.empty((qkv.shape[0], c), dtype=torch.bfloat16,
+                    device=qkv.device)
+    kb.launch("swin_block", "swin_window_attn", kb.ptr(qkv),
+              kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o), kb.ci(b),
+              kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads), kb.ci(win),
+              kb.ci(shift), kb.cf((c // heads) ** -0.5), kb.stream())
+    return o
 
 
 def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
@@ -307,9 +353,8 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
                          f"got {x.dtype}")
     b, l, c = x.shape
     h, w = hw
-    hd, n_pad = c // heads, -(-win * win // 16) * 16
-    if (l != h * w or c % heads or hd % 16 or win * win > 128
-            or n_pad > 2 * hd + 8):
+    if (l != h * w or c % heads or c // heads not in ATTN_HEAD_DIMS
+            or win * win > 128):
         raise ValueError(f"swin block kernel: bad shape {x.shape} for "
                          f"hw={hw}, heads={heads}, win={win}")
     kb.check_cuda(x, "x", torch.bfloat16)
@@ -321,12 +366,7 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     else:
         qkv = gemm("swin_block", _ln(x2, p.ln1_w, p.ln1_b, False), p.qkv,
                    mode_d)
-    o = torch.empty((b * l, c), dtype=torch.bfloat16, device=x.device)
-    kb.check_cuda(p.rel_bias, "rel_bias", torch.float32)
-    kb.launch("swin_block", "swin_window_attn", kb.ptr(qkv),
-              kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o), kb.ci(b),
-              kb.ci(h), kb.ci(w), kb.ci(c), kb.ci(heads), kb.ci(win),
-              kb.ci(shift), kb.cf((c // heads) ** -0.5), kb.stream())
+    o = window_attention(qkv, p, b, hw, heads, win, shift)
     res = EPI_RESIDUAL | (0 if quant else EPI_ROUND_ACC)
     gelu = EPI_GELU | (0 if quant else EPI_ROUND_ACC)
     if quant:

@@ -19,7 +19,10 @@ its assignments are equal. Kernels 7-10: 2e-2 for window MSA (as the Swin
 block: bf16 rounding of qkv, probabilities and heads on both sides, summed
 in another order), 1e-2 for the patch embed, the token LayerNorm and the
 capped PFN (each rounds once to bf16 from f32 values summed in another
-order).
+order). The shared GEMM's int8 products are held exactly against a float64
+product of the int8 values (an int32 sum is exact in any order) followed
+by the same f32 epilogue; the Swin chain's attention launch alone within
+1e-2.
 """
 import pytest
 
@@ -177,9 +180,71 @@ def test_swin_block_kernel(dev, quant, shifted, c, heads, win, hw):
     assert _rel(got, want) <= 2e-2
 
 
-def test_decoder_stack_kernel(dev):
-    b, q, c, heads, f, n_layers = 2, 45, 256, 8, 2048, 9
-    hws = [(4, 4), (8, 8), (16, 15)]
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("mode", [kswin.EPI_BIAS, kswin.EPI_GELU,
+                                  kswin.EPI_RESIDUAL])
+@pytest.mark.parametrize("m,n,k", [
+    (1000, 576, 192),  # stage-0 qkv; M not a multiple of 64 or 128
+    (777, 192, 768),   # stage-0 fc2
+    (321, 768, 1536),  # stage-2 proj widths
+    (65, 192, 192),    # one partial tile
+])
+def test_gemm_kernel(dev, quant, mode, m, n, k):
+    """The shared wgmma GEMM at main-path widths. int8: against a float64
+    product of the int8 values (exact at these sizes) followed by the
+    epilogue's f32 operations in the same order: equal for the bias and
+    residual modes, within one bf16 step for GELU (erf on two libraries).
+    bf16: the XLA-order epilogue (product rounded first), within 2^-7."""
+    g = torch.Generator().manual_seed(16)
+    a32 = torch.randn(m, k, generator=g)
+    w32 = torch.randn(n, k, generator=g) / k ** 0.5
+    bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+    res = torch.randn(m, n, generator=g).to(dev, torch.bfloat16)
+    residual = res if mode == kswin.EPI_RESIDUAL else None
+    d = kswin.make_dense(w32.to(dev, torch.bfloat16), bias, quant)
+    kb.reset_launches()
+    if quant:
+        q, sx = kswin.quant_rows(a32.to(dev, torch.bfloat16))
+        a8 = q.to(torch.int8).contiguous()
+        sx = sx.reshape(-1).contiguous()
+        got = kswin.gemm("swin_block", a8, d, mode, residual=residual, sx=sx)
+        acc = (a8.double() @ d.q8.double().t()).float()
+        v = acc * sx[:, None] * d.sw[None] + d.bias
+    else:
+        mode = mode | kswin.EPI_ROUND_ACC
+        a = a32.to(dev, torch.bfloat16)
+        got = kswin.gemm("swin_block", a, d, mode, residual=residual)
+        acc = a.float() @ d.wt.float().t()
+        v = acc.to(torch.bfloat16).float() + d.bias
+    v = v.to(torch.bfloat16).float()
+    if mode & 15 == kswin.EPI_GELU:
+        v = torch.nn.functional.gelu(v, approximate="none")
+    elif mode & 15 == kswin.EPI_RESIDUAL:
+        v = res.float() + v
+    want = v.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["swin_block"] == 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    if quant and mode & 15 != kswin.EPI_GELU:
+        assert torch.equal(got, want)
+    elif quant:
+        # one bf16 step of the value at most
+        step = want.float().abs().clamp(min=2 ** -126) * 2 ** -7
+        assert bool(((got.float() - want.float()).abs() <= step).all())
+    else:
+        assert _rel(got, want) <= 2 ** -7
+
+
+@pytest.mark.parametrize("c,heads,f,hws", [
+    (256, 8, 2048, [(4, 4), (8, 8), (16, 15)]),
+    # the flagship's levels: T up to 3969
+    (256, 8, 2048, [(16, 16), (32, 32), (63, 63)]),
+    # widths the kernel's C = 256 build does not take: C read at run time
+    (128, 4, 512, [(8, 8), (16, 16), (32, 31)]),
+    (256, 4, 1024, [(8, 8), (16, 16), (32, 31)]),  # head width 64
+], ids=["small", "flagship", "c128", "hd64"])
+def test_decoder_stack_kernel(dev, c, heads, f, hws):
+    b, q, n_layers = 2, 45, 9
     g = torch.Generator().manual_seed(6)
 
     def r(*s, scale=1.0):
@@ -238,6 +303,55 @@ def test_decoder_stack_kernel(dev):
         assert flips[li] <= 0.05 * m.numel(), (li, flips)
         assert own[li] <= 0.01 * m.numel(), (li, own)
     assert _rel(got, same_bits) <= 2e-2
+
+
+def _window_attention_plain(qkv, p, b, hw, heads, win, shift):
+    """The attention part of ``window_msa_plain`` on a given qkv: pad
+    tokens take the qkv bias (a zero LN1 row through the dense layer)."""
+    h, w = hw
+    c = qkv.shape[1] // 3
+    hd, n = c // heads, win * win
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    grid = p.qkv.bias.to(qkv.dtype).expand(b, hp, wp, 3 * c).clone()
+    grid[:, :h, :w] = qkv.reshape(b, h, w, 3 * c)
+    if shift:
+        grid = torch.roll(grid, (-shift, -shift), dims=(1, 2))
+    nw = (hp // win) * (wp // win)
+    t = (grid.reshape(b, hp // win, win, wp // win, win, 3 * c)
+         .permute(0, 1, 3, 2, 4, 5).reshape(b * nw, n, 3, heads, hd)
+         .permute(2, 0, 3, 1, 4))
+    attn = (t[0] * hd ** -0.5).float() @ t[1].float().transpose(-1, -2)
+    bias = p.rel_bias[None]
+    mask = kswin.shift_mask(hw, win, shift, qkv.device)
+    if mask is not None:
+        bias = (bias + mask[:, None]).repeat(b, 1, 1, 1)
+    attn = torch.softmax(attn + bias, dim=-1).to(qkv.dtype)
+    o = (attn.float() @ t[2].float()).to(qkv.dtype)
+    o = o.transpose(1, 2).reshape(b, nw, n, c)
+    return kswin.merge_windows(o, hw, win, shift).reshape(b * h * w, c)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,heads,hw", [
+    (192, 3, (125, 125)),  # stage-0 grid of the flagship, pad tokens
+    (1536, 24, (16, 16)),  # stage-3 grid: 24 heads, bias of all heads > smem
+])
+def test_window_attention_kernel(dev, shifted, c, heads, hw):
+    """The Swin chain's attention launch alone (win 10, hd 64) against the
+    plain attention on the same qkv: both round the same f32 softmax to
+    bf16 and sum in another order, so within 1e-2 of the largest value."""
+    win, b = 10, 2
+    p = _block_weights(dev, c, heads, win, False, seed=17)
+    g = torch.Generator().manual_seed(18)
+    qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(
+        dev, torch.bfloat16)
+    shift = kswin.effective_shift(hw, win, shifted)
+    kb.reset_launches()
+    got = kswin.window_attention(qkv, p, b, hw, heads, win, shift)
+    want = _window_attention_plain(qkv, p, b, hw, heads, win, shift)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-2
+    assert kb.LAUNCHES["swin_block"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,0 +1,110 @@
+"""Host-side layouts of the port's Hopper kernels, on the CPU.
+
+The decoder stack reads its weights in ``mma.sync`` fragment order and lays
+out its shared memory by a formula the host mirrors, as does the Swin
+chain's attention launch. These layouts are computed in Python, so they are
+held here without a card.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mask_bev_tpu_torch.ops import decoder_stack as kdec  # noqa: E402
+from mask_bev_tpu_torch.ops import swin_block as kswin  # noqa: E402
+
+SMEM_LIMIT = 227 * 1024  # a block's shared memory on the H100
+
+
+@pytest.mark.parametrize("k,n", [(256, 256), (256, 2048), (2048, 256),
+                                 (64, 128), (16, 8)])
+def test_fragment_pack_round_trip(k, n):
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n))
+    p = kdec.pack_fragments(w)
+    assert p.shape == (k * n,)
+    assert torch.equal(kdec.unpack_fragments(p, k, n), w)
+
+
+def test_fragment_order():
+    """Lane 4g + t of column tile j and row step ks holds W[16 ks + 2t + e]
+    and W[16 ks + 8 + 2t + e] of column 8j + g: the B fragment of
+    m16n8k16, one 8-byte load."""
+    k, n = 48, 24
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    p = kdec.pack_fragments(w).reshape(n // 8, k // 16, 32, 4)
+    for j in range(n // 8):
+        for ks in range(k // 16):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                col = 8 * j + g
+                rows = [16 * ks + 2 * t, 16 * ks + 2 * t + 1,
+                        16 * ks + 8 + 2 * t, 16 * ks + 9 + 2 * t]
+                assert p[j, ks, lane].tolist() == w[rows, col].tolist()
+
+
+def test_pack_weights_keeps_every_matrix_in_place():
+    """Each matrix keeps its offset in the packed buffer, so the kernel's
+    per-layer offsets are those of the plain concatenation."""
+    c, f = 32, 64
+    g = torch.Generator().manual_seed(1)
+
+    def r(*s):
+        return torch.randn(*s, generator=g)
+
+    layers = [kdec.LayerWeights(*[r(c, c) if i % 2 == 0 and i < 16 else r(c)
+                                  for i in range(22)],
+                                r(c, f), r(f), r(f, c), r(c))
+              for _ in range(2)]
+    head = kdec.HeadWeights(r(c), r(c), r(c, c), r(c), r(c, c), r(c),
+                            r(c, c), r(c))
+    wd, wf = kdec.pack_weights(layers, head)
+    mats = []
+    for lw in layers:
+        mats += [lw.wq, lw.wo, lw.sq, lw.sk, lw.sv, lw.so, lw.f1, lw.f2]
+    mats += [head.m1, head.m2, head.m3]
+    off = 0
+    for m in mats:
+        size = m.numel()
+        assert torch.equal(
+            kdec.unpack_fragments(wd[off:off + size], *m.shape), m)
+        off += size
+    assert off == wd.numel()
+    assert wf.numel() == 2 * (13 * c + f) + 5 * c
+
+
+@pytest.mark.parametrize("c,ffn,heads", [(256, 2048, 8), (64, 128, 2),
+                                         (128, 512, 4), (256, 1024, 4)])
+def test_shape_check_takes_widths_the_cluster_splits(c, ffn, heads):
+    kdec.check_shape(45, c, ffn, heads, 3, 9)
+
+
+@pytest.mark.parametrize("c,ffn,heads", [(40, 96, 1), (256, 4096, 8),
+                                         (64, 120, 2), (256, 2048, 16)])
+def test_shape_check_rejects_widths_the_cluster_cannot_split(c, ffn, heads):
+    with pytest.raises(ValueError, match="clusters of 8 blocks"):
+        kdec.check_shape(45, c, ffn, heads, 3, 9)
+
+
+def test_decoder_smem_budget():
+    """The flagship (45 queries of 256, up to 3969 keys, clusters of 8)
+    fits a block; the count grows with the keys a block takes."""
+    flag = kdec.smem_bytes(45, 256, 3969)
+    assert flag == 225312 and flag <= SMEM_LIMIT
+    assert kdec.smem_bytes(45, 256, 2 * 3969) > flag
+    assert kdec.smem_bytes(48, 256, 3969) > SMEM_LIMIT
+    # a small query count: the bf16 q copy outgrows the f32 XA replica
+    q, c = 8, 64
+    xa_f32 = q * (c + 4)
+    assert kdec.smem_bytes(q, c, 400) > 4 * (4 * xa_f32)
+
+
+@pytest.mark.parametrize("win,hd,want", [
+    (10, 64, 76160), (10, 32, 54656), (5, 16, 7424)])
+def test_attention_smem(win, hd, want):
+    assert kswin.attn_smem_bytes(win, hd) == want
+
+
+@pytest.mark.parametrize("hd", kswin.ATTN_HEAD_DIMS)
+def test_attention_blocks_share_an_sm(hd):
+    """The attention kernel is built for two blocks an SM (its launch
+    bounds): at win 10 two blocks' shared memory fits the SM's 228 KB."""
+    assert 2 * kswin.attn_smem_bytes(10, hd) <= 228 * 1024
