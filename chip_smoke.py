@@ -5,11 +5,12 @@
 
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels from ``mask_bev_tpu_torch/csrc`` (nvcc, sm_90a);
-2. drives the inference path once at the inputs a user would give it,
-   ``semantic_kitti_default()`` (500x500 BEV grid, Swin-T embed 192 with
-   int8 backbone products, 45 queries, 9 decoder layers) in bf16 at batch
-   8 with 131072 point slots and ~120k real points per scan, random weights
-   from a seed, and captures each kernel's inputs on the way;
+2. drives the inference path once at the inputs a user would give it
+   (``serve_phase``), ``semantic_kitti_default()`` (500x500 BEV grid,
+   Swin-T embed 192 with int8 backbone products, 45 queries, 9 decoder
+   layers) in bf16 at batch 8 with 131072 point slots and ~120k real
+   points per scan, random weights from a seed, and captures each kernel's
+   inputs on the way;
 3. holds every kernel against its plain PyTorch version on those inputs
    (stated tolerances; CUDA-event times of both); for the Swin chain also
    the times of its launches by kind and of ``torch._int_mm`` on one
@@ -28,7 +29,14 @@
    and the backbone's fused token LN (kernel 9); each captures its new
    kernels' inputs in one forward, holds them against their plain versions,
    serves 3 warm and 5 timed requests with the counters reset just before
-   and traces one request;
+   and traces one request; then both paths again in f32 (the f32 instances
+   of kernels 7-10, 1 warm and 2 timed requests);
+5c. phase F: ``semantic_kitti_default()`` as shipped (f32, int8 backbone)
+   and phase W: ``waymo_default()`` as shipped (f32, 170 queries on the
+   decoder's split instance, 3 point columns), each like step 2-4: kernels
+   1-5 captured and held in f32 (the decoder with its flip counters), 3
+   warm and 5 timed requests whose instance counters must show the f32
+   instances, one traced request;
 6. drives the training step (``train_step``) at the training envelope of
    the JAX bench: the same configuration with ``max_num_pillars=32768``, a
    bf16 forward over f32 master weights, batch 4, AdamW, synthetic scans of
@@ -116,16 +124,10 @@ def main() -> None:
     sys.path.insert(0, here)
     try:
         from mask_bev_tpu_torch.config import (
-            semantic_kitti_default, tiny_test_config)
+            semantic_kitti_default, tiny_test_config, waymo_default)
         from mask_bev_tpu_torch.inference import MaskBevPredictor
         from mask_bev_tpu_torch.kernels import build as kb
-        from mask_bev_tpu_torch.models import mask2former as m2f
-        from mask_bev_tpu_torch.models import swin as msw
         from mask_bev_tpu_torch.models.maskbev import MaskBev
-        from mask_bev_tpu_torch.ops import canvas as kcanvas
-        from mask_bev_tpu_torch.ops import decoder_stack as kdec
-        from mask_bev_tpu_torch.ops import pfn as kpfn
-        from mask_bev_tpu_torch.ops import swin_block as kswin
     except ImportError as e:
         fail(f"the port cannot be imported from {here}: {e}")
 
@@ -147,15 +149,6 @@ def main() -> None:
                 if "registers" in ln or "spill" in ln]
         print(f"[ptxas {log.stem}] " + " | ".join(regs[-6:]), flush=True)
 
-    cfg = semantic_kitti_default().replace(
-        max_points_per_scan=131072, pseudo_image_norm="full",
-        compute_dtype="bfloat16")
-    sd = MaskBev(cfg).random_state_dict(SEED)
-    pred = MaskBevPredictor(cfg, sd, device="cuda")
-    model = pred.model
-    pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED)
-    pts = torch.as_tensor(pts_np).cuda().to(torch.bfloat16)
-    msk = torch.as_tensor(mask_np).cuda()
     results = {}
     failures = []
 
@@ -177,215 +170,12 @@ def main() -> None:
             bound_by=bnd[1],
             library_ms=None if library_ms is None else float(library_ms))
 
-    # ---- capture every kernel's main-path inputs (one forward) ----------
-    captured_blocks, captured_dec = [], []
-    orig_block, orig_dec = msw.swin_block, m2f.decoder_stack
-
-    def rec_block(x, *args):
-        captured_blocks.append((x.clone(), *args))
-        return orig_block(x, *args)
-
-    def rec_dec(*args, **kw):
-        captured_dec.append((args, kw))
-        return orig_dec(*args, **kw)
-
-    msw.swin_block, m2f.decoder_stack = rec_block, rec_dec
-    try:
-        with torch.no_grad():
-            enc = model.encoder
-            ps, table, stats = enc.pillar_table(pts, msk)
-            model(pts, msk)
-    finally:
-        msw.swin_block, m2f.decoder_stack = orig_block, orig_dec
-    torch.cuda.synchronize()
-
-    with torch.no_grad():
-        # ---- kernel 1: PFN -----------------------------------------------
-        pfn_net = enc.pillar_feature_net
-        weights = pfn_net.folded_weights()
-        kw = dict(point_dim=pfn_net.point_dim,
-                  with_distance=pfn_net.with_distance, grid_w=enc.grid_hw[1],
-                  voxel_size=enc.voxel_size, x0=enc.x_range[0],
-                  y0=enc.y_range[0])
-        t_plain, s_plain = kpfn.pfn_plain(ps, weights, out_dtype=pts.dtype,
-                                          **kw)
-        P = ps.num_pillars.long()
-        rows = torch.arange(table.shape[1], device=pts.device)[None] < P[:, None]
-        diff = (table.float() - t_plain.float()).abs()[rows]
-        err = float(diff.max())
-        scale = float(t_plain.float().abs().max())
-        st_err = float(((stats - s_plain).abs() / s_plain.abs().clamp(min=1))
-                       .max())
-        packed = kpfn.pack_weights(weights, pts.device)
-        run_k = lambda: kpfn.pfn(ps, weights, max_points_per_pillar=enc.k,  # noqa: E731
-                                 out_dtype=pts.dtype, packed=packed, **kw)
-        run_p = lambda: kpfn.pfn_plain(ps, weights, out_dtype=pts.dtype, **kw)  # noqa: E731
-        ms_k = cuda_ms(torch, run_k, 10)
-        ms_p = cuda_ms(torch, run_p, 3)
-        kept = float(ps.counts.sum())
-        n_pil = float(P.sum())
-        macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
-        c_out = table.shape[-1]
-        # the products' type is the weights' (bf16 here: the kernel takes no
-        # other), with f32 accumulation
-        w_type = "bf16" if weights[0][0].dtype == torch.bfloat16 else "f32"
-        bnd = bound(BATCH * cfg.max_points_per_scan * 16 + n_pil * 12
-                    + n_pil * c_out * 2 + 8 * BATCH,
-                    2 * kept * macs / PEAK[w_type])
-        record("pfn", "mask_bev_tpu_torch/csrc/pfn.cu",
-               "mask_bev_tpu/ops/pallas_pfn.py:384", err, 2e-2 * scale,
-               ms_k, ms_p, bnd,
-               f"stats rel err {st_err:.3g}; pillars {int(n_pil)} kept "
-               f"points {int(kept)}")
-        if st_err > 1e-3:
-            failures.append("pfn stats")
-
-        # ---- kernel 2: canvas + pseudo-image norm ------------------------
-        h, w = enc.grid_hw
-        elems = float(h * w * c_out)
-        mean = stats[:, 0] / elems
-        var = stats[:, 1] / elems - mean * mean
-        args = (table, ps.cells, ps.num_pillars, mean, var,
-                enc.norm.weight.detach(), enc.norm.bias.detach(), (h, w),
-                enc.norm.eps)
-        got = kcanvas.canvas_norm(*args)
-        want = kcanvas.canvas_norm_plain(table, ps.cells, mean, var,
-                                         *args[5:])
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_norm(*args), 10)
-        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_norm_plain(
-            table, ps.cells, mean, var, *args[5:]), 3)
-        bnd = bound(BATCH * h * w * c_out * 2 + 2 * h * w * c_out * 2
-                    + n_pil * (c_out * 2 + 4),
-                    4.0 * BATCH * h * w * c_out / PEAK["f32"])
-        record("canvas_norm", "mask_bev_tpu_torch/csrc/canvas.cu",
-               "mask_bev_tpu/ops/pallas_canvas.py:244", err, 1e-2 * scale,
-               ms_k, ms_p, bnd)
-
-        # ---- kernel 3: Swin block (all 12 blocks of the backbone) --------
-        err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes = (0.0,) * 6
-        for (x, p, hw, win, heads, shift, quant) in captured_blocks:
-            a = (x, p, hw, win, heads, shift, quant)
-            got = kswin.swin_block(*a)
-            want = kswin.swin_block_plain(*a)
-            e = float((got.float() - want.float()).abs().max())
-            err_abs = max(err_abs, e)
-            err_rel = max(err_rel, e / float(want.float().abs().max()))
-            ms_k += cuda_ms(torch, lambda: kswin.swin_block(*a), 3)
-            ms_p += cuda_ms(torch, lambda: kswin.swin_block_plain(*a), 1)
-            b_, l_, c_ = x.shape
-            hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
-            gemm_ops = 2.0 * b_ * l_ * 12 * c_ * c_
-            attn_ops = 4.0 * b_ * hp * wp * win * win * c_
-            b_ops += (gemm_ops / PEAK["int8" if quant else "bf16"]
-                      + attn_ops / PEAK["bf16"])
-            b_bytes += 2 * b_ * l_ * c_ * 2 + 12 * c_ * c_
-        record("swin_block", "mask_bev_tpu_torch/csrc/swin_block.cu",
-               "mask_bev_tpu/ops/pallas_swin_block.py:584", err_abs,
-               float("nan"), ms_k, ms_p, bound(b_bytes, b_ops),
-               f"largest error relative to its block's max-abs {err_rel:.4g} "
-               f"(tolerance 0.02); {len(captured_blocks)} blocks summed",
-               ok=err_rel <= 2e-2)
-        swin_parts(torch, kswin, captured_blocks, card)
-
-        # ---- kernel 4: decoder stack -------------------------------------
-        (dargs, dkw) = captured_dec[0]
-        out_k, kbits = kdec.decoder_stack(*dargs, **dkw, return_bits=True)
-        layers, head = dargs[6], dargs[7]
-        out_p, plogits = kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"], return_logits=True)
-        flips = [int((kb_ != kdec.blocked_positions(m)).sum())
-                 for kb_, m in zip(kbits, plogits)]
-        total = sum(m.numel() for m in plogits)
-        err = float((out_k.float() - out_p.float()).abs().max())
-        scale = float(out_p.float().abs().max())
-        same, same_logits = kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
-            return_logits=True)
-        err_same = float((out_k.float() - same.float()).abs().max())
-        if err_same > 2e-2 * scale:
-            failures.append("decoder_stack on its own blocked positions")
-        # given the kernel's decisions, the plain version's own logits (its
-        # decoder norm and mask MLP) may decide otherwise only within
-        # rounding of 0; free-running flips compound, bounded more loosely
-        own = [int((kb_ != kdec.blocked_positions(m)).sum())
-               for kb_, m in zip(kbits, same_logits)]
-        for li, m in enumerate(plogits):
-            if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
-                failures.append(f"decoder_stack bias flips in layer {li}")
-        ms_k = cuda_ms(torch, lambda: kdec.decoder_stack(*dargs, **dkw), 5)
-        ms_p = cuda_ms(torch, lambda: kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"]), 2)
-        q_, c_ = dargs[0].shape[1], dargs[0].shape[2]
-        ts = [m.shape[1] for m in dargs[3]]
-        f_ = layers[0].f1.shape[1]
-        n_l = len(layers)
-        ops = 0.0
-        for li in range(n_l):
-            t_ = ts[li % len(ts)]
-            ops += BATCH * (2 * q_ * c_ * c_ * 9 + 4 * q_ * c_ * f_
-                            + 6 * q_ * t_ * c_ + 4 * q_ * q_ * c_)
-        ops += 2 * 2 * BATCH * sum(ts) * c_ * c_ * (n_l // len(ts))
-        byts = (BATCH * sum(ts) * c_ * (2 + 4) + sum(ts) * c_ * 2
-                + n_l * (8 * c_ * c_ + 2 * c_ * f_) * 2 + BATCH * q_ * c_ * 2)
-        decoder_clusters(kb, kdec, dargs, card)
-        record("decoder_stack", "mask_bev_tpu_torch/csrc/decoder_stack.cu",
-               "mask_bev_tpu/ops/pallas_decoder_stack.py:200", err,
-               5e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
-               f"bias entries that differ: {sum(flips)} of {total}, per "
-               f"layer {flips} (tolerance 5 % a layer), on the kernel's own "
-               f"decisions {own} (tolerance 1 % a layer); max_abs_err on "
-               f"the kernel's own blocked positions {err_same:.6g} "
-               f"(tolerance {2e-2 * scale:.6g})")
-
-    # ---- the main path: serve requests through the predictor -------------
-    staged = []
-    for s in range(4):
-        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 100 + s)
-        staged.append((torch.as_tensor(p_np).cuda(),
-                       torch.as_tensor(m_np).cuda()))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kb.reset_launches()
-    for i in range(WARM):
-        cls_p, mask_p = pred.forward(*staged[i % 4])
-    torch.cuda.synchronize()
-    times = []
-    for i in range(TIMED):
-        t1 = time.perf_counter()
-        cls_p, mask_p = pred.forward(*staged[i % 4])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-    launches = dict(kb.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    requests = WARM + TIMED
-    ms_batch = float(np.median(times) * 1e3)
-    print(f"[e2e] {requests} requests of batch {BATCH}: median "
-          f"{ms_batch:.3f} ms/batch, mean {np.mean(times) * 1e3:.3f} ms, "
-          f"{BATCH / (ms_batch / 1e3):.2f} scans/s, peak memory "
-          f"{peak_gb:.2f} GiB [{card}]", flush=True)
-    print(f"[e2e] launches over the {requests} requests: {launches}",
-          flush=True)
-    for k in results:
-        results[k]["launches"] = launches.get(k, 0)
-        if launches.get(k, 0) <= 0:
-            failures.append(f"{k} never launched on the main path")
-    hg, wg = cfg.grid_hw
-    exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
-    exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)
-    if tuple(cls_p.shape) != exp_cls or tuple(mask_p.shape) != exp_mask:
-        failures.append(f"output shapes {tuple(cls_p.shape)} "
-                        f"{tuple(mask_p.shape)}")
-    if not (torch.isfinite(cls_p).all() and torch.isfinite(mask_p).all()):
-        failures.append("non-finite outputs")
-    print(f"[e2e] class probs {tuple(cls_p.shape)} mask probs "
-          f"{tuple(mask_p.shape)}; mean mask prob "
-          f"{float(mask_p.mean()):.4f}", flush=True)
-
-    # ---- where the time goes: one traced request --------------------------
-    traced(torch, lambda: pred.forward(*staged[0]), "profile", "request",
-           card, 16)
+    # ---- the main path: the bf16 serving path, kernels 1-5 ----------------
+    cfg = semantic_kitti_default().replace(
+        max_points_per_scan=131072, pseudo_image_norm="full",
+        compute_dtype="bfloat16")
+    serve_phase(np, torch, card, results, failures, record, cfg, "", WARM,
+                TIMED, main_path=True)
 
     # ---- small model: the card against the plain CPU path -----------------
     small = tiny_test_config().replace(
@@ -407,22 +197,321 @@ def main() -> None:
           f"0.02) -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         failures.append("small model card vs CPU")
-
-    del pred, model, captured_blocks, captured_dec, staged, table, ps
     torch.cuda.empty_cache()
+
     path_phase(np, torch, card, results, failures, record, "K")
     path_phase(np, torch, card, results, failures, record, "E")
+    # kernels 7-10 at f32: the same paths in the shipped dtype
+    path_phase(np, torch, card, results, failures, record, "K", f32=True)
+    path_phase(np, torch, card, results, failures, record, "E", f32=True)
+    # phase F: the shipped flagship configuration (f32, int8 backbone)
+    serve_phase(np, torch, card, results, failures, record,
+                semantic_kitti_default().replace(max_points_per_scan=131072),
+                ".f32", PATH_WARM, PATH_TIMED)
+    # phase W: Waymo as shipped (f32, 170 queries, 3 point columns)
+    serve_phase(np, torch, card, results, failures, record,
+                waymo_default().replace(max_points_per_scan=131072),
+                ".waymo", PATH_WARM, PATH_TIMED)
     train_phase(np, torch, card, results, failures, record)
 
-    print(json.dumps({"kernels": [results[k] for k in (
-        "pfn", "canvas_norm", "swin_block", "decoder_stack", "canvas_scatter",
-        "canvas_scatter_bwd", "hungarian", "window_msa", "patch_embed",
-        "layer_norm", "stream_pfn")]}), flush=True)
+    print(json.dumps({"kernels": list(results.values())}), flush=True)
     if failures:
         fail("; ".join(failures))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# kernel -> (source, TPU function it replaces)
+SOURCES = {
+    "pfn": ("mask_bev_tpu_torch/csrc/pfn.cu",
+            "mask_bev_tpu/ops/pallas_pfn.py:384"),
+    "canvas_norm": ("mask_bev_tpu_torch/csrc/canvas.cu",
+                    "mask_bev_tpu/ops/pallas_canvas.py:244"),
+    "swin_block": ("mask_bev_tpu_torch/csrc/swin_block.cu",
+                   "mask_bev_tpu/ops/pallas_swin_block.py:584"),
+    "decoder_stack": ("mask_bev_tpu_torch/csrc/decoder_stack.cu",
+                      "mask_bev_tpu/ops/pallas_decoder_stack.py:200"),
+}
+
+
+def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
+                warm, timed, main_path=False):
+    """One serving configuration at full width through ``MaskBevPredictor``
+    at batch 8: the inputs of kernels 1-5 captured in one forward and held
+    against their plain versions in the configuration's dtype, then
+    ``warm`` + ``timed`` requests with the launch counters reset just
+    before and read just after, then one traced request. The main path
+    (bf16) also times the Swin chain's launches by kind and prints the
+    decoder's cluster occupancy; the f32 phases check the instance
+    counters, which must show the f32 instances."""
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models import mask2former as m2f
+    from mask_bev_tpu_torch.models import swin as msw
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+    from mask_bev_tpu_torch.ops import pfn as kpfn
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    label = "e2e" + {"": "", ".f32": " f32", ".waymo": " waymo"}[suffix]
+    f32 = cfg.compute_dtype == "float32"
+    esz = 4 if f32 else 2
+    work = "f32" if f32 else "bf16"  # the products' type, off the int8 GEMM
+    t0 = time.time()
+    sd = MaskBev(cfg).random_state_dict(SEED + (0 if main_path else 20))
+    pred = MaskBevPredictor(cfg, sd, device="cuda")
+    model = pred.model
+    dcol = cfg.pc_point_dim
+    pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED)
+    pts = torch.as_tensor(pts_np[..., :dcol]).cuda().to(pred.dtype)
+    msk = torch.as_tensor(mask_np).cuda()
+
+    # ---- capture every kernel's inputs (one forward) ----------------------
+    captured_blocks, captured_dec = [], []
+    orig_block, orig_dec = msw.swin_block, m2f.decoder_stack
+
+    def rec_block(x, *args):
+        captured_blocks.append((x.clone(), *args))
+        return orig_block(x, *args)
+
+    def rec_dec(*args, **kw):
+        captured_dec.append((args, kw))
+        return orig_dec(*args, **kw)
+
+    msw.swin_block, m2f.decoder_stack = rec_block, rec_dec
+    try:
+        with torch.no_grad():
+            enc = model.encoder
+            ps, table, stats = enc.pillar_table(pts, msk)
+            model(pts, msk)
+    finally:
+        msw.swin_block, m2f.decoder_stack = orig_block, orig_dec
+    torch.cuda.synchronize()
+    print(f"[{label}] {cfg.name} ({cfg.compute_dtype}, int8 backbone: "
+          f"{cfg.backbone_quantize == 'int8'}, {cfg.num_queries} queries, "
+          f"{dcol} point columns): captured {len(captured_blocks)} blocks "
+          f"in {time.time() - t0:.1f} s [{card}]", flush=True)
+
+    def rec(name, *a, **kw):
+        record(name + suffix, *SOURCES[name], *a, **kw)
+
+    with torch.no_grad():
+        # ---- kernel 1: PFN -----------------------------------------------
+        pfn_net = enc.pillar_feature_net
+        weights = pfn_net.folded_weights()
+        kw = dict(point_dim=pfn_net.point_dim,
+                  with_distance=pfn_net.with_distance, grid_w=enc.grid_hw[1],
+                  voxel_size=enc.voxel_size, x0=enc.x_range[0],
+                  y0=enc.y_range[0])
+        t_plain, s_plain = kpfn.pfn_plain(ps, weights, out_dtype=pts.dtype,
+                                          **kw)
+        P = ps.num_pillars.long()
+        rows = torch.arange(table.shape[1], device=pts.device)[None] < P[:, None]
+        diff = (table.float() - t_plain.float()).abs()[rows]
+        err = float(diff.max())
+        n_differ = int((diff > 0).any(-1).sum())
+        scale = float(t_plain.float().abs().max())
+        st_err = float(((stats - s_plain).abs() / s_plain.abs().clamp(min=1))
+                       .max())
+        packed = kpfn.pack_weights(weights, pts.device)
+        run_k = lambda: kpfn.pfn(ps, weights, max_points_per_pillar=enc.k,  # noqa: E731
+                                 out_dtype=pts.dtype, packed=packed, **kw)
+        run_p = lambda: kpfn.pfn_plain(ps, weights, out_dtype=pts.dtype, **kw)  # noqa: E731
+        ms_k = cuda_ms(torch, run_k, 10)
+        ms_p = cuda_ms(torch, run_p, 3)
+        kept = float(ps.counts.sum())
+        n_pil = float(P.sum())
+        macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
+        c_out = table.shape[-1]
+        # the products' type is the weights' (bf16 on the tensor cores, or
+        # f32), with f32 accumulation
+        w_type = "bf16" if weights[0][0].dtype == torch.bfloat16 else "f32"
+        bnd = bound(BATCH * cfg.max_points_per_scan * 16 + n_pil * 12
+                    + n_pil * c_out * esz + 8 * BATCH,
+                    2 * kept * macs / PEAK[w_type])
+        # bf16: two bf16 steps at the largest value (the tensor cores sum in
+        # another order, and every layer rounds to bf16 again); f32: 1e-4
+        tol = (2 ** -7 if w_type == "bf16" else 1e-4) * scale
+        rec("pfn", err, tol, ms_k, ms_p, bnd,
+            f"rows that differ {n_differ} of {int(n_pil)}; stats rel err "
+            f"{st_err:.3g} (tolerance 1e-3); pillars {int(n_pil)} kept "
+            f"points {int(kept)}")
+        if st_err > 1e-3:
+            failures.append(f"pfn{suffix} stats")
+
+        # ---- kernel 2: canvas + pseudo-image norm ------------------------
+        h, w = enc.grid_hw
+        elems = float(h * w * c_out)
+        mean = stats[:, 0] / elems
+        var = stats[:, 1] / elems - mean * mean
+        args = (table, ps.cells, ps.num_pillars, mean, var,
+                enc.norm.weight.detach(), enc.norm.bias.detach(), (h, w),
+                enc.norm.eps)
+        got = kcanvas.canvas_norm(*args)
+        want = kcanvas.canvas_norm_plain(table, ps.cells, mean, var,
+                                         *args[5:])
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_norm(*args), 10)
+        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_norm_plain(
+            table, ps.cells, mean, var, *args[5:]), 3)
+        bnd = bound(BATCH * h * w * c_out * esz + 2 * h * w * c_out * esz
+                    + n_pil * (c_out * esz + 4),
+                    4.0 * BATCH * h * w * c_out / PEAK["f32"])
+        rec("canvas_norm", err, (1e-2 if not f32 else 1e-4) * scale, ms_k,
+            ms_p, bnd)
+        del got, want
+
+        # ---- kernels 3/4: Swin block (all blocks of the backbone) --------
+        err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes = (0.0,) * 6
+        quant = False
+        for (x, p, hw, win, heads, shift, quant) in captured_blocks:
+            a = (x, p, hw, win, heads, shift, quant)
+            got = kswin.swin_block(*a)
+            want = kswin.swin_block_plain(*a)
+            e = float((got.float() - want.float()).abs().max())
+            err_abs = max(err_abs, e)
+            err_rel = max(err_rel, e / float(want.float().abs().max()))
+            ms_k += cuda_ms(torch, lambda: kswin.swin_block(*a), 3)
+            ms_p += cuda_ms(torch, lambda: kswin.swin_block_plain(*a), 1)
+            b_, l_, c_ = x.shape
+            hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
+            gemm_ops = 2.0 * b_ * l_ * 12 * c_ * c_
+            attn_ops = 4.0 * b_ * hp * wp * win * win * c_
+            b_ops += (gemm_ops / PEAK["int8" if quant else work]
+                      + attn_ops / PEAK[work])
+            b_bytes += (2 * b_ * l_ * c_ * esz
+                        + 12 * c_ * c_ * (1 if quant else esz))
+        # int8: rounding boundaries move by a step between two LayerNorms
+        # summed in another order (0.02 of each block's max-abs, as in bf16);
+        # bf16: the same; f32 products: 1e-3
+        blk_tol = 2e-2 if (quant or not f32) else 1e-3
+        rec("swin_block", err_abs, float("nan"), ms_k, ms_p,
+            bound(b_bytes, b_ops),
+            f"largest error relative to its block's max-abs {err_rel:.4g} "
+            f"(tolerance {blk_tol}); {len(captured_blocks)} blocks summed",
+            ok=err_rel <= blk_tol)
+        if main_path:
+            swin_parts(torch, kswin, captured_blocks, card)
+
+        # ---- kernel 5: decoder stack -------------------------------------
+        (dargs, dkw) = captured_dec[0]
+        kb.reset_launches()
+        out_k, kbits = kdec.decoder_stack(*dargs, **dkw, return_bits=True)
+        instance = [k for k in kb.INSTANCES if k.startswith("decoder_stack/")
+                    and "gemm" not in k]
+        layers, head = dargs[6], dargs[7]
+        out_p, plogits = kdec.decoder_stack_plain(
+            *dargs[:8], num_heads=dkw["num_heads"], return_logits=True)
+        flips = [int((kb_ != kdec.blocked_positions(m)).sum())
+                 for kb_, m in zip(kbits, plogits)]
+        total = sum(m.numel() for m in plogits)
+        err = float((out_k.float() - out_p.float()).abs().max())
+        scale = float(out_p.float().abs().max())
+        same, same_logits = kdec.decoder_stack_plain(
+            *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
+            return_logits=True)
+        err_same = float((out_k.float() - same.float()).abs().max())
+        same_tol = (1e-3 if f32 else 2e-2) * scale
+        if err_same > same_tol:
+            failures.append(f"decoder_stack{suffix} on its own blocked "
+                            "positions")
+        # given the kernel's decisions, the plain version's own logits (its
+        # decoder norm and mask MLP) may decide otherwise only within
+        # rounding of 0; free-running flips compound, bounded more loosely
+        own = [int((kb_ != kdec.blocked_positions(m)).sum())
+               for kb_, m in zip(kbits, same_logits)]
+        for li, m in enumerate(plogits):
+            if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
+                failures.append(f"decoder_stack{suffix} bias flips in layer "
+                                f"{li}")
+        ms_k = cuda_ms(torch, lambda: kdec.decoder_stack(*dargs, **dkw), 5)
+        ms_p = cuda_ms(torch, lambda: kdec.decoder_stack_plain(
+            *dargs[:8], num_heads=dkw["num_heads"]), 2)
+        q_, c_ = dargs[0].shape[1], dargs[0].shape[2]
+        ts = [m.shape[1] for m in dargs[3]]
+        f_ = layers[0].f1.shape[1]
+        n_l = len(layers)
+        ops = 0.0
+        for li in range(n_l):
+            t_ = ts[li % len(ts)]
+            ops += BATCH * (2 * q_ * c_ * c_ * 9 + 4 * q_ * c_ * f_
+                            + 6 * q_ * t_ * c_ + 4 * q_ * q_ * c_)
+        ops += 2 * 2 * BATCH * sum(ts) * c_ * c_ * (n_l // len(ts))
+        byts = (BATCH * sum(ts) * c_ * (esz + 4) + sum(ts) * c_ * esz
+                + n_l * (8 * c_ * c_ + 2 * c_ * f_) * esz
+                + BATCH * q_ * c_ * esz)
+        if main_path:
+            decoder_clusters(kb, kdec, dargs, card)
+        rec("decoder_stack", err, 5e-2 * scale, ms_k, ms_p,
+            bound(byts, ops / PEAK[work]),
+            f"instance {instance}, Q={q_}; bias entries that differ: "
+            f"{sum(flips)} of {total}, per layer {flips} (tolerance 5 % a "
+            f"layer), on the kernel's own decisions {own} (tolerance 1 % a "
+            f"layer); max_abs_err on the kernel's own blocked positions "
+            f"{err_same:.6g} (tolerance {same_tol:.6g})")
+    del captured_blocks, captured_dec, table, ps, dargs, out_k, out_p, same
+
+    # ---- serve requests through the predictor -----------------------------
+    staged = []
+    for s in range(4):
+        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 100 + s)
+        staged.append((torch.as_tensor(p_np[..., :dcol]).cuda(),
+                       torch.as_tensor(m_np).cuda()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    for i in range(warm):
+        cls_p, mask_p = pred.forward(*staged[i % 4])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(timed):
+        t1 = time.perf_counter()
+        cls_p, mask_p = pred.forward(*staged[i % 4])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = dict(kb.LAUNCHES)
+    instances = dict(kb.INSTANCES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    requests = warm + timed
+    ms_batch = float(np.median(times) * 1e3)
+    print(f"[{label}] {requests} requests of batch {BATCH}: median "
+          f"{ms_batch:.3f} ms/batch, mean {np.mean(times) * 1e3:.3f} ms, "
+          f"{BATCH / (ms_batch / 1e3):.2f} scans/s, peak memory "
+          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[{label}] launches over the {requests} requests: {launches}; "
+          f"by instance: {instances}", flush=True)
+    for k in SOURCES:
+        results[k + suffix]["launches"] = launches.get(k, 0)
+        if launches.get(k, 0) <= 0:
+            failures.append(f"{k} never launched on [{label}]")
+    if f32:
+        need = ["pfn/f32", "canvas_norm/f32", "swin_block/f32",
+                "decoder_stack/split_f32",
+                "swin_block/gemm_s8_f32" if quant else "swin_block/gemm_f32"]
+        missing = [k for k in need if instances.get(k, 0) <= 0]
+        if missing:
+            failures.append(f"[{label}] f32 instances never launched: "
+                            f"{missing}")
+    hg, wg = cfg.grid_hw
+    exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
+    exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)
+    if tuple(cls_p.shape) != exp_cls or tuple(mask_p.shape) != exp_mask:
+        failures.append(f"[{label}] output shapes {tuple(cls_p.shape)} "
+                        f"{tuple(mask_p.shape)}")
+    if not (torch.isfinite(cls_p).all() and torch.isfinite(mask_p).all()):
+        failures.append(f"[{label}] non-finite outputs")
+    print(f"[{label}] class probs {tuple(cls_p.shape)} mask probs "
+          f"{tuple(mask_p.shape)}; mean mask prob "
+          f"{float(mask_p.mean()):.4f}", flush=True)
+
+    # ---- where the time goes: one traced request --------------------------
+    traced(torch, lambda: pred.forward(*staged[0]),
+           "profile" + label[3:], "request", card, 16 if main_path else 12)
+    del pred, model, staged, cls_p, mask_p
+    torch.cuda.empty_cache()
 
 
 def swin_parts(torch, kswin, blocks, card) -> None:
@@ -508,14 +597,16 @@ def decoder_clusters(kb, kdec, dargs, card) -> None:
           flush=True)
 
 
-def path_phase(np, torch, card, results, failures, record, path: str):
+def path_phase(np, torch, card, results, failures, record, path: str,
+               f32: bool = False):
     """Path K (KITTI, unfused backbone: kernels 7 and 8 with the PFN, the
     canvas and the decoder stack) or path E (the capped eval encoder with
     the fused token LN: kernels 10 and 9 with the canvas, the Swin blocks
     and the decoder stack) at full width: inputs of the path's new kernels
     captured in one forward and held against their plain versions, then 3
-    warm and 5 timed requests with the launch counters reset just
-    before."""
+    warm and 5 timed requests with the launch counters reset just before.
+    ``f32``: the path in f32 (every kernel's f32 instance), 1 warm and 2
+    timed requests, no trace."""
     import torch.nn.functional as F
 
     from mask_bev_tpu_torch.config import kitti_default, semantic_kitti_default
@@ -529,20 +620,24 @@ def path_phase(np, torch, card, results, failures, record, path: str):
     from mask_bev_tpu_torch.ops import pfn as kpfn
     from mask_bev_tpu_torch.ops import window_msa as kwmsa
 
+    dtype = "float32" if f32 else "bfloat16"
+    sfx = ".f32" if f32 else ""
+    esz = 4 if f32 else 2
+    work = "f32" if f32 else "bf16"
     if path == "K":
         cfg = kitti_default().replace(
-            max_points_per_scan=131072, compute_dtype="bfloat16",
+            max_points_per_scan=131072, compute_dtype=dtype,
             use_pallas_backbone=False, use_pallas_attention=True,
             fuse_patch_embed=True)
         names = ("window_msa", "patch_embed")
         path_kernels = ("pfn", "canvas_norm", "decoder_stack") + names
     else:
         cfg = semantic_kitti_default().replace(
-            max_points_per_scan=131072, compute_dtype="bfloat16",
+            max_points_per_scan=131072, compute_dtype=dtype,
             use_pallas_encoder=False)
         names = ("layer_norm", "stream_pfn")
         path_kernels = ("canvas_norm", "swin_block", "decoder_stack") + names
-    label = f"path {path}"
+    label = f"path {path}" + (" f32" if f32 else "")
     t0 = time.time()
     pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(SEED + 10),
                             device="cuda")
@@ -550,7 +645,7 @@ def path_phase(np, torch, card, results, failures, record, path: str):
     if path == "E":
         model.backbone.fuse_ln = True  # as the JAX SwinTransformer attribute
     pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED + 11)
-    pts = torch.as_tensor(pts_np).cuda().to(torch.bfloat16)
+    pts = torch.as_tensor(pts_np).cuda().to(pred.dtype)
     msk = torch.as_tensor(mask_np).cuda()
 
     # ---- capture the new kernels' inputs in one forward -------------------
@@ -599,14 +694,17 @@ def path_phase(np, torch, card, results, failures, record, path: str):
                 b_, nw_, n_, c_ = xw.shape
                 tokens = b_ * nw_ * n_
                 ops += 2.0 * tokens * (4 * c_ * c_ + 2 * n_ * c_)
-                byts += 2 * tokens * c_ * 2 + 4 * c_ * c_ * 2
-            record("window_msa", "mask_bev_tpu_torch/csrc/window_msa.cu",
+                byts += 2 * tokens * c_ * esz + 4 * c_ * c_ * esz
+            # bf16: both sides round qkv, probabilities and heads to bf16;
+            # f32: the same f32 operations in another order
+            tol = 1e-3 if f32 else 2e-2
+            record("window_msa" + sfx, "mask_bev_tpu_torch/csrc/window_msa.cu",
                    "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
-                   float("nan"), ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
+                   float("nan"), ms_k, ms_p, bound(byts, ops / PEAK[work]),
                    f"largest error relative to its block's max-abs "
-                   f"{err_rel:.4g} (tolerance 0.02); "
+                   f"{err_rel:.4g} (tolerance {tol}); "
                    f"{len(cap['window_msa'])} blocks summed",
-                   ok=err_rel <= 2e-2)
+                   ok=err_rel <= tol)
             # ---- kernel 8: patch embed + patch_norm --------------------------
             (a, kw), = cap["patch_embed"]
             got = kpe.patch_embed(*a, **kw)
@@ -620,10 +718,12 @@ def path_phase(np, torch, card, results, failures, record, path: str):
             e_ = wm.shape[0]
             m_ = b_ * (h_ // p_) * (w_ // p_)
             ops = 2.0 * m_ * p_ * p_ * c_ * e_
-            byts = canvas.numel() * 2 + m_ * e_ * 2 + wm.numel() * 2
-            record("patch_embed", "mask_bev_tpu_torch/csrc/patch_embed.cu",
+            byts = (canvas.numel() + m_ * e_ + wm.numel()) * esz
+            record("patch_embed" + sfx,
+                   "mask_bev_tpu_torch/csrc/patch_embed.cu",
                    "mask_bev_tpu/ops/pallas_patch_embed.py:67", err,
-                   1e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK["bf16"]),
+                   (1e-3 if f32 else 1e-2) * scale, ms_k, ms_p,
+                   bound(byts, ops / PEAK[work]),
                    f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, {e_})")
         else:
             # ---- kernel 9: token LayerNorm, patch_norm + out_norm0-3 ---------
@@ -639,10 +739,11 @@ def path_phase(np, torch, card, results, failures, record, path: str):
                                 5)
                 ms_l += cuda_ms(torch, lambda: F.layer_norm(
                     x_, (x_.shape[-1],), w_, bb_, 1e-6), 20)
-                byts += 2 * x_.numel() * 2
-            record("layer_norm", "mask_bev_tpu_torch/csrc/layer_norm.cu",
+                byts += 2 * x_.numel() * esz
+            record("layer_norm" + sfx, "mask_bev_tpu_torch/csrc/layer_norm.cu",
                    "mask_bev_tpu/ops/pallas_layer_norm.py:33", err,
-                   1e-2 * scale, ms_k, ms_p, bound(byts, 0.0),
+                   (1e-4 if f32 else 1e-2) * scale, ms_k, ms_p,
+                   bound(byts, 0.0),
                    f"{len(cap['layer_norm'])} calls summed: "
                    f"{[tuple(a[0].shape) for a, _ in cap['layer_norm']]}",
                    library_ms=ms_l)
@@ -653,7 +754,9 @@ def path_phase(np, torch, card, results, failures, record, path: str):
                         if k not in ("num_valid", "packed")}
             table, stats = kpfn.stream_pfn(*a, **kw)
             want, wstats = kpfn.stream_pfn_plain(*a, **plain_kw)
-            err = float((table.float() - want.float()).abs().max())
+            diff = (table.float() - want.float()).abs()
+            err = float(diff.max())
+            n_differ = int((diff > 0).any(-1).sum())
             scale = float(want.float().abs().max())
             st_err = float(((stats - wstats).abs()
                             / wstats.abs().clamp(min=1)).max())
@@ -664,14 +767,18 @@ def path_phase(np, torch, card, results, failures, record, path: str):
             macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
             b_, n_, d_ = sp.pts.shape
             p_, c_ = table.shape[1], table.shape[2]
-            byts = (b_ * n_ * (d_ * 2 + 4 + 1) + b_ * p_ * (8 + c_ * 2 + 8))
-            record("stream_pfn", "mask_bev_tpu_torch/csrc/pfn.cu",
-                   "mask_bev_tpu/ops/pallas_pfn.py:168", err, 1e-2 * scale,
-                   ms_k, ms_p, bound(byts, 2 * kept * macs / PEAK["bf16"]),
-                   f"stats rel err {st_err:.3g}; slots {p_}, occupied "
-                   f"{kw['num_valid'].tolist()}, kept points {int(kept)}")
+            byts = (b_ * n_ * (d_ * esz + 4 + 1)
+                    + b_ * p_ * (8 + c_ * esz + 8))
+            record("stream_pfn" + sfx, "mask_bev_tpu_torch/csrc/pfn.cu",
+                   "mask_bev_tpu/ops/pallas_pfn.py:168", err,
+                   (1e-4 if f32 else 1e-2) * scale, ms_k, ms_p,
+                   bound(byts, 2 * kept * macs / PEAK[work]),
+                   f"rows that differ {n_differ} of {p_ * b_} slots; stats "
+                   f"rel err {st_err:.3g} (tolerance 1e-3); slots {p_}, "
+                   f"occupied {kw['num_valid'].tolist()}, kept points "
+                   f"{int(kept)}")
             if st_err > 1e-3:
-                failures.append("stream_pfn stats")
+                failures.append(f"stream_pfn{sfx} stats")
     del cap
 
     # ---- the path: warm and timed requests ---------------------------------
@@ -680,33 +787,38 @@ def path_phase(np, torch, card, results, failures, record, path: str):
         p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 300 + s)
         staged.append((torch.as_tensor(p_np).cuda(),
                        torch.as_tensor(m_np).cuda()))
+    n_warm, n_timed = (1, 2) if f32 else (PATH_WARM, PATH_TIMED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.reset_launches()
-    for i in range(PATH_WARM):
+    for i in range(n_warm):
         cls_p, mask_p = pred.forward(*staged[i % 4])
     torch.cuda.synchronize()
     times = []
-    for i in range(PATH_TIMED):
+    for i in range(n_timed):
         t1 = time.perf_counter()
         cls_p, mask_p = pred.forward(*staged[i % 4])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     launches = dict(kb.LAUNCHES)
+    instances = dict(kb.INSTANCES)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    requests = PATH_WARM + PATH_TIMED
+    requests = n_warm + n_timed
     ms_batch = float(np.median(times) * 1e3)
     print(f"[e2e {label}] {requests} requests of batch {BATCH}: median "
           f"{ms_batch:.3f} ms/batch, mean {np.mean(times) * 1e3:.3f} ms, "
           f"{BATCH / (ms_batch / 1e3):.2f} scans/s, peak memory "
           f"{peak_gb:.2f} GiB [{card}]", flush=True)
     print(f"[e2e {label}] launches over the {requests} requests: "
-          f"{launches}", flush=True)
+          f"{launches}; by instance: {instances}", flush=True)
     for k in names:
-        results[k]["launches"] = launches.get(k, 0)
+        results[k + sfx]["launches"] = launches.get(k, 0)
     for k in path_kernels:
         if launches.get(k, 0) <= 0:
             failures.append(f"{k} never launched on {label}")
+        if f32 and not any(i.startswith(k + "/") and "f32" in i
+                           for i in instances):
+            failures.append(f"{k}: no f32 instance launched on {label}")
     hg, wg = cfg.grid_hw
     exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
     exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)
@@ -718,8 +830,9 @@ def path_phase(np, torch, card, results, failures, record, path: str):
     print(f"[e2e {label}] class probs {tuple(cls_p.shape)} mask probs "
           f"{tuple(mask_p.shape)}; mean mask prob "
           f"{float(mask_p.mean()):.4f}", flush=True)
-    traced(torch, lambda: pred.forward(*staged[0]), f"profile {label}",
-           "request", card, 12)
+    if not f32:
+        traced(torch, lambda: pred.forward(*staged[0]), f"profile {label}",
+               "request", card, 12)
     del pred, model, staged, cls_p, mask_p
     torch.cuda.empty_cache()
 

@@ -129,11 +129,12 @@ class MaskBevConfig:
 
     # Precision / performance
     compute_dtype: str = "float32"  # float32 | bfloat16
-    # Options of the JAX package's TPU kernels. Of these the port reads only
-    # backbone_quantize ('int8': dynamic int8 quantisation of the backbone's
-    # dense products at eval) and remat_backbone, and keeps the rest so that
-    # one YAML file configures both packages; the port runs its own kernels
-    # whatever they say.
+    # Options of the JAX package's TPU kernels. The port reads the ones that
+    # choose a path the JAX package also takes (use_pallas_encoder,
+    # use_pallas_attention, use_pallas_backbone, use_pallas_head,
+    # fuse_patch_embed, backbone_quantize: 'int8' dynamic int8 quantisation
+    # of the backbone's dense products at eval, remat_backbone) and keeps the
+    # rest so that one YAML file configures both packages.
     use_pallas_encoder: bool = True
     use_pallas_attention: bool = False
     use_pallas_backbone: bool = True

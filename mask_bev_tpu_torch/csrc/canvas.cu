@@ -4,33 +4,43 @@
 // (_canvas_kernel) with its pseudo-image LayerNorm epilogue. Every cell is
 // written: its pillar's row, or 0 for an empty cell, then
 // ((v - mean) * rsqrt(var + eps)) * scale + bias in f32, rounded once to
-// bf16 (table, affine and canvas are bf16; the wrapper raises on others).
+// the table's type: table, affine and canvas are all bf16 or all f32 (two
+// instances; the wrapper raises on other types).
 //
 // What bounds it on the H100: bytes. At the flagship (B 8, 500x500, C 128,
 // bf16) it writes 512 MB of canvas and reads 128 MB of full-mode affine
 // plus the occupied table rows (~96 MB for ~374k pillars): ~0.22 ms at
-// 3.35 TB/s. Design: one warp per cell, lanes over channels in 4-wide
-// vectors (8 B accesses, coalesced per cell row); the cell's affine slice is
+// 3.35 TB/s (twice that in f32). Design: one warp per cell, lanes over
+// channels in 4-wide vectors (8 B accesses in bf16, 16 B in f32,
+// coalesced per cell row); the cell's affine slice is
 // read once and applied to all B samples (the affine is shared across the batch, so
 // it crosses HBM once, not B times). The cell -> row lookup is a binary
 // search over the sample's ascending cells (each cell holds at most one
 // pillar, so no selection matmul is needed); its reads hit L2.
 #include "common.cuh"
 
-// four bf16 values <-> one 8-byte word
-__device__ __forceinline__ void unpack4(const uint2& v, float* o) {
+// four values of T <-> one 8-byte (bf16) or 16-byte (f32) word
+__device__ __forceinline__ void load4(const bf16* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
   o[0] = __low2float(a); o[1] = __high2float(a);
   o[2] = __low2float(b); o[3] = __high2float(b);
 }
-__device__ __forceinline__ uint2 pack4(const float* o) {
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void store4(bf16* p, const float* o) {
   __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
   __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
   uint2 v;
   v.x = *reinterpret_cast<unsigned int*>(&a);
   v.y = *reinterpret_cast<unsigned int*>(&b);
-  return v;
+  *reinterpret_cast<uint2*>(p) = v;
+}
+__device__ __forceinline__ void store4(float* p, const float* o) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
 }
 
 // first index in [0, n) with cells[i] >= key (n if none)
@@ -44,11 +54,13 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ cells,
   return lo;
 }
 
+// T: the table's, the affine's and the canvas's type (bf16 or f32)
+template <typename T>
 __global__ void __launch_bounds__(256) canvas_norm_kernel(
-    const bf16* __restrict__ table, const int* __restrict__ cells,
+    const T* __restrict__ table, const int* __restrict__ cells,
     const int* __restrict__ num_pillars, const float* __restrict__ mv,
-    const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-    int full, bf16* __restrict__ out, int B, int N, int HW, int C, float eps) {
+    const T* __restrict__ scale, const T* __restrict__ bias,
+    int full, T* __restrict__ out, int B, int N, int HW, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int warps_total = gridDim.x * (blockDim.x >> 5);
   for (int cell = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -56,16 +68,15 @@ __global__ void __launch_bounds__(256) canvas_norm_kernel(
     for (int c = lane * 4; c < C; c += 128) {
       float s[4], bi[4];
       const size_t aoff = full ? (size_t)cell * C + c : (size_t)c;
-      unpack4(*reinterpret_cast<const uint2*>(scale + aoff), s);
-      unpack4(*reinterpret_cast<const uint2*>(bias + aoff), bi);
+      load4(scale + aoff, s);
+      load4(bias + aoff, bi);
       for (int b = 0; b < B; ++b) {
         const int* cb = cells + (size_t)b * N;
         const int P = num_pillars[b];
         const int r = lower_bound(cb, P, cell);
         float v[4] = {0.f, 0.f, 0.f, 0.f};
         if (r < P && __ldg(cb + r) == cell)
-          unpack4(*reinterpret_cast<const uint2*>(
-                      table + ((size_t)b * N + r) * C + c), v);
+          load4(table + ((size_t)b * N + r) * C + c, v);
         const float mean = mv[2 * b];
         const float rstd = rsqrtf(mv[2 * b + 1] + eps);
         float o[4];
@@ -73,24 +84,31 @@ __global__ void __launch_bounds__(256) canvas_norm_kernel(
         for (int q = 0; q < 4; ++q)
           o[q] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[q], mean), rstd),
                                      s[q]), bi[q]);
-        *reinterpret_cast<uint2*>(out + ((size_t)b * HW + cell) * C + c) =
-            pack4(o);
+        store4(out + ((size_t)b * HW + cell) * C + c, o);
       }
     }
   }
 }
 
-MB_EXPORT int canvas_norm_forward(const bf16* table, const int* cells,
+// f32: nonzero for the f32 instance (f32 table, affine and canvas)
+MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
                                   const int* num_pillars, const float* mv,
-                                  const bf16* scale, const bf16* bias,
-                                  int full, bf16* out, int B, int N, int HW,
-                                  int C, float eps, cudaStream_t stream) {
+                                  const void* scale, const void* bias,
+                                  int full, void* out, int B, int N, int HW,
+                                  int C, float eps, int f32,
+                                  cudaStream_t stream) {
   if (C % 4) return MB_BAD_ARGS;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  canvas_norm_kernel<<<sms * 8, 256, 0, stream>>>(
-      table, cells, num_pillars, mv, scale, bias, full, out, B, N, HW, C, eps);
+  if (f32)
+    canvas_norm_kernel<float><<<sms * 8, 256, 0, stream>>>(
+        (const float*)table, cells, num_pillars, mv, (const float*)scale,
+        (const float*)bias, full, (float*)out, B, N, HW, C, eps);
+  else
+    canvas_norm_kernel<bf16><<<sms * 8, 256, 0, stream>>>(
+        (const bf16*)table, cells, num_pillars, mv, (const bf16*)scale,
+        (const bf16*)bias, full, (bf16*)out, B, N, HW, C, eps);
   return (int)cudaGetLastError();
 }
 

@@ -97,6 +97,30 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
+// eight consecutive values of T (bf16 or f32) from / to one 16-byte word
+// (bf16) or two (f32), as f32
+__device__ __forceinline__ void ld8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(e[q]);
+}
+__device__ __forceinline__ void ld8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void st8(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void st8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                    smem_addr(dst)),
@@ -106,6 +130,54 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// One query row of window attention in f32, one warp: q (HD values, the
+// caller's scaling applied) in registers, lanes over the n keys for the
+// scores (k rows of stride ld in shared memory), score(s, j) adds the
+// caller's scale and bias, exact softmax in pw (n floats), then lanes over
+// the HD channels for P v, written by out(d, value).
+template <int HD, typename Score, typename Out>
+__device__ __forceinline__ void f32_attn_row(const float* q_row,
+                                             const float* ks,
+                                             const float* vs, int ld, int n,
+                                             float* pw, Score score,
+                                             Out out) {
+  const int lane = threadIdx.x & 31;
+  float q[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) q[d] = q_row[d];
+  float m = -INFINITY;
+  for (int j = lane; j < n; j += 32) {
+    const float* kr = ks + j * ld;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) s = fmaf(q[d], kr[d], s);
+    s = score(s, j);
+    pw[j] = s;
+    m = fmaxf(m, s);
+  }
+  m = warp_max(m);
+  float l = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = expf(pw[j] - m);
+    pw[j] = e;
+    l += e;
+  }
+  l = warp_sum(l);
+  for (int j = lane; j < n; j += 32) pw[j] = pw[j] / l;
+  __syncwarp();
+#pragma unroll
+  for (int d0 = 0; d0 < HD; d0 += 32) {
+    const int d = d0 + lane;
+    if (d < HD) {
+      float o = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) o = fmaf(pw[j], vs[j * ld + d], o);
+      out(d, o);
+    }
+  }
+  __syncwarp();
 }
 
 // Return codes of the exported functions: 0 or a cudaError_t from the

@@ -795,3 +795,573 @@ MB_EXPORT int decoder_stack_forward(const float* x0, const float* emb0,
                                stream);
   return MB_BAD_ARGS;
 }
+
+// ===========================================================================
+// The split-query instance: any Q (up to the shared memory), bf16 or f32.
+//
+// The flagship instance above keeps a replica of the (Q, C) state in every
+// block of the cluster, which caps Q at 48 and the operands at bf16. Here
+// block r of the cluster of DS_CS owns query rows [r R, (r + 1) R), R =
+// ceil(Q / DS_CS), of the state X and of the intermediates XA, QB, OB
+// (f32, row stride C + 4). Per layer:
+//   * mask bits of its rows against all keys of the level: 32-key tiles of
+//     the f32 features staged in shared memory, one thread per (key, row
+//     group), f32 FMAs (the f32 product keeps its sign up to f32 rounding,
+//     as the flagship's three-term split does), a ballot per 32 keys;
+//   * dense products, the FFN (in chunks of C hidden units) and the
+//     LayerNorms on its own rows with all columns, the weights (row-major,
+//     T) read through L1 from L2;
+//   * cross-attention: one thread per (row, head) with its scaled q in
+//     registers, all keys of the level in 32-key tiles of k and v (f32 in
+//     shared memory, per-head row stride hd + 1), two passes (the exact
+//     row max and sum, then P = rd_T(exp(s - M) / L) weighting v);
+//   * self-attention one head at a time: each block computes k and v of
+//     its rows, then copies every block's k and v of the head through
+//     distributed shared memory, so the (own rows x Q) score tile of one
+//     head stays in shared memory (22 x 170 floats at Q = 170).
+// T is the operand type: every product takes T-rounded operands with f32
+// accumulation (bf16: as the flagship; f32: nothing rounded), as the TPU
+// kernel's _dot does. Products are f32 FMAs on the CUDA cores.
+#define DS2_THREADS 256
+#define DS2_WARPS (DS2_THREADS / 32)
+#define DS2_MAXR 32  // rows a block owns at most (Q <= 256)
+#define DS2_TK 32    // keys a tile
+
+struct Ds2Layout {
+  int R, ld, wl, Q, C, heads, hd;
+  // offsets in floats from the start of shared memory
+  int X, XA, QB, OB, MK, FL, U;
+  int total;
+};
+
+__host__ __device__ inline int ds2_al(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ inline Ds2Layout ds2_layout(int Q, int C, int heads,
+                                                int tmax) {
+  Ds2Layout L;
+  L.Q = Q; L.C = C; L.heads = heads; L.hd = C / heads;
+  L.R = (Q + DS_CS - 1) / DS_CS;
+  L.ld = C + 4;
+  L.wl = (tmax + 31) / 32;
+  const int rx = L.R * L.ld;
+  L.X = 0; L.XA = rx; L.QB = 2 * rx; L.OB = 3 * rx;
+  L.MK = 4 * rx;
+  L.FL = L.MK + ds2_al(L.R * L.wl);
+  L.U = L.FL + ds2_al(L.R);
+  const int cross = 2 * DS2_TK * heads * (L.hd + 1);
+  const int feat = DS2_TK * (C + 1);
+  const int self = rx + 2 * Q * (L.hd + 1) + L.R * Q;
+  int u = cross > feat ? cross : feat;
+  u = u > self ? u : self;
+  L.total = L.U + ds2_al(u);
+  return L;
+}
+
+// four consecutive values of T as f32: one 16-byte (f32) or 8-byte (bf16)
+// load
+__device__ __forceinline__ float4 ld4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4f(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack_bf16(u.x), b = unpack_bf16(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Stage a tile of DS2_TK rows x C values (row r of src at src + r * lds,
+// rows at and beyond nrow zero) into dst, value c of row r at
+// dst[r * ldr + (c / hd) * (hd + 1) + c % hd]: every thread first issues
+// its loads (at most DS2_TK * C / 4 / DS2_THREADS = 8 of four values), so
+// they are all in flight at once, then stores.
+template <typename T>
+__device__ __forceinline__ void ds2_stage(const T* __restrict__ src,
+                                          size_t lds, int nrow, int C,
+                                          int hd, float* dst, int ldr) {
+  const int c4n = C / 4, total = DS2_TK * c4n;
+  float4 buf[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = threadIdx.x + k * DS2_THREADS;
+    buf[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < total && i / c4n < nrow)
+      buf[k] = ld4f(src + (size_t)(i / c4n) * lds + (i % c4n) * 4);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = threadIdx.x + k * DS2_THREADS;
+    if (i < total) {
+      const int r = i / c4n, c = (i % c4n) * 4;
+      float* o = dst + r * ldr + (c / hd) * (hd + 1) + c % hd;
+      o[0] = buf[k].x; o[1] = buf[k].y; o[2] = buf[k].z; o[3] = buf[k].w;
+    }
+  }
+}
+
+// dst[r][c] = epi(sum_k A[r][k] W[k][n0 + c] (+ bias[c]) (+ dst[r][c] when
+// accum)) for r < nr, c < N; A holds T-rounded values, W is row-major with
+// row stride ldw; N divides DS2_THREADS and K is a multiple of 8: thread
+// (rg, c) = (tid / N, tid % N) takes rows rg, rg + DS2_THREADS / N, ...
+template <typename T>
+__device__ void ds2_dense(const float* A, int lda, int nr, int K,
+                          const T* __restrict__ W, int ldw, int n0, int N,
+                          const float* __restrict__ bias, float* dst, int ldd,
+                          int mode, bool accum) {
+  const int ng = DS2_THREADS / N;
+  const int rg = threadIdx.x / N, c = threadIdx.x % N;
+  const int ni = (nr - rg + ng - 1) / ng;  // rows of this thread
+  float acc[DS2_MAXR];
+#pragma unroll
+  for (int i = 0; i < DS2_MAXR; ++i) acc[i] = 0.f;
+  if (rg < ng && ni > 0) {
+    const T* wc = W + n0 + c;
+    // weight rows in groups of eight, the next group's loads in flight
+    // while this one's products run
+    float wa[8], wb[8];
+    auto load8 = [&](float (&w)[8], int k) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) w[q] = to_f(wc[(size_t)(k + q) * ldw]);
+    };
+    auto fma8 = [&](const float (&w)[8], int k) {
+#pragma unroll
+      for (int i = 0; i < DS2_MAXR; ++i) {
+        if (i >= ni) break;
+        const float* ar = A + (rg + ng * i) * lda + k;
+        const float4 a0 = *reinterpret_cast<const float4*>(ar);
+        const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
+        float v = acc[i];
+        v = fmaf(a0.x, w[0], v);
+        v = fmaf(a0.y, w[1], v);
+        v = fmaf(a0.z, w[2], v);
+        v = fmaf(a0.w, w[3], v);
+        v = fmaf(a1.x, w[4], v);
+        v = fmaf(a1.y, w[5], v);
+        v = fmaf(a1.z, w[6], v);
+        acc[i] = fmaf(a1.w, w[7], v);
+      }
+    };
+    load8(wa, 0);
+    for (int k = 0; k < K; k += 16) {
+      if (k + 8 < K) load8(wb, k + 8);
+      fma8(wa, k);
+      if (k + 8 >= K) break;
+      if (k + 16 < K) load8(wa, k + 16);
+      fma8(wb, k + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < DS2_MAXR; ++i) {
+      if (i >= ni) break;
+      float* o = dst + (rg + ng * i) * ldd + c;
+      float v = acc[i];
+      if (accum) v = __fadd_rn(*o, v);
+      if (bias) v = __fadd_rn(v, bias[c]);
+      if (mode == EPI_RELU_RD) v = rd<T>(fmaxf(v, 0.f));
+      else if (mode == EPI_RD) v = rd<T>(v);
+      *o = v;
+    }
+  }
+  __syncthreads();
+}
+
+// LN of own rows of (X [+ Y]) -> dst (rounded to T when round_t), eps 1e-6
+template <typename T>
+__device__ void ds2_layer_norm(float* X, const float* Y, float* dst, int nr,
+                               int C, int ld, const float* w, const float* b,
+                               bool round_t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = warp; m < nr; m += DS2_WARPS) {
+    float* xr = X + m * ld;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      float v = xr[c];
+      if (Y) {
+        v = __fadd_rn(v, Y[m * ld + c]);
+        xr[c] = v;
+      }
+      s += v;
+    }
+    const float mean = warp_sum(s) / (float)C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = xr[c] - mean;
+      q += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(q) / (float)C + 1e-6f);
+    for (int c = lane; c < C; c += 32) {
+      const float v = __fadd_rn(
+          __fmul_rn(__fmul_rn(xr[c] - mean, rstd), w[c]), b[c]);
+      dst[m * ld + c] = round_t ? rd<T>(v) : v;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(DS2_THREADS, 1) decoder_split_kernel(
+    const float* __restrict__ x0, const float* __restrict__ emb0,
+    const float* __restrict__ qpos, DecPtrs p, int nl, int G,
+    const T* __restrict__ wd, const float* __restrict__ wf,
+    T* __restrict__ out, unsigned* __restrict__ dbg, int Q, int C, int F,
+    int heads, int words, int tmax, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const Ds2Layout Ly = ds2_layout(Q, C, heads, tmax);
+  const int R = Ly.R, ld = Ly.ld, wl = Ly.wl;
+  float* X = sm + Ly.X;
+  float* XA = sm + Ly.XA;
+  float* QB = sm + Ly.QB;
+  float* OB = sm + Ly.OB;
+  unsigned* MK = reinterpret_cast<unsigned*>(sm + Ly.MK);  // R x wl
+  int* flag = reinterpret_cast<int*>(sm + Ly.FL);
+  float* U = sm + Ly.U;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / DS_CS;
+  const int row0 = rank * R;
+  const int nr = max(0, min(R, Q - row0));
+  const int L = nl * G;
+  const size_t CC = (size_t)C * C;
+  const size_t WL = 6 * CC + 2 * (size_t)C * F;
+  const size_t FLN = 13 * (size_t)C + F;
+  const T* wh = wd + L * WL;
+  const float* fh = wf + L * FLN;
+  const int ldkv = G * C;
+  const int hstr = heads * (HD + 1);  // a staged key's row: heads x (hd + 1)
+
+  for (int i = tid; i < nr * C; i += DS2_THREADS) {
+    const int m = i / C, c = i % C;
+    const size_t g = ((size_t)b * Q + row0 + m) * C + c;
+    X[m * ld + c] = x0[g];
+    OB[m * ld + c] = emb0[g];
+  }
+  cl.sync();  // every block of the cluster runs before any remote access
+
+  for (int li = 0; li < L; ++li) {
+    const int lvl = li % nl, grp = li / nl;
+    const int T_ = p.T[lvl];
+    const float* feat = p.F[lvl] + (size_t)b * T_ * C;
+    const T* Kb = reinterpret_cast<const T*>(p.K[lvl]) +
+                  (size_t)b * T_ * ldkv + grp * C;
+    const T* Vb = reinterpret_cast<const T*>(p.V[lvl]) +
+                  (size_t)b * T_ * ldkv + grp * C;
+    const T* wl_ = wd + li * WL;
+    const float* fl = wf + li * FLN;
+
+    // 1. mask bits m = emb . feat^T < 0 of own rows against all keys
+    {
+      float* Fs = U;  // DS2_TK x (C + 1)
+      const int rgrp = warp;  // rows rgrp, rgrp + 8, ...
+      for (int t0 = 0; t0 < T_; t0 += DS2_TK) {
+        __syncthreads();
+        ds2_stage<float>(feat + (size_t)t0 * C, C, T_ - t0, C, C, Fs, C + 1);
+        __syncthreads();
+        float acc[DS2_MAXR / DS2_WARPS];
+#pragma unroll
+        for (int i = 0; i < DS2_MAXR / DS2_WARPS; ++i) acc[i] = 0.f;
+        const float* fr = Fs + lane * (C + 1);
+        for (int c = 0; c < C; ++c) {
+          const float f = fr[c];
+#pragma unroll
+          for (int i = 0; i < DS2_MAXR / DS2_WARPS; ++i) {
+            const int m = rgrp + DS2_WARPS * i;
+            if (m < nr) acc[i] = fmaf(OB[m * ld + c], f, acc[i]);
+          }
+        }
+        const bool key_in = t0 + lane < T_;
+#pragma unroll
+        for (int i = 0; i < DS2_MAXR / DS2_WARPS; ++i) {
+          const int m = rgrp + DS2_WARPS * i;
+          const unsigned bits = __ballot_sync(0xffffffffu,
+                                              key_in && acc[i] < 0.f);
+          if (m < nr && lane == 0) MK[m * wl + t0 / DS2_TK] = bits;
+        }
+      }
+      __syncthreads();
+      // rows that block every key are cleared
+      for (int m = tid; m < nr; m += DS2_THREADS) {
+        int all = 1;
+        for (int w = 0; w * 32 < T_; ++w) {
+          const int valid = min(32, T_ - 32 * w);
+          const unsigned need =
+              valid == 32 ? 0xffffffffu : ((1u << valid) - 1u);
+          if ((MK[m * wl + w] & need) != need) all = 0;
+        }
+        flag[m] = all;
+      }
+      __syncthreads();
+      if (dbg) {
+        const int nw = (T_ + 31) / 32;
+        for (int i = tid; i < nr * nw; i += DS2_THREADS) {
+          const int m = i / nw, w = i % nw;
+          dbg[(((size_t)b * L + li) * Q + row0 + m) * words + w] =
+              flag[m] ? 0u : MK[m * wl + w];
+        }
+      }
+    }
+
+    // 2. q projection of x + qpos
+    for (int i = tid; i < nr * C; i += DS2_THREADS) {
+      const int m = i / C, c = i % C;
+      XA[m * ld + c] =
+          rd<T>(__fadd_rn(X[m * ld + c], qpos[(size_t)(row0 + m) * C + c]));
+    }
+    __syncthreads();
+    ds2_dense<T>(XA, ld, nr, C, wl_, C, 0, C, fl, QB, ld, EPI_RAW, false);
+
+    // 3. masked cross-attention of own rows over all keys: thread (row,
+    //    head); pass 0 the row max and sum, pass 1 the weighted v
+    {
+      float* Ks = U;                     // DS2_TK x hstr
+      float* Vs = U + DS2_TK * hstr;     // DS2_TK x hstr
+      const int m = tid / heads, h = tid % heads;
+      const bool on = m < nr;
+      float q[HD], o[HD];
+      float M = -INFINITY, Ls = 0.f;
+      bool clr = false;
+      if (on) {
+        clr = flag[m] != 0;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) {
+          q[d] = rd<T>(QB[m * ld + h * HD + d] * scale);
+          o[d] = 0.f;
+        }
+      }
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int t0 = 0; t0 < T_; t0 += DS2_TK) {
+          __syncthreads();
+          ds2_stage<T>(Kb + (size_t)t0 * ldkv, ldkv, T_ - t0, C, HD, Ks,
+                       hstr);
+          if (pass == 1)
+            ds2_stage<T>(Vb + (size_t)t0 * ldkv, ldkv, T_ - t0, C, HD, Vs,
+                         hstr);
+          __syncthreads();
+          if (!on) continue;
+          const int nk = min(DS2_TK, T_ - t0);
+          float s[DS2_TK];
+#pragma unroll
+          for (int j = 0; j < DS2_TK; ++j) {
+            float v = -INFINITY;
+            if (j < nk) {
+              const float* kr = Ks + j * hstr + h * (HD + 1);
+              v = 0.f;
+#pragma unroll
+              for (int d = 0; d < HD; ++d) v = fmaf(q[d], kr[d], v);
+              const int tk = t0 + j;
+              if (!clr && ((MK[m * wl + (tk >> 5)] >> (tk & 31)) & 1u))
+                v = __fadd_rn(v, -1e9f);
+            }
+            s[j] = v;
+          }
+          if (pass == 0) {
+            float tm = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < DS2_TK; ++j) tm = fmaxf(tm, s[j]);
+            const float nm = fmaxf(M, tm);
+            float add = 0.f;
+#pragma unroll
+            for (int j = 0; j < DS2_TK; ++j)
+              if (j < nk) add += expf(s[j] - nm);
+            Ls = (M == -INFINITY ? 0.f : Ls * expf(M - nm)) + add;
+            M = nm;
+          } else {
+#pragma unroll
+            for (int j = 0; j < DS2_TK; ++j) {
+              if (j >= nk) break;
+              const float pj = rd<T>(expf(s[j] - M) / Ls);
+              const float* vr = Vs + j * hstr + h * (HD + 1);
+#pragma unroll
+              for (int d = 0; d < HD; ++d) o[d] = fmaf(pj, vr[d], o[d]);
+            }
+          }
+        }
+      }
+      if (on) {
+#pragma unroll
+        for (int d = 0; d < HD; ++d) OB[m * ld + h * HD + d] = rd<T>(o[d]);
+      }
+      __syncthreads();
+    }
+    ds2_dense<T>(OB, ld, nr, C, wl_ + CC, C, 0, C, fl + C, QB, ld, EPI_RAW,
+                 false);
+    ds2_layer_norm<T>(X, QB, X, nr, C, ld, fl + 6 * C, fl + 7 * C, false);
+
+    // 4. self-attention: v from x (into OB), q and k from x + qpos (q into
+    //    QB, k into U), then one head at a time over every block's k and v
+    float* Kown = U;                          // R x ld
+    float* Kh = U + R * ld;                   // Q x (hd + 1)
+    float* Vh = Kh + Q * (HD + 1);            // Q x (hd + 1)
+    float* S = Vh + Q * (HD + 1);             // R x Q
+    for (int i = tid; i < nr * C; i += DS2_THREADS) {
+      const int m = i / C, c = i % C;
+      XA[m * ld + c] = rd<T>(X[m * ld + c]);
+    }
+    __syncthreads();
+    ds2_dense<T>(XA, ld, nr, C, wl_ + 4 * CC, C, 0, C, fl + 4 * C, OB, ld,
+                 EPI_RD, false);
+    for (int i = tid; i < nr * C; i += DS2_THREADS) {
+      const int m = i / C, c = i % C;
+      XA[m * ld + c] =
+          rd<T>(__fadd_rn(X[m * ld + c], qpos[(size_t)(row0 + m) * C + c]));
+    }
+    __syncthreads();
+    ds2_dense<T>(XA, ld, nr, C, wl_ + 2 * CC, C, 0, C, fl + 2 * C, QB, ld,
+                 EPI_RAW, false);
+    ds2_dense<T>(XA, ld, nr, C, wl_ + 3 * CC, C, 0, C, fl + 3 * C, Kown, ld,
+                 EPI_RD, false);
+    cl.sync();  // every block's k and v are complete
+    for (int h = 0; h < heads; ++h) {
+      for (int i = tid; i < Q * HD; i += DS2_THREADS) {
+        const int j = i / HD, d = i % HD;
+        const int src = j / R, sr = j % R;
+        const int at = sr * ld + h * HD + d;
+        Kh[j * (HD + 1) + d] = cl.map_shared_rank(Kown, src)[at];
+        Vh[j * (HD + 1) + d] = cl.map_shared_rank(OB, src)[at];
+      }
+      __syncthreads();
+      for (int i = tid; i < nr * Q; i += DS2_THREADS) {
+        const int m = i / Q, j = i % Q;
+        const float* qr = QB + m * ld + h * HD;
+        const float* kr = Kh + j * (HD + 1);
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) s = fmaf(rd<T>(qr[d] * scale), kr[d], s);
+        S[m * Q + j] = s;
+      }
+      __syncthreads();
+      for (int m = warp; m < nr; m += DS2_WARPS) {
+        float* sr = S + m * Q;
+        float m2 = -INFINITY;
+        for (int j = lane; j < Q; j += 32) m2 = fmaxf(m2, sr[j]);
+        m2 = warp_max(m2);
+        float l2 = 0.f;
+        for (int j = lane; j < Q; j += 32) l2 += expf(sr[j] - m2);
+        l2 = warp_sum(l2);
+        for (int j = lane; j < Q; j += 32) sr[j] = rd<T>(expf(sr[j] - m2) / l2);
+      }
+      __syncthreads();
+      for (int i = tid; i < nr * HD; i += DS2_THREADS) {
+        const int m = i / HD, d = i % HD;
+        const float* sr = S + m * Q;
+        float o2 = 0.f;
+        for (int j = 0; j < Q; ++j) o2 = fmaf(sr[j], Vh[j * (HD + 1) + d], o2);
+        XA[m * ld + h * HD + d] = rd<T>(o2);
+      }
+      __syncthreads();
+    }
+    cl.sync();  // no block reads another's k or v any more
+    ds2_dense<T>(XA, ld, nr, C, wl_ + 5 * CC, C, 0, C, fl + 5 * C, QB, ld,
+                 EPI_RAW, false);
+    ds2_layer_norm<T>(X, QB, X, nr, C, ld, fl + 8 * C, fl + 9 * C, false);
+
+    // 5. ReLU FFN in chunks of C hidden units: QB the chunk, OB the sum
+    for (int i = tid; i < nr * C; i += DS2_THREADS) {
+      const int m = i / C, c = i % C;
+      XA[m * ld + c] = rd<T>(X[m * ld + c]);
+    }
+    __syncthreads();
+    {
+      const T* f1 = wl_ + 6 * CC;
+      const T* f2 = f1 + (size_t)C * F;
+      const float* fb1 = fl + 12 * C;
+      const float* fb2 = fb1 + F;
+      for (int h0 = 0; h0 < F; h0 += C) {
+        ds2_dense<T>(XA, ld, nr, C, f1, F, h0, C, fb1 + h0, QB, ld,
+                     EPI_RELU_RD, false);
+        ds2_dense<T>(QB, ld, nr, C, f2 + (size_t)h0 * C, C, 0, C,
+                     h0 + C >= F ? fb2 : nullptr, OB, ld, EPI_RAW, h0 > 0);
+      }
+    }
+    ds2_layer_norm<T>(X, OB, X, nr, C, ld, fl + 10 * C, fl + 11 * C, false);
+
+    // 6. next mask embedding: decoder norm + 3-layer MLP -> OB
+    if (li + 1 < L) {
+      ds2_layer_norm<T>(X, nullptr, XA, nr, C, ld, fh, fh + C, true);
+      ds2_dense<T>(XA, ld, nr, C, wh, C, 0, C, fh + 2 * C, QB, ld,
+                   EPI_RELU_RD, false);
+      ds2_dense<T>(QB, ld, nr, C, wh + CC, C, 0, C, fh + 3 * C, XA, ld,
+                   EPI_RELU_RD, false);
+      ds2_dense<T>(XA, ld, nr, C, wh + 2 * CC, C, 0, C, fh + 4 * C, OB, ld,
+                   EPI_RD, false);
+    }
+  }
+  for (int i = tid; i < nr * C; i += DS2_THREADS) {
+    const int m = i / C, c = i % C;
+    out[((size_t)b * Q + row0 + m) * C + c] = from_f<T>(X[m * ld + c]);
+  }
+  cl.sync();  // no block leaves while another may still access its memory
+}
+
+template <typename T, int HD>
+static int launch_split(const float* x0, const float* emb0,
+                        const float* qpos, const DecPtrs& p, int nl, int G, const void* wd,
+                        const float* wf, void* out, unsigned* dbg, int B,
+                        int Q, int C, int F, int heads, int words, int tmax,
+                        int smem, float scale, cudaStream_t stream) {
+  auto kern = decoder_split_kernel<T, HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(B * DS_CS);
+  cfg.blockDim = dim3(DS2_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DS_CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, x0, emb0, qpos, p, nl, G,
+                         (const T*)wd, wf, (T*)out, dbg, Q, C, F, heads,
+                         words, tmax, scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The split-query instance. ptrs: host array of 9 device pointers (k, v per
+// level, (B T_l, G C) of the operand type, and the resized f32 features per
+// level); T: 3 ints; wd: the
+// row-major weights of the operand type (ops/decoder_stack.py::
+// pack_weights(..., fragments=False)); f32: nonzero for the f32 instance;
+// smem: bytes per block (ops/decoder_stack.py::smem_bytes_split).
+MB_EXPORT int decoder_split_forward(const float* x0, const float* emb0,
+                                    const float* qpos, void* const* ptrs,
+                                    const int* T, int nl,
+                                    int G, const void* wd, const float* wf,
+                                    void* out, unsigned* dbg, int B, int Q,
+                                    int C, int F, int heads, int smem,
+                                    float scale, int f32,
+                                    cudaStream_t stream) {
+  if (nl < 1 || nl > 3 || C % heads || C > DS2_THREADS ||
+      DS2_THREADS % C || F % C || C % 8 || Q < 1 ||
+      (Q + DS_CS - 1) / DS_CS > DS2_MAXR ||
+      (Q + DS_CS - 1) / DS_CS * heads > DS2_THREADS)
+    return MB_BAD_ARGS;
+  DecPtrs p;
+  int tmax = 0;
+  for (int l = 0; l < 3; ++l) {
+    p.K[l] = (const bf16*)ptrs[l];  // of the operand type: cast in the kernel
+    p.V[l] = (const bf16*)ptrs[3 + l];
+    p.F[l] = (const float*)ptrs[6 + l];
+    p.T[l] = T[l];
+    if (l < nl && T[l] > tmax) tmax = T[l];
+  }
+  if (ds2_layout(Q, C, heads, tmax).total * 4 > smem) return MB_BAD_ARGS;
+  const int words = (tmax + 31) / 32;
+  const int hd = C / heads;
+#define DS2_CASE(TT, H)                                                     \
+  return launch_split<TT, H>(x0, emb0, qpos, p, nl, G, wd, wf, out, dbg,     \
+                             B, Q, C, F, heads, words, tmax, smem, scale,   \
+                             stream)
+  if (f32) {
+    if (hd == 32) DS2_CASE(float, 32);
+    if (hd == 64) DS2_CASE(float, 64);
+  } else {
+    if (hd == 32) DS2_CASE(bf16, 32);
+    if (hd == 64) DS2_CASE(bf16, 64);
+  }
+#undef DS2_CASE
+  return MB_BAD_ARGS;
+}

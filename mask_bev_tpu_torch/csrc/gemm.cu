@@ -59,10 +59,10 @@ static int num_sms() {
   return n;
 }
 
-template <bool S8>
+template <bool S8, typename OT>
 static int launch_gemm(const void* A, const float* sx, const void* Bt,
                        const float* sw, const float* bias,
-                       const bf16* residual, bf16* out, int M, int N, int K,
+                       const OT* residual, OT* out, int M, int N, int K,
                        int mode, cudaStream_t stream) {
   if (M <= 0 || K <= 0 || K % 16 || N % 8 ||
       ((mode & 15) == 2 && residual == nullptr))
@@ -70,7 +70,8 @@ static int launch_gemm(const void* A, const float* sx, const void* Bt,
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        mbgemm::gemm_kernel<S8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mbgemm::gemm_kernel<S8, OT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         mbgemm::SMEM);
     if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
     attr_set = true;
@@ -82,7 +83,8 @@ static int launch_gemm(const void* A, const float* sx, const void* Bt,
   if (rc) return rc;
   const int tiles = ceil_div(M, mbgemm::BM) * ceil_div(N, mbgemm::BN);
   const int grid = tiles < 2 * num_sms() ? tiles : 2 * num_sms();
-  mbgemm::gemm_kernel<S8><<<grid, mbgemm::THREADS, mbgemm::SMEM, stream>>>(
+  mbgemm::gemm_kernel<S8, OT>
+      <<<grid, mbgemm::THREADS, mbgemm::SMEM, stream>>>(
       ta, tb, sx, sw, bias, residual, out, M, N, K, mode);
   return (int)cudaGetLastError();
 }
@@ -90,14 +92,31 @@ static int launch_gemm(const void* A, const float* sx, const void* Bt,
 MB_EXPORT int gemm_bf16(const bf16* A, const bf16* Bt, const float* bias,
                         const bf16* residual, bf16* out, int M, int N, int K,
                         int mode, cudaStream_t stream) {
-  return launch_gemm<false>(A, nullptr, Bt, nullptr, bias, residual, out, M,
-                            N, K, mode, stream);
+  return launch_gemm<false, bf16>(A, nullptr, Bt, nullptr, bias, residual,
+                                  out, M, N, K, mode, stream);
 }
 
+// out_f32: nonzero for the f32 instance (f32 residual and output)
 MB_EXPORT int gemm_s8(const signed char* A, const float* sx,
                       const signed char* Bt, const float* sw,
-                      const float* bias, const bf16* residual, bf16* out,
-                      int M, int N, int K, int mode, cudaStream_t stream) {
-  return launch_gemm<true>(A, sx, Bt, sw, bias, residual, out, M, N, K, mode,
-                           stream);
+                      const float* bias, const void* residual, void* out,
+                      int M, int N, int K, int mode, int out_f32,
+                      cudaStream_t stream) {
+  if (out_f32)
+    return launch_gemm<true, float>(A, sx, Bt, sw, bias,
+                                    (const float*)residual, (float*)out, M,
+                                    N, K, mode, stream);
+  return launch_gemm<true, bf16>(A, sx, Bt, sw, bias, (const bf16*)residual,
+                                 (bf16*)out, M, N, K, mode, stream);
+}
+
+MB_EXPORT int gemm_f32(const float* A, const float* Bt, const float* bias,
+                       const float* residual, float* out, int M, int N,
+                       int K, int mode, cudaStream_t stream) {
+  if (M <= 0 || K <= 0 || K % 4 || ((mode & 15) == 2 && residual == nullptr))
+    return MB_BAD_ARGS;
+  dim3 grid(ceil_div(N, mbgemm::F_BN), ceil_div(M, mbgemm::F_BM));
+  mbgemm::gemm_f32_kernel<<<grid, mbgemm::F_THREADS, 0, stream>>>(
+      A, Bt, bias, residual, out, M, N, K, mode);
+  return (int)cudaGetLastError();
 }

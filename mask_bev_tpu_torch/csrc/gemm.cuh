@@ -2,8 +2,8 @@
 // by the Swin block chain (kernels 3/4), the decoder stack's k/v
 // projections (kernel 5) and window MSA (kernel 7).
 //
-// out[M, N] (bf16) = epilogue(A[M, K] . Bt[N, K]^T), N a multiple of 8,
-// K a multiple of 16. A and Bt are both K-contiguous (Bt is a torch Linear
+// out[M, N] (bf16, or f32 for int8 operands) = epilogue(A[M, K] .
+// Bt[N, K]^T), N a multiple of 8, K a multiple of 16. A and Bt are both K-contiguous (Bt is a torch Linear
 // weight), as wgmma requires for 8-bit operands: bf16 (f32 accumulation,
 // wgmma m64n96k16) or int8 (int32 accumulation, wgmma m64n96k32, then
 // dequantised with a per-row activation scale and a per-column weight
@@ -42,6 +42,13 @@
 //   +16 round acc     bf16-round the raw product before the bias (XLA's
 //                     order for ``x @ kernel + bias`` in bf16)
 // int8: v = acc * sx[row] * sw[col] + bias, as int8_sim_dense computes it.
+// The output type OT (bf16 or f32) is the model's: the f32 instance of the
+// int8 products rounds nothing (residual, GELU and output in f32).
+//
+// gemm_f32_kernel (below) is the f32 instance for f32 operands: the same
+// epilogue modes on products taken as f32 FMAs (no operand is rounded, as
+// XLA computes an f32 dense layer on the CPU), a plain tiled kernel on the
+// CUDA cores (128 x 64 tiles, 8 x 4 outputs a thread).
 #pragma once
 
 #include <cuda.h>
@@ -178,12 +185,12 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&x)[4][2], int q) {
 
 // grid: min(tiles, 2 SMs) blocks of THREADS, two a SM; warpgroups
 // 0..CONSUMERS-1 consume, the warp after them produces
-template <bool S8>
+template <bool S8, typename OT>
 __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
     const __grid_constant__ CUtensorMap tmA,
     const __grid_constant__ CUtensorMap tmB, const float* __restrict__ sx,
     const float* __restrict__ sw, const float* __restrict__ bias,
-    const bf16* __restrict__ residual, bf16* __restrict__ out, int M, int N,
+    const OT* __restrict__ residual, OT* __restrict__ out, int M, int N,
     int K, int mode) {
   extern __shared__ unsigned char smraw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -294,9 +301,8 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
           wv[4] = w1.x; wv[5] = w1.y; wv[6] = w1.z; wv[7] = w1.w;
           sxm = sx[gm];
         }
-        uint4 res = make_uint4(0, 0, 0, 0);
-        if (kind == 2) res = *reinterpret_cast<const uint4*>(residual + o);
-        const bf16* rv = reinterpret_cast<const bf16*>(&res);
+        float rv[8];
+        if (kind == 2) ld8(residual + o, rv);
         float fv[8];
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
@@ -307,21 +313,95 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
             v = __fadd_rn(__fmul_rn(__fmul_rn(a, sxm), wv[c]), bv[c]);
           } else {
             float a = __uint_as_float(raw);
-            if (round_acc) a = rd_bf16(a);
+            if (round_acc) a = rd<OT>(a);
             v = __fadd_rn(a, bv[c]);
           }
-          v = rd_bf16(v);
+          v = rd<OT>(v);
           if (kind == 1) {
             v = gelu_erf(v);
           } else if (kind == 2) {
-            v = __fadd_rn(__bfloat162float(rv[c]), v);
+            v = __fadd_rn(rv[c], v);
           }
           fv[c] = v;
         }
-        *reinterpret_cast<uint4*>(out + o) =
-            make_uint4(pack_bf16(fv[0], fv[1]), pack_bf16(fv[2], fv[3]),
-                       pack_bf16(fv[4], fv[5]), pack_bf16(fv[6], fv[7]));
+        st8(out + o, fv);
       }
+    }
+  }
+}
+
+// ---- the f32 instance ----------------------------------------------------
+constexpr int F_BM = 128, F_BN = 64, F_BK = 16, F_THREADS = 256;
+
+// out = epilogue(A . Bt^T) in f32; A (M, K), Bt (N, K) row-major f32,
+// K % 4 == 0; grid (ceil(N / 64), ceil(M / 128)). Thread (tx, ty) =
+// (tid % 16, tid / 16) owns rows 8 ty.. and columns 4 tx.. of the tile;
+// the k-slices are staged transposed in shared memory.
+__global__ void __launch_bounds__(F_THREADS) gemm_f32_kernel(
+    const float* __restrict__ A, const float* __restrict__ Bt,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int M, int N, int K, int mode) {
+  __shared__ __align__(16) float As[F_BK][F_BM + 4];
+  __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += F_BK) {
+    // A: 128 rows x 16 k = 512 float4, two a thread; Bt: 64 x 16, one
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tid + h * F_THREADS;
+      const int r = q >> 2, kk = (q & 3) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < M && k0 + kk < K)
+        v = *reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * K + k0 +
+                                             kk);
+      As[kk][r] = v.x; As[kk + 1][r] = v.y;
+      As[kk + 2][r] = v.z; As[kk + 3][r] = v.w;
+    }
+    {
+      const int r = tid >> 2, kk = (tid & 3) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n0 + r < N && k0 + kk < K)
+        v = *reinterpret_cast<const float4*>(Bt + (size_t)(n0 + r) * K + k0 +
+                                             kk);
+      Bs[kk][r] = v.x; Bs[kk + 1][r] = v.y;
+      Bs[kk + 2][r] = v.z; Bs[kk + 3][r] = v.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < F_BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][8 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][8 * ty + 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  const int kind = mode & 15;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 8 * ty + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n >= N) continue;
+      float v = __fadd_rn(acc[i][j], bias[n]);
+      if (kind == 1)
+        v = gelu_erf(v);
+      else if (kind == 2)
+        v = __fadd_rn(residual[(size_t)m * N + n], v);
+      out[(size_t)m * N + n] = v;
     }
   }
 }

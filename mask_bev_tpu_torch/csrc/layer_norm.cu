@@ -1,10 +1,12 @@
-// Kernel 9: token LayerNorm over the last axis, bf16 in and out.
+// Kernel 9: token LayerNorm over the last axis, bf16 or f32 in and out.
 //
 // Replaces mask_bev_tpu/ops/pallas_layer_norm.py::fused_layer_norm
 // (_ln_kernel): flax nn.LayerNorm's fast-variance form, f32 statistics
 // mean = E[x], var = max(0, E[x^2] - mean^2), eps, then
 // (x - mean) * (rsqrt(var + eps) * scale) + bias in f32 (the bf16 scale and
-// bias widened to f32, as the TPU kernel casts them), rounded once to bf16.
+// bias widened to f32, as the TPU kernel casts them), rounded once to the
+// input type. Two instances: bf16 and f32 tokens (with scale and bias of
+// the same type).
 //
 // What bounds it on the H100: bytes. Each token row is read once and
 // written once (C bf16 values each way): at the backbone's patch_norm
@@ -17,29 +19,29 @@
 // and the SM holds enough warps to keep the memory busy.
 #include "common.cuh"
 
-#define LN_MAX_WORDS 8  // 16-byte words per lane: C <= 8 * 8 * 32 = 2048
+#define LN_MAX_WORDS 8  // 16-byte words per lane in bf16: C <= 2048
 
-template <int NW>
+// T: tokens, scale, bias and output (bf16 or f32); NW groups of 8 channels
+// a lane
+template <typename T, int NW>
 __global__ void __launch_bounds__(256) token_layernorm_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ scale,
-    const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int C,
+    const T* __restrict__ x, const T* __restrict__ scale,
+    const T* __restrict__ bias, T* __restrict__ out, int M, int C,
     float eps) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const int words = C / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
+  const T* xr = x + (size_t)row * C;
   float v[NW][8];
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     const int wd = lane + 32 * i;
     if (wd < words) {
-      const uint4 u = xr[wd];
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
+      ld8(xr + 8 * wd, v[i]);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        v[i][q] = __bfloat162float(e[q]);
         s += v[i][q];
         s2 = fmaf(v[i][q], v[i][q], s2);
       }
@@ -48,41 +50,50 @@ __global__ void __launch_bounds__(256) token_layernorm_kernel(
   const float mean = warp_sum(s) / (float)C;
   const float var = fmaxf(warp_sum(s2) / (float)C - mean * mean, 0.f);
   const float rstd = rsqrtf(var + eps);
-  uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * C);
+  T* orow = out + (size_t)row * C;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     const int wd = lane + 32 * i;
     if (wd < words) {
-      uint4 pk;
-      bf16* pv = reinterpret_cast<bf16*>(&pk);
+      float o[8];
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int c = wd * 8 + q;
-        pv[q] = __float2bfloat16_rn(__fadd_rn(
-            __fmul_rn(v[i][q] - mean, rstd * __bfloat162float(scale[c])),
-            __bfloat162float(bias[c])));
+        o[q] = __fadd_rn(__fmul_rn(v[i][q] - mean, rstd * to_f(scale[c])),
+                         to_f(bias[c]));
       }
-      orow[wd] = pk;
+      st8(orow + 8 * wd, o);
     }
   }
 }
 
-template <int NW>
-static void launch_ln(const bf16* x, const bf16* scale, const bf16* bias,
-                      bf16* out, int M, int C, float eps,
+template <typename T, int NW>
+static void launch_ln(const void* x, const void* scale, const void* bias,
+                      void* out, int M, int C, float eps,
                       cudaStream_t stream) {
-  token_layernorm_kernel<NW><<<ceil_div(M, 8), 256, 0, stream>>>(
-      x, scale, bias, out, M, C, eps);
+  token_layernorm_kernel<T, NW><<<ceil_div(M, 8), 256, 0, stream>>>(
+      (const T*)x, (const T*)scale, (const T*)bias, (T*)out, M, C, eps);
 }
 
-MB_EXPORT int token_layernorm(const bf16* x, const bf16* scale,
-                              const bf16* bias, bf16* out, int M, int C,
-                              float eps, cudaStream_t stream) {
+template <typename T>
+static void launch_ln_t(const void* x, const void* scale, const void* bias,
+                        void* out, int M, int C, float eps,
+                        cudaStream_t stream) {
+  const int nw = ceil_div(C / 8, 32);  // groups of 8 channels per lane
+  if (nw == 1) launch_ln<T, 1>(x, scale, bias, out, M, C, eps, stream);
+  else if (nw == 2) launch_ln<T, 2>(x, scale, bias, out, M, C, eps, stream);
+  else if (nw <= 4) launch_ln<T, 4>(x, scale, bias, out, M, C, eps, stream);
+  else launch_ln<T, LN_MAX_WORDS>(x, scale, bias, out, M, C, eps, stream);
+}
+
+// f32: nonzero for the f32 instance (tokens, scale, bias and output f32)
+MB_EXPORT int token_layernorm(const void* x, const void* scale,
+                              const void* bias, void* out, int M, int C,
+                              float eps, int f32, cudaStream_t stream) {
   if (C % 8 || C > 8 * 32 * LN_MAX_WORDS) return MB_BAD_ARGS;
-  const int nw = ceil_div(C / 8, 32);  // 16-byte words per lane
-  if (nw == 1) launch_ln<1>(x, scale, bias, out, M, C, eps, stream);
-  else if (nw == 2) launch_ln<2>(x, scale, bias, out, M, C, eps, stream);
-  else if (nw <= 4) launch_ln<4>(x, scale, bias, out, M, C, eps, stream);
-  else launch_ln<LN_MAX_WORDS>(x, scale, bias, out, M, C, eps, stream);
+  if (f32)
+    launch_ln_t<float>(x, scale, bias, out, M, C, eps, stream);
+  else
+    launch_ln_t<bf16>(x, scale, bias, out, M, C, eps, stream);
   return (int)cudaGetLastError();
 }

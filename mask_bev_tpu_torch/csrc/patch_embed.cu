@@ -18,6 +18,11 @@
 // rows x E/2 columns of WMMA 16x16x16 tiles, 64-byte K slices staged through
 // shared memory with the next slice's loads in flight (as gemm.cuh), then
 // the f32 tile in shared memory, one warp per token row for bias + LN.
+// The f32 instance (patch_embed_f32_kernel, for an f32 canvas) takes the
+// same implicit GEMM as f32 FMAs on the CUDA cores (no operand rounded):
+// a block owns 64 tokens and all E outputs, a thread 4 tokens x E/16
+// columns, and the LayerNorm's row sums are reduced across the 16 threads
+// of a row with shuffles.
 #include <mma.h>
 
 #include "common.cuh"
@@ -220,6 +225,139 @@ MB_EXPORT int patch_embed_forward(const bf16* canvas, const bf16* wm,
     case 256:
       return launch_patch_embed<8>(canvas, wm, bias, ln_w, ln_b, out, B, H,
                                    W, C, p, eps, stream);
+    default:
+      return MB_BAD_ARGS;
+  }
+}
+
+// ---- the f32 instance -------------------------------------------------------
+#define PE32_BM 64
+#define PE32_BK 16
+
+// NJ: columns a thread holds (E = 16 NJ); thread (tx, ty) = (tid % 16,
+// tid / 16) owns tokens 4 ty.. and columns tx + 16 j
+template <int NJ>
+__global__ void __launch_bounds__(PE_THREADS) patch_embed_f32_kernel(
+    const float* __restrict__ canvas, const float* __restrict__ wm,
+    const float* __restrict__ bias, const float* __restrict__ ln_w,
+    const float* __restrict__ ln_b, float* __restrict__ out, int M, int H,
+    int W, int C, int p, float eps) {
+  constexpr int E = 16 * NJ;
+  __shared__ __align__(16) float As[PE32_BK][PE32_BM + 4];
+  __shared__ __align__(16) float Bs[PE32_BK][E + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.x * PE32_BM;
+  const int pC = p * C, K = p * pC;
+  const int gw = W / p, gpb = (H / p) * gw;
+  // the token row this thread loads (4 values of k a slice)
+  const int lr = tid >> 2, lk = (tid & 3) * 4;
+  const float* arow = nullptr;
+  if (m0 + lr < M) {
+    const int m = m0 + lr;
+    const int b = m / gpb, t = m % gpb, gy = t / gw, gx = t % gw;
+    arow = canvas + (((size_t)b * H + (size_t)gy * p) * W + (size_t)gx * p) * C;
+  }
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += PE32_BK) {
+    {
+      const int gk = k0 + lk;
+      const int dh = gk / pC, r = gk - dh * pC;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (arow)
+        v = *reinterpret_cast<const float4*>(arow + (size_t)dh * W * C + r);
+      As[lk][lr] = v.x; As[lk + 1][lr] = v.y;
+      As[lk + 2][lr] = v.z; As[lk + 3][lr] = v.w;
+    }
+    for (int q = tid; q < E * (PE32_BK / 4); q += PE_THREADS) {
+      const int e = q >> 2, kk = (q & 3) * 4;
+      const float4 v =
+          *reinterpret_cast<const float4*>(wm + (size_t)e * K + k0 + kk);
+      Bs[kk][e] = v.x; Bs[kk + 1][e] = v.y;
+      Bs[kk + 2][e] = v.z; Bs[kk + 3][e] = v.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < PE32_BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float bv = Bs[k][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  // bias + LayerNorm: a row's 16 threads are one half-warp
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + 4 * ty + i;
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float v = __fadd_rn(acc[i][j], bias[tx + 16 * j]);
+      acc[i][j] = v;
+      s += v;
+      s2 = fmaf(v, v, s2);
+    }
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float mean = s / (float)E;
+    const float var = fmaxf(s2 / (float)E - mean * mean, 0.f);
+    const float rstd = rsqrtf(var + eps);
+    if (m < M) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        out[(size_t)m * E + c] = __fadd_rn(
+            __fmul_rn(__fmul_rn(acc[i][j] - mean, rstd), ln_w[c]), ln_b[c]);
+      }
+    }
+  }
+}
+
+template <int NJ>
+static int launch_patch_embed_f32(const float* canvas, const float* wm,
+                                  const float* bias, const float* ln_w,
+                                  const float* ln_b, float* out, int B,
+                                  int H, int W, int C, int p, float eps,
+                                  cudaStream_t stream) {
+  const int M = B * (H / p) * (W / p);
+  patch_embed_f32_kernel<NJ><<<ceil_div(M, PE32_BM), PE_THREADS, 0,
+                               stream>>>(canvas, wm, bias, ln_w, ln_b, out,
+                                         M, H, W, C, p, eps);
+  return (int)cudaGetLastError();
+}
+
+// The f32 instance: canvas (B, H, W, C), wm (E, p p C), out f32; E one of
+// 64, 128, 192, 256; C % 4 == 0 and p p C % 16 == 0
+MB_EXPORT int patch_embed_f32_forward(const float* canvas, const float* wm,
+                                      const float* bias, const float* ln_w,
+                                      const float* ln_b, float* out, int B,
+                                      int H, int W, int C, int E, int p,
+                                      float eps, cudaStream_t stream) {
+  if (C % 4 || H % p || W % p || (p * C) % PE32_BK) return MB_BAD_ARGS;
+  switch (E) {
+    case 64:
+      return launch_patch_embed_f32<4>(canvas, wm, bias, ln_w, ln_b, out, B,
+                                       H, W, C, p, eps, stream);
+    case 128:
+      return launch_patch_embed_f32<8>(canvas, wm, bias, ln_w, ln_b, out, B,
+                                       H, W, C, p, eps, stream);
+    case 192:
+      return launch_patch_embed_f32<12>(canvas, wm, bias, ln_w, ln_b, out, B,
+                                        H, W, C, p, eps, stream);
+    case 256:
+      return launch_patch_embed_f32<16>(canvas, wm, bias, ln_w, ln_b, out, B,
+                                        H, W, C, p, eps, stream);
     default:
       return MB_BAD_ARGS;
   }

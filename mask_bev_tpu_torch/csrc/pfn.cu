@@ -1,287 +1,354 @@
 // Kernels 1 and 10: pillar feature net -> dense pillar table + norm
-// statistics.
+// statistics, on tiles of whole pillars.
 //
-// Kernel 10 (stream_pfn_forward) replaces
-// mask_bev_tpu/ops/pallas_pfn.py::fused_stream_pfn (_pfn_kernel), the v1 PFN
-// on the capped stream of the eval path when the slot path is off: the TPU
-// kernel writes pooled features for every stream row and the caller reads
-// them at the pillar starts (gather_at_starts); this one writes the
-// (B, P, C) pillar table those reads give, one warp per pillar slot, with
-// the same per-pillar body as kernel 1 (below) and the same statistics.
-// The kept points of a slot are found from its start row, pid and kept
-// flag; slots beyond the occupied ones are zero rows. Its bound is kernel
-// 1's: the products, 2 x kept points x sum(in x out) at the bf16 rate.
+// Kernel 1 (pfn_forward) replaces mask_bev_tpu/ops/pallas_pfn.py::
+// fused_stream_pfn_slots (_pfn_slots_kernel). The stable sort and the
+// pillar directory (run starts, kept counts, ascending cells) come from
+// plain torch (ops/stream_pillars.py); this kernel decorates each pillar's
+// kept points, runs the PFN layers (linear, folded BN, relu, max over the
+// pillar, concat) and writes the pillar's last-layer feature as one row of
+// the dense table, plus per-row [sum, sum of squares] partials of the
+// written (rounded) values. A second launch (pfn_stats) reduces the
+// partials per sample in a fixed order, so the statistics repeat bit for
+// bit (no float atomics).
 //
-// Kernel 1 replaces mask_bev_tpu/ops/pallas_pfn.py::fused_stream_pfn_slots
-// (_pfn_slots_kernel). The stable sort and the pillar directory (run starts,
-// kept counts, ascending cells) come from plain torch
-// (ops/stream_pillars.py); this kernel decorates each pillar's kept points,
-// runs the PFN layers (linear, folded BN, relu, max over the pillar, concat)
-// and writes the pillar's last-layer feature as one row of the dense table,
-// plus per-row [sum, sum of squares] partials of the written (rounded)
-// values. A second launch (pfn_stats) reduces the partials per sample in a
-// fixed order, so the statistics repeat bit for bit (no float atomics).
+// Kernel 10 (stream_pfn_forward) replaces mask_bev_tpu/ops/pallas_pfn.py::
+// fused_stream_pfn (_pfn_kernel), the v1 PFN on the capped stream of the
+// eval path when the slot path is off: the TPU kernel writes pooled
+// features for every stream row and the caller reads them at the pillar
+// starts (gather_at_starts); this one writes the (B, P, C) pillar table
+// those reads give with the same body (a slot's kept points are the rows
+// [start, start + count), count from ops/stream_pillars.py::kept_counts),
+// and zero rows on the slots at and beyond the occupied ones.
 //
 // What bounds it on the H100: operations. At the flagship (3 layers,
 // 10->64, 128->64, 128->128) each kept point costs ~25k multiply-adds; the
-// products are bf16 (bf16 weights, layer inputs rounded to bf16) with f32
-// accumulation, so their floor is the bf16 tensor-core rate (989 TFLOP/s):
-// ~0.05 ms for the ~940k kept points of 8 scans. Its bytes (4 input columns
-// and 3 directory ints per point slot, 256 B per pillar row) are ~120 MB,
-// ~0.035 ms at 3.35 TB/s. This first design runs the products as f32 FMAs
-// on CUDA cores, so it sits far above that floor: one warp per pillar
-// (K <= 32 points, lane = point for the decoration, lane = output channel
-// for the layers), all layers' weights in shared memory (bf16) once per
-// block (read by every warp of the block; each lane reads consecutive
-// channels, so no bank conflicts), and each warp's point activations in
-// shared memory (bf16: every layer input is rounded to bf16 before its
-// product anyway), updated in place layer by layer. The max over the pillar
-// is a running max in registers: no shuffles. Tensor-core tiles of pillars
-// are the next step. Only bf16 weights and a bf16 table are built: the
-// wrapper raises on other dtypes.
+// bf16 instance's products are bf16 (bf16 weights, layer inputs rounded to
+// bf16) with f32 accumulation, so their floor is the bf16 tensor-core rate
+// (989 TFLOP/s): ~0.05 ms for the ~940k kept points of 8 scans. Its bytes
+// (4 input columns and 3 directory ints per point slot, 256 B per pillar
+// row) are ~120 MB, ~0.035 ms at 3.35 TB/s.
+//
+// Design. The first version ran one warp per pillar with the products as
+// f32 FMAs on CUDA cores: at ~2.5 kept points a pillar each weight read
+// served at most two points, and half the lanes idled in 64-unit layers.
+// This one works on tiles of whole pillars in compacted kept-point order
+// (ops/stream_pillars.py::pfn_tiles): tile t of a sample owns the pillars
+// whose first compacted row lies in [64 t, 64 t + 64), so it holds at most
+// 64 + 31 = 95 rows (6 m16 tiles), gathered into shared memory (one thread
+// a row, so every point load of the tile is in flight at once) and
+// decorated there. A persistent grid walks the tiles; a block loads the
+// weights once.
+//   * bf16 instance: every layer's product is mma.sync m16n8k16 (bf16
+//     operands, f32 accumulation). The weights stay in shared memory in
+//     B-fragment order (packed on the host, ops/pfn.py::pack_weights: one
+//     8-byte load a lane and k-step); warp w owns the output-column tiles
+//     w, w + 8 across all of the tile's rows, and loads A fragments with
+//     ldmatrix from the bf16 activations (row stride K + 8: conflict-free).
+//   * f32 instance: the same tiles with f32 activations and f32 products
+//     (FMA, no rounding of the operands); a thread owns one output column
+//     and a set of rows, the f32 weights read through L1.
+// The layer epilogue applies g and b and the ReLU, rounds to the storage
+// type (as the reference rounds the next layer's input) and writes the rows
+// in place; the max over each pillar's contiguous rows then runs one warp a
+// pillar (the max of the rounded values is the rounded max), written back
+// as the [z, pooled] half of the next layer's input, or as the table row.
+// The pooled half is not split off as a separate per-pillar product: each
+// row's product is the reference's W [z; pooled] with its rounding.
 #include "common.cuh"
 
 #define PFN_MAXL 4
+#define PFN_ROWS 96   // rows of a tile: at most 64 + 31, in 6 m16 tiles
+#define PFN_MT 6
+#define PFN_PIL 64    // pillars of a tile at most (distinct first rows)
+#define PFN_THREADS 256
+#define PFN_WARPS (PFN_THREADS / 32)
+// rows a thread of the f32 instance holds: 96 rows over 256 / u row groups
+// of u <= 128 threads
+#define PFN_F32_ROWS 48
 
 struct PfnDims {
   int nl;
   int in[PFN_MAXL];
+  int kp[PFN_MAXL];     // input width padded to a multiple of 16
   int units[PFN_MAXL];
-  int src_w[PFN_MAXL];  // offsets of W, g, b in the packed f32 weights
-  int src_g[PFN_MAXL];
-  int src_b[PFN_MAXL];
-  int woff[PFN_MAXL];   // offset of W in the shared-memory weight region
-  int goff[PFN_MAXL];   // offsets of g, b in the shared-memory f32 region
-  int boff[PFN_MAXL];
-  int gb;               // floats of the g/b region (multiple of 4)
-  int wsz;              // elements of the W region (multiple of 8)
-  int amax;             // widest activation row
+  int woff[PFN_MAXL];   // element offset of W (kp x units) in the weights
+  int gboff[PFN_MAXL];  // offset of g (then b) in the f32 g/b buffer
+  int wsz;              // elements of all weights
+  int gbsz;             // floats of g/b (multiple of 4)
+  int lda;              // activation row stride, elements
 };
 
-// Weights and point activations live in shared memory as bf16: every layer
-// input is rounded to bf16 before its product (as the TPU kernel casts to
-// the weight dtype), so bf16 storage loses nothing and fits 16 warps.
-__device__ __forceinline__ void pfn_load_weights(const float* __restrict__ wpack,
-                                 const PfnDims d, float* gbs, bf16* wsm) {
-  for (int l = 0; l < d.nl; ++l) {
-    const int u = d.units[l];
-    for (int i = threadIdx.x; i < d.in[l] * u; i += blockDim.x)
-      wsm[d.woff[l] + i] = from_f<bf16>(wpack[d.src_w[l] + i]);
-    for (int i = threadIdx.x; i < u; i += blockDim.x) {
-      gbs[d.goff[l] + i] = wpack[d.src_g[l] + i];
-      gbs[d.boff[l] + i] = wpack[d.src_b[l] + i];
-    }
+// where the points come from: kernel 1's four sorted f32 columns, or
+// kernel 10's (B, N, D) sorted points in the storage type
+struct PfnPoints {
+  const float* col[4];
+  const void* pts;
+  int D;
+};
+
+template <typename T>
+__device__ __forceinline__ float load_pt(const PfnPoints& pp, size_t row,
+                                         int q) {
+  if (pp.pts) {
+    if (q >= pp.D) return 0.f;
+    return to_f(reinterpret_cast<const T*>(pp.pts)[row * pp.D + q]);
   }
-  __syncthreads();
+  return pp.col[q][row];
 }
 
-// One pillar, one warp: lane < n holds kept point ``lane`` (x, y, z, it);
-// decorate, run the layers, write the last layer's max as ``row`` (bf16)
-// and its [sum, sum of squares] as ``partial``.
-__device__ __forceinline__ void pfn_pillar(float x, float y, float z, float it, int n,
-                           int cell, const PfnDims d, const float* gbs,
-                           const bf16* wsm, bf16* act, int point_dim,
-                           int with_distance, int grid_w, float vs,
-                           float cx0, float cy0, bf16* __restrict__ row,
-                           float* __restrict__ partial) {
-  const int lane = threadIdx.x & 31;
-  const bool mine = lane < n;
-  const float cnt = fmaxf((float)n, 1.f);
-  const float mx = warp_sum(x) / cnt;
-  const float my = warp_sum(y) / cnt;
-  const float mz = warp_sum(z) / cnt;
-  const float cx = __fadd_rn(__fmul_rn((float)(cell % grid_w), vs), cx0);
-  const float cy = __fadd_rn(__fmul_rn((float)(cell / grid_w), vs), cy0);
-  if (mine) {
-    bf16* a = act + lane * d.amax;
-    const float raw[4] = {x, y, z, it};
-    int j = 0;
-    for (int q = 0; q < point_dim; ++q) a[j++] = from_f<bf16>(raw[q]);
-    a[j++] = from_f<bf16>(x - mx);
-    a[j++] = from_f<bf16>(y - my);
-    a[j++] = from_f<bf16>(z - mz);
-    a[j++] = from_f<bf16>(x - cx);
-    a[j++] = from_f<bf16>(y - cy);
-    if (with_distance)
-      a[j++] = from_f<bf16>(sqrtf(__fadd_rn(
-          __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))));
-  }
-  __syncwarp();
-
-  for (int li = 0; li < d.nl; ++li) {
-    const int in = d.in[li], u = d.units[li];
-    const bf16* W = wsm + d.woff[li];
-    const float* g = gbs + d.goff[li];
-    const float* bb = gbs + d.boff[li];
-    const bool last = li == d.nl - 1;
-    float pooled[4] = {0.f, 0.f, 0.f, 0.f};
-    // two points per pass: each weight read from shared memory serves
-    // both (the per-point arithmetic and its order are unchanged)
-    for (int p = 0; p < n; p += 2) {
-      const bool two = p + 1 < n;
-      bf16* a0 = act + p * d.amax;
-      bf16* a1 = a0 + d.amax;
-      float acc0[4] = {0.f, 0.f, 0.f, 0.f};
-      float acc1[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < in; ++k) {
-        const float av0 = to_f(a0[k]);
-        const float av1 = two ? to_f(a1[k]) : 0.f;
-        const bf16* wr = W + k * u;
+// bf16 instance: acc[jj][mt] += Xs[16 mt.., :kp] . W[:, 8 (warp + 8 jj)..]
+__device__ __forceinline__ void pfn_mma(float (&acc)[2][PFN_MT][4],
+                                        const bf16* Xs, int lda, int nmt,
+                                        const uint2* wfr, int kp, int u,
+                                        int warp, int lane) {
+  const int nnt = u / 8, nks = kp / 16;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = lane + 32 * j;
-          if (c < u) {
-            const float w = to_f(wr[c]);
-            acc0[j] = fmaf(av0, w, acc0[j]);
-            acc1[j] = fmaf(av1, w, acc1[j]);
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int mt = 0; mt < PFN_MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][mt][e] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    uint2 bfr[2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = warp + PFN_WARPS * jj;
+      bfr[jj] = j < nnt ? wfr[((size_t)j * nks + ks) * 32 + lane]
+                        : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int mt = 0; mt < PFN_MT; ++mt) {
+      if (mt >= nmt) break;
+      uint32_t a[4];
+      ldsm_x4(a, Xs + (16 * mt + (lane & 15)) * lda + 16 * ks +
+                     (lane >> 4) * 8);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        if (warp + PFN_WARPS * jj < nnt)
+          mma_16816(acc[jj][mt], a, bfr[jj].x, bfr[jj].y);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
+    PfnPoints pp, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ cells,
+    const int* __restrict__ num, const int* __restrict__ row0,
+    const int* __restrict__ tile_first, const void* __restrict__ wbuf,
+    const float* __restrict__ gb, PfnDims d, T* __restrict__ table,
+    float* __restrict__ partials, int B, int N, int P, int ntiles,
+    int point_dim, int with_distance, int grid_w, float vs, float cx0,
+    float cy0, int zero_tail) {
+  constexpr bool TC = sizeof(T) == 2;
+  extern __shared__ __align__(16) float smem[];
+  float* gbs = smem;
+  const uint2* wfr = reinterpret_cast<const uint2*>(smem + d.gbsz);
+  T* Xs = reinterpret_cast<T*>(smem + d.gbsz +
+                               (TC ? d.wsz / 2 : 0));  // PFN_ROWS x lda
+  int* pil_row = reinterpret_cast<int*>(Xs + PFN_ROWS * d.lda);
+  int* pil_cnt = pil_row + PFN_PIL;
+  int* pil_start = pil_cnt + PFN_PIL;
+  int* pil_cell = pil_start + PFN_PIL;
+  int* rowpil = pil_cell + PFN_PIL;                       // PFN_ROWS
+  float* raw = reinterpret_cast<float*>(rowpil + PFN_ROWS);  // PFN_ROWS x 4
+  float* mean = raw + 4 * PFN_ROWS;                       // PFN_PIL x 4
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < d.gbsz; i += PFN_THREADS) gbs[i] = gb[i];
+  if (TC) {
+    const uint4* src = reinterpret_cast<const uint4*>(wbuf);
+    uint4* dst = reinterpret_cast<uint4*>(smem + d.gbsz);
+    for (int i = tid; i < d.wsz / 8; i += PFN_THREADS) dst[i] = src[i];
+  }
+  const float* wg = reinterpret_cast<const float*>(wbuf);
+  const int c_out = d.units[d.nl - 1];
+
+  for (int tile = blockIdx.x; tile < B * ntiles; tile += gridDim.x) {
+    const int b = tile / ntiles, t = tile % ntiles;
+    const int p0 = tile_first[(size_t)b * (ntiles + 1) + t];
+    const int p1 = tile_first[(size_t)b * (ntiles + 1) + t + 1];
+    if (p0 >= p1) continue;
+    const int npil = p1 - p0;
+    const size_t dir = (size_t)b * P;  // directory and table rows of b
+    const int base = row0[dir + p0];
+    __syncthreads();  // the previous tile is done with the shared memory
+    for (int i = tid; i < npil; i += PFN_THREADS) {
+      pil_row[i] = row0[dir + p0 + i] - base;
+      pil_cnt[i] = counts[dir + p0 + i];
+      pil_start[i] = starts[dir + p0 + i];
+      pil_cell[i] = cells[dir + p0 + i];
+    }
+    __syncthreads();
+    const int nrows = pil_row[npil - 1] + pil_cnt[npil - 1];
+    const int nmt = (nrows + 15) / 16;
+
+    // ---- gather and decorate: every row's point in flight at once -------
+    for (int i = tid; i < npil; i += PFN_THREADS)
+      for (int rr = 0; rr < pil_cnt[i]; ++rr) rowpil[pil_row[i] + rr] = i;
+    __syncthreads();
+    for (int r = tid; r < nrows; r += PFN_THREADS) {
+      const int i = rowpil[r];
+      const size_t prow = (size_t)b * N + pil_start[i] + r - pil_row[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) raw[4 * r + q] = load_pt<T>(pp, prow, q);
+    }
+    __syncthreads();
+    for (int i = tid; i < npil; i += PFN_THREADS) {
+      const int r0 = pil_row[i], n = pil_cnt[i];
+      float sx = 0.f, sy = 0.f, sz = 0.f;
+      for (int rr = 0; rr < n; ++rr) {
+        sx += raw[4 * (r0 + rr)];
+        sy += raw[4 * (r0 + rr) + 1];
+        sz += raw[4 * (r0 + rr) + 2];
+      }
+      const float cnt = fmaxf((float)n, 1.f);
+      mean[4 * i] = sx / cnt;
+      mean[4 * i + 1] = sy / cnt;
+      mean[4 * i + 2] = sz / cnt;
+    }
+    __syncthreads();
+    const int kp0 = d.kp[0];
+    for (int r = tid; r < nrows; r += PFN_THREADS) {
+      const int i = rowpil[r], cell = pil_cell[i];
+      const float x = raw[4 * r], y = raw[4 * r + 1], z = raw[4 * r + 2];
+      const float cx = __fadd_rn(__fmul_rn((float)(cell % grid_w), vs), cx0);
+      const float cy = __fadd_rn(__fmul_rn((float)(cell / grid_w), vs), cy0);
+      T* a = Xs + r * d.lda;
+      int j = 0;
+      for (int q = 0; q < point_dim; ++q) a[j++] = from_f<T>(raw[4 * r + q]);
+      a[j++] = from_f<T>(x - mean[4 * i]);
+      a[j++] = from_f<T>(y - mean[4 * i + 1]);
+      a[j++] = from_f<T>(z - mean[4 * i + 2]);
+      a[j++] = from_f<T>(x - cx);
+      a[j++] = from_f<T>(y - cy);
+      if (with_distance)
+        a[j++] = from_f<T>(sqrtf(__fadd_rn(
+            __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))));
+      for (; j < kp0; ++j) a[j] = from_f<T>(0.f);
+    }
+    // rows of the last m16 tile past the tile's rows: zero inputs
+    for (int i = tid; i < (16 * nmt - nrows) * kp0; i += PFN_THREADS)
+      Xs[(nrows + i / kp0) * d.lda + i % kp0] = from_f<T>(0.f);
+    __syncthreads();
+
+    for (int li = 0; li < d.nl; ++li) {
+      const int kp = d.kp[li], u = d.units[li];
+      const float* g = gbs + d.gboff[li];
+      const float* bb = g + u;
+      const bool last = li == d.nl - 1;
+      // ---- products, then z = relu(acc * g + b) rounded, in place --------
+      if (TC) {
+        float acc[2][PFN_MT][4];
+        pfn_mma(acc, reinterpret_cast<const bf16*>(Xs), d.lda, nmt,
+                wfr + d.woff[li] / 4, kp, u, warp, lane);
+        __syncthreads();  // every warp has read this layer's input
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = warp + PFN_WARPS * jj;
+          if (j >= u / 8) continue;
+#pragma unroll
+          for (int mt = 0; mt < PFN_MT; ++mt) {
+            if (mt >= nmt) break;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = 16 * mt + (lane >> 2) + 8 * (e >> 1);
+              const int c = 8 * j + 2 * (lane & 3) + (e & 1);
+              if (row < nrows)
+                Xs[row * d.lda + c] = from_f<T>(fmaxf(
+                    __fadd_rn(__fmul_rn(acc[jj][mt][e], g[c]), bb[c]), 0.f));
+            }
+          }
+        }
+      } else {
+        // thread: column c, rows rg, rg + ng, ... (ng row groups)
+        const int ng = PFN_THREADS / u;
+        const int c = tid % u, rg = tid / u;
+        const bool on = rg < ng;
+        const float* W = wg + d.woff[li];
+        const float* X = reinterpret_cast<const float*>(Xs);
+        float acc[PFN_F32_ROWS];
+#pragma unroll
+        for (int i = 0; i < PFN_F32_ROWS; ++i) acc[i] = 0.f;
+        if (on) {
+          for (int k = 0; k < kp; k += 4) {
+            const float w0 = __ldg(W + (size_t)k * u + c);
+            const float w1 = __ldg(W + (size_t)(k + 1) * u + c);
+            const float w2 = __ldg(W + (size_t)(k + 2) * u + c);
+            const float w3 = __ldg(W + (size_t)(k + 3) * u + c);
+#pragma unroll
+            for (int i = 0; i < PFN_F32_ROWS; ++i) {
+              const int row = rg + ng * i;
+              if (row >= nrows) break;
+              const float4 a =
+                  *reinterpret_cast<const float4*>(X + row * d.lda + k);
+              acc[i] = fmaf(a.w, w3, fmaf(a.z, w2, fmaf(a.y, w1,
+                                                        fmaf(a.x, w0, acc[i]))));
+            }
+          }
+        }
+        __syncthreads();
+        if (on) {
+#pragma unroll
+          for (int i = 0; i < PFN_F32_ROWS; ++i) {
+            const int row = rg + ng * i;
+            if (row >= nrows) break;
+            Xs[row * d.lda + c] = from_f<T>(
+                fmaxf(__fadd_rn(__fmul_rn(acc[i], g[c]), bb[c]), 0.f));
           }
         }
       }
-      __syncwarp();  // every lane has read rows p, p+1 before they change
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        if (c < u) {
-          const float z0 =
-              fmaxf(__fadd_rn(__fmul_rn(acc0[j], g[c]), bb[c]), 0.f);
-          pooled[j] = fmaxf(pooled[j], z0);
-          if (!last) a0[c] = from_f<bf16>(z0);
-          if (two) {
-            const float z1 =
-                fmaxf(__fadd_rn(__fmul_rn(acc1[j], g[c]), bb[c]), 0.f);
-            pooled[j] = fmaxf(pooled[j], z1);
-            if (!last) a1[c] = from_f<bf16>(z1);
+      __syncthreads();
+      // ---- max over each pillar's rows, one warp a pillar ----------------
+      for (int i = warp; i < npil; i += PFN_WARPS) {
+        const int r0 = pil_row[i], n = pil_cnt[i];
+        float s1 = 0.f, s2 = 0.f;
+        for (int c = lane; c < u; c += 32) {
+          float m = 0.f;  // post-ReLU values are >= 0
+          for (int rr = 0; rr < n; ++rr)
+            m = fmaxf(m, to_f(Xs[(r0 + rr) * d.lda + c]));
+          if (!last) {
+            const T mv = from_f<T>(m);
+            for (int rr = 0; rr < n; ++rr) Xs[(r0 + rr) * d.lda + u + c] = mv;
+          } else {
+            table[(dir + p0 + i) * (size_t)c_out + c] = from_f<T>(m);
+            s1 += m;
+            s2 += m * m;
+          }
+        }
+        if (last) {
+          s1 = warp_sum(s1);
+          s2 = warp_sum(s2);
+          if (lane == 0) {
+            partials[(dir + p0 + i) * 2] = s1;
+            partials[(dir + p0 + i) * 2 + 1] = s2;
           }
         }
       }
-      __syncwarp();
-    }
-    if (!last) {
-      for (int p = 0; p < n; ++p) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = lane + 32 * j;
-          if (c < u) act[p * d.amax + u + c] = from_f<bf16>(pooled[j]);
-        }
-      }
-      __syncwarp();
-    } else {
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        if (c < u) {
-          const bf16 v = from_f<bf16>(pooled[j]);
-          row[c] = v;
-          const float vf = to_f(v);
-          s1 += vf;
-          s2 += vf * vf;
-        }
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        partial[0] = s1;
-        partial[1] = s2;
-      }
+      __syncthreads();
     }
   }
-}
 
-// Kernel 1: the pillar directory (starts, kept counts, cells) comes with
-// the stream; one warp per occupied pillar.
-__global__ void __launch_bounds__(512) pfn_kernel(
-    const float* __restrict__ px_, const float* __restrict__ py_,
-    const float* __restrict__ pz_, const float* __restrict__ pi_,
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ cells, const int* __restrict__ num_pillars,
-    const float* __restrict__ wpack, PfnDims d, bf16* __restrict__ table,
-    float* __restrict__ partials, int N, int K, int point_dim,
-    int with_distance, int grid_w, float vs, float cx0, float cy0) {
-  extern __shared__ float smem[];
-  float* gbs = smem;
-  bf16* wsm = reinterpret_cast<bf16*>(smem + d.gb);
-  pfn_load_weights(wpack, d, gbs, wsm);
-
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* act = wsm + d.wsz + (size_t)warp * K * d.amax;
-  const int b = blockIdx.y;
-  const int P = num_pillars[b];
-  const size_t base = (size_t)b * N;
-  const int c_out = d.units[d.nl - 1];
-
-  for (int r = blockIdx.x * warps + warp; r < P; r += gridDim.x * warps) {
-    const int s0 = starts[base + r];
-    const int n = counts[base + r];
-    float x = 0.f, y = 0.f, z = 0.f, it = 0.f;
-    if (lane < n) {
-      const size_t i = base + s0 + lane;
-      x = px_[i]; y = py_[i]; z = pz_[i]; it = pi_[i];
+  // kernel 10: the slots at and beyond the occupied ones are zero rows
+  if (zero_tail) {
+    for (size_t row = (size_t)blockIdx.x * PFN_WARPS + warp;
+         row < (size_t)B * P; row += (size_t)gridDim.x * PFN_WARPS) {
+      const int b = (int)(row / P), r = (int)(row % P);
+      if (r < num[b]) continue;
+      for (int c = lane; c < c_out; c += 32)
+        table[row * c_out + c] = from_f<T>(0.f);
+      if (lane == 0) partials[row * 2] = partials[row * 2 + 1] = 0.f;
     }
-    pfn_pillar(x, y, z, it, n, cells[base + r], d, gbs, wsm, act, point_dim,
-               with_distance, grid_w, vs, cx0, cy0,
-               table + (base + r) * (size_t)c_out, partials + (base + r) * 2);
-  }
-}
-
-// Kernel 10: the capped stream of the eval path when the slot path is off.
-// Slot r < nvalid[b] of sample b is the pillar whose run starts at
-// starts[b, r] in cell cells[b, r]; its kept points are the rows from that
-// start that carry the cell's pid and the kept flag (at most K, contiguous:
-// the first K of the run). Slots at and beyond nvalid are written as zero
-// rows, as gather_at_starts writes them.
-__global__ void __launch_bounds__(512) stream_pfn_kernel(
-    const bf16* __restrict__ pts, int D, const int* __restrict__ pid,
-    const unsigned char* __restrict__ kept, const int* __restrict__ starts,
-    const int* __restrict__ cells, const int* __restrict__ nvalid,
-    const float* __restrict__ wpack, PfnDims d, bf16* __restrict__ table,
-    float* __restrict__ partials, int N, int P, int K, int point_dim,
-    int with_distance, int grid_w, float vs, float cx0, float cy0) {
-  extern __shared__ float smem[];
-  float* gbs = smem;
-  bf16* wsm = reinterpret_cast<bf16*>(smem + d.gb);
-  pfn_load_weights(wpack, d, gbs, wsm);
-
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* act = wsm + d.wsz + (size_t)warp * K * d.amax;
-  const int b = blockIdx.y;
-  const int nv = nvalid[b];
-  const size_t base = (size_t)b * N, sbase = (size_t)b * P;
-  const int c_out = d.units[d.nl - 1];
-
-  for (int r = blockIdx.x * warps + warp; r < P; r += gridDim.x * warps) {
-    bf16* row = table + (sbase + r) * (size_t)c_out;
-    float* partial = partials + (sbase + r) * 2;
-    if (r >= nv) {
-      for (int c = lane; c < c_out; c += 32) row[c] = from_f<bf16>(0.f);
-      if (lane == 0) partial[0] = partial[1] = 0.f;
-      continue;
-    }
-    const int s0 = starts[sbase + r];
-    const int cell = cells[sbase + r];
-    const int i = s0 + lane;
-    const bool mine = lane < K && i < N && kept[base + i] &&
-                      pid[base + i] == cell;
-    const int n = __popc(__ballot_sync(0xffffffffu, mine));
-    float x = 0.f, y = 0.f, z = 0.f, it = 0.f;
-    if (mine) {
-      const bf16* pt = pts + (base + i) * D;
-      x = to_f(pt[0]); y = to_f(pt[1]); z = to_f(pt[2]);
-      it = D > 3 ? to_f(pt[3]) : 0.f;
-    }
-    pfn_pillar(x, y, z, it, n, cell, d, gbs, wsm, act, point_dim,
-               with_distance, grid_w, vs, cx0, cy0, row, partial);
   }
 }
 
 __global__ void __launch_bounds__(1024) pfn_stats_kernel(
-    const float* __restrict__ partials, const int* __restrict__ num_pillars,
+    const float* __restrict__ partials, const int* __restrict__ num,
     float* __restrict__ stats, int N) {
   __shared__ float r1[1024], r2[1024];
   const int b = blockIdx.x;
-  const int P = num_pillars[b];
+  const int P = num[b];
   float s1 = 0.f, s2 = 0.f;
   for (int r = threadIdx.x; r < P; r += blockDim.x) {
     s1 += partials[((size_t)b * N + r) * 2];
@@ -303,111 +370,133 @@ __global__ void __launch_bounds__(1024) pfn_stats_kernel(
   }
 }
 
-// dims: [n_layers, in_0, units_0, in_1, units_1, ...] (host memory)
-static int parse_dims(const int* dims, int K, int max_warps, PfnDims* d) {
+// dims: [n_layers, in_0, units_0, in_1, units_1, ...] (host memory);
+// every width a multiple of 8 up to 128, the next layer's input 2 units
+static int parse_dims(const int* dims, PfnDims* d) {
   d->nl = dims[0];
-  if (d->nl < 1 || d->nl > PFN_MAXL || K > 32 || max_warps < 1 ||
-      max_warps > 16)
-    return MB_BAD_ARGS;
-  int src = 0, woff = 0, gboff = 0, amax = 0;
+  if (d->nl < 1 || d->nl > PFN_MAXL) return MB_BAD_ARGS;
+  int woff = 0, gboff = 0, kmax = 0;
   for (int l = 0; l < d->nl; ++l) {
     const int in = dims[1 + 2 * l], u = dims[2 + 2 * l];
-    if (u > 128) return MB_BAD_ARGS;
+    if (u < 8 || u > 128 || u % 8 || in < 1) return MB_BAD_ARGS;
+    if (l > 0 && in != 2 * d->units[l - 1]) return MB_BAD_ARGS;
     d->in[l] = in;
+    d->kp[l] = (in + 15) / 16 * 16;
     d->units[l] = u;
-    d->src_w[l] = src;
-    d->src_g[l] = src + in * u;
-    d->src_b[l] = src + in * u + u;
-    src += in * u + 2 * u;
     d->woff[l] = woff;
-    woff += in * u;
-    d->goff[l] = gboff;
-    d->boff[l] = gboff + u;
+    woff += d->kp[l] * u;
+    d->gboff[l] = gboff;
     gboff += 2 * u;
-    amax = in > amax ? in : amax;
-    // a layer's row holds its input, and the concat [z, pooled] it builds
-    // for the next layer (the last layer's output never enters the row)
-    if (l + 1 < d->nl && 2 * u > amax) amax = 2 * u;
+    kmax = d->kp[l] > kmax ? d->kp[l] : kmax;
   }
-  d->gb = (gboff + 3) & ~3;
-  d->wsz = (woff + 7) & ~7;
-  d->amax = (amax + 1) & ~1;
+  d->wsz = woff;
+  d->gbsz = (gboff + 3) & ~3;
+  d->lda = kmax;
   return 0;
 }
 
-// Shared memory of a block: the weights, then K activation rows per warp.
-// Returns the warps per block (0 if one warp does not fit).
-static int pfn_block(const PfnDims& d, int K, int max_warps, size_t* smem) {
-  const size_t fixed = sizeof(float) * d.gb + sizeof(bf16) * d.wsz;
-  const size_t per_warp = sizeof(bf16) * (size_t)K * d.amax;
-  const size_t budget = 232448;  // shared memory a block may opt in to
-  if (fixed + per_warp > budget) return 0;
-  int warps = (int)((budget - fixed) / per_warp);
-  warps = warps < max_warps ? warps : max_warps;
-  *smem = fixed + per_warp * warps;
-  return warps;
+// shared memory of a block of the instance T (bf16: + 8 elements a row so
+// that ldmatrix is free of bank conflicts; f32: + 4, 16-byte rows)
+template <typename T>
+static size_t pfn_smem(PfnDims* d) {
+  const bool tc = sizeof(T) == 2;
+  d->lda += tc ? 8 : 4;
+  return sizeof(float) * d->gbsz + (tc ? sizeof(bf16) * d->wsz : 0) +
+         sizeof(T) * PFN_ROWS * d->lda +
+         sizeof(int) * (4 * PFN_PIL + PFN_ROWS) +
+         sizeof(float) * 4 * (PFN_ROWS + PFN_PIL);
 }
 
-// wpack: per layer W (in x units, row-major, bf16 values), g (units),
-// b (units), f32; table: (B, N, units of the last layer) bf16;
-// max_warps: pillars in flight per block (fewer if shared memory is short).
+template <typename T>
+static int launch_tiles(const PfnPoints& pp, const int* starts,
+                        const int* counts, const int* cells, const int* num,
+                        const int* row0, const int* tile_first,
+                        const void* wbuf, const float* gb, const int* dims,
+                        T* table, float* partials, int B, int N, int P,
+                        int ntiles, int point_dim, int with_distance,
+                        int grid_w, float vs, float cx0, float cy0,
+                        int zero_tail, cudaStream_t stream) {
+  PfnDims d;
+  if (parse_dims(dims, &d)) return MB_BAD_ARGS;
+  const size_t smem = pfn_smem<T>(&d);
+  if (smem > 232448) return MB_BAD_ARGS;
+  auto kern = pfn_tile_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PFN_THREADS,
+                                                smem);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int grid = (per_sm > 0 ? per_sm : 1) * sms;
+  if (!zero_tail && grid > B * ntiles) grid = B * ntiles;
+  if (grid < 1) grid = 1;
+  kern<<<grid, PFN_THREADS, smem, stream>>>(
+      pp, starts, counts, cells, num, row0, tile_first, wbuf, gb, d, table,
+      partials, B, N, P, ntiles, point_dim, with_distance, grid_w, vs, cx0,
+      cy0, zero_tail);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 1. cols: four sorted (B, N) f32 columns; starts, counts, cells,
+// row0: (B, N) int32 pillar directory; num: (B,) occupied rows; tile_first:
+// (B, ntiles + 1) int32 (ops/stream_pillars.py::pfn_tiles); wbuf: the
+// weights (bf16 in fragment order, or f32 (kp, units) row-major, each layer
+// zero-padded to kp rows); gb: f32 g, b per layer; table (B, N, units of
+// the last layer) and partials (B, N, 2): rows at and beyond num[b] are not
+// written. f32: nonzero for the f32 instance (f32 weights and table).
 MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* it, const int* starts,
                           const int* counts, const int* cells,
-                          const int* num_pillars, const float* wpack,
-                          const int* dims, bf16* table, float* partials,
-                          int B, int N, int K, int point_dim,
-                          int with_distance, int grid_w,
-                          float vs, float cx0, float cy0,
-                          int blocks_per_sample, int max_warps,
+                          const int* num, const int* row0,
+                          const int* tile_first, const void* wbuf,
+                          const float* gb, const int* dims, void* table,
+                          float* partials, int B, int N, int ntiles,
+                          int point_dim, int with_distance, int grid_w,
+                          float vs, float cx0, float cy0, int f32,
                           cudaStream_t stream) {
-  PfnDims d;
-  if (parse_dims(dims, K, max_warps, &d)) return MB_BAD_ARGS;
-  size_t smem = 0;
-  const int warps = pfn_block(d, K, max_warps, &smem);
-  if (!warps) return MB_BAD_ARGS;
-  cudaError_t e = cudaFuncSetAttribute(
-      pfn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
-  dim3 grid(blocks_per_sample, B);
-  pfn_kernel<<<grid, warps * 32, smem, stream>>>(
-      x, y, z, it, starts, counts, cells, num_pillars, wpack, d, table,
-      partials, N, K, point_dim, with_distance, grid_w, vs, cx0, cy0);
-  return (int)cudaGetLastError();
+  if (point_dim < 1 || point_dim > 4) return MB_BAD_ARGS;
+  PfnPoints pp = {{x, y, z, it}, nullptr, 0};
+  if (f32)
+    return launch_tiles<float>(pp, starts, counts, cells, num, row0,
+                               tile_first, wbuf, gb, dims, (float*)table,
+                               partials, B, N, N, ntiles, point_dim,
+                               with_distance, grid_w, vs, cx0, cy0, 0, stream);
+  return launch_tiles<bf16>(pp, starts, counts, cells, num, row0, tile_first,
+                            wbuf, gb, dims, (bf16*)table, partials, B, N, N,
+                            ntiles, point_dim, with_distance, grid_w, vs, cx0,
+                            cy0, 0, stream);
 }
 
-// Kernel 10. pts (B, N, D) bf16, D <= 4; pid (B, N) int32; kept (B, N)
-// bool; starts, cells (B, P) int32; nvalid (B,) int32; table (B, P, units
-// of the last layer) bf16; partials (B, P, 2) f32.
-MB_EXPORT int stream_pfn_forward(const bf16* pts, int D, const int* pid,
-                                 const unsigned char* kept, const int* starts,
-                                 const int* cells, const int* nvalid,
-                                 const float* wpack, const int* dims,
-                                 bf16* table, float* partials, int B, int N,
-                                 int P, int K, int point_dim,
-                                 int with_distance, int grid_w, float vs,
-                                 float cx0, float cy0, int blocks_per_sample,
-                                 int max_warps, cudaStream_t stream) {
-  PfnDims d;
-  if (D < 3 || D > 4 || point_dim > D ||
-      parse_dims(dims, K, max_warps, &d))
-    return MB_BAD_ARGS;
-  size_t smem = 0;
-  const int warps = pfn_block(d, K, max_warps, &smem);
-  if (!warps) return MB_BAD_ARGS;
-  cudaError_t e = cudaFuncSetAttribute(
-      stream_pfn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
-  dim3 grid(blocks_per_sample, B);
-  stream_pfn_kernel<<<grid, warps * 32, smem, stream>>>(
-      pts, D, pid, kept, starts, cells, nvalid, wpack, d, table, partials, N,
-      P, K, point_dim, with_distance, grid_w, vs, cx0, cy0);
-  return (int)cudaGetLastError();
+// Kernel 10. pts (B, N, D) sorted points in the instance's type, D 3 or 4;
+// starts, counts, cells, row0: (B, P) int32 slot directory; nvalid (B,);
+// table (B, P, units of the last layer), partials (B, P, 2): every row
+// written, zero at and beyond nvalid[b].
+MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
+                                 const int* counts, const int* cells,
+                                 const int* nvalid, const int* row0,
+                                 const int* tile_first, const void* wbuf,
+                                 const float* gb, const int* dims,
+                                 void* table, float* partials, int B, int N,
+                                 int P, int ntiles, int with_distance,
+                                 int grid_w, float vs, float cx0, float cy0,
+                                 int f32, cudaStream_t stream) {
+  if (D < 3 || D > 4) return MB_BAD_ARGS;
+  PfnPoints pp = {{nullptr, nullptr, nullptr, nullptr}, pts, D};
+  if (f32)
+    return launch_tiles<float>(pp, starts, counts, cells, nvalid, row0,
+                               tile_first, wbuf, gb, dims, (float*)table,
+                               partials, B, N, P, ntiles, D, with_distance,
+                               grid_w, vs, cx0, cy0, 1, stream);
+  return launch_tiles<bf16>(pp, starts, counts, cells, nvalid, row0,
+                            tile_first, wbuf, gb, dims, (bf16*)table,
+                            partials, B, N, P, ntiles, D, with_distance,
+                            grid_w, vs, cx0, cy0, 1, stream);
 }
 
-MB_EXPORT int pfn_stats(const float* partials, const int* num_pillars,
-                        float* stats, int B, int N, cudaStream_t stream) {
-  pfn_stats_kernel<<<B, 1024, 0, stream>>>(partials, num_pillars, stats, N);
+MB_EXPORT int pfn_stats(const float* partials, const int* num, float* stats,
+                        int B, int N, cudaStream_t stream) {
+  pfn_stats_kernel<<<B, 1024, 0, stream>>>(partials, num, stats, N);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,11 @@
 // (int8 or bf16 tensor cores) plus 4 n hd multiply-adds per token and head
 // in attention (n = 100), and its launches move ~26 C bytes a token; at
 // the flagship the backbone's products total ~1.4 TOP per batch of 8 (0.7
-// ms at the int8 peak). Design: the products go through the persistent
+// ms at the int8 peak). Every launch has an f32 instance for the f32
+// configurations (the f32 GEMM of gemm.cuh or the int8 GEMM with f32
+// epilogues, f32 LN and quantise, a plain f32 attention kernel below): no
+// operand is rounded to bf16 there. Design: the products go through the
+// persistent
 // wgmma GEMM (gemm.cuh) with LN/quantise/bias/GELU/residual work fused into
 // neighbouring launches. The first attention kernel gave each (window,
 // head) a block of 256 threads with its f32 score tile in ~100 KB of shared
@@ -39,35 +43,32 @@
 // rows in 16-byte words (they used 2-byte loads).
 #include "common.cuh"
 
-// LN1/LN2 of a block, one warp per token row: each lane holds NW 16-byte
-// words (8 channels each) of the row in registers, so the row is read once;
-// two-pass f32 statistics, then bf16 out (16-byte stores) or int8 + scale
+// LN1/LN2 of a block, one warp per token row: each lane holds NW groups of
+// 8 channels (16-byte words in bf16) of the row in registers, so the row is
+// read once; two-pass f32 statistics, then T out or int8 + scale. T: the
+// tokens' and the affine's type (bf16, or f32 for the f32 instance).
 #define SWIN_LN_MAX_WORDS 8  // C <= 8 * 8 * 32 = 2048
 
-template <int NW>
+template <typename T, int NW>
 __global__ void __launch_bounds__(256) swin_layernorm_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const bf16* __restrict__ b, bf16* __restrict__ out,
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ b, T* __restrict__ out,
     signed char* __restrict__ q8, float* __restrict__ sx, int M, int C,
     float eps) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const int words = C / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
+  const T* xr = x + (size_t)row * C;
   float v[NW][8];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     const int wd = lane + 32 * i;
     if (wd < words) {
-      const uint4 u = xr[wd];
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
+      ld8(xr + 8 * wd, v[i]);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        v[i][q] = __bfloat162float(e[q]);
-        s += v[i][q];
-      }
+      for (int q = 0; q < 8; ++q) s += v[i][q];
     }
   }
   const float mean = warp_sum(s) / (float)C;
@@ -88,22 +89,16 @@ __global__ void __launch_bounds__(256) swin_layernorm_kernel(
   for (int i = 0; i < NW; ++i) {
     const int wd = lane + 32 * i;
     if (wd < words) {
-      const uint4 wu = reinterpret_cast<const uint4*>(w)[wd];
-      const uint4 bu = reinterpret_cast<const uint4*>(b)[wd];
-      const bf16* we = reinterpret_cast<const bf16*>(&wu);
-      const bf16* be = reinterpret_cast<const bf16*>(&bu);
+      float we[8], be[8];
+      ld8(w + 8 * wd, we);
+      ld8(b + 8 * wd, be);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        v[i][q] = rd_bf16(__fadd_rn(
-            __fmul_rn(__fmul_rn(v[i][q] - mean, rstd),
-                      __bfloat162float(we[q])),
-            __bfloat162float(be[q])));
+        v[i][q] = rd<T>(__fadd_rn(
+            __fmul_rn(__fmul_rn(v[i][q] - mean, rstd), we[q]), be[q]));
         amax = fmaxf(amax, fabsf(v[i][q]));
       }
-      if (out)
-        reinterpret_cast<uint4*>(out + (size_t)row * C)[wd] = make_uint4(
-            pack_bf16(v[i][0], v[i][1]), pack_bf16(v[i][2], v[i][3]),
-            pack_bf16(v[i][4], v[i][5]), pack_bf16(v[i][6], v[i][7]));
+      if (out) st8(out + (size_t)row * C + 8 * wd, v[i]);
     }
   }
   if (!q8) return;
@@ -124,36 +119,35 @@ __global__ void __launch_bounds__(256) swin_layernorm_kernel(
   if (lane == 0) sx[row] = scale;
 }
 
-// per-token int8 quantisation, one warp per row of K: the row's max over
-// 16-byte words, then the same words again (from L1) quantised, 8 bytes
-// stored a word
+// per-token int8 quantisation of T rows, one warp per row of K: the row's
+// max over groups of 8 values, then the same groups again (from L1)
+// quantised, 8 bytes stored a group
+template <typename T>
 __global__ void __launch_bounds__(256) swin_quant_rows_kernel(
-    const bf16* __restrict__ x, signed char* __restrict__ q8,
+    const T* __restrict__ x, signed char* __restrict__ q8,
     float* __restrict__ sx, int M, int K) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const int words = K / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  const T* xr = x + (size_t)row * K;
   float amax = 0.f;
   for (int wd = lane; wd < words; wd += 32) {
-    const uint4 u = xr[wd];
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    float e[8];
+    ld8(xr + 8 * wd, e);
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      amax = fmaxf(amax, fabsf(__bfloat162float(e[q])));
+    for (int q = 0; q < 8; ++q) amax = fmaxf(amax, fabsf(e[q]));
   }
   const float scale = __fmul_rn(fmaxf(warp_max(amax), 1e-6f), 1.f / 127.f);
   uint2* qr = reinterpret_cast<uint2*>(q8 + (size_t)row * K);
   for (int wd = lane; wd < words; wd += 32) {
-    const uint4 u = xr[wd];
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    float e[8];
+    ld8(xr + 8 * wd, e);
     uint2 pk;
     signed char* pq = reinterpret_cast<signed char*>(&pk);
 #pragma unroll
     for (int q = 0; q < 8; ++q)
-      pq[q] = (signed char)fminf(
-          fmaxf(rintf(__bfloat162float(e[q]) / scale), -127.f), 127.f);
+      pq[q] = (signed char)fminf(fmaxf(rintf(e[q] / scale), -127.f), 127.f);
     qr[wd] = pk;
   }
   if (lane == 0) sx[row] = scale;
@@ -362,30 +356,117 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) swin_window_attn_kernel(
   }
 }
 
-template <int NW>
-static void launch_ln(const bf16* x, const bf16* w, const bf16* b, bf16* out,
-                      signed char* q8, float* sx, int M, int C, float eps,
-                      cudaStream_t stream) {
-  swin_layernorm_kernel<NW><<<ceil_div(M, 8), 256, 0, stream>>>(
-      x, w, b, out, q8, sx, M, C, eps);
+// The f32 instance of the window attention: grid (nW, heads, B), 256
+// threads; one (window, head) a block. q (scaled), k and v rows of the
+// window in shared memory as f32 (row stride hd + 1: conflict-free column
+// reads), pad tokens taking the qkv bias; one warp per query row
+// (common.cuh::f32_attn_row): its q in registers, lanes over keys for the
+// f32 scores, bias and shift mask, exact softmax, then lanes over the
+// head's channels for P v. Nothing is rounded below f32, as XLA computes
+// the f32 block on the CPU.
+#define ATT32_THREADS 256
+template <int HD>
+__global__ void __launch_bounds__(ATT32_THREADS) swin_window_attn_f32_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ qkv_bias,
+    const float* __restrict__ rel, float* __restrict__ out, int H, int W,
+    int C, int heads, int win, int shift, float scale) {
+  extern __shared__ __align__(16) float sm32[];
+  constexpr int ld = HD + 1;
+  const int n = win * win;
+  float* qs = sm32;
+  float* ks = qs + n * ld;
+  float* vs = ks + n * ld;
+  float* ps = vs + n * ld;  // (ATT32_THREADS / 32) x n probabilities
+  int* tok = reinterpret_cast<int*>(ps + (ATT32_THREADS / 32) * n);
+  int* lab = tok + n;
+
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  const int nww = wp / win;
+  const int wi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int wy = wi / nww, wx = wi % nww;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  for (int r = tid; r < n; r += ATT32_THREADS) {
+    const int gy = wy * win + r / win, gx = wx * win + r % win;  // rolled
+    const int ro = (gy + shift) % hp, co = (gx + shift) % wp;    // padded
+    tok[r] = (ro < H && co < W) ? (b * H + ro) * W + co : -1;
+    lab[r] = shift ? shift_region(gy, hp, win, shift) * 3 +
+                         shift_region(gx, wp, win, shift)
+                   : 0;
+  }
+  __syncthreads();
+  for (int i = tid; i < n * HD; i += ATT32_THREADS) {
+    const int r = i / HD, d = i % HD, tk = tok[r];
+    const int c = h * HD + d;
+    float q, k, v;
+    if (tk >= 0) {
+      const float* row = qkv + (size_t)tk * 3 * C;
+      q = row[c]; k = row[C + c]; v = row[2 * C + c];
+    } else {  // pad token: zero after LN1, so its qkv row is the bias
+      q = qkv_bias[c]; k = qkv_bias[C + c]; v = qkv_bias[2 * C + c];
+    }
+    qs[r * ld + d] = q * scale;
+    ks[r * ld + d] = k;
+    vs[r * ld + d] = v;
+  }
+  __syncthreads();
+  const float* relh = rel + (size_t)h * n * n;
+  float* pw = ps + warp * n;
+  for (int i = warp; i < n; i += ATT32_THREADS / 32) {
+    const int li = lab[i], tk = tok[i];
+    f32_attn_row<HD>(
+        qs + i * ld, ks, vs, ld, n, pw,
+        [&](float s, int j) {
+          float bias = relh[i * n + j];
+          if (shift && li != lab[j]) bias = __fadd_rn(bias, -100.f);
+          return __fadd_rn(s, bias);
+        },
+        [&](int d, float o) {
+          if (tk >= 0) out[(size_t)tk * C + h * HD + d] = o;
+        });
+  }
 }
 
-MB_EXPORT int swin_layernorm(const bf16* x, const bf16* w, const bf16* b,
-                             bf16* out, signed char* q8, float* sx, int M,
-                             int C, float eps, cudaStream_t stream) {
+template <typename T, int NW>
+static void launch_ln(const void* x, const void* w, const void* b, void* out,
+                      signed char* q8, float* sx, int M, int C, float eps,
+                      cudaStream_t stream) {
+  swin_layernorm_kernel<T, NW><<<ceil_div(M, 8), 256, 0, stream>>>(
+      (const T*)x, (const T*)w, (const T*)b, (T*)out, q8, sx, M, C, eps);
+}
+
+template <typename T>
+static void launch_ln_t(const void* x, const void* w, const void* b,
+                        void* out, signed char* q8, float* sx, int M, int C,
+                        float eps, cudaStream_t stream) {
+  const int nw = ceil_div(C / 8, 32);  // groups of 8 channels per lane
+  if (nw == 1) launch_ln<T, 1>(x, w, b, out, q8, sx, M, C, eps, stream);
+  else if (nw == 2) launch_ln<T, 2>(x, w, b, out, q8, sx, M, C, eps, stream);
+  else if (nw <= 4) launch_ln<T, 4>(x, w, b, out, q8, sx, M, C, eps, stream);
+  else launch_ln<T, SWIN_LN_MAX_WORDS>(x, w, b, out, q8, sx, M, C, eps,
+                                       stream);
+}
+
+// f32: nonzero for the f32 instance (f32 tokens, affine and output)
+MB_EXPORT int swin_layernorm(const void* x, const void* w, const void* b,
+                             void* out, signed char* q8, float* sx, int M,
+                             int C, float eps, int f32, cudaStream_t stream) {
   if (C % 8 || C > 8 * 32 * SWIN_LN_MAX_WORDS) return MB_BAD_ARGS;
-  const int nw = ceil_div(C / 8, 32);  // 16-byte words per lane
-  if (nw == 1) launch_ln<1>(x, w, b, out, q8, sx, M, C, eps, stream);
-  else if (nw == 2) launch_ln<2>(x, w, b, out, q8, sx, M, C, eps, stream);
-  else if (nw <= 4) launch_ln<4>(x, w, b, out, q8, sx, M, C, eps, stream);
-  else launch_ln<SWIN_LN_MAX_WORDS>(x, w, b, out, q8, sx, M, C, eps, stream);
+  if (f32)
+    launch_ln_t<float>(x, w, b, out, q8, sx, M, C, eps, stream);
+  else
+    launch_ln_t<bf16>(x, w, b, out, q8, sx, M, C, eps, stream);
   return (int)cudaGetLastError();
 }
 
-MB_EXPORT int swin_quant_rows(const bf16* x, signed char* q8, float* sx,
-                              int M, int K, cudaStream_t stream) {
+MB_EXPORT int swin_quant_rows(const void* x, signed char* q8, float* sx,
+                              int M, int K, int f32, cudaStream_t stream) {
   if (K % 8) return MB_BAD_ARGS;
-  swin_quant_rows_kernel<<<ceil_div(M, 8), 256, 0, stream>>>(x, q8, sx, M, K);
+  if (f32)
+    swin_quant_rows_kernel<float><<<ceil_div(M, 8), 256, 0, stream>>>(
+        (const float*)x, q8, sx, M, K);
+  else
+    swin_quant_rows_kernel<bf16><<<ceil_div(M, 8), 256, 0, stream>>>(
+        (const bf16*)x, q8, sx, M, K);
   return (int)cudaGetLastError();
 }
 
@@ -425,6 +506,48 @@ MB_EXPORT int swin_window_attn(const bf16* qkv, const float* qkv_bias,
     case 64:
       return launch_attn<64>(qkv, qkv_bias, rel, out, B, H, W, C, heads, win,
                              shift, scale, stream);
+  }
+  return MB_BAD_ARGS;
+}
+
+template <int HD>
+static int launch_attn_f32(const float* qkv, const float* qkv_bias,
+                           const float* rel, float* out, int B, int H, int W,
+                           int C, int heads, int win, int shift, float scale,
+                           cudaStream_t stream) {
+  const int n = win * win;
+  const size_t smem = sizeof(float) * (3 * n * (HD + 1) +
+                                       (ATT32_THREADS / 32) * n) +
+                      sizeof(int) * 2 * n;
+  cudaError_t e = cudaFuncSetAttribute(
+      swin_window_attn_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  dim3 grid((hp / win) * (wp / win), heads, B);
+  swin_window_attn_f32_kernel<HD><<<grid, ATT32_THREADS, smem, stream>>>(
+      qkv, qkv_bias, rel, out, H, W, C, heads, win, shift, scale);
+  return (int)cudaGetLastError();
+}
+
+// The f32 instance: qkv (B*H*W, 3C), out (B*H*W, C) f32; head widths 16,
+// 32 or 64 and windows of at most 128 tokens
+MB_EXPORT int swin_window_attn_f32(const float* qkv, const float* qkv_bias,
+                                   const float* rel, float* out, int B,
+                                   int H, int W, int C, int heads, int win,
+                                   int shift, float scale,
+                                   cudaStream_t stream) {
+  if (C % heads || win * win > 16 * ATT_MAX_NPT) return MB_BAD_ARGS;
+  switch (C / heads) {
+    case 16:
+      return launch_attn_f32<16>(qkv, qkv_bias, rel, out, B, H, W, C, heads,
+                                 win, shift, scale, stream);
+    case 32:
+      return launch_attn_f32<32>(qkv, qkv_bias, rel, out, B, H, W, C, heads,
+                                 win, shift, scale, stream);
+    case 64:
+      return launch_attn_f32<64>(qkv, qkv_bias, rel, out, B, H, W, C, heads,
+                                 win, shift, scale, stream);
   }
   return MB_BAD_ARGS;
 }

@@ -20,7 +20,10 @@
 // Attention keeps one (window, head)'s q, k, v (bf16) and f32 scores in
 // shared memory, both of its products on the tensor cores (WMMA 16x16x16),
 // and reads the (h, n, n) relative-position bias and the (nW, n, n) shift
-// mask per score instead of a materialised (nW, h, n, n) bias.
+// mask per score instead of a materialised (nW, h, n, n) bias. The f32
+// instance (window_msa_attn_f32, for f32 windows) keeps q, k, v in f32 and
+// takes both products as f32 FMAs, one warp per query row; its projections
+// are the f32 GEMM of gemm.cuh. Nothing is rounded below f32 there.
 #include <mma.h>
 
 #include "common.cuh"
@@ -161,4 +164,86 @@ MB_EXPORT int window_msa_attn(const bf16* qkv, const float* rel,
   window_msa_attn_kernel<<<grid, 256, smem, stream>>>(qkv, rel, mask, out,
                                                       nW, n, C, heads, scale);
   return (int)cudaGetLastError();
+}
+
+// f32 instance: grid (nW, heads, B), 256 threads; qkv (B nW n, 3C), out
+// (B nW n, C) f32. q, k, v of the (window, head) in shared memory (row
+// stride hd + 1: conflict-free column reads); one warp per query row
+// (common.cuh::f32_attn_row): its q in registers, lanes over keys for
+// S = q k^T (f32 FMA over hd), scaled after the product, plus rel[h] +
+// mask[w] (summed first), exact softmax, then lanes over the head's
+// channels for P v.
+#define WMSA32_THREADS 256
+template <int HD>
+__global__ void __launch_bounds__(WMSA32_THREADS) window_msa_attn_f32_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ rel,
+    const float* __restrict__ mask, float* __restrict__ out, int nW, int n,
+    int C, int heads, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  constexpr int ld = HD + 1;
+  float* qs = wsm;
+  float* ks = qs + n * ld;
+  float* vs = ks + n * ld;
+  float* ps = vs + n * ld;  // (WMSA32_THREADS / 32) x n probabilities
+  const int w = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const size_t row0 = ((size_t)b * nW + w) * n;
+  for (int i = tid; i < n * HD; i += WMSA32_THREADS) {
+    const int t = i / HD, d = i % HD;
+    const float* r = qkv + (row0 + t) * 3 * C + h * HD + d;
+    qs[t * ld + d] = r[0];
+    ks[t * ld + d] = r[C];
+    vs[t * ld + d] = r[2 * C];
+  }
+  __syncthreads();
+  const float* relh = rel + (size_t)h * n * n;
+  const float* mw = mask ? mask + (size_t)w * n * n : nullptr;
+  float* pw = ps + warp * n;
+  for (int i = warp; i < n; i += WMSA32_THREADS / 32) {
+    f32_attn_row<HD>(
+        qs + i * ld, ks, vs, ld, n, pw,
+        [&](float s, int j) {
+          float bias = relh[i * n + j];
+          if (mw) bias = __fadd_rn(bias, mw[i * n + j]);
+          return __fadd_rn(__fmul_rn(s, scale), bias);
+        },
+        [&](int d, float o) { out[(row0 + i) * C + h * HD + d] = o; });
+  }
+}
+
+template <int HD>
+static int launch_wmsa_f32(const float* qkv, const float* rel,
+                           const float* mask, float* out, int B, int nW,
+                           int n, int C, int heads, float scale,
+                           cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (3 * n * (HD + 1) + (WMSA32_THREADS / 32) * n);
+  cudaError_t e = cudaFuncSetAttribute(
+      window_msa_attn_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  dim3 grid(nW, heads, B);
+  window_msa_attn_f32_kernel<HD><<<grid, WMSA32_THREADS, smem, stream>>>(
+      qkv, rel, mask, out, nW, n, C, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+// head widths 16, 32 or 64, windows of at most 128 tokens
+MB_EXPORT int window_msa_attn_f32(const float* qkv, const float* rel,
+                                  const float* mask, float* out, int B,
+                                  int nW, int n, int C, int heads,
+                                  float scale, cudaStream_t stream) {
+  if (C % heads || n > 128) return MB_BAD_ARGS;
+  switch (C / heads) {
+    case 16:
+      return launch_wmsa_f32<16>(qkv, rel, mask, out, B, nW, n, C, heads,
+                                 scale, stream);
+    case 32:
+      return launch_wmsa_f32<32>(qkv, rel, mask, out, B, nW, n, C, heads,
+                                 scale, stream);
+    case 64:
+      return launch_wmsa_f32<64>(qkv, rel, mask, out, B, nW, n, C, heads,
+                                 scale, stream);
+  }
+  return MB_BAD_ARGS;
 }

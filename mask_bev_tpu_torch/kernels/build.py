@@ -10,7 +10,9 @@ sources and nothing else.
 Every exported C function returns ``cudaGetLastError()`` as an int; the
 ``launch`` helper raises when it is not 0. Launch counts live in
 ``LAUNCHES`` (one plain integer per kernel): each wrapper adds to its count
-where it launches, and nowhere else.
+where it launches, and nowhere else. A kernel built in several instances
+(bf16 and f32, or the decoder stack's two designs) also counts each launch
+under ``INSTANCES["<kernel>/<instance>"]``.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ LAUNCHES: Dict[str, int] = {
     "canvas_scatter": 0, "canvas_scatter_bwd": 0, "hungarian": 0,
     "window_msa": 0, "patch_embed": 0, "layer_norm": 0, "stream_pfn": 0}
 
+# "<kernel>/<instance>" -> launches of that instance since the last reset
+INSTANCES: Dict[str, int] = {}
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -42,6 +47,7 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    INSTANCES.clear()
 
 
 def _nvcc() -> str:
@@ -128,9 +134,11 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def launch(name: str, fn: str, *args) -> None:
+def launch(name: str, fn: str, *args, instance: Optional[str] = None
+           ) -> None:
     """Call exported C function ``fn`` (every argument already a ctypes
-    value), raise on a launch error, and count one launch of ``name``."""
+    value), raise on a launch error, and count one launch of ``name`` (and
+    of ``name/instance``)."""
     f = getattr(lib(), fn)
     f.restype = ctypes.c_int
     rc = f(*args)
@@ -140,6 +148,9 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {rc} "
                            f"({err_name(ctypes.c_int(rc)).decode()})")
     LAUNCHES[name] += 1
+    if instance is not None:
+        key = f"{name}/{instance}"
+        INSTANCES[key] = INSTANCES.get(key, 0) + 1
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype=None, shape=None) -> None:

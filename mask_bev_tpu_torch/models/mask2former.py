@@ -5,9 +5,14 @@ Port of ``mask_bev_tpu/models/mask2former.py``. ``final_only`` (:321-425)
 runs the fused stack: the initial mask embedding and the per-level
 bilinear downsampling of ``mask_features`` (``antialias=False``, i.e.
 ``F.interpolate(bilinear, align_corners=False)``) run here; every decoder
-layer runs in ``ops/decoder_stack.py`` (kernel 4); the final head pass
+layer runs in ``ops/decoder_stack.py`` (kernel 5); the final head pass
 (decoder norm, ``cls_embed``, mask MLP and the full-resolution
 ``bqc,bhwc`` einsum) runs here in plain torch, as XLA runs it in JAX.
+With ``use_kernel=False`` (the config's ``use_pallas_head``) ``final_only``
+runs the per-layer decoder instead, as the JAX package's scanned
+``DecoderLayerGroup`` does (:378-381, :260-284): each layer's bias from the
+mask embedding against the pre-resized features, the layers in plain torch
+(XLA form), the next mask embedding after each.
 
 ``final_only=False`` (training, :463-489) is plain torch on the live
 parameters, as XLA runs it: the shared heads (``_heads_apply`` :122) run
@@ -34,7 +39,8 @@ from torch import nn
 from mask_bev_tpu_torch.models.positional import sine_positional_encoding_2d
 from mask_bev_tpu_torch.models.swin import LayerNorm, forget_packed, linear
 from mask_bev_tpu_torch.ops.decoder_stack import (
-    NEG, HeadWeights, LayerWeights, decoder_stack, kv_weights, pack_weights)
+    NEG, HeadWeights, LayerWeights, blocked_positions, decoder_stack,
+    kv_weights)
 
 
 class DecoderOutputs(NamedTuple):
@@ -179,9 +185,11 @@ class Mask2FormerDecoder(nn.Module):
     def __init__(self, num_queries: int = 45, num_classes: int = 1,
                  num_layers: int = 9, feat_channels: int = 256,
                  out_channels: int = 256, num_heads: int = 8,
-                 ffn_dim: int = 2048, num_levels: int = 3):
+                 ffn_dim: int = 2048, num_levels: int = 3,
+                 use_kernel: bool = True):
         super().__init__()
         c = feat_channels
+        self.use_kernel = use_kernel
         self.num_heads = num_heads
         self.num_layers = num_layers
         self.query_feat = nn.Parameter(torch.zeros(num_queries, c))
@@ -238,12 +246,33 @@ class Mask2FormerDecoder(nn.Module):
                 ) -> DecoderOutputs:
         if not final_only:
             return self.forward_layers(mask_features, memories)
+        if not self.use_kernel:
+            return self.forward_layers_final(mask_features, memories)
         layers, head, packed = self.kernel_inputs(mask_features.is_cuda,
                                                   len(memories))
         out_f = decoder_stack(*self.stack_inputs(mask_features, memories),
                               layers, head, num_heads=self.num_heads,
                               packed=packed)
         cls_f, mask_f = self.heads(out_f, mask_features)
+        return DecoderOutputs(cls_f[None], mask_f[None], None)
+
+    def forward_layers_final(self, mask_features: torch.Tensor,
+                             memories: Sequence[torch.Tensor]
+                             ) -> DecoderOutputs:
+        """The final head pass by the per-layer decoder (``final_only``
+        without the kernel): layer ``i`` blocks where the mask embedding
+        against level ``i % 3``'s resized f32 features is < 0."""
+        out, emb, qpos, mems, pes, feats = self.stack_inputs(mask_features,
+                                                             memories)
+        nl = len(memories)
+        for i in range(self.num_layers):
+            lvl = i % nl
+            m = emb.float() @ feats[lvl].transpose(-1, -2)
+            bias = torch.where(blocked_positions(m), NEG, 0.0)
+            out = getattr(self, f"layer{i}")(out, qpos[None], mems[lvl],
+                                             pes[lvl], bias)
+            _, emb = self.heads.mask_embed(out)
+        cls_f, mask_f = self.heads(out, mask_features)
         return DecoderOutputs(cls_f[None], mask_f[None], None)
 
     def forward_layers(self, mask_features: torch.Tensor,
@@ -269,11 +298,12 @@ class Mask2FormerDecoder(nn.Module):
 
     def kernel_inputs(self, cuda: bool, num_levels: int):
         """(layers, head, packed) for ``decoder_stack``; on CUDA built once
-        (with the packed kernel weights) and kept."""
+        and kept: ``packed`` holds the k/v GEMM weights and a dict that each
+        decoder instance fills with its packed weights at first use."""
         if not cuda:
             return (*self.stack_weights(), None)
         if self._packed is None:
             layers, head = self.stack_weights()
-            self._packed = (layers, head, (pack_weights(layers, head),
-                                           kv_weights(layers, num_levels)))
+            self._packed = (layers, head,
+                            ({}, kv_weights(layers, num_levels)))
         return self._packed

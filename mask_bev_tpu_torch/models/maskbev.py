@@ -7,8 +7,9 @@ kernels as they choose the JAX package's (``use_pallas_encoder``: the slot
 PFN or the capped-stream PFN; ``use_pallas_backbone``: the whole-block
 kernel or the XLA-form blocks, whose attention is the window-MSA kernel
 with ``use_pallas_attention``; ``fuse_patch_embed``: the patch-embed
-kernel where :meth:`MaskBev.flat_embed_ok`; the canvas and decoder-stack
-kernels always). ``train=True,
+kernel where :meth:`MaskBev.flat_embed_ok`; ``use_pallas_head``: the
+decoder-stack kernel, or the per-layer decoder; the canvas kernel
+always). Every kernel takes the model's dtype, bf16 or f32. ``train=True,
 final_only=False`` is the training forward (training encoder with kernel A
 and its backward B, plain-torch backbone and decoder, all L+1 head passes).
 Gradients are tracked as usual: the serving entry point
@@ -68,7 +69,8 @@ class MaskBev(nn.Module):
             num_layers=c.head_num_decoder_layers,
             feat_channels=c.head_feat_channels,
             out_channels=c.head_out_channels,
-            num_heads=c.head_num_attn_heads, ffn_dim=c.head_ffn_dim)
+            num_heads=c.head_num_attn_heads, ffn_dim=c.head_ffn_dim,
+            use_kernel=c.use_pallas_head)
 
     def random_state_dict(self, seed: int) -> dict:
         """Random weights from ``seed`` (an explicit CPU generator), at the

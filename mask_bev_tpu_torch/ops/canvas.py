@@ -52,7 +52,8 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
                 var: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 grid_hw: Tuple[int, int], eps: float = 1e-3) -> torch.Tensor:
     """Normalised (B, H, W, C) canvas: the CUDA kernel for CUDA tensors
-    (bf16 only), the plain version for CPU tensors."""
+    (its bf16 or f32 instance, by the table's dtype), the plain version for
+    CPU tensors."""
     if not table.is_cuda:
         return canvas_norm_plain(table, cells, mean, var, scale, bias,
                                  grid_hw, eps)
@@ -60,10 +61,10 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     h, w = grid_hw
     if c % 4:
         raise ValueError(f"canvas kernel needs C % 4 == 0, got {c}")
-    dt = torch.bfloat16
-    if table.dtype != dt:
-        raise ValueError(f"the canvas kernel takes a bf16 table, not "
-                         f"{table.dtype}; f32 runs only on the CPU")
+    dt = table.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the canvas kernel takes a bf16 or f32 table, not "
+                         f"{dt}")
     kb.check_cuda(table, "table", dt)
     kb.check_cuda(cells, "cells", torch.int32, (b, n))
     kb.check_cuda(num_pillars, "num_pillars", torch.int32, (b,))
@@ -80,7 +81,9 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     kb.launch("canvas_norm", "canvas_norm_forward", kb.ptr(table),
               kb.ptr(cells), kb.ptr(num_pillars), kb.ptr(mv), kb.ptr(scale),
               kb.ptr(bias), kb.ci(full), kb.ptr(out), kb.ci(b), kb.ci(n),
-              kb.ci(h * w), kb.ci(c), kb.cf(eps), kb.stream())
+              kb.ci(h * w), kb.ci(c), kb.cf(eps),
+              kb.ci(dt == torch.float32), kb.stream(),
+              instance="f32" if dt == torch.float32 else "bf16")
     return out
 
 

@@ -22,10 +22,23 @@ level's memory do not depend on the queries, so one GEMM per level and
 projection computes them for all of that level's layers (``csrc/gemm.cuh``),
 and one cluster of 8 thread blocks per batch element
 (``csrc/decoder_stack.cu``) then runs every layer with the query state
-held in shared memory throughout (each block a replica, the work split
-between them), its products on the tensor cores with the weights in
-fragment order (:func:`pack_fragments`). Every launch counts under
-``decoder_stack``. The card path takes bf16 only.
+held in shared memory throughout. Two instances:
+
+* the flagship (bf16, Q <= 48, the widths :func:`check_shape` takes): each
+  block a replica of the state, the work split between them, its products
+  on the tensor cores with the weights in fragment order
+  (:func:`pack_fragments`);
+* the split-query instance (everything else: f32, the shipped
+  configurations' dtype, and Waymo's 170 queries): block r owns rows
+  [r ceil(Q/8), (r+1) ceil(Q/8)) of the state and every intermediate, the
+  products are f32 FMAs on operands rounded to D (bf16) or not rounded
+  (f32), the weights row-major, and self-attention reads the other blocks'
+  k and v through distributed shared memory (:func:`check_shape_split`,
+  :func:`smem_bytes_split`).
+
+Every launch counts under ``decoder_stack`` (and its instance under
+``decoder_stack/flagship``, ``decoder_stack/split_bf16`` or
+``decoder_stack/split_f32``).
 """
 from __future__ import annotations
 
@@ -195,12 +208,15 @@ def unpack_fragments(p: torch.Tensor, k: int, n: int) -> torch.Tensor:
             .permute(1, 4, 3, 5, 0, 2).reshape(k, n))
 
 
-def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights):
+def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights,
+                 fragments: bool = True):
     """Query-side weights as one D buffer (per layer wq, wo, sq, sk, sv,
     so, f1, f2; then m1, m2, m3; each matrix in fragment order,
-    :func:`pack_fragments`) and one f32 buffer (per layer bq, bo, sbq, sbk,
+    :func:`pack_fragments`, for the flagship instance, or row-major (K, N)
+    for the split instance) and one f32 buffer (per layer bq, bo, sbq, sbk,
     sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then dnw, dnb, mb1,
     mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
+    pack = pack_fragments if fragments else (lambda t: t.reshape(-1))
     wd, wf = [], []
     for lw in layers:
         wd += [lw.wq, lw.wo, lw.sq, lw.sk, lw.sv, lw.so, lw.f1, lw.f2]
@@ -208,7 +224,7 @@ def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights):
                lw.n2w, lw.n2b, lw.n3w, lw.n3b, lw.fb1, lw.fb2]
     wd += [head.m1, head.m2, head.m3]
     wf += [head.dnw, head.dnb, head.mb1, head.mb2, head.mb3]
-    return (torch.cat([pack_fragments(t) for t in wd]).contiguous(),
+    return (torch.cat([pack(t) for t in wd]).contiguous(),
             torch.cat([t.float().reshape(-1) for t in wf]).contiguous())
 
 
@@ -260,12 +276,71 @@ def smem_bytes(q: int, c: int, t_max: int) -> int:
                 + _TK * (c + 8))
 
 
+SPLIT_THREADS = 256  # ``DS2_THREADS`` of the split instance
+SPLIT_MAXR = 32  # rows a block of the split instance owns at most
+SPLIT_TK = 32  # keys a tile of the split instance
+SMEM_LIMIT = 227 * 1024  # shared memory a block may use on the H100
+
+
+def smem_bytes_split(q: int, c: int, heads: int, t_max: int) -> int:
+    """Shared memory of one block of the split instance, as
+    ``csrc/decoder_stack.cu::ds2_layout`` lays it out (4-byte words, every
+    part 16-byte aligned): its R = ceil(Q/8) rows of X, XA, QB and OB (row
+    stride C + 4), the mask bits of its rows against all keys, its row
+    flags, then one area that holds in turn the f32 feature tile of the
+    mask logits, the k and v key tiles of cross-attention, and the
+    self-attention's own k rows, one head's k and v of all Q rows and the
+    (R, Q) scores."""
+    def al(n):
+        return -(-n // 4) * 4
+    r, ld, hd = -(-q // CLUSTER), c + 4, c // heads
+    rx = r * ld
+    union = max(2 * SPLIT_TK * heads * (hd + 1), SPLIT_TK * (c + 1),
+                rx + 2 * q * (hd + 1) + r * q)
+    return 4 * (4 * rx + al(r * -(-t_max // 32)) + al(r) + al(union))
+
+
+def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
+                      n_layers: int, t_max: int) -> None:
+    """Raise unless the split instance takes these shapes (the C entry
+    point's own check): C a multiple of 8 that divides its 256 threads and
+    the FFN's hidden units, head width 32 or 64, at most 32 rows a block
+    and one thread per (row, head), and the shared memory of
+    :func:`smem_bytes_split`."""
+    r = -(-q // CLUSTER)
+    smem = smem_bytes_split(q, c, heads, t_max)
+    if (q < 1 or c > SPLIT_THREADS or SPLIT_THREADS % c or c % 8
+            or ffn % c or c % heads or c // heads not in (32, 64)
+            or n_layers % nl or nl > 3 or r > SPLIT_MAXR
+            or r * heads > SPLIT_THREADS or smem > SMEM_LIMIT):
+        raise ValueError(f"decoder stack split instance: unsupported shape "
+                         f"Q={q} C={c} FFN={ffn} heads={heads} levels={nl} "
+                         f"layers={n_layers} keys={t_max} ({smem} B of "
+                         f"shared memory a block, limit {SMEM_LIMIT})")
+
+
+def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
+                   n_layers: int, t_max: int, dtype) -> bool:
+    """True iff the flagship instance takes this call: bf16, the widths of
+    :func:`check_shape` and its shared memory. Every other call goes to
+    the split instance."""
+    if dtype != torch.bfloat16:
+        return False
+    try:
+        check_shape(q, c, ffn, heads, nl, n_layers)
+    except ValueError:
+        return False
+    return smem_bytes(q, c, t_max) <= SMEM_LIMIT
+
+
 def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   layers: Sequence[LayerWeights], head: HeadWeights, *,
                   num_heads: int, packed=None, return_bits: bool = False):
-    """Final (B, Q, C) query state: the CUDA chain for CUDA tensors, the
-    plain version for CPU tensors. ``packed``: cached
-    ``(pack_weights(...), kv_weights(...))``. ``return_bits`` (CUDA only):
+    """Final (B, Q, C) query state: the CUDA chain for CUDA tensors (the
+    flagship instance where :func:`flagship_takes`, else the split
+    instance), the plain version for CPU tensors. ``packed``: cached
+    ``({}, kv_weights(...))``, its dict filled with each instance's
+    ``pack_weights`` at first use. ``return_bits`` (CUDA only):
     also return the kernel's effective blocked positions, (B, L, Q, T_l)
     bool per layer, to count disagreements with the plain version."""
     if not out0.is_cuda:
@@ -274,29 +349,36 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     b, q, c = out0.shape
     nl = len(mems)
     n_layers = len(layers)
-    if out0.dtype != torch.bfloat16:
-        raise ValueError("the decoder stack kernels take bf16; got "
-                         f"{out0.dtype}")
+    dt = out0.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the decoder stack kernels take bf16 or f32; got "
+                         f"{dt}")
     hd = c // num_heads
     ffn = layers[0].f1.shape[1]
     if emb0.shape[-1] != c:
         raise ValueError(f"decoder stack kernel: emb0 width "
                          f"{emb0.shape[-1]} != C={c}")
-    check_shape(q, c, ffn, num_heads, nl, n_layers)
     t = [m.shape[1] for m in mems]
-    smem = smem_bytes(q, c, max(t))
-    if smem > 227 * 1024:
-        raise ValueError(f"decoder stack kernel needs {smem} B of shared "
-                         "memory, over the 227 KB a block may use")
-    (wd, wf), kvw = packed if packed is not None else (
-        pack_weights(layers, head), kv_weights(layers, nl))
-    kb.check_cuda(wd, "wd", torch.bfloat16)
+    flagship = flagship_takes(q, c, ffn, num_heads, nl, n_layers, max(t), dt)
+    if flagship:
+        smem = smem_bytes(q, c, max(t))
+    else:
+        check_shape_split(q, c, ffn, num_heads, nl, n_layers, max(t))
+        smem = smem_bytes_split(q, c, num_heads, max(t))
+    kind = "flagship" if flagship else "split"
+    if packed is None:
+        packed = ({}, kv_weights(layers, nl))
+    wpacks, kvw = packed
+    if kind not in wpacks:
+        wpacks[kind] = pack_weights(layers, head, fragments=flagship)
+    wd, wf = wpacks[kind]
+    kb.check_cuda(wd, "wd", dt)
     kb.check_cuda(wf, "wf", torch.float32)
     groups = n_layers // nl
     ks, vs = [], []
     for lvl in range(nl):
         mem = mems[lvl]
-        kb.check_cuda(mem, f"mems[{lvl}]", torch.bfloat16, (b, t[lvl], c))
+        kb.check_cuda(mem, f"mems[{lvl}]", dt, (b, t[lvl], c))
         kin = (mem + pes[lvl].to(mem.dtype)).reshape(b * t[lvl], c)
         ks.append(gemm("decoder_stack", kin, kvw[lvl][0], EPI_BIAS))
         vs.append(gemm("decoder_stack", mem.reshape(b * t[lvl], c),
@@ -307,7 +389,7 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     x0 = out0.float().contiguous()
     e0 = emb0.float().contiguous()
     qp = qpos.float().contiguous()
-    out = torch.empty((b, q, c), dtype=torch.bfloat16, device=out0.device)
+    out = torch.empty((b, q, c), dtype=dt, device=out0.device)
     words = (max(t) + 31) // 32
     bits = (torch.empty((b, n_layers, q, words), dtype=torch.int32,
                         device=out0.device) if return_bits else None)
@@ -316,11 +398,22 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         + [v.data_ptr() for v in vs] + [0] * (3 - nl)
         + [f.data_ptr() for f in feats] + [0] * (3 - nl)))
     tarr = (ctypes.c_int * 3)(*(t + [0] * (3 - nl)))
-    kb.launch("decoder_stack", "decoder_stack_forward", kb.ptr(x0),
-              kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl), kb.ci(groups),
-              kb.ptr(wd), kb.ptr(wf), kb.ptr(out), kb.ptr(bits), kb.ci(b),
-              kb.ci(q), kb.ci(c), kb.ci(ffn),
-              kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5), kb.stream())
+    if flagship:
+        kb.launch("decoder_stack", "decoder_stack_forward", kb.ptr(x0),
+                  kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
+                  kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
+                  kb.ptr(bits), kb.ci(b), kb.ci(q), kb.ci(c), kb.ci(ffn),
+                  kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5),
+                  kb.stream(), instance="flagship")
+    else:
+        f32 = dt == torch.float32
+        kb.launch("decoder_stack", "decoder_split_forward", kb.ptr(x0),
+                  kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
+                  kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
+                  kb.ptr(bits), kb.ci(b), kb.ci(q), kb.ci(c), kb.ci(ffn),
+                  kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5),
+                  kb.ci(f32), kb.stream(),
+                  instance="split_f32" if f32 else "split_bf16")
     if not return_bits:
         return out
     shifts = torch.arange(32, device=out0.device, dtype=torch.int32)

@@ -12,9 +12,9 @@ result type of the input and the parameters, which is the input dtype
 whenever the parameters are in the model dtype, as they are in both
 packages' bf16 and f32 runs; the port returns the input dtype.
 
-The CUDA kernel (``csrc/layer_norm.cu``) takes bf16 tokens and a bf16
-scale and bias (widened to f32 in the kernel), one warp per token; it
-counts under ``layer_norm``.
+The CUDA kernel (``csrc/layer_norm.cu``) takes bf16 or f32 tokens and a
+scale and bias of the same dtype (widened to f32 in the kernel), one warp
+per token; it counts under ``layer_norm``.
 """
 from __future__ import annotations
 
@@ -37,23 +37,26 @@ def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """Token LayerNorm of (..., C): the CUDA kernel for CUDA tensors (bf16
-    only), the plain version for CPU tensors."""
+    """Token LayerNorm of (..., C): the CUDA kernel for CUDA tensors (its
+    bf16 or f32 instance), the plain version for CPU tensors."""
     if not x.is_cuda:
         return layer_norm_plain(x, w, b, eps)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the layer norm kernel takes bf16 tokens; got "
-                         f"{x.dtype}")
+    dt = x.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the layer norm kernel takes bf16 or f32 tokens; "
+                         f"got {dt}")
     c = x.shape[-1]
     if c % 8 or c > 2048:
         raise ValueError(f"layer norm kernel needs C % 8 == 0 and C <= 2048, "
                          f"got {c}")
     x2 = x.contiguous().reshape(-1, c)
-    kb.check_cuda(x2, "x", torch.bfloat16)
-    kb.check_cuda(w, "scale", torch.bfloat16, (c,))
-    kb.check_cuda(b, "bias", torch.bfloat16, (c,))
+    kb.check_cuda(x2, "x", dt)
+    kb.check_cuda(w, "scale", dt, (c,))
+    kb.check_cuda(b, "bias", dt, (c,))
     out = torch.empty_like(x2)
+    f32 = dt == torch.float32
     kb.launch("layer_norm", "token_layernorm", kb.ptr(x2), kb.ptr(w),
               kb.ptr(b), kb.ptr(out), kb.ci(x2.shape[0]), kb.ci(c),
-              kb.cf(eps), kb.stream())
+              kb.cf(eps), kb.ci(f32), kb.stream(),
+              instance="f32" if f32 else "bf16")
     return out.reshape(x.shape)

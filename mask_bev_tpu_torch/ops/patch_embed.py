@@ -15,8 +15,9 @@ E[y]^2)`` (eps 1e-6) and the LN affine in f32, rounded once to the canvas
 dtype, as the TPU kernel computes it.
 
 The CUDA kernel (``csrc/patch_embed.cu``) is an implicit GEMM that holds all
-E outputs of its tokens and runs the LayerNorm in its epilogue; it takes
-bf16 only and counts under ``patch_embed``.
+E outputs of its tokens and runs the LayerNorm in its epilogue, on the
+tensor cores for a bf16 canvas, as f32 FMAs for an f32 canvas (its f32
+instance); it counts under ``patch_embed``.
 """
 from __future__ import annotations
 
@@ -54,8 +55,8 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
                 ln_w: torch.Tensor, ln_b: torch.Tensor, patch: int,
                 eps: float = 1e-6) -> torch.Tensor:
     """Patch embed + LN of a (B, H, W, C) canvas: the CUDA kernel for CUDA
-    tensors (bf16 only), the plain version for CPU tensors. ``wm`` from
-    :func:`embed_matrix`; H and W multiples of ``patch``."""
+    tensors (its bf16 or f32 instance), the plain version for CPU tensors.
+    ``wm`` from :func:`embed_matrix`; H and W multiples of ``patch``."""
     b, h, w, c = canvas.shape
     p = patch
     if h % p or w % p:
@@ -63,24 +64,27 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
                          f"{(h, w)}")
     if not canvas.is_cuda:
         return patch_embed_plain(canvas, wm, bias, ln_w, ln_b, p, eps)
-    if canvas.dtype != torch.bfloat16:
-        raise ValueError(f"the patch embed kernel takes a bf16 canvas; got "
-                         f"{canvas.dtype}")
+    dt = canvas.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the patch embed kernel takes a bf16 or f32 "
+                         f"canvas; got {dt}")
+    f32 = dt == torch.float32
     e = wm.shape[0]
-    if c % 8 or (p * p * c) % 32 or e not in (64, 128, 192, 256):
+    if (c % 8 or (p * p * c) % 32 or (f32 and (p * c) % 16)
+            or e not in (64, 128, 192, 256)):
         raise ValueError(f"patch embed kernel needs C % 8 == 0, p*p*C % 32 "
-                         f"== 0 and E in (64, 128, 192, 256); got C={c}, "
-                         f"p={p}, E={e}")
-    kb.check_cuda(canvas, "canvas", torch.bfloat16)
-    kb.check_cuda(wm, "wm", torch.bfloat16, (e, p * p * c))
+                         f"== 0 (f32: p*C % 16 == 0) and E in (64, 128, "
+                         f"192, 256); got C={c}, p={p}, E={e}")
+    kb.check_cuda(canvas, "canvas", dt)
+    kb.check_cuda(wm, "wm", dt, (e, p * p * c))
     vecs = [t.float().contiguous() for t in (bias, ln_w, ln_b)]
     for t, name in zip(vecs, ("bias", "ln_w", "ln_b")):
         kb.check_cuda(t, name, torch.float32, (e,))
     gh, gw = h // p, w // p
-    out = torch.empty((b, gh * gw, e), dtype=torch.bfloat16,
-                      device=canvas.device)
-    kb.launch("patch_embed", "patch_embed_forward", kb.ptr(canvas),
+    out = torch.empty((b, gh * gw, e), dtype=dt, device=canvas.device)
+    kb.launch("patch_embed", "patch_embed_f32_forward" if f32
+              else "patch_embed_forward", kb.ptr(canvas),
               kb.ptr(wm), *(kb.ptr(t) for t in vecs), kb.ptr(out), kb.ci(b),
               kb.ci(h), kb.ci(w), kb.ci(c), kb.ci(e), kb.ci(p), kb.cf(eps),
-              kb.stream())
+              kb.stream(), instance="f32" if f32 else "bf16")
     return out

@@ -27,17 +27,24 @@ points), the same decoration and layers as kernel 1 with windowed
 reductions over contiguous pid runs, and the rows read at the pillar
 starts (``gather_at_starts``). Its output is that (B, P, C) pillar table,
 zero on unused slots, with the same statistics as kernel 1.
+
+Both run as one CUDA kernel (``csrc/pfn.cu::pfn_tile_kernel``) on tiles of
+whole pillars (``ops/stream_pillars.py::pfn_tiles``), in a bf16 instance
+(layer products on the tensor cores) or an f32 instance (f32 products),
+chosen by the weights' dtype; each wrapper launches it and the statistics
+reduction, two launches a call.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
+from mask_bev_tpu_torch.ops.decoder_stack import pack_fragments
 from mask_bev_tpu_torch.ops.stream_pillars import (
-    PillarStream, StreamPillars, gather_at_starts, windowed_segment_max,
-    windowed_segment_sum)
+    PillarStream, StreamPillars, gather_at_starts, kept_counts, pfn_tiles,
+    windowed_segment_max, windowed_segment_sum)
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -104,28 +111,58 @@ def table_stats(table: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
-_WARPS = 16  # most pillars in flight per block, one warp each
-
-
-def pack_weights(weights: Weights, device) -> Tuple[torch.Tensor, List[int]]:
-    """All layers' (W, g, b) as one f32 buffer + the int dims the kernel
-    reads: [n_layers, in_0, units_0, in_1, units_1, ...]. bf16 weights keep
-    their values exactly in f32."""
-    parts, dims = [], [len(weights)]
+def pack_weights(weights: Weights, device):
+    """The kernels' weights: (weights, g/b, dims). Each layer's W (in,
+    units) is zero-padded to ``kp`` = in rounded up to 16 rows; bf16
+    weights go in ``mma.sync`` B-fragment order
+    (``ops/decoder_stack.py::pack_fragments``), f32 weights row-major. g and
+    b are f32 per layer; dims ``[n_layers, in_0, units_0, ...]``."""
+    wparts, gbparts, dims = [], [], [len(weights)]
     for (w, g, b) in weights:
-        parts += [w.float().reshape(-1), g.float().reshape(-1),
-                  b.float().reshape(-1)]
-        dims += [w.shape[0], w.shape[1]]
-    return torch.cat(parts).to(device).contiguous(), dims
+        k, u = w.shape
+        kp = -(-k // 16) * 16
+        wp = torch.zeros((kp, u), dtype=w.dtype, device=w.device)
+        wp[:k] = w
+        wparts.append(pack_fragments(wp) if w.dtype == torch.bfloat16
+                      else wp.reshape(-1))
+        gbparts += [g.float().reshape(-1), b.float().reshape(-1)]
+        dims += [k, u]
+    gb = torch.cat(gbparts)
+    gb = torch.cat([gb, gb.new_zeros(-gb.numel() % 4)])
+    return (torch.cat(wparts).to(device).contiguous(),
+            gb.to(device).contiguous(), dims)
+
+
+def _check_layers(weights: Weights, in0: int, out_dtype) -> bool:
+    """Raise unless the tile kernels take these layers; True for the f32
+    instance."""
+    dt = weights[0][0].dtype
+    if dt not in (torch.bfloat16, torch.float32) or out_dtype != dt or any(
+            w.dtype != dt for (w, _, _) in weights):
+        raise ValueError(f"the pfn kernels take bf16 or f32 weights with a "
+                         f"table of the same dtype; got {dt} weights and a "
+                         f"{out_dtype} table")
+    prev = None
+    for i, (w, _, _) in enumerate(weights):
+        k, u = w.shape
+        if (u % 8 or u > 128 or (i == 0 and k != in0)
+                or (prev is not None and k != 2 * prev)):
+            raise ValueError(f"pfn kernels take layers of a multiple of 8 "
+                             f"units up to 128, each fed [z, pooled]; got "
+                             f"{[tuple(w.shape) for (w, _, _) in weights]}")
+        prev = u
+    if len(weights) > 4:
+        raise ValueError("pfn kernels take at most 4 layers")
+    return dt == torch.float32
 
 
 def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         with_distance: bool, grid_w: int, voxel_size: float, x0: float,
         y0: float, max_points_per_pillar: int, out_dtype: torch.dtype,
         packed=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pillar table + statistics: the CUDA kernel for CUDA tensors (bf16
-    weights and table only), the plain version for CPU tensors.
-    ``packed``: cached ``pack_weights``."""
+    """Pillar table + statistics: the CUDA kernel for CUDA tensors (its
+    bf16 or f32 instance, by the weights' dtype), the plain version for
+    CPU tensors. ``packed``: cached ``pack_weights``."""
     x = ps.cols[0]
     if not x.is_cuda:
         return pfn_plain(ps, weights, point_dim=point_dim,
@@ -133,43 +170,39 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
                          voxel_size=voxel_size, x0=x0, y0=y0,
                          out_dtype=out_dtype)
     b, n = x.shape
-    k = max_points_per_pillar
-    if k > 32:
+    if max_points_per_pillar > 32:
         raise ValueError(f"pfn kernel takes at most 32 points per pillar, "
-                         f"got {k}")
-    if len(weights) > 4 or any(w.shape[1] > 128 for (w, _, _) in weights):
-        raise ValueError("pfn kernel takes at most 4 layers of at most 128 "
-                         "units")
-    if out_dtype != torch.bfloat16 or any(
-            w.dtype != torch.bfloat16 for (w, _, _) in weights):
-        raise ValueError("the pfn kernel takes bf16 weights and writes a bf16 "
-                         "table; f32 runs only on the CPU")
+                         f"got {max_points_per_pillar}")
+    f32 = _check_layers(weights, point_dim + 5 + int(with_distance),
+                        out_dtype)
     for t, name in ((ps.starts, "starts"), (ps.counts, "counts"),
                     (ps.cells, "cells")):
         kb.check_cuda(t, name, torch.int32, (b, n))
     for i, c in enumerate(ps.cols):
         kb.check_cuda(c, f"cols[{i}]", torch.float32, (b, n))
     kb.check_cuda(ps.num_pillars, "num_pillars", torch.int32, (b,))
-    wpack, dims = packed if packed is not None else pack_weights(
+    wbuf, gb, dims = packed if packed is not None else pack_weights(
         weights, x.device)
-    kb.check_cuda(wpack, "wpack", torch.float32)
+    kb.check_cuda(wbuf, "weights", out_dtype)
+    kb.check_cuda(gb, "g/b", torch.float32)
+    row0, first = pfn_tiles(ps.counts, ps.num_pillars, n)
     c_out = dims[-1]
     table = torch.empty((b, n, c_out), dtype=out_dtype, device=x.device)
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks_per_sample = max(1, (2 * sms + b - 1) // b)
-    kb.launch("pfn", "pfn_forward",
-              *(kb.ptr(c) for c in ps.cols), kb.ptr(ps.starts),
-              kb.ptr(ps.counts), kb.ptr(ps.cells), kb.ptr(ps.num_pillars),
-              kb.ptr(wpack), dims_arr, kb.ptr(table), kb.ptr(partials), kb.ci(b), kb.ci(n), kb.ci(k),
-              kb.ci(point_dim), kb.ci(with_distance), kb.ci(grid_w),
-              kb.cf(voxel_size), kb.cf(x0 + 0.5 * voxel_size),
-              kb.cf(y0 + 0.5 * voxel_size), kb.ci(blocks_per_sample),
-              kb.ci(_WARPS), kb.stream())
+    inst = "f32" if f32 else "bf16"
+    kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
+              kb.ptr(ps.starts), kb.ptr(ps.counts), kb.ptr(ps.cells),
+              kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
+              kb.ptr(wbuf), kb.ptr(gb), dims_arr, kb.ptr(table),
+              kb.ptr(partials), kb.ci(b), kb.ci(n),
+              kb.ci(first.shape[1] - 1), kb.ci(point_dim),
+              kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
+              kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
+              kb.ci(f32), kb.stream(), instance=inst)
     kb.launch("pfn", "pfn_stats", kb.ptr(partials), kb.ptr(ps.num_pillars),
-              kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream())
+              kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream(), instance=inst)
     return table, stats
 
 
@@ -213,9 +246,10 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
                x0: float, y0: float, out_dtype: torch.dtype,
                num_valid: torch.Tensor, packed=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 10 for CUDA tensors (bf16 points, weights and table only),
-    the plain version for CPU tensors. ``num_valid`` (B,) int32: occupied
-    slots per sample; ``packed``: cached ``pack_weights``."""
+    """Kernel 10 for CUDA tensors (its bf16 or f32 instance: points,
+    weights and table of one dtype), the plain version for CPU tensors.
+    ``num_valid`` (B,) int32: occupied slots per sample; ``packed``: cached
+    ``pack_weights``."""
     if not sp.pts.is_cuda:
         return stream_pfn_plain(sp, weights, k=k, with_distance=with_distance,
                                 grid_w=grid_w, voxel_size=voxel_size, x0=x0,
@@ -225,40 +259,38 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
     if k > 32 or d not in (3, 4):
         raise ValueError(f"stream pfn kernel takes at most 32 points per "
                          f"pillar and 3 or 4 point columns, got k={k}, D={d}")
-    if len(weights) > 4 or any(w.shape[1] > 128 for (w, _, _) in weights):
-        raise ValueError("stream pfn kernel takes at most 4 layers of at "
-                         "most 128 units")
-    if (sp.pts.dtype != torch.bfloat16 or out_dtype != torch.bfloat16
-            or any(w.dtype != torch.bfloat16 for (w, _, _) in weights)):
-        raise ValueError("the stream pfn kernel takes bf16 points and "
-                         "weights and writes a bf16 table; f32 runs only on "
-                         "the CPU")
+    f32 = _check_layers(weights, d + 5 + int(with_distance), out_dtype)
+    if sp.pts.dtype != out_dtype:
+        raise ValueError(f"the stream pfn kernel takes points of the "
+                         f"weights' dtype {out_dtype}; got {sp.pts.dtype}")
     pts = sp.pts.contiguous()
     starts = sp.starts.to(torch.int32).contiguous()
-    kb.check_cuda(pts, "pts", torch.bfloat16, (b, n, d))
+    kb.check_cuda(pts, "pts", out_dtype, (b, n, d))
     kb.check_cuda(sp.pid, "pid", torch.int32, (b, n))
     kb.check_cuda(sp.kept, "kept", torch.bool, (b, n))
     kb.check_cuda(starts, "starts", torch.int32, (b, p))
     kb.check_cuda(sp.cells, "cells", torch.int32, (b, p))
     kb.check_cuda(num_valid, "num_valid", torch.int32, (b,))
-    wpack, dims = packed if packed is not None else pack_weights(
+    wbuf, gb, dims = packed if packed is not None else pack_weights(
         weights, pts.device)
-    kb.check_cuda(wpack, "wpack", torch.float32)
+    kb.check_cuda(wbuf, "weights", out_dtype)
+    kb.check_cuda(gb, "g/b", torch.float32)
+    counts = kept_counts(sp.pid, sp.kept, p)
+    row0, first = pfn_tiles(counts, num_valid, n)
     c_out = dims[-1]
     table = torch.empty((b, p, c_out), dtype=out_dtype, device=pts.device)
     partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
-    blocks_per_sample = max(1, (2 * sms + b - 1) // b)
+    inst = "f32" if f32 else "bf16"
     kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
-              kb.ptr(sp.pid), kb.ptr(sp.kept), kb.ptr(starts),
-              kb.ptr(sp.cells), kb.ptr(num_valid), kb.ptr(wpack), dims_arr,
-              kb.ptr(table), kb.ptr(partials), kb.ci(b), kb.ci(n), kb.ci(p),
-              kb.ci(k), kb.ci(d), kb.ci(with_distance), kb.ci(grid_w),
-              kb.cf(voxel_size), kb.cf(x0 + 0.5 * voxel_size),
-              kb.cf(y0 + 0.5 * voxel_size), kb.ci(blocks_per_sample),
-              kb.ci(_WARPS), kb.stream())
+              kb.ptr(starts), kb.ptr(counts), kb.ptr(sp.cells),
+              kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first), kb.ptr(wbuf),
+              kb.ptr(gb), dims_arr, kb.ptr(table), kb.ptr(partials),
+              kb.ci(b), kb.ci(n), kb.ci(p), kb.ci(first.shape[1] - 1),
+              kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
+              kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
+              kb.ci(f32), kb.stream(), instance=inst)
     kb.launch("stream_pfn", "pfn_stats", kb.ptr(partials), kb.ptr(num_valid),
-              kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream())
+              kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream(), instance=inst)
     return table, stats

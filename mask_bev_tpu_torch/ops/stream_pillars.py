@@ -22,6 +22,13 @@ stream (``windowed_segment_max`` :85, ``windowed_segment_sum`` :110-132,
 ``gather_at_starts`` :290). The shifts and gates are the JAX package's,
 op for op, so the sums are taken in the same order and the gradient of
 every max splits between ties as it does there.
+
+The PFN kernels (``ops/pfn.py``) take whole pillars in tiles of the
+compacted kept-point order: :func:`pfn_tiles` gives each pillar its first
+compacted row (an exclusive cumulative sum of the kept counts) and each
+tile of ``PFN_TILE_ROWS`` compacted rows the first pillar that starts in
+it, all on the device; :func:`kept_counts` gives the capped stream's kept
+counts per pillar slot.
 """
 from __future__ import annotations
 
@@ -51,6 +58,48 @@ class PillarStream(NamedTuple):
     counts: torch.Tensor
     cells: torch.Tensor
     num_pillars: torch.Tensor
+
+
+PFN_TILE_ROWS = 64  # compacted rows that anchor one PFN tile
+
+
+def pfn_tiles(counts: torch.Tensor, num: torch.Tensor, n_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PFN tiles' directory. ``counts`` (B, P) kept points of pillar row
+    r (at least 1 on the first ``num[b]`` rows), ``num`` (B,) occupied rows,
+    ``n_rows`` an upper bound of the kept points of a sample. Returns
+    ``row0`` (B, P) int32, the first compacted row of each occupied pillar,
+    and ``first`` (B, T + 1) int32 with T = ceil(n_rows / 64): tile t owns
+    the pillars ``first[b, t] <= r < first[b, t + 1]``, those whose first
+    row lies in [64 t, 64 t + 64), so a tile spans at most 64 + K - 1
+    rows."""
+    b, p = counts.shape
+    dev = counts.device
+    occupied = torch.arange(p, device=dev)[None] < num.to(dev)[:, None]
+    c = torch.where(occupied, counts.to(torch.int64), 0)
+    row0 = torch.cumsum(c, dim=1) - c
+    t = -(-n_rows // PFN_TILE_ROWS)
+    edges = (torch.arange(t + 1, dtype=torch.int64, device=dev)
+             * PFN_TILE_ROWS).expand(b, t + 1).contiguous()
+    keys = torch.where(occupied, row0, torch.iinfo(torch.int64).max)
+    first = torch.searchsorted(keys.contiguous(), edges)
+    return (row0.to(torch.int32).contiguous(),
+            first.to(torch.int32).contiguous())
+
+
+def kept_counts(pid: torch.Tensor, kept: torch.Tensor, p: int
+                ) -> torch.Tensor:
+    """(B, N) sorted pids and kept flags of a capped stream -> (B, P) int32
+    kept points of each pillar slot (its segment's rank in pid order). A
+    slot's kept points are the first rows of its run, so they are the rows
+    ``[starts, starts + count)``."""
+    b, n = pid.shape
+    is_first = pid != shift_rows(pid, -1, -1)
+    seg = torch.cumsum(is_first.to(torch.int64), dim=1) - 1
+    idx = torch.where(kept, seg.clamp(max=p), p)
+    out = torch.zeros((b, p + 1), dtype=torch.int32, device=pid.device)
+    out.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    return out[:, :p].contiguous()
 
 
 def grid_size(x_range, y_range, voxel_size) -> Tuple[int, int]:

@@ -29,8 +29,10 @@ The CUDA chain (``csrc/swin_block.cu``): LN1 (+quantise) -> qkv GEMM ->
 window attention -> (quantise) -> proj GEMM + residual -> LN2 (+quantise)
 -> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. The GEMMs are the
 persistent wgmma kernel of ``csrc/gemm.cuh`` (TMA loads, int8 or bf16); the
-attention keeps its scores in registers. Every launch counts under
-``swin_block``. The card path takes bf16 only.
+attention keeps its scores in registers. f32 activations (the shipped
+configurations' dtype) take every launch's f32 instance: the int8 GEMM with
+f32 epilogues, or the f32 GEMM; f32 LN, quantisation and attention. Every
+launch counts under ``swin_block``.
 """
 from __future__ import annotations
 
@@ -245,12 +247,22 @@ def swin_block_plain(x: torch.Tensor, p: BlockWeights, hw, win: int,
 # --------------------------------------------------------------- CUDA chain
 
 
+def _f32(t: torch.Tensor) -> bool:
+    """The instance a launch takes: f32 for f32 activations, else bf16."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the Swin chain kernels take bf16 or f32 "
+                         f"activations; got {t.dtype}")
+    return t.dtype == torch.float32
+
+
 def _ln(x2, w, b, quant):
     m, c = x2.shape
     # the kernel reads rows and the affine in 16-byte words
     if c % 8 or x2.data_ptr() % 16:
         raise ValueError(f"swin layernorm kernel: C={c} must be a multiple "
                          "of 8 and the rows 16-byte aligned")
+    f32 = _f32(x2)
+    w, b = (t.to(x2.dtype) for t in (w, b))
     w, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, b))
     if quant:
         q8 = torch.empty((m, c), dtype=torch.int8, device=x2.device)
@@ -261,37 +273,48 @@ def _ln(x2, w, b, quant):
         out = torch.empty_like(x2)
     kb.launch("swin_block", "swin_layernorm", kb.ptr(x2), kb.ptr(w),
               kb.ptr(b), kb.ptr(out), kb.ptr(q8), kb.ptr(sx), kb.ci(m),
-              kb.ci(c), kb.cf(1e-6), kb.stream())
+              kb.ci(c), kb.cf(1e-6), kb.ci(f32), kb.stream(),
+              instance="f32" if f32 else "bf16")
     return (q8, sx) if quant else out
 
 
 def _quant(x2):
     m, k = x2.shape
+    f32 = _f32(x2)
     q8 = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
     kb.launch("swin_block", "swin_quant_rows", kb.ptr(x2), kb.ptr(q8),
-              kb.ptr(sx), kb.ci(m), kb.ci(k), kb.stream())
+              kb.ptr(sx), kb.ci(m), kb.ci(k), kb.ci(f32), kb.stream(),
+              instance="f32" if f32 else "bf16")
     return q8, sx
 
 
-def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None):
-    """out (M, N) bf16 = epilogue(a @ d^T): ``a`` is bf16 (M, K), or int8
-    with per-row scale ``sx`` (then ``d.q8``/``d.sw`` are used)."""
+def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
+         out_dtype=torch.bfloat16):
+    """out (M, N) = epilogue(a @ d^T): ``a`` is bf16 (M, K) with a bf16
+    out, f32 with an f32 out (the f32 instance, ``d.wt`` f32), or int8
+    with per-row scale ``sx`` (then ``d.q8``/``d.sw`` are used) and an
+    ``out_dtype`` (bf16 or f32) out and residual."""
     m, k = a.shape
     n = d.wt.shape[0]
     if k % 16 or n % 8:
         raise ValueError(f"gemm kernel needs K % 16 == 0 and N % 8 == 0, "
                          f"got K={k}, N={n}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    if sx is None:
+        out_dtype = a.dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm kernel writes bf16 or f32, not {out_dtype}")
+    f32 = out_dtype == torch.float32
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if residual is not None:
-        kb.check_cuda(residual, "residual", torch.bfloat16, (m, n))
+        kb.check_cuda(residual, "residual", out_dtype, (m, n))
     kb.check_cuda(d.bias, "bias", torch.float32, (n,))
     if sx is not None:
         kb.check_cuda(a, "a", torch.int8)
         kb.check_cuda(d.q8, "w8", torch.int8, (n, k))
     else:
-        kb.check_cuda(a, "a", torch.bfloat16)
-        kb.check_cuda(d.wt, "w", torch.bfloat16, (n, k))
+        kb.check_cuda(a, "a", out_dtype)
+        kb.check_cuda(d.wt, "w", out_dtype, (n, k))
     # TMA reads both operands, the epilogue reads 16-byte vectors
     w = d.wt if sx is None else d.q8
     for t, what in ((a, "a"), (w, "w"), (d.bias, "bias"),
@@ -299,19 +322,28 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None):
                     (residual, "residual")):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"gemm kernel: {what} must be 16-byte aligned")
+    inst = ("gemm_s8_" if sx is not None else "gemm_") + (
+        "f32" if f32 else "bf16")
     if sx is not None:
         kb.launch(name, "gemm_s8", kb.ptr(a), kb.ptr(sx), kb.ptr(d.q8),
                   kb.ptr(d.sw), kb.ptr(d.bias), kb.ptr(residual),
                   kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
-                  kb.stream())
+                  kb.ci(f32), kb.stream(), instance=inst)
+    elif f32:
+        kb.launch(name, "gemm_f32", kb.ptr(a), kb.ptr(d.wt),
+                  kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
+                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream(),
+                  instance=inst)
     else:
         kb.launch(name, "gemm_bf16", kb.ptr(a), kb.ptr(d.wt),
                   kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
-                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream())
+                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream(),
+                  instance=inst)
     return out
 
 
-ATTN_HEAD_DIMS = (16, 32, 64)  # head widths the attention kernel is built for
+# head widths the attention kernels (bf16 and f32) are built for
+ATTN_HEAD_DIMS = (16, 32, 64)
 
 
 def attn_smem_bytes(win: int, hd: int) -> int:
@@ -326,18 +358,21 @@ def attn_smem_bytes(win: int, hd: int) -> int:
 def window_attention(qkv: torch.Tensor, p: BlockWeights, b: int,
                      hw: Tuple[int, int], heads: int, win: int, shift: int
                      ) -> torch.Tensor:
-    """(B*H*W, 3C) bf16 qkv -> (B*H*W, C) bf16 window attention output
-    (one launch, counted under ``swin_block``)."""
+    """(B*H*W, 3C) qkv -> (B*H*W, C) window attention output of the same
+    dtype (bf16 on the tensor cores, or the f32 instance; one launch,
+    counted under ``swin_block``)."""
     c = qkv.shape[1] // 3
-    kb.check_cuda(qkv, "qkv", torch.bfloat16, (b * hw[0] * hw[1], 3 * c))
+    f32 = _f32(qkv)
+    kb.check_cuda(qkv, "qkv", qkv.dtype, (b * hw[0] * hw[1], 3 * c))
     kb.check_cuda(p.rel_bias, "rel_bias", torch.float32,
                   (heads, win * win, win * win))
-    o = torch.empty((qkv.shape[0], c), dtype=torch.bfloat16,
-                    device=qkv.device)
-    kb.launch("swin_block", "swin_window_attn", kb.ptr(qkv),
-              kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o), kb.ci(b),
-              kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads), kb.ci(win),
-              kb.ci(shift), kb.cf((c // heads) ** -0.5), kb.stream())
+    o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
+    kb.launch("swin_block",
+              "swin_window_attn_f32" if f32 else "swin_window_attn",
+              kb.ptr(qkv), kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o),
+              kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads),
+              kb.ci(win), kb.ci(shift), kb.cf((c // heads) ** -0.5),
+              kb.stream(), instance="f32" if f32 else "bf16")
     return o
 
 
@@ -348,21 +383,20 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     plain version for CPU tensors."""
     if not x.is_cuda:
         return swin_block_plain(x, p, hw, win, heads, shift, quant)
-    if x.dtype != torch.bfloat16:
-        raise ValueError("the Swin block kernels take bf16 activations; "
-                         f"got {x.dtype}")
+    _f32(x)  # raises on a dtype without an instance
     b, l, c = x.shape
     h, w = hw
-    if (l != h * w or c % heads or c // heads not in ATTN_HEAD_DIMS
-            or win * win > 128):
+    if (l != h * w or c % heads or win * win > 128
+            or c // heads not in ATTN_HEAD_DIMS):
         raise ValueError(f"swin block kernel: bad shape {x.shape} for "
                          f"hw={hw}, heads={heads}, win={win}")
-    kb.check_cuda(x, "x", torch.bfloat16)
+    kb.check_cuda(x, "x", x.dtype)
     x2 = x.reshape(b * l, c)
+    dt = x.dtype
     mode_d = EPI_BIAS if quant else EPI_BIAS | EPI_ROUND_ACC
     if quant:
         q8, sx = _ln(x2, p.ln1_w, p.ln1_b, True)
-        qkv = gemm("swin_block", q8, p.qkv, mode_d, sx=sx)
+        qkv = gemm("swin_block", q8, p.qkv, mode_d, sx=sx, out_dtype=dt)
     else:
         qkv = gemm("swin_block", _ln(x2, p.ln1_w, p.ln1_b, False), p.qkv,
                    mode_d)
@@ -371,11 +405,13 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     gelu = EPI_GELU | (0 if quant else EPI_ROUND_ACC)
     if quant:
         q8, sx = _quant(o)
-        x1 = gemm("swin_block", q8, p.proj, res, residual=x2, sx=sx)
+        x1 = gemm("swin_block", q8, p.proj, res, residual=x2, sx=sx,
+                  out_dtype=dt)
         q8, sx = _ln(x1, p.ln2_w, p.ln2_b, True)
-        hmid = gemm("swin_block", q8, p.fc1, gelu, sx=sx)
+        hmid = gemm("swin_block", q8, p.fc1, gelu, sx=sx, out_dtype=dt)
         q8, sx = _quant(hmid)
-        out = gemm("swin_block", q8, p.fc2, res, residual=x1, sx=sx)
+        out = gemm("swin_block", q8, p.fc2, res, residual=x1, sx=sx,
+                   out_dtype=dt)
     else:
         x1 = gemm("swin_block", o, p.proj, res, residual=x2)
         hmid = gemm("swin_block", _ln(x1, p.ln2_w, p.ln2_b, False), p.fc1,

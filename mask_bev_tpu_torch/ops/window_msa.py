@@ -21,7 +21,9 @@ score, so nothing of size nW x h x n x n is built.
 
 The CUDA chain (``csrc/window_msa.cu``): qkv GEMM (``csrc/gemm.cuh``, f32
 bias epilogue) -> attention, one block per (window, head, sample) -> proj
-GEMM; its three launches count under ``window_msa``. It takes bf16 only.
+GEMM; its three launches count under ``window_msa``. bf16 windows take the
+tensor-core instance, f32 windows the f32 instance (f32 GEMMs and f32
+attention, nothing rounded below f32).
 """
 from __future__ import annotations
 
@@ -60,28 +62,33 @@ def window_msa_plain(xw: torch.Tensor, rel: torch.Tensor,
 def window_msa(xw: torch.Tensor, rel: torch.Tensor,
                mask: Optional[torch.Tensor], qkv: Dense, proj: Dense,
                heads: int) -> torch.Tensor:
-    """Window MSA on (B, nW, n, C): the CUDA chain for CUDA tensors (bf16
-    only), the plain version for CPU tensors. ``rel`` (h, n, n) f32,
-    ``mask`` (nW, n, n) f32 or None, ``qkv``/``proj`` with (N, K) weights
-    and f32 biases."""
+    """Window MSA on (B, nW, n, C): the CUDA chain for CUDA tensors (its
+    bf16 or f32 instance), the plain version for CPU tensors. ``rel``
+    (h, n, n) f32, ``mask`` (nW, n, n) f32 or None, ``qkv``/``proj`` with
+    (N, K) weights and f32 biases."""
     if not xw.is_cuda:
         return window_msa_plain(xw, rel, mask, qkv, proj, heads)
-    if xw.dtype != torch.bfloat16:
-        raise ValueError(f"the window MSA kernels take bf16 windows; got "
-                         f"{xw.dtype}")
+    dt = xw.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the window MSA kernels take bf16 or f32 windows; "
+                         f"got {dt}")
+    f32 = dt == torch.float32
     b, nw, n, c = xw.shape
     hd, n_pad = c // heads, -(-n // 16) * 16
-    if c % heads or hd % 16 or n > 128 or n_pad > 2 * hd + 8:
+    if c % heads or n > 128 or (hd not in (16, 32, 64) if f32 else
+                                (hd % 16 or n_pad > 2 * hd + 8)):
         raise ValueError(f"window MSA kernel: bad shape {tuple(xw.shape)} "
                          f"for {heads} heads")
     x2 = xw.contiguous().reshape(b * nw * n, c)
-    kb.check_cuda(x2, "xw", torch.bfloat16)
+    kb.check_cuda(x2, "xw", dt)
     kb.check_cuda(rel, "rel", torch.float32, (heads, n, n))
     if mask is not None:
         kb.check_cuda(mask, "mask", torch.float32, (nw, n, n))
     t = gemm("window_msa", x2, qkv, EPI_BIAS)
-    o = torch.empty((b * nw * n, c), dtype=torch.bfloat16, device=xw.device)
-    kb.launch("window_msa", "window_msa_attn", kb.ptr(t), kb.ptr(rel),
+    o = torch.empty((b * nw * n, c), dtype=dt, device=xw.device)
+    kb.launch("window_msa", "window_msa_attn_f32" if f32
+              else "window_msa_attn", kb.ptr(t), kb.ptr(rel),
               kb.ptr(mask), kb.ptr(o), kb.ci(b), kb.ci(nw), kb.ci(n),
-              kb.ci(c), kb.ci(heads), kb.cf(hd ** -0.5), kb.stream())
+              kb.ci(c), kb.ci(heads), kb.cf(hd ** -0.5), kb.stream(),
+              instance="f32" if f32 else "bf16")
     return gemm("window_msa", o, proj, EPI_BIAS).reshape(b, nw, n, c)

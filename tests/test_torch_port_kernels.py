@@ -19,7 +19,12 @@ its assignments are equal. Kernels 7-10: 2e-2 for window MSA (as the Swin
 block: bf16 rounding of qkv, probabilities and heads on both sides, summed
 in another order), 1e-2 for the patch embed, the token LayerNorm and the
 capped PFN (each rounds once to bf16 from f32 values summed in another
-order). The shared GEMM's int8 products are held exactly against a float64
+order). The PFN kernels (1 and 10) sum their products on the tensor cores
+in another order than the plain version (which they equalled exactly while
+they summed on the CUDA cores in its order), so they are held within
+2^-7 (kernel 1) and 1e-2 (kernel 10) of the largest value. The f32
+instances and the split decoder are held in
+``test_torch_port_f32_kernels.py``. The shared GEMM's int8 products are held exactly against a float64
 product of the int8 values (an int32 sum is exact in any order) followed
 by the same f32 epilogue; the Swin chain's attention launch alone within
 1e-2.
@@ -129,34 +134,37 @@ def test_canvas_kernel(dev, mode):
 
 
 def test_pfn_and_canvas_kernels_take_only_bf16(dev):
+    """The bf16 and f32 instances are the only ones: other dtypes raise
+    (the f32 instances are held in ``test_torch_port_f32_kernels.py``)."""
     ps = _stream(dev, seed=7)
-    wts = [(w.float(), g, b) for (w, g, b) in _pfn_weights(dev)]
-    with pytest.raises(ValueError, match="bf16"):
-        kpfn.pfn(ps, wts, max_points_per_pillar=32, out_dtype=torch.float32,
+    wts = [(w.half(), g, b) for (w, g, b) in _pfn_weights(dev)]
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kpfn.pfn(ps, wts, max_points_per_pillar=32, out_dtype=torch.float16,
                  **_pfn_kw())
-    table = torch.zeros(ps.cells.shape + (128,), device=dev)
+    table = torch.zeros(ps.cells.shape + (128,), device=dev,
+                        dtype=torch.float16)
     ones = torch.ones(2, device=dev)
     affine = torch.ones(128, device=dev)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="bf16 or f32"):
         kcanvas.canvas_norm(table, ps.cells, ps.num_pillars, ones, ones,
                             affine, affine, (H, W))
 
 
-def _block_weights(dev, c, heads, win, quant, seed):
+def _block_weights(dev, c, heads, win, quant, seed, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
 
     def lin(n_out, n_in):
         w = (torch.randn(n_out, n_in, generator=g) / n_in ** 0.5)
-        return kswin.make_dense(w.to(dev, torch.bfloat16),
+        return kswin.make_dense(w.to(dev, dtype),
                                 0.02 * torch.randn(n_out, generator=g).to(dev),
                                 quant)
 
     def ln():
-        return ((1 + 0.1 * torch.randn(c, generator=g)).to(dev, torch.bfloat16),
-                (0.1 * torch.randn(c, generator=g)).to(dev, torch.bfloat16))
+        return ((1 + 0.1 * torch.randn(c, generator=g)).to(dev, dtype),
+                (0.1 * torch.randn(c, generator=g)).to(dev, dtype))
 
     table = (0.02 * torch.randn((2 * win - 1) ** 2, heads, generator=g)).to(
-        dev, torch.bfloat16)
+        dev, dtype)
     l1, l2 = ln(), ln()
     return kswin.BlockWeights(
         *l1, lin(3 * c, c), lin(c, c), *l2, lin(4 * c, c), lin(c, 4 * c),
@@ -235,23 +243,17 @@ def test_gemm_kernel(dev, quant, mode, m, n, k):
         assert _rel(got, want) <= 2 ** -7
 
 
-@pytest.mark.parametrize("c,heads,f,hws", [
-    (256, 8, 2048, [(4, 4), (8, 8), (16, 15)]),
-    # the flagship's levels: T up to 3969
-    (256, 8, 2048, [(16, 16), (32, 32), (63, 63)]),
-    # widths the kernel's C = 256 build does not take: C read at run time
-    (128, 4, 512, [(8, 8), (16, 16), (32, 31)]),
-    (256, 4, 1024, [(8, 8), (16, 16), (32, 31)]),  # head width 64
-], ids=["small", "flagship", "c128", "hd64"])
-def test_decoder_stack_kernel(dev, c, heads, f, hws):
-    b, q, n_layers = 2, 45, 9
-    g = torch.Generator().manual_seed(6)
+def _decoder_inputs(dev, dtype, q, c, heads, f, hws, b=2, n_layers=9,
+                    seed=6):
+    """The decoder stack's inputs at these widths, random from ``seed``:
+    (out0, emb0, qpos, mems, pes, feats, layers, head)."""
+    g = torch.Generator().manual_seed(seed)
 
     def r(*s, scale=1.0):
         return scale * torch.randn(*s, generator=g)
 
     def mat(i, o):
-        return r(i, o, scale=i ** -0.5).to(dev, torch.bfloat16)
+        return r(i, o, scale=i ** -0.5).to(dev, dtype)
 
     def vec(n, base=0.0):
         return (base + r(n, scale=0.05)).to(dev)
@@ -264,13 +266,26 @@ def test_decoder_stack_kernel(dev, c, heads, f, hws):
         for _ in range(n_layers)]
     head = kdec.HeadWeights(vec(c, 1.0), vec(c), mat(c, c), vec(c),
                             mat(c, c), vec(c), mat(c, c), vec(c))
-    bf = torch.bfloat16
-    out0 = r(b, q, c).to(dev, bf)
-    emb0 = r(b, q, c).to(dev, bf)
-    qpos = r(q, c).to(dev, bf)
-    mems = [r(b, h * w, c).to(dev, bf) for (h, w) in hws]
-    pes = [r(h * w, c).to(dev, bf) for (h, w) in hws]
+    out0 = r(b, q, c).to(dev, dtype)
+    emb0 = r(b, q, c).to(dev, dtype)
+    qpos = r(q, c).to(dev, dtype)
+    mems = [r(b, h * w, c).to(dev, dtype) for (h, w) in hws]
+    pes = [r(h * w, c).to(dev, dtype) for (h, w) in hws]
     feats = [r(b, h * w, c).to(dev) for (h, w) in hws]
+    return out0, emb0, qpos, mems, pes, feats, layers, head
+
+
+@pytest.mark.parametrize("c,heads,f,hws", [
+    (256, 8, 2048, [(4, 4), (8, 8), (16, 15)]),
+    # the flagship's levels: T up to 3969
+    (256, 8, 2048, [(16, 16), (32, 32), (63, 63)]),
+    # widths the kernel's C = 256 build does not take: C read at run time
+    (128, 4, 512, [(8, 8), (16, 16), (32, 31)]),
+    (256, 4, 1024, [(8, 8), (16, 16), (32, 31)]),  # head width 64
+], ids=["small", "flagship", "c128", "hd64"])
+def test_decoder_stack_kernel(dev, c, heads, f, hws):
+    (out0, emb0, qpos, mems, pes, feats, layers, head) = _decoder_inputs(
+        dev, torch.bfloat16, 45, c, heads, f, hws)
     got, bits = kdec.decoder_stack(out0, emb0, qpos, mems, pes, feats,
                                    layers, head, num_heads=heads,
                                    return_bits=True)
@@ -432,8 +447,8 @@ def test_window_msa_kernel(dev, shifted, c, heads, hw):
     torch.cuda.synchronize()
     assert kb.LAUNCHES["window_msa"] == 3
     assert _rel(got, want) <= 2e-2
-    with pytest.raises(ValueError, match="bf16"):
-        kwmsa.window_msa(xw.float(), p.rel_bias, mask, p.qkv, p.proj, heads)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kwmsa.window_msa(xw.half(), p.rel_bias, mask, p.qkv, p.proj, heads)
 
 
 @pytest.mark.parametrize("b,h,w,c,e", [(2, 64, 48, 128, 192),
@@ -453,8 +468,8 @@ def test_patch_embed_kernel(dev, b, h, w, c, e):
     assert kb.LAUNCHES["patch_embed"] == 1
     assert got.shape == (b, (h // 4) * (w // 4), e)
     assert _rel(got, want) <= 1e-2
-    with pytest.raises(ValueError, match="bf16"):
-        kpe.patch_embed(canvas.float(), wm, *vecs, 4)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kpe.patch_embed(canvas.half(), wm, *vecs, 4)
 
 
 @pytest.mark.parametrize("c", [192, 384, 768, 1536])
@@ -469,8 +484,8 @@ def test_layer_norm_kernel(dev, c):
     torch.cuda.synchronize()
     assert kb.LAUNCHES["layer_norm"] == 1 and got.dtype == torch.bfloat16
     assert _rel(got, want) <= 1e-2
-    with pytest.raises(ValueError, match="bf16"):
-        kln.layer_norm(x.float(), w, b)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kln.layer_norm(x.half(), w, b)
 
 
 @pytest.mark.parametrize("cap", [256, 8192])
@@ -499,6 +514,6 @@ def test_stream_pfn_kernel(dev, cap):
     assert _rel(table, want) <= 1e-2
     np.testing.assert_allclose(stats.cpu().numpy(), wstats.cpu().numpy(),
                                rtol=1e-3)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="weights' dtype"):
         kpfn.stream_pfn(sp._replace(pts=sp.pts.float()), wts, num_valid=nv,
                         **kw)
