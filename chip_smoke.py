@@ -34,9 +34,13 @@
 5c. phase F: ``semantic_kitti_default()`` as shipped (f32, int8 backbone)
    and phase W: ``waymo_default()`` as shipped (f32, 170 queries on the
    decoder's split instance, 3 point columns), each like step 2-4: kernels
-   1-5 captured and held in f32 (the decoder with its flip counters), 3
-   warm and 5 timed requests whose instance counters must show the f32
-   instances, one traced request;
+   1-5 captured and held in f32 (the decoder with its flip counters and
+   its time by part, ``split_breakdown``), 3 warm and 5 timed requests
+   whose instance counters must show the f32 instances (the 3xTF32 GEMM,
+   the tensor-core split decoder) and no removed design, one traced
+   request; phase W also holds the 3xTF32 GEMM alone at a stage-0 and a
+   stage-3 fc1 product against a float64 product and times
+   ``torch.addmm`` in full f32 beside it (``gemm_yardstick``);
 6. drives the training step (``train_step``) at the training envelope of
    the JAX bench: the same configuration with ``max_num_pillars=32768``, a
    bf16 forward over f32 master weights, batch 4, AdamW, synthetic scans of
@@ -71,7 +75,14 @@ TRAIN_BATCH = 4
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 PATH_WARM, PATH_TIMED = 3, 5
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# f32 products on the tensor cores as 3xTF32 (three TF32 products a
+# multiply-add) take 3 x ops / 495 TFLOP/s: a third of the TF32 rate
+PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
+        "tf32x3": 495e12 / 3}
+# instances of designs that later slices removed: no path may launch them
+REMOVED = ("swin_block/gemm_f32", "window_msa/gemm_f32",
+           "decoder_stack/gemm_f32", "decoder_stack/split_f32",
+           "decoder_stack/split_bf16")
 
 
 def fail(msg: str) -> None:
@@ -259,6 +270,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     f32 = cfg.compute_dtype == "float32"
     esz = 4 if f32 else 2
     work = "f32" if f32 else "bf16"  # the products' type, off the int8 GEMM
+    prod = "tf32x3" if f32 else "bf16"  # the tensor cores' route for them
     t0 = time.time()
     sd = MaskBev(cfg).random_state_dict(SEED + (0 if main_path else 20))
     pred = MaskBevPredictor(cfg, sd, device="cuda")
@@ -365,7 +377,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         del got, want
 
         # ---- kernels 3/4: Swin block (all blocks of the backbone) --------
-        err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes = (0.0,) * 6
+        err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes, fma_ops = (0.0,) * 7
         quant = False
         for (x, p, hw, win, heads, shift, quant) in captured_blocks:
             a = (x, p, hw, win, heads, shift, quant)
@@ -380,8 +392,10 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
             hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
             gemm_ops = 2.0 * b_ * l_ * 12 * c_ * c_
             attn_ops = 4.0 * b_ * hp * wp * win * win * c_
-            b_ops += (gemm_ops / PEAK["int8" if quant else work]
+            b_ops += (gemm_ops / PEAK["int8" if quant else prod]
                       + attn_ops / PEAK[work])
+            fma_ops += gemm_ops / PEAK["int8" if quant else work] + (
+                attn_ops / PEAK[work])
             b_bytes += (2 * b_ * l_ * c_ * esz
                         + 12 * c_ * c_ * (1 if quant else esz))
         # int8: rounding boundaries move by a step between two LayerNorms
@@ -391,8 +405,34 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         rec("swin_block", err_abs, float("nan"), ms_k, ms_p,
             bound(b_bytes, b_ops),
             f"largest error relative to its block's max-abs {err_rel:.4g} "
-            f"(tolerance {blk_tol}); {len(captured_blocks)} blocks summed",
+            f"(tolerance {blk_tol}); {len(captured_blocks)} blocks summed; "
+            f"bound with every product as f32 FMAs "
+            f"{bound(b_bytes, fma_ops)[0]:.4f} ms",
             ok=err_rel <= blk_tol)
+        if f32 and not quant:
+            # the f32 GEMM alone, against torch.addmm in full f32, at a
+            # stage-0 and a stage-3 fc1 product of the captured blocks
+            shapes = []
+            for label_s, blk in (("stage-0 fc1", captured_blocks[0]),
+                                 ("stage-3 fc1", captured_blocks[-1])):
+                xb, pb = blk[0], blk[1]
+                shapes.append((label_s, xb.reshape(-1, xb.shape[-1]),
+                               pb.fc1))
+            g_err, g_ms, g_lib, g_ops = gemm_yardstick(torch, kswin, shapes,
+                                                       card)
+            g_plain = sum(cuda_ms(torch, lambda a=a_, d=d_: kswin.dense(
+                a, d, False), 5) for _, a_, d_ in shapes)
+            g_bytes = sum(4.0 * (a_.numel() + 3 * d_.wt.numel()
+                                 + a_.shape[0] * d_.wt.shape[0])
+                          for _, a_, d_ in shapes)
+            record("gemm_f32_3xtf32", "mask_bev_tpu_torch/csrc/gemm.cuh",
+                   "mask_bev_tpu/ops/pallas_swin_block.py:208", g_err, 1e-5,
+                   g_ms, g_plain, bound(g_bytes, g_ops / PEAK["tf32x3"]),
+                   f"stage-0 and stage-3 fc1 products summed, error "
+                   f"relative to a float64 product; bound as f32 FMAs "
+                   f"{bound(g_bytes, g_ops / PEAK['f32'])[0]:.4f} ms",
+                   library_ms=g_lib)
+            del shapes
         if main_path:
             swin_parts(torch, kswin, captured_blocks, card)
 
@@ -445,13 +485,16 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
                 + BATCH * q_ * c_ * esz)
         if main_path:
             decoder_clusters(kb, kdec, dargs, card)
+        if f32:
+            split_breakdown(torch, kdec, dargs, dkw, card, label)
         rec("decoder_stack", err, 5e-2 * scale, ms_k, ms_p,
-            bound(byts, ops / PEAK[work]),
+            bound(byts, ops / PEAK[prod]),
             f"instance {instance}, Q={q_}; bias entries that differ: "
             f"{sum(flips)} of {total}, per layer {flips} (tolerance 5 % a "
             f"layer), on the kernel's own decisions {own} (tolerance 1 % a "
             f"layer); max_abs_err on the kernel's own blocked positions "
-            f"{err_same:.6g} (tolerance {same_tol:.6g})")
+            f"{err_same:.6g} (tolerance {same_tol:.6g}); bound as "
+            f"{work} FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms")
     del captured_blocks, captured_dec, table, ps, dargs, out_k, out_p, same
 
     # ---- serve requests through the predictor -----------------------------
@@ -489,12 +532,24 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
             failures.append(f"{k} never launched on [{label}]")
     if f32:
         need = ["pfn/f32", "canvas_norm/f32", "swin_block/f32",
-                "decoder_stack/split_f32",
-                "swin_block/gemm_s8_f32" if quant else "swin_block/gemm_f32"]
+                "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
+                "swin_block/gemm_s8_f32" if quant
+                else "swin_block/gemm_f32_3xtf32"]
         missing = [k for k in need if instances.get(k, 0) <= 0]
         if missing:
             failures.append(f"[{label}] f32 instances never launched: "
                             f"{missing}")
+        if "gemm_f32_3xtf32" in results:
+            results["gemm_f32_3xtf32"]["launches"] = sum(
+                v for k, v in instances.items()
+                if k.endswith("/gemm_f32_3xtf32"))
+        print(f"[{label}] TF32 halves of the f32 weights (the 3xTF32 GEMM's "
+              f"operands, beside the f32 weights): "
+              f"{tf32_halves_mib(model):.1f} MiB on the device [{card}]",
+              flush=True)
+    removed = [k for k in instances if k in REMOVED]
+    if removed:
+        failures.append(f"[{label}] removed designs launched: {removed}")
     hg, wg = cfg.grid_hw
     exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
     exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)
@@ -573,6 +628,81 @@ def swin_parts(torch, kswin, blocks, card) -> None:
               f"int32 {lib:.4f} ms; the port's GEMM with its dequantise + "
               f"bias + GELU epilogue and bf16 output {own:.4f} ms [{card}]",
               flush=True)
+
+
+def gemm_yardstick(torch, kswin, shapes, card):
+    """The f32 GEMM (3xTF32 on the tensor cores) against ``torch.addmm`` in
+    full f32 (TF32 off: cuBLAS SGEMM) on the same operands, per (label, a,
+    Dense) in ``shapes``: ``x @ wt^T + bias``, the error relative to a
+    float64 product (tolerance 1e-5 of the largest value, as
+    ``test_gemm_f32``). Returns (worst relative error, kernel ms, addmm ms,
+    ops) summed over the shapes."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    err, ms_k, ms_l, ops = 0.0, 0.0, 0.0, 0.0
+    for label, a, d in shapes:
+        m, k = a.shape
+        n = d.wt.shape[0]
+        got = kswin.gemm("swin_block", a, d, kswin.EPI_BIAS)
+        ref = (a.double() @ d.wt.double().t() + d.bias.double()).float()
+        e = float((got - ref).abs().max() / ref.abs().max())
+        own = cuda_ms(torch, lambda: kswin.gemm("swin_block", a, d,
+                                                kswin.EPI_BIAS), 10)
+        lib = cuda_ms(torch, lambda: torch.addmm(d.bias, a, d.wt.t()), 10)
+        flop = 2.0 * m * n * k
+        print(f"[gemm f32] {label} ({m} x {k}) . ({k} x {n}): 3xTF32 GEMM "
+              f"{own:.4f} ms ({flop / own / 1e9:.1f} TFLOP/s), torch.addmm "
+              f"f32 {lib:.4f} ms ({flop / lib / 1e9:.1f} TFLOP/s); error "
+              f"relative to a float64 product {e:.3g} (tolerance 1e-5) "
+              f"[{card}]", flush=True)
+        err, ms_k, ms_l, ops = max(err, e), ms_k + own, ms_l + lib, ops + flop
+        del got, ref
+    return err, ms_k, ms_l, ops
+
+
+def split_breakdown(torch, kdec, dargs, dkw, card, label, reps=3):
+    """Where the decoder's split instance spends its time, per part of a
+    layer (``kdec.SPLIT_PARTS``): each block adds the ns of %globaltimer
+    between the part's boundaries, summed over the layers; printed as the
+    mean over the blocks of ``reps`` runs, in ms and as a share."""
+    b = dargs[0].shape[0]
+    prof = torch.zeros((b * kdec.CLUSTER, len(kdec.SPLIT_PARTS)),
+                       dtype=torch.int64, device="cuda")
+    kdec.decoder_stack(*dargs, **dkw)
+    for _ in range(reps):
+        kdec.decoder_stack(*dargs, **dkw, profile=prof)
+    torch.cuda.synchronize()
+    ns = prof.double().mean(0) / reps
+    total = float(ns.sum())
+    parts = ", ".join(f"{name} {float(v) / 1e6:.4f} ms "
+                      f"({100 * float(v) / total:.1f} %)"
+                      for name, v in zip(kdec.SPLIT_PARTS, ns))
+    print(f"[{label}] split decoder by part, Q={dargs[0].shape[1]}, mean "
+          f"of the {b * kdec.CLUSTER} blocks: {parts}; all layers "
+          f"{total / 1e6:.4f} ms [{card}]", flush=True)
+    return ns
+
+
+def tf32_halves_mib(model) -> float:
+    """Device memory of the TF32 halves (``Dense.hi``, ``Dense.lo``) that the
+    model's prepared f32 dense layers hold beside their f32 weights: the
+    Swin blocks' four products and the decoder's k/v projections."""
+    total = 0
+    for mod in model.modules():
+        packed = getattr(mod, "_packed", None)
+        if packed is None:
+            continue
+        if hasattr(packed, "qkv"):  # a Swin block's BlockWeights
+            denses = [packed.qkv, packed.proj, packed.fc1, packed.fc2]
+        elif (isinstance(packed, tuple) and len(packed) == 3
+              and isinstance(packed[2], tuple)):  # the decoder's
+            denses = [d for pair in packed[2][1] for d in pair]
+        else:
+            continue
+        for d in denses:
+            for t in (d.hi, d.lo):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+    return total / 2 ** 20
 
 
 def decoder_clusters(kb, kdec, dargs, card) -> None:
@@ -680,7 +810,7 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     with torch.no_grad():
         if path == "K":
             # ---- kernel 7: window MSA, all blocks --------------------------
-            err_abs = err_rel = ms_k = ms_p = ops = byts = 0.0
+            err_abs = err_rel = ms_k = ms_p = ops = byts = g_ops = 0.0
             for (a, kw) in cap["window_msa"]:
                 got = kwmsa.window_msa(*a, **kw)
                 want = kwmsa.window_msa_plain(*a, **kw)
@@ -694,13 +824,16 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                 b_, nw_, n_, c_ = xw.shape
                 tokens = b_ * nw_ * n_
                 ops += 2.0 * tokens * (4 * c_ * c_ + 2 * n_ * c_)
+                g_ops += 2.0 * tokens * 4 * c_ * c_
                 byts += 2 * tokens * c_ * esz + 4 * c_ * c_ * esz
             # bf16: both sides round qkv, probabilities and heads to bf16;
             # f32: the same f32 operations in another order
             tol = 1e-3 if f32 else 2e-2
             record("window_msa" + sfx, "mask_bev_tpu_torch/csrc/window_msa.cu",
                    "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
-                   float("nan"), ms_k, ms_p, bound(byts, ops / PEAK[work]),
+                   float("nan"), ms_k, ms_p,
+                   bound(byts, g_ops / PEAK["tf32x3" if f32 else work]
+                         + (ops - g_ops) / PEAK[work]),
                    f"largest error relative to its block's max-abs "
                    f"{err_rel:.4g} (tolerance {tol}); "
                    f"{len(cap['window_msa'])} blocks summed",
@@ -819,6 +952,16 @@ def path_phase(np, torch, card, results, failures, record, path: str,
         if f32 and not any(i.startswith(k + "/") and "f32" in i
                            for i in instances):
             failures.append(f"{k}: no f32 instance launched on {label}")
+    if f32:
+        need = ["decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32"]
+        if path == "K":
+            need.append("window_msa/gemm_f32_3xtf32")
+        missing = [k for k in need if instances.get(k, 0) <= 0]
+        if missing:
+            failures.append(f"{label}: instances never launched: {missing}")
+    removed = [k for k in instances if k in REMOVED]
+    if removed:
+        failures.append(f"{label}: removed designs launched: {removed}")
     hg, wg = cfg.grid_hw
     exp_cls = (BATCH, cfg.num_queries, cfg.head_num_classes + 1)
     exp_mask = (BATCH, cfg.num_queries, hg // 4, wg // 4)

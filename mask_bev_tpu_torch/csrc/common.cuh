@@ -65,6 +65,44 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// TF32 (m16n8k8, f32 accumulation). Lane (g, t): A (16 x 8): a0 = (g, t),
+// a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4); B (8 x 8, k x
+// n): b0 = (t, g), b1 = (t + 4, g); C as for m16n8k16.
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo to within 2^-22 |x|, both TF32 values (the low 13 bits of
+// the f32 word zero): hi = rna(x), lo = rna(x - hi), rounded to nearest,
+// ties away from zero, as the tensor core would otherwise truncate. The
+// three products hi.hi + hi.lo + lo.hi ("3xTF32") then carry an f32
+// product to within a few f32 roundings. lo is 0 where hi is not finite,
+// so infinities pass through (and NaN stays NaN in hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float h = __uint_as_float(hi);
+  const float r = __fsub_rn(x, h);
+  uint32_t l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(r));
+  lo = isfinite(h) ? l : 0u;
+}
+
+// split_tf32 for values known to be finite (no infinity check)
+__device__ __forceinline__ void split_tf32_finite(float x, uint32_t& hi,
+                                                  uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;"
+      : "=r"(lo)
+      : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
 // four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -126,6 +164,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {

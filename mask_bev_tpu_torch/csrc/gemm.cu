@@ -28,22 +28,24 @@ static EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// 2D map of a row-major (rows, k) matrix, box (box_rows, 128 bytes of k),
-// 128-byte swizzle; reads outside the matrix fill zeros
-static int encode(CUtensorMap* map, const void* base, bool s8, int k,
+// 2D map of a row-major (rows, k) matrix of elements of ``esz`` bytes
+// (1: int8, 2: bf16, 4: f32), box (box_rows, 128 bytes of k), 128-byte
+// swizzle; reads outside the matrix fill zeros
+static int encode(CUtensorMap* map, const void* base, int esz, int k,
                   int rows, int box_rows) {
   EncodeTiledFn fn = encode_fn();
   if (!fn) return MB_TMAP_FAILED;
-  const int esz = s8 ? 1 : 2;
   cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)k * esz};
   cuuint32_t box[2] = {(cuuint32_t)(mbgemm::BKB / esz), (cuuint32_t)box_rows};
   cuuint32_t estr[2] = {1, 1};
-  CUresult r = fn(map,
-                  s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  2, const_cast<void*>(base), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType dt =
+      esz == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+               : esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUresult r = fn(map, dt, 2, const_cast<void*>(base), dims, strides, box,
+                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MB_TMAP_FAILED + (int)r;
@@ -59,41 +61,50 @@ static int num_sms() {
   return n;
 }
 
-template <bool S8, typename OT>
+// Bt2: the weight's lo half for 3xTF32 (Bt its hi half), else unused
+template <int OP, typename OT>
 static int launch_gemm(const void* A, const float* sx, const void* Bt,
-                       const float* sw, const float* bias,
+                       const void* Bt2, const float* sw, const float* bias,
                        const OT* residual, OT* out, int M, int N, int K,
                        int mode, cudaStream_t stream) {
+  using namespace mbgemm;
   if (M <= 0 || K <= 0 || K % 16 || N % 8 ||
-      ((mode & 15) == 2 && residual == nullptr))
+      ((mode & 15) == 2 && residual == nullptr) ||
+      (OP == OP_TF32X3 && Bt2 == nullptr))
     return MB_BAD_ARGS;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        mbgemm::gemm_kernel<S8, OT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mbgemm::SMEM);
+        gemm_kernel<OP, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<OP>());
     if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
     attr_set = true;
   }
-  CUtensorMap ta, tb;
-  int rc = encode(&ta, A, S8, K, M, mbgemm::BM);
+  const int esz = elem_bytes<OP>();
+  CUtensorMap ta, tb, tb2;
+  int rc = encode(&ta, A, esz, K, M, BM);
   if (rc) return rc;
-  rc = encode(&tb, Bt, S8, K, N, mbgemm::BN);
+  rc = encode(&tb, Bt, esz, K, N, BN);
   if (rc) return rc;
-  const int tiles = ceil_div(M, mbgemm::BM) * ceil_div(N, mbgemm::BN);
-  const int grid = tiles < 2 * num_sms() ? tiles : 2 * num_sms();
-  mbgemm::gemm_kernel<S8, OT>
-      <<<grid, mbgemm::THREADS, mbgemm::SMEM, stream>>>(
-      ta, tb, sx, sw, bias, residual, out, M, N, K, mode);
+  tb2 = tb;
+  if (OP == OP_TF32X3) {
+    rc = encode(&tb2, Bt2, esz, K, N, BN);
+    if (rc) return rc;
+  }
+  const int tiles = ceil_div(M, BM) * ceil_div(N, BN);
+  const int slots = blocks_per_sm<OP>() * num_sms();
+  const int grid = tiles < slots ? tiles : slots;
+  gemm_kernel<OP, OT><<<grid, threads<OP>(), smem_bytes<OP>(), stream>>>(
+      ta, tb, tb2, sx, sw, bias, residual, out, M, N, K, mode);
   return (int)cudaGetLastError();
 }
 
 MB_EXPORT int gemm_bf16(const bf16* A, const bf16* Bt, const float* bias,
                         const bf16* residual, bf16* out, int M, int N, int K,
                         int mode, cudaStream_t stream) {
-  return launch_gemm<false, bf16>(A, nullptr, Bt, nullptr, bias, residual,
-                                  out, M, N, K, mode, stream);
+  return launch_gemm<mbgemm::OP_BF16, bf16>(A, nullptr, Bt, nullptr, nullptr,
+                                            bias, residual, out, M, N, K,
+                                            mode, stream);
 }
 
 // out_f32: nonzero for the f32 instance (f32 residual and output)
@@ -103,20 +114,21 @@ MB_EXPORT int gemm_s8(const signed char* A, const float* sx,
                       int M, int N, int K, int mode, int out_f32,
                       cudaStream_t stream) {
   if (out_f32)
-    return launch_gemm<true, float>(A, sx, Bt, sw, bias,
-                                    (const float*)residual, (float*)out, M,
-                                    N, K, mode, stream);
-  return launch_gemm<true, bf16>(A, sx, Bt, sw, bias, (const bf16*)residual,
-                                 (bf16*)out, M, N, K, mode, stream);
+    return launch_gemm<mbgemm::OP_S8, float>(
+        A, sx, Bt, nullptr, sw, bias, (const float*)residual, (float*)out, M,
+        N, K, mode, stream);
+  return launch_gemm<mbgemm::OP_S8, bf16>(A, sx, Bt, nullptr, sw, bias,
+                                          (const bf16*)residual, (bf16*)out,
+                                          M, N, K, mode, stream);
 }
 
-MB_EXPORT int gemm_f32(const float* A, const float* Bt, const float* bias,
-                       const float* residual, float* out, int M, int N,
-                       int K, int mode, cudaStream_t stream) {
-  if (M <= 0 || K <= 0 || K % 4 || ((mode & 15) == 2 && residual == nullptr))
-    return MB_BAD_ARGS;
-  dim3 grid(ceil_div(N, mbgemm::F_BN), ceil_div(M, mbgemm::F_BM));
-  mbgemm::gemm_f32_kernel<<<grid, mbgemm::F_THREADS, 0, stream>>>(
-      A, Bt, bias, residual, out, M, N, K, mode);
-  return (int)cudaGetLastError();
+// f32 operands as 3xTF32: Bt_hi, Bt_lo the weight's split (ops/swin_block.py
+// ::split_tf32), A plain f32
+MB_EXPORT int gemm_f32_3xtf32(const float* A, const float* Bt_hi,
+                              const float* Bt_lo, const float* bias,
+                              const float* residual, float* out, int M,
+                              int N, int K, int mode, cudaStream_t stream) {
+  return launch_gemm<mbgemm::OP_TF32X3, float>(A, nullptr, Bt_hi, Bt_lo,
+                                               nullptr, bias, residual, out,
+                                               M, N, K, mode, stream);
 }

@@ -1,33 +1,59 @@
 // Persistent warp-specialised GEMM with fused epilogues for Hopper, shared
 // by the Swin block chain (kernels 3/4), the decoder stack's k/v
-// projections (kernel 5) and window MSA (kernel 7).
+// projections (kernel 5) and window MSA (kernel 7). Replaces the products
+// of mask_bev_tpu/ops/pallas_swin_block.py::fused_swin_block (:208) and
+// ::fused_swin_block_col (:584) and of pallas_window_msa.py::
+// fused_window_msa (:71).
 //
-// out[M, N] (bf16, or f32 for int8 operands) = epilogue(A[M, K] .
-// Bt[N, K]^T), N a multiple of 8, K a multiple of 16. A and Bt are both K-contiguous (Bt is a torch Linear
-// weight), as wgmma requires for 8-bit operands: bf16 (f32 accumulation,
-// wgmma m64n96k16) or int8 (int32 accumulation, wgmma m64n96k32, then
-// dequantised with a per-row activation scale and a per-column weight
-// scale).
+// out[M, N] (bf16, or f32 for int8 and f32 operands) = epilogue(A[M, K] .
+// Bt[N, K]^T), N a multiple of 8, K a multiple of 16. A and Bt are both
+// K-contiguous (Bt is a torch Linear weight), as wgmma requires for 8-bit
+// and 32-bit operands. Three operand kinds:
+//   * bf16: f32 accumulation, wgmma m64n96k16;
+//   * int8: int32 accumulation, wgmma m64n96k32, then dequantised with a
+//     per-row activation scale and a per-column weight scale;
+//   * f32 as 3xTF32: each operand x is split into hi = tf32_rna(x) and lo =
+//     tf32_rna(x - hi) (common.cuh::split_tf32), and the tile accumulates
+//     lo.hi + hi.lo + hi.hi in f32 with wgmma m64n96k8 .tf32 (lo.lo, below
+//     2^-22 of the product, is dropped): an f32 product to within a few f32
+//     roundings (~1e-6 relative), where one TF32 pass keeps ~3 digits. The
+//     weight is split once, when the layer is prepared (ops/swin_block.py::
+//     make_dense: Bt_hi, Bt_lo), and both halves arrive by TMA; the A tile
+//     arrives by TMA in f32 and each consumer thread splits its own
+//     fragment in registers (wgmma takes A from registers), so A is read
+//     from device memory once, in f32.
 //
 // What bounds it on the H100: bytes at the Swin backbone's stage 0 (M =
 // 125,000 tokens of C = 192: the four products of a block move ~26 C bytes
 // a token and do 24 C^2 operations, well under the int8 ridge), operations
 // at stages 2-3; and, in practice, the epilogue's instructions: each output
 // takes ~15 f32 operations, ~35 with the exact erf GELU, so the fc1
-// products are bound by instruction issue. The first version staged 64-byte
-// K slices through registers with WMMA 16x16x16 fragments and a per-warp
-// shared-memory epilogue, and never reached a steady pipeline at K = 192.
-// This design:
+// products are bound by instruction issue. f32 operands: 3 TF32 products a
+// multiply-add, so the bound is 3 x ops / 495 TFLOP/s; the f32 tiles and
+// the two weight halves make a stage 40 KB, and with 128 x 96 tiles the L2
+// must deliver ~1.3 KB per k for 37k multiply-adds. The tensor cores' f32
+// accumulation truncates, which at K = 1536 cost 1.3e-5 relative when all
+// 3 K / 8 products went into one accumulator: each 32-deep stage's partial
+// is added into f32 registers with rounding to nearest instead, which
+// doubles the accumulator registers. The first f32 version ran on the
+// CUDA cores (128 x 64 SIMT tiles, ~36 of their 67 TFLOP/s). The first
+// bf16/int8 version staged 64-byte K slices through registers with WMMA
+// 16x16x16 fragments and a per-warp shared-memory epilogue, and never
+// reached a steady pipeline at K = 192. This design:
 //   * a persistent grid of two blocks per SM walks 128 x 96 output tiles
 //     in row-major tile order, so the blocks in flight share A rows in L2;
 //     two blocks of 8 consumer warps each give the epilogue 16 warps an SM;
-//   * one producer warp keeps a ring of STAGES tiles in flight with TMA
+//     3xTF32 runs one block an SM, 4 stages deep, and gives its producer a
+//     whole warpgroup so that setmaxnreg moves the producer's registers to
+//     the consumers (40 and 232 a thread);
+//   * one producer warp keeps a ring of stages in flight with TMA
 //     (128-byte swizzle, mbarrier completion), across tile boundaries, so
 //     one tile's epilogue overlaps the next tile's loads;
 //   * two consumer warpgroups each take 64 rows of the tile and run wgmma
-//     from shared memory (both operands K-major), releasing each stage as
-//     soon as its products complete; k-steps wholly in the zero-filled K
-//     tail are skipped;
+//     (both operands K-major; A from shared memory, or from registers for
+//     3xTF32, where the next stage's A is read and split while this
+//     stage's wgmmas run), releasing each stage as soon as its products
+//     complete; k-steps wholly in the zero-filled K tail are skipped;
 //   * the epilogue runs from the accumulator registers: a 4x4 transpose of
 //     2-column pairs inside each lane quad gives every lane 8 consecutive
 //     columns, finished with the same f32 operations in the same order as
@@ -42,13 +68,8 @@
 //   +16 round acc     bf16-round the raw product before the bias (XLA's
 //                     order for ``x @ kernel + bias`` in bf16)
 // int8: v = acc * sx[row] * sw[col] + bias, as int8_sim_dense computes it.
-// The output type OT (bf16 or f32) is the model's: the f32 instance of the
-// int8 products rounds nothing (residual, GELU and output in f32).
-//
-// gemm_f32_kernel (below) is the f32 instance for f32 operands: the same
-// epilogue modes on products taken as f32 FMAs (no operand is rounded, as
-// XLA computes an f32 dense layer on the CPU), a plain tiled kernel on the
-// CUDA cores (128 x 64 tiles, 8 x 4 outputs a thread).
+// The output type OT (bf16 or f32) is the model's: the f32 instances round
+// nothing (residual, GELU and output in f32).
 #pragma once
 
 #include <cuda.h>
@@ -57,16 +78,50 @@
 
 namespace mbgemm {
 
+// operand kinds
+enum { OP_BF16 = 0, OP_S8 = 1, OP_TF32X3 = 2 };
+
 constexpr int BM = 128, BN = 96;
 constexpr int BKB = 128;  // bytes of K per stage: one 128-byte swizzle row
-constexpr int STAGES = 3;
 constexpr int CONSUMERS = 2;  // warpgroups of 64 rows each
 constexpr int THREADS = 128 * CONSUMERS + 32;  // + one producer warp
 constexpr int A_BYTES = BM * BKB, B_BYTES = BN * BKB;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int ACC = BN / 2;  // accumulator registers a thread (m64n96)
+// a stage: the A tile and one B tile (two for 3xTF32: hi, lo), each
+// 1024-byte aligned; 3 stages keep two blocks an SM within its shared
+// memory. 3xTF32 runs one block an SM (its f32 partial sums double the
+// accumulator registers) with 4 stages of 40 KB.
+template <int OP>
+__host__ __device__ constexpr int b_tiles() {
+  return OP == OP_TF32X3 ? 2 : 1;
+}
+template <int OP>
+__host__ __device__ constexpr int stages() {
+  return OP == OP_TF32X3 ? 4 : 3;
+}
+template <int OP>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return OP == OP_TF32X3 ? 1 : 2;
+}
+// threads a block: 3xTF32 gives the producer a whole warpgroup, so that
+// setmaxnreg can move its registers to the consumers (40 and 232 a thread)
+template <int OP>
+__host__ __device__ constexpr int threads() {
+  return OP == OP_TF32X3 ? 128 * CONSUMERS + 128 : THREADS;
+}
+template <int OP>
+__host__ __device__ constexpr int stage_bytes() {
+  return A_BYTES + b_tiles<OP>() * B_BYTES;
+}
 // dynamic shared memory: the ring, 1024-byte alignment slack, barriers
-constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+template <int OP>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<OP>() * stage_bytes<OP>() + 1024 + 2 * stages<OP>() * 8;
+}
+template <int OP>
+__host__ __device__ constexpr int elem_bytes() {
+  return OP == OP_S8 ? 1 : OP == OP_BF16 ? 2 : 4;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -158,6 +213,19 @@ __device__ __forceinline__ void wgmma_96(uint32_t (&d)[ACC], uint64_t da,
         : "l"(da), "l"(db), "r"(acc));
   }
 }
+// d (+)= A[64 x 8] . B[96 x 8]^T in TF32: A from registers (the m16n8k8
+// fragment of this warp's 16 rows: (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4)), B K-major from shared memory; ``acc`` 0 overwrites d
+__device__ __forceinline__ void wgmma_96_tf32(uint32_t (&d)[ACC],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 " MB_R48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1;\n}"
+      : MB_D48
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
 #undef MB_D8
 #undef MB_D48
 #undef MB_R48
@@ -183,15 +251,20 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&x)[4][2], int q) {
   }
 }
 
-// grid: min(tiles, 2 SMs) blocks of THREADS, two a SM; warpgroups
-// 0..CONSUMERS-1 consume, the warp after them produces
-template <bool S8, typename OT>
-__global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
+// grid: min(tiles, blocks_per_sm SMs) blocks of THREADS; warpgroups
+// 0..CONSUMERS-1 consume, the warp after them produces. tmB2: the weight's
+// lo half for 3xTF32 (tmB its hi half), unused otherwise.
+template <int OP, typename OT>
+__global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
+    gemm_kernel(
     const __grid_constant__ CUtensorMap tmA,
-    const __grid_constant__ CUtensorMap tmB, const float* __restrict__ sx,
+    const __grid_constant__ CUtensorMap tmB,
+    const __grid_constant__ CUtensorMap tmB2, const float* __restrict__ sx,
     const float* __restrict__ sw, const float* __restrict__ bias,
     const OT* __restrict__ residual, OT* __restrict__ out, int M, int N,
     int K, int mode) {
+  constexpr bool S8 = OP == OP_S8, TF = OP == OP_TF32X3;
+  constexpr int STAGES = stages<OP>(), STAGE_BYTES = stage_bytes<OP>();
   extern __shared__ unsigned char smraw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smraw) + 1023) & ~uintptr_t(1023));
@@ -201,7 +274,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
   const int wg = threadIdx.x >> 7;
   const int nt = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * nt;
-  const int esz = S8 ? 1 : 2;
+  const int esz = elem_bytes<OP>();
   const int nk = (K * esz + BKB - 1) / BKB;
   const int bk = BKB / esz;  // K elements a stage
 
@@ -216,6 +289,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
 
   if (wg == CONSUMERS) {
     // ---- producer: one thread keeps the ring full -------------------------
+    if constexpr (TF) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == CONSUMERS * 128) {
       int stage = 0;
       uint32_t phase = 0;
@@ -227,6 +301,9 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
           unsigned char* st = sm + stage * STAGE_BYTES;
           tma_load_2d(st, &tmA, &full[stage], kt * bk, m0);
           tma_load_2d(st + A_BYTES, &tmB, &full[stage], kt * bk, n0);
+          if (TF)
+            tma_load_2d(st + A_BYTES + B_BYTES, &tmB2, &full[stage], kt * bk,
+                        n0);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -238,6 +315,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
   }
 
   // ---- consumers ------------------------------------------------------------
+  if constexpr (TF) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int quad = lane & 3;
   const int kind = mode & 15;
@@ -245,33 +323,8 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
   uint32_t d[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) d[i] = 0u;
-  int stage = 0;
-  uint32_t phase = 0;
   const int kbytes = K * esz;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
-    for (int kt = 0; kt < nk; ++kt) {
-      mbar_wait(&full[stage], phase);
-      const unsigned char* st = sm + stage * STAGE_BYTES;
-      const uint64_t da = sw128_desc(st + wg * 64 * BKB);
-      const uint64_t db = sw128_desc(st + A_BYTES);
-      fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int ks = 0; ks < BKB / 32; ++ks)
-        if (kt * BKB + ks * 32 < kbytes)  // the zero-filled K tail is skipped
-          wgmma_96<S8>(d, da + 2 * ks, db + 2 * ks, kt | ks);
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_acc(d);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);  // the stage is free again
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-
+  auto epilogue = [&](int m0, int n0) {
     // epilogue from the registers: lane (g, q) of warp w holds rows
     // 16 w + g and + 8, columns 8 j + 2 q and + 1 of every 8-column group j
     const int row = m0 + wg * 64 + warp * 16 + (lane >> 2);
@@ -327,81 +380,128 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(
         st8(out + o, fv);
       }
     }
-  }
-}
 
-// ---- the f32 instance ----------------------------------------------------
-constexpr int F_BM = 128, F_BN = 64, F_BK = 16, F_THREADS = 256;
+  };
 
-// out = epilogue(A . Bt^T) in f32; A (M, K), Bt (N, K) row-major f32,
-// K % 4 == 0; grid (ceil(N / 64), ceil(M / 128)). Thread (tx, ty) =
-// (tid % 16, tid / 16) owns rows 8 ty.. and columns 4 tx.. of the tile;
-// the k-slices are staged transposed in shared memory.
-__global__ void __launch_bounds__(F_THREADS) gemm_f32_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bt,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int M, int N, int K, int mode) {
-  __shared__ __align__(16) float As[F_BK][F_BM + 4];
-  __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-  float acc[8][4];
+  if constexpr (TF) {
+    // 3xTF32: the tensor cores add each product into d with truncation, so
+    // d holds one stage's partial sum (32 of K) and each stage's partial is
+    // added into sacc with f32 round-to-nearest (error ~ K / 32 f32
+    // roundings instead of 3 K / 8 truncations). The steps (tile, stage)
+    // form one stream: while a stage's wgmmas run, the next stage's A
+    // fragments are read from the swizzled f32 tile (16-byte chunk c of row
+    // r at chunk c ^ (r & 7): the 32 lanes hit 32 banks) and split.
+    float sacc[ACC];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < ACC; ++i) sacc[i] = 0.f;
+    const int g = lane >> 2, r0 = warp * 16 + g;
+    auto split_a = [&](uint32_t (&ah)[4][4], uint32_t (&al)[4][4], int stg) {
+      const float* at = reinterpret_cast<const float*>(
+          sm + stg * STAGE_BYTES + wg * 64 * BKB);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-    // A: 128 rows x 16 k = 512 float4, two a thread; Bt: 64 x 16, one
+      for (int ks = 0; ks < 4; ++ks) {
+        const int c0 = (((2 * ks) ^ g) << 2) + quad;
+        const int c1 = (((2 * ks + 1) ^ g) << 2) + quad;
+        split_tf32(at[r0 * 32 + c0], ah[ks][0], al[ks][0]);
+        split_tf32(at[(r0 + 8) * 32 + c0], ah[ks][1], al[ks][1]);
+        split_tf32(at[r0 * 32 + c1], ah[ks][2], al[ks][2]);
+        split_tf32(at[(r0 + 8) * 32 + c1], ah[ks][3], al[ks][3]);
+      }
+    };
+    // keep the A registers live until the wgmmas that read them complete
+    auto fence_a = [&](uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = tid + h * F_THREADS;
-      const int r = q >> 2, kk = (q & 3) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < M && k0 + kk < K)
-        v = *reinterpret_cast<const float4*>(A + (size_t)(m0 + r) * K + k0 +
-                                             kk);
-      As[kk][r] = v.x; As[kk + 1][r] = v.y;
-      As[kk + 2][r] = v.z; As[kk + 3][r] = v.w;
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          asm volatile("" : "+r"(ah[ks][q]), "+r"(al[ks][q])::"memory");
+    };
+    const int mine = (int)blockIdx.x < tiles
+                         ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                         : 0;
+    const int total = mine * nk;
+    int stage = 0, kt = 0, tile = blockIdx.x;
+    uint32_t phase = 0;
+    uint32_t xh[2][4][4], xl[2][4][4];
+    if (total > 0) {
+      mbar_wait(&full[0], 0);
+      split_a(xh[0], xl[0], 0);
     }
-    {
-      const int r = tid >> 2, kk = (tid & 3) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n0 + r < N && k0 + kk < K)
-        v = *reinterpret_cast<const float4*>(Bt + (size_t)(n0 + r) * K + k0 +
-                                             kk);
-      Bs[kk][r] = v.x; Bs[kk + 1][r] = v.y;
-      Bs[kk + 2][r] = v.z; Bs[kk + 3][r] = v.w;
+    auto body = [&](uint32_t (&ch)[4][4], uint32_t (&cl)[4][4],
+                    uint32_t (&nh)[4][4], uint32_t (&nl)[4][4], int s) {
+      const unsigned char* st = sm + stage * STAGE_BYTES;
+      const uint64_t db = sw128_desc(st + A_BYTES);
+      const uint64_t dl = sw128_desc(st + A_BYTES + B_BYTES);
+      fence_acc(d);
+      fence_a(ch, cl);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (kt * BKB + ks * 32 < kbytes) {
+          // the small terms first, then hi.hi; d restarts each stage
+          wgmma_96_tf32(d, cl[ks], db + 2 * ks, ks);
+          wgmma_96_tf32(d, ch[ks], dl + 2 * ks, 1);
+          wgmma_96_tf32(d, ch[ks], db + 2 * ks, 1);
+        }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      const int nstage = stage + 1 == STAGES ? 0 : stage + 1;
+      const uint32_t nphase = nstage == 0 ? phase ^ 1 : phase;
+      if (s + 1 < total) {
+        mbar_wait(&full[nstage], nphase);
+        split_a(nh, nl, nstage);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc(d);
+      fence_a(ch, cl);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+        sacc[i] = __fadd_rn(sacc[i], __uint_as_float(d[i]));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // the stage is free again
+      stage = nstage;
+      phase = nphase;
+      if (++kt == nk) {
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) {
+          d[i] = __float_as_uint(sacc[i]);
+          sacc[i] = 0.f;
+        }
+        epilogue((tile / nt) * BM, (tile % nt) * BN);
+        kt = 0;
+        tile += gridDim.x;
+      }
+    };
+    for (int s = 0; s < total; s += 2) {
+      body(xh[0], xl[0], xh[1], xl[1], s);
+      if (s + 1 < total) body(xh[1], xl[1], xh[0], xl[0], s + 1);
     }
-    __syncthreads();
+  } else {
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = sm + stage * STAGE_BYTES;
+        const uint64_t da = sw128_desc(st + wg * 64 * BKB);
+        const uint64_t db = sw128_desc(st + A_BYTES);
+        fence_acc(d);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int k = 0; k < F_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][8 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][8 * ty + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const int kind = mode & 15;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + 8 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= N) continue;
-      float v = __fadd_rn(acc[i][j], bias[n]);
-      if (kind == 1)
-        v = gelu_erf(v);
-      else if (kind == 2)
-        v = __fadd_rn(residual[(size_t)m * N + n], v);
-      out[(size_t)m * N + n] = v;
+        for (int ks = 0; ks < BKB / 32; ++ks)
+          if (kt * BKB + ks * 32 < kbytes)  // the zero-filled K tail: skipped
+            wgmma_96<S8>(d, da + 2 * ks, db + 2 * ks, kt | ks);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_acc(d);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);  // the stage is free again
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      epilogue(m0, n0);
     }
   }
 }

@@ -26,6 +26,7 @@ from mask_bev_tpu_torch.models.mask2former import (
     DecoderOutputs, Mask2FormerDecoder)
 from mask_bev_tpu_torch.models.pixel_decoder import PixelDecoder
 from mask_bev_tpu_torch.models.swin import SwinTransformer
+from mask_bev_tpu_torch.utils.precision import full_f32, resolve_dtype
 
 
 class MaskBev(nn.Module):
@@ -121,9 +122,14 @@ class MaskBev(nn.Module):
                 train: bool = False, final_only: bool = True,
                 generator=None) -> DecoderOutputs:
         """``train``: training encoder (updates the batch-norm running
-        statistics) and backbone (drop path drawn from ``generator``)."""
-        x = self.encoder(points, point_mask, train=train)
-        feats = self.backbone(x, train=train, generator=generator,
-                              fused_embed=self.flat_embed_ok(train))
-        mask_features, memories = self.pixel_decoder(feats)
-        return self.decoder(mask_features, memories, final_only=final_only)
+        statistics) and backbone (drop path drawn from ``generator``). A
+        float32 configuration runs its convolutions and plain matrix
+        products in full float32 (:func:`~mask_bev_tpu_torch.utils.
+        precision.full_f32`), whatever TF32 flags the caller has set."""
+        with full_f32(resolve_dtype(self.cfg.compute_dtype)):
+            x = self.encoder(points, point_mask, train=train)
+            feats = self.backbone(x, train=train, generator=generator,
+                                  fused_embed=self.flat_embed_ok(train))
+            mask_features, memories = self.pixel_decoder(feats)
+            return self.decoder(mask_features, memories,
+                                final_only=final_only)

@@ -31,14 +31,15 @@ held in shared memory throughout. Two instances:
 * the split-query instance (everything else: f32, the shipped
   configurations' dtype, and Waymo's 170 queries): block r owns rows
   [r ceil(Q/8), (r+1) ceil(Q/8)) of the state and every intermediate, the
-  products are f32 FMAs on operands rounded to D (bf16) or not rounded
-  (f32), the weights row-major, and self-attention reads the other blocks'
-  k and v through distributed shared memory (:func:`check_shape_split`,
-  :func:`smem_bytes_split`).
+  products run on the tensor cores (3xTF32 in f32: both operands split into
+  TF32 halves, ``csrc/common.cuh::split_tf32``; m16n8k16 in bf16) with the
+  weights stored (N, K) and the block's rows on the MMA's 8-wide side, and
+  self-attention reads the other blocks' k and v through distributed
+  shared memory (:func:`check_shape_split`, :func:`smem_bytes_split`).
 
 Every launch counts under ``decoder_stack`` (and its instance under
-``decoder_stack/flagship``, ``decoder_stack/split_bf16`` or
-``decoder_stack/split_f32``).
+``decoder_stack/flagship``, ``decoder_stack/split_tc_bf16`` or
+``decoder_stack/split_tc_f32``).
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ from typing import List, NamedTuple, Sequence
 import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
-from mask_bev_tpu_torch.ops.swin_block import EPI_BIAS, Dense, gemm
+from mask_bev_tpu_torch.ops.swin_block import (
+    EPI_BIAS, Dense, gemm, make_dense)
 
 NEG = -1e9
 
@@ -212,11 +214,11 @@ def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights,
                  fragments: bool = True):
     """Query-side weights as one D buffer (per layer wq, wo, sq, sk, sv,
     so, f1, f2; then m1, m2, m3; each matrix in fragment order,
-    :func:`pack_fragments`, for the flagship instance, or row-major (K, N)
-    for the split instance) and one f32 buffer (per layer bq, bo, sbq, sbk,
-    sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then dnw, dnb, mb1,
-    mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
-    pack = pack_fragments if fragments else (lambda t: t.reshape(-1))
+    :func:`pack_fragments`, for the flagship instance, or transposed, (N,
+    K) row-major, for the split instance) and one f32 buffer (per layer bq,
+    bo, sbq, sbk, sbv, sbo, n1w, n1b, n2w, n2b, n3w, n3b, fb1, fb2; then
+    dnw, dnb, mb1, mb2, mb3). Order fixed by ``csrc/decoder_stack.cu``."""
+    pack = pack_fragments if fragments else (lambda t: t.t().reshape(-1))
     wd, wf = [], []
     for lw in layers:
         wd += [lw.wq, lw.wo, lw.sq, lw.sk, lw.sv, lw.so, lw.f1, lw.f2]
@@ -230,15 +232,17 @@ def pack_weights(layers: Sequence[LayerWeights], head: HeadWeights,
 
 def kv_weights(layers: Sequence[LayerWeights], nl: int) -> List[Dense]:
     """Per level: the k and v projections of all that level's layers as
-    two (G*C, C) GEMM weights (layer 3g + lvl at rows g*C)."""
+    two (G*C, C) GEMM weights (layer 3g + lvl at rows g*C; f32 weights with
+    their TF32 halves, :func:`~mask_bev_tpu_torch.ops.swin_block.
+    make_dense`)."""
     out = []
     for lvl in range(nl):
         ls = layers[lvl::nl]
-        out.append((
-            Dense(torch.cat([lw.wk.t() for lw in ls]).contiguous(),
-                  torch.cat([lw.bk for lw in ls]).float().contiguous()),
-            Dense(torch.cat([lw.wv.t() for lw in ls]).contiguous(),
-                  torch.cat([lw.bv for lw in ls]).float().contiguous())))
+        out.append(tuple(
+            make_dense(torch.cat([w.t() for w in ws]),
+                       torch.cat(bs), False)
+            for ws, bs in (([lw.wk for lw in ls], [lw.bk for lw in ls]),
+                           ([lw.wv for lw in ls], [lw.bv for lw in ls]))))
     return out
 
 
@@ -276,43 +280,53 @@ def smem_bytes(q: int, c: int, t_max: int) -> int:
                 + _TK * (c + 8))
 
 
-SPLIT_THREADS = 256  # ``DS2_THREADS`` of the split instance
+SPLIT_WARPS = 8  # ``DS2_WARPS`` of the split instance
 SPLIT_MAXR = 32  # rows a block of the split instance owns at most
 SPLIT_TK = 32  # keys a tile of the split instance
 SMEM_LIMIT = 227 * 1024  # shared memory a block may use on the H100
 
 
-def smem_bytes_split(q: int, c: int, heads: int, t_max: int) -> int:
+def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
+                     f32: bool = True) -> int:
     """Shared memory of one block of the split instance, as
     ``csrc/decoder_stack.cu::ds2_layout`` lays it out (4-byte words, every
     part 16-byte aligned): its R = ceil(Q/8) rows of X, XA, QB and OB (row
-    stride C + 4), the mask bits of its rows against all keys, its row
-    flags, then one area that holds in turn the f32 feature tile of the
-    mask logits, the k and v key tiles of cross-attention, and the
-    self-attention's own k rows, one head's k and v of all Q rows and the
-    (R, Q) scores."""
+    stride C + 16), the mask bits of its rows against all keys, its row
+    flags, then one area that holds in turn the cross-attention's key-tile
+    slots (k or v of 32 keys: f32 at stride C + 16, bf16 C + 8; two
+    buffers of k and v where they fit in 227 KB, else one), the bf16 q copy
+    (ceil(R/16) 16-row tiles) and the (max, sum) exchange of 8 warps x the
+    padded rows, and the self-attention's own k rows, one head's k (then
+    v) of all Q rows and the (R, Q) scores."""
     def al(n):
         return -(-n // 4) * 4
-    r, ld, hd = -(-q // CLUSTER), c + 4, c // heads
+    r, ld, hd = -(-q // CLUSTER), c + 16, c // heads
+    rp = 16 * -(-r // 16)
     rx = r * ld
-    union = max(2 * SPLIT_TK * heads * (hd + 1), SPLIT_TK * (c + 1),
-                rx + 2 * q * (hd + 1) + r * q)
-    return 4 * (4 * rx + al(r * -(-t_max // 32)) + al(r) + al(union))
+    area = 4 * rx + al(r * -(-t_max // 32)) + al(r)
+    slot = SPLIT_TK * (c + 16) if f32 else SPLIT_TK * (c + 8) // 2
+    qt = 0 if f32 else rp * (c + 8) // 2
+    self_attn = rx + q * (hd + 1) + r * q
+    for buffers in (2, 1):
+        cross = 2 * buffers * slot + qt + 2 * SPLIT_WARPS * rp
+        total = 4 * (area + al(max(cross, self_attn)))
+        if total <= SMEM_LIMIT:
+            break
+    return total
 
 
 def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
-                      n_layers: int, t_max: int) -> None:
+                      n_layers: int, t_max: int, f32: bool = True) -> None:
     """Raise unless the split instance takes these shapes (the C entry
-    point's own check): C a multiple of 8 that divides its 256 threads and
-    the FFN's hidden units, head width 32 or 64, at most 32 rows a block
-    and one thread per (row, head), and the shared memory of
-    :func:`smem_bytes_split`."""
+    point's own check): C a multiple of 64 (32-deep product chunks, 16
+    output columns a warp), the FFN's hidden units in chunks of C, 2, 4 or
+    8 heads (a head's warps split each key tile) of width 32 or 64, at most
+    32 rows a block, and the shared memory of :func:`smem_bytes_split`."""
     r = -(-q // CLUSTER)
-    smem = smem_bytes_split(q, c, heads, t_max)
-    if (q < 1 or c > SPLIT_THREADS or SPLIT_THREADS % c or c % 8
-            or ffn % c or c % heads or c // heads not in (32, 64)
-            or n_layers % nl or nl > 3 or r > SPLIT_MAXR
-            or r * heads > SPLIT_THREADS or smem > SMEM_LIMIT):
+    smem = smem_bytes_split(q, c, heads, t_max, f32)
+    if (q < 1 or c % 64 or ffn % c or heads < 2 or SPLIT_WARPS % heads
+            or c % heads or c // heads not in (32, 64) or n_layers % nl
+            or nl > 3 or r > SPLIT_MAXR or smem > SMEM_LIMIT):
         raise ValueError(f"decoder stack split instance: unsupported shape "
                          f"Q={q} C={c} FFN={ffn} heads={heads} levels={nl} "
                          f"layers={n_layers} keys={t_max} ({smem} B of "
@@ -333,16 +347,25 @@ def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
     return smem_bytes(q, c, t_max) <= SMEM_LIMIT
 
 
+SPLIT_PARTS = ("mask bits", "q projection", "cross-attention",
+               "out projection + LN1", "self-attention + LN2", "FFN + LN3",
+               "mask MLP")  # the parts ``profile`` times, in its order
+
+
 def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   layers: Sequence[LayerWeights], head: HeadWeights, *,
-                  num_heads: int, packed=None, return_bits: bool = False):
+                  num_heads: int, packed=None, return_bits: bool = False,
+                  profile=None):
     """Final (B, Q, C) query state: the CUDA chain for CUDA tensors (the
     flagship instance where :func:`flagship_takes`, else the split
     instance), the plain version for CPU tensors. ``packed``: cached
     ``({}, kv_weights(...))``, its dict filled with each instance's
     ``pack_weights`` at first use. ``return_bits`` (CUDA only):
     also return the kernel's effective blocked positions, (B, L, Q, T_l)
-    bool per layer, to count disagreements with the plain version."""
+    bool per layer, to count disagreements with the plain version.
+    ``profile`` (split instance only): a zeroed (B * CLUSTER, 7) int64
+    CUDA tensor to which each block adds the ns it spent in each of
+    :data:`SPLIT_PARTS`, summed over the layers."""
     if not out0.is_cuda:
         return decoder_stack_plain(out0, emb0, qpos, mems, pes, feats,
                                    layers, head, num_heads=num_heads)
@@ -360,11 +383,17 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                          f"{emb0.shape[-1]} != C={c}")
     t = [m.shape[1] for m in mems]
     flagship = flagship_takes(q, c, ffn, num_heads, nl, n_layers, max(t), dt)
+    if profile is not None:
+        if flagship:
+            raise ValueError("profile: only the split instance is timed")
+        kb.check_cuda(profile, "profile", torch.int64,
+                      (b * CLUSTER, len(SPLIT_PARTS)))
     if flagship:
         smem = smem_bytes(q, c, max(t))
     else:
-        check_shape_split(q, c, ffn, num_heads, nl, n_layers, max(t))
-        smem = smem_bytes_split(q, c, num_heads, max(t))
+        f32 = dt == torch.float32
+        check_shape_split(q, c, ffn, num_heads, nl, n_layers, max(t), f32)
+        smem = smem_bytes_split(q, c, num_heads, max(t), f32)
     kind = "flagship" if flagship else "split"
     if packed is None:
         packed = ({}, kv_weights(layers, nl))
@@ -406,14 +435,13 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5),
                   kb.stream(), instance="flagship")
     else:
-        f32 = dt == torch.float32
         kb.launch("decoder_stack", "decoder_split_forward", kb.ptr(x0),
                   kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
                   kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
-                  kb.ptr(bits), kb.ci(b), kb.ci(q), kb.ci(c), kb.ci(ffn),
-                  kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5),
-                  kb.ci(f32), kb.stream(),
-                  instance="split_f32" if f32 else "split_bf16")
+                  kb.ptr(bits), kb.ptr(profile), kb.ci(b), kb.ci(q),
+                  kb.ci(c), kb.ci(ffn), kb.ci(num_heads), kb.ci(smem),
+                  kb.cf(hd ** -0.5), kb.ci(f32), kb.stream(),
+                  instance="split_tc_f32" if f32 else "split_tc_bf16")
     if not return_bits:
         return out
     shifts = torch.arange(32, device=out0.device, dtype=torch.int32)

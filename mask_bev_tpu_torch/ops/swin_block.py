@@ -28,11 +28,12 @@ rounded to D where XLA rounds them.
 The CUDA chain (``csrc/swin_block.cu``): LN1 (+quantise) -> qkv GEMM ->
 window attention -> (quantise) -> proj GEMM + residual -> LN2 (+quantise)
 -> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. The GEMMs are the
-persistent wgmma kernel of ``csrc/gemm.cuh`` (TMA loads, int8 or bf16); the
-attention keeps its scores in registers. f32 activations (the shipped
-configurations' dtype) take every launch's f32 instance: the int8 GEMM with
-f32 epilogues, or the f32 GEMM; f32 LN, quantisation and attention. Every
-launch counts under ``swin_block``.
+persistent wgmma kernel of ``csrc/gemm.cuh`` (TMA loads, int8, bf16 or f32
+as 3xTF32); the attention keeps its scores in registers. f32 activations
+(the shipped configurations' dtype) take every launch's f32 instance: the
+int8 GEMM with f32 epilogues, or the 3xTF32 GEMM (its weight split once
+into TF32 halves by :func:`make_dense`); f32 LN, quantisation and
+attention. Every launch counts under ``swin_block``.
 """
 from __future__ import annotations
 
@@ -53,12 +54,16 @@ INV127 = float(np.float32(1.0) / np.float32(127.0))
 
 class Dense(NamedTuple):
     """A prepared dense layer: ``wt`` (N, K) in D, ``bias`` (N,) f32 holding
-    D values, and for int8 the quantised ``q8`` (N, K) with ``sw`` (N,)."""
+    D values, for int8 the quantised ``q8`` (N, K) with ``sw`` (N,), and for
+    an f32 ``wt`` its TF32 halves ``hi``, ``lo`` (:func:`split_tf32`), which
+    the 3xTF32 GEMM reads."""
 
     wt: torch.Tensor
     bias: torch.Tensor
     q8: Optional[torch.Tensor] = None
     sw: Optional[torch.Tensor] = None
+    hi: Optional[torch.Tensor] = None
+    lo: Optional[torch.Tensor] = None
 
 
 class BlockWeights(NamedTuple):
@@ -82,15 +87,43 @@ def quantize_weight(wt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8).contiguous(), sw.contiguous()
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits; the low 13
+    bits of the word zero), ties away from zero: ``cvt.rna.tf32.f32``.
+    Adding half a TF32 step to the magnitude's bit pattern and clearing the
+    low bits rounds so, denormals included; a value beyond the largest TF32
+    value becomes an infinity, and NaN stays NaN."""
+    bits = x.float().contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x.float(), r)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo), both TF32 values, x = hi + lo to within 2^-22 |x|
+    (normal x): hi = rna(x), lo = rna(x - hi) (``csrc/common.cuh::
+    split_tf32``). lo is 0 where hi is not finite, so infinities pass
+    through."""
+    hi = tf32_rna(x)
+    lo = torch.where(torch.isfinite(hi), tf32_rna(x.float() - hi),
+                     torch.zeros_like(hi))
+    return hi, lo
+
+
 def make_dense(weight: torch.Tensor, bias: Optional[torch.Tensor],
                quant: bool) -> Dense:
-    """From a torch Linear ``weight`` (N, K) and ``bias``."""
+    """From a torch Linear ``weight`` (N, K) and ``bias``; an f32 weight on
+    a CUDA device also gets its TF32 halves (for the 3xTF32 GEMM: twice the
+    weight's bytes more on the device; the CPU's plain version does not
+    read them)."""
     wt = weight.detach().contiguous()
     b = (torch.zeros(wt.shape[0], device=wt.device) if bias is None
          else bias.detach().float().contiguous())
     if quant:
         q8, sw = quantize_weight(wt)
         return Dense(wt, b, q8, sw)
+    if wt.dtype == torch.float32 and wt.is_cuda:
+        hi, lo = split_tf32(wt)
+        return Dense(wt, b, hi=hi, lo=lo)
     return Dense(wt, b)
 
 
@@ -292,9 +325,11 @@ def _quant(x2):
 def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
          out_dtype=torch.bfloat16):
     """out (M, N) = epilogue(a @ d^T): ``a`` is bf16 (M, K) with a bf16
-    out, f32 with an f32 out (the f32 instance, ``d.wt`` f32), or int8
-    with per-row scale ``sx`` (then ``d.q8``/``d.sw`` are used) and an
-    ``out_dtype`` (bf16 or f32) out and residual."""
+    out, f32 with an f32 out (the 3xTF32 instance, ``d.hi``/``d.lo`` from
+    :func:`make_dense`), or int8 with per-row scale ``sx`` (then
+    ``d.q8``/``d.sw`` are used) and an ``out_dtype`` (bf16 or f32) out and
+    residual. Counted under ``name`` and ``name/gemm_bf16``,
+    ``gemm_s8_bf16``, ``gemm_s8_f32`` or ``gemm_f32_3xtf32``."""
     m, k = a.shape
     n = d.wt.shape[0]
     if k % 16 or n % 8:
@@ -312,33 +347,40 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     if sx is not None:
         kb.check_cuda(a, "a", torch.int8)
         kb.check_cuda(d.q8, "w8", torch.int8, (n, k))
+        ws = (d.q8, d.sw)
+    elif f32:
+        kb.check_cuda(a, "a", torch.float32)
+        if d.hi is None or d.lo is None:
+            raise ValueError("gemm kernel: an f32 weight needs its TF32 "
+                             "halves (prepare it with make_dense)")
+        kb.check_cuda(d.hi, "w_hi", torch.float32, (n, k))
+        kb.check_cuda(d.lo, "w_lo", torch.float32, (n, k))
+        ws = (d.hi, d.lo)
     else:
         kb.check_cuda(a, "a", out_dtype)
         kb.check_cuda(d.wt, "w", out_dtype, (n, k))
+        ws = (d.wt,)
     # TMA reads both operands, the epilogue reads 16-byte vectors
-    w = d.wt if sx is None else d.q8
-    for t, what in ((a, "a"), (w, "w"), (d.bias, "bias"),
-                    (d.sw if sx is not None else None, "sw"),
+    for t, what in ((a, "a"), *((w, "w") for w in ws), (d.bias, "bias"),
                     (residual, "residual")):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"gemm kernel: {what} must be 16-byte aligned")
-    inst = ("gemm_s8_" if sx is not None else "gemm_") + (
-        "f32" if f32 else "bf16")
     if sx is not None:
         kb.launch(name, "gemm_s8", kb.ptr(a), kb.ptr(sx), kb.ptr(d.q8),
                   kb.ptr(d.sw), kb.ptr(d.bias), kb.ptr(residual),
                   kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
-                  kb.ci(f32), kb.stream(), instance=inst)
+                  kb.ci(f32), kb.stream(),
+                  instance="gemm_s8_" + ("f32" if f32 else "bf16"))
     elif f32:
-        kb.launch(name, "gemm_f32", kb.ptr(a), kb.ptr(d.wt),
-                  kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
-                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream(),
-                  instance=inst)
+        kb.launch(name, "gemm_f32_3xtf32", kb.ptr(a), kb.ptr(d.hi),
+                  kb.ptr(d.lo), kb.ptr(d.bias), kb.ptr(residual),
+                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
+                  kb.stream(), instance="gemm_f32_3xtf32")
     else:
         kb.launch(name, "gemm_bf16", kb.ptr(a), kb.ptr(d.wt),
                   kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
                   kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream(),
-                  instance=inst)
+                  instance="gemm_bf16")
     return out
 
 

@@ -25,7 +25,7 @@ from mask_bev_tpu_torch.models.mask2former import DecoderOutputs
 from mask_bev_tpu_torch.models.maskbev import MaskBev
 from mask_bev_tpu_torch.train.optim import Adam, AdamState, make_optimizer
 from mask_bev_tpu_torch.utils.precision import (
-    cast_parameters, resolve_device, resolve_dtype)
+    cast_parameters, full_f32, resolve_device, resolve_dtype)
 
 
 @dataclasses.dataclass
@@ -68,7 +68,8 @@ def loss_and_grads(state: TrainState, batch, generator=None, *,
     b = {k: torch.as_tensor(v).to(state.device) for k, v in batch.items()}
     model = state.model
     params = dict(model.named_parameters())
-    with cast_parameters(model, dtype):
+    # the backward too runs in full f32 for an f32 configuration
+    with cast_parameters(model, dtype), full_f32(dtype):
         out = model(b["points"].to(dtype), b["point_mask"], train=True,
                     final_only=False, generator=generator)
         total, logs = maskbev_loss(

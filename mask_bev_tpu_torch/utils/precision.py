@@ -10,6 +10,12 @@ cast (``mask_bev_tpu/train/step.py:78-90``): :func:`cast_parameters`
 replaces every f32 parameter of a model by its differentiable cast for the
 length of a ``with`` block, so gradients reach the masters in f32 and
 buffers (the batch-norm running statistics) keep their f32 storage.
+
+A float32 configuration computes in full float32 whatever the process has
+set: on a CUDA card PyTorch runs float32 cuDNN convolutions in TF32 by
+default (``torch.backends.cudnn.allow_tf32`` is True), which keeps about
+three decimal digits. :func:`full_f32` turns TF32 off for the length of a
+forward (and a training step's backward) and restores the caller's flags.
 """
 from __future__ import annotations
 
@@ -56,6 +62,28 @@ def cast_parameters(model: torch.nn.Module, dtype: torch.dtype
     finally:
         for mod, name, p in swapped:
             mod._parameters[name] = p
+
+
+@contextlib.contextmanager
+def full_f32(dtype: torch.dtype) -> Iterator[None]:
+    """Within the block, float32 convolutions (cuDNN) and matrix products
+    (cuBLAS) run in full float32, not TF32, when ``dtype`` is float32; the
+    caller's flags come back on exit. Another dtype leaves them alone. Only
+    the ``allow_tf32`` flags are touched: setting them through the newer
+    ``fp32_precision`` attributes as well would mix the two interfaces,
+    which PyTorch refuses."""
+    if dtype != torch.float32:
+        yield
+        return
+    conv = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -225,7 +225,8 @@ def test_swin_block_f32(dev, quant, shifted, c, heads, win, hw):
     got = kswin.swin_block(x, p, hw, win, heads, shift, quant)
     want = kswin.swin_block_plain(x, p, hw, win, heads, shift, quant)
     torch.cuda.synchronize()
-    gk = "swin_block/gemm_s8_f32" if quant else "swin_block/gemm_f32"
+    gk = ("swin_block/gemm_s8_f32" if quant
+          else "swin_block/gemm_f32_3xtf32")
     assert kb.INSTANCES[gk] == 4 and kb.INSTANCES["swin_block/f32"] >= 2
     assert got.dtype == torch.float32
     assert _rel(got, want) <= (2e-2 if quant else 1e-4)
@@ -235,12 +236,12 @@ def test_swin_block_f32(dev, quant, shifted, c, heads, win, hw):
 @pytest.mark.parametrize("mode", [kswin.EPI_BIAS, kswin.EPI_GELU,
                                   kswin.EPI_RESIDUAL])
 @pytest.mark.parametrize("m,n,k", [(1000, 576, 192), (321, 768, 1536),
-                                   (65, 192, 192)])
+                                   (65, 192, 192), (257, 1536, 1536)])
 def test_gemm_f32(dev, quant, mode, m, n, k):
     """int8 operands with the f32 epilogue: equal to a float64 product of
     the int8 values and the f32 epilogue (GELU within 1e-6 relative, erf of
-    two libraries); f32 operands: within 1e-5 of the f32 product (another
-    summation order)."""
+    two libraries); f32 operands (the 3xTF32 instance): within 1e-5 of a
+    float64 product, up to phase W's stage-3 width (K = N = 1536)."""
     g = torch.Generator().manual_seed(16)
     a32 = torch.randn(m, k, generator=g).to(dev)
     w32 = (torch.randn(n, k, generator=g) / k ** 0.5).to(dev)
@@ -248,6 +249,7 @@ def test_gemm_f32(dev, quant, mode, m, n, k):
     res = torch.randn(m, n, generator=g).to(dev)
     residual = res if mode == kswin.EPI_RESIDUAL else None
     d = kswin.make_dense(w32, bias, quant)
+    kb.reset_launches()
     if quant:
         q, sx = kswin.quant_rows(a32)
         a8 = q.to(torch.int8).contiguous()
@@ -265,6 +267,8 @@ def test_gemm_f32(dev, quant, mode, m, n, k):
         v = res + v
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (m, n)
+    inst = "gemm_s8_f32" if quant else "gemm_f32_3xtf32"
+    assert kb.INSTANCES == {f"swin_block/{inst}": 1}
     if quant and mode != kswin.EPI_GELU:
         assert torch.equal(got, v)
     else:
@@ -326,8 +330,10 @@ def test_decoder_split(dev, dtype, q, c, heads, f, hws):
     kb.reset_launches()
     got, bits = kdec.decoder_stack(*args, num_heads=heads, return_bits=True)
     torch.cuda.synchronize()
-    inst = "split_f32" if dtype == torch.float32 else "split_bf16"
+    inst = "split_tc_f32" if dtype == torch.float32 else "split_tc_bf16"
     assert kb.INSTANCES[f"decoder_stack/{inst}"] == 1
+    gemm = "gemm_f32_3xtf32" if dtype == torch.float32 else "gemm_bf16"
+    assert kb.INSTANCES[f"decoder_stack/{gemm}"] == 6
     assert got.dtype == dtype and got.shape == (2, q, c)
     want, logits = kdec.decoder_stack_plain(*args, num_heads=heads,
                                             return_logits=True)
@@ -367,7 +373,36 @@ def test_predictor_f32_card_matches_cpu(dev):
     c_cpu, m_cpu = MaskBevPredictor(cfg, sd, device="cpu").forward(
         torch.as_tensor(pts), torch.as_tensor(msk))
     for k in ("canvas_norm/f32", "swin_block/f32",
-              "decoder_stack/split_f32"):
+              "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32"):
         assert inst.get(k, 0) > 0, (k, inst)
     assert float((c_gpu.cpu() - c_cpu).abs().max()) <= 1e-3
     assert float((m_gpu.cpu() - m_cpu).abs().max()) <= 1e-3
+
+
+# instances of the designs this port removed: the f32 SIMT GEMM and the
+# split decoder's FMA kernel
+REMOVED = ("swin_block/gemm_f32", "window_msa/gemm_f32",
+           "decoder_stack/gemm_f32", "decoder_stack/split_f32",
+           "decoder_stack/split_bf16")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_f32_paths_launch_no_removed_design(dev, quant):
+    """A tiny f32 model served on the card, with f32 or int8 backbone
+    products: the 3xTF32 GEMM and the tensor-core split decoder launch, the
+    removed designs never do."""
+    cfg = tiny_test_config().replace(
+        head_num_attn_heads=2, compute_dtype="float32",
+        backbone_quantize="int8" if quant else "none")
+    sd = MaskBev(cfg).random_state_dict(3)
+    pts, msk = _points(4, b=2, n=cfg.max_points_per_scan)
+    kb.reset_launches()
+    MaskBevPredictor(cfg, sd, device="cuda").forward(
+        torch.as_tensor(pts), torch.as_tensor(msk))
+    torch.cuda.synchronize()
+    inst = dict(kb.INSTANCES)
+    want = ["decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
+            "swin_block/gemm_s8_f32" if quant
+            else "swin_block/gemm_f32_3xtf32"]
+    assert all(inst.get(k, 0) > 0 for k in want), inst
+    assert not [k for k in inst if k in REMOVED], inst

@@ -120,6 +120,12 @@ def test_shipped_configs_have_the_shapes_checked_here():
         # the /8 memory of a 500x500 grid: 63 x 63 keys
         h, w = cfg.grid_hw
         assert -(-h // 8) * -(-w // 8) == WAYMO["t_max"]
+        # both fit the split instance's layout, in f32 and in bf16
+        for f32 in (True, False):
+            kdec.check_shape_split(q, 256, 2048, 8, 3, 9, WAYMO["t_max"],
+                                   f32=f32)
+            assert kdec.smem_bytes_split(q, 256, 8, WAYMO["t_max"],
+                                         f32) <= kdec.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype,q,want", [
@@ -144,10 +150,21 @@ def test_split_shape_check_takes(shape):
     kdec.check_shape_split(**shape)
 
 
+@pytest.mark.parametrize("shape", [WAYMO, FLAG,
+                                   dict(WAYMO, c=128, heads=4, ffn=512),
+                                   dict(WAYMO, heads=4),
+                                   dict(WAYMO, q=8, c=64, heads=2, ffn=128,
+                                        n_layers=3, t_max=100)],
+                         ids=["waymo", "flagship", "c128", "hd64", "tiny"])
+def test_split_shape_check_takes_bf16(shape):
+    """The bf16 instance (Waymo's queries in bf16) takes the same shapes."""
+    kdec.check_shape_split(**shape, f32=False)
+
+
 @pytest.mark.parametrize("shape", [
     dict(WAYMO, heads=16),           # head width 16
     dict(WAYMO, q=257),              # 33 rows a block
-    dict(WAYMO, c=384, heads=12),    # C does not divide the 256 threads
+    dict(WAYMO, c=384, heads=12),    # 12 heads do not split the 8 warps
     dict(WAYMO, ffn=2000),           # hidden units not in chunks of C
     dict(WAYMO, q=256),              # 32 rows of 256 queries: over 227 KB
 ], ids=["hd16", "rows", "width", "ffn", "smem"])
@@ -157,21 +174,34 @@ def test_split_shape_check_rejects(shape):
 
 
 def test_split_smem_budget():
-    """Waymo fits a block: 4 replicas of 22 rows at stride C + 4 (91,520
-    B), the mask bits of 22 rows x 125 words (11,008 B, aligned to 16),
-    the row flags, and the self-attention area (own k, one head's k and v
-    of all 170 rows, 22 x 170 scores: 82,720 B), which is larger than the
-    cross-attention's k and v tiles (67,584 B)."""
+    """Waymo fits a block: 4 replicas of 22 rows at stride C + 16 (95,744
+    B), the mask bits of 22 rows x 125 words (11,008 B, aligned to 16), the
+    row flags, and the cross-attention area: one buffer of f32 k and v
+    tiles (two 32-key slots at stride C + 16, 69,632 B; two buffers would
+    pass 227 KB) and the (max, sum) exchange of 8 warps x 32 padded rows,
+    which is larger than the self-attention's (own k, one head's k then v
+    of all 170 rows, 22 x 170 scores: 61,336 B)."""
     s = WAYMO
     got = kdec.smem_bytes_split(s["q"], s["c"], s["heads"], s["t_max"])
-    rx = 22 * 260
-    self_area = rx + 2 * 170 * 33 + 22 * 170
-    assert 2 * 32 * 8 * 33 < self_area
-    assert got == 4 * (4 * rx + 2752 + 24 + self_area) == 185344
-    assert got <= kdec.SMEM_LIMIT
-    # the flagship's shapes in f32 take the split instance with room left
+    rx = 22 * 272
+    area = 4 * rx + 2752 + 24
+    slot = 32 * 272
+    self_area = rx + 170 * 33 + 22 * 170
+    assert self_area < 2 * slot + 512
+    assert 4 * (area + 4 * slot + 512) > kdec.SMEM_LIMIT
+    assert got == 4 * (area + 2 * slot + 512) == 178528
+    # the bf16 instance at Waymo's shapes: two buffers of bf16 k and v
+    # tiles, the bf16 q copy and the exchange
+    bf = kdec.smem_bytes_split(170, 256, 8, 3969, f32=False)
+    assert bf == 4 * (area + 4 * 32 * 132 + 32 * 132 + 512) == 193376
+    assert bf <= kdec.SMEM_LIMIT
+    # head width 64 at Waymo's shapes: the self-attention area is larger
+    hd64 = kdec.smem_bytes_split(170, 256, 4, 3969)
+    assert hd64 == 4 * (area + rx + 170 * 65 + 22 * 170 + 2)
+    assert hd64 <= kdec.SMEM_LIMIT
+    # the flagship's shapes in f32 take the split instance with two buffers
     flag = kdec.smem_bytes_split(45, 256, 8, 3969)
-    assert flag < got and flag == 4 * (4 * 6 * 260 + 752 + 8
-                                       + 2 * 32 * 8 * 33)
+    assert flag == 4 * (4 * 6 * 272 + 752 + 8 + 4 * slot + 2 * 8 * 16)
+    assert flag <= kdec.SMEM_LIMIT
     # the bits grow with the keys
     assert kdec.smem_bytes_split(170, 256, 8, 2 * 3969) > got
