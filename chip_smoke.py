@@ -15,8 +15,11 @@
    (stated tolerances; CUDA-event times of both); for the Swin chain also
    the times of its launches by kind and of ``torch._int_mm`` on one
    stage-0 product (a yardstick for the
-   product alone), and for the decoder stack the number of clusters of 8,
-   12 and 16 blocks the card holds at once;
+   product alone), its window attention alone (``attn_phase``: held
+   against its plain version, timed beside
+   ``F.scaled_dot_product_attention`` on the same windows), and for the
+   decoder stack the number of clusters of 8, 12 and 16 blocks the card
+   holds at once;
 4. serves warm and timed requests through ``MaskBevPredictor`` with the
    launch counters reset just before and read just after: every kernel must
    have launched; outputs must be finite and of the expected shapes;
@@ -24,7 +27,9 @@
    PyTorch path on the CPU;
 5b. drives the two serving paths of kernels 7-10 (``path_phase``): path K,
    ``kitti_default()`` (800x800 grid, 3 classes) with the unfused backbone
-   (window MSA, kernel 7) and the fused patch embed (kernel 8), and path E,
+   (window MSA, kernel 7, on the token grid: its attention alone with the
+   SDPA yardstick too, and no ``roll`` in the traced request) and the
+   fused patch embed (kernel 8), and path E,
    ``semantic_kitti_default()`` with the capped eval encoder (kernel 10)
    and the backbone's fused token LN (kernel 9); each captures its new
    kernels' inputs in one forward, holds them against their plain versions,
@@ -34,8 +39,9 @@
 5c. phase F: ``semantic_kitti_default()`` as shipped (f32, int8 backbone)
    and phase W: ``waymo_default()`` as shipped (f32, 170 queries on the
    decoder's split instance, 3 point columns), each like step 2-4: kernels
-   1-5 captured and held in f32 (the decoder with its flip counters and
-   its time by part, ``split_breakdown``), 3 warm and 5 timed requests
+   1-5 captured and held in f32 (the Swin chain's f32 attention alone,
+   the decoder with its flip counters and its time by part,
+   ``split_breakdown``), 3 warm and 5 timed requests
    whose instance counters must show the f32 instances (the 3xTF32 GEMM,
    the tensor-core split decoder) and no removed design, one traced
    request; phase W also holds the 3xTF32 GEMM alone at a stage-0 and a
@@ -80,9 +86,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
         "tf32x3": 495e12 / 3}
 # instances of designs that later slices removed: no path may launch them
+# (kernel 7's attention on partitioned windows, "window_msa/bf16" and
+# "window_msa/f32", gave way to the window-attention template)
 REMOVED = ("swin_block/gemm_f32", "window_msa/gemm_f32",
            "decoder_stack/gemm_f32", "decoder_stack/split_f32",
-           "decoder_stack/split_bf16")
+           "decoder_stack/split_bf16", "window_msa/bf16", "window_msa/f32")
+ATTN_SOURCE = "mask_bev_tpu_torch/csrc/window_attn.cuh"
 
 
 def fail(msg: str) -> None:
@@ -435,6 +444,14 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
             del shapes
         if main_path:
             swin_parts(torch, kswin, captured_blocks, card)
+        # ---- the Swin chain's attention alone, with an SDPA yardstick ----
+        calls = [(block_qkv(kswin, x, p, q_), p.qkv.bias, p.rel_bias,
+                  x.shape[0], hw, heads, win, shift)
+                 for (x, p, hw, win, heads, shift, q_) in captured_blocks]
+        attn_phase(torch, kswin, record, "swin_attn" + suffix,
+                   "mask_bev_tpu/ops/pallas_swin_block.py:584", calls,
+                   False, f32, card)
+        del calls
 
         # ---- kernel 5: decoder stack -------------------------------------
         (dargs, dkw) = captured_dec[0]
@@ -530,6 +547,10 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         results[k + suffix]["launches"] = launches.get(k, 0)
         if launches.get(k, 0) <= 0:
             failures.append(f"{k} never launched on [{label}]")
+    attn_inst = "swin_block/attn_" + ("f32" if f32 else "bf16")
+    results["swin_attn" + suffix]["launches"] = instances.get(attn_inst, 0)
+    if instances.get(attn_inst, 0) <= 0:
+        failures.append(f"{attn_inst} never launched on [{label}]")
     if f32:
         need = ["pfn/f32", "canvas_norm/f32", "swin_block/f32",
                 "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
@@ -748,6 +769,7 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     from mask_bev_tpu_torch.ops import layer_norm as kln
     from mask_bev_tpu_torch.ops import patch_embed as kpe
     from mask_bev_tpu_torch.ops import pfn as kpfn
+    from mask_bev_tpu_torch.ops import swin_block as kswin
     from mask_bev_tpu_torch.ops import window_msa as kwmsa
 
     dtype = "float32" if f32 else "bfloat16"
@@ -809,23 +831,28 @@ def path_phase(np, torch, card, results, failures, record, path: str,
 
     with torch.no_grad():
         if path == "K":
-            # ---- kernel 7: window MSA, all blocks --------------------------
+            # ---- kernel 7: window MSA on the token grid, all blocks -------
             err_abs = err_rel = ms_k = ms_p = ops = byts = g_ops = 0.0
+            calls = []
             for (a, kw) in cap["window_msa"]:
                 got = kwmsa.window_msa(*a, **kw)
-                want = kwmsa.window_msa_plain(*a, **kw)
+                want = kwmsa.window_msa_grid_plain(*a, **kw)
                 e = float((got.float() - want.float()).abs().max())
                 err_abs = max(err_abs, e)
                 err_rel = max(err_rel, e / float(want.float().abs().max()))
                 ms_k += cuda_ms(torch, lambda: kwmsa.window_msa(*a, **kw), 5)
-                ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_plain(*a, **kw),
-                                1)
-                xw, _, _, qkv, _, _ = a
-                b_, nw_, n_, c_ = xw.shape
-                tokens = b_ * nw_ * n_
-                ops += 2.0 * tokens * (4 * c_ * c_ + 2 * n_ * c_)
-                g_ops += 2.0 * tokens * 4 * c_ * c_
-                byts += 2 * tokens * c_ * esz + 4 * c_ * c_ * esz
+                ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_grid_plain(
+                    *a, **kw), 1)
+                y, hw, win, shift, rel, qkv, proj, heads = a
+                b_, l_, c_ = y.shape
+                hp = -(-hw[0] // win) * win
+                wp = -(-hw[1] // win) * win
+                g_ops += 2.0 * b_ * l_ * 4 * c_ * c_
+                ops += 4.0 * b_ * hp * wp * win * win * c_
+                byts += 2 * b_ * l_ * c_ * esz + 4 * c_ * c_ * esz
+                calls.append((kswin.gemm("window_msa", y.reshape(-1, c_), qkv,
+                                         kswin.EPI_BIAS), qkv.bias, rel, b_,
+                              hw, heads, win, shift))
             # bf16: both sides round qkv, probabilities and heads to bf16;
             # f32: the same f32 operations in another order
             tol = 1e-3 if f32 else 2e-2
@@ -833,11 +860,16 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                    "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
                    float("nan"), ms_k, ms_p,
                    bound(byts, g_ops / PEAK["tf32x3" if f32 else work]
-                         + (ops - g_ops) / PEAK[work]),
+                         + ops / PEAK["tf32x3" if f32 else work]),
                    f"largest error relative to its block's max-abs "
                    f"{err_rel:.4g} (tolerance {tol}); "
                    f"{len(cap['window_msa'])} blocks summed",
                    ok=err_rel <= tol)
+            # ---- kernel 7's attention alone, with an SDPA yardstick --------
+            attn_phase(torch, kswin, record, "window_msa_attn" + sfx,
+                       "mask_bev_tpu/ops/pallas_window_msa.py:71", calls,
+                       True, f32, card)
+            del calls
             # ---- kernel 8: patch embed + patch_norm --------------------------
             (a, kw), = cap["patch_embed"]
             got = kpe.patch_embed(*a, **kw)
@@ -946,6 +978,12 @@ def path_phase(np, torch, card, results, failures, record, path: str,
           f"{launches}; by instance: {instances}", flush=True)
     for k in names:
         results[k + sfx]["launches"] = launches.get(k, 0)
+    if path == "K":
+        attn_inst = "window_msa/attn_" + ("f32" if f32 else "bf16")
+        results["window_msa_attn" + sfx]["launches"] = instances.get(
+            attn_inst, 0)
+        if instances.get(attn_inst, 0) <= 0:
+            failures.append(f"{attn_inst} never launched on {label}")
     for k in path_kernels:
         if launches.get(k, 0) <= 0:
             failures.append(f"{k} never launched on {label}")
@@ -974,15 +1012,20 @@ def path_phase(np, torch, card, results, failures, record, path: str,
           f"{tuple(mask_p.shape)}; mean mask prob "
           f"{float(mask_p.mean()):.4f}", flush=True)
     if not f32:
-        traced(torch, lambda: pred.forward(*staged[0]), f"profile {label}",
-               "request", card, 12)
+        keys = traced(torch, lambda: pred.forward(*staged[0]),
+                      f"profile {label}", "request", card, 12)
+        # kernel 7's index math pads, shifts and partitions: no roll
+        rolls = [k for k in keys if k == "aten::roll" or "roll_cuda" in k]
+        if path == "K" and rolls:
+            failures.append(f"{label}: the traced request rolled: {rolls}")
     del pred, model, staged, cls_p, mask_p
     torch.cuda.empty_cache()
 
 
-def traced(torch, run, label: str, unit: str, card: str, top: int) -> None:
+def traced(torch, run, label: str, unit: str, card: str, top: int):
     """Trace one call of ``run`` and print the device's busy time against
-    the wall time, then the ``top`` kernels by device time."""
+    the wall time, then the ``top`` kernels by device time. Returns the
+    names of every operator and kernel of the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1004,6 +1047,79 @@ def traced(torch, run, label: str, unit: str, card: str, top: int) -> None:
     for e in events[:top]:
         print(f"[{label}] {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return [e.key for e in prof.key_averages()]
+
+
+def block_qkv(kswin, x, p, quant):
+    """A captured Swin block's qkv, as its chain computes it (LN1, then the
+    qkv product: int8, or in the activation dtype in XLA order)."""
+    b, l, c = x.shape
+    x2 = x.reshape(b * l, c)
+    if quant:
+        q8, sx = kswin._ln(x2, p.ln1_w, p.ln1_b, True)
+        return kswin.gemm("swin_block", q8, p.qkv, kswin.EPI_BIAS, sx=sx,
+                          out_dtype=x.dtype)
+    return kswin.gemm("swin_block", kswin._ln(x2, p.ln1_w, p.ln1_b, False),
+                      p.qkv, kswin.EPI_BIAS | kswin.EPI_ROUND_ACC)
+
+
+def sdpa_windows(torch, kswin, qkv, qkv_bias, rel, b, hw, heads, win, shift):
+    """The windows of the attention as ``F.scaled_dot_product_attention``
+    takes them: q, k, v (B*nW, h, n, hd) (``kswin.qkv_windows``) and the
+    float mask rel + shift mask, (1, h, n, n) or, shifted, (B*nW, h, n, n),
+    in qkv's dtype."""
+    q, k, v = (t.contiguous() for t in kswin.qkv_windows(
+        qkv, qkv_bias, b, hw, heads, win, shift))
+    mask = rel.float()[None]
+    sm = kswin.shift_mask(hw, win, shift, qkv.device)
+    if sm is not None:
+        mask = (mask + sm[:, None]).repeat(b, 1, 1, 1)
+    return q, k, v, mask.to(qkv.dtype).contiguous()
+
+
+def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
+               card) -> None:
+    """The window attention launch alone (``kswin.attention``, the Swin or
+    the MSA variant) on each captured block's qkv: held against its plain
+    version (bf16 1e-2, f32 1e-4 of the block's largest value), timed
+    beside it and beside ``F.scaled_dot_product_attention`` on the same
+    windows (the library yardstick: q, k, v (B*nW, h, n, hd) and a float
+    mask rel + shift mask; used on no path). Bound: qkv read and the
+    output written once, the bias read once a head, against the products
+    (4 n C a padded token) at the bf16 or 3xTF32 rate."""
+    import torch.nn.functional as F
+
+    err_rel = err_abs = ms_k = ms_p = ms_l = byts = ops = 0.0
+    kname = "window_msa" if msa else "swin_block"
+    for (qkv, qb, rel, b, hw, heads, win, shift) in calls:
+        a = (qkv, qb, rel, b, hw, heads, win, shift)
+        got = kswin.attention(kname, *a, msa=msa)
+        want = kswin.window_attention_plain(*a, msa=msa)
+        e = float((got.float() - want.float()).abs().max())
+        err_abs = max(err_abs, e)
+        err_rel = max(err_rel, e / float(want.float().abs().max()))
+        ms_k += cuda_ms(torch, lambda: kswin.attention(kname, *a, msa=msa),
+                        5)
+        ms_p += cuda_ms(torch, lambda: kswin.window_attention_plain(
+            *a, msa=msa), 1)
+        q, k, v, mask = sdpa_windows(torch, kswin, *a)
+        hd = q.shape[-1]
+        ms_l += cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
+        del q, k, v, mask, got, want
+        c = qkv.shape[1] // 3
+        hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
+        byts += 4 * qkv.shape[0] * c * qkv.element_size() + rel.numel() * 4
+        ops += 4.0 * b * hp * wp * win * win * c
+    tol = 1e-4 if f32 else 1e-2
+    record(name, ATTN_SOURCE, replaces, err_abs, float("nan"), ms_k, ms_p,
+           bound(byts, ops / PEAK["tf32x3" if f32 else "bf16"]),
+           f"{'MSA' if msa else 'Swin'} variant, "
+           f"{'f32 (3xTF32)' if f32 else 'bf16'}; largest error relative "
+           f"to its block's max-abs {err_rel:.4g} (tolerance {tol}); "
+           f"{len(calls)} blocks summed; library = "
+           f"F.scaled_dot_product_attention on the same windows",
+           ok=err_rel <= tol, library_ms=ms_l)
 
 
 def grad_norms(grads):

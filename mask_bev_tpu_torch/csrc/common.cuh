@@ -103,6 +103,37 @@ __device__ __forceinline__ void split_tf32_finite(float x, uint32_t& hi,
       : "f"(__fsub_rn(x, __uint_as_float(hi))));
 }
 
+// a 3xTF32 operand: the f32 words of a fragment split into TF32 halves
+template <int N>
+struct Tf32x2 {
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ Tf32x2<N> split_frag(const uint32_t (&v)[N]) {
+  Tf32x2<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    split_tf32_finite(__uint_as_float(v[i]), f.hi[i], f.lo[i]);
+  return f;
+}
+
+// c += a . b in 3xTF32 (lo.hi + hi.lo, then hi.hi), both operands split
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32x2<4>& a,
+                                           const Tf32x2<2>& b) {
+  mma_1688_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_1688_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_1688_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// the same with the f32 words of a (4) and b (2) split in registers
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  const uint32_t b[2] = {b0, b1};
+  mma_3xtf32(c, split_frag(a), split_frag(b));
+}
+
 // four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -178,54 +209,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
-
-// One query row of window attention in f32, one warp: q (HD values, the
-// caller's scaling applied) in registers, lanes over the n keys for the
-// scores (k rows of stride ld in shared memory), score(s, j) adds the
-// caller's scale and bias, exact softmax in pw (n floats), then lanes over
-// the HD channels for P v, written by out(d, value).
-template <int HD, typename Score, typename Out>
-__device__ __forceinline__ void f32_attn_row(const float* q_row,
-                                             const float* ks,
-                                             const float* vs, int ld, int n,
-                                             float* pw, Score score,
-                                             Out out) {
-  const int lane = threadIdx.x & 31;
-  float q[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) q[d] = q_row[d];
-  float m = -INFINITY;
-  for (int j = lane; j < n; j += 32) {
-    const float* kr = ks + j * ld;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(q[d], kr[d], s);
-    s = score(s, j);
-    pw[j] = s;
-    m = fmaxf(m, s);
-  }
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = expf(pw[j] - m);
-    pw[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  for (int j = lane; j < n; j += 32) pw[j] = pw[j] / l;
-  __syncwarp();
-#pragma unroll
-  for (int d0 = 0; d0 < HD; d0 += 32) {
-    const int d = d0 + lane;
-    if (d < HD) {
-      float o = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) o = fmaf(pw[j], vs[j * ld + d], o);
-      out(d, o);
-    }
-  }
-  __syncwarp();
 }
 
 // Return codes of the exported functions: 0 or a cudaError_t from the

@@ -928,34 +928,6 @@ __device__ __forceinline__ uint4 lds16(const float* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// a 3xTF32 operand: the f32 words of a fragment split into TF32 halves
-template <int N>
-struct Tf32x2 {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ Tf32x2<N> split_frag(const uint32_t (&v)[N]) {
-  Tf32x2<N> f;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    split_tf32_finite(__uint_as_float(v[i]), f.hi[i], f.lo[i]);
-  return f;
-}
-
-// c += a . b in 3xTF32 (lo.hi + hi.lo, then hi.hi): the f32 words of a (4)
-// and b (2) split in registers
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  const Tf32x2<4> as = split_frag(a);
-  const uint32_t b[2] = {b0, b1};
-  const Tf32x2<2> bs = split_frag(b);
-  mma_1688_tf32(c, as.lo, bs.hi[0], bs.hi[1]);
-  mma_1688_tf32(c, as.hi, bs.lo[0], bs.lo[1]);
-  mma_1688_tf32(c, as.hi, bs.hi[0], bs.hi[1]);
-}
-
 // acc[mt][nt] += W[m-tile mt] . B[n-tile nt]^T over k < K (K % 32 == 0):
 // MT tiles of 16 rows of W (rows w0 + 16 mt.., K-contiguous in device
 // memory with row stride ldw; rows >= wrows read as 0), NT <= 4 tiles of 8

@@ -41,8 +41,7 @@ from mask_bev_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from mask_bev_tpu_torch.ops.patch_embed import embed_matrix, patch_embed
 from mask_bev_tpu_torch.ops.swin_block import (
     BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm_p,
-    make_dense, merge_windows, partition_windows, rel_bias_from_table,
-    shift_mask, swin_block, window_msa_plain)
+    make_dense, rel_bias_from_table, swin_block, window_msa_plain)
 from mask_bev_tpu_torch.ops.window_msa import window_msa
 
 __all__ = ["LayerNorm", "SwinBlock", "PatchMerging", "SwinTransformer",
@@ -164,11 +163,8 @@ class SwinBlock(nn.Module):
         y = layer_norm_p(x, p.ln1_w, p.ln1_b)
         if (not train and fused_attention and not quant
                 and x.shape[-1] % self.num_heads == 0):
-            xw = window_msa(partition_windows(y, hw, self.window, shift),
-                            p.rel_bias,
-                            shift_mask(hw, self.window, shift, x.device),
-                            p.qkv, p.proj, self.num_heads)
-            y = merge_windows(xw, hw, self.window, shift)
+            y = window_msa(y, hw, self.window, shift, p.rel_bias, p.qkv,
+                           p.proj, self.num_heads)
         else:
             y = window_msa_plain(y, p, hw, self.window, self.num_heads,
                                  shift, quant)

@@ -29,11 +29,12 @@ The CUDA chain (``csrc/swin_block.cu``): LN1 (+quantise) -> qkv GEMM ->
 window attention -> (quantise) -> proj GEMM + residual -> LN2 (+quantise)
 -> fc1 GEMM + GELU -> (quantise) -> fc2 GEMM + residual. The GEMMs are the
 persistent wgmma kernel of ``csrc/gemm.cuh`` (TMA loads, int8, bf16 or f32
-as 3xTF32); the attention keeps its scores in registers. f32 activations
-(the shipped configurations' dtype) take every launch's f32 instance: the
-int8 GEMM with f32 epilogues, or the 3xTF32 GEMM (its weight split once
-into TF32 halves by :func:`make_dense`); f32 LN, quantisation and
-attention. Every launch counts under ``swin_block``.
+as 3xTF32); the attention (``csrc/window_attn.cuh``, shared with kernel 7)
+keeps its scores in registers on ``mma.sync`` (f32 as 3xTF32). f32
+activations (the shipped configurations' dtype) take every launch's f32
+instance: the int8 GEMM with f32 epilogues, or the 3xTF32 GEMM (its weight
+split once into TF32 halves by :func:`make_dense`); f32 LN, quantisation
+and attention. Every launch counts under ``swin_block``.
 """
 from __future__ import annotations
 
@@ -384,38 +385,121 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     return out
 
 
-# head widths the attention kernels (bf16 and f32) are built for
+# the window attention's limits (``csrc/window_attn.cuh``, every instance)
 ATTN_HEAD_DIMS = (16, 32, 64)
+ATTN_MAX_TOKENS = 128
 
 
-def attn_smem_bytes(win: int, hd: int) -> int:
-    """Shared memory of one attention block (``csrc/swin_block.cu``): q,
-    k, v rows of the padded window (stride hd + 8), the relative bias of
-    its head in bf16 (stride NP + 8) and the token and label rows. A block
-    takes one head over 4 windows, so it reads the bias once for them."""
-    n_pad = -(-win * win // 16) * 16
-    return 2 * (3 * n_pad * (hd + 8) + n_pad * (n_pad + 8)) + 8 * n_pad
+def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
+    """Raise unless the window attention kernel takes C channels over
+    ``heads`` heads in ``win`` x ``win`` windows."""
+    if (c % heads or c // heads not in ATTN_HEAD_DIMS
+            or win * win > ATTN_MAX_TOKENS):
+        raise ValueError(f"{what} kernel: bad shape, C={c} over {heads} "
+                         f"heads in windows of {win}x{win}: the attention "
+                         f"takes head widths {ATTN_HEAD_DIMS} and at most "
+                         f"{ATTN_MAX_TOKENS} tokens a window")
+
+
+def attn_smem_bytes(win: int, hd: int, f32: bool = False,
+                    msa: bool = False) -> int:
+    """Shared memory of one attention block (``csrc/window_attn.cuh::
+    window_attn_smem``): q, k, v rows of the padded window (bf16, stride
+    hd + 8) or k, v rows (f32, stride hd + 4); the relative bias of its
+    head (stride NP + 8) as bf16 over NP rows (the Swin variant in bf16)
+    or as f32 over n rows; the token and label rows. A block takes one
+    head over 4 windows, so it reads the bias once for them."""
+    n = win * win
+    n_pad = -(-n // 16) * 16
+    rows = 2 * n_pad * (hd + 4) * 4 if f32 else 3 * n_pad * (hd + 8) * 2
+    bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
+    return rows + bias + 8 * n_pad
+
+
+def qkv_windows(qkv: torch.Tensor, qkv_bias: torch.Tensor, b: int,
+                hw: Tuple[int, int], heads: int, win: int, shift: int
+                ) -> torch.Tensor:
+    """(B*H*W, 3C) qkv -> (3, B*nW, heads, n, hd) q, k, v windows of the
+    padded grid rolled by ``-shift``; pad tokens take the qkv bias rounded
+    to the dtype (a zero row through the qkv product)."""
+    h, w = hw
+    c = qkv.shape[1] // 3
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    grid = qkv_bias.to(qkv.dtype).expand(b, hp, wp, 3 * c).clone()
+    grid[:, :h, :w] = qkv.reshape(b, h, w, 3 * c)
+    if shift:
+        grid = torch.roll(grid, (-shift, -shift), dims=(1, 2))
+    nw = (hp // win) * (wp // win)
+    return (grid.reshape(b, hp // win, win, wp // win, win, 3 * c)
+            .permute(0, 1, 3, 2, 4, 5)
+            .reshape(b * nw, win * win, 3, heads, c // heads)
+            .permute(2, 0, 3, 1, 4))
+
+
+def window_attention_plain(qkv: torch.Tensor, qkv_bias: torch.Tensor,
+                           rel: torch.Tensor, b: int, hw: Tuple[int, int],
+                           heads: int, win: int, shift: int, msa: bool
+                           ) -> torch.Tensor:
+    """Plain version of the attention launch: (B*H*W, 3C) qkv -> (B*H*W,
+    C) on :func:`qkv_windows`. The Swin variant scales q before the
+    product and rounds it, the MSA variant scales the f32 score; rel plus
+    the shift mask summed first; f32 softmax rounded to the dtype; f32
+    ``p v``."""
+    c = qkv.shape[1] // 3
+    hd, n = c // heads, win * win
+    t = qkv_windows(qkv, qkv_bias, b, hw, heads, win, shift)
+    if msa:
+        attn = (t[0].float() @ t[1].float().transpose(-1, -2)) * hd ** -0.5
+    else:
+        attn = (t[0] * hd ** -0.5).float() @ t[1].float().transpose(-1, -2)
+    bias = rel.float()[None]
+    mask = shift_mask(hw, win, shift, qkv.device)
+    if mask is not None:
+        bias = (bias + mask[:, None]).repeat(b, 1, 1, 1)
+    attn = torch.softmax(attn + bias, dim=-1).to(qkv.dtype)
+    o = (attn.float() @ t[2].float()).to(qkv.dtype)
+    o = o.transpose(1, 2).reshape(b, -1, n, c)
+    return merge_windows(o, hw, win, shift).reshape(qkv.shape[0], c)
+
+
+def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
+              rel: torch.Tensor, b: int, hw: Tuple[int, int], heads: int,
+              win: int, shift: int, msa: bool) -> torch.Tensor:
+    """The window attention launch (``csrc/window_attn.cuh``) of kernel 3
+    (``msa=False``) or kernel 7 (``msa=True``): (B*H*W, 3C) qkv of bf16 or
+    f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
+    are its index math. Counted under ``name`` and ``name/attn_bf16`` or
+    ``name/attn_f32``; the plain version for CPU tensors."""
+    if not qkv.is_cuda:
+        return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,
+                                      shift, msa)
+    c = qkv.shape[1] // 3
+    f32 = _f32(qkv)
+    check_attn_shape(name, c, heads, win)
+    kb.check_cuda(qkv, "qkv", qkv.dtype, (b * hw[0] * hw[1], 3 * c))
+    kb.check_cuda(qkv_bias, "qkv_bias", torch.float32, (3 * c,))
+    kb.check_cuda(rel, "rel", torch.float32, (heads, win * win, win * win))
+    # rows arrive in 16-byte copies
+    if qkv.data_ptr() % 16 or qkv_bias.data_ptr() % 16 or c % 8:
+        raise ValueError(f"{name} attention kernel: qkv and its bias must "
+                         f"be 16-byte aligned and C a multiple of 8")
+    o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
+    kb.launch(name, "window_msa_attn" if msa else "swin_window_attn",
+              kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel), kb.ptr(o),
+              kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads),
+              kb.ci(win), kb.ci(shift), kb.cf((c // heads) ** -0.5),
+              kb.ci(f32), kb.stream(),
+              instance="attn_f32" if f32 else "attn_bf16")
+    return o
 
 
 def window_attention(qkv: torch.Tensor, p: BlockWeights, b: int,
                      hw: Tuple[int, int], heads: int, win: int, shift: int
                      ) -> torch.Tensor:
-    """(B*H*W, 3C) qkv -> (B*H*W, C) window attention output of the same
-    dtype (bf16 on the tensor cores, or the f32 instance; one launch,
-    counted under ``swin_block``)."""
-    c = qkv.shape[1] // 3
-    f32 = _f32(qkv)
-    kb.check_cuda(qkv, "qkv", qkv.dtype, (b * hw[0] * hw[1], 3 * c))
-    kb.check_cuda(p.rel_bias, "rel_bias", torch.float32,
-                  (heads, win * win, win * win))
-    o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
-    kb.launch("swin_block",
-              "swin_window_attn_f32" if f32 else "swin_window_attn",
-              kb.ptr(qkv), kb.ptr(p.qkv.bias), kb.ptr(p.rel_bias), kb.ptr(o),
-              kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads),
-              kb.ci(win), kb.ci(shift), kb.cf((c // heads) ** -0.5),
-              kb.stream(), instance="f32" if f32 else "bf16")
-    return o
+    """The Swin chain's attention (one launch, counted under
+    ``swin_block``): (B*H*W, 3C) qkv -> (B*H*W, C) of the same dtype."""
+    return attention("swin_block", qkv, p.qkv.bias, p.rel_bias, b, hw,
+                     heads, win, shift, msa=False)
 
 
 def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
@@ -428,10 +512,10 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     _f32(x)  # raises on a dtype without an instance
     b, l, c = x.shape
     h, w = hw
-    if (l != h * w or c % heads or win * win > 128
-            or c // heads not in ATTN_HEAD_DIMS):
+    if l != h * w:
         raise ValueError(f"swin block kernel: bad shape {x.shape} for "
-                         f"hw={hw}, heads={heads}, win={win}")
+                         f"hw={hw}")
+    check_attn_shape("swin block", c, heads, win)
     kb.check_cuda(x, "x", x.dtype)
     x2 = x.reshape(b * l, c)
     dt = x.dtype

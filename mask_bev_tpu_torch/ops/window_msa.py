@@ -1,11 +1,11 @@
-"""Kernel 7: window multi-head self-attention on partitioned windows.
+"""Kernel 7: window multi-head self-attention.
 
 Replaces ``mask_bev_tpu/ops/pallas_window_msa.py::fused_window_msa``, which
 the JAX package's unfused eval ``ShiftWindowMSA`` reaches with
 ``use_pallas_attention`` when the block is not int8
 (``mask_bev_tpu/models/swin.py:222-240``). On (B, nW, n, C) windows
 already padded, rolled and partitioned (``ops/swin_block.py::
-partition_windows``) it computes the TPU kernel's function:
+partition_windows``) the TPU kernel computes:
 
 * ``qkv = x . Wqkv`` with f32 accumulation, the bias added in f32, rounded
   to the activation dtype D;
@@ -15,24 +15,29 @@ partition_windows``) it computes the TPU kernel's function:
 * the heads' outputs rounded to D, then ``o . Wproj`` with f32
   accumulation and f32 bias, rounded to D.
 
-The TPU kernel reads one (nW, h, n, n) bias; this port reads the (h, n, n)
-relative-position bias and the (nW, n, n) shift mask and adds them per
-score, so nothing of size nW x h x n x n is built.
+:func:`window_msa_plain` is that function on partitioned windows (the
+counterpart the CPU tests hold against the TPU kernel);
+:func:`window_msa_grid_plain` wraps it in the partition and the merge, so
+it takes the block's (B, H*W, C) tokens as :func:`window_msa` does.
 
-The CUDA chain (``csrc/window_msa.cu``): qkv GEMM (``csrc/gemm.cuh``, f32
-bias epilogue) -> attention, one block per (window, head, sample) -> proj
-GEMM; its three launches count under ``window_msa``. bf16 windows take the
-tensor-core instance, f32 windows the f32 instance (f32 GEMMs and f32
-attention, nothing rounded below f32).
+The CUDA chain (``csrc/window_msa.cu``) works on the (B, H*W, C) tokens:
+qkv GEMM on the B*H*W real rows (``csrc/gemm.cuh``, f32 bias epilogue) ->
+attention (``csrc/window_attn.cuh``, its MSA variant), whose index math
+does the padding, the cyclic shift and the window partition, pad tokens
+taking the qkv bias -> proj GEMM. No padded, rolled or partitioned copy of
+the grid is made. Its three launches count under ``window_msa``; bf16
+tokens take the bf16 instances, f32 tokens the f32 ones (the 3xTF32 GEMM
+and attention: nothing rounded below f32 outside the 3xTF32 split).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from mask_bev_tpu_torch.kernels import build as kb
-from mask_bev_tpu_torch.ops.swin_block import EPI_BIAS, Dense, gemm
+from mask_bev_tpu_torch.ops.swin_block import (
+    EPI_BIAS, Dense, attention, check_attn_shape, gemm, merge_windows,
+    partition_windows, shift_mask)
 
 
 def _project(x: torch.Tensor, d: Dense) -> torch.Tensor:
@@ -59,36 +64,39 @@ def window_msa_plain(xw: torch.Tensor, rel: torch.Tensor,
     return _project(o, proj).reshape(b, nw, n, c)
 
 
-def window_msa(xw: torch.Tensor, rel: torch.Tensor,
-               mask: Optional[torch.Tensor], qkv: Dense, proj: Dense,
-               heads: int) -> torch.Tensor:
-    """Window MSA on (B, nW, n, C): the CUDA chain for CUDA tensors (its
-    bf16 or f32 instance), the plain version for CPU tensors. ``rel``
-    (h, n, n) f32, ``mask`` (nW, n, n) f32 or None, ``qkv``/``proj`` with
-    (N, K) weights and f32 biases."""
-    if not xw.is_cuda:
-        return window_msa_plain(xw, rel, mask, qkv, proj, heads)
-    dt = xw.dtype
+def window_msa_grid_plain(y: torch.Tensor, hw: Tuple[int, int], win: int,
+                          shift: int, rel: torch.Tensor, qkv: Dense,
+                          proj: Dense, heads: int) -> torch.Tensor:
+    """Plain PyTorch version on the block's tokens: (B, H*W, C) -> (B,
+    H*W, C) through :func:`partition_windows`, :func:`window_msa_plain`
+    and :func:`merge_windows`."""
+    xw = window_msa_plain(partition_windows(y, hw, win, shift), rel,
+                          shift_mask(hw, win, shift, y.device), qkv, proj,
+                          heads)
+    return merge_windows(xw, hw, win, shift)
+
+
+def window_msa(y: torch.Tensor, hw: Tuple[int, int], win: int, shift: int,
+               rel: torch.Tensor, qkv: Dense, proj: Dense, heads: int
+               ) -> torch.Tensor:
+    """Window MSA of an unfused Swin block on its LN1 output ``y`` (B,
+    H*W, C): the CUDA chain for CUDA tensors (its bf16 or f32 instance),
+    the plain version for CPU tensors. ``rel`` (h, n, n) f32, ``shift``
+    the cyclic shift (0 unshifted), ``qkv``/``proj`` with (N, K) weights
+    and f32 biases."""
+    if not y.is_cuda:
+        return window_msa_grid_plain(y, hw, win, shift, rel, qkv, proj,
+                                     heads)
+    dt = y.dtype
     if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the window MSA kernels take bf16 or f32 windows; "
+        raise ValueError(f"the window MSA kernels take bf16 or f32 tokens; "
                          f"got {dt}")
-    f32 = dt == torch.float32
-    b, nw, n, c = xw.shape
-    hd, n_pad = c // heads, -(-n // 16) * 16
-    if c % heads or n > 128 or (hd not in (16, 32, 64) if f32 else
-                                (hd % 16 or n_pad > 2 * hd + 8)):
-        raise ValueError(f"window MSA kernel: bad shape {tuple(xw.shape)} "
-                         f"for {heads} heads")
-    x2 = xw.contiguous().reshape(b * nw * n, c)
-    kb.check_cuda(x2, "xw", dt)
-    kb.check_cuda(rel, "rel", torch.float32, (heads, n, n))
-    if mask is not None:
-        kb.check_cuda(mask, "mask", torch.float32, (nw, n, n))
-    t = gemm("window_msa", x2, qkv, EPI_BIAS)
-    o = torch.empty((b * nw * n, c), dtype=dt, device=xw.device)
-    kb.launch("window_msa", "window_msa_attn_f32" if f32
-              else "window_msa_attn", kb.ptr(t), kb.ptr(rel),
-              kb.ptr(mask), kb.ptr(o), kb.ci(b), kb.ci(nw), kb.ci(n),
-              kb.ci(c), kb.ci(heads), kb.cf(hd ** -0.5), kb.stream(),
-              instance="f32" if f32 else "bf16")
-    return gemm("window_msa", o, proj, EPI_BIAS).reshape(b, nw, n, c)
+    b, l, c = y.shape
+    if l != hw[0] * hw[1]:
+        raise ValueError(f"window MSA kernel: {l} tokens for a grid {hw}")
+    check_attn_shape("window MSA", c, heads, win)
+    y2 = y.contiguous().reshape(b * l, c)
+    t = gemm("window_msa", y2, qkv, EPI_BIAS)
+    o = attention("window_msa", t, qkv.bias, rel, b, hw, heads, win, shift,
+                  msa=True)
+    return gemm("window_msa", o, proj, EPI_BIAS).reshape(b, l, c)

@@ -9,7 +9,8 @@ device. Run on the card with
 Tolerances, relative to the plain result's largest magnitude:
 
 * f32 instances: 1e-4 where both sides take the same f32 operations in
-  another order (no operand is rounded below f32); 2e-2 for the int8
+  another order (no operand is rounded below f32); the window attention
+  and kernel 7 also within 1e-5 of a float64 computation; 2e-2 for the int8
   Swin block at f32 (int8 rounding boundaries move by a step between two
   f32 LayerNorms summed in another order, as in bf16);
 * the rebuilt PFN in bf16: 2^-7 (two bf16 steps), with the count of rows
@@ -42,7 +43,8 @@ from mask_bev_tpu_torch.ops import window_msa as kwmsa  # noqa: E402
 from mask_bev_tpu_torch.ops.stream_pillars import (  # noqa: E402
     pillarize_stream, pillarize_stream_packed)
 from test_torch_port_kernels import (  # noqa: E402
-    _block_weights, _decoder_inputs, _rel, _window_attention_plain)
+    _attention_f64, _block_weights, _decoder_inputs, _rel,
+    _window_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -276,11 +278,17 @@ def test_gemm_f32(dev, quant, mode, m, n, k):
 
 
 @pytest.mark.parametrize("shifted", [False, True])
-def test_window_attention_f32(dev, shifted):
-    """The Swin chain's f32 attention launch against the plain attention
-    on the same qkv (``test_torch_port_kernels.py``'s, whose bf16 roundings
-    are identities in f32)."""
-    c, heads, hw, win, b = 192, 3, (23, 27), 10, 2
+@pytest.mark.parametrize("c,heads,hw", [
+    (192, 3, (23, 27)),    # pad tokens on both axes
+    (192, 3, (125, 125)),  # the flagship's stage-0 grid
+    (1536, 24, (16, 16)),  # its stage-3 grid
+])
+def test_window_attention_f32(dev, shifted, c, heads, hw):
+    """The Swin chain's f32 attention launch (3xTF32) against the plain
+    attention on the same qkv (``test_torch_port_kernels.py``'s, whose
+    bf16 roundings are identities in f32) within 1e-4, and against a
+    float64 attention within 1e-5 of the largest output."""
+    win, b = 10, 2
     p = _block_weights(dev, c, heads, win, False, seed=17,
                        dtype=torch.float32)
     g = torch.Generator().manual_seed(18)
@@ -289,30 +297,60 @@ def test_window_attention_f32(dev, shifted):
     kb.reset_launches()
     got = kswin.window_attention(qkv, p, b, hw, heads, win, shift)
     want = _window_attention_plain(qkv, p, b, hw, heads, win, shift)
+    exact = _attention_f64(qkv, p.qkv.bias, p.rel_bias, b, hw, heads, win,
+                           shift, msa=False)
     torch.cuda.synchronize()
-    assert kb.INSTANCES["swin_block/f32"] == 1 and got.dtype == torch.float32
+    assert kb.INSTANCES == {"swin_block/attn_f32": 1}
+    assert got.dtype == torch.float32
+    err = float((got.double() - exact).abs().max() / exact.abs().max())
+    print(f"swin attention f32 {c} {hw} shift {shift}: error relative to "
+          f"float64 {err:.3g}, to the plain f32 {_rel(got, want):.3g}")
     assert _rel(got, want) <= 1e-4
+    assert err <= 1e-5
 
 
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("c,heads,hw", [(192, 3, (23, 27)),
-                                        (1536, 24, (7, 7))])
+                                        (1536, 24, (7, 7)),
+                                        (96, 3, (23, 27))])
 def test_window_msa_f32(dev, shifted, c, heads, hw):
-    win = 10 if c == 192 else 5
+    """Kernel 7's f32 instance on the token grid against the plain version
+    (1e-4) and against the whole chain in float64 (1e-5 of the largest
+    output); its attention launch alone against a float64 attention."""
+    win = 5 if c == 1536 else 10
     p = _block_weights(dev, c, heads, win, False, seed=11,
                        dtype=torch.float32)
     g = torch.Generator().manual_seed(12)
     y = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev)
     shift = kswin.effective_shift(hw, win, shifted)
-    xw = kswin.partition_windows(y, hw, win, shift)
-    mask = kswin.shift_mask(hw, win, shift, dev)
+    args = (y, hw, win, shift, p.rel_bias, p.qkv, p.proj, heads)
     kb.reset_launches()
-    got = kwmsa.window_msa(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
-    want = kwmsa.window_msa_plain(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
+    got = kwmsa.window_msa(*args)
+    want = kwmsa.window_msa_grid_plain(*args)
     torch.cuda.synchronize()
     assert kb.LAUNCHES["window_msa"] == 3
-    assert kb.INSTANCES["window_msa/f32"] == 1
+    assert kb.INSTANCES == {"window_msa/gemm_f32_3xtf32": 2,
+                            "window_msa/attn_f32": 1}
+
+    def f64(x, d):
+        return x @ d.wt.double().t() + d.bias.double()
+
+    qkv64 = f64(y.double().reshape(-1, c), p.qkv)
+    o64 = _attention_f64(qkv64, p.qkv.bias, p.rel_bias, 2, hw, heads, win,
+                         shift, msa=True)
+    exact = f64(o64, p.proj).reshape(y.shape)
+    err = float((got.double() - exact).abs().max() / exact.abs().max())
+    qkv = kswin.gemm("window_msa", y.reshape(-1, c), p.qkv, kswin.EPI_BIAS)
+    o = kswin.attention("window_msa", qkv, p.qkv.bias, p.rel_bias, 2, hw,
+                        heads, win, shift, msa=True)
+    o_exact = _attention_f64(qkv, p.qkv.bias, p.rel_bias, 2, hw, heads, win,
+                             shift, msa=True)
+    err_attn = float((o.double() - o_exact).abs().max()
+                     / o_exact.abs().max())
+    print(f"window msa f32 {c} {hw} shift {shift}: chain error relative to "
+          f"float64 {err:.3g}, attention alone {err_attn:.3g}")
     assert _rel(got, want) <= 1e-4
+    assert err <= 1e-5 and err_attn <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -379,11 +417,12 @@ def test_predictor_f32_card_matches_cpu(dev):
     assert float((m_gpu.cpu() - m_cpu).abs().max()) <= 1e-3
 
 
-# instances of the designs this port removed: the f32 SIMT GEMM and the
-# split decoder's FMA kernel
+# instances of the designs this port removed: the f32 SIMT GEMM, the split
+# decoder's FMA kernel and kernel 7's attention kernels on partitioned
+# windows (the window-attention template took their place)
 REMOVED = ("swin_block/gemm_f32", "window_msa/gemm_f32",
            "decoder_stack/gemm_f32", "decoder_stack/split_f32",
-           "decoder_stack/split_bf16")
+           "decoder_stack/split_bf16", "window_msa/bf16", "window_msa/f32")
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])

@@ -17,7 +17,8 @@ kernels are held exactly: the canvas scatter (A) and its gradient (B) only
 move values, and the matcher (C) repeats the plain version's f32 steps, so
 its assignments are equal. Kernels 7-10: 2e-2 for window MSA (as the Swin
 block: bf16 rounding of qkv, probabilities and heads on both sides, summed
-in another order), 1e-2 for the patch embed, the token LayerNorm and the
+in another order; its attention launch alone 1e-2, as the Swin chain's),
+1e-2 for the patch embed, the token LayerNorm and the
 capped PFN (each rounds once to bf16 from f32 values summed in another
 order). The PFN kernels (1 and 10) sum their products on the tensor cores
 in another order than the plain version (which they equalled exactly while
@@ -27,7 +28,8 @@ instances and the split decoder are held in
 ``test_torch_port_f32_kernels.py``. The shared GEMM's int8 products are held exactly against a float64
 product of the int8 values (an int32 sum is exact in any order) followed
 by the same f32 epilogue; the Swin chain's attention launch alone within
-1e-2.
+1e-2, and in bf16 bit for bit against its output before the
+window-attention template (a recorded sha256).
 """
 import pytest
 
@@ -346,6 +348,35 @@ def _window_attention_plain(qkv, p, b, hw, heads, win, shift):
     return kswin.merge_windows(o, hw, win, shift).reshape(b * h * w, c)
 
 
+def _attention_f64(qkv, qkv_bias, rel, b, hw, heads, win, shift, msa):
+    """The window attention in float64 on the same inputs, nothing rounded
+    (the Swin variant's q scaled in f32 first, as its kernel and the
+    reference block scale it): the yardstick of the f32 instances."""
+    h, w = hw
+    c = qkv.shape[1] // 3
+    hd, n = c // heads, win * win
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    grid = qkv_bias.double().expand(b, hp, wp, 3 * c).clone()
+    grid[:, :h, :w] = qkv.double().reshape(b, h, w, 3 * c)
+    if shift:
+        grid = torch.roll(grid, (-shift, -shift), dims=(1, 2))
+    nw = (hp // win) * (wp // win)
+    t = (grid.reshape(b, hp // win, win, wp // win, win, 3 * c)
+         .permute(0, 1, 3, 2, 4, 5).reshape(b * nw, n, 3, heads, hd)
+         .permute(2, 0, 3, 1, 4))
+    q = t[0] if msa else (t[0].float() * hd ** -0.5).double()
+    s = q @ t[1].transpose(-1, -2)
+    if msa:
+        s = s * hd ** -0.5
+    bias = rel.double()[None]
+    mask = kswin.shift_mask(hw, win, shift, qkv.device)
+    if mask is not None:
+        bias = (bias + mask.double()[:, None]).repeat(b, 1, 1, 1)
+    o = torch.softmax(s + bias, dim=-1) @ t[2]
+    o = o.transpose(1, 2).reshape(b, nw, n, c)
+    return kswin.merge_windows(o, hw, win, shift).reshape(b * h * w, c)
+
+
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("c,heads,hw", [
     (192, 3, (125, 125)),  # stage-0 grid of the flagship, pad tokens
@@ -367,6 +398,48 @@ def test_window_attention_kernel(dev, shifted, c, heads, hw):
     torch.cuda.synchronize()
     assert _rel(got, want) <= 1e-2
     assert kb.LAUNCHES["swin_block"] == 1
+    assert kb.INSTANCES == {"swin_block/attn_bf16": 1}
+    # the module's plain version of the launch is the same function
+    same = kswin.window_attention_plain(qkv, p.qkv.bias, p.rel_bias, b, hw,
+                                        heads, win, shift, msa=False)
+    assert torch.equal(same, want)
+
+
+# sha256 of the bf16 Swin attention's output bytes, as the kernel before
+# the window-attention template (swin_window_attn_kernel) gave them on the
+# H100 for test_window_attention_kernel's inputs: the template's Swin
+# variant in bf16 is the same arithmetic in the same order
+SWIN_ATTN_BF16_SHA256 = {
+    (192, 3, (125, 125), False):
+        "263eacda11002256e0178c21a03c726f83a83148007c3be2f5e36bb21f7d42cf",
+    (192, 3, (125, 125), True):
+        "920e57768452bc8d799b517907626a1dee0c456f83e77156562a48456b132fc7",
+    (1536, 24, (16, 16), False):
+        "95f3e7bd8470f9b4e2276228d70bccb360b69514668b3a1021ec46dd95a06d42",
+    (1536, 24, (16, 16), True):
+        "2d8c85d10a174603f6416f233660268f0d80905cdb3acd95ae63ab6b6d7500a5",
+}
+
+
+@pytest.mark.parametrize("key", list(SWIN_ATTN_BF16_SHA256),
+                         ids=lambda k: f"{k[0]}-{k[3]}")
+def test_window_attention_bf16_keeps_its_output(dev, key):
+    """The bf16 Swin attention gives its output of before the template bit
+    for bit."""
+    import hashlib
+
+    c, heads, hw, shifted = key
+    win, b = 10, 2
+    p = _block_weights(dev, c, heads, win, False, seed=17)
+    g = torch.Generator().manual_seed(18)
+    qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(
+        dev, torch.bfloat16)
+    shift = kswin.effective_shift(hw, win, shifted)
+    got = kswin.window_attention(qkv, p, b, hw, heads, win, shift)
+    digest = hashlib.sha256(
+        got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    print(f"swin attention bf16 {key}: sha256 {digest}")
+    assert digest == SWIN_ATTN_BF16_SHA256[key]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -432,23 +505,37 @@ def test_matcher_kernel(dev, kind):
 @pytest.mark.parametrize("c,heads,hw", [
     (192, 3, (23, 27)),  # KITTI stage-0 widths, pad tokens on both axes
     (1536, 24, (7, 7)),  # stage-3 widths: Wqkv far beyond shared memory
+    (96, 3, (23, 27)),   # head width 32: the scale 32^-0.5 is inexact
 ])
 def test_window_msa_kernel(dev, shifted, c, heads, hw):
-    win = 10 if c == 192 else 5
+    """Kernel 7 on the token grid (the attention's index math pads, shifts
+    and partitions) against partition -> plain -> merge; its attention
+    launch alone against the plain attention (MSA variant) on the same
+    qkv, within 1e-2 as the Swin chain's."""
+    win = 5 if c == 1536 else 10
     p = _block_weights(dev, c, heads, win, False, seed=11)
     g = torch.Generator().manual_seed(12)
     y = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, torch.bfloat16)
     shift = kswin.effective_shift(hw, win, shifted)
-    xw = kswin.partition_windows(y, hw, win, shift)
-    mask = kswin.shift_mask(hw, win, shift, dev)
+    args = (y, hw, win, shift, p.rel_bias, p.qkv, p.proj, heads)
     kb.reset_launches()
-    got = kwmsa.window_msa(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
-    want = kwmsa.window_msa_plain(xw, p.rel_bias, mask, p.qkv, p.proj, heads)
+    got = kwmsa.window_msa(*args)
+    want = kwmsa.window_msa_grid_plain(*args)
     torch.cuda.synchronize()
     assert kb.LAUNCHES["window_msa"] == 3
+    assert kb.INSTANCES == {"window_msa/gemm_bf16": 2,
+                            "window_msa/attn_bf16": 1}
+    assert got.shape == y.shape and got.dtype == y.dtype
     assert _rel(got, want) <= 2e-2
+    qkv = kswin.gemm("window_msa", y.reshape(-1, c), p.qkv, kswin.EPI_BIAS)
+    o = kswin.attention("window_msa", qkv, p.qkv.bias, p.rel_bias, 2, hw,
+                        heads, win, shift, msa=True)
+    o_plain = kswin.window_attention_plain(qkv, p.qkv.bias, p.rel_bias, 2,
+                                           hw, heads, win, shift, msa=True)
+    torch.cuda.synchronize()
+    assert _rel(o, o_plain) <= 1e-2
     with pytest.raises(ValueError, match="bf16 or f32"):
-        kwmsa.window_msa(xw.half(), p.rel_bias, mask, p.qkv, p.proj, heads)
+        kwmsa.window_msa(y.half(), *args[1:])
 
 
 @pytest.mark.parametrize("b,h,w,c,e", [(2, 64, 48, 128, 192),

@@ -108,3 +108,35 @@ def test_attention_blocks_share_an_sm(hd):
     """The attention kernel is built for two blocks an SM (its launch
     bounds): at win 10 two blocks' shared memory fits the SM's 228 KB."""
     assert 2 * kswin.attn_smem_bytes(10, hd) <= 228 * 1024
+
+
+@pytest.mark.parametrize("win,hd,f32,msa,want", [
+    (10, 64, True, False, 109824), (10, 64, True, True, 109824),
+    (10, 64, False, True, 97280), (10, 32, True, True, 81152),
+    (5, 16, True, False, 9376)])
+def test_attention_smem_instances(win, hd, f32, msa, want):
+    """The f32 instances hold k, v (f32, stride hd + 4) and an f32 bias of
+    n rows, q going to registers; the MSA variant's bf16 instance holds its
+    bias in f32."""
+    assert kswin.attn_smem_bytes(win, hd, f32, msa) == want
+
+
+@pytest.mark.parametrize("f32,msa", [(False, True), (True, False),
+                                     (True, True)])
+@pytest.mark.parametrize("hd", kswin.ATTN_HEAD_DIMS)
+def test_attention_instances_share_an_sm(hd, f32, msa):
+    """Every instance of the attention template is built for two blocks an
+    SM: at win 10 two blocks' shared memory, with the 1 KB the card
+    reserves for each, fits the SM's 228 KB."""
+    assert 2 * (kswin.attn_smem_bytes(10, hd, f32, msa) + 1024) <= (
+        228 * 1024)
+
+
+@pytest.mark.parametrize("c,heads,win", [(96, 2, 10), (192, 3, 12),
+                                         (100, 4, 10)])
+def test_attention_shape_check(c, heads, win):
+    """One check of the attention template's limits (head widths 16, 32,
+    64; at most 128 tokens a window) serves kernels 3 and 7."""
+    with pytest.raises(ValueError, match="bad shape"):
+        kswin.check_attn_shape("window MSA", c, heads, win)
+    kswin.check_attn_shape("swin block", 192, 3, 10)
