@@ -28,8 +28,11 @@
 5b. drives the two serving paths of kernels 7-10 (``path_phase``): path K,
    ``kitti_default()`` (800x800 grid, 3 classes) with the unfused backbone
    (window MSA, kernel 7, on the token grid: its attention alone with the
-   SDPA yardstick too, and no ``roll`` in the traced request) and the
-   fused patch embed (kernel 8), and path E,
+   SDPA yardstick too, and no ``roll`` in the traced request), the
+   fused patch embed (kernel 8: f32 held against float64, the bound as
+   3xTF32 and as f32 FMAs, ``F.conv2d`` on the same canvas timed beside it
+   as a yardstick for the product alone) and the canvas (kernel 2) at
+   its 800x800 grid with a full-mode affine, and path E,
    ``semantic_kitti_default()`` with the capped eval encoder (kernel 10)
    and the backbone's fused token LN (kernel 9); each captures its new
    kernels' inputs in one forward, holds them against their plain versions,
@@ -367,23 +370,10 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         elems = float(h * w * c_out)
         mean = stats[:, 0] / elems
         var = stats[:, 1] / elems - mean * mean
-        args = (table, ps.cells, ps.num_pillars, mean, var,
-                enc.norm.weight.detach(), enc.norm.bias.detach(), (h, w),
-                enc.norm.eps)
-        got = kcanvas.canvas_norm(*args)
-        want = kcanvas.canvas_norm_plain(table, ps.cells, mean, var,
-                                         *args[5:])
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_norm(*args), 10)
-        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_norm_plain(
-            table, ps.cells, mean, var, *args[5:]), 3)
-        bnd = bound(BATCH * h * w * c_out * esz + 2 * h * w * c_out * esz
-                    + n_pil * (c_out * esz + 4),
-                    4.0 * BATCH * h * w * c_out / PEAK["f32"])
-        rec("canvas_norm", err, (1e-2 if not f32 else 1e-4) * scale, ms_k,
-            ms_p, bnd)
-        del got, want
+        canvas_phase(torch, kcanvas, rec, "canvas_norm",
+                     (table, ps.cells, ps.num_pillars, mean, var,
+                      enc.norm.weight.detach(), enc.norm.bias.detach(),
+                      (h, w), enc.norm.eps))
 
         # ---- kernels 3/4: Swin block (all blocks of the backbone) --------
         err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes, fma_ops = (0.0,) * 7
@@ -766,6 +756,7 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     from mask_bev_tpu_torch.models import encoder as menc
     from mask_bev_tpu_torch.models import swin as msw
     from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
     from mask_bev_tpu_torch.ops import layer_norm as kln
     from mask_bev_tpu_torch.ops import patch_embed as kpe
     from mask_bev_tpu_torch.ops import pfn as kpfn
@@ -781,8 +772,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
             max_points_per_scan=131072, compute_dtype=dtype,
             use_pallas_backbone=False, use_pallas_attention=True,
             fuse_patch_embed=True)
-        names = ("window_msa", "patch_embed")
-        path_kernels = ("pfn", "canvas_norm", "decoder_stack") + names
+        names = ("window_msa", "patch_embed", "canvas_norm")
+        path_kernels = ("pfn", "decoder_stack") + names
     else:
         cfg = semantic_kitti_default().replace(
             max_points_per_scan=131072, compute_dtype=dtype,
@@ -805,7 +796,11 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     orig = {"window_msa": (msw, msw.window_msa),
             "patch_embed": (msw, msw.patch_embed),
             "layer_norm": (msw, msw.layer_norm),
-            "stream_pfn": (menc, menc.stream_pfn)}
+            "stream_pfn": (menc, menc.stream_pfn),
+            "canvas_norm": (menc, menc.canvas_norm)}
+    # path K's kernel 2 records under its own name (the main path's and
+    # phase F's are "canvas_norm" and "canvas_norm.f32")
+    rec_name = {"canvas_norm": "canvas_norm.K"}
 
     def recorder(name):
         mod, fn = orig[name]
@@ -873,23 +868,63 @@ def path_phase(np, torch, card, results, failures, record, path: str,
             # ---- kernel 8: patch embed + patch_norm --------------------------
             (a, kw), = cap["patch_embed"]
             got = kpe.patch_embed(*a, **kw)
-            want = kpe.patch_embed_plain(*a, **kw)
+            want = kpe.patch_embed_plain(*a)
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
-            ms_k = cuda_ms(torch, lambda: kpe.patch_embed(*a, **kw), 10)
-            ms_p = cuda_ms(torch, lambda: kpe.patch_embed_plain(*a, **kw), 2)
             canvas, wm, p_ = a[0], a[1], a[5]
             b_, h_, w_, c_ = canvas.shape
             e_ = wm.shape[0]
+            if f32:
+                # f32: against a float64 product + LN (the cuda tests' 1e-5)
+                w64 = wm.double()
+                t64 = (canvas.double().reshape(b_, h_ // p_, p_, w_ // p_, p_,
+                                               c_).permute(0, 1, 3, 2, 4, 5)
+                       .reshape(-1, p_ * p_ * c_))
+                y = t64 @ w64.t() + a[2].double()
+                del t64
+                mu = y.mean(-1, keepdim=True)
+                var = ((y * y).mean(-1, keepdim=True) - mu * mu).clamp(min=0)
+                y = ((y - mu) * torch.rsqrt(var + a[6]) * a[3].double()
+                     + a[4].double())
+                err = float((got.double() - y.reshape(got.shape)).abs()
+                            .max())
+                scale = float(y.abs().max())
+                del y, mu, var, w64
+            del got, want
+            ms_k = cuda_ms(torch, lambda: kpe.patch_embed(*a, **kw), 10)
+            ms_p = cuda_ms(torch, lambda: kpe.patch_embed_plain(*a), 2)
+            # the conv alone on the same channels-last canvas (cuDNN, TF32
+            # off): a yardstick for the product, not the same function
+            x_cl = canvas.permute(0, 3, 1, 2)
+            w_cl = (wm.reshape(e_, p_, p_, c_).permute(0, 3, 1, 2)
+                    .contiguous(memory_format=torch.channels_last))
+            b_conv = a[2].to(canvas.dtype)
+            ms_c = cuda_ms(torch, lambda: F.conv2d(x_cl, w_cl, b_conv,
+                                                   stride=p_), 10)
             m_ = b_ * (h_ // p_) * (w_ // p_)
             ops = 2.0 * m_ * p_ * p_ * c_ * e_
             byts = (canvas.numel() + m_ * e_ + wm.numel()) * esz
+            pl = kpe.plan(b_, h_, w_, c_, e_, p_, f32)
             record("patch_embed" + sfx,
                    "mask_bev_tpu_torch/csrc/patch_embed.cu",
                    "mask_bev_tpu/ops/pallas_patch_embed.py:67", err,
-                   (1e-3 if f32 else 1e-2) * scale, ms_k, ms_p,
-                   bound(byts, ops / PEAK[work]),
-                   f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, {e_})")
+                   (1e-5 if f32 else 1e-2) * scale, ms_k, ms_p,
+                   bound(byts, ops / PEAK["tf32x3" if f32 else work]),
+                   f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, "
+                   f"{e_}); {'3xTF32, error against float64; bound as f32 '
+                   f'FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms; '
+                   if f32 else ''}tiles {pl['tile_x']}x{pl['tile_y']} "
+                   f"tokens, {pl['tiles']} in {pl['pairs']} pairs, "
+                   f"{pl['stages']} stages, weight read from L2 "
+                   f"{pl['weight_l2_bytes'] / 1e9:.3f} GB; F.conv2d alone "
+                   f"on the same channels-last canvas (not the same "
+                   f"function: no LayerNorm) {ms_c:.4f} ms")
+            del x_cl, w_cl
+            # ---- kernel 2 at path K's grid --------------------------------
+            (a, kw), = cap["canvas_norm"]
+            canvas_phase(torch, kcanvas, lambda n, *r, **k: record(
+                n + sfx, *SOURCES["canvas_norm"], *r, **k),
+                "canvas_norm.K", a)
         else:
             # ---- kernel 9: token LayerNorm, patch_norm + out_norm0-3 ---------
             err = scale = ms_k = ms_p = ms_l = byts = 0.0
@@ -977,7 +1012,7 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     print(f"[e2e {label}] launches over the {requests} requests: "
           f"{launches}; by instance: {instances}", flush=True)
     for k in names:
-        results[k + sfx]["launches"] = launches.get(k, 0)
+        results[rec_name.get(k, k) + sfx]["launches"] = launches.get(k, 0)
     if path == "K":
         attn_inst = "window_msa/attn_" + ("f32" if f32 else "bf16")
         results["window_msa_attn" + sfx]["launches"] = instances.get(
@@ -1061,6 +1096,34 @@ def block_qkv(kswin, x, p, quant):
                           out_dtype=x.dtype)
     return kswin.gemm("swin_block", kswin._ln(x2, p.ln1_w, p.ln1_b, False),
                       p.qkv, kswin.EPI_BIAS | kswin.EPI_ROUND_ACC)
+
+
+def canvas_phase(torch, kcanvas, rec, name, args) -> None:
+    """Kernel 2 alone on inputs captured from a forward (table, cells,
+    num_pillars, mean, var, scale, bias, grid, eps): held against its plain
+    version (bf16 1e-2, f32 1e-4 of the largest value), both timed. Bound:
+    the canvas written once, the affine read once (H W C values in full
+    mode), the occupied table rows and their cell ids read once."""
+    table, cells, num_p, mean, var, scale, bias, (h, w), eps = args
+    got = kcanvas.canvas_norm(*args)
+    want = kcanvas.canvas_norm_plain(table, cells, mean, var, scale, bias,
+                                     (h, w), eps)
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    del got, want
+    ms_k = cuda_ms(torch, lambda: kcanvas.canvas_norm(*args), 10)
+    ms_p = cuda_ms(torch, lambda: kcanvas.canvas_norm_plain(
+        table, cells, mean, var, scale, bias, (h, w), eps), 3)
+    b, _, c = table.shape
+    esz = table.element_size()
+    n_pil = float(num_p.sum())
+    f32 = table.dtype == torch.float32
+    byts = (b * h * w * c * esz + 2 * scale.numel() * esz
+            + n_pil * (c * esz + 4))
+    rec(name, err, (1e-4 if f32 else 1e-2) * top, ms_k, ms_p,
+        bound(byts, 4.0 * b * h * w * c / PEAK["f32"]),
+        f"grid {h}x{w}, C {c}, {'full' if scale.numel() > c else 'channel'}"
+        f"-mode affine, {int(n_pil)} pillars of {b * h * w} cells")
 
 
 def sdpa_windows(torch, kswin, qkv, qkv_bias, rel, b, hw, heads, win, shift):

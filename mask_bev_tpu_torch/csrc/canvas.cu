@@ -10,38 +10,26 @@
 // What bounds it on the H100: bytes. At the flagship (B 8, 500x500, C 128,
 // bf16) it writes 512 MB of canvas and reads 128 MB of full-mode affine
 // plus the occupied table rows (~96 MB for ~374k pillars): ~0.22 ms at
-// 3.35 TB/s (twice that in f32). Design: one warp per cell, lanes over
-// channels in 4-wide vectors (8 B accesses in bf16, 16 B in f32,
-// coalesced per cell row); the cell's affine slice is
-// read once and applied to all B samples (the affine is shared across the batch, so
-// it crosses HBM once, not B times). The cell -> row lookup is a binary
-// search over the sample's ascending cells (each cell holds at most one
-// pillar, so no selection matmul is needed); its reads hit L2.
+// 3.35 TB/s (twice that in f32); at KITTI's 800x800 grid 1.31 GB of
+// canvas and 328 MB of affine, ~0.5 ms. Design, as the TPU kernel's
+// blocks: a block owns a run of CANVAS_RUN consecutive cells of all B
+// samples. Each cell holds at most one pillar and a sample's cells are
+// ascending, so one binary search a sample (thread b searches sample b)
+// finds the run's first table row, and the next CANVAS_RUN rows at most
+// hold the run's pillars: the block reads those cell ids once into a
+// shared-memory map from cell to row (-1 for an empty cell; the TPU's 0/1
+// selection matmul). It then streams the run's cells x C in 16-byte words,
+// consecutive threads on consecutive words (so a warp stores 512
+// contiguous bytes): a word reads its affine slice once and writes it
+// for all B samples, each from its table row or, for an empty cell, from
+// 0 with no load. The arithmetic is the same f32 operations in the same
+// order as the first version's (one warp a cell, a binary search per cell
+// and sample, ~17 dependent L2 loads before each store), so the output is
+// the same bit for bit.
 #include "common.cuh"
 
-// four values of T <-> one 8-byte (bf16) or 16-byte (f32) word
-__device__ __forceinline__ void load4(const bf16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  o[0] = __low2float(a); o[1] = __high2float(a);
-  o[2] = __low2float(b); o[3] = __high2float(b);
-}
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void store4(bf16* p, const float* o) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
-  uint2 v;
-  v.x = *reinterpret_cast<unsigned int*>(&a);
-  v.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = v;
-}
-__device__ __forceinline__ void store4(float* p, const float* o) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
+#define CANVAS_RUN 64
+#define CANVAS_THREADS 256
 
 // first index in [0, n) with cells[i] >= key (n if none)
 __device__ __forceinline__ int lower_bound(const int* __restrict__ cells,
@@ -54,62 +42,123 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ cells,
   return lo;
 }
 
-// T: the table's, the affine's and the canvas's type (bf16 or f32)
+// one 16-byte word <-> EPW values as f32
+template <typename T> struct Word;
+template <> struct Word<bf16> {
+  static constexpr int EPW = 8;
+  static __device__ __forceinline__ void load(const bf16* p, float* o) {
+    ld8(p, o);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float* o) {
+    st8(p, o);
+  }
+};
+template <> struct Word<float> {
+  static constexpr int EPW = 4;
+  static __device__ __forceinline__ void load(const float* p, float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* o) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// T: the table's, the affine's and the canvas's type (bf16 or f32).
+// Dynamic shared memory: B (CANVAS_RUN + 3) ints.
 template <typename T>
-__global__ void __launch_bounds__(256) canvas_norm_kernel(
+__global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_kernel(
     const T* __restrict__ table, const int* __restrict__ cells,
     const int* __restrict__ num_pillars, const float* __restrict__ mv,
     const T* __restrict__ scale, const T* __restrict__ bias,
     int full, T* __restrict__ out, int B, int N, int HW, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int warps_total = gridDim.x * (blockDim.x >> 5);
-  for (int cell = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       cell < HW; cell += warps_total) {
-    for (int c = lane * 4; c < C; c += 128) {
-      float s[4], bi[4];
-      const size_t aoff = full ? (size_t)cell * C + c : (size_t)c;
-      load4(scale + aoff, s);
-      load4(bias + aoff, bi);
-      for (int b = 0; b < B; ++b) {
-        const int* cb = cells + (size_t)b * N;
-        const int P = num_pillars[b];
-        const int r = lower_bound(cb, P, cell);
-        float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (r < P && __ldg(cb + r) == cell)
-          load4(table + ((size_t)b * N + r) * C + c, v);
-        const float mean = mv[2 * b];
-        const float rstd = rsqrtf(mv[2 * b + 1] + eps);
-        float o[4];
+  constexpr int EPW = Word<T>::EPW;
+  extern __shared__ int smi[];
+  int* row_of = smi;                    // [B][CANVAS_RUN]: table row or -1
+  int* first = smi + B * CANVAS_RUN;    // [B]: the run's first table row
+  float* mean_s = reinterpret_cast<float*>(first + B);  // [B]
+  float* rstd_s = mean_s + B;                           // [B]
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * CANVAS_RUN;
+  const int nc = min(CANVAS_RUN, HW - c0);
+
+  for (int i = tid; i < B * CANVAS_RUN; i += CANVAS_THREADS) row_of[i] = -1;
+  for (int b = tid; b < B; b += CANVAS_THREADS) {
+    first[b] = lower_bound(cells + (size_t)b * N, num_pillars[b], c0);
+    mean_s[b] = mv[2 * b];
+    rstd_s[b] = rsqrtf(mv[2 * b + 1] + eps);
+  }
+  __syncthreads();
+  // rows first[b] .. first[b] + CANVAS_RUN - 1 hold every pillar of the run
+  for (int i = tid; i < B * CANVAS_RUN; i += CANVAS_THREADS) {
+    const int b = i / CANVAS_RUN;
+    const int r = first[b] + i % CANVAS_RUN;
+    if (r < num_pillars[b]) {
+      const int cell = __ldg(cells + (size_t)b * N + r) - c0;
+      if (cell < nc) row_of[b * CANVAS_RUN + cell] = r;
+    }
+  }
+  __syncthreads();
+
+  const int V = C / EPW;  // words a cell
+  for (int i = tid; i < nc * V; i += CANVAS_THREADS) {
+    const int cell = i / V, c = (i - cell * V) * EPW;
+    float s[EPW], bi[EPW];
+    const size_t aoff = full ? (size_t)(c0 + cell) * C + c : (size_t)c;
+    Word<T>::load(scale + aoff, s);
+    Word<T>::load(bias + aoff, bi);
+    for (int b = 0; b < B; ++b) {
+      const int r = row_of[b * CANVAS_RUN + cell];
+      float v[EPW];
+      if (r >= 0) {
+        Word<T>::load(table + ((size_t)b * N + r) * C + c, v);
+      } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          o[q] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[q], mean), rstd),
-                                     s[q]), bi[q]);
-        store4(out + ((size_t)b * HW + cell) * C + c, o);
+        for (int q = 0; q < EPW; ++q) v[q] = 0.f;
       }
+      const float mean = mean_s[b], rstd = rstd_s[b];
+      float o[EPW];
+#pragma unroll
+      for (int q = 0; q < EPW; ++q)
+        o[q] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[q], mean), rstd),
+                                   s[q]), bi[q]);
+      Word<T>::store(out + ((size_t)b * HW + c0 + cell) * C + c, o);
     }
   }
 }
 
-// f32: nonzero for the f32 instance (f32 table, affine and canvas)
+template <typename T>
+static int launch_canvas_norm(const void* table, const int* cells,
+                              const int* num_pillars, const float* mv,
+                              const void* scale, const void* bias, int full,
+                              void* out, int B, int N, int HW, int C,
+                              float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * (size_t)B * (CANVAS_RUN + 3);
+  if ((C * (int)sizeof(T)) % 16 || smem > 48 * 1024) return MB_BAD_ARGS;
+  canvas_norm_kernel<T><<<ceil_div(HW, CANVAS_RUN), CANVAS_THREADS, smem,
+                          stream>>>(
+      (const T*)table, cells, num_pillars, mv, (const T*)scale,
+      (const T*)bias, full, (T*)out, B, N, HW, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// f32: nonzero for the f32 instance (f32 table, affine and canvas). Rows of
+// C values are whole 16-byte words (C % 8 == 0 in bf16, C % 4 in f32);
+// B <= 183 (the block's cell map in 48 KB of shared memory); each
+// sample's cells strictly ascending over its num_pillars rows.
 MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
                                   const int* num_pillars, const float* mv,
                                   const void* scale, const void* bias,
                                   int full, void* out, int B, int N, int HW,
                                   int C, float eps, int f32,
                                   cudaStream_t stream) {
-  if (C % 4) return MB_BAD_ARGS;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (B < 1 || HW < 1) return MB_BAD_ARGS;
   if (f32)
-    canvas_norm_kernel<float><<<sms * 8, 256, 0, stream>>>(
-        (const float*)table, cells, num_pillars, mv, (const float*)scale,
-        (const float*)bias, full, (float*)out, B, N, HW, C, eps);
-  else
-    canvas_norm_kernel<bf16><<<sms * 8, 256, 0, stream>>>(
-        (const bf16*)table, cells, num_pillars, mv, (const bf16*)scale,
-        (const bf16*)bias, full, (bf16*)out, B, N, HW, C, eps);
-  return (int)cudaGetLastError();
+    return launch_canvas_norm<float>(table, cells, num_pillars, mv, scale,
+                                     bias, full, out, B, N, HW, C, eps,
+                                     stream);
+  return launch_canvas_norm<bf16>(table, cells, num_pillars, mv, scale, bias,
+                                  full, out, B, N, HW, C, eps, stream);
 }
 
 // ---------------------------------------------------------------------------

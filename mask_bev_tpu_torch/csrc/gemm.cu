@@ -1,64 +1,16 @@
-// C entry points of the shared GEMM (see gemm.cuh). The TMA tensor maps are
-// encoded on the host for every call (a few microseconds) by
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
-// so the library links against the runtime only.
+// C entry points of the shared GEMM (see gemm.cuh); the TMA tensor maps
+// come from gemm.cuh's encode_map.
 #include "gemm.cuh"
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// 2D map of a row-major (rows, k) matrix of elements of ``esz`` bytes
-// (1: int8, 2: bf16, 4: f32), box (box_rows, 128 bytes of k), 128-byte
-// swizzle; reads outside the matrix fill zeros
+// 2D map of a row-major (rows, k) matrix of elements of ``esz`` bytes,
+// box (box_rows, 128 bytes of k)
 static int encode(CUtensorMap* map, const void* base, int esz, int k,
                   int rows, int box_rows) {
-  EncodeTiledFn fn = encode_fn();
-  if (!fn) return MB_TMAP_FAILED;
-  cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)k * esz};
-  cuuint32_t box[2] = {(cuuint32_t)(mbgemm::BKB / esz), (cuuint32_t)box_rows};
-  cuuint32_t estr[2] = {1, 1};
-  const CUtensorMapDataType dt =
-      esz == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-               : esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  CUresult r = fn(map, dt, 2, const_cast<void*>(base), dims, strides, box,
-                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : MB_TMAP_FAILED + (int)r;
-}
-
-static int num_sms() {
-  static int n = 0;
-  if (!n) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)(mbgemm::BKB / esz),
+                             (cuuint32_t)box_rows};
+  return encode_map(map, base, esz, 2, dims, strides, box);
 }
 
 // Bt2: the weight's lo half for 3xTF32 (Bt its hi half), else unused

@@ -170,6 +170,58 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 4-D box (c0 innermost); kernel 8 reads its canvas patches so
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- clusters (kernel 8: a cluster of blocks shares the weight tiles) ----
+// a 2-D box written to the same offset of every block in ``mask`` of the
+// cluster, each block's barrier at ``bar``'s offset receiving its bytes
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// arrive on the barrier at ``bar``'s offset in block ``cta`` of the cluster
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders shared-memory
+// writes (barrier inits included) before what follows in the others
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
 // rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the tile
 // 1024-byte aligned; +2 advances it by one 32-byte K step
@@ -507,3 +559,63 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
 }
 
 }  // namespace mbgemm
+
+// ---- host side: TMA tensor maps (gemm.cu, patch_embed.cu) ---------------
+// cuTensorMapEncodeTiled is looked up at run time through the CUDA runtime,
+// so the library links against the runtime only; a map is encoded on the
+// host for every call (a few microseconds).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// a ``rank``-D map of elements of ``esz`` bytes (1: int8, 2: bf16, 4: f32):
+// dims innermost first, byte strides of dims 1.., box; 128-byte swizzle
+// (the box's inner dimension is 128 bytes), zeros read outside the tensor
+static inline int encode_map(CUtensorMap* map, const void* base, int esz,
+                             int rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_fn();
+  if (!fn) return MB_TMAP_FAILED;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapDataType dt =
+      esz == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+               : esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUresult r = fn(map, dt, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                  strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MB_TMAP_FAILED + (int)r;
+}
+
+static inline int num_sms() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}

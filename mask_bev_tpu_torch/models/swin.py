@@ -41,7 +41,8 @@ from mask_bev_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from mask_bev_tpu_torch.ops.patch_embed import embed_matrix, patch_embed
 from mask_bev_tpu_torch.ops.swin_block import (
     BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm_p,
-    make_dense, rel_bias_from_table, swin_block, window_msa_plain)
+    make_dense, rel_bias_from_table, split_tf32, swin_block,
+    window_msa_plain)
 from mask_bev_tpu_torch.ops.window_msa import window_msa
 
 __all__ = ["LayerNorm", "SwinBlock", "PatchMerging", "SwinTransformer",
@@ -235,10 +236,15 @@ class SwinTransformer(nn.Module):
         self._packed = None
         return super()._apply(fn, *args, **kwargs)
 
-    def embed_weights(self) -> torch.Tensor:
-        """Kernel 8's (E, p*p*C) patch-embed matrix, built once."""
+    def embed_weights(self):
+        """Kernel 8's (E, p*p*C) patch-embed matrix and, for an f32 weight
+        on a CUDA device, its TF32 halves (hi, lo) for the 3xTF32 kernel
+        (else None), built once."""
         if self._packed is None:
-            self._packed = embed_matrix(self.patch_embed.weight)
+            wm = embed_matrix(self.patch_embed.weight)
+            split = (split_tf32(wm) if wm.dtype == torch.float32
+                     and wm.is_cuda else None)
+            self._packed = (wm, split)
         return self._packed
 
     def drop_factors(self, batch: int, device, generator=None):
@@ -280,8 +286,9 @@ class SwinTransformer(nn.Module):
         gh, gw = -(-h // s), -(-w // s)
         if fused_embed and not train:
             pe, pn = self.patch_embed, self.patch_norm
-            x = patch_embed(x, self.embed_weights(), pe.bias.detach(),
-                            pn.weight.detach(), pn.bias.detach(), p, pn.eps)
+            wm, split = self.embed_weights()
+            x = patch_embed(x, wm, pe.bias.detach(), pn.weight.detach(),
+                            pn.bias.detach(), p, pn.eps, split=split)
         else:
             pad_h = max((gh - 1) * s + p - h, 0)
             pad_w = max((gw - 1) * s + p - w, 0)

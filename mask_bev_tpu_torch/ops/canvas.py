@@ -10,7 +10,12 @@ written: the pillar row whose cell it is, or 0 for an empty cell, then
 ``((v - mean) * rsqrt(var + eps)) * scale + bias`` in f32, rounded once to
 the table's dtype. ``scale``/``bias`` are the full-mode (H, W, C) affine or
 the channel-mode (1, 1, C) one. Each cell holds at most one pillar, so the
-TPU's 0/1 selection matmul becomes a binary search over the ascending cells.
+TPU's 0/1 selection matmul becomes a map from cell to table row: the CUDA
+kernel (``csrc/canvas.cu::canvas_norm_kernel``) gives each block a run of
+``CANVAS_RUN`` cells of every sample, finds the run's first table row with
+one binary search a sample (the TPU kernel's ``lo`` at its block
+boundaries), maps the run's cells to rows in shared memory and streams the
+run's canvas rows in 16-byte words.
 
 Kernels A and B replace ``mask_bev_tpu/ops/pallas_canvas.py::canvas_scatter``
 (the training path, ``models/encoder.py:496-500``), the one Pallas kernel
@@ -26,6 +31,12 @@ from typing import Tuple
 import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
+
+# csrc/canvas.cu: cells a block of kernel 2 owns in every sample, and the
+# most samples its shared-memory cell map (B (CANVAS_RUN + 3) ints in
+# 48 KB) takes
+CANVAS_RUN = 64
+CANVAS_MAX_BATCH = 48 * 1024 // (4 * (CANVAS_RUN + 3))
 
 
 def canvas_norm_plain(table: torch.Tensor, cells: torch.Tensor,
@@ -59,12 +70,14 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
                                  grid_hw, eps)
     b, n, c = table.shape
     h, w = grid_hw
-    if c % 4:
-        raise ValueError(f"canvas kernel needs C % 4 == 0, got {c}")
     dt = table.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the canvas kernel takes a bf16 or f32 table, not "
                          f"{dt}")
+    if (c * table.element_size()) % 16 or not 1 <= b <= CANVAS_MAX_BATCH:
+        raise ValueError(f"canvas kernel needs rows of whole 16-byte words "
+                         f"and 1 <= B <= {CANVAS_MAX_BATCH}; got C={c} "
+                         f"({dt}), B={b}")
     kb.check_cuda(table, "table", dt)
     kb.check_cuda(cells, "cells", torch.int32, (b, n))
     kb.check_cuda(num_pillars, "num_pillars", torch.int32, (b,))

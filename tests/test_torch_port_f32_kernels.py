@@ -9,8 +9,9 @@ device. Run on the card with
 Tolerances, relative to the plain result's largest magnitude:
 
 * f32 instances: 1e-4 where both sides take the same f32 operations in
-  another order (no operand is rounded below f32); the window attention
-  and kernel 7 also within 1e-5 of a float64 computation; 2e-2 for the int8
+  another order (no operand is rounded below f32); the window attention,
+  kernel 7 and the patch embed also within 1e-5 of a float64
+  computation; 2e-2 for the int8
   Swin block at f32 (int8 rounding boundaries move by a step between two
   f32 LayerNorms summed in another order, as in bf16);
 * the rebuilt PFN in bf16: 2^-7 (two bf16 steps), with the count of rows
@@ -210,6 +211,45 @@ def test_patch_embed_f32(dev):
     assert kb.INSTANCES["patch_embed/f32"] == 1
     assert got.shape == (b, (h // 4) * (w // 4), e)
     assert _rel(got, want) <= 1e-4
+
+
+def _patch_embed_f64(canvas, wm, bias, ln_w, ln_b, p, eps=1e-6):
+    """Patch embed + LN in float64 (the plain version's arithmetic)."""
+    b, h, w, c = canvas.shape
+    gh, gw = h // p, w // p
+    t = (canvas.double().reshape(b, gh, p, gw, p, c)
+         .permute(0, 1, 3, 2, 4, 5).reshape(b * gh * gw, p * p * c))
+    y = t @ wm.double().t() + bias.double()
+    mean = y.mean(-1, keepdim=True)
+    var = ((y * y).mean(-1, keepdim=True) - mean * mean).clamp(min=0)
+    out = (y - mean) * torch.rsqrt(var + eps) * ln_w.double() + ln_b.double()
+    return out.reshape(b, gh * gw, -1)
+
+
+@pytest.mark.parametrize("b,h,w,c,e", [
+    (2, 64, 48, 128, 192), (2, 32, 48, 128, 64), (2, 32, 48, 128, 256),
+    (2, 40, 280, 64, 192),  # gw 70: tiles that end inside a token row
+    (1, 40, 280, 128, 64),
+])
+@pytest.mark.parametrize("halves", ["given", "split_in_the_wrapper"])
+def test_patch_embed_f32_against_float64(dev, b, h, w, c, e, halves):
+    """The 3xTF32 instance within 1e-5 of a float64 product + LN (of the
+    largest output); the weight's halves as the backbone passes them or
+    split by the wrapper."""
+    g = torch.Generator().manual_seed(19)
+    canvas = torch.randn(b, h, w, c, generator=g).to(dev)
+    weight = (torch.randn(e, c, 4, 4, generator=g) / (16 * c) ** 0.5).to(dev)
+    vecs = [(base + 0.1 * torch.randn(e, generator=g)).to(dev)
+            for base in (0.0, 1.0, 0.0)]
+    wm = kpe.embed_matrix(weight)
+    split = kswin.split_tf32(wm) if halves == "given" else None
+    kb.reset_launches()
+    got = kpe.patch_embed(canvas, wm, *vecs, 4, split=split)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES == {"patch_embed/f32": 1}
+    want = _patch_embed_f64(canvas, wm, *vecs, 4)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got.double(), want) <= 1e-5
 
 
 @pytest.mark.parametrize("quant", [True, False])

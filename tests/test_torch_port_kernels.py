@@ -29,7 +29,9 @@ instances and the split decoder are held in
 product of the int8 values (an int32 sum is exact in any order) followed
 by the same f32 epilogue; the Swin chain's attention launch alone within
 1e-2, and in bf16 bit for bit against its output before the
-window-attention template (a recorded sha256).
+window-attention template (a recorded sha256). Kernel 2, both instances,
+bit for bit against the sha256 digests its first design (one warp a cell)
+gave on the same seeded inputs.
 """
 import pytest
 
@@ -133,6 +135,100 @@ def test_canvas_kernel(dev, mode):
     torch.cuda.synchronize()
     assert got.shape == (2, H, W, 128)
     assert _rel(got, want) <= 2 ** -7
+
+
+# canvas inputs made with numpy from a seed (no kernel in their making), so
+# the CPU tests (test_torch_port_canvas.py) and the card see the same
+# bytes: "random", three samples of random occupancy on a grid whose cell
+# count is not a multiple of a block's run of cells; "edges", a sample
+# with no pillar, one with pillars in the first and the last cell, one
+# whose every cell is occupied (num_pillars == N == H * W) and a random one
+CANVAS_CASES = {
+    "random": dict(b=3, h=48, w=40, c=128, n=1200, pillars=(900, 1200, 350)),
+    "edges": dict(b=4, h=16, w=20, c=64, n=320, pillars=(0, 4, 320, 100)),
+}
+
+
+def canvas_inputs(case, mode, seed=21):
+    """(table, cells, num_pillars, mean, var, scale, bias, (h, w)) as f32
+    CPU tensors; ``cells`` ascending with the H*W sentinel on unused rows,
+    whose table rows hold values no correct reader takes."""
+    spec = CANVAS_CASES[case]
+    b, h, w, c, n = (spec[k] for k in ("b", "h", "w", "c", "n"))
+    rng = np.random.default_rng(seed)
+    hw = h * w
+    cells = np.full((b, n), hw, np.int32)
+    for s, p in enumerate(spec["pillars"]):
+        if p == hw:
+            chosen = np.arange(hw)
+        elif case == "edges" and s == 1:
+            chosen = np.array([0, 5, 77, hw - 1])
+        else:
+            chosen = np.sort(rng.choice(hw, p, replace=False))
+        cells[s, :p] = chosen
+    table = rng.standard_normal((b, n, c)).astype(np.float32)
+    mean = rng.normal(0.0, 0.3, b).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, b).astype(np.float32)
+    shape = (h, w, c) if mode == "full" else (1, 1, c)
+    scale = (1 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    pillars = np.asarray(spec["pillars"], np.int32)
+    return (torch.from_numpy(table), torch.from_numpy(cells),
+            torch.from_numpy(pillars), torch.from_numpy(mean),
+            torch.from_numpy(var), torch.from_numpy(scale),
+            torch.from_numpy(bias), (h, w))
+
+
+# sha256 of kernel 2's output bytes on canvas_inputs, as the kernel of one
+# warp per cell with a binary search per cell and sample gave them on the
+# H100: the streaming kernel takes the same f32 operations in the same
+# order, so it gives the same bytes
+CANVAS_SHA256 = {
+    ("bf16", "full", "random"):
+        "199fd1c9eb2ca4aa7001f6263f608ba40e48ea01d27ac1e726e19c15b86f0d53",
+    ("bf16", "channel", "random"):
+        "b0920990d1ce0ba1cae0569af452a941392a597e1091754bd9a923aece34fec4",
+    ("bf16", "full", "edges"):
+        "7169b631a7f3c613cbd8f7b32419ccd5e503fc826654d45730712d96b1563653",
+    ("bf16", "channel", "edges"):
+        "ace2f7144e7cf14164ca5dc045a01beee57d79478deddcea2d88ad8ae6c24f45",
+    ("f32", "full", "random"):
+        "eed879bbacda715513a8bfc72ee3c6f7fc30a0730dc946c567372facab8c1aaa",
+    ("f32", "channel", "random"):
+        "1de3afaff8f05a4796dee6a3d1ad431950c0245fd376bab8c313cd9709b1f374",
+    ("f32", "full", "edges"):
+        "8c1c2e812c40ebc919a70405c5b4bbc10c4abfad79652d345c7c80873968713a",
+    ("f32", "channel", "edges"):
+        "537eed3e617b1b354ef465d3682cc84404b355f44bbe9ca64310ca061133a7fc",
+}
+
+
+@pytest.mark.parametrize("key", list(CANVAS_SHA256), ids="-".join)
+def test_canvas_keeps_its_output(dev, key):
+    """Both instances of kernel 2, bit for bit against their recorded
+    output, and within rounding of the plain version."""
+    import hashlib
+
+    name, mode, case = key
+    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    args = [t.to(dev) for t in canvas_inputs(case, mode)[:7]]
+    table, cells, pillars, mean, var, scale, bias = args
+    table, scale, bias = (t.to(dtype) for t in (table, scale, bias))
+    hw = canvas_inputs(case, mode)[7]
+    kb.reset_launches()
+    got = kcanvas.canvas_norm(table, cells, pillars, mean, var, scale, bias,
+                              hw)
+    want = kcanvas.canvas_norm_plain(table, cells, mean, var, scale, bias,
+                                     hw)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES == {f"canvas_norm/{name}": 1}
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel(got, want) <= (2 ** -7 if name == "bf16" else 1e-5)
+    word = torch.int16 if name == "bf16" else torch.int32
+    digest = hashlib.sha256(
+        got.view(word).cpu().numpy().tobytes()).hexdigest()
+    print(f"canvas {key}: sha256 {digest}")
+    assert digest == CANVAS_SHA256[key]
 
 
 def test_pfn_and_canvas_kernels_take_only_bf16(dev):
@@ -538,8 +634,12 @@ def test_window_msa_kernel(dev, shifted, c, heads, hw):
         kwmsa.window_msa(y.half(), *args[1:])
 
 
-@pytest.mark.parametrize("b,h,w,c,e", [(2, 64, 48, 128, 192),
-                                       (1, 16, 24, 64, 64)])
+@pytest.mark.parametrize("b,h,w,c,e", [
+    (2, 64, 48, 128, 192), (1, 16, 24, 64, 64),
+    (2, 32, 48, 128, 64), (2, 32, 48, 128, 128), (2, 32, 48, 128, 256),
+    (2, 40, 280, 64, 192),   # gw 70: tiles that end inside a token row
+    (1, 40, 280, 128, 256),  # one sample, an odd number of tiles
+])
 def test_patch_embed_kernel(dev, b, h, w, c, e):
     g = torch.Generator().manual_seed(13)
     canvas = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)

@@ -1,15 +1,19 @@
 """Host-side layouts of the port's Hopper kernels, on the CPU.
 
 The decoder stack reads its weights in ``mma.sync`` fragment order and lays
-out its shared memory by a formula the host mirrors, as does the Swin
-chain's attention launch. These layouts are computed in Python, so they are
-held here without a card.
+out its shared memory by a formula the host mirrors, as do the Swin
+chain's attention launch and the patch embed (kernel 8), whose token tiles
+the host plans. These layouts are computed in Python, so they are held
+here without a card.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from mask_bev_tpu_torch.ops import decoder_stack as kdec  # noqa: E402
+from mask_bev_tpu_torch.ops import patch_embed as kpe  # noqa: E402
 from mask_bev_tpu_torch.ops import swin_block as kswin  # noqa: E402
 
 SMEM_LIMIT = 227 * 1024  # a block's shared memory on the H100
@@ -140,3 +144,89 @@ def test_attention_shape_check(c, heads, win):
     with pytest.raises(ValueError, match="bad shape"):
         kswin.check_attn_shape("window MSA", c, heads, win)
     kswin.check_attn_shape("swin block", 192, 3, 10)
+
+
+# ---- kernel 8: the patch embed's token tiles ---------------------------------
+
+# (b, h, w, c, e): the main path's grid (500^2), path K's (800^2), and the
+# cuda tests' ragged grid (gw 70) and small ones
+EMBED_SHAPES = [(8, 500, 500, 128, 192), (8, 800, 800, 128, 192),
+                (2, 40, 280, 64, 192), (1, 40, 280, 128, 256),
+                (1, 16, 24, 64, 64), (2, 32, 48, 128, 128)]
+
+
+def _tile_tokens(pl, gw, rows):
+    """Every token each tile stores, as the kernel's epilogue maps its 128
+    rows (row r: gx0 + r % tile_x, row0 + r // tile_x), with the pairs'
+    copies of the last tile (when the count is odd) stored by no one."""
+    tx, ty = pl["tile_x"], pl["tile_y"]
+    r = np.arange(kpe.TILE)
+    out = []
+    for pair in range(pl["pairs"]):
+        for rank in (0, 1):
+            mine = 2 * pair + rank
+            if mine >= pl["tiles"]:
+                continue
+            gx0 = (mine % pl["tiles_x"]) * tx
+            row0 = (mine // pl["tiles_x"]) * ty
+            gx, gy = gx0 + r % tx, row0 + r // tx
+            ok = (r < tx * ty) & (gx < gw) & (gy < rows)
+            out.append(gy[ok] * gw + gx[ok])
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("b,h,w,c,e", EMBED_SHAPES)
+def test_patch_embed_tiles_cover_every_token_once(b, h, w, c, e, f32):
+    pl = kpe.check_shape(b, h, w, c, e, 4, f32)
+    gw, rows = w // 4, b * (h // 4)
+    assert pl["tile_x"] * pl["tile_y"] <= kpe.TILE
+    assert pl["tile_x"] <= gw and pl["tile_y"] <= rows
+    got = _tile_tokens(pl, gw, rows)
+    assert len(got) == rows * gw
+    np.testing.assert_array_equal(np.sort(got), np.arange(rows * gw))
+    assert pl["wasted_rows"] == pytest.approx(
+        1 - rows * gw / (pl["tiles"] * kpe.TILE))
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("b,h,w,c,e", EMBED_SHAPES[:2])
+def test_patch_embed_plan_at_the_serving_grids(b, h, w, c, e, f32):
+    """At the main path's and path K's grids: one block an SM in 227 KB
+    with a ring of at least 3 stages, at most 2.5 % of the tile rows
+    without a token, and the weight read from L2 about half as often as
+    one 128-token tile a read would (52 % at 500^2, where 125 of a tile's
+    128 rows hold tokens)."""
+    pl = kpe.plan(b, h, w, c, e, 4, f32)
+    assert pl["smem_bytes"] <= SMEM_LIMIT and pl["stages"] >= 3
+    assert pl["smem_bytes"] > SMEM_LIMIT // 2  # so one block an SM
+    assert pl["wasted_rows"] <= 0.025
+    tokens = b * (h // 4) * (w // 4)
+    weight = e * 16 * c * (8 if f32 else 2)
+    assert pl["weight_l2_bytes"] == pl["pairs"] * weight
+    assert pl["pairs"] <= 0.52 * -(-tokens // kpe.TILE)
+    assert pl["k_steps"] == 16 * c * (4 if f32 else 2) // 128
+
+
+def test_patch_embed_plan_at_path_k():
+    """800^2: tiles of 8 x 16 tokens fill all 128 rows, 2500 tiles in 1250
+    pairs; 0.98 GB of bf16 weight reads from L2, half of 2500 reads."""
+    bf = kpe.plan(8, 800, 800, 128, 192, 4, False)
+    assert (bf["tile_x"], bf["tile_y"], bf["tiles"], bf["pairs"]) == (
+        8, 16, 2500, 1250)
+    assert bf["wasted_rows"] == 0.0 and bf["stages"] == 5
+    assert bf["weight_l2_bytes"] == 1250 * 192 * 2048 * 2
+    f32 = kpe.plan(8, 800, 800, 128, 192, 4, True)
+    assert f32["stages"] == 3 and f32["k_steps"] == 64
+    assert f32["weight_l2_bytes"] == 1250 * 192 * 2048 * 8
+
+
+@pytest.mark.parametrize("b,h,w,c,e,f32", [
+    (2, 32, 48, 100, 192, False),  # p C = 400: no whole 128-byte K slices
+    (2, 32, 48, 128, 96, False),   # E not one of the kernel's widths
+    (2, 30, 48, 128, 192, True),   # H not a multiple of p
+    (2, 32, 48, 20, 192, True),    # p C = 80 f32: no whole slices
+])
+def test_patch_embed_shape_check(b, h, w, c, e, f32):
+    with pytest.raises(ValueError):
+        kpe.check_shape(b, h, w, c, e, 4, f32)

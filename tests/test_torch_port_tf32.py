@@ -149,6 +149,7 @@ def _three_pass(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (256, 256),    # decoder: k/v projections, dense products
     (256, 2048),   # decoder: FFN first product
     (2048, 256),   # decoder: FFN second product
+    (2048, 192),   # patch embed at path K: K = p p C = 4 x 4 x 128, E 192
 ])
 def test_three_pass_product_meets_the_card_bound(k, n):
     rng = np.random.default_rng(k + n)
