@@ -34,15 +34,19 @@
    as a yardstick for the product alone) and the canvas (kernel 2) at
    its 800x800 grid with a full-mode affine, and path E,
    ``semantic_kitti_default()`` with the capped eval encoder (kernel 10)
-   and the backbone's fused token LN (kernel 9); each captures its new
+   and the backbone's fused token LN (kernel 9: its event time over
+   back-to-back wrapper calls and its device time alone from the
+   profiler, ``F.layer_norm`` beside it both ways); each captures its new
    kernels' inputs in one forward, holds them against their plain versions,
    serves 3 warm and 5 timed requests with the counters reset just before
    and traces one request; then both paths again in f32 (the f32 instances
-   of kernels 7-10, 1 warm and 2 timed requests);
+   of kernels 7-10, kernel 10's 3xTF32 also against float64, 1 warm and 2
+   timed requests);
 5c. phase F: ``semantic_kitti_default()`` as shipped (f32, int8 backbone)
    and phase W: ``waymo_default()`` as shipped (f32, 170 queries on the
    decoder's split instance, 3 point columns), each like step 2-4: kernels
-   1-5 captured and held in f32 (the Swin chain's f32 attention alone,
+   1-5 captured and held in f32 (kernel 1's 3xTF32 also against float64,
+   the Swin chain's f32 attention alone,
    the decoder with its flip counters and its time by part,
    ``split_breakdown``), 3 warm and 5 timed requests
    whose instance counters must show the f32 instances (the 3xTF32 GEMM,
@@ -90,10 +94,12 @@ PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
         "tf32x3": 495e12 / 3}
 # instances of designs that later slices removed: no path may launch them
 # (kernel 7's attention on partitioned windows, "window_msa/bf16" and
-# "window_msa/f32", gave way to the window-attention template)
+# "window_msa/f32", gave way to the window-attention template; the PFNs'
+# f32 FMA instances, "pfn/f32" and "stream_pfn/f32", to 3xTF32)
 REMOVED = ("swin_block/gemm_f32", "window_msa/gemm_f32",
            "decoder_stack/gemm_f32", "decoder_stack/split_f32",
-           "decoder_stack/split_bf16", "window_msa/bf16", "window_msa/f32")
+           "decoder_stack/split_bf16", "window_msa/bf16", "window_msa/f32",
+           "pfn/f32", "stream_pfn/f32")
 ATTN_SOURCE = "mask_bev_tpu_torch/csrc/window_attn.cuh"
 
 
@@ -114,6 +120,24 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call: the profiler's
+    CUDA kernel rows over ``reps`` back-to-back calls, without the host's
+    time between them (which ``cuda_ms`` includes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def bound(bytes_moved: float, op_seconds: float):
@@ -349,21 +373,36 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         n_pil = float(P.sum())
         macs = sum(w.shape[0] * w.shape[1] for (w, _, _) in weights)
         c_out = table.shape[-1]
-        # the products' type is the weights' (bf16 on the tensor cores, or
-        # f32), with f32 accumulation
-        w_type = "bf16" if weights[0][0].dtype == torch.bfloat16 else "f32"
-        bnd = bound(BATCH * cfg.max_points_per_scan * 16 + n_pil * 12
-                    + n_pil * c_out * esz + 8 * BATCH,
-                    2 * kept * macs / PEAK[w_type])
+        # the products: bf16 on the tensor cores, or f32 weights as 3xTF32,
+        # with f32 accumulation
+        byts = (BATCH * cfg.max_points_per_scan * 16 + n_pil * 12
+                + n_pil * c_out * esz + 8 * BATCH)
+        bnd = bound(byts, 2 * kept * macs / PEAK[prod])
         # bf16: two bf16 steps at the largest value (the tensor cores sum in
         # another order, and every layer rounds to bf16 again); f32: 1e-4
-        tol = (2 ** -7 if w_type == "bf16" else 1e-4) * scale
+        tol = (2 ** -7 if not f32 else 1e-4) * scale
+        extra = ""
+        if f32:
+            # the f32 instance against the same layers in float64
+            exact, _ = kpfn.pfn_plain(ps, weights, out_dtype=torch.float64,
+                                      **kw)
+            e64 = float((table.double() - exact).abs()[rows].max()
+                        / exact[rows].abs().max())
+            del exact
+            extra = (f"; 3xTF32, error relative to float64 {e64:.3g} "
+                     f"(tolerance 1e-5); bound as f32 FMAs "
+                     f"{bound(byts, 2 * kept * macs / PEAK['f32'])[0]:.4f} ms")
+            if e64 > 1e-5:
+                failures.append(f"pfn{suffix} against float64")
         rec("pfn", err, tol, ms_k, ms_p, bnd,
             f"rows that differ {n_differ} of {int(n_pil)}; stats rel err "
             f"{st_err:.3g} (tolerance 1e-3); pillars {int(n_pil)} kept "
-            f"points {int(kept)}")
+            f"points {int(kept)}{extra}")
         if st_err > 1e-3:
             failures.append(f"pfn{suffix} stats")
+        pfn_breakdown(torch, kpfn, lambda prof: kpfn.pfn(
+            ps, weights, max_points_per_pillar=enc.k, out_dtype=pts.dtype,
+            packed=packed, profile=prof, **kw), f"{label} pfn", card)
 
         # ---- kernel 2: canvas + pseudo-image norm ------------------------
         h, w = enc.grid_hw
@@ -542,7 +581,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     if instances.get(attn_inst, 0) <= 0:
         failures.append(f"{attn_inst} never launched on [{label}]")
     if f32:
-        need = ["pfn/f32", "canvas_norm/f32", "swin_block/f32",
+        need = ["pfn/f32_3xtf32", "canvas_norm/f32", "swin_block/f32",
                 "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
                 "swin_block/gemm_s8_f32" if quant
                 else "swin_block/gemm_f32_3xtf32"]
@@ -691,6 +730,28 @@ def split_breakdown(torch, kdec, dargs, dkw, card, label, reps=3):
           f"of the {b * kdec.CLUSTER} blocks: {parts}; all layers "
           f"{total / 1e6:.4f} ms [{card}]", flush=True)
     return ns
+
+
+def pfn_breakdown(torch, kpfn, run, label, card, reps=3) -> None:
+    """Where a PFN kernel's tile walk spends its time, per part
+    (``kpfn.PFN_PARTS``): each tile group's first thread adds the ns of
+    %globaltimer between the part's closing barriers; printed as the mean
+    over the groups of ``reps`` runs of ``run(profile)``, in ms and as a
+    share."""
+    prof = torch.zeros(len(kpfn.PFN_PARTS) + 1, dtype=torch.int64,
+                       device="cuda")
+    run(None)
+    for _ in range(reps):
+        run(prof)
+    torch.cuda.synchronize()
+    ns = prof[:-1].double() / float(prof[-1])
+    total = float(ns.sum())
+    parts = ", ".join(f"{name} {float(v) / 1e6:.4f} ms "
+                      f"({100 * float(v) / total:.1f} %)"
+                      for name, v in zip(kpfn.PFN_PARTS, ns))
+    print(f"[{label}] tile walk by part, mean of the "
+          f"{int(prof[-1]) // reps} tile groups: {parts}; all "
+          f"{total / 1e6:.4f} ms [{card}]", flush=True)
 
 
 def tf32_halves_mib(model) -> float:
@@ -927,25 +988,35 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                 "canvas_norm.K", a)
         else:
             # ---- kernel 9: token LayerNorm, patch_norm + out_norm0-3 ---------
-            err = scale = ms_k = ms_p = ms_l = byts = 0.0
+            err = scale = ms_k = ms_p = ms_l = dev_k = dev_l = byts = 0.0
+            plans = []
             for (a, kw) in cap["layer_norm"]:
                 got = kln.layer_norm(*a, **kw)
                 want = kln.layer_norm_plain(*a, **kw)
                 err = max(err, float((got.float() - want.float()).abs().max()))
                 scale = max(scale, float(want.float().abs().max()))
                 x_, w_, bb_ = a[:3]
-                ms_k += cuda_ms(torch, lambda: kln.layer_norm(*a, **kw), 20)
+                run_k = lambda: kln.layer_norm(*a, **kw)  # noqa: E731
+                run_l = lambda: F.layer_norm(  # noqa: E731
+                    x_, (x_.shape[-1],), w_, bb_, 1e-6)
+                ms_k += cuda_ms(torch, run_k, 20)
                 ms_p += cuda_ms(torch, lambda: kln.layer_norm_plain(*a, **kw),
                                 5)
-                ms_l += cuda_ms(torch, lambda: F.layer_norm(
-                    x_, (x_.shape[-1],), w_, bb_, 1e-6), 20)
+                ms_l += cuda_ms(torch, run_l, 20)
+                dev_k += device_ms(torch, run_k, 20)
+                dev_l += device_ms(torch, run_l, 20)
                 byts += 2 * x_.numel() * esz
+                plans.append(kln.plan(x_.shape[-1], f32))
             record("layer_norm" + sfx, "mask_bev_tpu_torch/csrc/layer_norm.cu",
                    "mask_bev_tpu/ops/pallas_layer_norm.py:33", err,
                    (1e-4 if f32 else 1e-2) * scale, ms_k, ms_p,
                    bound(byts, 0.0),
                    f"{len(cap['layer_norm'])} calls summed: "
-                   f"{[tuple(a[0].shape) for a, _ in cap['layer_norm']]}",
+                   f"{[tuple(a[0].shape) for a, _ in cap['layer_norm']]}, "
+                   f"(lanes, words, tokens) {plans}; device time (profiler, "
+                   f"no host): kernel {dev_k:.4f} ms, F.layer_norm "
+                   f"{dev_l:.4f} ms (kernel and library above: CUDA events "
+                   f"over back-to-back calls, host included)",
                    library_ms=ms_l)
             # ---- kernel 10: v1 PFN on the capped stream ----------------------
             (a, kw), = cap["stream_pfn"]
@@ -969,16 +1040,32 @@ def path_phase(np, torch, card, results, failures, record, path: str,
             p_, c_ = table.shape[1], table.shape[2]
             byts = (b_ * n_ * (d_ * esz + 4 + 1)
                     + b_ * p_ * (8 + c_ * esz + 8))
+            ops = 2 * kept * macs
+            extra = ""
+            if f32:
+                # the f32 instance (3xTF32) against the layers in float64
+                exact, _ = kpfn.stream_pfn_plain(
+                    *a, **{**plain_kw, "out_dtype": torch.float64})
+                e64 = float((table.double() - exact).abs().max()
+                            / exact.abs().max())
+                del exact
+                extra = (f"; 3xTF32, error relative to float64 {e64:.3g} "
+                         f"(tolerance 1e-5); bound as f32 FMAs "
+                         f"{bound(byts, ops / PEAK['f32'])[0]:.4f} ms")
+                if e64 > 1e-5:
+                    failures.append(f"stream_pfn{sfx} against float64")
             record("stream_pfn" + sfx, "mask_bev_tpu_torch/csrc/pfn.cu",
                    "mask_bev_tpu/ops/pallas_pfn.py:168", err,
                    (1e-4 if f32 else 1e-2) * scale, ms_k, ms_p,
-                   bound(byts, 2 * kept * macs / PEAK[work]),
+                   bound(byts, ops / PEAK["tf32x3" if f32 else work]),
                    f"rows that differ {n_differ} of {p_ * b_} slots; stats "
                    f"rel err {st_err:.3g} (tolerance 1e-3); slots {p_}, "
                    f"occupied {kw['num_valid'].tolist()}, kept points "
-                   f"{int(kept)}")
+                   f"{int(kept)}{extra}")
             if st_err > 1e-3:
                 failures.append(f"stream_pfn{sfx} stats")
+            pfn_breakdown(torch, kpfn, lambda prof: kpfn.stream_pfn(
+                *a, **kw, profile=prof), f"{label} stream_pfn", card)
     del cap
 
     # ---- the path: warm and timed requests ---------------------------------

@@ -25,9 +25,11 @@
 // 10->64, 128->64, 128->128) each kept point costs ~25k multiply-adds; the
 // bf16 instance's products are bf16 (bf16 weights, layer inputs rounded to
 // bf16) with f32 accumulation, so their floor is the bf16 tensor-core rate
-// (989 TFLOP/s): ~0.05 ms for the ~940k kept points of 8 scans. Its bytes
-// (4 input columns and 3 directory ints per point slot, 256 B per pillar
-// row) are ~120 MB, ~0.035 ms at 3.35 TB/s.
+// (989 TFLOP/s): ~0.05 ms for the ~940k kept points of 8 scans. The f32
+// instance's are 3xTF32, three TF32 products a multiply-add, at a
+// third of the TF32 rate (495 TFLOP/s): ~0.29 ms. Its bytes (4 input
+// columns and 3 directory ints per point slot, 256 B per pillar row in
+// bf16) are ~120 MB, ~0.035 ms at 3.35 TB/s.
 //
 // Design. The first version ran one warp per pillar with the products as
 // f32 FMAs on CUDA cores: at ~2.5 kept points a pillar each weight read
@@ -38,16 +40,25 @@
 // 64 + 31 = 95 rows (6 m16 tiles), gathered into shared memory (one thread
 // a row, so every point load of the tile is in flight at once) and
 // decorated there. A persistent grid walks the tiles; a block loads the
-// weights once.
+// weights once into shared memory, in B-fragment order (packed on the host,
+// ops/pfn.py::pack_weights: one 8-byte load a lane and k-step).
 //   * bf16 instance: every layer's product is mma.sync m16n8k16 (bf16
-//     operands, f32 accumulation). The weights stay in shared memory in
-//     B-fragment order (packed on the host, ops/pfn.py::pack_weights: one
-//     8-byte load a lane and k-step); warp w owns the output-column tiles
-//     w, w + 8 across all of the tile's rows, and loads A fragments with
-//     ldmatrix from the bf16 activations (row stride K + 8: conflict-free).
-//   * f32 instance: the same tiles with f32 activations and f32 products
-//     (FMA, no rounding of the operands); a thread owns one output column
-//     and a set of rows, the f32 weights read through L1.
+//     operands, f32 accumulation); warp w owns the output-column tiles w,
+//     w + 8 across all of the tile's rows, A fragments by ldmatrix from the
+//     bf16 activations (row stride K + 8: conflict-free). 256 threads a
+//     block, two blocks an SM.
+//   * f32 instance: every layer's product is 3xTF32 on mma.sync m16n8k8
+//     (lo.hi + hi.lo + hi.hi into f32 accumulators, within a few f32
+//     roundings of an f32 product): warp w owns four column tiles over
+//     every other m16 tile (pfn_mma_tf32), the f32 weights split into TF32
+//     halves a k-step in registers, each A fragment loaded by ldmatrix
+//     from the f32 activations (row stride K + 4: rows 16 bytes apart mod
+//     128, conflict-free) and split once for the warp's column tiles. The
+//     f32 weights (100 KB at the flagship) leave room for one block an SM,
+//     so a block of 512 threads runs two tile groups of 256 side by side,
+//     each with its own rows and named barrier, over the one copy of the
+//     weights: the walk, bound by latency, keeps 16 warps an SM, as the
+//     bf16 instance's two blocks do.
 // The layer epilogue applies g and b and the ReLU, rounds to the storage
 // type (as the reference rounds the next layer's input) and writes the rows
 // in place; the max over each pillar's contiguous rows then runs one warp a
@@ -61,11 +72,9 @@
 #define PFN_ROWS 96   // rows of a tile: at most 64 + 31, in 6 m16 tiles
 #define PFN_MT 6
 #define PFN_PIL 64    // pillars of a tile at most (distinct first rows)
-#define PFN_THREADS 256
+#define PFN_THREADS 256  // threads of a tile group
 #define PFN_WARPS (PFN_THREADS / 32)
-// rows a thread of the f32 instance holds: 96 rows over 256 / u row groups
-// of u <= 128 threads
-#define PFN_F32_ROWS 48
+#define PFN_SMEM_MAX 232448
 
 struct PfnDims {
   int nl;
@@ -77,6 +86,8 @@ struct PfnDims {
   int wsz;              // elements of all weights
   int gbsz;             // floats of g/b (multiple of 4)
   int lda;              // activation row stride, elements
+  int groups;           // tile groups a block (f32: 2 where they fit)
+  int group_bytes;      // shared memory of a tile group
 };
 
 // where the points come from: kernel 1's four sorted f32 columns, or
@@ -131,22 +142,145 @@ __device__ __forceinline__ void pfn_mma(float (&acc)[2][PFN_MT][4],
   }
 }
 
+// f32 instance: warp w owns the output-column tiles j = (w & 3) + 4 jj and
+// the m16 tiles mt = (w >> 2) + 2 i of the tile's rows (each A fragment is
+// split by four warps, not eight, and each B fragment by two):
+// acc[jj][i] += Xs[16 mt.., :kp] . W[:, 8 j..] in 3xTF32 (lo.hi, hi.lo,
+// then hi.hi into each accumulator). The weights' words (k = t, t + 4 of
+// column g) are split a k-step; an A fragment comes from the f32 rows by
+// one ldmatrix (an 8 x 4 f32 block is an 8 x 8 b16 matrix, lane (g, t)
+// receiving element (g, t)) and is split once for the warp's column
+// tiles, whose three products run pass by pass, so that no product waits
+// on the one before it
+__device__ __forceinline__ void pfn_mma_tf32(float (&acc)[4][3][4],
+                                             const float* Xs, int lda,
+                                             int nmt, const uint2* wfr,
+                                             int kp, int u, int warp,
+                                             int lane) {
+  const int nnt = u / 8, nks = kp / 8, cg = warp & 3, rh = warp >> 2;
+  bool has[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) has[jj] = cg + 4 * jj < nnt;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][i][e] = 0.f;
+  if (!has[0]) return;
+  // lane l gives the address of row l & 7 of matrix l >> 3: rows + 8 for
+  // matrices 1 and 3, columns + 4 for matrices 2 and 3 (a0 .. a3)
+  const float* xa =
+      Xs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * lda + 4 * (lane >> 4);
+#pragma unroll 2  // kp is a multiple of 16: two k-steps of 8
+  for (int ks = 0; ks < nks; ++ks) {
+    Tf32x2<2> bfr[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const uint2 w = has[jj]
+          ? wfr[((size_t)(cg + 4 * jj) * nks + ks) * 32 + lane]
+          : make_uint2(0u, 0u);
+      const uint32_t v[2] = {w.x, w.y};
+      bfr[jj] = split_frag(v);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int mt = rh + 2 * i;
+      if (mt >= nmt) break;
+      uint32_t a[4];
+      ldsm_x4(a, xa + 16 * mt * lda + 8 * ks);
+      const Tf32x2<4> af = split_frag(a);
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (!has[jj]) continue;
+          const Tf32x2<2>& bf = bfr[jj];
+          if (pass == 0)
+            mma_1688_tf32(acc[jj][i], af.lo, bf.hi[0], bf.hi[1]);
+          else if (pass == 1)
+            mma_1688_tf32(acc[jj][i], af.hi, bf.lo[0], bf.lo[1]);
+          else
+            mma_1688_tf32(acc[jj][i], af.hi, bf.hi[0], bf.hi[1]);
+        }
+    }
+  }
+}
+
+// z = relu(acc * g + b), rounded to T, into the rows in place: acc[jj][i]
+// is the output-column tile j0 + js jj of the m16 tile m0 + ms i
+template <typename T, int NJ, int NI>
+__device__ __forceinline__ void pfn_epilogue(const float (&acc)[NJ][NI][4],
+                                             T* Xs, int lda, const float* g,
+                                             const float* bb, int u, int nmt,
+                                             int nrows, int j0, int js,
+                                             int m0, int ms, int lane) {
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    const int j = j0 + js * jj;
+    if (j >= u / 8) continue;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int mt = m0 + ms * i;
+      if (mt >= nmt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * mt + (lane >> 2) + 8 * (e >> 1);
+        const int c = 8 * j + 2 * (lane & 3) + (e & 1);
+        if (row < nrows)
+          Xs[row * lda + c] = from_f<T>(fmaxf(
+              __fadd_rn(__fmul_rn(acc[jj][i][e], g[c]), bb[c]), 0.f));
+      }
+    }
+  }
+}
+
+// parts of the walk timed by ``prof`` (ns of %globaltimer read by each tile
+// group's first thread after the part's closing barrier, summed over the
+// tiles and groups): set-up (weights into shared memory), directory (the
+// tile's pillars, empty tiles included), gather (row map, point loads),
+// decorate (means, the decorated rows), products, epilogue and max (each
+// over the layers), zero tail (kernel 10's unused slots); then the number
+// of tile groups that ran
+#define PFN_PARTS 8
+
+__device__ __forceinline__ unsigned long long gtimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the barrier of a tile group: the block's, or named barrier 1 + grp of
+// the group's PFN_THREADS threads
+__device__ __forceinline__ void group_sync(int groups, int grp) {
+  if (groups == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "n"(PFN_THREADS)
+                 : "memory");
+}
+
 template <typename T>
-__global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
+__global__ void __launch_bounds__(sizeof(T) == 2 ? PFN_THREADS
+                                                 : 2 * PFN_THREADS)
+pfn_tile_kernel(
     PfnPoints pp, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ cells,
     const int* __restrict__ num, const int* __restrict__ row0,
     const int* __restrict__ tile_first, const void* __restrict__ wbuf,
     const float* __restrict__ gb, PfnDims d, T* __restrict__ table,
-    float* __restrict__ partials, int B, int N, int P, int ntiles,
-    int point_dim, int with_distance, int grid_w, float vs, float cx0,
-    float cy0, int zero_tail) {
+    float* __restrict__ partials, unsigned long long* __restrict__ prof,
+    int B, int N, int P, int ntiles, int point_dim, int with_distance,
+    int grid_w, float vs, float cx0, float cy0, int zero_tail) {
   constexpr bool TC = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   float* gbs = smem;
   const uint2* wfr = reinterpret_cast<const uint2*>(smem + d.gbsz);
-  T* Xs = reinterpret_cast<T*>(smem + d.gbsz +
-                               (TC ? d.wsz / 2 : 0));  // PFN_ROWS x lda
+  // the tile group's part: rows, directory, raw points, means
+  const int grp = threadIdx.x / PFN_THREADS;
+  T* Xs = reinterpret_cast<T*>(reinterpret_cast<char*>(smem + d.gbsz) +
+                               sizeof(T) * d.wsz +
+                               (size_t)grp * d.group_bytes);  // PFN_ROWS x lda
   int* pil_row = reinterpret_cast<int*>(Xs + PFN_ROWS * d.lda);
   int* pil_cnt = pil_row + PFN_PIL;
   int* pil_start = pil_cnt + PFN_PIL;
@@ -155,17 +289,28 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
   float* raw = reinterpret_cast<float*>(rowpil + PFN_ROWS);  // PFN_ROWS x 4
   float* mean = raw + 4 * PFN_ROWS;                       // PFN_PIL x 4
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < d.gbsz; i += PFN_THREADS) gbs[i] = gb[i];
-  if (TC) {
+  const int tid = threadIdx.x % PFN_THREADS, warp = tid >> 5, lane = tid & 31;
+  unsigned long long t_prev = prof && tid == 0 ? gtimer() : 0;
+#define PFN_MARK(i)                                  \
+  if (prof && tid == 0) {                            \
+    const unsigned long long t_ = gtimer();          \
+    atomicAdd(prof + (i), t_ - t_prev);              \
+    t_prev = t_;                                     \
+  }
+  for (int i = threadIdx.x; i < d.gbsz; i += blockDim.x) gbs[i] = gb[i];
+  {
     const uint4* src = reinterpret_cast<const uint4*>(wbuf);
     uint4* dst = reinterpret_cast<uint4*>(smem + d.gbsz);
-    for (int i = tid; i < d.wsz / 8; i += PFN_THREADS) dst[i] = src[i];
+    for (int i = threadIdx.x; i < (int)(d.wsz * sizeof(T) / 16);
+         i += blockDim.x)
+      dst[i] = src[i];
   }
-  const float* wg = reinterpret_cast<const float*>(wbuf);
+  if (d.groups > 1) __syncthreads();  // both groups read every weight
+  PFN_MARK(0)
   const int c_out = d.units[d.nl - 1];
 
-  for (int tile = blockIdx.x; tile < B * ntiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x * d.groups + grp; tile < B * ntiles;
+       tile += gridDim.x * d.groups) {
     const int b = tile / ntiles, t = tile % ntiles;
     const int p0 = tile_first[(size_t)b * (ntiles + 1) + t];
     const int p1 = tile_first[(size_t)b * (ntiles + 1) + t + 1];
@@ -173,28 +318,30 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
     const int npil = p1 - p0;
     const size_t dir = (size_t)b * P;  // directory and table rows of b
     const int base = row0[dir + p0];
-    __syncthreads();  // the previous tile is done with the shared memory
+    group_sync(d.groups, grp);  // the previous tile is done with the rows
     for (int i = tid; i < npil; i += PFN_THREADS) {
       pil_row[i] = row0[dir + p0 + i] - base;
       pil_cnt[i] = counts[dir + p0 + i];
       pil_start[i] = starts[dir + p0 + i];
       pil_cell[i] = cells[dir + p0 + i];
     }
-    __syncthreads();
+    group_sync(d.groups, grp);
+    PFN_MARK(1)
     const int nrows = pil_row[npil - 1] + pil_cnt[npil - 1];
     const int nmt = (nrows + 15) / 16;
 
     // ---- gather and decorate: every row's point in flight at once -------
     for (int i = tid; i < npil; i += PFN_THREADS)
       for (int rr = 0; rr < pil_cnt[i]; ++rr) rowpil[pil_row[i] + rr] = i;
-    __syncthreads();
+    group_sync(d.groups, grp);
     for (int r = tid; r < nrows; r += PFN_THREADS) {
       const int i = rowpil[r];
       const size_t prow = (size_t)b * N + pil_start[i] + r - pil_row[i];
 #pragma unroll
       for (int q = 0; q < 4; ++q) raw[4 * r + q] = load_pt<T>(pp, prow, q);
     }
-    __syncthreads();
+    group_sync(d.groups, grp);
+    PFN_MARK(2)
     for (int i = tid; i < npil; i += PFN_THREADS) {
       const int r0 = pil_row[i], n = pil_cnt[i];
       float sx = 0.f, sy = 0.f, sz = 0.f;
@@ -208,7 +355,7 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
       mean[4 * i + 1] = sy / cnt;
       mean[4 * i + 2] = sz / cnt;
     }
-    __syncthreads();
+    group_sync(d.groups, grp);
     const int kp0 = d.kp[0];
     for (int r = tid; r < nrows; r += PFN_THREADS) {
       const int i = rowpil[r], cell = pil_cell[i];
@@ -231,7 +378,8 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
     // rows of the last m16 tile past the tile's rows: zero inputs
     for (int i = tid; i < (16 * nmt - nrows) * kp0; i += PFN_THREADS)
       Xs[(nrows + i / kp0) * d.lda + i % kp0] = from_f<T>(0.f);
-    __syncthreads();
+    group_sync(d.groups, grp);
+    PFN_MARK(3)
 
     for (int li = 0; li < d.nl; ++li) {
       const int kp = d.kp[li], u = d.units[li];
@@ -239,67 +387,25 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
       const float* bb = g + u;
       const bool last = li == d.nl - 1;
       // ---- products, then z = relu(acc * g + b) rounded, in place --------
-      if (TC) {
+      if constexpr (TC) {
         float acc[2][PFN_MT][4];
         pfn_mma(acc, reinterpret_cast<const bf16*>(Xs), d.lda, nmt,
                 wfr + d.woff[li] / 4, kp, u, warp, lane);
-        __syncthreads();  // every warp has read this layer's input
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = warp + PFN_WARPS * jj;
-          if (j >= u / 8) continue;
-#pragma unroll
-          for (int mt = 0; mt < PFN_MT; ++mt) {
-            if (mt >= nmt) break;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int row = 16 * mt + (lane >> 2) + 8 * (e >> 1);
-              const int c = 8 * j + 2 * (lane & 3) + (e & 1);
-              if (row < nrows)
-                Xs[row * d.lda + c] = from_f<T>(fmaxf(
-                    __fadd_rn(__fmul_rn(acc[jj][mt][e], g[c]), bb[c]), 0.f));
-            }
-          }
-        }
+        group_sync(d.groups, grp);  // every warp has read this layer's input
+        PFN_MARK(4)
+        pfn_epilogue(acc, Xs, d.lda, g, bb, u, nmt, nrows, warp, PFN_WARPS, 0,
+                     1, lane);
       } else {
-        // thread: column c, rows rg, rg + ng, ... (ng row groups)
-        const int ng = PFN_THREADS / u;
-        const int c = tid % u, rg = tid / u;
-        const bool on = rg < ng;
-        const float* W = wg + d.woff[li];
-        const float* X = reinterpret_cast<const float*>(Xs);
-        float acc[PFN_F32_ROWS];
-#pragma unroll
-        for (int i = 0; i < PFN_F32_ROWS; ++i) acc[i] = 0.f;
-        if (on) {
-          for (int k = 0; k < kp; k += 4) {
-            const float w0 = __ldg(W + (size_t)k * u + c);
-            const float w1 = __ldg(W + (size_t)(k + 1) * u + c);
-            const float w2 = __ldg(W + (size_t)(k + 2) * u + c);
-            const float w3 = __ldg(W + (size_t)(k + 3) * u + c);
-#pragma unroll
-            for (int i = 0; i < PFN_F32_ROWS; ++i) {
-              const int row = rg + ng * i;
-              if (row >= nrows) break;
-              const float4 a =
-                  *reinterpret_cast<const float4*>(X + row * d.lda + k);
-              acc[i] = fmaf(a.w, w3, fmaf(a.z, w2, fmaf(a.y, w1,
-                                                        fmaf(a.x, w0, acc[i]))));
-            }
-          }
-        }
-        __syncthreads();
-        if (on) {
-#pragma unroll
-          for (int i = 0; i < PFN_F32_ROWS; ++i) {
-            const int row = rg + ng * i;
-            if (row >= nrows) break;
-            Xs[row * d.lda + c] = from_f<T>(
-                fmaxf(__fadd_rn(__fmul_rn(acc[i], g[c]), bb[c]), 0.f));
-          }
-        }
+        float acc[4][3][4];
+        pfn_mma_tf32(acc, reinterpret_cast<const float*>(Xs), d.lda, nmt,
+                     wfr + d.woff[li] / 2, kp, u, warp, lane);
+        group_sync(d.groups, grp);  // every warp has read this layer's input
+        PFN_MARK(4)
+        pfn_epilogue(acc, Xs, d.lda, g, bb, u, nmt, nrows, warp & 3, 4,
+                     warp >> 2, 2, lane);
       }
-      __syncthreads();
+      group_sync(d.groups, grp);
+      PFN_MARK(5)
       // ---- max over each pillar's rows, one warp a pillar ----------------
       for (int i = warp; i < npil; i += PFN_WARPS) {
         const int r0 = pil_row[i], n = pil_cnt[i];
@@ -326,21 +432,26 @@ __global__ void __launch_bounds__(PFN_THREADS) pfn_tile_kernel(
           }
         }
       }
-      __syncthreads();
+      group_sync(d.groups, grp);
+      PFN_MARK(6)
     }
   }
 
   // kernel 10: the slots at and beyond the occupied ones are zero rows
   if (zero_tail) {
-    for (size_t row = (size_t)blockIdx.x * PFN_WARPS + warp;
-         row < (size_t)B * P; row += (size_t)gridDim.x * PFN_WARPS) {
+    const int bwarps = blockDim.x / 32;
+    for (size_t row = (size_t)blockIdx.x * bwarps + threadIdx.x / 32;
+         row < (size_t)B * P; row += (size_t)gridDim.x * bwarps) {
       const int b = (int)(row / P), r = (int)(row % P);
       if (r < num[b]) continue;
       for (int c = lane; c < c_out; c += 32)
         table[row * c_out + c] = from_f<T>(0.f);
       if (lane == 0) partials[row * 2] = partials[row * 2 + 1] = 0.f;
     }
+    PFN_MARK(7)
   }
+  if (prof && tid == 0) atomicAdd(prof + PFN_PARTS, 1ull);
+#undef PFN_MARK
 }
 
 __global__ void __launch_bounds__(1024) pfn_stats_kernel(
@@ -395,16 +506,21 @@ static int parse_dims(const int* dims, PfnDims* d) {
   return 0;
 }
 
-// shared memory of a block of the instance T (bf16: + 8 elements a row so
-// that ldmatrix is free of bank conflicts; f32: + 4, 16-byte rows)
+// shared memory of a block of the instance T: g/b and the weights, then a
+// part for each tile group (+ 8 bf16 or + 4 f32 elements a row: rows 16
+// bytes apart mod 128, so that ldmatrix is free of bank conflicts).
+// The f32 instance runs two tile groups a block where they fit.
 template <typename T>
 static size_t pfn_smem(PfnDims* d) {
   const bool tc = sizeof(T) == 2;
   d->lda += tc ? 8 : 4;
-  return sizeof(float) * d->gbsz + (tc ? sizeof(bf16) * d->wsz : 0) +
-         sizeof(T) * PFN_ROWS * d->lda +
-         sizeof(int) * (4 * PFN_PIL + PFN_ROWS) +
-         sizeof(float) * 4 * (PFN_ROWS + PFN_PIL);
+  d->group_bytes = (int)(sizeof(T) * PFN_ROWS * d->lda +
+                         sizeof(int) * (4 * PFN_PIL + PFN_ROWS) +
+                         sizeof(float) * 4 * (PFN_ROWS + PFN_PIL));
+  const size_t shared = sizeof(float) * d->gbsz + sizeof(T) * d->wsz;
+  d->groups = !tc && shared + 2 * (size_t)d->group_bytes <= PFN_SMEM_MAX
+                  ? 2 : 1;
+  return shared + (size_t)d->groups * d->group_bytes;
 }
 
 template <typename T>
@@ -412,73 +528,78 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
                         const int* counts, const int* cells, const int* num,
                         const int* row0, const int* tile_first,
                         const void* wbuf, const float* gb, const int* dims,
-                        T* table, float* partials, int B, int N, int P,
-                        int ntiles, int point_dim, int with_distance,
-                        int grid_w, float vs, float cx0, float cy0,
-                        int zero_tail, cudaStream_t stream) {
+                        T* table, float* partials, unsigned long long* prof,
+                        int B, int N, int P, int ntiles, int point_dim,
+                        int with_distance, int grid_w, float vs, float cx0,
+                        float cy0, int zero_tail, cudaStream_t stream) {
   PfnDims d;
   if (parse_dims(dims, &d)) return MB_BAD_ARGS;
   const size_t smem = pfn_smem<T>(&d);
-  if (smem > 232448) return MB_BAD_ARGS;
+  if (smem > PFN_SMEM_MAX) return MB_BAD_ARGS;
+  const int threads = PFN_THREADS * d.groups;
   auto kern = pfn_tile_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
   int per_sm = 0, dev = 0, sms = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PFN_THREADS,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                 smem);
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   int grid = (per_sm > 0 ? per_sm : 1) * sms;
-  if (!zero_tail && grid > B * ntiles) grid = B * ntiles;
+  if (!zero_tail && grid > ceil_div(B * ntiles, d.groups))
+    grid = ceil_div(B * ntiles, d.groups);
   if (grid < 1) grid = 1;
-  kern<<<grid, PFN_THREADS, smem, stream>>>(
+  kern<<<grid, threads, smem, stream>>>(
       pp, starts, counts, cells, num, row0, tile_first, wbuf, gb, d, table,
-      partials, B, N, P, ntiles, point_dim, with_distance, grid_w, vs, cx0,
-      cy0, zero_tail);
+      partials, prof, B, N, P, ntiles, point_dim, with_distance, grid_w, vs,
+      cx0, cy0, zero_tail);
   return (int)cudaGetLastError();
 }
 
 // Kernel 1. cols: four sorted (B, N) f32 columns; starts, counts, cells,
 // row0: (B, N) int32 pillar directory; num: (B,) occupied rows; tile_first:
 // (B, ntiles + 1) int32 (ops/stream_pillars.py::pfn_tiles); wbuf: the
-// weights (bf16 in fragment order, or f32 (kp, units) row-major, each layer
-// zero-padded to kp rows); gb: f32 g, b per layer; table (B, N, units of
+// weights in B-fragment order (bf16 for m16n8k16, f32 for m16n8k8), each
+// layer zero-padded to kp rows; gb: f32 g, b per layer; table (B, N, units of
 // the last layer) and partials (B, N, 2): rows at and beyond num[b] are not
-// written. f32: nonzero for the f32 instance (f32 weights and table).
+// written. prof: null, or PFN_PARTS + 1 zeroed int64 (the parts' ns summed
+// over the tile groups, then the groups). f32: nonzero for the f32
+// instance (f32 weights and table).
 MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* it, const int* starts,
                           const int* counts, const int* cells,
                           const int* num, const int* row0,
                           const int* tile_first, const void* wbuf,
                           const float* gb, const int* dims, void* table,
-                          float* partials, int B, int N, int ntiles,
-                          int point_dim, int with_distance, int grid_w,
-                          float vs, float cx0, float cy0, int f32,
+                          float* partials, unsigned long long* prof, int B,
+                          int N, int ntiles, int point_dim, int with_distance,
+                          int grid_w, float vs, float cx0, float cy0, int f32,
                           cudaStream_t stream) {
   if (point_dim < 1 || point_dim > 4) return MB_BAD_ARGS;
   PfnPoints pp = {{x, y, z, it}, nullptr, 0};
   if (f32)
     return launch_tiles<float>(pp, starts, counts, cells, num, row0,
                                tile_first, wbuf, gb, dims, (float*)table,
-                               partials, B, N, N, ntiles, point_dim,
+                               partials, prof, B, N, N, ntiles, point_dim,
                                with_distance, grid_w, vs, cx0, cy0, 0, stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, num, row0, tile_first,
-                            wbuf, gb, dims, (bf16*)table, partials, B, N, N,
-                            ntiles, point_dim, with_distance, grid_w, vs, cx0,
-                            cy0, 0, stream);
+                            wbuf, gb, dims, (bf16*)table, partials, prof, B,
+                            N, N, ntiles, point_dim, with_distance, grid_w, vs,
+                            cx0, cy0, 0, stream);
 }
 
 // Kernel 10. pts (B, N, D) sorted points in the instance's type, D 3 or 4;
 // starts, counts, cells, row0: (B, P) int32 slot directory; nvalid (B,);
 // table (B, P, units of the last layer), partials (B, P, 2): every row
-// written, zero at and beyond nvalid[b].
+// written, zero at and beyond nvalid[b]; prof as for pfn_forward.
 MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                  const int* counts, const int* cells,
                                  const int* nvalid, const int* row0,
                                  const int* tile_first, const void* wbuf,
                                  const float* gb, const int* dims,
-                                 void* table, float* partials, int B, int N,
+                                 void* table, float* partials,
+                                 unsigned long long* prof, int B, int N,
                                  int P, int ntiles, int with_distance,
                                  int grid_w, float vs, float cx0, float cy0,
                                  int f32, cudaStream_t stream) {
@@ -487,11 +608,11 @@ MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
   if (f32)
     return launch_tiles<float>(pp, starts, counts, cells, nvalid, row0,
                                tile_first, wbuf, gb, dims, (float*)table,
-                               partials, B, N, P, ntiles, D, with_distance,
-                               grid_w, vs, cx0, cy0, 1, stream);
+                               partials, prof, B, N, P, ntiles, D,
+                               with_distance, grid_w, vs, cx0, cy0, 1, stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, nvalid, row0,
                             tile_first, wbuf, gb, dims, (bf16*)table,
-                            partials, B, N, P, ntiles, D, with_distance,
+                            partials, prof, B, N, P, ntiles, D, with_distance,
                             grid_w, vs, cx0, cy0, 1, stream);
 }
 

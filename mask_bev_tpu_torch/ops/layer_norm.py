@@ -13,14 +13,41 @@ whenever the parameters are in the model dtype, as they are in both
 packages' bf16 and f32 runs; the port returns the input dtype.
 
 The CUDA kernel (``csrc/layer_norm.cu``) takes bf16 or f32 tokens and a
-scale and bias of the same dtype (widened to f32 in the kernel), one warp
-per token; it counts under ``layer_norm``.
+scale and bias of the same dtype (widened to f32 in the kernel); it counts
+under ``layer_norm``. A group of G lanes takes a token and R tokens at a
+step, each lane W 8-channel words of each (:func:`plan`), every load of a
+step issued before its reductions, on a grid sized to the SMs.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
+
+MAX_WORDS = 8  # 8-channel words a lane (``LN_MAX_WORDS``): C <= 2048
+
+
+def plan(c: int, f32: bool) -> Tuple[int, int, int]:
+    """Kernel 9's split of a row of ``c`` channels (c % 8 == 0, 8 <= c <=
+    2048) into 8-channel words: (G lanes a token, a power of two up to 32;
+    W words a lane; R tokens a group takes at a step). G is the largest
+    power of two dividing the words (so every lane holds W of them), unless
+    that leaves more than 8 a lane; then the fewest lanes that hold them
+    all. R keeps about 12 16-byte vectors in flight a lane (a word is one in
+    bf16, two in f32), at least two tokens while that holds
+    (``csrc/layer_norm.cu::ln_tokens``). Path E's rows in bf16: 192 -> (8,
+    3, 4), 384 -> (16, 3, 4), 768 -> (32, 3, 4), 1536 -> (32, 6, 2); in f32
+    R = 2 at all four."""
+    words = c // 8
+    g = min(32, words & -words)
+    if -(-words // g) > MAX_WORDS:
+        g = min(32, 1 << (-(-words // MAX_WORDS) - 1).bit_length())
+    w = -(-words // g)
+    vecs = w * (2 if f32 else 1)
+    r = 1 if vecs > 12 else max(2, 12 // vecs)
+    return g, w, r
 
 
 def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -46,17 +73,18 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the layer norm kernel takes bf16 or f32 tokens; "
                          f"got {dt}")
     c = x.shape[-1]
-    if c % 8 or c > 2048:
-        raise ValueError(f"layer norm kernel needs C % 8 == 0 and C <= 2048, "
-                         f"got {c}")
+    if c % 8 or c < 8 or c > 2048:
+        raise ValueError(f"layer norm kernel needs C % 8 == 0 and 8 <= C <= "
+                         f"2048, got {c}")
     x2 = x.contiguous().reshape(-1, c)
     kb.check_cuda(x2, "x", dt)
     kb.check_cuda(w, "scale", dt, (c,))
     kb.check_cuda(b, "bias", dt, (c,))
     out = torch.empty_like(x2)
     f32 = dt == torch.float32
+    g, words, r = plan(c, f32)
     kb.launch("layer_norm", "token_layernorm", kb.ptr(x2), kb.ptr(w),
-              kb.ptr(b), kb.ptr(out), kb.ci(x2.shape[0]), kb.ci(c),
-              kb.cf(eps), kb.ci(f32), kb.stream(),
+              kb.ptr(b), kb.ptr(out), kb.ci(x2.shape[0]), kb.ci(c), kb.ci(g),
+              kb.ci(words), kb.ci(r), kb.cf(eps), kb.ci(f32), kb.stream(),
               instance="f32" if f32 else "bf16")
     return out.reshape(x.shape)

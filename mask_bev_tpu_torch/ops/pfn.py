@@ -29,10 +29,13 @@ starts (``gather_at_starts``). Its output is that (B, P, C) pillar table,
 zero on unused slots, with the same statistics as kernel 1.
 
 Both run as one CUDA kernel (``csrc/pfn.cu::pfn_tile_kernel``) on tiles of
-whole pillars (``ops/stream_pillars.py::pfn_tiles``), in a bf16 instance
-(layer products on the tensor cores) or an f32 instance (f32 products),
-chosen by the weights' dtype; each wrapper launches it and the statistics
-reduction, two launches a call.
+whole pillars (``ops/stream_pillars.py::pfn_tiles``), chosen by the weights'
+dtype: a bf16 instance (layer products on ``mma.sync`` m16n8k16, counted
+as ``<kernel>/bf16``) or an f32 instance (3xTF32 on ``mma.sync`` m16n8k8,
+two tile groups a block sharing the f32 weights, counted as
+``<kernel>/f32_3xtf32``; it took the place of an f32 instance whose
+products were FMAs on the CUDA cores, ``<kernel>/f32``). Each wrapper
+launches it and the statistics reduction, two launches a call.
 """
 from __future__ import annotations
 
@@ -79,18 +82,21 @@ def pfn_plain(ps: PillarStream, weights: Weights, *, point_dim: int,
               with_distance: bool, grid_w: int, voxel_size: float, x0: float,
               y0: float, out_dtype: torch.dtype
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (table (B, N, C) out_dtype, stats (B, 2) f32)."""
+    """Plain PyTorch version: (table (B, N, C) out_dtype, stats (B, 2) f32).
+    ``out_dtype`` float64 runs the layers in float64 (the decoration stays
+    f32, as the kernel's): a reference for the f32 instance."""
     x = decorate(ps, point_dim=point_dim, with_distance=with_distance,
                  grid_w=grid_w, voxel_size=voxel_size, x0=x0, y0=y0)
     b, n, _ = x.shape
-    keptf = ps.kept.float()[..., None]
+    work = _work_dtype(out_dtype)
+    keptf = ps.kept.to(work)[..., None]
     seg = ps.seg.clamp(min=0)
     nl = len(weights)
     for li, (w, g, bias) in enumerate(weights):
-        xin = x.to(w.dtype).float()
-        z = torch.relu((xin @ w.float()) * g.float() + bias.float()) * keptf
+        xin = x.to(w.dtype).to(work)
+        z = torch.relu((xin @ w.to(work)) * g.to(work) + bias.to(work)) * keptf
         u = z.shape[-1]
-        pooled = torch.zeros((b, n, u), dtype=torch.float32, device=x.device)
+        pooled = torch.zeros((b, n, u), dtype=work, device=x.device)
         pooled.scatter_reduce_(1, seg[..., None].expand(b, n, u), z,
                                reduce="amax", include_self=True)
         if li == nl - 1:
@@ -104,19 +110,58 @@ def pfn_plain(ps: PillarStream, weights: Weights, *, point_dim: int,
     return table, table_stats(table)
 
 
+def _work_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if out_dtype == torch.float64 else torch.float32
+
+
 def table_stats(table: torch.Tensor) -> torch.Tensor:
-    """(B, 2) f32 [sum, sum of squares] of a (B, P, C) table's values."""
-    t32 = table.float()
-    return torch.stack([t32.sum(dim=(1, 2)), (t32 * t32).sum(dim=(1, 2))],
-                       dim=-1)
+    """(B, 2) [sum, sum of squares] of a (B, P, C) table's values: f32, or
+    float64 for a float64 table."""
+    t = table.to(_work_dtype(table.dtype))
+    return torch.stack([t.sum(dim=(1, 2)), (t * t).sum(dim=(1, 2))], dim=-1)
+
+
+# the f32 instance's name in ``kb.INSTANCES``
+F32_INSTANCE = "f32_3xtf32"
+# the parts of the tile walk that ``profile`` times, in its order
+# (``csrc/pfn.cu::PFN_PARTS``)
+PFN_PARTS = ("set-up", "directory", "gather", "decorate", "products",
+             "epilogue", "max", "zero tail")
+
+
+def _check_profile(profile):
+    """The kernel's ``prof`` pointer: null, or a zeroed (len(PFN_PARTS) +
+    1,) int64 CUDA tensor that the kernel adds the parts' ns to (summed over
+    its tile groups), then the number of groups."""
+    if profile is not None:
+        kb.check_cuda(profile, "profile", torch.int64, (len(PFN_PARTS) + 1,))
+    return kb.ptr(profile)
+
+
+def pack_fragments_tf32(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) f32 weight -> the same values, flat, in ``mma.sync`` m16n8k8
+    (TF32) B-fragment order: for each 8-column tile j and 8-row step ks,
+    lane ``4g + t`` holds rows ``8 ks + t`` and ``8 ks + t + 4`` of column
+    ``8j + g`` (one 8-byte load a lane; the kernel splits the f32 values
+    into TF32 halves). K % 8 == 0 and N % 8 == 0."""
+    k, n = w.shape
+    return (w.reshape(k // 8, 2, 4, n // 8, 8)
+            .permute(3, 0, 4, 2, 1).reshape(-1))
+
+
+def unpack_fragments_tf32(p: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_fragments_tf32`."""
+    return (p.reshape(n // 8, k // 8, 8, 4, 2)
+            .permute(1, 4, 3, 0, 2).reshape(k, n))
 
 
 def pack_weights(weights: Weights, device):
     """The kernels' weights: (weights, g/b, dims). Each layer's W (in,
-    units) is zero-padded to ``kp`` = in rounded up to 16 rows; bf16
-    weights go in ``mma.sync`` B-fragment order
-    (``ops/decoder_stack.py::pack_fragments``), f32 weights row-major. g and
-    b are f32 per layer; dims ``[n_layers, in_0, units_0, ...]``."""
+    units) is zero-padded to ``kp`` = in rounded up to 16 rows, in
+    ``mma.sync`` B-fragment order: bf16 weights for m16n8k16
+    (``ops/decoder_stack.py::pack_fragments``), f32 weights for m16n8k8
+    (:func:`pack_fragments_tf32`). g and b are f32 per layer; dims
+    ``[n_layers, in_0, units_0, ...]``."""
     wparts, gbparts, dims = [], [], [len(weights)]
     for (w, g, b) in weights:
         k, u = w.shape
@@ -124,7 +169,7 @@ def pack_weights(weights: Weights, device):
         wp = torch.zeros((kp, u), dtype=w.dtype, device=w.device)
         wp[:k] = w
         wparts.append(pack_fragments(wp) if w.dtype == torch.bfloat16
-                      else wp.reshape(-1))
+                      else pack_fragments_tf32(wp))
         gbparts += [g.float().reshape(-1), b.float().reshape(-1)]
         dims += [k, u]
     gb = torch.cat(gbparts)
@@ -159,10 +204,12 @@ def _check_layers(weights: Weights, in0: int, out_dtype) -> bool:
 def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         with_distance: bool, grid_w: int, voxel_size: float, x0: float,
         y0: float, max_points_per_pillar: int, out_dtype: torch.dtype,
-        packed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        packed=None, profile=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pillar table + statistics: the CUDA kernel for CUDA tensors (its
-    bf16 or f32 instance, by the weights' dtype), the plain version for
-    CPU tensors. ``packed``: cached ``pack_weights``."""
+    bf16 or 3xTF32 f32 instance, by the weights' dtype), the plain version
+    for CPU tensors. ``packed``: cached ``pack_weights``; ``profile``: a
+    zeroed (len(PFN_PARTS) + 1,) int64 tensor the kernel adds its time by
+    part to (:data:`PFN_PARTS`)."""
     x = ps.cols[0]
     if not x.is_cuda:
         return pfn_plain(ps, weights, point_dim=point_dim,
@@ -191,12 +238,12 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = "f32" if f32 else "bf16"
+    inst = F32_INSTANCE if f32 else "bf16"
     kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
               kb.ptr(ps.starts), kb.ptr(ps.counts), kb.ptr(ps.cells),
               kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
               kb.ptr(wbuf), kb.ptr(gb), dims_arr, kb.ptr(table),
-              kb.ptr(partials), kb.ci(b), kb.ci(n),
+              kb.ptr(partials), _check_profile(profile), kb.ci(b), kb.ci(n),
               kb.ci(first.shape[1] - 1), kb.ci(point_dim),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
@@ -214,7 +261,8 @@ def stream_pfn_plain(sp: StreamPillars, weights: Weights, *, k: int,
                      x0: float, y0: float, out_dtype: torch.dtype
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 10, the TPU kernel's function step
-    by step: (table (B, P, C) out_dtype, stats (B, 2) f32)."""
+    by step: (table (B, P, C) out_dtype, stats (B, 2) f32); ``out_dtype``
+    float64 runs the layers in float64, as :func:`pfn_plain` does."""
     pts = sp.pts.float()
     keptf = sp.kept.float()[..., None]
     xyz = pts[..., :3]
@@ -231,10 +279,12 @@ def stream_pfn_plain(sp: StreamPillars, weights: Weights, *, k: int,
     if with_distance:
         parts.append(torch.sqrt((xyz * xyz).sum(-1, keepdim=True)))
     x = torch.cat(parts, -1) * keptf
+    work = _work_dtype(out_dtype)
+    keptw = keptf.to(work)
     nl = len(weights)
     for li, (w, g, bias) in enumerate(weights):
-        z = torch.relu((x.to(w.dtype).float() @ w.float()) * g.float()
-                       + bias.float()) * keptf
+        z = torch.relu((x.to(w.dtype).to(work) @ w.to(work)) * g.to(work)
+                       + bias.to(work)) * keptw
         pooled = windowed_segment_max(z, sp.pid, k, symmetric=li < nl - 1)
         x = pooled if li == nl - 1 else torch.cat([z, pooled], -1)
     table = gather_at_starts(x, sp.starts, sp.valid).to(out_dtype)
@@ -244,12 +294,12 @@ def stream_pfn_plain(sp: StreamPillars, weights: Weights, *, k: int,
 def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
                with_distance: bool, grid_w: int, voxel_size: float,
                x0: float, y0: float, out_dtype: torch.dtype,
-               num_valid: torch.Tensor, packed=None
+               num_valid: torch.Tensor, packed=None, profile=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 10 for CUDA tensors (its bf16 or f32 instance: points,
     weights and table of one dtype), the plain version for CPU tensors.
     ``num_valid`` (B,) int32: occupied slots per sample; ``packed``: cached
-    ``pack_weights``."""
+    ``pack_weights``; ``profile`` as for :func:`pfn`."""
     if not sp.pts.is_cuda:
         return stream_pfn_plain(sp, weights, k=k, with_distance=with_distance,
                                 grid_w=grid_w, voxel_size=voxel_size, x0=x0,
@@ -282,12 +332,13 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
     partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = "f32" if f32 else "bf16"
+    inst = F32_INSTANCE if f32 else "bf16"
     kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
               kb.ptr(starts), kb.ptr(counts), kb.ptr(sp.cells),
               kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first), kb.ptr(wbuf),
               kb.ptr(gb), dims_arr, kb.ptr(table), kb.ptr(partials),
-              kb.ci(b), kb.ci(n), kb.ci(p), kb.ci(first.shape[1] - 1),
+              _check_profile(profile), kb.ci(b), kb.ci(n), kb.ci(p),
+              kb.ci(first.shape[1] - 1),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
               kb.ci(f32), kb.stream(), instance=inst)

@@ -17,7 +17,11 @@ Tolerances, relative to the plain result's largest magnitude:
 * the rebuilt PFN in bf16: 2^-7 (two bf16 steps), with the count of rows
   that differ at all printed: the tensor cores sum each product in another
   order than the plain version, so a value can land one bf16 step away,
-  and every layer rounds to bf16 again; the statistics within 1e-3;
+  and every layer rounds to bf16 again; the statistics within 1e-3; and
+  bit for bit against sha256 digests its output had before the f32
+  instance changed (the bf16 arithmetic did not);
+* the PFN's f32 instance (3xTF32 on the tensor cores) also within 1e-5 of
+  the same layers in float64, its statistics within 1e-5 relative;
 * the split decoder: its ``m < 0`` decisions per layer within 5 %
   free-running and 1 % on its own decisions (PR 5's limits), its final
   queries on its own blocked positions within 2e-2 (bf16) or 1e-3 (f32);
@@ -94,29 +98,49 @@ def _pfn_tol(dtype):
     return 2 ** -7 if dtype == torch.bfloat16 else 1e-4
 
 
+def _slot_inputs(dev, dtype, d, dist):
+    """Kernel 1's seeded inputs at d point columns, with or without the
+    distance feature: (stream, weights, keyword arguments)."""
+    pts, msk = _points(20 + d, d=d)
+    ps = pillarize_stream_packed(
+        torch.as_tensor(pts, device=dev).to(dtype),
+        torch.as_tensor(msk, device=dev), max_points_per_pillar=32, **GEO)
+    kw = dict(point_dim=d, with_distance=dist, grid_w=W,
+              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
+              y0=GEO["y_range"][0], out_dtype=dtype)
+    return ps, _pfn_weights(dev, dtype, d + 5 + int(dist)), kw
+
+
+def _capped_inputs(dev, dtype, cap, d):
+    """Kernel 10's seeded inputs on a stream capped at ``cap`` slots:
+    (stream, occupied slots, weights, keyword arguments)."""
+    pts, msk = _points(30 + d, d=d)
+    sp = pillarize_stream(torch.as_tensor(pts, device=dev).to(dtype),
+                          torch.as_tensor(msk, device=dev),
+                          max_points_per_pillar=32, max_pillars=cap, **GEO)
+    nv = sp.valid.sum(1).to(torch.int32)
+    kw = dict(k=32, with_distance=True, grid_w=W,
+              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
+              y0=GEO["y_range"][0], out_dtype=dtype)
+    return sp, nv, _pfn_weights(dev, dtype, d + 6), kw
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d,dist", [(4, True), (3, True), (4, False)])
 def test_pfn_tiles(dev, dtype, d, dist):
     """Kernel 1 (the slot path) in both instances, 3 and 4 point columns,
     with and without the distance feature."""
-    pts, msk = _points(20 + d, d=d)
-    ps = pillarize_stream_packed(
-        torch.as_tensor(pts, device=dev).to(dtype),
-        torch.as_tensor(msk, device=dev), max_points_per_pillar=32, **GEO)
+    ps, wts, kw = _slot_inputs(dev, dtype, d, dist)
     occupied = (torch.arange(ps.counts.shape[1], device=dev)[None]
                 < ps.num_pillars[:, None])
     assert int(ps.counts.max()) == 32
     assert int(ps.counts[occupied].min()) == 1
-    kw = dict(point_dim=d, with_distance=dist, grid_w=W,
-              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
-              y0=GEO["y_range"][0], out_dtype=dtype)
-    wts = _pfn_weights(dev, dtype, d + 5 + int(dist))
     kb.reset_launches()
     table, stats = kpfn.pfn(ps, wts, max_points_per_pillar=32, **kw)
     want, wstats = kpfn.pfn_plain(ps, wts, **kw)
     torch.cuda.synchronize()
-    inst = "f32" if dtype == torch.float32 else "bf16"
-    assert kb.LAUNCHES["pfn"] == 2 and kb.INSTANCES[f"pfn/{inst}"] == 2
+    inst = kpfn.F32_INSTANCE if dtype == torch.float32 else "bf16"
+    assert kb.LAUNCHES["pfn"] == 2 and kb.INSTANCES == {f"pfn/{inst}": 2}
     differ = 0
     for s in range(2):
         p = int(ps.num_pillars[s])
@@ -134,26 +158,118 @@ def test_pfn_tiles(dev, dtype, d, dist):
 def test_stream_pfn_tiles(dev, dtype, cap, d):
     """Kernel 10 on a capped stream in both instances: the cap binds (256)
     or not, 3 or 4 point columns; slots past the occupied ones are zero."""
-    pts, msk = _points(30 + d, d=d)
-    sp = pillarize_stream(torch.as_tensor(pts, device=dev).to(dtype),
-                          torch.as_tensor(msk, device=dev),
-                          max_points_per_pillar=32, max_pillars=cap, **GEO)
-    nv = sp.valid.sum(1).to(torch.int32)
-    wts = _pfn_weights(dev, dtype, d + 6)
-    kw = dict(k=32, with_distance=True, grid_w=W,
-              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
-              y0=GEO["y_range"][0], out_dtype=dtype)
+    sp, nv, wts, kw = _capped_inputs(dev, dtype, cap, d)
     kb.reset_launches()
     table, stats = kpfn.stream_pfn(sp, wts, num_valid=nv, **kw)
     want, wstats = kpfn.stream_pfn_plain(sp, wts, **kw)
     torch.cuda.synchronize()
+    inst = kpfn.F32_INSTANCE if dtype == torch.float32 else "bf16"
     assert kb.LAUNCHES["stream_pfn"] == 2
+    assert kb.INSTANCES == {f"stream_pfn/{inst}": 2}
     assert table.shape == want.shape == (2, cap, 128)
     assert _rel(table, want) <= _pfn_tol(dtype)
     for s in range(2):
         assert not bool(table[s, int(nv[s]):].any())
     np.testing.assert_allclose(stats.cpu().numpy(), wstats.cpu().numpy(),
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("d,dist", [(4, True), (3, True), (4, False),
+                                    (3, False)])
+def test_pfn_f32_against_float64(dev, d, dist):
+    """Kernel 1's f32 instance (3xTF32 products) within 1e-5 of the same
+    layers computed in float64, of the largest value; its statistics within
+    1e-5 relative of the float64 table's."""
+    ps, wts, kw = _slot_inputs(dev, torch.float32, d, dist)
+    table, stats = kpfn.pfn(ps, wts, max_points_per_pillar=32, **kw)
+    exact, estats = kpfn.pfn_plain(ps, wts, **{**kw, "out_dtype":
+                                                torch.float64})
+    torch.cuda.synchronize()
+    err = 0.0
+    for s in range(2):
+        p = int(ps.num_pillars[s])
+        err = max(err, _rel(table[s, :p].double(), exact[s, :p]))
+    st_err = float(((stats.double() - estats) / estats.abs()).abs().max())
+    print(f"pfn f32 d={d} distance={dist}: error relative to float64 "
+          f"{err:.3g}, statistics {st_err:.3g}")
+    assert err <= 1e-5 and st_err <= 1e-5
+
+
+@pytest.mark.parametrize("cap,d", [(256, 4), (8192, 4), (256, 3),
+                                   (8192, 3)])
+def test_stream_pfn_f32_against_float64(dev, cap, d):
+    """Kernel 10's f32 instance within 1e-5 of the float64 layers, with the
+    cap binding (256 slots) or not."""
+    sp, nv, wts, kw = _capped_inputs(dev, torch.float32, cap, d)
+    table, stats = kpfn.stream_pfn(sp, wts, num_valid=nv, **kw)
+    exact, estats = kpfn.stream_pfn_plain(
+        sp, wts, **{**kw, "out_dtype": torch.float64})
+    torch.cuda.synchronize()
+    err = _rel(table.double(), exact)
+    st_err = float(((stats.double() - estats) / estats.abs()).abs().max())
+    print(f"stream pfn f32 cap={cap} d={d}: error relative to float64 "
+          f"{err:.3g}, statistics {st_err:.3g}")
+    assert err <= 1e-5 and st_err <= 1e-5
+
+
+def pfn_bf16_digests(dev, key):
+    """sha256 of the bf16 PFN's output on the seeded inputs of
+    ``test_pfn_tiles`` (key ("pfn", d, distance): the occupied rows of each
+    sample) or ``test_stream_pfn_tiles`` (("stream_pfn", cap, d): every
+    slot), and of its statistics: (table digest, statistics digest)."""
+    import hashlib
+
+    if key[0] == "pfn":
+        ps, wts, kw = _slot_inputs(dev, torch.bfloat16, key[1], key[2])
+        table, stats = kpfn.pfn(ps, wts, max_points_per_pillar=32, **kw)
+        rows = torch.cat([table[s, :int(ps.num_pillars[s])]
+                          for s in range(table.shape[0])])
+    else:
+        sp, nv, wts, kw = _capped_inputs(dev, torch.bfloat16, key[1], key[2])
+        table, stats = kpfn.stream_pfn(sp, wts, num_valid=nv, **kw)
+        rows = table
+    torch.cuda.synchronize()
+    return (hashlib.sha256(rows.contiguous().view(torch.int16).cpu().numpy()
+                           .tobytes()).hexdigest(),
+            hashlib.sha256(stats.view(torch.int32).cpu().numpy()
+                           .tobytes()).hexdigest())
+
+
+# sha256 of the bf16 PFN's output (table, statistics) on the seeded inputs
+# above, as the tile kernel gave them on the H100 before its f32 instance
+# moved onto the tensor cores: the bf16 instance's arithmetic did not change
+PFN_BF16_SHA256 = {
+    ("pfn", 4, True): (
+        "1e19b10b13f2d12cd1c5f97bdabae77e05507a659b62d28a9ae1f604eaac8298",
+        "8473a4d119f6d978facafe01eb35e0db571e70dc7ff575fad3af70b904db9150"),
+    ("pfn", 3, True): (
+        "6fc82cd1a72544ec198b12f29d7b829b43321e84e6440056bdc10686b1c8cd7f",
+        "a4e821b3f034043718e484b73d55a7096887782c1de2e8f1b22e17cc294bab3d"),
+    ("pfn", 4, False): (
+        "527950a533f61e51ca13d9905f15c275fa8e89e43cdac8a7dc4f43a87fb1848f",
+        "cc1de24c1d71e952c5ec14d78df0e95ec4b96aee9329311b99dd1ab5b61e3dc1"),
+    ("stream_pfn", 256, 4): (
+        "980294d8b334d1eca04693aba39872b08a21113b231822e0478a0602c20c5264",
+        "308849336d92ad627220c99d1040406cbcbe21d408d96984bd4f886a509502a0"),
+    ("stream_pfn", 8192, 4): (
+        "fc8dc0f3ad2effb5712cda6e630537a9155edcbe1771fa14443dc70b9beee312",
+        "b291ee174377788545e79072ffaf59d21ef41d9c50bea04bbe5768441a75c52f"),
+    ("stream_pfn", 8192, 3): (
+        "6a455b2e8569199e2ed8ddef6f1effec0a5e627cf7f5df6c07bd86cbcd22e8a3",
+        "af13dbd3e03c913a3bd9e55f56f9220c27fe39469b6106bb761767f963460ebb"),
+}
+
+
+@pytest.mark.parametrize("key", list(PFN_BF16_SHA256),
+                         ids=lambda k: "-".join(map(str, k)))
+def test_pfn_bf16_keeps_its_output(dev, key):
+    """Kernels 1 and 10 in bf16, bit for bit against their recorded
+    output."""
+    kb.reset_launches()
+    digests = pfn_bf16_digests(dev, key)
+    print(f"pfn bf16 {key}: sha256 {digests}")
+    assert kb.INSTANCES == {f"{key[0]}/bf16": 2}
+    assert digests == PFN_BF16_SHA256[key]
 
 
 @pytest.mark.parametrize("mode", ["full", "channel"])

@@ -675,6 +675,34 @@ def test_layer_norm_kernel(dev, c):
         kln.layer_norm(x.half(), w, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (8, 125 * 125, 192), (8, 63 * 63, 384), (8, 32 * 32, 768),
+    (8, 16 * 16, 1536),                       # path E's calls
+    (3, 37, 8), (2, 33, 2048), (2, 21, 200),  # the widths' ends, 25 words
+    (1, 1, 192), (1, 67, 384), (1, 3, 1536),  # a partial group and block
+], ids=lambda s: "x".join(map(str, s)))
+def test_layer_norm_kernel_plan(dev, dtype, shape):
+    """Kernel 9 in both instances at path E's shapes, at C = 8 and 2048, at
+    a word count no power of two divides, and at token counts that leave a
+    group's step and the grid's last block partly empty
+    (``ops/layer_norm.py::plan``): within 1e-2 (bf16) or 1e-4 (f32) of the
+    plain version's largest value."""
+    g = torch.Generator().manual_seed(shape[-1] + shape[1])
+    c = shape[-1]
+    x = (0.5 + torch.randn(shape, generator=g)).to(dev, dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(dev, dtype)
+    b = (0.1 * torch.randn(c, generator=g)).to(dev, dtype)
+    kb.reset_launches()
+    got = kln.layer_norm(x, w, b)
+    want = kln.layer_norm_plain(x, w, b)
+    torch.cuda.synchronize()
+    inst = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert kb.INSTANCES == {f"layer_norm/{inst}": 1}
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
 @pytest.mark.parametrize("cap", [256, 8192])
 def test_stream_pfn_kernel(dev, cap):
     """Kernel 10 on a capped stream: the cap binds (256) or not (8192)."""

@@ -27,7 +27,7 @@ from mask_bev_tpu.ops.pallas_layer_norm import fused_layer_norm  # noqa: E402
 from mask_bev_tpu_torch.models.pixel_decoder import GroupNorm  # noqa: E402
 from mask_bev_tpu_torch.models.swin import LayerNorm  # noqa: E402
 from mask_bev_tpu_torch.ops.layer_norm import (  # noqa: E402
-    layer_norm, layer_norm_plain)
+    MAX_WORDS, layer_norm, layer_norm_plain, plan)
 from mask_bev_tpu_torch.ops.swin_block import layer_norm_p  # noqa: E402
 
 _DT = {"float32": (jnp.float32, torch.float32),
@@ -144,3 +144,41 @@ def test_group_norm_matches_flax(offset):
         got = gn(torch.as_tensor(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=0.25 if offset else 1e-5)
+
+
+def _check_plan(c, f32):
+    g, w, r = plan(c, f32)
+    words = c // 8
+    assert g in (1, 2, 4, 8, 16, 32) and 1 <= w <= MAX_WORDS
+    assert g <= words           # every lane of a group holds a word
+    assert g * (w - 1) < words <= g * w  # the fewest words a lane
+    if words // min(32, words & -words) <= MAX_WORDS:
+        assert g == min(32, words & -words)
+    vecs = r * w * (2 if f32 else 1)  # 16-byte vectors a lane holds a step
+    assert vecs <= 24 and (r >= 2 or vecs > 12)
+    return g, w, r
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,want", [
+    (192, (8, 3, 4, 2)), (384, (16, 3, 4, 2)), (768, (32, 3, 4, 2)),
+    (1536, (32, 6, 2, 2)),                 # path E's rows
+    (8, (1, 1, 12, 6)), (16, (2, 1, 12, 6)), (2048, (32, 8, 2, 1)),
+    (2040, (32, 8, 2, 1)), (200, (4, 7, 2, 1)), (96, (4, 3, 4, 2)),
+])
+def test_layer_norm_plan(c, want, f32):
+    """Kernel 9's lanes a token, words a lane and tokens a step (bf16, f32):
+    no lane of a group idles at path E's widths (8 x 3 words at C = 192,
+    16 x 3 at 384, 32 x 3 at 768, 32 x 6 at 1536), and a group takes two
+    tokens or more there."""
+    g, w, r_bf16, r_f32 = want
+    assert _check_plan(c, f32) == (g, w, r_f32 if f32 else r_bf16)
+
+
+def test_layer_norm_plan_every_width():
+    """Every C = 8 ... 2048 (multiples of 8) gets a split the kernel takes
+    (``csrc/layer_norm.cu::token_layernorm``'s checks), in both
+    instances."""
+    for c in range(8, 2049, 8):
+        for f32 in (False, True):
+            _check_plan(c, f32)

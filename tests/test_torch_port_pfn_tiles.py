@@ -111,8 +111,8 @@ def test_tiles_of_a_pillarized_stream():
 @pytest.mark.parametrize("in0", [9, 10])
 def test_pack_weights(dtype, in0):
     """Each layer's W is zero-padded to a multiple of 16 rows; bf16 in the
-    decoder's B-fragment order, f32 row-major; g and b f32, padded to a
-    multiple of 4 floats."""
+    decoder's m16n8k16 B-fragment order, f32 in m16n8k8 (TF32) B-fragment
+    order; g and b f32, padded to a multiple of 4 floats."""
     g = torch.Generator().manual_seed(in0)
     wts, k = [], in0
     for u in (16, 32):
@@ -128,10 +128,29 @@ def test_pack_weights(dtype, in0):
         size = kp * w.shape[1]
         part = wbuf[off:off + size]
         full = (kdec.unpack_fragments(part, kp, w.shape[1])
-                if dtype == torch.bfloat16 else part.reshape(kp, -1))
+                if dtype == torch.bfloat16
+                else kpfn.unpack_fragments_tf32(part, kp, w.shape[1]))
         assert torch.equal(full[:w.shape[0]], w)
         assert not bool(full[w.shape[0]:].any())
         off += size
     assert off == wbuf.numel()
     want = torch.cat([t for (_, gg, bb) in wts for t in (gg, bb)])
     assert gb.numel() % 4 == 0 and torch.equal(gb[:want.numel()], want)
+
+
+@pytest.mark.parametrize("k,n", [(16, 64), (128, 64), (128, 128), (8, 8)])
+def test_f32_fragment_words(k, n):
+    """The f32 weights' words sit where ``mma.sync`` m16n8k8 reads its B
+    fragment: word ``(j nks + ks) 32 + 4g + t`` of the packed buffer holds
+    (W[8 ks + t, 8j + g], W[8 ks + t + 4, 8j + g]), one 8-byte load a lane;
+    unpacking gives W back."""
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    p = kpfn.pack_fragments_tf32(w)
+    assert p.numel() == k * n
+    assert torch.equal(kpfn.unpack_fragments_tf32(p, k, n), w)
+    words = p.reshape(n // 8, k // 8, 8, 4, 2)  # (j, ks, g, t, half)
+    j, ks, g, t, h = (torch.arange(s).reshape(
+        [-1 if i == d else 1 for i in range(5)])
+        for d, s in enumerate(words.shape))
+    want = w[8 * ks + t + 4 * h, 8 * j + g]
+    assert torch.equal(words, want)
