@@ -67,8 +67,28 @@
 7. checks one small training step on the card against the same step on the
    plain CPU path (same weights, batch and pinned loss points), in f32 and
    in bf16;
-8. prints one JSON line with every kernel's numbers, then, last, the device
-   line ``{"ok": true, "device": {...}}``.
+8. ``[shapes]`` (``shapes_phase``): ``tiny_test_config()`` with its own 8
+   heads (head width 8: the decoder stack's split instance) on the card
+   against the CPU; the canvas at B = 184 (over one launch's 183: two
+   launches) against its plain version, bit for bit; a shape a kernel
+   refuses raises on the card (there is no plain route there), so every
+   flagship phase above ran on its kernels;
+9. ``[trainer]`` (``trainer_phase``): ``Trainer.fit`` at the widths of
+   ``configs/training/semantic_kitti/02_train_smoke_tpu.yml`` (3 training
+   and 2 validation batches an epoch, 2 epochs), the ``--test`` restore of
+   ``best`` with a validation and the per-layer metrics, then
+   ``MaskBevPredictor.from_checkpoint`` serving 8 scans with ``boxes``
+   (and again from random weights with the class head biased to class 1,
+   so that every query predicts an object, the boxes held against
+   ``mask_to_boxes`` on the card's probabilities):
+   step, validation and checkpoint times, peak memory, and the launches
+   of kernels A-C and 1-5;
+10. ``[resume]`` (``resume_phase``): the tiny config fitted 2 epochs
+   unbroken against 1 epoch plus a resume from ``last``, compared bitwise
+   (or within a stated tolerance where the card's kernels are not
+   deterministic);
+11. prints one JSON line with every kernel's numbers, then, last, the
+   device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port cannot be imported, or when any phase fails.
@@ -86,6 +106,10 @@ BATCH = 8
 WARM, TIMED = 3, 10
 TRAIN_BATCH = 4
 TRAIN_WARM, TRAIN_TIMED = 2, 5
+# the canvas at a batch over one launch's limit: (B, H, W, C, table rows);
+# the fault is in B, so the grid is 200x200 (the main path's 500x500 at B =
+# 184 would need ~12 GB of bf16 canvas before the plain version's f32 copy)
+CANVAS_B184 = (184, 200, 200, 128, 16384)
 PATH_WARM, PATH_TIMED = 3, 5
 HBM_BYTES_PER_S = 3.35e12
 # f32 products on the tensor cores as 3xTF32 (three TF32 products a
@@ -260,6 +284,9 @@ def main() -> None:
                 waymo_default().replace(max_points_per_scan=131072),
                 ".waymo", PATH_WARM, PATH_TIMED)
     train_phase(np, torch, card, results, failures, record)
+    shapes_phase(np, torch, card, failures)
+    trainer_phase(np, torch, card, failures, here)
+    resume_phase(np, torch, card, failures, here)
 
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     if failures:
@@ -1361,10 +1388,19 @@ def train_phase(np, torch, card, results, failures, record):
         n_valid = int((cells < hw[0] * hw[1]).sum())
         esz = table.element_size()
         bnd = bound(b * hw[0] * hw[1] * c * esz + b * p * (c * esz + 4), 0.0)
+        # library: Tensor.scatter_ into a zeroed (B, H*W + 1, C) canvas (the
+        # zero fill is part of the function: every cell is written)
+        lib_canvas = torch.empty((b, hw[0] * hw[1] + 1, c),
+                                 dtype=table.dtype, device=table.device)
+        lib_idx = cells.long()[..., None].expand(b, p, c)
+        lib_a = cuda_ms(torch, lambda: lib_canvas.zero_().scatter_(
+            1, lib_idx, table), 20)
+        del lib_canvas
         record("canvas_scatter", "mask_bev_tpu_torch/csrc/canvas.cu",
                "mask_bev_tpu/ops/pallas_canvas.py:216", err, 0.0, ms_k, ms_p,
                bnd, f"table {tuple(table.shape)} {table.dtype}, {n_valid} "
-               f"valid pillars of {b * p} slots", ok=same)
+               f"valid pillars of {b * p} slots; library: zero_ + "
+               f"scatter_", ok=same, library_ms=lib_a)
         # ---- kernel B: its gradient --------------------------------------
         d_canvas, cells_b, hw = cap["bwd"]
         got = kcanvas.canvas_scatter_backward(d_canvas, cells_b, hw)
@@ -1377,10 +1413,18 @@ def train_phase(np, torch, card, results, failures, record):
             d_canvas, cells_b, hw), 5)
         # the rows this run gathers (valid pillars), the table written, cells
         bnd = bound(n_valid * c * esz + b * p * (c * esz + 4), 0.0)
+        # library: torch.gather of the gradient at the cells (clamped
+        # index; it leaves unused slots holding a row, not 0)
+        gf = d_canvas.reshape(b, hw[0] * hw[1], c)
+        lib_idx = cells_b.long().clamp(max=hw[0] * hw[1] - 1)[..., None] \
+            .expand(b, p, c)
+        lib_b = cuda_ms(torch, lambda: torch.gather(gf, 1, lib_idx), 20)
         record("canvas_scatter_bwd", "mask_bev_tpu_torch/csrc/canvas.cu",
                "mask_bev_tpu/ops/pallas_canvas.py:230", err, 0.0, ms_k,
                ms_p, bnd, f"d_canvas {tuple(d_canvas.shape)} "
-               f"{d_canvas.dtype}", ok=same)
+               f"{d_canvas.dtype}; library: gather", ok=same,
+               library_ms=lib_b)
+        del gf, lib_idx
         # ---- kernel C: the matcher ---------------------------------------
         cost, n_rows = cap["hung"]
         got = khung.hungarian_rows(cost, n_rows)
@@ -1487,6 +1531,352 @@ def train_phase(np, torch, card, results, failures, record):
               f"launches {launch_g} -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"small train step {dtype} card vs CPU")
+
+
+def shapes_phase(np, torch, card, failures) -> None:
+    """The shapes the kernels refused before: ``tiny_test_config()`` with
+    its own 8 heads (head width 8: the decoder stack's split instance)
+    served on the card against the CPU, and the canvas (kernel 2) at B =
+    184 (two launches of 92 samples) against its plain version, bit for
+    bit, on a 200x200 grid of 128 channels."""
+    from mask_bev_tpu_torch.config import tiny_test_config
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+
+    small = tiny_test_config().replace(compute_dtype="bfloat16",
+                                       backbone_quantize="int8")
+    ssd = MaskBev(small).random_state_dict(SEED + 1)
+    sp, sm = scans(np, 2, small.max_points_per_scan, SEED + 2)
+    sp[..., :2] *= 0.25  # into the 20 m grid
+    sm[:, 1800:] = False
+    kb.reset_launches()
+    c_gpu, m_gpu = MaskBevPredictor(small, ssd, device="cuda").forward(
+        torch.as_tensor(sp), torch.as_tensor(sm))
+    torch.cuda.synchronize()
+    launches, inst = dict(kb.LAUNCHES), dict(kb.INSTANCES)
+    c_cpu, m_cpu = MaskBevPredictor(small, ssd, device="cpu").forward(
+        torch.as_tensor(sp), torch.as_tensor(sm))
+    d_cls = float((c_gpu.cpu() - c_cpu).abs().max())
+    d_mask = float((m_gpu.cpu() - m_cpu).abs().mean())
+    ok = (d_cls <= 0.1 and d_mask <= 0.02
+          and inst.get("decoder_stack/split_tc_bf16", 0) > 0
+          and all(launches[k] > 0 for k in ("stream_pfn", "canvas_norm",
+                                            "swin_block", "decoder_stack")))
+    print(f"[shapes] tiny config with its {small.head_num_attn_heads} heads "
+          f"(head width {small.head_feat_channels // small.head_num_attn_heads}"
+          f") on the card vs CPU: class probs max diff {d_cls:.4g} "
+          f"(tolerance 0.1), mask probs mean diff {d_mask:.4g} (tolerance "
+          f"0.02); launches {launches}, decoder instances "
+          f"{ {k: v for k, v in inst.items() if 'split' in k} } -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("[shapes] tiny config with 8 heads on the card")
+    del c_gpu, m_gpu
+
+    # ---- the canvas at B = 184 ---------------------------------------------
+    b, h, w, c, n = CANVAS_B184
+    hw = h * w
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cells = torch.sort(torch.rand((b, hw), generator=g, device="cuda")
+                       .argsort(dim=1)[:, :n].to(torch.int32), dim=1).values
+    pillars = torch.randint(0, n + 1, (b,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    rows = torch.arange(n, device="cuda")[None]
+    cells = torch.where(rows < pillars[:, None], cells, hw).contiguous()
+    table = torch.randn((b, n, c), generator=g, device="cuda").to(
+        torch.bfloat16)
+    mean = 0.3 * torch.randn((b,), generator=g, device="cuda")
+    var = 0.5 + 1.5 * torch.rand((b,), generator=g, device="cuda")
+    scale = (1 + 0.1 * torch.randn((h, w, c), generator=g, device="cuda")
+             ).to(torch.bfloat16)
+    bias = (0.1 * torch.randn((h, w, c), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    args = (mean, var, scale, bias, (h, w))
+    kb.reset_launches()
+    with torch.no_grad():
+        got = kcanvas.canvas_norm(table, cells, pillars, *args)
+        torch.cuda.synchronize()
+        inst = dict(kb.INSTANCES)
+        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_norm(
+            table, cells, pillars, *args), 3)
+        want = kcanvas.canvas_norm_plain(table, cells, *args)
+        # each sample's arithmetic is its own and the same as the plain
+        # version's (one rounding of the same f32 expression): bit for bit
+        same = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        del want
+        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_norm_plain(
+            table, cells, *args), 1)
+    ok = same and inst == {"canvas_norm/bf16": len(kcanvas.canvas_chunks(b))}
+    print(f"[shapes] canvas at B={b} ({h}x{w}, C {c}, bf16): launches "
+          f"{inst} for chunks {kcanvas.canvas_chunks(b)}; bit for bit "
+          f"against the plain version over all {b} samples: {same} "
+          f"(max_abs_err {err:.6g}); kernel {ms_k:.3f} ms plain {ms_p:.3f} "
+          f"ms -> {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        failures.append("[shapes] canvas at B = 184")
+    del got, table, cells, scale, bias
+    torch.cuda.empty_cache()
+    # a kernel that refuses a shape raises on the card (no plain route), so
+    # the flagship phases above, which completed, ran on their kernels
+    print("[shapes] flagship refusals 0: a shape a kernel refuses raises on "
+          "the card, and every flagship phase ran to its end", flush=True)
+
+
+def trainer_phase(np, torch, card, failures, here) -> None:
+    """``Trainer.fit`` at the widths of ``configs/training/semantic_kitti/
+    02_train_smoke_tpu.yml`` (bf16, AdamW, plateau, batch 4, 131072 point
+    slots, a 128-channel PFN, Swin embed 192, 45 queries) on its synthetic
+    scenes, cut to 3 training and 2 validation batches an epoch and 2
+    epochs; then the ``--test`` restore of ``best`` with a validation and
+    the per-layer metrics; then ``MaskBevPredictor.from_checkpoint`` serving
+    8 scans with ``boxes``, and again from random weights with the class
+    head's class-1 bias raised by 20 (every query then predicts an object
+    with a mask of about half the grid; six steps of training leave every
+    query background with an empty mask), its boxes held against
+    ``mask_to_boxes`` on the probabilities of the same scans through the
+    card's forward. Times each step, validation epoch and checkpoint
+    write (synchronised), and counts the launches of kernels A, B, C (the
+    training steps), 1-3 (validation) and 1-5 (serving)."""
+    import shutil
+    import tempfile
+
+    from mask_bev_tpu_torch.config import MaskBevConfig
+    from mask_bev_tpu_torch.datasets.synthetic import make_batch
+    from mask_bev_tpu_torch.evaluation.kitti_eval import mask_to_boxes
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.train import loop
+    from mask_bev_tpu_torch.train.checkpoint import CheckpointManager
+    from train_mask_bev_torch import build_datamodule
+
+    yml = os.path.join(here, "configs", "training", "semantic_kitti",
+                       "02_train_smoke_tpu.yml")
+    # image dumps off: they need matplotlib, which the card's machine lacks
+    cfg = MaskBevConfig.from_yaml(yml).replace(
+        limit_train_batches=3, limit_val_batches=2, max_epochs=2,
+        log_images=False)
+    dm = build_datamodule(cfg, None)  # the CLI's synthetic data
+    train_b, val_b = dm.train_batches, dm.val_batches
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(here,
+                                                                 "runs"))
+    steps, vals, saves, losses = [], [], [], []
+    orig = (loop.train_step, loop.Trainer.validate, CheckpointManager._save)
+
+    def synced(store, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t1)
+            if fn is orig[0]:  # a training step: (state, logs, outputs)
+                losses.append(float(out[1]["loss"]))
+            return out
+        return run
+
+    loop.train_step = synced(steps, orig[0])
+    loop.Trainer.validate = synced(vals, orig[1])
+    CheckpointManager._save = synced(saves, orig[2])
+    try:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_launches()
+        tr = loop.Trainer(cfg, workdir=work, device="cuda")
+        last = tr.fit(train_b, val_b)
+        fit_launch = dict(kb.LAUNCHES)
+        fit_s = time.time() - t0
+        kb.reset_launches()
+        loop.load_ckpt_state(tr.state, tr.ckpt.restore("best"))
+        test = tr.validate(val_b(0), tr.generator(0))
+        test_launch = dict(kb.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpt_dir = str(tr.ckpt.dir)
+        index = dict(tr.ckpt.index)
+        ckpt_bytes = os.path.getsize(tr.ckpt.path("last"))
+        tr.logger.close()
+        del tr
+        torch.cuda.empty_cache()
+        kb.reset_launches()
+        pred = MaskBevPredictor.from_checkpoint(cfg, ckpt_dir, "best",
+                                                device="cuda")
+        batch = make_batch(np.random.default_rng(SEED + 7), cfg,
+                           batch_size=BATCH)
+        t1 = time.perf_counter()
+        served = pred.predict_batch(batch["points"], batch["point_mask"],
+                                    score_threshold=0.0)
+        serve_s = time.perf_counter() - t1
+        serve_launch = dict(kb.LAUNCHES)
+        # the box path on predictions that are objects: random weights
+        # (mask probabilities around 0.5) with class 1 raised
+        del pred
+        sd = MaskBev(cfg).random_state_dict(SEED + 8)
+        sd["decoder.heads.cls_embed.bias"][1] += 20.0
+        pred = MaskBevPredictor(cfg, sd, device="cuda")
+        forced = pred.predict_batch(batch["points"], batch["point_mask"],
+                                    score_threshold=0.0)
+        del pred
+    finally:
+        (loop.train_step, loop.Trainer.validate,
+         CheckpointManager._save) = orig
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the boxes again from each scan's kept queries (every query at
+    # threshold 0 with class 1 raised): their labels and scores, and the
+    # card's mask probabilities
+    want_boxes = []
+    for s in forced:
+        cls_kept = np.zeros((len(s.labels), cfg.head_num_classes + 1),
+                            np.float32)
+        cls_kept[np.arange(len(s.labels)), s.labels] = s.scores
+        want_boxes.append(mask_to_boxes(cls_kept, s.mask_probs, cfg,
+                                        score_threshold=0.0)[0])
+
+    n_l = cfg.num_decoder_outputs
+    metric_keys = [f"val_{k}_{i}" for i in range(n_l)
+                   for k in ("mAP_cls", "mIoU")] + [
+        f"val_mAP_{i}_map" for i in range(n_l)]
+    index_ok = (index.get("last_step") == 6 and index.get("last_epoch") == 1
+                and isinstance(index.get("best_step"), int)
+                and np.isfinite(index.get("best_val_loss") or np.nan)
+                and set(index.get("last_meta", {})) >= {
+                    "epoch", "plateau_scale", "early_stop_bad_epochs"})
+    finite = (len(losses) == 6 and np.isfinite(losses).all()
+              and np.isfinite(last["val_loss"])
+              and np.isfinite(test["val_loss"])
+              and all(np.isfinite(test[k]) for k in metric_keys))
+    n_boxes = [len(s.boxes) for s in served]
+    n_forced = [len(s.boxes) for s in forced]
+    same_shape = all(np.shape(s.boxes) == np.shape(w)
+                     for s, w in zip(forced, want_boxes))
+    box_err = max((float(np.abs(s.boxes - w).max()) for s, w in
+                   zip(forced, want_boxes) if len(w)), default=0.0) \
+        if same_shape else float("inf")
+    boxes_ok = sum(n_forced) > 0 and box_err <= 1e-6
+    print(f"[trainer] {cfg.name} at its widths (embed "
+          f"{cfg.backbone_embed_dim}, head {cfg.head_feat_channels}, "
+          f"{cfg.num_queries} queries, PFN {cfg.encoder_feat_channels}, "
+          f"{cfg.max_points_per_scan} point slots, batch {cfg.batch_size}, "
+          f"{cfg.compute_dtype}, {cfg.optimiser_type}, "
+          f"{cfg.lr_schedulers_type}); 3 train + 2 val batches x 2 epochs, "
+          f"images off (no matplotlib on the card's machine): fit "
+          f"{fit_s:.1f} s [{card}]", flush=True)
+    print(f"[trainer] train step median {np.median(steps):.4f} s (of "
+          f"{len(steps)}: {[round(x, 4) for x in steps]}); validation epoch "
+          f"median {np.median(vals[:2]):.4f} s ({[round(x, 4) for x in vals]}"
+          f", the last is the --test pass); checkpoint {ckpt_bytes} bytes, "
+          f"write median {np.median(saves):.4f} s ({len(saves)} writes); "
+          f"peak memory {peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[trainer] losses {[round(x, 4) for x in losses]}; val_loss "
+          f"{last['val_loss']:.4f}; --test restore of best (epoch "
+          f"{index.get('best_epoch')}, val_loss "
+          f"{float(index.get('best_val_loss') or np.nan):.4f}): val_loss "
+          f"{test['val_loss']:.4f}, val_mIoU_{n_l - 1} "
+          f"{test[f'val_mIoU_{n_l - 1}']:.4f}, val_mAP_cls_{n_l - 1} "
+          f"{test[f'val_mAP_cls_{n_l - 1}']:.4f}; index.json well formed: "
+          f"{index_ok}", flush=True)
+    print(f"[trainer] served {len(served)} scans from best in "
+          f"{serve_s:.3f} s, boxes per scan {n_boxes}; random weights with "
+          f"class 1 raised by 20: boxes per scan {n_forced}, against "
+          f"mask_to_boxes on the card's probabilities max diff "
+          f"{box_err:.3g} (tolerance 1e-6) -> "
+          f"{'ok' if boxes_ok else 'FAIL'}", flush=True)
+    print(f"[trainer] launches: fit {fit_launch}; --test validation "
+          f"{test_launch}; serving {serve_launch}", flush=True)
+    need = ([("fit", fit_launch, k) for k in
+             ("canvas_scatter", "canvas_scatter_bwd", "hungarian", "pfn",
+              "canvas_norm", "swin_block")]
+            + [("test", test_launch, k) for k in
+               ("pfn", "canvas_norm", "swin_block")]
+            + [("serving", serve_launch, k) for k in
+               ("pfn", "canvas_norm", "swin_block", "decoder_stack")])
+    missing = [f"{k} ({where})" for where, got, k in need if got[k] <= 0]
+    if missing:
+        failures.append(f"[trainer] never launched: {missing}")
+    if not boxes_ok:
+        failures.append("[trainer] boxes of the served predictions")
+    if not (finite and index_ok) or len(served) != BATCH or any(
+            s.boxes.shape[1:] != (5,) for s in served):
+        failures.append(f"[trainer] losses finite {finite}, index.json "
+                        f"{index_ok}, served {len(served)} scans")
+
+
+def resume_phase(np, torch, card, failures, here) -> None:
+    """A resumed run against an unbroken one on the card: the tiny config
+    (its 8 heads, bf16) fits 2 epochs straight through, twice, and 1 epoch
+    then a new ``Trainer(checkpoint="last")`` for the second. Parameters,
+    running statistics and optimizer moments compared bitwise; should the
+    card's reductions not be deterministic (atomic adds), parameters within
+    2 x lr a step after the resume, the most an Adam step moves one, with
+    the difference of the two unbroken runs printed beside it."""
+    import shutil
+    import tempfile
+
+    from mask_bev_tpu_torch.config import tiny_test_config
+    from mask_bev_tpu_torch.train.loop import Trainer
+    from train_mask_bev_torch import build_datamodule
+
+    cfg = tiny_test_config().replace(
+        compute_dtype="bfloat16", batch_size=2, limit_train_batches=2,
+        limit_val_batches=1, max_epochs=2, log_images=False,
+        loss_gt_crop=48, max_num_pillars=256, head_num_points=64)
+    dm = build_datamodule(cfg, None)
+    train_b, val_b = dm.train_batches, dm.val_batches
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(here,
+                                                                 "runs"))
+
+    def tensors(tr):
+        st = tr.state
+        out = {f"model.{k}": v for k, v in st.model.state_dict().items()}
+        out.update({f"mu.{k}": v for k, v in st.opt_state.mu.items()})
+        out.update({f"nu.{k}": v for k, v in st.opt_state.nu.items()})
+        return out
+
+    def diff(a, b):
+        return max(float((a[k].float() - b[k].float()).abs().max())
+                   for k in a)
+
+    try:
+        runs = []
+        for i in range(2):
+            tr = Trainer(cfg, workdir=os.path.join(work, f"whole{i}"),
+                         device="cuda")
+            tr.fit(train_b, val_b)
+            runs.append(tensors(tr))
+        first = Trainer(cfg, workdir=os.path.join(work, "resumed"),
+                        device="cuda")
+        first.fit(train_b, val_b, max_epochs=1)
+        second = Trainer(cfg.replace(checkpoint="last"),
+                         workdir=os.path.join(work, "resumed"),
+                         device="cuda")
+        resumed_from = (second.epoch, second.state.step)
+        second.fit(train_b, val_b)
+        got = tensors(second)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    params = [k for k in got if k.startswith("model.")]
+    bitwise = all(torch.equal(got[k], runs[0][k]) for k in got)
+    d_resume = diff(got, runs[0])
+    d_param = diff({k: got[k] for k in params},
+                   {k: runs[0][k] for k in params})
+    d_whole = diff(runs[1], runs[0])
+    tol = 2 * cfg.lr * cfg.limit_train_batches
+    ok = resumed_from == (1, 2) and (bitwise or d_param <= tol)
+    print(f"[resume] tiny config ({cfg.head_num_attn_heads} heads, "
+          f"{cfg.compute_dtype}) on the card: 2 epochs unbroken vs 1 epoch "
+          f"+ resume from last (epoch {resumed_from[0]}, step "
+          f"{resumed_from[1]}): bitwise equal {bitwise}; largest difference "
+          f"{d_resume:.3g} (parameters {d_param:.3g}, tolerance {tol:.3g} "
+          f"where not bitwise); two unbroken runs differ by {d_whole:.3g} "
+          f"-> {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        failures.append("[resume] resumed run differs from the unbroken one")
 
 
 if __name__ == "__main__":

@@ -1249,7 +1249,40 @@ __device__ __noinline__ void ds2_cross_attn(float* sm, const Ds2Layout Ly,
           for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[j][e] = sx[j][e] = 0.f;
-          if constexpr (F32) {
+          if constexpr (F32 && HD == 8) {
+            // one 8-deep step: lane t4 holds k 2 t4 and 2 t4 + 1 (logical
+            // t4 and t4 + 4) of q and k alike
+            const int k0 = h * HD + 2 * t4;
+            const int r0 = 16 * mt + g;
+            const float2 z = make_float2(0.f, 0.f);
+            const float2 q0 =
+                r0 < nr ? *reinterpret_cast<const float2*>(XA + r0 * ld + k0)
+                        : z;
+            const float2 q8 =
+                r0 + 8 < nr
+                    ? *reinterpret_cast<const float2*>(XA + (r0 + 8) * ld + k0)
+                    : z;
+            const uint32_t a[4] = {__float_as_uint(q0.x), __float_as_uint(q8.x),
+                                   __float_as_uint(q0.y), __float_as_uint(q8.y)};
+            const Tf32x2<4> as = split_frag(a);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= njw) break;
+              const float2 kv = *reinterpret_cast<const float2*>(
+                  Kf + (8 * (j0 + j) + g) * ldk + k0);
+              const uint32_t b[2] = {__float_as_uint(kv.x),
+                                     __float_as_uint(kv.y)};
+              const Tf32x2<2> bs = split_frag(b);
+              mma_1688_tf32(sx[j], as.lo, bs.hi[0], bs.hi[1]);
+              mma_1688_tf32(sx[j], as.hi, bs.lo[0], bs.lo[1]);
+              mma_1688_tf32(s[j], as.hi, bs.hi[0], bs.hi[1]);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[j][e] = __fadd_rn(s[j][e], sx[j][e]);
+          } else if constexpr (F32) {
 #pragma unroll
             for (int kc = 0; kc < HD / 16; ++kc) {
               const int k0 = h * HD + 16 * kc + 4 * t4;
@@ -1286,6 +1319,19 @@ __device__ __noinline__ void ds2_cross_attn(float* sm, const Ds2Layout Ly,
 #pragma unroll
               for (int e = 0; e < 4; ++e)
                 s[j][e] = __fadd_rn(s[j][e], sx[j][e]);
+          } else if constexpr (HD == 8) {
+            // one m16n8k16 step with k 8..15 zero: lane t4 holds k 2 t4 and
+            // 2 t4 + 1 of q's rows g, g + 8 and of key g
+            const uint32_t* q32 = reinterpret_cast<const uint32_t*>(
+                qt + (16 * mt + g) * ldq + h * HD + 2 * t4);
+            const uint32_t qa[4] = {q32[0], q32[4 * ldq], 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= njw) break;
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(
+                  Kh + (8 * (j0 + j) + g) * ldk + h * HD + 2 * t4);
+              mma_16816(s[j], qa, b0, 0u);
+            }
           } else {
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk) {
@@ -1809,9 +1855,13 @@ MB_EXPORT int decoder_split_forward(const float* x0, const float* emb0,
                              prof, B, Q, C, F, heads, words, tmax, smem,    \
                              scale, stream)
   if (f32) {
+    if (hd == 8) DS2_CASE(float, 8);
+    if (hd == 16) DS2_CASE(float, 16);
     if (hd == 32) DS2_CASE(float, 32);
     if (hd == 64) DS2_CASE(float, 64);
   } else {
+    if (hd == 8) DS2_CASE(bf16, 8);
+    if (hd == 16) DS2_CASE(bf16, 16);
     if (hd == 32) DS2_CASE(bf16, 32);
     if (hd == 64) DS2_CASE(bf16, 64);
   }

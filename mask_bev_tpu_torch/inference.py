@@ -1,11 +1,14 @@
 """Batched inference over padded raw scans (port of
-``mask_bev_tpu/inference.py:34-102``).
+``mask_bev_tpu/inference.py``).
 
 ``MaskBevPredictor(cfg, state_dict, device="cuda")`` casts the model per
 ``cfg.compute_dtype``, runs the ``final_only`` forward, and decodes each
 scan by the reference rule: keep queries whose argmax class is not the
-background, then threshold their score. Rotated boxes (``mask_to_boxes``)
-are not ported yet, so :class:`ScanPredictions` carries no ``boxes``.
+background, then threshold their score; ``boxes`` holds the BEV rotated
+boxes of the scan's masks in meters (``evaluation/kitti_eval.py::
+mask_to_boxes``, largest component -> min-area rectangle).
+``MaskBevPredictor.from_checkpoint`` serves a checkpoint that the trainer
+wrote (``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from mask_bev_tpu_torch.config import MaskBevConfig
+from mask_bev_tpu_torch.evaluation.kitti_eval import mask_to_boxes
 from mask_bev_tpu_torch.models.maskbev import MaskBev
 from mask_bev_tpu_torch.utils.precision import (
     cast_float_leaves, resolve_device, resolve_dtype)
@@ -27,6 +31,7 @@ class ScanPredictions:
     labels: np.ndarray  # (n,) class index
     masks: np.ndarray  # (n, H/4, W/4) bool
     mask_probs: np.ndarray  # (n, H/4, W/4) float
+    boxes: np.ndarray  # (m, 5) BEV rotated boxes in meters (x, y, w, l, yaw)
 
 
 def pad_points(points: np.ndarray, n: int, dim: int
@@ -55,6 +60,19 @@ class MaskBevPredictor:
                               strict=True)
         self.model = model.to(self.device).eval()
 
+    @classmethod
+    def from_checkpoint(cls, cfg: MaskBevConfig, ckpt_dir: str,
+                        which: str = "best", device="cuda"
+                        ) -> "MaskBevPredictor":
+        """Serve checkpoint ``which`` ('best', 'last' or a path) of
+        ``ckpt_dir``: its parameters and running statistics."""
+        from mask_bev_tpu_torch.train.checkpoint import CheckpointManager
+
+        restored = CheckpointManager(ckpt_dir).restore(which)
+        if restored is None:
+            raise FileNotFoundError(f"no '{which}' checkpoint in {ckpt_dir}")
+        return cls(cfg, restored["model"], device=device)
+
     @torch.no_grad()
     def forward(self, points: torch.Tensor, point_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,11 +95,15 @@ class MaskBevPredictor:
             keep = np.flatnonzero(pred_cls != self.background_class)
             scores = cls_probs[b][keep, pred_cls[keep]]
             keep = keep[scores >= score_threshold]
+            boxes, _, _ = mask_to_boxes(cls_probs[b], mask_probs[b],
+                                        self.cfg,
+                                        score_threshold=score_threshold)
             out.append(ScanPredictions(
                 scores=cls_probs[b][keep, pred_cls[keep]],
                 labels=pred_cls[keep],
                 masks=mask_probs[b][keep] > 0.5,
-                mask_probs=mask_probs[b][keep]))
+                mask_probs=mask_probs[b][keep],
+                boxes=boxes))
         return out
 
     def predict_scan(self, points: np.ndarray,

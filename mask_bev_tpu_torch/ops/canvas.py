@@ -26,7 +26,7 @@ pillar's cell, 0 for unused slots. Both only move values, so they are exact.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -58,26 +58,44 @@ def canvas_norm_plain(table: torch.Tensor, cells: torch.Tensor,
     return (y * scale.float() + bias.float()).to(table.dtype)
 
 
+def canvas_chunks(b: int) -> List[Tuple[int, int]]:
+    """The (start, stop) sample ranges :func:`canvas_norm` launches kernel
+    2 on: as few as take B samples at most ``CANVAS_MAX_BATCH`` each, of
+    near-equal size. Each sample's statistics and cells are its own, so a
+    sample's canvas does not depend on the chunk it is in."""
+    n = -(-b // CANVAS_MAX_BATCH)
+    edges = [b * i // n for i in range(n + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def canvas_refusal(b: int, c: int, dtype) -> Optional[str]:
+    """Why kernel 2 does not take a (B, N, C) table of ``dtype``, or None
+    where it does: bf16 or f32, rows of whole 16-byte words and B >= 1
+    (any B: :func:`canvas_norm` launches it on :func:`canvas_chunks`)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"the canvas kernel takes a bf16 or f32 table, not {dtype}"
+    if (c * torch.finfo(dtype).bits // 8) % 16 or b < 1:
+        return (f"canvas kernel needs rows of whole 16-byte words and "
+                f"B >= 1; got C={c} ({dtype}), B={b}")
+    return None
+
+
 def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
                 num_pillars: torch.Tensor, mean: torch.Tensor,
                 var: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 grid_hw: Tuple[int, int], eps: float = 1e-3) -> torch.Tensor:
     """Normalised (B, H, W, C) canvas: the CUDA kernel for CUDA tensors
-    (its bf16 or f32 instance, by the table's dtype), the plain version for
-    CPU tensors."""
+    (its bf16 or f32 instance, by the table's dtype; one launch for each of
+    :func:`canvas_chunks`), the plain version for CPU tensors."""
     if not table.is_cuda:
         return canvas_norm_plain(table, cells, mean, var, scale, bias,
                                  grid_hw, eps)
     b, n, c = table.shape
     h, w = grid_hw
     dt = table.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the canvas kernel takes a bf16 or f32 table, not "
-                         f"{dt}")
-    if (c * table.element_size()) % 16 or not 1 <= b <= CANVAS_MAX_BATCH:
-        raise ValueError(f"canvas kernel needs rows of whole 16-byte words "
-                         f"and 1 <= B <= {CANVAS_MAX_BATCH}; got C={c} "
-                         f"({dt}), B={b}")
+    reason = canvas_refusal(b, c, dt)
+    if reason:
+        raise ValueError(reason)
     kb.check_cuda(table, "table", dt)
     kb.check_cuda(cells, "cells", torch.int32, (b, n))
     kb.check_cuda(num_pillars, "num_pillars", torch.int32, (b,))
@@ -91,12 +109,14 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     kb.check_cuda(bias, "bias", dt, tuple(scale.shape))
     mv = torch.stack([mean.float(), var.float()], dim=-1).contiguous()
     out = torch.empty((b, h, w, c), dtype=dt, device=table.device)
-    kb.launch("canvas_norm", "canvas_norm_forward", kb.ptr(table),
-              kb.ptr(cells), kb.ptr(num_pillars), kb.ptr(mv), kb.ptr(scale),
-              kb.ptr(bias), kb.ci(full), kb.ptr(out), kb.ci(b), kb.ci(n),
-              kb.ci(h * w), kb.ci(c), kb.cf(eps),
-              kb.ci(dt == torch.float32), kb.stream(),
-              instance="f32" if dt == torch.float32 else "bf16")
+    for i, j in canvas_chunks(b):
+        kb.launch("canvas_norm", "canvas_norm_forward", kb.ptr(table[i:j]),
+                  kb.ptr(cells[i:j]), kb.ptr(num_pillars[i:j]),
+                  kb.ptr(mv[i:j]), kb.ptr(scale), kb.ptr(bias), kb.ci(full),
+                  kb.ptr(out[i:j]), kb.ci(j - i), kb.ci(n), kb.ci(h * w),
+                  kb.ci(c), kb.cf(eps), kb.ci(dt == torch.float32),
+                  kb.stream(),
+                  instance="f32" if dt == torch.float32 else "bf16")
     return out
 
 

@@ -44,7 +44,7 @@ Every launch counts under ``decoder_stack`` (and its instance under
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -315,22 +315,36 @@ def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
     return total
 
 
-def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
-                      n_layers: int, t_max: int, f32: bool = True) -> None:
-    """Raise unless the split instance takes these shapes (the C entry
-    point's own check): C a multiple of 64 (32-deep product chunks, 16
-    output columns a warp), the FFN's hidden units in chunks of C, 2, 4 or
-    8 heads (a head's warps split each key tile) of width 32 or 64, at most
-    32 rows a block, and the shared memory of :func:`smem_bytes_split`."""
-    r = -(-q // CLUSTER)
+SPLIT_HEAD_DIMS = (8, 16, 32, 64)  # the split kernel's HD instances
+
+
+def split_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
+                  n_layers: int, t_max: int,
+                  f32: bool = True) -> Optional[str]:
+    """Why the split instance does not take these shapes (the C entry
+    point's own check), or None where it does: C a multiple of 64 (32-deep
+    product chunks, 16 output columns a warp), the FFN's hidden units in
+    chunks of C, 2, 4 or 8 heads (a head's warps split each key tile) of a
+    width in :data:`SPLIT_HEAD_DIMS`, at most 32 rows a block, and the
+    shared memory of :func:`smem_bytes_split`."""
     smem = smem_bytes_split(q, c, heads, t_max, f32)
     if (q < 1 or c % 64 or ffn % c or heads < 2 or SPLIT_WARPS % heads
-            or c % heads or c // heads not in (32, 64) or n_layers % nl
-            or nl > 3 or r > SPLIT_MAXR or smem > SMEM_LIMIT):
-        raise ValueError(f"decoder stack split instance: unsupported shape "
-                         f"Q={q} C={c} FFN={ffn} heads={heads} levels={nl} "
-                         f"layers={n_layers} keys={t_max} ({smem} B of "
-                         f"shared memory a block, limit {SMEM_LIMIT})")
+            or c % heads or c // heads not in SPLIT_HEAD_DIMS
+            or n_layers % nl or nl > 3 or -(-q // CLUSTER) > SPLIT_MAXR
+            or smem > SMEM_LIMIT):
+        return (f"decoder stack split instance: unsupported shape Q={q} "
+                f"C={c} FFN={ffn} heads={heads} levels={nl} "
+                f"layers={n_layers} keys={t_max} ({smem} B of shared memory "
+                f"a block, limit {SMEM_LIMIT})")
+    return None
+
+
+def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
+                      n_layers: int, t_max: int, f32: bool = True) -> None:
+    """Raise with :func:`split_refusal`'s reason, if any."""
+    reason = split_refusal(q, c, ffn, heads, nl, n_layers, t_max, f32)
+    if reason:
+        raise ValueError(reason)
 
 
 def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
@@ -345,6 +359,20 @@ def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
     except ValueError:
         return False
     return smem_bytes(q, c, t_max) <= SMEM_LIMIT
+
+
+def decoder_stack_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
+                          n_layers: int, t_max: int, dtype) -> Optional[str]:
+    """Why :func:`decoder_stack` launches no kernel for these shapes on a
+    CUDA device, or None where it launches one: bf16 or f32, and the
+    flagship instance (:func:`flagship_takes`) or the split instance
+    (:func:`split_refusal`) takes them."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"the decoder stack kernels take bf16 or f32; got {dtype}"
+    if flagship_takes(q, c, ffn, heads, nl, n_layers, t_max, dtype):
+        return None
+    return split_refusal(q, c, ffn, heads, nl, n_layers, t_max,
+                         dtype == torch.float32)
 
 
 SPLIT_PARTS = ("mask bits", "q projection", "cross-attention",
@@ -373,15 +401,16 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     nl = len(mems)
     n_layers = len(layers)
     dt = out0.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the decoder stack kernels take bf16 or f32; got "
-                         f"{dt}")
     hd = c // num_heads
     ffn = layers[0].f1.shape[1]
     if emb0.shape[-1] != c:
         raise ValueError(f"decoder stack kernel: emb0 width "
                          f"{emb0.shape[-1]} != C={c}")
     t = [m.shape[1] for m in mems]
+    reason = decoder_stack_refusal(q, c, ffn, num_heads, nl, n_layers,
+                                   max(t), dt)
+    if reason:
+        raise ValueError(reason)
     flagship = flagship_takes(q, c, ffn, num_heads, nl, n_layers, max(t), dt)
     if profile is not None:
         if flagship:
@@ -392,7 +421,6 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         smem = smem_bytes(q, c, max(t))
     else:
         f32 = dt == torch.float32
-        check_shape_split(q, c, ffn, num_heads, nl, n_layers, max(t), f32)
         smem = smem_bytes_split(q, c, num_heads, max(t), f32)
     kind = "flagship" if flagship else "split"
     if packed is None:

@@ -20,7 +20,7 @@ step issued before its reductions, on a grid sized to the SMs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,6 +62,17 @@ def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ((x32 - mean) * mul + b.float()).to(x.dtype)
 
 
+def layer_norm_refusal(c: int, dtype) -> Optional[str]:
+    """Why kernel 9 does not take rows of C values of ``dtype``, or None
+    where it does: bf16 or f32, C % 8 == 0 and 8 <= C <= 2048."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"the layer norm kernel takes bf16 or f32 tokens; got {dtype}"
+    if c % 8 or c < 8 or c > 2048:
+        return (f"layer norm kernel needs C % 8 == 0 and 8 <= C <= 2048, "
+                f"got {c}")
+    return None
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """Token LayerNorm of (..., C): the CUDA kernel for CUDA tensors (its
@@ -69,13 +80,10 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not x.is_cuda:
         return layer_norm_plain(x, w, b, eps)
     dt = x.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the layer norm kernel takes bf16 or f32 tokens; "
-                         f"got {dt}")
     c = x.shape[-1]
-    if c % 8 or c < 8 or c > 2048:
-        raise ValueError(f"layer norm kernel needs C % 8 == 0 and 8 <= C <= "
-                         f"2048, got {c}")
+    reason = layer_norm_refusal(c, dt)
+    if reason:
+        raise ValueError(reason)
     x2 = x.contiguous().reshape(-1, c)
     kb.check_cuda(x2, "x", dt)
     kb.check_cuda(w, "scale", dt, (c,))

@@ -104,22 +104,40 @@ def plan(b: int, h: int, w: int, c: int, e: int, patch: int,
                 weight_l2_bytes=pairs * e * k * esz * (2 if f32 else 1))
 
 
-def check_shape(b: int, h: int, w: int, c: int, e: int, patch: int,
-                f32: bool) -> Dict[str, float]:
-    """Raise ``ValueError`` for a shape the CUDA kernel does not take;
-    return its plan."""
+def patch_embed_refusal(b: int, h: int, w: int, c: int, e: int,
+                        patch: int, dtype) -> Optional[str]:
+    """Why kernel 8 does not take a (B, H, W, C) canvas of ``dtype`` into E
+    channels by ``patch`` x ``patch`` patches, or None where it does: bf16
+    or f32, H and W whole multiples of the patch, whole 128-byte K slices
+    (p C), E in :data:`EMBED_DIMS`, and a ring of at least two stages in
+    shared memory."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return (f"the patch embed kernel takes a bf16 or f32 canvas; got "
+                f"{dtype}")
+    f32 = dtype == torch.float32
     p = patch
     bk = STAGE_K_BYTES // (4 if f32 else 2)
     if h % p or w % p or h < p or w < p or b < 1:
-        raise ValueError(f"patch embed needs H, W whole multiples of {p}; "
-                         f"got {(h, w)}")
+        return (f"patch embed needs H, W whole multiples of {p}; got "
+                f"{(h, w)}")
     if (p * c) % bk or e not in EMBED_DIMS:
-        raise ValueError(f"patch embed kernel needs p*C % {bk} == 0 and E "
-                         f"in {EMBED_DIMS}; got C={c}, p={p}, E={e}")
+        return (f"patch embed kernel needs p*C % {bk} == 0 and E in "
+                f"{EMBED_DIMS}; got C={c}, p={p}, E={e}")
     pl = plan(b, h, w, c, e, p, f32)
     if pl["smem_bytes"] > SMEM_LIMIT or pl["stages"] < 2:
-        raise ValueError(f"patch embed ring does not fit: {pl}")
-    return pl
+        return f"patch embed ring does not fit: {pl}"
+    return None
+
+
+def check_shape(b: int, h: int, w: int, c: int, e: int, patch: int,
+                f32: bool) -> Dict[str, float]:
+    """Raise ``ValueError`` with :func:`patch_embed_refusal`'s reason for a
+    shape the CUDA kernel does not take; return its plan."""
+    reason = patch_embed_refusal(b, h, w, c, e, patch,
+                                 torch.float32 if f32 else torch.bfloat16)
+    if reason:
+        raise ValueError(reason)
+    return plan(b, h, w, c, e, patch, f32)
 
 
 def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
@@ -141,12 +159,12 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
     if not canvas.is_cuda:
         return patch_embed_plain(canvas, wm, bias, ln_w, ln_b, p, eps)
     dt = canvas.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the patch embed kernel takes a bf16 or f32 "
-                         f"canvas; got {dt}")
-    f32 = dt == torch.float32
     e = wm.shape[0]
-    pl = check_shape(b, h, w, c, e, p, f32)
+    reason = patch_embed_refusal(b, h, w, c, e, p, dt)
+    if reason:
+        raise ValueError(reason)
+    f32 = dt == torch.float32
+    pl = plan(b, h, w, c, e, p, f32)
     kb.check_cuda(canvas, "canvas", dt)
     kb.check_cuda(wm, "wm", dt, (e, p * p * c))
     hi = lo = None

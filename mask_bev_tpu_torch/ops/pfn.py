@@ -39,7 +39,7 @@ launches it and the statistics reduction, two launches a call.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -178,27 +178,62 @@ def pack_weights(weights: Weights, device):
             gb.to(device).contiguous(), dims)
 
 
-def _check_layers(weights: Weights, in0: int, out_dtype) -> bool:
-    """Raise unless the tile kernels take these layers; True for the f32
-    instance."""
-    dt = weights[0][0].dtype
-    if dt not in (torch.bfloat16, torch.float32) or out_dtype != dt or any(
-            w.dtype != dt for (w, _, _) in weights):
-        raise ValueError(f"the pfn kernels take bf16 or f32 weights with a "
-                         f"table of the same dtype; got {dt} weights and a "
-                         f"{out_dtype} table")
+def layers_refusal(dims: Sequence[Tuple[int, int]], in0: int, dtype,
+                   out_dtype) -> Optional[str]:
+    """Why the tile kernels do not take layers of (in, units) ``dims`` with
+    weights of ``dtype`` (None: mixed) and a table of ``out_dtype``, or
+    None where they do: bf16 or f32, one dtype for both, at most 4 layers
+    of a multiple of 8 units up to 128, each fed [z, pooled] of the one
+    before."""
+    if dtype not in (torch.bfloat16, torch.float32) or out_dtype != dtype:
+        return (f"the pfn kernels take bf16 or f32 weights with a table of "
+                f"the same dtype; got {dtype} weights and a {out_dtype} "
+                f"table")
     prev = None
-    for i, (w, _, _) in enumerate(weights):
-        k, u = w.shape
+    for i, (k, u) in enumerate(dims):
         if (u % 8 or u > 128 or (i == 0 and k != in0)
                 or (prev is not None and k != 2 * prev)):
-            raise ValueError(f"pfn kernels take layers of a multiple of 8 "
-                             f"units up to 128, each fed [z, pooled]; got "
-                             f"{[tuple(w.shape) for (w, _, _) in weights]}")
+            return (f"pfn kernels take layers of a multiple of 8 units up "
+                    f"to 128, each fed [z, pooled]; got {list(dims)}")
         prev = u
-    if len(weights) > 4:
-        raise ValueError("pfn kernels take at most 4 layers")
-    return dt == torch.float32
+    if not 1 <= len(dims) <= 4:
+        return f"pfn kernels take 1 to 4 layers; got {len(dims)}"
+    return None
+
+
+def pfn_refusal(max_points_per_pillar: int,
+                dims: Sequence[Tuple[int, int]], in0: int, dtype,
+                out_dtype) -> Optional[str]:
+    """Why kernel 1 does not take these shapes, or None where it does: at
+    most 32 points a pillar and :func:`layers_refusal`."""
+    if max_points_per_pillar > 32:
+        return (f"pfn kernel takes at most 32 points per pillar, got "
+                f"{max_points_per_pillar}")
+    return layers_refusal(dims, in0, dtype, out_dtype)
+
+
+def stream_pfn_refusal(k: int, point_cols: int,
+                       dims: Sequence[Tuple[int, int]], with_distance: bool,
+                       dtype, out_dtype, points_dtype) -> Optional[str]:
+    """Why kernel 10 does not take these shapes, or None where it does: at
+    most 32 points a pillar, 3 or 4 point columns of the table's dtype and
+    :func:`layers_refusal`."""
+    if k > 32 or point_cols not in (3, 4):
+        return (f"stream pfn kernel takes at most 32 points per pillar and "
+                f"3 or 4 point columns, got k={k}, D={point_cols}")
+    reason = layers_refusal(dims, point_cols + 5 + int(with_distance),
+                            dtype, out_dtype)
+    if reason is None and points_dtype != out_dtype:
+        reason = (f"the stream pfn kernel takes points of the weights' "
+                  f"dtype {out_dtype}; got {points_dtype}")
+    return reason
+
+
+def _layers(weights: Weights):
+    """(dims, dtype) of the layers: dtype None where they mix dtypes."""
+    dts = {w.dtype for (w, _, _) in weights}
+    return ([tuple(w.shape) for (w, _, _) in weights],
+            dts.pop() if len(dts) == 1 else None)
 
 
 def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
@@ -217,11 +252,12 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
                          voxel_size=voxel_size, x0=x0, y0=y0,
                          out_dtype=out_dtype)
     b, n = x.shape
-    if max_points_per_pillar > 32:
-        raise ValueError(f"pfn kernel takes at most 32 points per pillar, "
-                         f"got {max_points_per_pillar}")
-    f32 = _check_layers(weights, point_dim + 5 + int(with_distance),
-                        out_dtype)
+    shapes, dt = _layers(weights)
+    reason = pfn_refusal(max_points_per_pillar, shapes,
+                         point_dim + 5 + int(with_distance), dt, out_dtype)
+    if reason:
+        raise ValueError(reason)
+    f32 = dt == torch.float32
     for t, name in ((ps.starts, "starts"), (ps.counts, "counts"),
                     (ps.cells, "cells")):
         kb.check_cuda(t, name, torch.int32, (b, n))
@@ -306,13 +342,12 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
                                 y0=y0, out_dtype=out_dtype)
     b, n, d = sp.pts.shape
     p = sp.starts.shape[1]
-    if k > 32 or d not in (3, 4):
-        raise ValueError(f"stream pfn kernel takes at most 32 points per "
-                         f"pillar and 3 or 4 point columns, got k={k}, D={d}")
-    f32 = _check_layers(weights, d + 5 + int(with_distance), out_dtype)
-    if sp.pts.dtype != out_dtype:
-        raise ValueError(f"the stream pfn kernel takes points of the "
-                         f"weights' dtype {out_dtype}; got {sp.pts.dtype}")
+    shapes, dt = _layers(weights)
+    reason = stream_pfn_refusal(k, d, shapes, with_distance, dt, out_dtype,
+                                sp.pts.dtype)
+    if reason:
+        raise ValueError(reason)
+    f32 = dt == torch.float32
     pts = sp.pts.contiguous()
     starts = sp.starts.to(torch.int32).contiguous()
     kb.check_cuda(pts, "pts", out_dtype, (b, n, d))

@@ -323,6 +323,15 @@ def _quant(x2):
     return q8, sx
 
 
+def gemm_refusal(k: int, n: int) -> Optional[str]:
+    """Why the GEMM does not take a (K -> N) product, or None where it
+    does: K % 16 == 0 (16-deep k-steps) and N % 8 == 0."""
+    if k % 16 or n % 8:
+        return (f"gemm kernel needs K % 16 == 0 and N % 8 == 0, got K={k}, "
+                f"N={n}")
+    return None
+
+
 def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
          out_dtype=torch.bfloat16):
     """out (M, N) = epilogue(a @ d^T): ``a`` is bf16 (M, K) with a bf16
@@ -333,9 +342,9 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     ``gemm_s8_bf16``, ``gemm_s8_f32`` or ``gemm_f32_3xtf32``."""
     m, k = a.shape
     n = d.wt.shape[0]
-    if k % 16 or n % 8:
-        raise ValueError(f"gemm kernel needs K % 16 == 0 and N % 8 == 0, "
-                         f"got K={k}, N={n}")
+    reason = gemm_refusal(k, n)
+    if reason:
+        raise ValueError(reason)
     if sx is None:
         out_dtype = a.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -390,15 +399,40 @@ ATTN_HEAD_DIMS = (16, 32, 64)
 ATTN_MAX_TOKENS = 128
 
 
-def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
-    """Raise unless the window attention kernel takes C channels over
-    ``heads`` heads in ``win`` x ``win`` windows."""
+def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
+    """Why the window attention kernel (of kernel ``what``) does not take C
+    channels over ``heads`` heads in ``win`` x ``win`` windows, or None
+    where it does: a head width of :data:`ATTN_HEAD_DIMS` and at most
+    :data:`ATTN_MAX_TOKENS` tokens a window."""
     if (c % heads or c // heads not in ATTN_HEAD_DIMS
             or win * win > ATTN_MAX_TOKENS):
-        raise ValueError(f"{what} kernel: bad shape, C={c} over {heads} "
-                         f"heads in windows of {win}x{win}: the attention "
-                         f"takes head widths {ATTN_HEAD_DIMS} and at most "
-                         f"{ATTN_MAX_TOKENS} tokens a window")
+        return (f"{what} kernel: bad shape, C={c} over {heads} heads in "
+                f"windows of {win}x{win}: the attention takes head widths "
+                f"{ATTN_HEAD_DIMS} and at most {ATTN_MAX_TOKENS} tokens a "
+                f"window")
+    return None
+
+
+def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
+    """Raise with :func:`attn_refusal`'s reason, if any."""
+    reason = attn_refusal(what, c, heads, win)
+    if reason:
+        raise ValueError(reason)
+
+
+def swin_block_refusal(c: int, heads: int, win: int, hidden: int,
+                       dtype) -> Optional[str]:
+    """Why the Swin chain (kernel 3) does not take a block of C channels
+    over ``heads`` heads in ``win`` x ``win`` windows with ``hidden`` MLP
+    units on tokens of ``dtype``, or None where it does: bf16 or f32,
+    :func:`attn_refusal` and :func:`gemm_refusal` of every product."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return (f"the Swin chain kernels take bf16 or f32 activations; got "
+                f"{dtype}")
+    reason = attn_refusal("swin block", c, heads, win)
+    for k, n in ((c, 3 * c), (c, c), (c, hidden), (hidden, c)):
+        reason = reason or gemm_refusal(k, n)
+    return reason
 
 
 def attn_smem_bytes(win: int, hd: int, f32: bool = False,
@@ -509,13 +543,14 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     plain version for CPU tensors."""
     if not x.is_cuda:
         return swin_block_plain(x, p, hw, win, heads, shift, quant)
-    _f32(x)  # raises on a dtype without an instance
     b, l, c = x.shape
     h, w = hw
     if l != h * w:
         raise ValueError(f"swin block kernel: bad shape {x.shape} for "
                          f"hw={hw}")
-    check_attn_shape("swin block", c, heads, win)
+    reason = swin_block_refusal(c, heads, win, p.fc1.wt.shape[0], x.dtype)
+    if reason:
+        raise ValueError(reason)
     kb.check_cuda(x, "x", x.dtype)
     x2 = x.reshape(b * l, c)
     dt = x.dtype

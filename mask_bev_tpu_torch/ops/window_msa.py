@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from mask_bev_tpu_torch.ops.swin_block import (
-    EPI_BIAS, Dense, attention, check_attn_shape, gemm, merge_windows,
+    EPI_BIAS, Dense, attention, attn_refusal, gemm, merge_windows,
     partition_windows, shift_mask)
 
 
@@ -76,6 +76,18 @@ def window_msa_grid_plain(y: torch.Tensor, hw: Tuple[int, int], win: int,
     return merge_windows(xw, hw, win, shift)
 
 
+def window_msa_refusal(c: int, heads: int, win: int,
+                       dtype) -> Optional[str]:
+    """Why kernel 7 does not take C channels over ``heads`` heads in
+    ``win`` x ``win`` windows on tokens of ``dtype``, or None where it
+    does: bf16 or f32 and :func:`~mask_bev_tpu_torch.ops.swin_block.
+    attn_refusal` (whose head widths make C a multiple of 16, as the qkv
+    and projection products need)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"the window MSA kernels take bf16 or f32 tokens; got {dtype}"
+    return attn_refusal("window MSA", c, heads, win)
+
+
 def window_msa(y: torch.Tensor, hw: Tuple[int, int], win: int, shift: int,
                rel: torch.Tensor, qkv: Dense, proj: Dense, heads: int
                ) -> torch.Tensor:
@@ -87,14 +99,12 @@ def window_msa(y: torch.Tensor, hw: Tuple[int, int], win: int, shift: int,
     if not y.is_cuda:
         return window_msa_grid_plain(y, hw, win, shift, rel, qkv, proj,
                                      heads)
-    dt = y.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the window MSA kernels take bf16 or f32 tokens; "
-                         f"got {dt}")
     b, l, c = y.shape
+    reason = window_msa_refusal(c, heads, win, y.dtype)
+    if reason:
+        raise ValueError(reason)
     if l != hw[0] * hw[1]:
         raise ValueError(f"window MSA kernel: {l} tokens for a grid {hw}")
-    check_attn_shape("window MSA", c, heads, win)
     y2 = y.contiguous().reshape(b * l, c)
     t = gemm("window_msa", y2, qkv, EPI_BIAS)
     o = attention("window_msa", t, qkv.bias, rel, b, hw, heads, win, shift,
