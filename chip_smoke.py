@@ -87,7 +87,20 @@
    unbroken against 1 epoch plus a resume from ``last``, compared bitwise
    (or within a stated tolerance where the card's kernels are not
    deterministic);
-11. prints one JSON line with every kernel's numbers, then, last, the
+11. ``[data]`` (``data_phase``): SemanticKITTI and KITTI trees written
+   in the datasets' on-disk formats from the seed at real scale
+   (``datasets/disk_trees.py``: ~120k points a scan), the C++ host core
+   against its numpy twins at 500x500 and 800x800, host ms a sample (cache
+   miss, hit, augmentations, KITTI's GT paste), one epoch's batches with 0
+   and 4 worker processes (bitwise equal, batches/s), ``Trainer.fit`` on
+   ``01_semantic_kitti.yml`` and ``01_kitti.yml`` as shipped (f32, batch 4,
+   the shipped augmentations, 4 workers; one cut epoch, then the
+   ``--test`` restore of ``best``): step, validation, host-to-device and
+   prefetch-wait times, peak memory, the card's idle share over the
+   training steps, the launches of kernels A-C and 1-3, finite losses,
+   changed parameters and no live worker process; then the CLI
+   ``train_mask_bev_torch.py --train --test`` on the SemanticKITTI tree;
+12. prints one JSON line with every kernel's numbers, then, last, the
    device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
@@ -287,6 +300,7 @@ def main() -> None:
     shapes_phase(np, torch, card, failures)
     trainer_phase(np, torch, card, failures, here)
     resume_phase(np, torch, card, failures, here)
+    data_phase(np, torch, card, failures, here)
 
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     if failures:
@@ -1877,6 +1891,470 @@ def resume_phase(np, torch, card, failures, here) -> None:
           f"-> {'ok' if ok else 'FAIL'} [{card}]", flush=True)
     if not ok:
         failures.append("[resume] resumed run differs from the unbroken one")
+
+
+# ---- [data]: training on real on-disk scans --------------------------------
+# the trees (datasets/disk_trees.py): SemanticKITTI sequence 00 (train) and
+# 08 (valid), KITTI training frames (train / val ids), points a scan
+DATA_SK_SCANS = (32, 8)
+DATA_KITTI_FRAMES = (16, 12)
+DATA_POINTS = 120_000
+DATA_WORKERS = 4
+# the fits' cuts: (training batches, validation batches) of one epoch
+DATA_LIMITS = {"semantic_kitti": (3, 2), "kitti": (2, 1)}
+DATA_YML = {"semantic_kitti": "semantic_kitti/01_semantic_kitti.yml",
+            "kitti": "kitti/01_kitti.yml"}
+
+
+def live_children() -> list:
+    """Process ids whose parent is this process (from /proc)."""
+    me = str(os.getpid())
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[1] == me and fields[0] != "Z":
+            out.append(int(pid))
+    return out
+
+
+def median_ms(fn, args_list) -> float:
+    """Median host ms of ``fn(*args)`` over ``args_list``."""
+    import statistics
+
+    times = []
+    for args in args_list:
+        t1 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(times)
+
+
+def data_cfg(here, dataset: str, tree: str, **kw):
+    """The shipped YAML of ``dataset`` with the phase's cuts (epoch limits,
+    workers, images off); ``object_sample`` reads the written tree."""
+    from mask_bev_tpu_torch.config import MaskBevConfig
+
+    n_train, n_val = DATA_LIMITS[dataset]
+    cfg = MaskBevConfig.from_yaml(os.path.join(
+        here, "configs", "training", DATA_YML[dataset]))
+    augs = [dict(a, dataset_root=tree) if a["name"] == "object_sample"
+            else a for a in cfg.augmentations]
+    return cfg.replace(limit_train_batches=n_train,
+                       limit_val_batches=n_val, max_epochs=1,
+                       num_workers=DATA_WORKERS, log_images=False,
+                       augmentations=augs, **kw)
+
+
+def data_phase(np, torch, card, failures, here) -> None:
+    """``[data]``: the port trained on scans read from disk. Writes a
+    SemanticKITTI tree (sequence 00: 32 scans 1 m apart, 08: 8 scans, about
+    120k points a scan, 12-20 parked cars in view with world-stable
+    instance ids) and a KITTI tree (16 frames of about 120k points with
+    8-15 Car, Pedestrian and Cyclist boxes, 12 train / 4 val, its
+    ``samples.pkl``) from the seed (``datasets/disk_trees.py``), then:
+    the C++ host core against its numpy twins at 500x500 and 800x800;
+    host ms a sample (SemanticKITTI cache miss, hit, hit with the shipped
+    augmentations; KITTI with ``object_sample`` and the other shipped
+    transforms); one epoch's batches of each dataset with 0 and 4 worker
+    processes, bitwise equal; ``Trainer.fit`` on ``01_semantic_kitti.yml``
+    and ``01_kitti.yml`` as shipped (f32, batch 4; a batch the card cannot
+    hold is cut and printed) with the ``--test`` restore of ``best``; and
+    the CLI ``train_mask_bev_torch.py --train --test`` on the SemanticKITTI
+    tree."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from mask_bev_tpu_torch.datasets.disk_trees import (
+        write_kitti_tree, write_semantic_kitti_tree)
+    from mask_bev_tpu_torch.datasets.kitti.object_sampler import (
+        write_samples)
+    from mask_bev_tpu_torch.datasets.semantic_kitti import mask_data
+
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_",
+                           dir=os.path.join(here, "runs"))
+    try:
+        t1 = time.perf_counter()
+        sk = str(write_semantic_kitti_tree(
+            os.path.join(tmp, "sk"), seed=SEED, train_scans=DATA_SK_SCANS[0],
+            valid_scans=DATA_SK_SCANS[1], points=DATA_POINTS))
+        kitti = str(write_kitti_tree(
+            os.path.join(tmp, "kitti"), seed=SEED,
+            frames=DATA_KITTI_FRAMES[0], train=DATA_KITTI_FRAMES[1],
+            points=DATA_POINTS))
+        bank = write_samples(kitti, log_every=0)
+        with open(bank, "rb") as f:
+            n_bank = len(pickle.load(f))
+        print(f"[data] trees written in {time.perf_counter() - t1:.2f} s: "
+              f"SemanticKITTI sequences 00 ({DATA_SK_SCANS[0]} scans) and 08 "
+              f"({DATA_SK_SCANS[1]}), KITTI {DATA_KITTI_FRAMES[0]} frames "
+              f"({DATA_KITTI_FRAMES[1]} train), {DATA_POINTS} points a scan; "
+              f"samples.pkl {n_bank} objects", flush=True)
+        data_host_core(np, card, failures, sk)
+        data_host_samples(np, card, here, sk, kitti)
+        c = data_cfg(here, "semantic_kitti", sk)
+        grid = ["--x-range", *map(str, c.x_range), "--y-range",
+                *map(str, c.y_range), "--z-range", *map(str, c.z_range),
+                "--voxel-size", str(c.voxel_size), "--min-points",
+                str(c.min_num_points)]
+        for split in ("train", "valid"):
+            t1 = time.perf_counter()
+            mask_data.main(["--root", sk, "--split", split, "--processes",
+                            "8", *grid])
+            print(f"[data] SemanticKITTI {split} mask cache warmed on 8 "
+                  f"processes in {time.perf_counter() - t1:.2f} s [{card}]",
+                  flush=True)
+        data_epochs(np, card, failures, here, sk, kitti)
+        for dataset, tree in (("semantic_kitti", sk), ("kitti", kitti)):
+            data_fit(np, torch, card, failures, here, dataset, tree)
+        data_cli(card, failures, here, sk, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def data_host_core(np, card, failures, sk: str) -> None:
+    """The host core's three entry points against their numpy twins on a
+    SemanticKITTI-like mask and KITTI-like boxes, at 500x500 (0.16 m) and
+    800x800 (0.1 m), with the median ms of each side."""
+    from mask_bev_tpu_torch import native
+    from mask_bev_tpu_torch.datasets.kitti.kitti_dataset import BoxArray
+    from mask_bev_tpu_torch.datasets.kitti.kitti_rasterizer import (
+        fill_rotated_boxes_img, points_in_boxes_count)
+    from mask_bev_tpu_torch.ops.morphology import close_then_open
+
+    t1 = time.perf_counter()
+    native.lib()
+    print(f"[data] host core built and loaded in "
+          f"{time.perf_counter() - t1:.2f} s ({native.build()})", flush=True)
+    rng = np.random.default_rng(SEED + 20)
+    pts = np.fromfile(os.path.join(sk, "dataset", "sequences", "00",
+                                   "velodyne", "000000.bin"),
+                      np.float32).reshape(-1, 4)
+    n = 15
+    centers = np.stack([rng.uniform(5, 60, n), rng.uniform(-30, 30, n),
+                        np.full(n, -1.73)], 1).astype(np.float32)
+    dims = np.tile(np.float32([4.2, 1.8, 1.6]), (n, 1))
+    yaws = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    keep = np.ones(n, np.uint8)
+    for hw, voxel, x0, y0 in ((500, 0.16, -40.0, -40.0),
+                              (800, 0.1, 0.0, -40.0)):
+        mask = rng.random((hw, hw)) < 0.02
+        for r, c in rng.integers(0, hw - 40, (12, 2)):
+            mask[r:r + 28, c:c + 12] = True  # car-sized blobs
+        reps = [(mask,)] * 5
+        ok_m = np.array_equal(native.close_then_open(mask),
+                              close_then_open(mask))
+        ms_m = (median_ms(native.close_then_open, reps),
+                median_ms(close_then_open, reps))
+        fill_args = [(hw, hw, centers[:, :2], dims[:, :2], yaws, keep, x0,
+                      y0, voxel)] * 5
+        ok_f = np.array_equal(native.fill_rotated_boxes_img(*fill_args[0]),
+                              fill_rotated_boxes_img(*fill_args[0]))
+        ms_f = (median_ms(native.fill_rotated_boxes_img, fill_args),
+                median_ms(fill_rotated_boxes_img, fill_args))
+        print(f"[data] host core {hw}x{hw}: close_then_open equal {ok_m} "
+              f"(C++ {ms_m[0]:.3f} ms, numpy {ms_m[1]:.3f} ms); "
+              f"fill_rotated_boxes_img of {n} boxes equal {ok_f} (C++ "
+              f"{ms_f[0]:.3f} ms, numpy {ms_f[1]:.3f} ms) [{card}]",
+              flush=True)
+        if not (ok_m and ok_f):
+            failures.append(f"[data] host core against numpy at {hw}x{hw}")
+    boxes = BoxArray(centers, dims, yaws, *([np.zeros(n)] * 7))
+    got = native.points_in_boxes_count(pts, centers, dims, yaws)
+    ok_c = np.array_equal(got, points_in_boxes_count(pts, boxes))
+    ms_c = (median_ms(native.points_in_boxes_count,
+                      [(pts, centers, dims, yaws)] * 5),
+            median_ms(points_in_boxes_count, [(pts, boxes)] * 5))
+    print(f"[data] host core points_in_boxes_count of {len(pts)} points in "
+          f"{n} boxes equal {ok_c} (C++ {ms_c[0]:.3f} ms, numpy "
+          f"{ms_c[1]:.3f} ms) [{card}]", flush=True)
+    if not ok_c:
+        failures.append("[data] points_in_boxes_count against numpy")
+
+
+def data_host_samples(np, card, here, sk: str, kitti: str) -> None:
+    """Host ms a sample (median): SemanticKITTI on a cache miss (the 2x
+    window accumulates the sequence), on a hit, on a hit with the shipped
+    augmentations; KITTI with the shipped transforms, ``object_sample``
+    included, and without them."""
+    from mask_bev_tpu_torch.datasets.kitti.kitti_data import (
+        KittiMaskDataModule)
+    from mask_bev_tpu_torch.datasets.semantic_kitti.mask_data import (
+        SemanticKittiMaskDataModule, mask_scan_to_sample)
+
+    cfg = data_cfg(here, "semantic_kitti", sk)
+    dm = SemanticKittiMaskDataModule(sk, cfg)
+    ds = dm._mask_dataset("train")
+    miss_idx = [int(i) for i in np.linspace(0, len(ds) - 1, 4)]
+    miss = median_ms(lambda i: mask_scan_to_sample(ds[i], cfg),
+                     [(i,) for i in miss_idx])  # writes their cache files
+    scene = len(ds._valid_scan_numbers(ds._scan_dataset[miss_idx[0]]))
+    hit = median_ms(lambda i: mask_scan_to_sample(ds[i], cfg),
+                    [(i,) for i in miss_idx * 2])
+    aug = median_ms(lambda i: mask_scan_to_sample(
+        ds[i], cfg, dm.augmentations, np.random.default_rng([SEED, i])),
+        [(i,) for i in miss_idx * 2])
+    print(f"[data] SemanticKITTI host ms a sample: cache miss {miss:.1f} "
+          f"(median of 4; the 2x window accumulates {scene} scans), cache "
+          f"hit {hit:.1f}, hit with the shipped augmentations {aug:.1f} "
+          f"(median of 8) [{card}]", flush=True)
+    kcfg = data_cfg(here, "kitti", kitti)
+    kdm = KittiMaskDataModule(kitti, kcfg)
+    idx = list(range(8))
+    with_aug = median_ms(lambda i: kdm.sample(
+        i, True, np.random.default_rng([SEED, i])), [(i,) for i in idx])
+    plain = median_ms(lambda i: kdm.sample(i, False), [(i,) for i in idx])
+    print(f"[data] KITTI host ms a sample: {with_aug:.1f} with the shipped "
+          f"transforms ({', '.join(a['name'] for a in kcfg.augmentations)}),"
+          f" {plain:.1f} without (median of 8) [{card}]", flush=True)
+
+
+def data_epochs(np, card, failures, here, sk: str, kitti: str) -> None:
+    """One training epoch's batches of each data module with 0 and
+    ``DATA_WORKERS`` worker processes: the two streams bitwise equal (a
+    sha256 a batch), batches/s of each (the time spent waiting for the
+    next batch)."""
+    import hashlib
+    import multiprocessing as mp
+
+    from train_mask_bev_torch import build_datamodule
+
+    for dataset, tree in (("semantic_kitti", sk), ("kitti", kitti)):
+        rates, digests = [], []
+        for workers in (0, DATA_WORKERS):
+            cfg = data_cfg(here, dataset, tree).replace(num_workers=workers)
+            it = build_datamodule(cfg, tree).train_batches(SEED + 1)
+            wait, got = 0.0, []
+            while True:
+                t1 = time.perf_counter()
+                batch = next(it, None)
+                wait += time.perf_counter() - t1
+                if batch is None:
+                    break
+                h = hashlib.sha256()
+                for k in sorted(batch):
+                    h.update(k.encode())
+                    h.update(np.ascontiguousarray(batch[k]).tobytes())
+                got.append(h.hexdigest())
+            rates.append(len(got) / wait)
+            digests.append(got)
+        ok = digests[0] == digests[1] and len(digests[0]) > 0 \
+            and not mp.active_children()
+        print(f"[data] {dataset} epoch of {len(digests[0])} batches of "
+              f"{cfg.batch_size}: {rates[0]:.3f} batches/s with 0 workers, "
+              f"{rates[1]:.3f} with {DATA_WORKERS}; streams bitwise equal "
+              f"{digests[0] == digests[1]} -> {'ok' if ok else 'FAIL'} "
+              f"[{card}]", flush=True)
+        if not ok:
+            failures.append(f"[data] {dataset} epoch with 0 and "
+                            f"{DATA_WORKERS} workers")
+
+
+def data_fit(np, torch, card, failures, here, dataset: str, tree: str
+             ) -> None:
+    """``Trainer.fit`` on the shipped YAML (one epoch cut to
+    ``DATA_LIMITS``, ``DATA_WORKERS`` workers, images off), then the
+    ``--test`` restore of ``best`` with a validation. Times every step and
+    validation (synchronised), the host-to-device copy of each batch, the
+    step loop's wait on the prefetch; traces the training epoch for the
+    card's idle share; counts the launches of kernels A, B, C and 1-3."""
+    import gc
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.train import loop, step
+    from train_mask_bev_torch import build_datamodule
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = data_cfg(here, dataset, tree)
+    dm = build_datamodule(cfg, tree)
+    rec = {"steps": [], "vals": [], "h2d": [], "wait": [], "losses": [],
+           "busy": [], "wall": []}
+    orig = (loop.train_step, loop.Trainer.validate, step._device_batch,
+            loop.prefetch, loop.Trainer.train_epoch)
+
+    def synced(store, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[store].append(time.perf_counter() - t1)
+            if fn is orig[0]:
+                rec["losses"].append(float(out[1]["loss"]))
+            return out
+        return run
+
+    def timed_prefetch(batches, depth=2):
+        inner = orig[3](batches, depth)
+        try:
+            while True:
+                t1 = time.perf_counter()
+                item = next(inner, None)
+                rec["wait"].append(time.perf_counter() - t1)
+                if item is None:
+                    return
+                yield item
+        finally:
+            inner.close()
+
+    def traced_epoch(self, *a, **k):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = orig[4](self, *a, **k)
+            torch.cuda.synchronize()
+            rec["wall"].append(time.perf_counter() - t1)
+        rec["busy"].append(sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / 1e6)
+        return out
+
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_fit_",
+                            dir=os.path.join(here, "runs"))
+    loop.train_step = synced("steps", orig[0])
+    loop.Trainer.validate = synced("vals", orig[1])
+    step._device_batch = synced("h2d", orig[2])
+    loop.prefetch = timed_prefetch
+    loop.Trainer.train_epoch = traced_epoch
+    cut = None
+    try:
+        while True:
+            for v in rec.values():
+                v.clear()
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                kb.reset_launches()
+                t0 = time.time()
+                tr = loop.Trainer(cfg, workdir=work, device="cuda")
+                before = tr.state.model.decoder.query_feat.detach().clone()
+                last = tr.fit(dm.train_batches, dm.val_batches)
+                fit_launch = dict(kb.LAUNCHES)
+                fit_s = time.time() - t0
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                print(f"[data] {dataset} at batch {cfg.batch_size}: out of "
+                      f"memory at a peak of {peak:.2f} GiB: "
+                      f"{str(e).splitlines()[0]} [{card}]", flush=True)
+                tr = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                if cfg.batch_size <= 1:
+                    raise
+                cut = cfg.batch_size
+                cfg = cfg.replace(batch_size=cfg.batch_size // 2)
+                dm = build_datamodule(cfg, tree)
+                shutil.rmtree(work, ignore_errors=True)
+                os.makedirs(work)
+        changed = not torch.equal(before,
+                                  tr.state.model.decoder.query_feat.detach())
+        loop.Trainer.train_epoch = orig[4]
+        kb.reset_launches()
+        loop.load_ckpt_state(tr.state, tr.ckpt.restore("best"))
+        test = tr.validate(dm.val_batches(0), tr.generator(0))
+        test_launch = dict(kb.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr.logger.close()
+        del tr
+        gc.collect()
+    finally:
+        (loop.train_step, loop.Trainer.validate, step._device_batch,
+         loop.prefetch, loop.Trainer.train_epoch) = orig
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    n_train, n_val = DATA_LIMITS[dataset]
+    steps = rec["steps"]
+    h2d = rec["h2d"][:len(steps)]  # the training steps' copies
+    # the prefetch is drawn once a step and once more to see the limit
+    wait = rec["wait"][:len(steps)]
+    idle = 1 - sum(rec["busy"]) / sum(rec["wall"])
+    children = live_children()
+    finite = (len(rec["losses"]) == n_train
+              and np.isfinite(rec["losses"]).all()
+              and np.isfinite(last["val_loss"])
+              and np.isfinite(test["val_loss"]))
+    h, w = cfg.grid_hw
+    print(f"[data] fit {cfg.name} as shipped ({cfg.compute_dtype}, "
+          f"{h}x{w}, {cfg.head_num_classes} classes, batch "
+          f"{cfg.batch_size}{f' (cut from {cut})' if cut else ''}, "
+          f"{cfg.num_workers} workers, {len(cfg.augmentations)} "
+          f"augmentations, remove_unseen {cfg.remove_unseen}); "
+          f"{n_train} train + {n_val} val batches, images off: fit "
+          f"{fit_s:.1f} s [{card}]", flush=True)
+    print(f"[data] fit {cfg.name}: train step median {np.median(steps):.4f}"
+          f" s ({[round(x, 4) for x in steps]}); validation epoch "
+          f"{rec['vals'][0]:.4f} s, --test validation {rec['vals'][-1]:.4f} "
+          f"s; peak memory {peak_gb:.2f} GiB; host->device copy of a batch "
+          f"median {np.median(h2d) * 1e3:.2f} ms "
+          f"({[round(x * 1e3, 2) for x in h2d]}); the step loop's wait on "
+          f"the prefetch a step median {np.median(wait) * 1e3:.2f} ms "
+          f"({[round(x * 1e3, 2) for x in wait]}); card idle over the "
+          f"training epoch {idle:.3f} (busy {sum(rec['busy']):.3f} s of "
+          f"{sum(rec['wall']):.3f} s wall) [{card}]", flush=True)
+    print(f"[data] fit {cfg.name}: losses "
+          f"{[round(x, 4) for x in rec['losses']]}; val_loss "
+          f"{last['val_loss']:.4f}; --test val_loss {test['val_loss']:.4f}; "
+          f"parameters changed {changed}; live child processes after the "
+          f"fit {children}; launches: fit {fit_launch}, --test {test_launch}"
+          f" [{card}]", flush=True)
+    need = ([("fit", fit_launch, k) for k in
+             ("canvas_scatter", "canvas_scatter_bwd", "hungarian", "pfn",
+              "canvas_norm", "swin_block")]
+            + [("test", test_launch, k) for k in
+               ("pfn", "canvas_norm", "swin_block")])
+    missing = [f"{k} ({where})" for where, got, k in need if got[k] <= 0]
+    if missing:
+        failures.append(f"[data] {cfg.name} never launched: {missing}")
+    if not (finite and changed) or children or mp.active_children():
+        failures.append(f"[data] {cfg.name}: losses finite {finite}, "
+                        f"parameters changed {changed}, live children "
+                        f"{children}")
+
+
+def data_cli(card, failures, here, sk: str, tmp: str) -> None:
+    """``train_mask_bev_torch.py --train --test`` on the SemanticKITTI tree
+    with ``01_semantic_kitti.yml`` and the fit's cuts (written to a YAML
+    beside the tree); it must exit 0 and print its test results."""
+    import yaml
+
+    n_train, n_val = DATA_LIMITS["semantic_kitti"]
+    with open(os.path.join(here, "configs", "training",
+                           DATA_YML["semantic_kitti"])) as f:
+        d = yaml.safe_load(f)
+    d.update(limit_train_batches=n_train, limit_val_batches=n_val,
+             max_epochs=1, num_workers=DATA_WORKERS, log_images=False)
+    yml = os.path.join(tmp, "01_semantic_kitti.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(d, f)
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(here, "train_mask_bev_torch.py"),
+         "--config", yml, "--data-root", sk, "--train", "--test",
+         "--workdir", os.path.join(tmp, "cli_runs")],
+        capture_output=True, text=True, timeout=600, cwd=here)
+    ok = res.returncode == 0 and "test results:" in res.stdout
+    print(f"[data] CLI train_mask_bev_torch.py --train --test on the "
+          f"SemanticKITTI tree ({n_train} train + {n_val} val batches, "
+          f"{DATA_WORKERS} workers): rc {res.returncode} in "
+          f"{time.perf_counter() - t1:.1f} s -> {'ok' if ok else 'FAIL'} "
+          f"[{card}]", flush=True)
+    if not ok:
+        print(res.stdout[-2000:], res.stderr[-4000:], sep="\n", flush=True)
+        failures.append(f"[data] CLI exited {res.returncode}")
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ One process drives one device; several hosts wait for data parallelism.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -178,30 +179,34 @@ class Trainer:
                     generator: torch.Generator) -> float:
         losses = []
         t0 = time.time()
-        for i, batch in enumerate(prefetch(batches)):
-            if (self.cfg.limit_train_batches is not None
-                    and i >= self.cfg.limit_train_batches):
-                break
-            self.state, logs, outputs = train_step(self.state, batch,
-                                                   generator)
-            if self.cfg.compute_train_metrics:
-                self.train_metrics.update(outputs, batch, generator)
-            if i == 0 and self.cfg.log_images:
-                try:
-                    self._dump_images(batch, outputs)
-                except Exception as e:  # images must never stop training
-                    self.logger.log({"phase": "viz_error", "error": repr(e)})
-            if i % max(self.cfg.log_every_n_step, 1) == 0:
-                loss = float(logs["loss"])
-                losses.append(loss)
-                self.logger.log({
-                    "phase": "train", "epoch": self.epoch, "step": i,
-                    "loss": loss,
-                    "loss_cls": float(logs["loss_cls"]),
-                    "loss_mask": float(logs["loss_mask"]),
-                    "loss_dice": float(logs["loss_dice"]),
-                    "sec_per_step": (time.time() - t0) / (i + 1),
-                })
+        # closing the prefetch at a limit stops its thread and closes the
+        # source, so a sample_stream's worker pool is terminated
+        with contextlib.closing(prefetch(batches)) as stream:
+            for i, batch in enumerate(stream):
+                if (self.cfg.limit_train_batches is not None
+                        and i >= self.cfg.limit_train_batches):
+                    break
+                self.state, logs, outputs = train_step(self.state, batch,
+                                                       generator)
+                if self.cfg.compute_train_metrics:
+                    self.train_metrics.update(outputs, batch, generator)
+                if i == 0 and self.cfg.log_images:
+                    try:
+                        self._dump_images(batch, outputs)
+                    except Exception as e:  # images must never stop training
+                        self.logger.log({"phase": "viz_error",
+                                         "error": repr(e)})
+                if i % max(self.cfg.log_every_n_step, 1) == 0:
+                    loss = float(logs["loss"])
+                    losses.append(loss)
+                    self.logger.log({
+                        "phase": "train", "epoch": self.epoch, "step": i,
+                        "loss": loss,
+                        "loss_cls": float(logs["loss_cls"]),
+                        "loss_mask": float(logs["loss_mask"]),
+                        "loss_dice": float(logs["loss_dice"]),
+                        "sec_per_step": (time.time() - t0) / (i + 1),
+                    })
         return float(np.mean(losses)) if losses else float("nan")
 
     def validate(self, batches: Iterator[Dict], generator: torch.Generator,
@@ -217,6 +222,8 @@ class Trainer:
             losses.append(logs["loss"])
             if with_metrics:
                 self.val_metrics.update(outputs, batch, generator)
+        if hasattr(batches, "close"):  # a cut epoch's workers end here
+            batches.close()
         out = {"val_loss": float(torch.stack(losses).mean())
                if losses else float("nan")}
         if with_metrics:

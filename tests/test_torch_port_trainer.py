@@ -154,15 +154,31 @@ def test_cli_trains_and_tests(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["kitti", "semantic_kitti", "waymo"])
 def test_cli_refuses_unported_datasets(tmp_path, dataset):
+    """Only the unported loader is refused: Waymo raises, naming the next
+    slice; KITTI and SemanticKITTI build their data modules."""
     spec = importlib.util.spec_from_file_location(
         "train_mask_bev_torch", ROOT / "train_mask_bev_torch.py")
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
     cfg = tmp_path / f"{dataset}.yml"
     cfg.write_text(f"dataset: {dataset}\n")
-    with pytest.raises(NotImplementedError, match=dataset):
-        cli.main(["--config", str(cfg), "--train", "--device", "cpu",
-                  "--workdir", str(tmp_path)])
+    if dataset == "waymo":
+        with pytest.raises(NotImplementedError, match="waymo.*next slice"):
+            cli.main(["--config", str(cfg), "--train", "--device", "cpu",
+                      "--workdir", str(tmp_path)])
+        return
+    from mask_bev_tpu_torch.config import MaskBevConfig
+    from mask_bev_tpu_torch.datasets.disk_trees import (
+        write_kitti_tree, write_semantic_kitti_tree)
+
+    root = tmp_path / "tree"
+    if dataset == "kitti":
+        write_kitti_tree(root, frames=2, train=1, points=500, boxes=(1, 2))
+    else:
+        write_semantic_kitti_tree(root, train_scans=1, valid_scans=1,
+                                  points=500)
+    dm = cli.build_datamodule(MaskBevConfig.from_yaml(cfg), str(root))
+    assert callable(dm.train_batches) and callable(dm.val_batches)
 
 
 def _variables(cfg, pts, mask, seed=1):

@@ -8,8 +8,10 @@ path). It reads the flat YAML config with the port's ``MaskBevConfig``,
 trains with ``mask_bev_tpu_torch.train.loop.Trainer`` (early stop, best and
 last checkpoints, plateau LR) and, with ``--test``, restores the ``best``
 checkpoint and runs a validation pass with the per-layer metrics. The
-port serves ``dataset: synthetic``; the KITTI, SemanticKITTI and Waymo
-loaders are not ported yet.
+port trains on ``dataset: semantic_kitti`` and ``dataset: kitti`` trees
+(``--data-root``; the data modules of ``mask_bev_tpu_torch/datasets``,
+their samples assembled on ``num_workers`` processes) and on ``dataset:
+synthetic``; the Waymo loader is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,11 +19,21 @@ import argparse
 
 
 def build_datamodule(cfg, root: str):
-    if cfg.dataset in ("kitti", "semantic_kitti", "waymo"):
+    if cfg.dataset == "kitti":
+        from mask_bev_tpu_torch.datasets.kitti.kitti_data import (
+            KittiMaskDataModule)
+
+        return KittiMaskDataModule(root, cfg)
+    if cfg.dataset == "semantic_kitti":
+        from mask_bev_tpu_torch.datasets.semantic_kitti.mask_data import (
+            SemanticKittiMaskDataModule)
+
+        return SemanticKittiMaskDataModule(root, cfg)
+    if cfg.dataset == "waymo":
         raise NotImplementedError(
-            f"the {cfg.dataset} loader is not ported to mask_bev_tpu_torch "
-            f"yet (the host data of ROADMAP.md queue 1); use "
-            f"'dataset: synthetic' or train_mask_bev.py")
+            "the waymo loader is not ported to mask_bev_tpu_torch yet (the "
+            "next slice of ROADMAP.md queue 1: the Waymo loader, its "
+            "augmentations and converter); use train_mask_bev.py")
     if cfg.dataset == "synthetic":
         import numpy as np
 
