@@ -87,20 +87,32 @@
    unbroken against 1 epoch plus a resume from ``last``, compared bitwise
    (or within a stated tolerance where the card's kernels are not
    deterministic);
-11. ``[data]`` (``data_phase``): SemanticKITTI and KITTI trees written
-   in the datasets' on-disk formats from the seed at real scale
-   (``datasets/disk_trees.py``: ~120k points a scan), the C++ host core
-   against its numpy twins at 500x500 and 800x800, host ms a sample (cache
-   miss, hit, augmentations, KITTI's GT paste), one epoch's batches with 0
-   and 4 worker processes (bitwise equal, batches/s), ``Trainer.fit`` on
-   ``01_semantic_kitti.yml`` and ``01_kitti.yml`` as shipped (f32, batch 4,
-   the shipped augmentations, 4 workers; one cut epoch, then the
-   ``--test`` restore of ``best``): step, validation, host-to-device and
-   prefetch-wait times, peak memory, the card's idle share over the
-   training steps, the launches of kernels A-C and 1-3, finite losses,
-   changed parameters and no live worker process; then the CLI
-   ``train_mask_bev_torch.py --train --test`` on the SemanticKITTI tree;
-12. prints one JSON line with every kernel's numbers, then, last, the
+11. ``[data]`` (``data_phase``): SemanticKITTI, KITTI and converted Waymo
+   trees written in the datasets' on-disk formats from the seed at real
+   scale (``datasets/disk_trees.py``: ~120k points a scan, Waymo 150-190k
+   x/y/z points a frame with 20-80 vehicles), the C++ host core against
+   its numpy twins at 500x500 and 800x800 and the torch morphology on the
+   card against the host core (bit for bit), host ms a sample (cache miss,
+   hit, augmentations, KITTI's GT paste, Waymo with and without its
+   augmentations), one epoch's batches with 0 and 4 worker processes
+   (bitwise equal, batches/s), ``Trainer.fit`` on ``01_semantic_kitti.yml``,
+   ``01_kitti.yml`` and ``01_waymo.yml`` as shipped (f32, batch 4, the
+   shipped augmentations, 4 workers, Waymo with 170 queries; one cut epoch,
+   then the ``--test`` restore of ``best``): step, validation,
+   host-to-device and prefetch-wait times, peak memory, the card's idle
+   share over the training steps, the launches of kernels A-C and 1-3,
+   finite losses, changed parameters and no live worker process; after the
+   Waymo fit the matcher (kernel C) on its first step's 170 x 170 problems
+   against its plain version; then the CLI ``train_mask_bev_torch.py
+   --train --test`` on the SemanticKITTI tree;
+12. ``[eval]`` (``eval_phase``): the KITTI fit's validation predictions
+   from the card through ``mask_to_boxes``, the official KITTI evaluation
+   (bbox, bev, 3d) and its COCO sweep against the frames' labels, with
+   their seconds; the official evaluation timed on a synthetic split at
+   the full val split's scale (4071 frames, car class); the batched
+   ``rotated_iou_matrix`` on the card against ``rotate_iou_eval`` on the
+   host (4096 box pairs);
+13. prints one JSON line with every kernel's numbers, then, last, the
    device line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
@@ -1899,11 +1911,15 @@ def resume_phase(np, torch, card, failures, here) -> None:
 DATA_SK_SCANS = (32, 8)
 DATA_KITTI_FRAMES = (16, 12)
 DATA_POINTS = 120_000
+# converted Waymo frames (training, of which the first are training/) and
+# TOP-lidar points a frame (within 12 %: 150-190k of 196608 slots)
+DATA_WAYMO_FRAMES = (16, 12)
+DATA_WAYMO_POINTS = 170_000
 DATA_WORKERS = 4
 # the fits' cuts: (training batches, validation batches) of one epoch
-DATA_LIMITS = {"semantic_kitti": (3, 2), "kitti": (2, 1)}
+DATA_LIMITS = {"semantic_kitti": (3, 2), "kitti": (2, 1), "waymo": (3, 1)}
 DATA_YML = {"semantic_kitti": "semantic_kitti/01_semantic_kitti.yml",
-            "kitti": "kitti/01_kitti.yml"}
+            "kitti": "kitti/01_kitti.yml", "waymo": "waymo/01_waymo.yml"}
 
 
 def live_children() -> list:
@@ -1955,24 +1971,31 @@ def data_phase(np, torch, card, failures, here) -> None:
     """``[data]``: the port trained on scans read from disk. Writes a
     SemanticKITTI tree (sequence 00: 32 scans 1 m apart, 08: 8 scans, about
     120k points a scan, 12-20 parked cars in view with world-stable
-    instance ids) and a KITTI tree (16 frames of about 120k points with
+    instance ids), a KITTI tree (16 frames of about 120k points with
     8-15 Car, Pedestrian and Cyclist boxes, 12 train / 4 val, its
-    ``samples.pkl``) from the seed (``datasets/disk_trees.py``), then:
-    the C++ host core against its numpy twins at 500x500 and 800x800;
-    host ms a sample (SemanticKITTI cache miss, hit, hit with the shipped
-    augmentations; KITTI with ``object_sample`` and the other shipped
-    transforms); one epoch's batches of each dataset with 0 and 4 worker
-    processes, bitwise equal; ``Trainer.fit`` on ``01_semantic_kitti.yml``
-    and ``01_kitti.yml`` as shipped (f32, batch 4; a batch the card cannot
-    hold is cut and printed) with the ``--test`` restore of ``best``; and
-    the CLI ``train_mask_bev_torch.py --train --test`` on the SemanticKITTI
-    tree."""
+    ``samples.pkl``) and a converted Waymo root (16 frames, 12 training /
+    4 validation, 150-190k x/y/z points out to 75 m, 20-80 vehicles, some
+    outside the grid or without a lidar point, and pedestrians, signs and
+    cyclists) from the seed (``datasets/disk_trees.py``), then: the C++
+    host core against its numpy twins at 500x500 and 800x800, and the torch
+    morphology on the card against the host core; host ms a sample
+    (SemanticKITTI cache miss, hit, hit with the shipped augmentations;
+    KITTI with ``object_sample`` and the other shipped transforms; Waymo
+    with and without its shipped augmentations); one epoch's batches of
+    each dataset with 0 and 4 worker processes, bitwise equal;
+    ``Trainer.fit`` on ``01_semantic_kitti.yml``, ``01_kitti.yml`` and
+    ``01_waymo.yml`` as shipped (f32, batch 4, Waymo with 170 queries; a
+    batch the card cannot hold is cut and printed) with the ``--test``
+    restore of ``best``, the matcher held against its plain version at
+    Q = 170 after the Waymo fit; ``[eval]`` (``eval_phase``) on the KITTI
+    fit's predictions; and the CLI ``train_mask_bev_torch.py --train
+    --test`` on the SemanticKITTI tree."""
     import pickle
     import shutil
     import tempfile
 
     from mask_bev_tpu_torch.datasets.disk_trees import (
-        write_kitti_tree, write_semantic_kitti_tree)
+        write_kitti_tree, write_semantic_kitti_tree, write_waymo_tree)
     from mask_bev_tpu_torch.datasets.kitti.object_sampler import (
         write_samples)
     from mask_bev_tpu_torch.datasets.semantic_kitti import mask_data
@@ -1993,13 +2016,21 @@ def data_phase(np, torch, card, failures, here) -> None:
         bank = write_samples(kitti, log_every=0)
         with open(bank, "rb") as f:
             n_bank = len(pickle.load(f))
+        waymo = str(write_waymo_tree(
+            os.path.join(tmp, "waymo"), seed=SEED,
+            frames=DATA_WAYMO_FRAMES[0], train=DATA_WAYMO_FRAMES[1],
+            points=DATA_WAYMO_POINTS))
         print(f"[data] trees written in {time.perf_counter() - t1:.2f} s: "
               f"SemanticKITTI sequences 00 ({DATA_SK_SCANS[0]} scans) and 08 "
               f"({DATA_SK_SCANS[1]}), KITTI {DATA_KITTI_FRAMES[0]} frames "
               f"({DATA_KITTI_FRAMES[1]} train), {DATA_POINTS} points a scan; "
-              f"samples.pkl {n_bank} objects", flush=True)
-        data_host_core(np, card, failures, sk)
+              f"samples.pkl {n_bank} objects; Waymo {DATA_WAYMO_FRAMES[0]} "
+              f"converted frames ({DATA_WAYMO_FRAMES[1]} training), about "
+              f"{DATA_WAYMO_POINTS} points a frame", flush=True)
+        trees = {"semantic_kitti": sk, "kitti": kitti, "waymo": waymo}
+        data_host_core(np, torch, card, failures, sk)
         data_host_samples(np, card, here, sk, kitti)
+        data_waymo_samples(np, card, here, waymo)
         c = data_cfg(here, "semantic_kitti", sk)
         grid = ["--x-range", *map(str, c.x_range), "--y-range",
                 *map(str, c.y_range), "--z-range", *map(str, c.z_range),
@@ -2012,23 +2043,36 @@ def data_phase(np, torch, card, failures, here) -> None:
             print(f"[data] SemanticKITTI {split} mask cache warmed on 8 "
                   f"processes in {time.perf_counter() - t1:.2f} s [{card}]",
                   flush=True)
-        data_epochs(np, card, failures, here, sk, kitti)
-        for dataset, tree in (("semantic_kitti", sk), ("kitti", kitti)):
-            data_fit(np, torch, card, failures, here, dataset, tree)
+        data_epochs(np, card, failures, here, trees)
+        preds = {}
+        for dataset, tree in trees.items():
+            t1 = time.perf_counter()
+            preds[dataset] = data_fit(np, torch, card, failures, here,
+                                      dataset, tree)
+            print(f"[data] {dataset} fit phase {time.perf_counter() - t1:.1f}"
+                  f" s [{card}]", flush=True)
+        t1 = time.perf_counter()
+        eval_phase(np, torch, card, failures, here, kitti, preds["kitti"])
+        print(f"[eval] phase {time.perf_counter() - t1:.1f} s [{card}]",
+              flush=True)
         data_cli(card, failures, here, sk, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def data_host_core(np, card, failures, sk: str) -> None:
+def data_host_core(np, torch, card, failures, sk: str) -> None:
     """The host core's three entry points against their numpy twins on a
     SemanticKITTI-like mask and KITTI-like boxes, at 500x500 (0.16 m) and
-    800x800 (0.1 m), with the median ms of each side."""
+    800x800 (0.1 m), with the median ms of each side; and the torch
+    morphology (``ops/morphology.py::torch_close_then_open``, max pooling)
+    on the card against the host core, bit for bit, with its CUDA-event
+    ms."""
     from mask_bev_tpu_torch import native
     from mask_bev_tpu_torch.datasets.kitti.kitti_dataset import BoxArray
     from mask_bev_tpu_torch.datasets.kitti.kitti_rasterizer import (
         fill_rotated_boxes_img, points_in_boxes_count)
-    from mask_bev_tpu_torch.ops.morphology import close_then_open
+    from mask_bev_tpu_torch.ops.morphology import (
+        close_then_open, torch_close_then_open)
 
     t1 = time.perf_counter()
     native.lib()
@@ -2067,6 +2111,18 @@ def data_host_core(np, card, failures, sk: str) -> None:
               flush=True)
         if not (ok_m and ok_f):
             failures.append(f"[data] host core against numpy at {hw}x{hw}")
+        on_card = torch.as_tensor(mask, device="cuda")
+        got = torch_close_then_open(on_card)
+        ok_t = got.is_cuda and np.array_equal(got.cpu().numpy(),
+                                              native.close_then_open(mask))
+        ms_t = cuda_ms(torch, lambda: torch_close_then_open(on_card), 10)
+        print(f"[data] torch close_then_open {hw}x{hw} on the card equal to "
+              f"the host core {ok_t}: {ms_t:.4f} ms (the host core "
+              f"{ms_m[0]:.3f} ms) -> {'ok' if ok_t else 'FAIL'} [{card}]",
+              flush=True)
+        if not ok_t:
+            failures.append(f"[data] torch morphology on the card at "
+                            f"{hw}x{hw}")
     boxes = BoxArray(centers, dims, yaws, *([np.zeros(n)] * 7))
     got = native.points_in_boxes_count(pts, centers, dims, yaws)
     ok_c = np.array_equal(got, points_in_boxes_count(pts, boxes))
@@ -2117,7 +2173,31 @@ def data_host_samples(np, card, here, sk: str, kitti: str) -> None:
           f" {plain:.1f} without (median of 8) [{card}]", flush=True)
 
 
-def data_epochs(np, card, failures, here, sk: str, kitti: str) -> None:
+def data_waymo_samples(np, card, here, waymo: str) -> None:
+    """Waymo host ms a sample (median of 8 training frames), with and
+    without the shipped augmentations of ``01_waymo.yml``, and the GT
+    instances each frame fills of the 170 queries."""
+    from mask_bev_tpu_torch.datasets.waymo.waymo_data import WaymoDataModule
+
+    cfg = data_cfg(here, "waymo", waymo)
+    dm = WaymoDataModule(waymo, cfg)
+    idx = list(range(8))
+    filled = []
+    plain = median_ms(lambda i: filled.append(int(dm.sample(
+        dm.train_dataset, i, False)["num_instances"])), [(i,) for i in idx])
+    with_aug = median_ms(lambda i: dm.sample(
+        dm.train_dataset, i, True, np.random.default_rng([SEED, i])),
+        [(i,) for i in idx])
+    h, w = cfg.grid_hw
+    print(f"[data] Waymo host ms a sample: {plain:.1f} without the shipped "
+          f"augmentations, {with_aug:.1f} with them "
+          f"({', '.join(a['name'] for a in cfg.augmentations)}; median of "
+          f"8); GT instances of {cfg.num_queries} queries {filled}; GT "
+          f"masks {cfg.num_queries * h * w / 1e6:.1f} MB a sample [{card}]",
+          flush=True)
+
+
+def data_epochs(np, card, failures, here, trees: dict) -> None:
     """One training epoch's batches of each data module with 0 and
     ``DATA_WORKERS`` worker processes: the two streams bitwise equal (a
     sha256 a batch), batches/s of each (the time spent waiting for the
@@ -2127,7 +2207,7 @@ def data_epochs(np, card, failures, here, sk: str, kitti: str) -> None:
 
     from train_mask_bev_torch import build_datamodule
 
-    for dataset, tree in (("semantic_kitti", sk), ("kitti", kitti)):
+    for dataset, tree in trees.items():
         rates, digests = [], []
         for workers in (0, DATA_WORKERS):
             cfg = data_cfg(here, dataset, tree).replace(num_workers=workers)
@@ -2158,20 +2238,25 @@ def data_epochs(np, card, failures, here, sk: str, kitti: str) -> None:
                             f"{DATA_WORKERS} workers")
 
 
-def data_fit(np, torch, card, failures, here, dataset: str, tree: str
-             ) -> None:
+def data_fit(np, torch, card, failures, here, dataset: str, tree: str):
     """``Trainer.fit`` on the shipped YAML (one epoch cut to
     ``DATA_LIMITS``, ``DATA_WORKERS`` workers, images off), then the
     ``--test`` restore of ``best`` with a validation. Times every step and
     validation (synchronised), the host-to-device copy of each batch, the
     step loop's wait on the prefetch; traces the training epoch for the
-    card's idle share; counts the launches of kernels A, B, C and 1-3."""
+    card's idle share; counts the launches of kernels A, B, C and 1-3 (5
+    is printed too: the eval step runs the decoder per layer, so it stays
+    at 0). Waymo: the matcher's inputs of the first training step are
+    captured and held against its plain version. KITTI: returns the
+    restored model's predictions on the validation batches (class and mask
+    probabilities, on the host) for ``[eval]``; otherwise None."""
     import gc
     import multiprocessing as mp
     import shutil
     import tempfile
 
     from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import hungarian as khung
     from mask_bev_tpu_torch.train import loop, step
     from train_mask_bev_torch import build_datamodule
     from torch.autograd import DeviceType
@@ -2182,7 +2267,13 @@ def data_fit(np, torch, card, failures, here, dataset: str, tree: str
     rec = {"steps": [], "vals": [], "h2d": [], "wait": [], "losses": [],
            "busy": [], "wall": []}
     orig = (loop.train_step, loop.Trainer.validate, step._device_batch,
-            loop.prefetch, loop.Trainer.train_epoch)
+            loop.prefetch, loop.Trainer.train_epoch, khung.hungarian_rows)
+    cap = {}
+
+    def rec_hung(cost, n_rows):
+        if "hung" not in cap:
+            cap["hung"] = (cost.detach().clone(), n_rows.clone())
+        return orig[5](cost, n_rows)
 
     def synced(store, fn):
         def run(*a, **k):
@@ -2229,7 +2320,10 @@ def data_fit(np, torch, card, failures, here, dataset: str, tree: str
     step._device_batch = synced("h2d", orig[2])
     loop.prefetch = timed_prefetch
     loop.Trainer.train_epoch = traced_epoch
+    if dataset == "waymo":
+        khung.hungarian_rows = rec_hung
     cut = None
+    preds = None
     try:
         while True:
             for v in rec.values():
@@ -2267,14 +2361,23 @@ def data_fit(np, torch, card, failures, here, dataset: str, tree: str
         test = tr.validate(dm.val_batches(0), tr.generator(0))
         test_launch = dict(kb.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        if dataset == "kitti":
+            preds = predictions(torch, tr.state, dm)
         tr.logger.close()
         del tr
         gc.collect()
     finally:
         (loop.train_step, loop.Trainer.validate, step._device_batch,
-         loop.prefetch, loop.Trainer.train_epoch) = orig
+         loop.prefetch, loop.Trainer.train_epoch,
+         khung.hungarian_rows) = orig
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    if dataset == "waymo":
+        if "hung" in cap:
+            matcher_check(torch, khung, cap["hung"], card, failures,
+                          cfg.name)
+        else:
+            failures.append(f"[data] {cfg.name}: no matcher input captured")
 
     n_train, n_val = DATA_LIMITS[dataset]
     steps = rec["steps"]
@@ -2323,6 +2426,147 @@ def data_fit(np, torch, card, failures, here, dataset: str, tree: str
         failures.append(f"[data] {cfg.name}: losses finite {finite}, "
                         f"parameters changed {changed}, live children "
                         f"{children}")
+    return preds
+
+
+def matcher_check(torch, khung, captured, card, failures, name) -> None:
+    """Kernel C on the (L * B, G, Q) problems of one training step against
+    its plain version on four of them, one from each quarter of the head
+    passes (on the host: the plain solve reads every loop condition, ~1.2 s
+    a 170 x 170 problem): equal assignments; the kernel's CUDA-event ms for
+    the step's problems and the plain version's seconds a problem."""
+    cost, n_rows = captured
+    n = cost.shape[0]
+    held = sorted({0, n // 3, 2 * n // 3, n - 1})
+    got = khung.hungarian_rows(cost, n_rows)[held].cpu()
+    t1 = time.perf_counter()
+    want = khung.hungarian_rows_plain(cost[held].cpu(), n_rows[held].cpu())
+    plain_s = (time.perf_counter() - t1) / len(held)
+    same = torch.equal(got, want)
+    ms = cuda_ms(torch, lambda: khung.hungarian_rows(cost, n_rows), 5)
+    print(f"[data] fit {name}: matcher (kernel C) on the first step's "
+          f"{n} problems of {tuple(cost.shape[1:])} (rows assigned "
+          f"{sorted(set(n_rows.tolist()))}): {ms:.3f} ms; problems {held} "
+          f"equal to the plain version {same} (plain on the host "
+          f"{plain_s:.3f} s a problem) -> {'ok' if same else 'FAIL'} "
+          f"[{card}]", flush=True)
+    if not same:
+        failures.append(f"[data] {name}: the matcher differs from its plain "
+                        f"version at {tuple(cost.shape)}")
+
+
+def predictions(torch, state, dm) -> list:
+    """(class probabilities, mask probabilities) of each validation batch,
+    as numpy arrays, from ``predict_step`` on the card."""
+    from mask_bev_tpu_torch.train.step import predict_step
+
+    out = []
+    for batch in dm.val_batches(0):
+        cls, masks = predict_step(state, batch["points"],
+                                  batch["point_mask"])
+        out.append((cls.cpu().numpy(), masks.cpu().numpy()))
+    return out
+
+
+# the official KITTI eval timed at the full val split's scale (the frames of
+# scripts/time_kitti_eval.py), and the rotated-IoU boxes held on the card
+EVAL_FRAMES = 4071
+EVAL_IOU_BOXES = (64, 64)
+
+
+def eval_phase(np, torch, card, failures, here, kitti: str, preds) -> None:
+    """``[eval]``: the KITTI fit's validation predictions (from the card)
+    through ``mask_to_boxes`` and the official KITTI evaluation (bbox, bev,
+    3d and, with orientations, aos) and its COCO sweep against the
+    frames' labels; the official evaluation timed on the synthetic full
+    split (``EVAL_FRAMES`` frames, car class); ``rotated_iou_matrix`` on
+    the card against ``rotate_iou_eval`` on the host."""
+    from mask_bev_tpu_torch.datasets.kitti.kitti_data import (
+        KittiMaskDataModule, object_range_filter)
+    from mask_bev_tpu_torch.datasets.kitti.kitti_dataset import KittiType
+    from mask_bev_tpu_torch.evaluation.kitti_eval import (
+        boxes_to_annos, get_coco_eval_result, get_official_eval_result,
+        gt_boxes_to_annos, mask_to_boxes, synthetic_split)
+    from mask_bev_tpu_torch.ops.rotated_iou import (
+        rotate_iou_eval, rotated_iou_matrix)
+
+    cfg = data_cfg(here, "kitti", kitti)
+    dm = KittiMaskDataModule(kitti, cfg)
+    frames = [object_range_filter(dm.dataset[i], cfg.x_range,
+                                  cfg.y_range).boxes for i in dm.val_ids]
+    gts = [gt_boxes_to_annos(
+        bx.center, bx.dims, bx.yaw, [KittiType(int(t)).name for t in bx.types],
+        occluded=bx.occluded, truncated=bx.truncated, bbox=bx.bbox)
+        for bx in frames]
+    cls = np.concatenate([c for c, _ in preds])
+    masks = np.concatenate([m for _, m in preds])
+    t1 = time.perf_counter()
+    dts, n_dt = [], 0
+    for b in range(len(cls)):
+        boxes, scores, labels = mask_to_boxes(cls[b], masks[b], cfg)
+        car = labels == 1  # label = type + 1, car-like types are 0
+        dts.append(boxes_to_annos(boxes[car], scores[car]))
+        n_dt += int(car.sum())
+    t_boxes = time.perf_counter() - t1
+    gts = gts[:len(dts)]
+    n_gt = sum(len(g["name"]) for g in gts)
+    t1 = time.perf_counter()
+    official = get_official_eval_result(gts, dts, current_classes=(0,))
+    t_off = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    coco = get_coco_eval_result(gts, dts, current_classes=(0,))
+    t_coco = time.perf_counter() - t1
+    ok = len(dts) > 0 and all(np.isfinite(m).all() for r in (official, coco)
+                              for m in r["car"].values())
+    objects = int((cls.argmax(-1) > 0).sum())
+    print(f"[eval] KITTI fit's predictions on {len(dts)} validation frames "
+          f"({n_gt} labels; {objects} of {cls.shape[0] * cls.shape[1]} "
+          f"queries predict an object, mask probabilities at most "
+          f"{float(masks.max()):.4f}; {n_dt} car boxes from mask_to_boxes in "
+          f"{t_boxes:.2f} s): official {json.dumps(official)} in "
+          f"{t_off:.3f} s; coco {json.dumps(coco)} in {t_coco:.3f} s -> "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        failures.append("[eval] the official evaluation of the KITTI fit")
+
+    t1 = time.perf_counter()
+    gts, dts = synthetic_split(EVAL_FRAMES, seed=SEED)
+    t_gen = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    official = get_official_eval_result(gts, dts, current_classes=(0,))
+    t_off = time.perf_counter() - t1
+    print(f"[eval] official evaluation at the full split's scale: "
+          f"{EVAL_FRAMES} frames, {sum(len(g['name']) for g in gts)} labels, "
+          f"{sum(len(d['name']) for d in dts)} detections (drawn in "
+          f"{t_gen:.2f} s): car {json.dumps(official['car'])} in "
+          f"{t_off:.2f} s on the host [{card}]", flush=True)
+
+    rng = np.random.default_rng(SEED + 30)
+    na, nb = EVAL_IOU_BOXES
+
+    def boxes(n):
+        return np.column_stack([
+            rng.uniform(-6, 6, n), rng.uniform(-6, 6, n),
+            rng.uniform(1.4, 2.2, n), rng.uniform(3.2, 5.0, n),
+            rng.uniform(-np.pi, np.pi, n)]).astype(np.float32)
+
+    a, b = boxes(na), boxes(nb)
+    ta = torch.as_tensor(a, device="cuda")
+    tb = torch.as_tensor(b, device="cuda")
+    got = rotated_iou_matrix(ta, tb)
+    t1 = time.perf_counter()
+    want = rotate_iou_eval(a, b)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    ms = cuda_ms(torch, lambda: rotated_iou_matrix(ta, tb), 10)
+    ok = got.is_cuda and err <= 1e-5
+    print(f"[eval] rotated_iou_matrix on the card, {na} x {nb} = {na * nb} "
+          f"pairs ({(want > 0).mean():.3f} overlapping): max_abs_err "
+          f"{err:.3g} against rotate_iou_eval on the host (tolerance 1e-5); "
+          f"{ms:.4f} ms on the card, {host_ms:.1f} ms on the host -> "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        failures.append("[eval] rotated_iou_matrix on the card")
 
 
 def data_cli(card, failures, here, sk: str, tmp: str) -> None:

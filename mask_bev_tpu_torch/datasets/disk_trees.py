@@ -1,4 +1,5 @@
-"""Dataset trees in the SemanticKITTI and KITTI on-disk formats, from a seed.
+"""Dataset trees in the SemanticKITTI, KITTI and converted Waymo on-disk
+formats, from a seed.
 
 No dataset can be downloaded where the port is tested, so the tests and the
 card's smoke run write their scans in the datasets' own formats and read
@@ -18,10 +19,17 @@ them back through the loaders:
   non-overlapping Car, Pedestrian and Cyclist boxes with LiDAR points
   inside them, labelled in the camera frame as KITTI's ``label_2`` files
   are.
+* :func:`write_waymo_tree`: ``<root>/{training,validation}/*.npz`` in the
+  converted schema that ``datasets/waymo/waymo_data.py`` reads (and
+  ``datasets/waymo/convert.py`` writes): TOP-lidar-like x, y, z points out
+  to ``radius`` metres, past the 80 m grid, and vehicle, pedestrian, sign
+  and cyclist boxes with their in-box point counts (some vehicles outside
+  the grid, some with no point).
 
 Every scan is a disc of points out to ``radius`` metres drawn as
 ``chip_smoke.py::scans`` draws it, plus the objects' points: about
-``points`` points a scan in all. Calibrations are KITTI's published
+``points`` points a scan in all (Waymo: within 12 % of ``points``).
+Calibrations are KITTI's published
 odometry and object values.
 """
 from __future__ import annotations
@@ -264,4 +272,108 @@ def write_kitti_tree(root, seed: int = 0, frames: int = 16, train: int = 12,
         "".join(f"{i:06d}\n" for i in range(train)))
     (root / "val.txt").write_text(
         "".join(f"{i:06d}\n" for i in range(train, frames)))
+    return root
+
+
+# Waymo box types (waymo_data.py) and (length, width, height) ranges
+WAYMO_VEHICLE, WAYMO_PEDESTRIAN, WAYMO_SIGN, WAYMO_CYCLIST = 1, 2, 3, 4
+WAYMO_SIZES = {WAYMO_VEHICLE: ((3.8, 1.7, 1.4), (5.6, 2.2, 3.4)),
+               WAYMO_PEDESTRIAN: ((0.5, 0.5, 1.5), (0.9, 0.9, 1.9)),
+               WAYMO_SIGN: ((0.1, 0.5, 0.6), (0.3, 1.0, 1.2)),
+               WAYMO_CYCLIST: ((1.6, 0.6, 1.6), (1.9, 0.8, 1.9))}
+# exact float32 heights on a .1 half (x 5 = n + 0.5) that some vehicles get,
+# so the GT height rounding meets its ties
+WAYMO_TIE_HEIGHTS = (1.5, 2.5)
+# shares of the vehicles placed beyond the grid and left without a point
+WAYMO_OUTSIDE, WAYMO_EMPTY = 0.1, 0.1
+
+
+def _waymo_boxes(rng, n_vehicle: int, n_other: int, grid: float,
+                 radius: float):
+    """Non-overlapping boxes (fewer where 50 draws in a row find no room):
+    vehicles in the grid's square [-grid, grid]^2 except a share
+    ``WAYMO_OUTSIDE`` placed beyond it (out to ``radius``, at least 1.5
+    ``grid``), then pedestrians, signs and cyclists in the grid. Returns
+    (types, centres (M, 3) at the box's middle, dims (M, 3) (l, w, h),
+    headings (M,))."""
+    from mask_bev_tpu_torch.augmentations.box_ops import (
+        box_collision_test, center_to_corner_box2d)
+
+    kinds = [WAYMO_VEHICLE] * n_vehicle + list(rng.choice(
+        [WAYMO_PEDESTRIAN, WAYMO_SIGN, WAYMO_CYCLIST], n_other))
+    types, centers, dims, yaws = [], [], [], []
+    corners = np.zeros((0, 4, 2))
+    for kind in kinds:
+        lo, hi = WAYMO_SIZES[kind]
+        far = kind == WAYMO_VEHICLE and rng.uniform() < WAYMO_OUTSIDE
+        for _ in range(50):
+            d = rng.uniform(lo, hi)
+            if kind == WAYMO_VEHICLE and rng.uniform() < 0.1:
+                d[2] = rng.choice(WAYMO_TIE_HEIGHTS)
+            if far:
+                r = rng.uniform(1.45 * grid, max(0.95 * radius, 1.5 * grid))
+                th = rng.uniform(-np.pi, np.pi)
+                xy = np.array([r * np.cos(th), r * np.sin(th)])
+            else:
+                xy = rng.uniform(-grid, grid, 2)
+            y = rng.uniform(-np.pi, np.pi)
+            box = center_to_corner_box2d(xy[None], d[None, :2] + 0.4,
+                                         np.array([y]))
+            if not box_collision_test(box, corners).any():
+                break
+        else:
+            continue
+        corners = np.concatenate([corners, box])
+        types.append(kind)
+        centers.append([xy[0], xy[1], 0.5 * d[2]])
+        dims.append(d)
+        yaws.append(y)
+    return (np.array(types, np.int32), np.array(centers).reshape(-1, 3),
+            np.array(dims).reshape(-1, 3), np.array(yaws))
+
+
+def write_waymo_tree(root, seed: int = 0, frames: int = 16, train: int = 12,
+                     points: int = 170_000,
+                     vehicles: Tuple[int, int] = (20, 80),
+                     others: Tuple[int, int] = (5, 20), grid: float = 40.0,
+                     radius: float = 75.0) -> pathlib.Path:
+    """Write ``frames`` converted Waymo frames, the first ``train`` under
+    ``<root>/training`` and the rest under ``<root>/validation``; returns
+    ``root``. A frame holds ``vehicles`` (a range) vehicles, a share
+    ``WAYMO_OUTSIDE`` of them beyond the grid's square ``[-grid, grid]^2``
+    and a share ``WAYMO_EMPTY`` with no lidar point (``box_num_points``
+    0), and ``others`` pedestrians, signs and cyclists; a box with points gets
+    40-400 of them (fewer far away), counted in ``box_num_points``. The
+    rest of the frame's points are a disc out to ``radius`` with heights
+    -0.5..4 m (the vehicle frame's ground at z 0)."""
+    root = pathlib.Path(root)
+    rng = np.random.default_rng(seed)
+    for i in range(frames):
+        split = root / ("training" if i < train else "validation")
+        split.mkdir(parents=True, exist_ok=True)
+        types, centers, dims, yaws = _waymo_boxes(
+            rng, int(rng.integers(vehicles[0], vehicles[1] + 1)),
+            int(rng.integers(others[0], others[1] + 1)), grid, radius)
+        parts, counts = [], np.zeros(len(types), np.int32)
+        for k in range(len(types)):
+            if types[k] == WAYMO_VEHICLE and rng.uniform() < WAYMO_EMPTY:
+                continue
+            dist = max(float(np.hypot(*centers[k, :2])), 5.0)
+            counts[k] = int(np.clip(4000.0 / dist, 40, 400))
+            bottom = centers[k] - [0.0, 0.0, 0.5 * dims[k, 2]]
+            parts.append(box_points(rng, counts[k], bottom, dims[k],
+                                    yaws[k])[:, :3])
+        total = int(points * rng.uniform(0.88, 1.12))
+        n_bg = max(total - int(counts.sum()), 0)
+        r = rng.uniform(2, radius, n_bg) * np.sqrt(rng.uniform(0.05, 1, n_bg))
+        th = rng.uniform(-np.pi, np.pi, n_bg)
+        parts.append(np.stack([r * np.cos(th), r * np.sin(th),
+                               rng.uniform(-0.5, 4.0, n_bg)], -1))
+        pts = np.concatenate(parts).astype(np.float32)
+        np.savez(split / f"{i:08d}.npz",
+                 points=pts[rng.permutation(len(pts))],
+                 box_center=centers.astype(np.float32),
+                 box_dims=dims.astype(np.float32),
+                 box_heading=yaws.astype(np.float32), box_type=types,
+                 box_num_points=counts)
     return root

@@ -154,31 +154,34 @@ def test_cli_trains_and_tests(tmp_path):
 
 @pytest.mark.parametrize("dataset", ["kitti", "semantic_kitti", "waymo"])
 def test_cli_refuses_unported_datasets(tmp_path, dataset):
-    """Only the unported loader is refused: Waymo raises, naming the next
-    slice; KITTI and SemanticKITTI build their data modules."""
+    """No shipped dataset is refused any more: KITTI, SemanticKITTI and
+    Waymo (a root of converted frames) build their data modules; an unknown
+    dataset name still raises."""
     spec = importlib.util.spec_from_file_location(
         "train_mask_bev_torch", ROOT / "train_mask_bev_torch.py")
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
     cfg = tmp_path / f"{dataset}.yml"
     cfg.write_text(f"dataset: {dataset}\n")
-    if dataset == "waymo":
-        with pytest.raises(NotImplementedError, match="waymo.*next slice"):
-            cli.main(["--config", str(cfg), "--train", "--device", "cpu",
-                      "--workdir", str(tmp_path)])
-        return
     from mask_bev_tpu_torch.config import MaskBevConfig
     from mask_bev_tpu_torch.datasets.disk_trees import (
-        write_kitti_tree, write_semantic_kitti_tree)
+        write_kitti_tree, write_semantic_kitti_tree, write_waymo_tree)
 
     root = tmp_path / "tree"
     if dataset == "kitti":
         write_kitti_tree(root, frames=2, train=1, points=500, boxes=(1, 2))
+    elif dataset == "waymo":
+        write_waymo_tree(root, frames=2, train=1, points=500,
+                         vehicles=(1, 2), others=(1, 1), grid=10.0,
+                         radius=15.0)
     else:
         write_semantic_kitti_tree(root, train_scans=1, valid_scans=1,
                                   points=500)
     dm = cli.build_datamodule(MaskBevConfig.from_yaml(cfg), str(root))
     assert callable(dm.train_batches) and callable(dm.val_batches)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        cli.build_datamodule(MaskBevConfig.from_yaml(cfg).replace(
+            dataset="nuscenes"), str(root))
 
 
 def _variables(cfg, pts, mask, seed=1):

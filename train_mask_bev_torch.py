@@ -8,10 +8,12 @@ path). It reads the flat YAML config with the port's ``MaskBevConfig``,
 trains with ``mask_bev_tpu_torch.train.loop.Trainer`` (early stop, best and
 last checkpoints, plateau LR) and, with ``--test``, restores the ``best``
 checkpoint and runs a validation pass with the per-layer metrics. The
-port trains on ``dataset: semantic_kitti`` and ``dataset: kitti`` trees
-(``--data-root``; the data modules of ``mask_bev_tpu_torch/datasets``,
-their samples assembled on ``num_workers`` processes) and on ``dataset:
-synthetic``; the Waymo loader is not ported yet.
+port trains on ``dataset: semantic_kitti`` and ``dataset: kitti`` trees,
+on ``dataset: waymo`` roots of converted frames
+(``python -m mask_bev_tpu_torch.datasets.waymo.convert``), all named by
+``--data-root`` (the data modules of ``mask_bev_tpu_torch/datasets``, their
+samples assembled on ``num_workers`` processes), and on ``dataset:
+synthetic``.
 """
 from __future__ import annotations
 
@@ -30,10 +32,10 @@ def build_datamodule(cfg, root: str):
 
         return SemanticKittiMaskDataModule(root, cfg)
     if cfg.dataset == "waymo":
-        raise NotImplementedError(
-            "the waymo loader is not ported to mask_bev_tpu_torch yet (the "
-            "next slice of ROADMAP.md queue 1: the Waymo loader, its "
-            "augmentations and converter); use train_mask_bev.py")
+        from mask_bev_tpu_torch.datasets.waymo.waymo_data import (
+            WaymoDataModule)
+
+        return WaymoDataModule(root, cfg)
     if cfg.dataset == "synthetic":
         import numpy as np
 
