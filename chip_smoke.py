@@ -24,7 +24,10 @@
    launch counters reset just before and read just after: every kernel must
    have launched; outputs must be finite and of the expected shapes;
 5. checks a small model on the card against the same model run by the plain
-   PyTorch path on the CPU;
+   PyTorch path on the CPU (``small_phase``), and again with every model
+   option on (height head, absolute embedding with ``swap_dims``, two
+   refinement blocks a pixel-decoder level, the Fourier encoding) in f32
+   and in bf16 (``[small options ...]``);
 5b. drives the two serving paths of kernels 7-10 (``path_phase``): path K,
    ``kitti_default()`` (800x800 grid, 3 classes) with the unfused backbone
    (window MSA, kernel 7, on the token grid: its attention alone with the
@@ -54,6 +57,22 @@
    request; phase W also holds the 3xTF32 GEMM alone at a stage-0 and a
    stage-3 fc1 product against a float64 product and times
    ``torch.addmm`` in full f32 beside it (``gemm_yardstick``);
+5d. phase O (``[e2e options]``): the main path's configuration with the
+   height head, the absolute position embedding with ``swap_dims`` and two
+   refinement blocks a pixel-decoder level, like steps 2-4 (kernels 1-5
+   held, 3 warm and 5 timed requests, one traced request), plus kernel 7
+   at the refinement blocks (C 256, 8 heads, grids 63, 32 and 16: held
+   against its plain version as ``window_msa.refine``, its attention with
+   SDPA beside it, its launches counted over the requests) and finite
+   height logits; then a training step at batch 4 with GT heights and 2
+   timed steps (``options_train_phase``: loss terms, gradients through
+   the new parameters, peak memory);
+5e. the encodings phase (``[e2e encodings]``, ``encodings_phase``): the
+   main path's configuration with the Fourier encoding, the cosine
+   encoding and a fifth point column: the capped stream with the plain
+   pillar feature net (the JAX package's XLA route there), kernel 2 on its
+   table held against its plain version, the plain PFN's ms, one warm and
+   one timed request; kernels 1 and 10 must not launch, 2-5 must;
 6. drives the training step (``train_step``) at the training envelope of
    the JAX bench: the same configuration with ``max_num_pillars=32768``, a
    bf16 forward over f32 master weights, batch 4, AdamW, synthetic scans of
@@ -221,9 +240,7 @@ def main() -> None:
     try:
         from mask_bev_tpu_torch.config import (
             semantic_kitti_default, tiny_test_config, waymo_default)
-        from mask_bev_tpu_torch.inference import MaskBevPredictor
         from mask_bev_tpu_torch.kernels import build as kb
-        from mask_bev_tpu_torch.models.maskbev import MaskBev
     except ImportError as e:
         fail(f"the port cannot be imported from {here}: {e}")
 
@@ -277,23 +294,20 @@ def main() -> None:
     small = tiny_test_config().replace(
         head_num_attn_heads=2, compute_dtype="bfloat16",
         backbone_quantize="int8")
-    ssd = MaskBev(small).random_state_dict(SEED + 1)
-    sp, sm = scans(np, 2, small.max_points_per_scan, SEED + 2)
-    sp[..., :2] *= 0.25  # into the 20 m grid
-    sm[:, 1800:] = False
-    c_gpu, m_gpu = MaskBevPredictor(small, ssd, device="cuda").forward(
-        torch.as_tensor(sp), torch.as_tensor(sm))
-    c_cpu, m_cpu = MaskBevPredictor(small, ssd, device="cpu").forward(
-        torch.as_tensor(sp), torch.as_tensor(sm))
-    d_cls = float((c_gpu.cpu() - c_cpu).abs().max())
-    d_mask = float((m_gpu.cpu() - m_cpu).abs().mean())
-    ok = d_cls <= 0.1 and d_mask <= 0.02
-    print(f"[small] card vs CPU plain path: class probs max diff {d_cls:.4g} "
-          f"(tolerance 0.1), mask probs mean diff {d_mask:.4g} (tolerance "
-          f"0.02) -> {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        failures.append("small model card vs CPU")
-    torch.cuda.empty_cache()
+    small_phase(np, torch, failures, "small", small)
+    # every option on: height head, absolute embedding with swap_dims, two
+    # refinement blocks a level (C 128 over their 8 heads: kernel 7 takes
+    # head widths 16, 32 and 64) and the Fourier encoding; without int8,
+    # whose rounding steps would pass small differences on to the heads
+    # (the int8 backbone with the options is phase O's)
+    for dtype in ("float32", "bfloat16"):
+        small_phase(np, torch, failures, f"small options {dtype}",
+                    small.replace(**OPTIONS, encoder_encoding_type="fourier",
+                                  head_feat_channels=128,
+                                  head_out_channels=128,
+                                  head_num_attn_heads=4,
+                                  backbone_quantize="none",
+                                  compute_dtype=dtype))
 
     path_phase(np, torch, card, results, failures, record, "K")
     path_phase(np, torch, card, results, failures, record, "E")
@@ -308,6 +322,12 @@ def main() -> None:
     serve_phase(np, torch, card, results, failures, record,
                 waymo_default().replace(max_points_per_scan=131072),
                 ".waymo", PATH_WARM, PATH_TIMED)
+    # phase O: the model options on the main path's configuration
+    options = cfg.replace(**OPTIONS)
+    serve_phase(np, torch, card, results, failures, record, options,
+                ".options", PATH_WARM, PATH_TIMED)
+    options_train_phase(np, torch, card, failures, options)
+    encodings_phase(np, torch, card, results, failures, record, cfg)
     train_phase(np, torch, card, results, failures, record)
     shapes_phase(np, torch, card, failures)
     trainer_phase(np, torch, card, failures, here)
@@ -320,6 +340,232 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# phase O and the options of ``[small options]``: the height head, the
+# absolute position embedding with swap_dims, two refinement blocks a
+# pixel-decoder level
+OPTIONS = dict(predict_height=True, backbone_use_abs_emb=True,
+               backbone_swap_dims=True, pixel_decoder_num_attn_layers=2)
+# ``[small options]``: the card's final height logits against the CPU's,
+# the largest difference over the CPU logits' largest magnitude (set from
+# the readings of ``scripts/small_options_tolerance.py``)
+HEIGHT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the encodings phase: each variant on the main path's configuration
+ENCODINGS = (("fourier", dict(encoder_encoding_type="fourier")),
+             ("cosine", dict(encoder_encoding_type="cosine")),
+             ("point_dim5", dict(pc_point_dim=5)))
+
+
+def small_phase(np, torch, failures, label, small) -> None:
+    """A small model on the card against the same model run by the plain
+    PyTorch path on the CPU (same weights and scans): class probabilities
+    to 0.1, mean mask probability to 0.02 and, with the height head, the
+    final height logits: their largest difference over the CPU logits'
+    largest magnitude to ``HEIGHT_TOL`` of the dtype; every launch counted
+    on the card."""
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+
+    ssd = MaskBev(small).random_state_dict(SEED + 1)
+    sp, sm = scans(np, 2, small.max_points_per_scan, SEED + 2)
+    sp[..., :2] *= 0.25  # into the 20 m grid
+    sm[:, 1800:] = False
+    sp, sm = torch.as_tensor(sp[..., :small.pc_point_dim]), torch.as_tensor(sm)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pred = MaskBevPredictor(small, ssd, device=dev)
+        kb.reset_launches()
+        c_, m_ = pred.forward(sp, sm)
+        h_ = None
+        if small.predict_height:
+            with torch.no_grad():
+                h_ = pred.model(
+                    sp.to(pred.device, pred.dtype), sm.to(pred.device)
+                ).height_logits[-1].float().cpu()
+        out[dev] = (c_.cpu(), m_.cpu(), h_, dict(kb.LAUNCHES))
+    (c_gpu, m_gpu, h_gpu, launched), (c_cpu, m_cpu, h_cpu, _) = (
+        out["cuda"], out["cpu"])
+    d_cls = float((c_gpu - c_cpu).abs().max())
+    d_mask = float((m_gpu - m_cpu).abs().mean())
+    ok = d_cls <= 0.1 and d_mask <= 0.02
+    height = ""
+    if h_gpu is not None:
+        h_tol = HEIGHT_TOL[small.compute_dtype]
+        d_h = float((h_gpu - h_cpu).abs().max() / h_cpu.abs().max())
+        d_hm = float((h_gpu - h_cpu).abs().mean() / h_cpu.abs().mean())
+        ok = ok and d_h <= h_tol
+        height = (f", height logits max diff {d_h:.4g} of their largest "
+                  f"magnitude {float(h_cpu.abs().max()):.4g} (tolerance "
+                  f"{h_tol}), mean diff {d_hm:.4g} of their mean magnitude")
+    print(f"[{label}] card vs CPU plain path: class probs max diff "
+          f"{d_cls:.4g} (tolerance 0.1), mask probs mean diff {d_mask:.4g} "
+          f"(tolerance 0.02){height}; card launches {launched} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"[{label}] card vs CPU")
+    if small.pixel_decoder_num_attn_layers and not launched.get("window_msa"):
+        failures.append(f"[{label}] kernel 7 never launched")
+    torch.cuda.empty_cache()
+
+
+def options_train_phase(np, torch, card, failures, cfg) -> None:
+    """Phase O's training step: the options' configuration with the
+    training envelope of ``train_phase`` (batch 4, ``max_num_pillars``
+    32768, bf16 over f32 masters), synthetic batches with GT heights: one
+    step, then 2 timed steps; the loss terms (``loss_height`` among them),
+    finite gradients through the height head, the absolute embedding and
+    the refinement blocks, every head pass's height logits, peak memory,
+    and the training kernels' launches."""
+    from mask_bev_tpu_torch.datasets.synthetic import make_batch
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.train.step import (
+        create_train_state, loss_and_grads, train_step)
+
+    cfg = cfg.replace(max_num_pillars=32768, batch_size=TRAIN_BATCH)
+    t0 = time.time()
+    state = create_train_state(cfg, seed=SEED + 40, device="cuda")
+    batches = [make_batch(np.random.default_rng(400 + i), cfg,
+                          batch_size=TRAIN_BATCH, noise_points=115_000,
+                          points_per_instance=1500) for i in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    logs, out, grads = loss_and_grads(state, batches[0], gen)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    watch = ("decoder.heads.height_embed.weight",
+             "backbone.absolute_pos_embed",
+             "pixel_decoder.refine3_1.attn.w_msa.qkv.weight")
+    norms = {k: float(grads[k].float().norm()) for k in watch}
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad or not all(v > 0 for v in norms.values()):
+        failures.append(f"[train options] gradients: non-finite {bad[:5]}, "
+                        f"norms {norms}")
+    exp_h = (cfg.num_decoder_outputs, TRAIN_BATCH, cfg.num_queries,
+             cfg.head_num_height_bins)
+    if out.height_logits is None or tuple(out.height_logits.shape) != exp_h:
+        failures.append(f"[train options] height logits "
+                        f"{None if out.height_logits is None else tuple(out.height_logits.shape)}")
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    times = []
+    for i in range(2):
+        t1 = time.perf_counter()
+        state, logs, _ = train_step(state, batches[i % 2], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = dict(kb.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    terms = {k: round(float(v), 4) for k, v in logs.items()
+             if k.startswith("loss") and not k.endswith("_layers")}
+    print(f"[train options] {cfg.name} with the options, batch "
+          f"{TRAIN_BATCH}: state and first forward+backward {first_s:.1f} "
+          f"s; 2 timed steps {[round(t * 1e3, 3) for t in times]} ms; loss "
+          f"terms {terms}; gradient norms {norms}; peak memory "
+          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[train options] launches over the 2 timed steps: {launches}",
+          flush=True)
+    if "loss_height" not in terms or not np.isfinite(
+            list(terms.values())).all() or terms["loss_height"] <= 0:
+        failures.append(f"[train options] loss terms {terms}")
+    for k in ("canvas_scatter", "canvas_scatter_bwd", "hungarian"):
+        if launches.get(k, 0) <= 0:
+            failures.append(f"{k} never launched in [train options]")
+    del state, batches, out, logs
+    torch.cuda.empty_cache()
+
+
+def encodings_phase(np, torch, card, results, failures, record,
+                    base) -> None:
+    """The encodings phase: ``base`` (the main path's configuration) with
+    the Fourier encoding, the cosine encoding, and a fifth point column
+    (drawn from the seed). The kernels take only the vanilla decoration of
+    at most 4 columns, so the eval encoder runs the capped stream with the
+    plain pillar feature net, as the JAX package runs its XLA stream PFN
+    there; kernel 2 then reads that table. For each: kernel 2 captured in
+    one forward and held against its plain version
+    (``canvas_norm.<variant>``), the plain PFN timed alone, one warm and
+    one timed request with the counters reset just before: kernels 1 and
+    10 must not launch, kernels 2-5 must."""
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models import encoder as menc
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+    from mask_bev_tpu_torch.ops.stream_pillars import pillarize_stream
+
+    for name, kw in ENCODINGS:
+        cfg = base.replace(**kw)
+        d = cfg.pc_point_dim
+        pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(
+            SEED + 30), device="cuda")
+        enc = pred.model.encoder
+        staged = []
+        for s in range(2):
+            p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 500 + s)
+            extra = np.random.default_rng(600 + s).uniform(
+                0, 1, p_np.shape[:2] + (max(d - 4, 0),)).astype(np.float32)
+            p_np = np.concatenate([p_np, extra], -1)[..., :d]
+            staged.append((torch.as_tensor(p_np).cuda().to(pred.dtype),
+                           torch.as_tensor(m_np).cuda()))
+        pts, msk = staged[0]
+        cap = []
+        orig = menc.canvas_norm
+
+        def rec_canvas(*a):
+            cap.append(tuple(t.clone() if torch.is_tensor(t) else t
+                             for t in a))
+            return orig(*a)
+
+        menc.canvas_norm = rec_canvas
+        try:
+            with torch.no_grad():
+                pred.model(pts, msk)
+        finally:
+            menc.canvas_norm = orig
+        with torch.no_grad():
+            canvas_phase(torch, kcanvas, lambda n, *r, **k: record(
+                n, *SOURCES["canvas_norm"], *r, **k),
+                f"canvas_norm.{name}", cap[0])
+            sp = pillarize_stream(
+                pts, msk, x_range=enc.x_range, y_range=enc.y_range,
+                z_range=enc.z_range, voxel_size=enc.voxel_size,
+                max_points_per_pillar=enc.k, max_pillars=enc.max_pillars)
+            ms_pfn = cuda_ms(torch, lambda: enc.plain_table(sp), 3)
+            ms_capped = cuda_ms(torch, lambda: enc.capped_table(pts, msk), 3)
+        occupied = sp.valid.sum(1).tolist()
+        del cap, sp
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        pred.forward(*staged[1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cls_p, mask_p = pred.forward(*staged[0])
+        torch.cuda.synchronize()
+        ms_req = (time.perf_counter() - t1) * 1e3
+        launches = dict(kb.LAUNCHES)
+        results[f"canvas_norm.{name}"]["launches"] = launches.get(
+            "canvas_norm", 0)
+        print(f"[e2e encodings] {name} ({d} point columns, "
+              f"{cfg.compute_dtype}, int8 backbone): one request of batch "
+              f"{BATCH} {ms_req:.3f} ms; the plain pillar feature net alone "
+              f"{ms_pfn:.3f} ms, with the capped stream's pillarize "
+              f"{ms_capped:.3f} ms; occupied slots {occupied} of "
+              f"{cfg.max_num_pillars}; launches over 2 requests "
+              f"{launches} [{card}]", flush=True)
+        for k in ("pfn", "stream_pfn"):
+            if launches.get(k, 0):
+                failures.append(f"[e2e encodings] {name}: {k} launched "
+                                f"{launches[k]} times")
+        for k in ("canvas_norm", "swin_block", "decoder_stack"):
+            if launches.get(k, 0) <= 0:
+                failures.append(f"[e2e encodings] {name}: {k} never "
+                                f"launched")
+        if not (torch.isfinite(cls_p).all() and torch.isfinite(mask_p).all()):
+            failures.append(f"[e2e encodings] {name}: non-finite outputs")
+        del pred, staged, pts, msk, cls_p, mask_p
+        torch.cuda.empty_cache()
 
 
 # kernel -> (source, TPU function it replaces)
@@ -344,7 +590,12 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     before and read just after, then one traced request. The main path
     (bf16) also times the Swin chain's launches by kind and prints the
     decoder's cluster occupancy; the f32 phases check the instance
-    counters, which must show the f32 instances."""
+    counters, which must show the f32 instances. Phase O (``.options``:
+    the height head, the absolute embedding with ``swap_dims`` and two
+    refinement blocks a pixel-decoder level) also captures kernel 7's
+    inputs at the refinement blocks (``window_msa_phase``, recorded as
+    ``window_msa.refine``), checks the height logits, and counts kernel
+    7's launches over the requests."""
     from mask_bev_tpu_torch.inference import MaskBevPredictor
     from mask_bev_tpu_torch.kernels import build as kb
     from mask_bev_tpu_torch.models import mask2former as m2f
@@ -355,7 +606,9 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     from mask_bev_tpu_torch.ops import pfn as kpfn
     from mask_bev_tpu_torch.ops import swin_block as kswin
 
-    label = "e2e" + {"": "", ".f32": " f32", ".waymo": " waymo"}[suffix]
+    label = "e2e" + {"": "", ".f32": " f32", ".waymo": " waymo",
+                     ".options": " options"}[suffix]
+    refine = cfg.pixel_decoder_num_attn_layers > 0
     f32 = cfg.compute_dtype == "float32"
     esz = 4 if f32 else 2
     work = "f32" if f32 else "bf16"  # the products' type, off the int8 GEMM
@@ -370,8 +623,9 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     msk = torch.as_tensor(mask_np).cuda()
 
     # ---- capture every kernel's inputs (one forward) ----------------------
-    captured_blocks, captured_dec = [], []
+    captured_blocks, captured_dec, captured_msa = [], [], []
     orig_block, orig_dec = msw.swin_block, m2f.decoder_stack
+    orig_msa = msw.window_msa
 
     def rec_block(x, *args):
         captured_blocks.append((x.clone(), *args))
@@ -381,14 +635,35 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         captured_dec.append((args, kw))
         return orig_dec(*args, **kw)
 
-    msw.swin_block, m2f.decoder_stack = rec_block, rec_dec
+    def rec_msa(*a, **kw):
+        captured_msa.append((tuple(t.clone() if torch.is_tensor(t) else t
+                                   for t in a), kw))
+        return orig_msa(*a, **kw)
+
+    msw.swin_block, m2f.decoder_stack, msw.window_msa = (rec_block, rec_dec,
+                                                         rec_msa)
     try:
         with torch.no_grad():
             enc = model.encoder
             ps, table, stats = enc.pillar_table(pts, msk)
-            model(pts, msk)
+            fwd = model(pts, msk)
     finally:
-        msw.swin_block, m2f.decoder_stack = orig_block, orig_dec
+        msw.swin_block, m2f.decoder_stack, msw.window_msa = (
+            orig_block, orig_dec, orig_msa)
+    if cfg.predict_height:
+        hl = fwd.height_logits
+        exp_h = (1, BATCH, cfg.num_queries, cfg.head_num_height_bins)
+        ok_h = (hl is not None and tuple(hl.shape) == exp_h
+                and bool(torch.isfinite(hl).all()))
+        print(f"[{label}] height logits "
+              f"{None if hl is None else tuple(hl.shape)} (expected "
+              f"{exp_h}), finite: {ok_h}", flush=True)
+        if not ok_h:
+            failures.append(f"[{label}] height logits")
+    if refine and len(captured_msa) != 3 * cfg.pixel_decoder_num_attn_layers:
+        failures.append(f"[{label}] {len(captured_msa)} refinement window "
+                        f"MSA calls in one forward")
+    del fwd
     torch.cuda.synchronize()
     print(f"[{label}] {cfg.name} ({cfg.compute_dtype}, int8 backbone: "
           f"{cfg.backbone_quantize == 'int8'}, {cfg.num_queries} queries, "
@@ -594,7 +869,12 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
             f"layer); max_abs_err on the kernel's own blocked positions "
             f"{err_same:.6g} (tolerance {same_tol:.6g}); bound as "
             f"{work} FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms")
-    del captured_blocks, captured_dec, table, ps, dargs, out_k, out_p, same
+        if refine:
+            # ---- kernel 7 at the refinement blocks (C 256, 8 heads) -----
+            window_msa_phase(torch, record, card, ".refine", captured_msa,
+                             f32, what="refinement blocks")
+    del captured_blocks, captured_dec, captured_msa, table, ps, dargs, out_k
+    del out_p, same
 
     # ---- serve requests through the predictor -----------------------------
     staged = []
@@ -633,6 +913,19 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     results["swin_attn" + suffix]["launches"] = instances.get(attn_inst, 0)
     if instances.get(attn_inst, 0) <= 0:
         failures.append(f"{attn_inst} never launched on [{label}]")
+    if refine:
+        msa_inst = "window_msa/attn_" + ("f32" if f32 else "bf16")
+        results["window_msa.refine"]["launches"] = launches.get(
+            "window_msa", 0)
+        results["window_msa_attn.refine"]["launches"] = instances.get(
+            msa_inst, 0)
+        print(f"[{label}] kernel 7 at the refinement blocks: "
+              f"{launches.get('window_msa', 0)} launches over {requests} "
+              f"requests ({launches.get('window_msa', 0) // requests} a "
+              f"forward), {instances.get(msa_inst, 0)} of them "
+              f"{msa_inst}", flush=True)
+        if instances.get(msa_inst, 0) <= 0:
+            failures.append(f"{msa_inst} never launched on [{label}]")
     if f32:
         need = ["pfn/f32_3xtf32", "canvas_norm/f32", "swin_block/f32",
                 "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
@@ -874,8 +1167,6 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     from mask_bev_tpu_torch.ops import layer_norm as kln
     from mask_bev_tpu_torch.ops import patch_embed as kpe
     from mask_bev_tpu_torch.ops import pfn as kpfn
-    from mask_bev_tpu_torch.ops import swin_block as kswin
-    from mask_bev_tpu_torch.ops import window_msa as kwmsa
 
     dtype = "float32" if f32 else "bfloat16"
     sfx = ".f32" if f32 else ""
@@ -941,44 +1232,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     with torch.no_grad():
         if path == "K":
             # ---- kernel 7: window MSA on the token grid, all blocks -------
-            err_abs = err_rel = ms_k = ms_p = ops = byts = g_ops = 0.0
-            calls = []
-            for (a, kw) in cap["window_msa"]:
-                got = kwmsa.window_msa(*a, **kw)
-                want = kwmsa.window_msa_grid_plain(*a, **kw)
-                e = float((got.float() - want.float()).abs().max())
-                err_abs = max(err_abs, e)
-                err_rel = max(err_rel, e / float(want.float().abs().max()))
-                ms_k += cuda_ms(torch, lambda: kwmsa.window_msa(*a, **kw), 5)
-                ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_grid_plain(
-                    *a, **kw), 1)
-                y, hw, win, shift, rel, qkv, proj, heads = a
-                b_, l_, c_ = y.shape
-                hp = -(-hw[0] // win) * win
-                wp = -(-hw[1] // win) * win
-                g_ops += 2.0 * b_ * l_ * 4 * c_ * c_
-                ops += 4.0 * b_ * hp * wp * win * win * c_
-                byts += 2 * b_ * l_ * c_ * esz + 4 * c_ * c_ * esz
-                calls.append((kswin.gemm("window_msa", y.reshape(-1, c_), qkv,
-                                         kswin.EPI_BIAS), qkv.bias, rel, b_,
-                              hw, heads, win, shift))
-            # bf16: both sides round qkv, probabilities and heads to bf16;
-            # f32: the same f32 operations in another order
-            tol = 1e-3 if f32 else 2e-2
-            record("window_msa" + sfx, "mask_bev_tpu_torch/csrc/window_msa.cu",
-                   "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
-                   float("nan"), ms_k, ms_p,
-                   bound(byts, g_ops / PEAK["tf32x3" if f32 else work]
-                         + ops / PEAK["tf32x3" if f32 else work]),
-                   f"largest error relative to its block's max-abs "
-                   f"{err_rel:.4g} (tolerance {tol}); "
-                   f"{len(cap['window_msa'])} blocks summed",
-                   ok=err_rel <= tol)
-            # ---- kernel 7's attention alone, with an SDPA yardstick --------
-            attn_phase(torch, kswin, record, "window_msa_attn" + sfx,
-                       "mask_bev_tpu/ops/pallas_window_msa.py:71", calls,
-                       True, f32, card)
-            del calls
+            window_msa_phase(torch, record, card, sfx, cap["window_msa"],
+                             f32)
             # ---- kernel 8: patch embed + patch_norm --------------------------
             (a, kw), = cap["patch_embed"]
             got = kpe.patch_embed(*a, **kw)
@@ -1238,6 +1493,57 @@ def block_qkv(kswin, x, p, quant):
                       p.qkv, kswin.EPI_BIAS | kswin.EPI_ROUND_ACC)
 
 
+def window_msa_phase(torch, record, card, sfx, captured, f32,
+                     what="blocks") -> None:
+    """Kernel 7 on each captured call's inputs (``window_msa``'s arguments
+    from a forward): the chain held against ``window_msa_grid_plain``
+    (bf16 2e-2, f32 1e-3 of the block's largest value) and recorded as
+    ``window_msa{sfx}``, then its attention alone with the SDPA yardstick
+    (``attn_phase``) as ``window_msa_attn{sfx}``. Bound: the tokens read
+    and written once and the qkv and projection weights read once, against
+    the products (4 C^2 a token) and the attention (4 n C a token: the
+    window's n tokens, padding included, as keys, the real tokens alone as
+    queries) at the bf16 or 3xTF32 rate."""
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+    from mask_bev_tpu_torch.ops import window_msa as kwmsa
+
+    esz = 4 if f32 else 2
+    rate = PEAK["tf32x3" if f32 else "bf16"]
+    err_abs = err_rel = ms_k = ms_p = ops = byts = g_ops = 0.0
+    calls, shapes = [], []
+    for (a, kw) in captured:
+        got = kwmsa.window_msa(*a, **kw)
+        want = kwmsa.window_msa_grid_plain(*a, **kw)
+        e = float((got.float() - want.float()).abs().max())
+        err_abs = max(err_abs, e)
+        err_rel = max(err_rel, e / float(want.float().abs().max()))
+        ms_k += cuda_ms(torch, lambda: kwmsa.window_msa(*a, **kw), 5)
+        ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_grid_plain(
+            *a, **kw), 1)
+        y, hw, win, shift, rel, qkv, proj, heads = a
+        b_, l_, c_ = y.shape
+        g_ops += 2.0 * b_ * l_ * 4 * c_ * c_
+        ops += 4.0 * b_ * l_ * win * win * c_
+        byts += 2 * b_ * l_ * c_ * esz + 4 * c_ * c_ * esz
+        shapes.append(f"{hw[0]}x{hw[1]} C{c_} h{heads} shift {shift}")
+        calls.append((kswin.gemm("window_msa", y.reshape(-1, c_), qkv,
+                                 kswin.EPI_BIAS), qkv.bias, rel, b_,
+                      hw, heads, win, shift))
+    # bf16: both sides round qkv, probabilities and heads to bf16;
+    # f32: the same f32 operations in another order
+    tol = 1e-3 if f32 else 2e-2
+    record("window_msa" + sfx, "mask_bev_tpu_torch/csrc/window_msa.cu",
+           "mask_bev_tpu/ops/pallas_window_msa.py:71", err_abs,
+           float("nan"), ms_k, ms_p, bound(byts, g_ops / rate + ops / rate),
+           f"largest error relative to its block's max-abs "
+           f"{err_rel:.4g} (tolerance {tol}); {len(captured)} {what} "
+           f"summed: {shapes}", ok=err_rel <= tol)
+    # ---- kernel 7's attention alone, with an SDPA yardstick ------------
+    attn_phase(torch, kswin, record, "window_msa_attn" + sfx,
+               "mask_bev_tpu/ops/pallas_window_msa.py:71", calls, True, f32,
+               card)
+
+
 def canvas_phase(torch, kcanvas, rec, name, args) -> None:
     """Kernel 2 alone on inputs captured from a forward (table, cells,
     num_pillars, mean, var, scale, bias, grid, eps): held against its plain
@@ -1289,7 +1595,8 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
     windows (the library yardstick: q, k, v (B*nW, h, n, hd) and a float
     mask rel + shift mask; used on no path). Bound: qkv read and the
     output written once, the bias read once a head, against the products
-    (4 n C a padded token) at the bf16 or 3xTF32 rate."""
+    (4 n C a real token; the padded tokens are keys only) at the bf16 or
+    3xTF32 rate."""
     import torch.nn.functional as F
 
     err_rel = err_abs = ms_k = ms_p = ms_l = byts = ops = 0.0
@@ -1311,9 +1618,8 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
             q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
         del q, k, v, mask, got, want
         c = qkv.shape[1] // 3
-        hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
         byts += 4 * qkv.shape[0] * c * qkv.element_size() + rel.numel() * 4
-        ops += 4.0 * b * hp * wp * win * win * c
+        ops += 4.0 * b * hw[0] * hw[1] * win * win * c
     tol = 1e-4 if f32 else 1e-2
     record(name, ATTN_SOURCE, replaces, err_abs, float("nan"), ms_k, ms_p,
            bound(byts, ops / PEAK["tf32x3" if f32 else "bf16"]),

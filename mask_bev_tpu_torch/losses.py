@@ -3,8 +3,9 @@
 Port of ``mask_bev_tpu/losses.py``: GT crops (:99-162), the matching costs
 (:165-250: 2 * class + 5 * point-sampled binary CE + 5 * dice), the class
 weights (:187), the per-layer losses (:273-387: class CE weighted by class,
-sigmoid BCE and dice on uncertainty-sampled points, normalised by the
-global count of GT masks) and their sum over all L+1 head passes
+sigmoid BCE and dice on uncertainty-sampled points and, with height logits
+and GT heights, the 12-way height CE on the matched queries, normalised by
+the global count of GT masks) and their sum over all L+1 head passes
 (:390-472), with the assignments of all L*B problems solved at once
 (``ops/hungarian.py``, kernel C on the card). The loss maths runs in f32.
 
@@ -185,6 +186,17 @@ def match_costs(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
                 + cfg.head_dice_weight * dice_cost(pred_pts, gt_pts))
 
 
+def height_bins(gt_heights: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """GT heights (metres) -> bin ``clip(round((h - 1) / 0.2) + 1, 0,
+    bins - 1)`` (int64), in f32 as the JAX package computes it: a true
+    division by f32 0.2 (the divisor is a tensor, since the card divides
+    by a Python scalar as a product with its reciprocal), rounded half to
+    even."""
+    h = gt_heights.float()
+    q = torch.round((h - 1.0) / torch.full_like(h, 0.2))
+    return torch.clamp(q.to(torch.int64) + 1, 0, num_bins - 1)
+
+
 def _draw_match_coords(b: int, cfg: MaskBevConfig, generator, device):
     return torch.rand((b, cfg.head_num_points, 2), generator=generator,
                       device=device)
@@ -194,9 +206,13 @@ def layer_losses(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
                  gt_labels: torch.Tensor, gt_masks: torch.Tensor,
                  gt_valid: torch.Tensor, cfg: MaskBevConfig, *,
                  generator=None, match_coords=None, loss_coords=None,
-                 gt_crop=None, match_result: Optional[MatchResult] = None
+                 gt_crop=None, match_result: Optional[MatchResult] = None,
+                 height_logits: Optional[torch.Tensor] = None,
+                 gt_heights: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], MatchResult]:
-    """Losses of one head pass, normalised by global batch counts.
+    """Losses of one head pass, normalised by global batch counts;
+    ``loss_height`` too when ``height_logits`` (B, Q, bins) and
+    ``gt_heights`` (B, G) are both given.
 
     ``match_result``: use this assignment instead of solving one here.
     ``match_coords`` (B, P, 2) / ``loss_coords`` (B*Q, P, 2): pinned points;
@@ -275,16 +291,28 @@ def layer_losses(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
     den = pr.sum(-1) + tgt_pts.sum(-1)
     dice = 1.0 - (num + 1.0) / (den + 1.0)
     loss_dice = cfg.head_dice_weight * (dice * wmask).sum() / num_total_masks
-    return ({"loss_cls": loss_cls, "loss_mask": loss_mask,
-             "loss_dice": loss_dice}, mr)
+    out = {"loss_cls": loss_cls, "loss_mask": loss_mask,
+           "loss_dice": loss_dice}
+    if height_logits is not None and gt_heights is not None:
+        hbin = height_bins(gt_heights, cfg.head_num_height_bins)
+        tgt_h = torch.gather(hbin, 1, safe_gt)  # (B, Q)
+        logp_h = torch.log_softmax(height_logits.float(), dim=-1)
+        ce_h = -torch.gather(logp_h, 2, tgt_h[..., None])[..., 0]
+        out["loss_height"] = (cfg.head_height_weight
+                              * (ce_h * mr.matched.float()).sum()
+                              / num_total_masks)
+    return out, mr
 
 
 def maskbev_loss(outputs: DecoderOutputs, gt_labels: torch.Tensor,
                  gt_masks: torch.Tensor, gt_valid: torch.Tensor,
                  cfg: MaskBevConfig, *, generator=None,
                  coords: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
-                 = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Deep-supervised loss over all L+1 head passes -> (total, logs).
+                 = None, gt_heights: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Deep-supervised loss over all L+1 head passes -> (total, logs);
+    with ``gt_heights`` and the outputs' height logits, ``loss_height``
+    too.
 
     ``coords``: per head pass, the pinned ``(match_coords (B, P, 2),
     loss_coords (B*Q, P, 2))``; otherwise drawn from ``generator``. Logs
@@ -314,10 +342,13 @@ def maskbev_loss(outputs: DecoderOutputs, gt_labels: torch.Tensor,
     mt = mt.reshape(n_layers, b, -1)
 
     # pass 3: each head pass's losses under its assignment
+    heights = outputs.height_logits
     per_layer = [layer_losses(
         outputs.cls_logits[li], outputs.mask_logits[li], gt_labels, gt_masks,
         gt_valid, cfg, generator=generator, loss_coords=coords[li][1],
-        gt_crop=gt_crop, match_result=MatchResult(gq[li], mt[li]))[0]
+        gt_crop=gt_crop, match_result=MatchResult(gq[li], mt[li]),
+        height_logits=None if heights is None else heights[li],
+        gt_heights=gt_heights)[0]
         for li in range(n_layers)]
     logs = {}
     total = None

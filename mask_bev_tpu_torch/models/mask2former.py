@@ -24,6 +24,11 @@ and no antialias, blocked where sigmoid < 0.5, fully blocked rows cleared,
 detached); layer ``i`` reads memory level ``i % 3``; the L+1 head passes
 stack along a leading axis.
 
+With ``predict_height`` the heads hold ``height_embed`` (``num_height_bins``
+logits from the normed query, ``_heads_apply`` :136-139); every form fills
+``height_logits`` from the head passes it runs: the final one (kernel 5's
+output, or the per-layer decoder's last queries), or all L+1 in training.
+
 Layer ``i`` is module ``layer{i}`` (``cross``, ``self_attn``, ``norm1..3``,
 ``ffn``); the weight bridge maps the JAX scan layout ``layers/lvl{l}_*``
 (layer ``3g + l`` is slice ``g``) onto it.
@@ -49,7 +54,7 @@ class DecoderOutputs(NamedTuple):
 
     cls_logits: torch.Tensor  # (L+1 | 1, B, Q, num_classes + 1)
     mask_logits: torch.Tensor  # (L+1 | 1, B, Q, H/4, W/4)
-    height_logits: Optional[torch.Tensor]
+    height_logits: Optional[torch.Tensor]  # (L+1 | 1, B, Q, bins) or None
 
 
 class MultiHeadAttention(nn.Module):
@@ -128,7 +133,8 @@ class DecoderLayer(nn.Module):
 
 class MaskHeads(nn.Module):
     def __init__(self, num_classes: int, feat_channels: int,
-                 out_channels: int):
+                 out_channels: int, predict_height: bool = False,
+                 num_height_bins: int = 12):
         super().__init__()
         c = feat_channels
         self.decoder_norm = LayerNorm(c, fast_variance=False)
@@ -136,6 +142,8 @@ class MaskHeads(nn.Module):
         self.mask_mlp1 = nn.Linear(c, c)
         self.mask_mlp2 = nn.Linear(c, c)
         self.mask_mlp3 = nn.Linear(c, out_channels)
+        self.height_embed = (nn.Linear(c, num_height_bins) if predict_height
+                             else None)
 
     def mask_embed(self, query):
         """``_mask_embed``: (normed query, mask embedding) in XLA order."""
@@ -145,12 +153,15 @@ class MaskHeads(nn.Module):
         return x, linear(y, self.mask_mlp3)
 
     def forward(self, query, mask_features):
-        """``_heads_apply``: class logits and full-resolution mask logits."""
+        """``_heads_apply``: class logits, full-resolution mask logits and
+        the height logits (None without ``height_embed``)."""
         x, emb = self.mask_embed(query)
         cls_logits = linear(x, self.cls_embed)
         mask_logits = torch.einsum("bqc,bhwc->bqhw", emb.float(),
                                    mask_features.float()).to(query.dtype)
-        return cls_logits, mask_logits
+        height = (None if self.height_embed is None
+                  else linear(x, self.height_embed))
+        return cls_logits, mask_logits, height
 
     def weights(self) -> HeadWeights:
         def w(lin):
@@ -186,7 +197,8 @@ class Mask2FormerDecoder(nn.Module):
                  num_layers: int = 9, feat_channels: int = 256,
                  out_channels: int = 256, num_heads: int = 8,
                  ffn_dim: int = 2048, num_levels: int = 3,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, predict_height: bool = False,
+                 num_height_bins: int = 12):
         super().__init__()
         c = feat_channels
         self.use_kernel = use_kernel
@@ -195,7 +207,8 @@ class Mask2FormerDecoder(nn.Module):
         self.query_feat = nn.Parameter(torch.zeros(num_queries, c))
         self.query_embed = nn.Parameter(torch.zeros(num_queries, c))
         self.level_embed = nn.Parameter(torch.zeros(num_levels, c))
-        self.heads = MaskHeads(num_classes, c, out_channels)
+        self.heads = MaskHeads(num_classes, c, out_channels, predict_height,
+                               num_height_bins)
         for i in range(num_layers):
             self.add_module(f"layer{i}", DecoderLayer(c, ffn_dim, num_heads))
         self._packed = None
@@ -253,8 +266,14 @@ class Mask2FormerDecoder(nn.Module):
         out_f = decoder_stack(*self.stack_inputs(mask_features, memories),
                               layers, head, num_heads=self.num_heads,
                               packed=packed)
-        cls_f, mask_f = self.heads(out_f, mask_features)
-        return DecoderOutputs(cls_f[None], mask_f[None], None)
+        return self.final_outputs(out_f, mask_features)
+
+    def final_outputs(self, out_f, mask_features) -> DecoderOutputs:
+        """The final head pass on the stack's last queries, stacked along a
+        leading axis of 1."""
+        cls_f, mask_f, h_f = self.heads(out_f, mask_features)
+        return DecoderOutputs(cls_f[None], mask_f[None],
+                              None if h_f is None else h_f[None])
 
     def forward_layers_final(self, mask_features: torch.Tensor,
                              memories: Sequence[torch.Tensor]
@@ -272,8 +291,7 @@ class Mask2FormerDecoder(nn.Module):
             out = getattr(self, f"layer{i}")(out, qpos[None], mems[lvl],
                                              pes[lvl], bias)
             _, emb = self.heads.mask_embed(out)
-        cls_f, mask_f = self.heads(out, mask_features)
-        return DecoderOutputs(cls_f[None], mask_f[None], None)
+        return self.final_outputs(out, mask_features)
 
     def forward_layers(self, mask_features: torch.Tensor,
                        memories: Sequence[torch.Tensor]) -> DecoderOutputs:
@@ -283,18 +301,17 @@ class Mask2FormerDecoder(nn.Module):
         mems, pes, hws = self.flat_memories(memories)
         out = self.query_feat[None].expand(b, -1, -1)
         qpos = self.query_embed[None]
-        cls_l, mask_l = self.heads(out, mask_features)
-        cls_all, mask_all = [cls_l], [mask_l]
+        passes = [self.heads(out, mask_features)]
         for i in range(self.num_layers):
             lvl = i % nl
-            bias = make_attn_bias(mask_l, hws[lvl])
+            bias = make_attn_bias(passes[-1][1], hws[lvl])
             out = getattr(self, f"layer{i}")(out, qpos, mems[lvl], pes[lvl],
                                              bias)
-            cls_l, mask_l = self.heads(out, mask_features)
-            cls_all.append(cls_l)
-            mask_all.append(mask_l)
-        return DecoderOutputs(torch.stack(cls_all), torch.stack(mask_all),
-                              None)
+            passes.append(self.heads(out, mask_features))
+        cls_all, mask_all, h_all = zip(*passes)
+        return DecoderOutputs(
+            torch.stack(cls_all), torch.stack(mask_all),
+            None if h_all[0] is None else torch.stack(h_all))
 
     def kernel_inputs(self, cuda: bool, num_levels: int):
         """(layers, head, packed) for ``decoder_stack``; on CUDA built once

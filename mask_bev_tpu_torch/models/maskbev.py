@@ -9,7 +9,15 @@ kernel or the XLA-form blocks, whose attention is the window-MSA kernel
 with ``use_pallas_attention``; ``fuse_patch_embed``: the patch-embed
 kernel where :meth:`MaskBev.flat_embed_ok`; ``use_pallas_head``: the
 decoder-stack kernel, or the per-layer decoder; the canvas kernel
-always). Every kernel takes the model's dtype, bf16 or f32. ``train=True,
+always). Every kernel takes the model's dtype, bf16 or f32. The model
+options run as in the JAX package: ``predict_height`` (the height head and
+``DecoderOutputs.height_logits``), ``backbone_use_abs_emb`` with
+``backbone_swap_dims`` (the absolute position embedding after
+``patch_norm``; it keeps kernel 8 off), ``encoder_encoding_type`` fourier
+or cosine and more than 4 point columns (the capped stream with the plain
+pillar feature net: kernels 1 and 10 take only vanilla points of at most
+4 columns) and ``pixel_decoder_num_attn_layers`` (the refinement blocks,
+kernel 7 at eval). ``train=True,
 final_only=False`` is the training forward (training encoder with kernel A
 and its backward B, plain-torch backbone and decoder, all L+1 head passes).
 Gradients are tracked as usual: the serving entry point
@@ -37,10 +45,6 @@ class MaskBev(nn.Module):
         if strides[1:] != (2, 2, 2):
             raise ValueError(f"backbone_strides[1:] must be (2, 2, 2), got "
                              f"{strides}")
-        if c.backbone_use_abs_emb or c.predict_height:
-            raise NotImplementedError(
-                "absolute position embedding and height heads are not "
-                "ported yet")
         self.encoder = MaskBevEncoder(
             c.x_range, c.y_range, c.z_range, c.voxel_size,
             feat_channels=tuple(c.encoder_feat_channels),
@@ -48,7 +52,10 @@ class MaskBev(nn.Module):
             point_dim=c.pc_point_dim,
             pseudo_image_norm=c.pseudo_image_norm,
             encoding_type=c.encoder_encoding_type,
+            fourier_enc_group=c.encoder_fourier_enc_group,
             max_pillars=c.max_num_pillars, use_pallas=c.use_pallas_encoder)
+        h, w = self.encoder.grid_hw
+        grid = (-(-h // strides[0]), -(-w // strides[0]))
         self.backbone = SwinTransformer(
             c.encoder_feat_channels[-1], embed_dim=c.backbone_embed_dim,
             depths=tuple(c.backbone_depths),
@@ -58,7 +65,10 @@ class MaskBev(nn.Module):
             quantize_int8=(c.backbone_quantize == "int8"),
             drop_path_rate=c.backbone_drop_path_rate,
             remat=c.remat_backbone, use_pallas=c.use_pallas_attention,
-            use_pallas_block=c.use_pallas_backbone)
+            use_pallas_block=c.use_pallas_backbone,
+            use_abs_pos_embed=c.backbone_use_abs_emb,
+            abs_pos_grid=grid,
+            swap_dims=c.backbone_swap_dims)
         self.cfg = c
         e = c.backbone_embed_dim
         self.pixel_decoder = PixelDecoder(
@@ -71,13 +81,15 @@ class MaskBev(nn.Module):
             feat_channels=c.head_feat_channels,
             out_channels=c.head_out_channels,
             num_heads=c.head_num_attn_heads, ffn_dim=c.head_ffn_dim,
-            use_kernel=c.use_pallas_head)
+            use_kernel=c.use_pallas_head, predict_height=c.predict_height,
+            num_height_bins=c.head_num_height_bins)
 
     def random_state_dict(self, seed: int) -> dict:
         """Random weights from ``seed`` (an explicit CPU generator), at the
         scales a trained model keeps: fan-in-scaled matrices, norm weights
         near 1, small biases, unit-variance queries, batch-norm statistics
-        away from the identity."""
+        away from the identity, an absolute position embedding at 0.02 (the
+        JAX initialiser's ``truncated_normal(0.02)`` scale)."""
         gen = torch.Generator().manual_seed(seed)
         mats = {f"{mn}.weight" for mn, m in self.named_modules()
                 if isinstance(m, (nn.Linear, nn.Conv2d))}
@@ -97,7 +109,7 @@ class MaskBev(nn.Module):
                 v = 1.0 + 0.1 * r
             elif leaf == "bias":
                 v = 0.02 * r
-            elif leaf == "rel_pos_bias_table":
+            elif leaf in ("rel_pos_bias_table", "absolute_pos_embed"):
                 v = 0.02 * r
             else:  # query_feat, query_embed, level_embed
                 v = r
@@ -130,6 +142,6 @@ class MaskBev(nn.Module):
             x = self.encoder(points, point_mask, train=train)
             feats = self.backbone(x, train=train, generator=generator,
                                   fused_embed=self.flat_embed_ok(train))
-            mask_features, memories = self.pixel_decoder(feats)
+            mask_features, memories = self.pixel_decoder(feats, train=train)
             return self.decoder(mask_features, memories,
                                 final_only=final_only)

@@ -1,11 +1,45 @@
-"""DETR sine positional encoding (port of
-``mask_bev_tpu/models/positional.py::sine_positional_encoding_2d``). The
-learnable Fourier encoding is not ported yet."""
+"""Positional encodings (port of ``mask_bev_tpu/models/positional.py``):
+the learnable Fourier encoding of the pillar encoder's points and the DETR
+sine encoding of the decoder's memories."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class LearnableFourierPositionalEncoding(nn.Module):
+    """Positions (..., G*M) -> encodings (..., G*D): ``r = [cos(x W_r),
+    sin(x W_r)] / sqrt(F)`` (``W_r`` without bias), then ``mlp_hidden``,
+    exact-erf GELU and ``mlp_out``, the same weights for every group
+    (arXiv 2106.02795 Alg. 1; JAX :20-48). Products in the operand dtype,
+    the bias added after the product rounds, as flax's ``nn.Dense``."""
+
+    def __init__(self, groups: int = 1, m_dim: int = 3, f_dim: int = 128,
+                 h_dim: int = 64, d_dim: int = 16):
+        super().__init__()
+        self.groups, self.m_dim, self.f_dim = groups, m_dim, f_dim
+        self.d_dim = d_dim
+        self.w_r = nn.Linear(m_dim, f_dim // 2, bias=False)
+        self.mlp_hidden = nn.Linear(f_dim, h_dim)
+        self.mlp_out = nn.Linear(h_dim, d_dim)
+
+    def forward(self, pos: torch.Tensor) -> torch.Tensor:
+        lead = pos.shape[:-1]
+        if pos.shape[-1] != self.groups * self.m_dim:
+            raise ValueError(
+                f"Fourier encoding of {self.groups} groups of {self.m_dim} "
+                f"coordinates: positions have {pos.shape[-1]} columns")
+        x = pos.reshape(*lead, self.groups, self.m_dim)
+        w = x @ self.w_r.weight.t()
+        f = torch.cat([torch.cos(w), torch.sin(w)], dim=-1) / math.sqrt(
+            self.f_dim)
+        y = f @ self.mlp_hidden.weight.t() + self.mlp_hidden.bias
+        y = F.gelu(y, approximate="none")
+        y = y @ self.mlp_out.weight.t() + self.mlp_out.bias
+        return y.reshape(*lead, self.groups * self.d_dim)
 
 
 def sine_positional_encoding_2d(h: int, w: int, num_feats: int = 128,

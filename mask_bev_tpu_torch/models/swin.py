@@ -14,7 +14,12 @@ otherwise a block runs as the XLA form, its window attention as kernel 7
 (with ``use_pallas_block``) runs ``patch_norm`` and ``out_norm{i}`` as
 kernel 9 (``ops/layer_norm.py``). ``forward(..., fused_embed=True)`` runs
 the patch embed and ``patch_norm`` as kernel 8 (``ops/patch_embed.py``);
-the caller checks the conditions (``models/maskbev.py``). The blocks' and
+the caller checks the conditions (``models/maskbev.py``). With
+``use_abs_pos_embed`` the parameter ``absolute_pos_embed`` (gh, gw, C) of
+the grid ``abs_pos_grid`` is added after ``patch_norm`` (JAX :558-569):
+transposed first with ``swap_dims``, then, where its grid is not the
+runtime one, resized by ``ops/resize.py::resize_bicubic`` (the JAX
+package's ``jax.image.resize(..., "bicubic")``). The blocks' and
 the decoder's norms are the JAX ``LayerNormP`` (two-pass variance); the
 patch, output and merging norms are flax ``nn.LayerNorm`` (fast variance).
 
@@ -30,7 +35,7 @@ recomputed in the backward pass by ``torch.utils.checkpoint`` (JAX
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,7 @@ from torch import nn
 
 from mask_bev_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from mask_bev_tpu_torch.ops.patch_embed import embed_matrix, patch_embed
+from mask_bev_tpu_torch.ops.resize import resize_bicubic
 from mask_bev_tpu_torch.ops.swin_block import (
     BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm_p,
     make_dense, rel_bias_from_table, split_tf32, swin_block,
@@ -205,7 +211,10 @@ class SwinTransformer(nn.Module):
                  patch_stride: int = None, mlp_ratio: int = 4,
                  quantize_int8: bool = False, drop_path_rate: float = 0.0,
                  remat: bool = False, use_pallas: bool = True,
-                 use_pallas_block: bool = True, fuse_ln: bool = False):
+                 use_pallas_block: bool = True, fuse_ln: bool = False,
+                 use_abs_pos_embed: bool = False,
+                 abs_pos_grid: Optional[Tuple[int, int]] = None,
+                 swap_dims: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.remat = remat
@@ -219,6 +228,15 @@ class SwinTransformer(nn.Module):
         self.patch_embed = nn.Conv2d(in_channels, embed_dim, patch_size,
                                      stride=self.stride)
         self.patch_norm = LayerNorm(embed_dim)
+        self.swap_dims = swap_dims
+        if use_abs_pos_embed:
+            if abs_pos_grid is None:
+                raise ValueError("the absolute position embedding needs its "
+                                 "grid (abs_pos_grid)")
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(*abs_pos_grid, embed_dim))
+        else:
+            self.absolute_pos_embed = None
         dim = embed_dim
         for i, depth in enumerate(self.depths):
             for d in range(depth):
@@ -264,6 +282,17 @@ class SwinTransformer(nn.Module):
             out.append((u < keep).float() / keep)
         return out
 
+    def pos_embed(self, gh: int, gw: int) -> torch.Tensor:
+        """The absolute position embedding at the (gh, gw) token grid:
+        transposed with ``swap_dims``, resized bicubically where its grid
+        differs (JAX :564-568)."""
+        ape = self.absolute_pos_embed
+        if self.swap_dims:
+            ape = ape.transpose(0, 1)
+        if tuple(ape.shape[:2]) != (gh, gw):
+            ape = resize_bicubic(ape, (gh, gw, ape.shape[2]))
+        return ape.reshape(1, gh * gw, ape.shape[2])
+
     def _norm(self, name: str, x: torch.Tensor, fuse_blocks: bool):
         """``patch_norm``/``out_norm{i}``: kernel 9 with ``fuse_ln`` on the
         fused eval path, else the module (JAX ``_ln``, :516-527)."""
@@ -297,6 +326,8 @@ class SwinTransformer(nn.Module):
             x = self._norm("patch_norm", x.reshape(b, gh * gw,
                                                    self.embed_dim),
                            fuse_blocks)
+        if self.absolute_pos_embed is not None:
+            x = x + self.pos_embed(gh, gw).to(x.dtype)
         hw = (gh, gw)
         outs = []
         bi = 0

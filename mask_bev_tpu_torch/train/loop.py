@@ -205,6 +205,8 @@ class Trainer:
                         "loss_cls": float(logs["loss_cls"]),
                         "loss_mask": float(logs["loss_mask"]),
                         "loss_dice": float(logs["loss_dice"]),
+                        **({"loss_height": float(logs["loss_height"])}
+                           if "loss_height" in logs else {}),
                         "sec_per_step": (time.time() - t0) / (i + 1),
                     })
         return float(np.mean(losses)) if losses else float("nan")

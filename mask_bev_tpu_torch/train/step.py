@@ -8,7 +8,8 @@ it raises). :func:`train_step` runs, inside
 :func:`~mask_bev_tpu_torch.utils.precision.cast_parameters`, the training
 forward on the compute-dtype cast of the parameters and the points
 (``MaskBev(train=True, final_only=False)``: every head pass), the loss in f32
-(``losses.py::maskbev_loss``, the matcher on the card), and the gradients,
+(``losses.py::maskbev_loss``, the matcher on the card; the height term
+from the batch's ``gt_heights`` with ``predict_height``), and the gradients,
 which reach the f32 masters through the cast; then the optimizer step. The
 running statistics are updated in place by the forward and stay f32.
 :func:`eval_step` runs the eval forward with every head pass
@@ -82,7 +83,8 @@ def loss_and_grads(state: TrainState, batch, generator=None, *,
                     final_only=False, generator=generator)
         total, logs = maskbev_loss(
             out, b["gt_labels"], b["gt_masks"], b["gt_valid"], cfg,
-            generator=generator, coords=coords)
+            generator=generator, coords=coords,
+            gt_heights=_gt_heights(cfg, b))
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
@@ -104,6 +106,12 @@ def train_step(state: TrainState, batch, generator=None, *, coords=None
         state.lr_scale)
     state.step += 1
     return state, logs, outputs
+
+
+def _gt_heights(cfg: MaskBevConfig, b: Dict[str, torch.Tensor]):
+    """The batch's GT heights where the configuration predicts heights
+    (JAX :88, :121), else None."""
+    return b.get("gt_heights") if cfg.predict_height else None
 
 
 def _device_batch(state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -144,7 +152,7 @@ def eval_step(state: TrainState, batch, generator=None, *, coords=None
                           train=False, final_only=False)
         _, logs = maskbev_loss(out, b["gt_labels"], b["gt_masks"],
                                b["gt_valid"], cfg, generator=generator,
-                               coords=coords)
+                               coords=coords, gt_heights=_gt_heights(cfg, b))
     return logs, out
 
 

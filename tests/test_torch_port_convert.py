@@ -74,5 +74,10 @@ def test_leftover_and_missing_keys_raise():
         load_flax(MaskBev(tiny_test_config()), v)
     v = _variables((1, 1, 2, 1))
     v["params"]["backbone"]["absolute_pos_embed"] = np.zeros((2, 2, 48))
+    # the embedding maps to a port key, which a model without it lacks
+    with pytest.raises(KeyError, match="left over"):
+        load_flax(MaskBev(tiny_test_config()), v)
+    v = _variables((1, 1, 2, 1))
+    v["params"]["backbone"]["pos_scale"] = np.zeros((2, 2, 48))
     with pytest.raises(KeyError, match="no place"):
         from_flax(v)
