@@ -27,6 +27,7 @@ from mask_bev_tpu_torch.config import MaskBevConfig
 from mask_bev_tpu_torch.datasets.kitti.kitti_dataset import (
     CAR_LIKE, KittiDataset, KittiFrame, KittiOccluded, read_split_ids)
 from mask_bev_tpu_torch.datasets.kitti.kitti_rasterizer import KittiRasterizer
+from mask_bev_tpu_torch.parallel import distributed
 
 
 def object_range_filter(frame: KittiFrame, x_range, y_range) -> KittiFrame:
@@ -157,11 +158,15 @@ class KittiMaskDataModule:
         order = list(ids)
         if train and self.cfg.shuffle_train:
             np.random.default_rng(seed).shuffle(order)
+        # the rank's rows of each global batch (all of them without a
+        # process group)
+        pos, rows = distributed.rank_positions(len(order),
+                                               self.cfg.batch_size)
         stream = sample_stream(
             lambda i, rng: self.sample(i, train, rng), order, seed,
-            num_workers=self.cfg.num_workers)
+            num_workers=self.cfg.num_workers, positions=pos)
         # drop_last batching (ref :108-110)
-        yield from batched(stream, self.cfg.batch_size, len(order))
+        yield from batched(stream, rows, len(pos))
 
     def train_batches(self, seed: int = 0) -> Iterator[Dict]:
         return self._epoch(self.train_ids, True, seed)

@@ -41,6 +41,7 @@ from mask_bev_tpu_torch.datasets.semantic_kitti.dataset import (
 from mask_bev_tpu_torch.datasets.semantic_kitti.rasterizer import SemanticKittiRasterizer
 from mask_bev_tpu_torch.datasets.semantic_kitti.scene import SceneMaker
 from mask_bev_tpu_torch.datasets.semantic_kitti.taxonomy import LearningLabel, RawLabel
+from mask_bev_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -243,9 +244,14 @@ class SemanticKittiMaskDataModule:
                 ds[i], self.cfg,
                 augmentations=self.augmentations if train else None, rng=rng))
 
+        # the rank's rows of each global batch (all of them without a
+        # process group)
+        pos, rows = distributed.rank_positions(len(order),
+                                               self.cfg.batch_size)
         stream = sample_stream(sample, order, seed,
-                               num_workers=self.cfg.num_workers)
-        yield from batched(stream, self.cfg.batch_size, len(order))
+                               num_workers=self.cfg.num_workers,
+                               positions=pos)
+        yield from batched(stream, rows, len(pos))
 
     def train_batches(self, seed: int = 0) -> Iterator[Dict]:
         return self._epoch("train", True, seed)
@@ -262,13 +268,13 @@ class SemanticKittiMaskDataModule:
 
         ds = SemanticKittiDataset(self.root, "test")
         c = self.cfg
-        b = c.batch_size
+        pos, b = distributed.rank_positions(len(ds), c.batch_size)
         n = c.max_points_per_scan
-        for start in range(0, len(ds) - b + 1, b):
+        for start in range(0, len(pos), b):
             pts = np.zeros((b, n, c.pc_point_dim), np.float32)
             pmask = np.zeros((b, n), bool)
             for j in range(b):
-                pc = ds[start + j].point_cloud
+                pc = ds[pos[start + j]].point_cloud
                 take = min(pc.shape[0], n)
                 pts[j, :take] = pc[:take, : c.pc_point_dim]
                 pmask[j, :take] = True

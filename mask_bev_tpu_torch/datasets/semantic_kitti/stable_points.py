@@ -16,6 +16,7 @@ from mask_bev_tpu_torch.config import MaskBevConfig
 from mask_bev_tpu_torch.datasets.semantic_kitti.dataset import (
     SemanticKittiDataset)
 from mask_bev_tpu_torch.datasets.semantic_kitti.taxonomy import RawLabel
+from mask_bev_tpu_torch.parallel import distributed
 
 
 class SemanticKittiStablePointsDataModule:
@@ -51,12 +52,13 @@ class SemanticKittiStablePointsDataModule:
         order = list(indices)
         if shuffle:
             rng.shuffle(order)
-        b = self.cfg.batch_size
+        pos, b = distributed.rank_positions(len(order), self.cfg.batch_size)
         n = self.cfg.max_points_per_scan
-        for start in range(0, len(order) - b + 1, b):
+        for start in range(0, len(pos), b):
             pts = np.zeros((b, n, self.cfg.pc_point_dim), np.float32)
             mask = np.zeros((b, n), bool)
-            for j, i in enumerate(order[start : start + b]):
+            for j, p in enumerate(pos[start:start + b]):
+                i = order[p]
                 pc = self._get_points(i)
                 take = min(pc.shape[0], n)
                 pts[j, :take] = pc[:take, : self.cfg.pc_point_dim]

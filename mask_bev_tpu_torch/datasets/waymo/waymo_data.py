@@ -36,6 +36,7 @@ import numpy as np
 from mask_bev_tpu_torch.config import MaskBevConfig
 from mask_bev_tpu_torch.datasets.kitti.kitti_rasterizer import (
     fill_rotated_boxes)
+from mask_bev_tpu_torch.parallel import distributed
 
 TYPE_UNKNOWN, TYPE_VEHICLE, TYPE_PEDESTRIAN, TYPE_SIGN, TYPE_CYCLIST = range(5)
 
@@ -189,10 +190,14 @@ class WaymoDataModule:
         order = np.arange(len(ds))
         if train and self.cfg.shuffle_train:
             np.random.default_rng(seed).shuffle(order)
+        # the rank's rows of each global batch (all of them without a
+        # process group)
+        pos, rows = distributed.rank_positions(len(order),
+                                               self.cfg.batch_size)
         stream = sample_stream(
             lambda i, rng: self.sample(ds, i, train, rng), order, seed,
-            num_workers=self.cfg.num_workers)
-        yield from batched(stream, self.cfg.batch_size, len(order))
+            num_workers=self.cfg.num_workers, positions=pos)
+        yield from batched(stream, rows, len(pos))
 
     def train_batches(self, seed: int = 0) -> Iterator[Dict]:
         return self._epoch(self.train_dataset, True, seed)

@@ -8,10 +8,15 @@ and GT heights, the 12-way height CE on the matched queries, normalised by
 the global count of GT masks) and their sum over all L+1 head passes
 (:390-472), with the assignments of all L*B problems solved at once
 (``ops/hungarian.py``, kernel C on the card). The loss maths runs in f32.
+Under a process group each rank holds its rows of the global batch: the
+normalisers (the GT mask count, the class-weight sum) are summed over the
+ranks, so a rank's loss is its part of the global loss and the ranks'
+losses add up to the one-process loss.
 
 Random draws come from an explicit ``torch.Generator``, in this order: the
 matching points (B, P, 2) of every head pass, then per head pass the
-candidate and fill points of the loss's importance sampling. Tests pin
+candidate and fill points of the loss's importance sampling; each draw of
+a global batch's tensor is drawn whole and cut to the rank's rows. Tests pin
 every draw instead: ``match_coords``/``loss_coords`` for one pass
 (:func:`layer_losses`), and ``coords``, one ``(match_coords,
 loss_coords)`` pair per head pass, for :func:`maskbev_loss`.
@@ -29,6 +34,7 @@ from mask_bev_tpu_torch.ops.hungarian import match
 from mask_bev_tpu_torch.ops.point_sample import (
     point_sample, point_sample_dense, point_sample_dense_per,
     point_sample_per, uncertain_point_coords)
+from mask_bev_tpu_torch.parallel.distributed import all_reduce_, rand_rows
 
 # elements of one chunked dense-sampling intermediate (f32): bounds each
 # (chunk, P, H) hat or product tensor to ~192 MB
@@ -198,8 +204,10 @@ def height_bins(gt_heights: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 
 def _draw_match_coords(b: int, cfg: MaskBevConfig, generator, device):
-    return torch.rand((b, cfg.head_num_points, 2), generator=generator,
-                      device=device)
+    """(b, P, 2) matching points: this rank's rows of the global batch's
+    draw (``parallel/distributed.py::rand_rows``)."""
+    return rand_rows((b, cfg.head_num_points, 2), generator=generator,
+                     device=device)
 
 
 def layer_losses(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
@@ -233,8 +241,6 @@ def layer_losses(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
     else:
         mr = match_result
 
-    num_total_masks = torch.clamp(gt_valid.sum().float(), min=1.0)
-
     # classification
     safe_gt = mr.gt_of_query.long().clamp(0, gt_labels.shape[1] - 1)
     matched_labels = torch.gather(gt_labels.long(), 1, safe_gt)
@@ -243,8 +249,11 @@ def layer_losses(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
     logp = torch.log_softmax(cls_logits.float(), dim=-1)
     ce = -torch.gather(logp, 2, labels[..., None])[..., 0]
     w = cw[labels]
+    # the normalisers are global: summed over the ranks' rows
+    norms = all_reduce_(torch.stack([gt_valid.sum().float(), w.sum()]))
+    num_total_masks = torch.clamp(norms[0], min=1.0)
     loss_cls = (cfg.head_cls_weight * (ce * w).sum()
-                / torch.clamp(w.sum(), min=1e-6))
+                / torch.clamp(norms[1], min=1e-6))
 
     # mask + dice on uncertainty-sampled points
     flat_masks = mask_logits.reshape(b * q, *mask_logits.shape[2:])

@@ -11,6 +11,10 @@ state_dict for :class:`mask_bev_tpu_torch.models.maskbev.MaskBev`:
   ``weight`` (the pseudo-image norm keeps its (H, W, C) shape);
 * ``MaskedBatchNorm`` ``batch_stats`` ``mean``/``var`` -> ``running_mean``/
   ``running_var``;
+* the modules MaskBev does not call: FKAConv's ``alpha``, ``beta``,
+  ``bn{i}_scale``/``bn{i}_bias`` (-> ``bn{i}.weight``/``bias``) and its
+  ``norm_radius`` batch statistic (``models/fkaconv.py``); DynamicEdgeConv's
+  Dense layers (``models/dgcnn.py``);
 * the ``nn.scan``-stacked ``backbone/stage{i}_pairs/block{b}`` trees are
   split along axis 0: slice ``g`` is block ``2g + b``;
 * the decoder's ``layers/lvl{l}_*`` trees: slice ``g`` is layer
@@ -43,7 +47,7 @@ import torch
 from mask_bev_tpu_torch.ops.resize import resize_bicubic
 
 _PLAIN_LEAVES = {"bias", "query_feat", "query_embed", "level_embed",
-                 "rel_pos_bias_table", "absolute_pos_embed"}
+                 "rel_pos_bias_table", "absolute_pos_embed", "alpha", "beta"}
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -69,6 +73,8 @@ def _leaf(path: Tuple[str, ...], a: np.ndarray, collection: str):
             return "running_mean", a
         if name == "var":
             return "running_var", a
+        if name == "norm_radius":
+            return name, a
     elif name == "kernel":
         if a.ndim == 2:
             return "weight", a.T
@@ -80,6 +86,13 @@ def _leaf(path: Tuple[str, ...], a: np.ndarray, collection: str):
         return name, a
     raise KeyError(f"flax leaf {collection}/{'/'.join(path)} "
                    f"{a.shape} has no place in the port")
+
+
+def _split_affine(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """FKAConv's instance-norm leaves ``bn1_scale``/``bn1_bias`` -> the
+    ``bn1`` module's ``scale``/``bias``."""
+    m = re.fullmatch(r"(bn\d+)_(scale|bias)", path[-1])
+    return path[:-1] + (m.group(1), m.group(2)) if m else path
 
 
 def _module_paths(path: Tuple[str, ...], a: np.ndarray, nl: int):
@@ -119,6 +132,7 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(coll, {})):
+            path = _split_affine(path)
             a = np.asarray(leaf)
             for mod, sl in _module_paths(path, a, nl):
                 name, conv = _leaf(path, np.asarray(sl), coll)

@@ -31,8 +31,9 @@ squares over the canvas equal those over the table.
 The training form (``forward(..., train=True)``) is the JAX package's
 training path: the capped stream pillarizer
 (``ops/stream_pillars.py::pillarize_stream``), the stream pillar feature net
-with masked batch norm in train mode (statistics over kept points, running
-statistics updated), the table-derived norm statistics, the differentiable
+with masked batch norm in train mode (statistics over kept points of the
+whole batch, across ranks under a process group; running statistics
+updated), the table-derived norm statistics, the differentiable
 canvas scatter (``ops/canvas.py::canvas_scatter``, kernels A and B) and the
 unfused pseudo-image norm, all in the model dtype.
 """
@@ -53,6 +54,7 @@ from mask_bev_tpu_torch.ops.pfn import (
 from mask_bev_tpu_torch.ops.stream_pillars import (
     StreamPillars, gather_at_starts, grid_size, pillarize_stream,
     pillarize_stream_packed, windowed_segment_max, windowed_segment_sum)
+from mask_bev_tpu_torch.parallel import distributed
 
 
 class MaskedBatchNorm(nn.Module):
@@ -81,12 +83,19 @@ class MaskedBatchNorm(nn.Module):
         return g, self.bias - self.running_mean * g
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (..., C) in the model dtype, mask (...,) bool."""
+        """x (..., C) in the model dtype, mask (...,) bool. Under a process
+        group the count and the sums of the mean and of the two-pass
+        variance are summed over the ranks (the two sums through a
+        differentiable all-reduce), so the statistics, and the running
+        statistics, are those of the whole batch on every rank. The count
+        is exact before its one rounding to the model dtype."""
         m = mask[..., None].to(x.dtype)
         dims = tuple(range(x.ndim - 1))
-        count = torch.clamp(m.sum(), min=1.0)
-        mean = (x * m).sum(dims) / count
-        var = ((x - mean).square() * m).sum(dims) / count
+        n = distributed.all_reduce_(mask.sum().float())
+        count = torch.clamp(n.to(x.dtype), min=1.0)
+        mean = distributed.all_reduce_sum((x * m).sum(dims)) / count
+        var = distributed.all_reduce_sum(
+            ((x - mean).square() * m).sum(dims)) / count
         with torch.no_grad():
             d = self.DECAY
             self.running_mean.copy_(self.running_mean * d

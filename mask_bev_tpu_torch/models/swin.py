@@ -50,6 +50,7 @@ from mask_bev_tpu_torch.ops.swin_block import (
     make_dense, rel_bias_from_table, split_tf32, swin_block,
     window_msa_plain)
 from mask_bev_tpu_torch.ops.window_msa import window_msa
+from mask_bev_tpu_torch.parallel.distributed import rand_rows
 
 __all__ = ["LayerNorm", "SwinBlock", "PatchMerging", "SwinTransformer",
            "int8_sim_dense", "linear", "forget_packed"]
@@ -268,7 +269,8 @@ class SwinTransformer(nn.Module):
     def drop_factors(self, batch: int, device, generator=None):
         """Per block, the training drop path factors of its two residual
         branches (None where the block's rate is 0): rates linear over depth
-        up to ``drop_path_rate``, per-sample Bernoulli keep masks / keep."""
+        up to ``drop_path_rate``, per-sample Bernoulli keep masks / keep
+        (``batch`` rows: the rank's rows of the global batch's draw)."""
         total = sum(self.depths)
         out = []
         for i in range(total):
@@ -277,8 +279,8 @@ class SwinTransformer(nn.Module):
                 out.append(None)
                 continue
             keep = 1.0 - rate
-            u = torch.rand((2, batch, 1, 1), generator=generator,
-                           device=device)
+            u = rand_rows((2, batch, 1, 1), dim=1, generator=generator,
+                          device=device)
             out.append((u < keep).float() / keep)
         return out
 

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from mask_bev_tpu_torch.parallel.distributed import rand_rows
+
 
 def _bilinear(img_at, h: int, w: int, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear samples at (..., P, 2) points; ``img_at(iy, ix)`` reads the
@@ -134,11 +136,13 @@ def uniform_draws(m: int, num_points: int, oversample_ratio: float,
                   importance_sample_ratio: float, generator=None,
                   device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
     """The two uniform draws of :func:`uncertain_point_coords`: (M,
-    n_sampled, 2) candidates and (M, n_random, 2) fill points."""
+    n_sampled, 2) candidates and (M, n_random, 2) fill points, M the
+    rank's rows of the global batch's draws (``parallel/distributed.py::
+    rand_rows``)."""
     n_sampled = int(num_points * oversample_ratio)
     n_random = num_points - int(importance_sample_ratio * num_points)
-    u1 = torch.rand((m, n_sampled, 2), generator=generator, device=device)
-    u2 = torch.rand((m, n_random, 2), generator=generator, device=device)
+    u1 = rand_rows((m, n_sampled, 2), generator=generator, device=device)
+    u2 = rand_rows((m, n_random, 2), generator=generator, device=device)
     return u1, u2
 
 

@@ -32,9 +32,14 @@ def _cpu(tree):
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str):
+    """``write=False`` keeps the index in memory without writing anything:
+    the ranks other than 0 of a process group, whose rank 0 writes."""
+
+    def __init__(self, ckpt_dir: str, write: bool = True):
         self.dir = pathlib.Path(ckpt_dir).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._index_path = self.dir / "index.json"
         self.index: Dict[str, Any] = (
             json.loads(self._index_path.read_text())
@@ -50,11 +55,15 @@ class CheckpointManager:
         return pathlib.Path(which)
 
     def _write_index(self):
+        if not self.write:
+            return
         tmp = self.dir / f"index.json.{os.getpid()}.tmp"
         tmp.write_text(json.dumps(self.index, indent=2))
         os.replace(tmp, self._index_path)
 
     def _save(self, name: str, state: Dict[str, Any]) -> None:
+        if not self.write:
+            return
         path = self.path(name)
         tmp = self.dir / f"{name}.{os.getpid()}.tmp"
         torch.save(_cpu(state), tmp)

@@ -18,7 +18,17 @@ training one seeded from ``(cfg.seed + 1, 2 e)`` and the validation one from
 ``fold_in``, so a run resumed from ``last`` draws what an unbroken one
 draws. A resume restores the whole train state (parameters, running
 statistics, optimizer moments, step, plateau scale) and the host counters.
-One process drives one device; several hosts wait for data parallelism.
+
+Data parallel (``parallel/distributed.py``): under a process group of N
+ranks, one process a device, each rank's ``Trainer`` takes its own rows of
+every global batch of ``cfg.batch_size`` rows (the data modules of
+``train_mask_bev_torch.py`` load only those; ``distributed.shard_batch``
+cuts a global batch) and runs on the rank's device. The train state starts
+as rank 0's on every rank, the steps sum the gradients, the logs and the
+losses over the ranks and the metric banks gather every rank's rows, so the
+validation loss, the plateau, ``best`` and the early stop decide alike on
+every rank. Rank 0 alone logs, dumps images and writes the checkpoints,
+the other ranks wait at a barrier after each write; every rank restores.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from mask_bev_tpu_torch.config import MaskBevConfig
+from mask_bev_tpu_torch.parallel import distributed
 from mask_bev_tpu_torch.train.checkpoint import CheckpointManager
 from mask_bev_tpu_torch.train.metrics import LayerMetricsBank
 from mask_bev_tpu_torch.train.optim import OptState, PlateauState
@@ -63,6 +74,16 @@ class MetricLogger:
 
     def close(self) -> None:
         self._f.close()
+
+
+class NullLogger:
+    """The logger of the ranks other than 0: writes and prints nothing."""
+
+    def log(self, payload: Dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def epoch_seed(seed: int, k: int) -> int:
@@ -96,9 +117,16 @@ class Trainer:
     def __init__(self, cfg: MaskBevConfig, workdir: str = "runs",
                  device="cuda"):
         self.cfg = cfg
+        world = distributed.world_size()
+        if cfg.batch_size % world:
+            raise distributed.divisibility_error(cfg.batch_size,
+                                                 "batch_size", world)
+        self.main = distributed.rank() == 0  # logs and writes
         self.workdir = pathlib.Path(workdir) / cfg.name
-        self.logger = MetricLogger(str(self.workdir), cfg.name)
-        self.ckpt = CheckpointManager(str(self.workdir / "checkpoints"))
+        self.logger = (MetricLogger(str(self.workdir), cfg.name)
+                       if self.main else NullLogger())
+        self.ckpt = CheckpointManager(str(self.workdir / "checkpoints"),
+                                      write=self.main)
         self.state = create_train_state(cfg, seed=cfg.seed, device=device)
         self.device = self.state.device
         self.plateau = PlateauState()
@@ -122,6 +150,7 @@ class Trainer:
                 for f in ("best", "bad_epochs", "scale"):
                     if f"plateau_{f}" in meta:
                         setattr(self.plateau, f, meta[f"plateau_{f}"])
+        distributed.replicate_state(self.state)
 
     def generator(self, k: int) -> torch.Generator:
         """The generator of draw stream ``k`` (2 e: training of epoch e,
@@ -190,7 +219,7 @@ class Trainer:
                                                        generator)
                 if self.cfg.compute_train_metrics:
                     self.train_metrics.update(outputs, batch, generator)
-                if i == 0 and self.cfg.log_images:
+                if i == 0 and self.cfg.log_images and self.main:
                     try:
                         self._dump_images(batch, outputs)
                     except Exception as e:  # images must never stop training
@@ -271,6 +300,7 @@ class Trainer:
                                 meta=meta)
             self.ckpt.save_best(state, self.state.step, self.epoch, val_loss,
                                 meta=meta)
+            distributed.barrier()  # rank 0's files are complete
             if bad_epochs > self.cfg.early_stop_patience:
                 self.logger.log({"phase": "early_stop",
                                  "epoch": self.epoch,

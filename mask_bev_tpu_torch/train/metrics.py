@@ -15,7 +15,8 @@ the GT grid (``F.interpolate(..., align_corners=False, antialias=False)``,
 which is ``jax.image.resize`` when upsampling), the 0.5 threshold of their
 sigmoid and the (B, Q, G) IoU matrices. The host receives small per-query
 arrays, queued and flushed every few batches (``_flush``, numpy, as in the
-JAX module). The matching points come from an explicit
+JAX module); under a process group the flush gathers every rank's arrays
+first, so each rank computes the metrics of the global batch. The matching points come from an explicit
 ``torch.Generator``; ``match_coords`` pins them, one (B, P, 2) array per
 layer.
 """
@@ -34,6 +35,8 @@ from mask_bev_tpu_torch.evaluation.detection_metric import (
 from mask_bev_tpu_torch.losses import match_costs
 from mask_bev_tpu_torch.models.mask2former import DecoderOutputs
 from mask_bev_tpu_torch.ops.hungarian import match
+from mask_bev_tpu_torch.parallel import distributed
+from mask_bev_tpu_torch.parallel.distributed import rand_rows
 
 
 @dataclasses.dataclass
@@ -93,8 +96,8 @@ def make_layer_stats_fn(cfg: MaskBevConfig, evaluated_class: int = 0):
 
 
 def _draw_match_coords(b: int, cfg: MaskBevConfig, generator, device):
-    return torch.rand((b, cfg.head_num_points, 2), generator=generator,
-                      device=device)
+    return rand_rows((b, cfg.head_num_points, 2), generator=generator,
+                     device=device)
 
 
 class LayerMetricsBank:
@@ -145,10 +148,26 @@ class LayerMetricsBank:
         if len(self._pending) >= self._max_pending:
             self._flush()
 
+    def _host_pending(self) -> List:
+        """The queued stats on the host; under a process group every
+        rank's, joined along the batch in rank order (the rows of the
+        global batch), so that every rank computes the whole batch's
+        metrics (COCO mAP does not split into per-rank parts)."""
+        host = [(i, tuple(s.cpu().numpy() for s in stats), gl, gr)
+                for i, stats, gl, gr in self._pending]
+        if not distributed.active():
+            return host
+        ranks = distributed.all_gather_object(host)
+        return [(e[0],
+                 tuple(np.concatenate([r[j][1][t] for r in ranks])
+                       for t in range(len(e[1]))),
+                 np.concatenate([r[j][2] for r in ranks]),
+                 np.concatenate([r[j][3] for r in ranks]))
+                for j, e in enumerate(ranks[0])]
+
     def _flush(self) -> None:
-        for i, stats, gt_labels_np, gt_real_np in self._pending:
-            probs, matched, gt_of_query, ious, iou_matched = (
-                s.cpu().numpy() for s in stats)
+        for i, stats, gt_labels_np, gt_real_np in self._host_pending():
+            probs, matched, gt_of_query, ious, iou_matched = stats
             gt_of_query = gt_of_query.astype(np.int64)
             m = self.layers[i]
             b = probs.shape[0]

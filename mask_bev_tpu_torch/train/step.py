@@ -3,8 +3,8 @@ loss, the configuration's optimizer), the eval step and the predict step.
 
 Port of ``mask_bev_tpu/train/step.py:44-142``. :func:`create_train_state`
 builds the model with f32 parameters and f32 batch-norm running statistics
-on the device (``cuda`` unless the caller asks for the CPU; without a card
-it raises). :func:`train_step` runs, inside
+on the device (``cuda`` unless the caller asks for the CPU, under a process
+group the rank's card; without a card it raises). :func:`train_step` runs, inside
 :func:`~mask_bev_tpu_torch.utils.precision.cast_parameters`, the training
 forward on the compute-dtype cast of the parameters and the points
 (``MaskBev(train=True, final_only=False)``: every head pass), the loss in f32
@@ -29,6 +29,7 @@ from mask_bev_tpu_torch.config import MaskBevConfig
 from mask_bev_tpu_torch.losses import maskbev_loss
 from mask_bev_tpu_torch.models.mask2former import DecoderOutputs
 from mask_bev_tpu_torch.models.maskbev import MaskBev
+from mask_bev_tpu_torch.parallel import distributed
 from mask_bev_tpu_torch.train.optim import OptState, Optimizer, make_optimizer
 from mask_bev_tpu_torch.utils.precision import (
     cast_parameters, full_f32, resolve_device, resolve_dtype)
@@ -53,7 +54,7 @@ def create_train_state(cfg: MaskBevConfig,
     without one, from ``MaskBev.random_state_dict(seed)``;
     ``steps_per_epoch`` sets the length of the cosine and poly
     schedules."""
-    dev = resolve_device(device)
+    dev = resolve_device(distributed.device(device))
     model = MaskBev(cfg)
     sd = model.random_state_dict(seed) if state_dict is None else state_dict
     model.load_state_dict({k: v.float() if v.is_floating_point() else v
@@ -71,7 +72,13 @@ def loss_and_grads(state: TrainState, batch, generator=None, *,
     or tensors) -> (logs, outputs, grads by parameter name). Random draws
     (drop path, loss points) come from ``generator``, which lives on the
     state's device; ``coords`` pins the loss points instead (see
-    ``losses.maskbev_loss``). Updates the running statistics."""
+    ``losses.maskbev_loss``). Updates the running statistics.
+
+    Under a process group ``batch`` holds the rank's rows of the global
+    batch (``coords`` too): the logs and the gradients returned are the
+    global ones, summed over the ranks (the gradients in a few flat
+    buckets, ``parallel/distributed.py::all_reduce_grads``), and the
+    outputs are the rank's."""
     cfg = state.cfg
     dtype = resolve_dtype(cfg.compute_dtype)
     b = _device_batch(state, batch)
@@ -87,11 +94,13 @@ def loss_and_grads(state: TrainState, batch, generator=None, *,
             gt_heights=_gt_heights(cfg, b))
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(params.items(), grads)}
+    grads = distributed.all_reduce_grads(
+        {k: torch.zeros_like(p) if g is None else g
+         for (k, p), g in zip(params.items(), grads)})
     outputs = DecoderOutputs(*(None if t is None else t.detach()
                                for t in out))
-    return {k: v.detach() for k, v in logs.items()}, outputs, grads
+    return (distributed.all_reduce_logs(
+        {k: v.detach() for k, v in logs.items()}), outputs, grads)
 
 
 def train_step(state: TrainState, batch, generator=None, *, coords=None
@@ -142,7 +151,8 @@ def eval_step(state: TrainState, batch, generator=None, *, coords=None
     """The eval forward (every head pass, the compute-dtype cast of the
     parameters and points) and the f32 loss on ``batch`` -> (logs,
     outputs). Loss points are drawn from ``generator`` or pinned by
-    ``coords``, as in :func:`loss_and_grads`."""
+    ``coords``, as in :func:`loss_and_grads`; under a process group the
+    logs are the global batch's."""
     cfg = state.cfg
     dtype = resolve_dtype(cfg.compute_dtype)
     b = _device_batch(state, batch)
@@ -153,7 +163,7 @@ def eval_step(state: TrainState, batch, generator=None, *, coords=None
         _, logs = maskbev_loss(out, b["gt_labels"], b["gt_masks"],
                                b["gt_valid"], cfg, generator=generator,
                                coords=coords, gt_heights=_gt_heights(cfg, b))
-    return logs, out
+    return distributed.all_reduce_logs(logs), out
 
 
 @torch.no_grad()

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import warnings
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -51,12 +51,18 @@ def sample_stream(
     seed: int,
     num_workers: int = 0,
     chunksize: int = 2,
+    positions: Optional[Sequence[int]] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield ``sample_fn(idx, rng)`` for each idx in order, optionally fanned
     out over a process pool. ``sample_fn`` is shipped to workers by fork
     inheritance (no pickling), so closures over dataset objects are fine.
-    Closing the stream terminates the pool."""
-    args = [(int(i), [seed, pos]) for pos, i in enumerate(order)]
+    ``positions``: only the samples at these positions of ``order``, each
+    with its own position's draws (a rank's rows of every global batch,
+    ``parallel/distributed.py::rank_positions``). Closing the stream
+    terminates the pool."""
+    if positions is None:
+        positions = range(len(order))
+    args = [(int(order[pos]), [seed, int(pos)]) for pos in positions]
     if num_workers <= 0:
         for idx, sk in args:
             yield sample_fn(idx, np.random.default_rng(sk))

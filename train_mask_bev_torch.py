@@ -14,6 +14,16 @@ on ``dataset: waymo`` roots of converted frames
 ``--data-root`` (the data modules of ``mask_bev_tpu_torch/datasets``, their
 samples assembled on ``num_workers`` processes), and on ``dataset:
 synthetic``.
+
+Data parallel: launched as N processes, one a device, it joins their
+process group from the environment (``torchrun --nproc_per_node N
+train_mask_bev_torch.py ...``, or ``MASKBEV_COORDINATOR``,
+``MASKBEV_NUM_PROCESSES`` and ``MASKBEV_PROCESS_ID`` per process, or
+SLURM's ``SLURM_NTASKS``/``SLURM_PROCID`` with ``MASKBEV_COORDINATOR``; see
+``mask_bev_tpu_torch/parallel/distributed.py``) and prints ``multi-host:
+process r/n``. ``batch_size`` stays the global batch: each rank loads and
+steps on its ``batch_size / N`` rows of it, ``--device cuda`` is the rank's
+card (NCCL) and ``--device cpu`` runs the ranks over gloo.
 """
 from __future__ import annotations
 
@@ -41,16 +51,22 @@ def build_datamodule(cfg, root: str):
 
         from mask_bev_tpu_torch.datasets.synthetic import make_batch
 
+        from mask_bev_tpu_torch.parallel.distributed import shard_batch
+
         class SyntheticModule:
+            """The global batches drawn in sequence from one generator;
+            each rank keeps its rows (the draws of a batch depend on those
+            of the rows before it)."""
+
             def train_batches(self, seed=0):
                 rng = np.random.default_rng(seed)
                 for _ in range(cfg.limit_train_batches or 16):
-                    yield make_batch(rng, cfg)
+                    yield shard_batch(make_batch(rng, cfg))
 
             def val_batches(self, seed=0):
                 rng = np.random.default_rng(seed + 10_000)
                 for _ in range(cfg.limit_val_batches or 4):
-                    yield make_batch(rng, cfg)
+                    yield shard_batch(make_batch(rng, cfg))
 
         return SyntheticModule()
     raise ValueError(f"unknown dataset: {cfg.dataset}")
@@ -72,7 +88,12 @@ def main(argv=None):
     import torch
 
     from mask_bev_tpu_torch.config import MaskBevConfig
+    from mask_bev_tpu_torch.parallel import distributed
     from mask_bev_tpu_torch.train.loop import Trainer
+
+    if distributed.init_from_env(args.device):
+        print(f"multi-host: process {distributed.rank()}"
+              f"/{distributed.world_size()}")
 
     cfg = MaskBevConfig.from_yaml(args.config)
     if args.test and not args.train:
@@ -84,7 +105,7 @@ def main(argv=None):
                          else cfg.num_workers))
     root = args.data_root or cfg.dataset_root or f"data/{cfg.dataset}"
 
-    dev = torch.device(args.device)
+    dev = distributed.device(args.device)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             and torch.cuda.is_available() else str(dev))
     print(f"device: {name}")
@@ -107,6 +128,7 @@ def main(argv=None):
                   f"(val_loss={trainer.ckpt.index.get('best_val_loss')})")
         results = trainer.validate(dm.val_batches(0), trainer.generator(0))
         print("test results:", results)
+    distributed.shutdown()
 
 
 if __name__ == "__main__":
