@@ -92,6 +92,21 @@
    launches) against its plain version, bit for bit; a shape a kernel
    refuses raises on the card (there is no plain route there), so every
    flagship phase above ran on its kernels;
+8b. ``[shapes wide]`` (``shapes_wide_phase``): wider shapes the JAX
+   package serves than the shipped configurations have, as four served paths
+   at full width and batch 8, each like step 2-4 (kernels captured and
+   held, 3 warm and 5 timed requests, the instance counters, one traced
+   request): Swin-T (embed 96, window 7) with the fused patch embed
+   (kernel 8 at E 96); Swin-B at 384 px (embed 128, depths (2, 2, 18, 2),
+   window 12: kernels 3/4 at 144 tokens), then path K at window 12
+   (kernel 7 at 144 tokens, one timed request); 100 points a pillar on
+   scans with long pillars (``scans_long``; kernel 1, then path E's kernel
+   10; the pillars over 32 kept points counted); 300 queries in bf16 and
+   in f32 (the decoder's split instance in clusters of 16); then, at the
+   kernel level (``wide_kernel_holds``), kernel 5 at Q = 512 and with 1
+   and 16 heads (inputs captured from a forward), kernels 3/4 and 7 at
+   window 16, kernel 8 at E = 48, kernels 1 and 10 at 64 and 128 points a
+   pillar;
 9. ``[trainer]`` (``trainer_phase``): ``Trainer.fit`` at the widths of
    ``configs/training/semantic_kitti/02_train_smoke_tpu.yml`` (3 training
    and 2 validation batches an epoch, 2 epochs), the ``--test`` restore of
@@ -229,6 +244,29 @@ def scans(np, batch: int, n: int, seed: int):
     return pts, mask
 
 
+def scans_long(np, batch: int, n: int, seed: int):
+    """``scans`` with long pillars, as the ground near the sensor gives
+    them: in each scan 6000 of the ~120k real points move into four dense
+    patches 2-5 m from the sensor, 1500 points over 0.4 m x 0.4 m each (a
+    few 0.16 m cells of ~100-250 points), and 4000 into four of 1000 over
+    1.2 m x 1.2 m (~18 a cell); so some pillars hold 33 to K kept points
+    and many hold more than K (cut to their first K)."""
+    pts, mask = scans(np, batch, n, seed)
+    rng = np.random.default_rng(seed + 1000)
+    i = 0
+    for size, side in ((1500, 0.4), (1500, 0.4), (1500, 0.4), (1500, 0.4),
+                       (1000, 1.2), (1000, 1.2), (1000, 1.2), (1000, 1.2)):
+        r = rng.uniform(2, 5, batch)
+        th = rng.uniform(-np.pi, np.pi, batch)
+        for b in range(batch):
+            pts[b, i:i + size, 0] = r[b] * np.cos(th[b]) + rng.uniform(
+                0, side, size)
+            pts[b, i:i + size, 1] = r[b] * np.sin(th[b]) + rng.uniform(
+                0, side, size)
+        i += size
+    return pts, mask
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -258,9 +296,12 @@ def main() -> None:
     kb.lib()
     print(f"kernels built in {time.time() - t0:.1f} s ({lib})", flush=True)
     for log in sorted(lib.parent.glob("*.log")):
-        regs = [ln.strip() for ln in log.read_text().splitlines()
+        lines = log.read_text().splitlines()
+        regs = [ln.strip() for ln in lines
                 if "registers" in ln or "spill" in ln]
-        print(f"[ptxas {log.stem}] " + " | ".join(regs[-6:]), flush=True)
+        took = [ln for ln in lines if ln.startswith("compiled in")]
+        print(f"[ptxas {log.stem}] {took[-1] if took else ''}: "
+              + " | ".join(regs[-6:]), flush=True)
 
     results = {}
     failures = []
@@ -330,6 +371,10 @@ def main() -> None:
     encodings_phase(np, torch, card, results, failures, record, cfg)
     train_phase(np, torch, card, results, failures, record)
     shapes_phase(np, torch, card, failures)
+    t1 = time.time()
+    shapes_wide_phase(np, torch, card, results, failures, record)
+    print(f"[shapes wide] the phase took {time.time() - t1:.1f} s [{card}]",
+          flush=True)
     trainer_phase(np, torch, card, failures, here)
     resume_phase(np, torch, card, failures, here)
     data_phase(np, torch, card, failures, here)
@@ -337,6 +382,8 @@ def main() -> None:
     ddp_nccl_phase(np, torch, card, failures, here)
     modules_phase(np, torch, card, failures)
 
+    print(f"chip_smoke: all phases took {time.time() - t0:.1f} s, the "
+          f"build included [{card}]", flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     if failures:
         fail("; ".join(failures))
@@ -585,7 +632,7 @@ SOURCES = {
 
 
 def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
-                warm, timed, main_path=False):
+                warm, timed, main_path=False, points=scans):
     """One serving configuration at full width through ``MaskBevPredictor``
     at batch 8: the inputs of kernels 1-5 captured in one forward and held
     against their plain versions in the configuration's dtype, then
@@ -598,7 +645,10 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     refinement blocks a pixel-decoder level) also captures kernel 7's
     inputs at the refinement blocks (``window_msa_phase``, recorded as
     ``window_msa.refine``), checks the height logits, and counts kernel
-    7's launches over the requests."""
+    7's launches over the requests. The ``[shapes wide]`` rows (suffixes
+    ``.swin_t``, ``.w12``, ``.k100``, ``.q300``, ``.q300.f32``) also hold
+    kernel 8 where the configuration fuses the patch embed and count the
+    pillars over 32 kept points; ``points`` draws the scans."""
     from mask_bev_tpu_torch.inference import MaskBevPredictor
     from mask_bev_tpu_torch.kernels import build as kb
     from mask_bev_tpu_torch.models import mask2former as m2f
@@ -609,8 +659,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     from mask_bev_tpu_torch.ops import pfn as kpfn
     from mask_bev_tpu_torch.ops import swin_block as kswin
 
-    label = "e2e" + {"": "", ".f32": " f32", ".waymo": " waymo",
-                     ".options": " options"}[suffix]
+    label = "e2e" + suffix.replace(".", " ")
     refine = cfg.pixel_decoder_num_attn_layers > 0
     f32 = cfg.compute_dtype == "float32"
     esz = 4 if f32 else 2
@@ -621,14 +670,15 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     pred = MaskBevPredictor(cfg, sd, device="cuda")
     model = pred.model
     dcol = cfg.pc_point_dim
-    pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED)
+    pts_np, mask_np = points(np, BATCH, cfg.max_points_per_scan, SEED)
     pts = torch.as_tensor(pts_np[..., :dcol]).cuda().to(pred.dtype)
     msk = torch.as_tensor(mask_np).cuda()
 
     # ---- capture every kernel's inputs (one forward) ----------------------
     captured_blocks, captured_dec, captured_msa = [], [], []
+    captured_pe = []
     orig_block, orig_dec = msw.swin_block, m2f.decoder_stack
-    orig_msa = msw.window_msa
+    orig_msa, orig_pe = msw.window_msa, msw.patch_embed
 
     def rec_block(x, *args):
         captured_blocks.append((x.clone(), *args))
@@ -643,8 +693,13 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
                                    for t in a), kw))
         return orig_msa(*a, **kw)
 
+    def rec_pe(*a, **kw):
+        captured_pe.append((a, kw))
+        return orig_pe(*a, **kw)
+
     msw.swin_block, m2f.decoder_stack, msw.window_msa = (rec_block, rec_dec,
                                                          rec_msa)
+    msw.patch_embed = rec_pe
     try:
         with torch.no_grad():
             enc = model.encoder
@@ -653,6 +708,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
     finally:
         msw.swin_block, m2f.decoder_stack, msw.window_msa = (
             orig_block, orig_dec, orig_msa)
+        msw.patch_embed = orig_pe
     if cfg.predict_height:
         hl = fwd.height_logits
         exp_h = (1, BATCH, cfg.num_queries, cfg.head_num_height_bins)
@@ -672,6 +728,16 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
           f"{cfg.backbone_quantize == 'int8'}, {cfg.num_queries} queries, "
           f"{dcol} point columns): captured {len(captured_blocks)} blocks "
           f"in {time.time() - t0:.1f} s [{card}]", flush=True)
+    if enc.k > 32:
+        n_long = int((ps.counts > 32).sum())
+        print(f"[{label}] pillars with more than 32 kept points: {n_long} "
+              f"(at most {enc.k} kept a pillar; "
+              f"{int((ps.counts == enc.k).sum())} pillars cut to {enc.k}) "
+              f"of {int(ps.num_pillars.sum())} [{card}]", flush=True)
+        if n_long <= 0:
+            failures.append(f"[{label}] no pillar over 32 kept points")
+    if model.flat_embed_ok(False) and len(captured_pe) != 1:
+        failures.append(f"[{label}] {len(captured_pe)} patch embed calls")
 
     def rec(name, *a, **kw):
         record(name + suffix, *SOURCES[name], *a, **kw)
@@ -815,74 +881,24 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
 
         # ---- kernel 5: decoder stack -------------------------------------
         (dargs, dkw) = captured_dec[0]
-        kb.reset_launches()
-        out_k, kbits = kdec.decoder_stack(*dargs, **dkw, return_bits=True)
-        instance = [k for k in kb.INSTANCES if k.startswith("decoder_stack/")
-                    and "gemm" not in k]
-        layers, head = dargs[6], dargs[7]
-        out_p, plogits = kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"], return_logits=True)
-        flips = [int((kb_ != kdec.blocked_positions(m)).sum())
-                 for kb_, m in zip(kbits, plogits)]
-        total = sum(m.numel() for m in plogits)
-        err = float((out_k.float() - out_p.float()).abs().max())
-        scale = float(out_p.float().abs().max())
-        same, same_logits = kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
-            return_logits=True)
-        err_same = float((out_k.float() - same.float()).abs().max())
-        same_tol = (1e-3 if f32 else 2e-2) * scale
-        if err_same > same_tol:
-            failures.append(f"decoder_stack{suffix} on its own blocked "
-                            "positions")
-        # given the kernel's decisions, the plain version's own logits (its
-        # decoder norm and mask MLP) may decide otherwise only within
-        # rounding of 0; free-running flips compound, bounded more loosely
-        own = [int((kb_ != kdec.blocked_positions(m)).sum())
-               for kb_, m in zip(kbits, same_logits)]
-        for li, m in enumerate(plogits):
-            if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
-                failures.append(f"decoder_stack{suffix} bias flips in layer "
-                                f"{li}")
-        ms_k = cuda_ms(torch, lambda: kdec.decoder_stack(*dargs, **dkw), 5)
-        ms_p = cuda_ms(torch, lambda: kdec.decoder_stack_plain(
-            *dargs[:8], num_heads=dkw["num_heads"]), 2)
-        q_, c_ = dargs[0].shape[1], dargs[0].shape[2]
-        ts = [m.shape[1] for m in dargs[3]]
-        f_ = layers[0].f1.shape[1]
-        n_l = len(layers)
-        ops = 0.0
-        for li in range(n_l):
-            t_ = ts[li % len(ts)]
-            ops += BATCH * (2 * q_ * c_ * c_ * 9 + 4 * q_ * c_ * f_
-                            + 6 * q_ * t_ * c_ + 4 * q_ * q_ * c_)
-        ops += 2 * 2 * BATCH * sum(ts) * c_ * c_ * (n_l // len(ts))
-        byts = (BATCH * sum(ts) * c_ * (esz + 4) + sum(ts) * c_ * esz
-                + n_l * (8 * c_ * c_ + 2 * c_ * f_) * esz
-                + BATCH * q_ * c_ * esz)
-        if main_path:
-            decoder_clusters(kb, kdec, dargs, card)
-        if f32:
-            split_breakdown(torch, kdec, dargs, dkw, card, label)
-        rec("decoder_stack", err, 5e-2 * scale, ms_k, ms_p,
-            bound(byts, ops / PEAK[prod]),
-            f"instance {instance}, Q={q_}; bias entries that differ: "
-            f"{sum(flips)} of {total}, per layer {flips} (tolerance 5 % a "
-            f"layer), on the kernel's own decisions {own} (tolerance 1 % a "
-            f"layer); max_abs_err on the kernel's own blocked positions "
-            f"{err_same:.6g} (tolerance {same_tol:.6g}); bound as "
-            f"{work} FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms")
+        decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
+                     label, main_path)
         if refine:
             # ---- kernel 7 at the refinement blocks (C 256, 8 heads) -----
             window_msa_phase(torch, record, card, ".refine", captured_msa,
                              f32, what="refinement blocks")
-    del captured_blocks, captured_dec, captured_msa, table, ps, dargs, out_k
-    del out_p, same
+        held_pe = bool(captured_pe)
+        if held_pe:
+            # ---- kernel 8: the fused patch embed + patch_norm ------------
+            (a, kw), = captured_pe
+            patch_embed_hold(torch, record, suffix, a, kw, f32)
+    del captured_blocks, captured_dec, captured_msa, table, ps, dargs
+    del captured_pe
 
     # ---- serve requests through the predictor -----------------------------
     staged = []
     for s in range(4):
-        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 100 + s)
+        p_np, m_np = points(np, BATCH, cfg.max_points_per_scan, 100 + s)
         staged.append((torch.as_tensor(p_np[..., :dcol]).cuda(),
                        torch.as_tensor(m_np).cuda()))
     torch.cuda.synchronize()
@@ -912,7 +928,13 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         results[k + suffix]["launches"] = launches.get(k, 0)
         if launches.get(k, 0) <= 0:
             failures.append(f"{k} never launched on [{label}]")
-    attn_inst = "swin_block/attn_" + ("f32" if f32 else "bf16")
+    if held_pe:
+        results["patch_embed" + suffix]["launches"] = launches.get(
+            "patch_embed", 0)
+        if launches.get("patch_embed", 0) <= 0:
+            failures.append(f"patch_embed never launched on [{label}]")
+    attn_inst = "swin_block/" + kswin.attn_instance(
+        f32, cfg.backbone_window_size)
     results["swin_attn" + suffix]["launches"] = instances.get(attn_inst, 0)
     if instances.get(attn_inst, 0) <= 0:
         failures.append(f"{attn_inst} never launched on [{label}]")
@@ -930,8 +952,10 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         if instances.get(msa_inst, 0) <= 0:
             failures.append(f"{msa_inst} never launched on [{label}]")
     if f32:
-        need = ["pfn/f32_3xtf32", "canvas_norm/f32", "swin_block/f32",
-                "decoder_stack/split_tc_f32", "decoder_stack/gemm_f32_3xtf32",
+        need = ["pfn/" + kpfn.instance(True, enc.k), "canvas_norm/f32",
+                "swin_block/f32", "decoder_stack/" + kdec.split_instance(
+                    cfg.num_queries, cfg.head_num_attn_heads, True),
+                "decoder_stack/gemm_f32_3xtf32",
                 "swin_block/gemm_s8_f32" if quant
                 else "swin_block/gemm_f32_3xtf32"]
         missing = [k for k in need if instances.get(k, 0) <= 0]
@@ -1058,13 +1082,99 @@ def gemm_yardstick(torch, kswin, shapes, card):
     return err, ms_k, ms_l, ops
 
 
+def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
+                 label, main_path=False) -> None:
+    """Kernel 5 on one call's arguments (``dargs``, ``dkw``): its
+    ``m < 0`` decisions against the plain version's (at most 5 % of a
+    layer's entries differ free-running, 1 % on the kernel's own
+    decisions), its output on its own decisions (bf16 2e-2, f32 1e-3 of the
+    largest value) and against the plain version (5e-2), both timed;
+    recorded as ``decoder_stack{suffix}``. The main path also prints the
+    clusters the card holds, the f32 calls the split instance's time by
+    part."""
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+
+    esz = 4 if f32 else 2
+    work = "f32" if f32 else "bf16"
+    prod = "tf32x3" if f32 else "bf16"
+    kb.reset_launches()
+    out_k, kbits = kdec.decoder_stack(*dargs, **dkw, return_bits=True)
+    instance = [k for k in kb.INSTANCES if k.startswith("decoder_stack/")
+                and "gemm" not in k]
+    out_p, plogits = kdec.decoder_stack_plain(
+        *dargs[:8], num_heads=dkw["num_heads"], return_logits=True)
+    flips = [int((kb_ != kdec.blocked_positions(m)).sum())
+             for kb_, m in zip(kbits, plogits)]
+    total = sum(m.numel() for m in plogits)
+    err = float((out_k.float() - out_p.float()).abs().max())
+    scale = float(out_p.float().abs().max())
+    same, same_logits = kdec.decoder_stack_plain(
+        *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
+        return_logits=True)
+    err_same = float((out_k.float() - same.float()).abs().max())
+    same_tol = (1e-3 if f32 else 2e-2) * scale
+    if err_same > same_tol:
+        failures.append(f"decoder_stack{suffix} on its own blocked "
+                        "positions")
+    # given the kernel's decisions, the plain version's own logits (its
+    # decoder norm and mask MLP) may decide otherwise only within
+    # rounding of 0; free-running flips compound, bounded more loosely
+    own = [int((kb_ != kdec.blocked_positions(m)).sum())
+           for kb_, m in zip(kbits, same_logits)]
+    for li, m in enumerate(plogits):
+        if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
+            failures.append(f"decoder_stack{suffix} bias flips in layer "
+                            f"{li}")
+    ms_k = cuda_ms(torch, lambda: kdec.decoder_stack(*dargs, **dkw), 5)
+    ms_p = cuda_ms(torch, lambda: kdec.decoder_stack_plain(
+        *dargs[:8], num_heads=dkw["num_heads"]), 2)
+    q_ = dargs[0].shape[1]
+    ops, byts = decoder_work(dargs, esz)
+    if main_path:
+        decoder_clusters(kb, kdec, dargs, card)
+    if f32:
+        split_breakdown(torch, kdec, dargs, dkw, card, label)
+    record("decoder_stack" + suffix, *SOURCES["decoder_stack"], err,
+           5e-2 * scale, ms_k, ms_p, bound(byts, ops / PEAK[prod]),
+           f"instance {instance}, Q={q_}, heads {dkw['num_heads']}; bias "
+           f"entries that differ: {sum(flips)} of {total}, per layer "
+           f"{flips} (tolerance 5 % a layer), on the kernel's own decisions "
+           f"{own} (tolerance 1 % a layer); max_abs_err on the kernel's own "
+           f"blocked positions {err_same:.6g} (tolerance {same_tol:.6g}); "
+           f"bound as {work} FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms")
+
+
+def decoder_work(dargs, esz):
+    """(operations, bytes) of a decoder-stack call on ``dargs``: the
+    query-side products of every layer (the 9 C x C products, the FFN,
+    cross-attention over the level's keys, self-attention) and the k and v
+    projections of the levels; the levels' memories, features and k/v read
+    once, the weights once, the output written once."""
+    layers = dargs[6]
+    b_, q_, c_ = dargs[0].shape
+    ts = [m.shape[1] for m in dargs[3]]
+    f_ = layers[0].f1.shape[1]
+    n_l = len(layers)
+    ops = 0.0
+    for li in range(n_l):
+        t_ = ts[li % len(ts)]
+        ops += b_ * (2 * q_ * c_ * c_ * 9 + 4 * q_ * c_ * f_
+                     + 6 * q_ * t_ * c_ + 4 * q_ * q_ * c_)
+    ops += 2 * 2 * b_ * sum(ts) * c_ * c_ * (n_l // len(ts))
+    byts = (b_ * sum(ts) * c_ * (esz + 4) + sum(ts) * c_ * esz
+            + n_l * (8 * c_ * c_ + 2 * c_ * f_) * esz + b_ * q_ * c_ * esz)
+    return ops, byts
+
+
 def split_breakdown(torch, kdec, dargs, dkw, card, label, reps=3):
     """Where the decoder's split instance spends its time, per part of a
     layer (``kdec.SPLIT_PARTS``): each block adds the ns of %globaltimer
     between the part's boundaries, summed over the layers; printed as the
     mean over the blocks of ``reps`` runs, in ms and as a share."""
     b = dargs[0].shape[0]
-    prof = torch.zeros((b * kdec.CLUSTER, len(kdec.SPLIT_PARTS)),
+    cs = kdec.split_cluster(dargs[0].shape[1])
+    prof = torch.zeros((b * cs, len(kdec.SPLIT_PARTS)),
                        dtype=torch.int64, device="cuda")
     kdec.decoder_stack(*dargs, **dkw)
     for _ in range(reps):
@@ -1076,7 +1186,7 @@ def split_breakdown(torch, kdec, dargs, dkw, card, label, reps=3):
                       f"({100 * float(v) / total:.1f} %)"
                       for name, v in zip(kdec.SPLIT_PARTS, ns))
     print(f"[{label}] split decoder by part, Q={dargs[0].shape[1]}, mean "
-          f"of the {b * kdec.CLUSTER} blocks: {parts}; all layers "
+          f"of the {b * cs} blocks: {parts}; all layers "
           f"{total / 1e6:.4f} ms [{card}]", flush=True)
     return ns
 
@@ -1149,7 +1259,8 @@ def decoder_clusters(kb, kdec, dargs, card) -> None:
 
 
 def path_phase(np, torch, card, results, failures, record, path: str,
-               f32: bool = False):
+               f32: bool = False, overrides=None, tag: str = "",
+               points=scans, requests=None):
     """Path K (KITTI, unfused backbone: kernels 7 and 8 with the PFN, the
     canvas and the decoder stack) or path E (the capped eval encoder with
     the fused token LN: kernels 10 and 9 with the canvas, the Swin blocks
@@ -1157,7 +1268,10 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     captured in one forward and held against their plain versions, then 3
     warm and 5 timed requests with the launch counters reset just before.
     ``f32``: the path in f32 (every kernel's f32 instance), 1 warm and 2
-    timed requests, no trace."""
+    timed requests, no trace. ``overrides`` change the configuration (the
+    ``[shapes wide]`` rows: window 12, 100 points a pillar), recorded
+    under the suffix ``tag``; ``points`` draws the scans; ``requests``:
+    (warm, timed) in place of the defaults."""
     import torch.nn.functional as F
 
     from mask_bev_tpu_torch.config import kitti_default, semantic_kitti_default
@@ -1171,8 +1285,10 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     from mask_bev_tpu_torch.ops import patch_embed as kpe
     from mask_bev_tpu_torch.ops import pfn as kpfn
 
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
     dtype = "float32" if f32 else "bfloat16"
-    sfx = ".f32" if f32 else ""
+    sfx = tag + (".f32" if f32 else "")
     esz = 4 if f32 else 2
     work = "f32" if f32 else "bf16"
     if path == "K":
@@ -1188,14 +1304,15 @@ def path_phase(np, torch, card, results, failures, record, path: str,
             use_pallas_encoder=False)
         names = ("layer_norm", "stream_pfn")
         path_kernels = ("canvas_norm", "swin_block", "decoder_stack") + names
-    label = f"path {path}" + (" f32" if f32 else "")
+    cfg = cfg.replace(**(overrides or {}))
+    label = f"path {path}" + sfx.replace(".", " ")
     t0 = time.time()
     pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(SEED + 10),
                             device="cuda")
     model = pred.model
     if path == "E":
         model.backbone.fuse_ln = True  # as the JAX SwinTransformer attribute
-    pts_np, mask_np = scans(np, BATCH, cfg.max_points_per_scan, SEED + 11)
+    pts_np, mask_np = points(np, BATCH, cfg.max_points_per_scan, SEED + 11)
     pts = torch.as_tensor(pts_np).cuda().to(pred.dtype)
     msk = torch.as_tensor(mask_np).cuda()
 
@@ -1239,59 +1356,7 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                              f32)
             # ---- kernel 8: patch embed + patch_norm --------------------------
             (a, kw), = cap["patch_embed"]
-            got = kpe.patch_embed(*a, **kw)
-            want = kpe.patch_embed_plain(*a)
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            canvas, wm, p_ = a[0], a[1], a[5]
-            b_, h_, w_, c_ = canvas.shape
-            e_ = wm.shape[0]
-            if f32:
-                # f32: against a float64 product + LN (the cuda tests' 1e-5)
-                w64 = wm.double()
-                t64 = (canvas.double().reshape(b_, h_ // p_, p_, w_ // p_, p_,
-                                               c_).permute(0, 1, 3, 2, 4, 5)
-                       .reshape(-1, p_ * p_ * c_))
-                y = t64 @ w64.t() + a[2].double()
-                del t64
-                mu = y.mean(-1, keepdim=True)
-                var = ((y * y).mean(-1, keepdim=True) - mu * mu).clamp(min=0)
-                y = ((y - mu) * torch.rsqrt(var + a[6]) * a[3].double()
-                     + a[4].double())
-                err = float((got.double() - y.reshape(got.shape)).abs()
-                            .max())
-                scale = float(y.abs().max())
-                del y, mu, var, w64
-            del got, want
-            ms_k = cuda_ms(torch, lambda: kpe.patch_embed(*a, **kw), 10)
-            ms_p = cuda_ms(torch, lambda: kpe.patch_embed_plain(*a), 2)
-            # the conv alone on the same channels-last canvas (cuDNN, TF32
-            # off): a yardstick for the product, not the same function
-            x_cl = canvas.permute(0, 3, 1, 2)
-            w_cl = (wm.reshape(e_, p_, p_, c_).permute(0, 3, 1, 2)
-                    .contiguous(memory_format=torch.channels_last))
-            b_conv = a[2].to(canvas.dtype)
-            ms_c = cuda_ms(torch, lambda: F.conv2d(x_cl, w_cl, b_conv,
-                                                   stride=p_), 10)
-            m_ = b_ * (h_ // p_) * (w_ // p_)
-            ops = 2.0 * m_ * p_ * p_ * c_ * e_
-            byts = (canvas.numel() + m_ * e_ + wm.numel()) * esz
-            pl = kpe.plan(b_, h_, w_, c_, e_, p_, f32)
-            record("patch_embed" + sfx,
-                   "mask_bev_tpu_torch/csrc/patch_embed.cu",
-                   "mask_bev_tpu/ops/pallas_patch_embed.py:67", err,
-                   (1e-5 if f32 else 1e-2) * scale, ms_k, ms_p,
-                   bound(byts, ops / PEAK["tf32x3" if f32 else work]),
-                   f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, "
-                   f"{e_}); {'3xTF32, error against float64; bound as f32 '
-                   f'FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms; '
-                   if f32 else ''}tiles {pl['tile_x']}x{pl['tile_y']} "
-                   f"tokens, {pl['tiles']} in {pl['pairs']} pairs, "
-                   f"{pl['stages']} stages, weight read from L2 "
-                   f"{pl['weight_l2_bytes'] / 1e9:.3f} GB; F.conv2d alone "
-                   f"on the same channels-last canvas (not the same "
-                   f"function: no LayerNorm) {ms_c:.4f} ms")
-            del x_cl, w_cl
+            patch_embed_hold(torch, record, sfx, a, kw, f32)
             # ---- kernel 2 at path K's grid --------------------------------
             (a, kw), = cap["canvas_norm"]
             canvas_phase(torch, kcanvas, lambda n, *r, **k: record(
@@ -1365,6 +1430,14 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                          f"{bound(byts, ops / PEAK['f32'])[0]:.4f} ms")
                 if e64 > 1e-5:
                     failures.append(f"stream_pfn{sfx} against float64")
+            if kw["k"] > 32:
+                from mask_bev_tpu_torch.ops.stream_pillars import kept_counts
+
+                n_long = int((kept_counts(sp.pid, sp.kept, p_) > 32).sum())
+                extra += (f"; slots with more than 32 kept points {n_long} "
+                          f"(at most {kw['k']})")
+                if n_long <= 0:
+                    failures.append(f"[{label}] no slot over 32 kept points")
             record("stream_pfn" + sfx, "mask_bev_tpu_torch/csrc/pfn.cu",
                    "mask_bev_tpu/ops/pallas_pfn.py:168", err,
                    (1e-4 if f32 else 1e-2) * scale, ms_k, ms_p,
@@ -1382,10 +1455,11 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     # ---- the path: warm and timed requests ---------------------------------
     staged = []
     for s in range(4):
-        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 300 + s)
+        p_np, m_np = points(np, BATCH, cfg.max_points_per_scan, 300 + s)
         staged.append((torch.as_tensor(p_np).cuda(),
                        torch.as_tensor(m_np).cuda()))
-    n_warm, n_timed = (1, 2) if f32 else (PATH_WARM, PATH_TIMED)
+    n_warm, n_timed = requests or ((1, 2) if f32 else (PATH_WARM,
+                                                       PATH_TIMED))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.reset_launches()
@@ -1412,7 +1486,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     for k in names:
         results[rec_name.get(k, k) + sfx]["launches"] = launches.get(k, 0)
     if path == "K":
-        attn_inst = "window_msa/attn_" + ("f32" if f32 else "bf16")
+        attn_inst = "window_msa/" + kswin.attn_instance(
+            f32, cfg.backbone_window_size)
         results["window_msa_attn" + sfx]["launches"] = instances.get(
             attn_inst, 0)
         if instances.get(attn_inst, 0) <= 0:
@@ -1494,6 +1569,74 @@ def block_qkv(kswin, x, p, quant):
                           out_dtype=x.dtype)
     return kswin.gemm("swin_block", kswin._ln(x2, p.ln1_w, p.ln1_b, False),
                       p.qkv, kswin.EPI_BIAS | kswin.EPI_ROUND_ACC)
+
+
+def patch_embed_hold(torch, record, sfx, a, kw, f32) -> None:
+    """Kernel 8 on one captured call's arguments (``a``, ``kw``): held
+    against its plain version (bf16 1e-2 of the largest value) or, in f32,
+    against a float64 product + LN (1e-5), both timed, with ``F.conv2d``
+    alone on the same channels-last canvas beside it as a yardstick for
+    the product (not the same function: no LayerNorm); recorded as
+    ``patch_embed{sfx}``."""
+    import torch.nn.functional as F
+
+    from mask_bev_tpu_torch.ops import patch_embed as kpe
+
+    esz = 4 if f32 else 2
+    work = "f32" if f32 else "bf16"
+    got = kpe.patch_embed(*a, **kw)
+    want = kpe.patch_embed_plain(*a)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    canvas, wm, p_ = a[0], a[1], a[5]
+    b_, h_, w_, c_ = canvas.shape
+    e_ = wm.shape[0]
+    if f32:
+        # f32: against a float64 product + LN (the cuda tests' 1e-5)
+        w64 = wm.double()
+        t64 = (canvas.double().reshape(b_, h_ // p_, p_, w_ // p_, p_,
+                                       c_).permute(0, 1, 3, 2, 4, 5)
+               .reshape(-1, p_ * p_ * c_))
+        y = t64 @ w64.t() + a[2].double()
+        del t64
+        mu = y.mean(-1, keepdim=True)
+        var = ((y * y).mean(-1, keepdim=True) - mu * mu).clamp(min=0)
+        y = ((y - mu) * torch.rsqrt(var + a[6]) * a[3].double()
+             + a[4].double())
+        err = float((got.double() - y.reshape(got.shape)).abs()
+                    .max())
+        scale = float(y.abs().max())
+        del y, mu, var, w64
+    del got, want
+    ms_k = cuda_ms(torch, lambda: kpe.patch_embed(*a, **kw), 10)
+    ms_p = cuda_ms(torch, lambda: kpe.patch_embed_plain(*a), 2)
+    # the conv alone on the same channels-last canvas (cuDNN, TF32
+    # off): a yardstick for the product, not the same function
+    x_cl = canvas.permute(0, 3, 1, 2)
+    w_cl = (wm.reshape(e_, p_, p_, c_).permute(0, 3, 1, 2)
+            .contiguous(memory_format=torch.channels_last))
+    b_conv = a[2].to(canvas.dtype)
+    ms_c = cuda_ms(torch, lambda: F.conv2d(x_cl, w_cl, b_conv,
+                                           stride=p_), 10)
+    m_ = b_ * (h_ // p_) * (w_ // p_)
+    ops = 2.0 * m_ * p_ * p_ * c_ * e_
+    byts = (canvas.numel() + m_ * e_ + wm.numel()) * esz
+    pl = kpe.plan(b_, h_, w_, c_, e_, p_, f32)
+    record("patch_embed" + sfx,
+           "mask_bev_tpu_torch/csrc/patch_embed.cu",
+           "mask_bev_tpu/ops/pallas_patch_embed.py:67", err,
+           (1e-5 if f32 else 1e-2) * scale, ms_k, ms_p,
+           bound(byts, ops / PEAK["tf32x3" if f32 else work]),
+           f"canvas {tuple(canvas.shape)} -> ({b_}, {m_ // b_}, "
+           f"{e_}); {'3xTF32, error against float64; bound as f32 '
+           f'FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms; '
+           if f32 else ''}tiles {pl['tile_x']}x{pl['tile_y']} "
+           f"tokens, {pl['tiles']} in {pl['pairs']} pairs, "
+           f"{pl['stages']} stages, weight read from L2 "
+           f"{pl['weight_l2_bytes'] / 1e9:.3f} GB; F.conv2d alone "
+           f"on the same channels-last canvas (not the same "
+           f"function: no LayerNorm) {ms_c:.4f} ms")
+    del x_cl, w_cl
 
 
 def window_msa_phase(torch, record, card, sfx, captured, f32,
@@ -1958,6 +2101,283 @@ def shapes_phase(np, torch, card, failures) -> None:
     # the flagship phases above, which completed, ran on their kernels
     print("[shapes] flagship refusals 0: a shape a kernel refuses raises on "
           "the card, and every flagship phase ran to its end", flush=True)
+
+
+# [shapes wide]: the shapes the JAX package serves that the port's kernels
+# refused on the card before (published backbones and encoders), each row
+# a served path at full width: Swin-T (embed 96, window 7), Swin-B at 384
+# px (embed 128, depths (2, 2, 18, 2), window 12), mmdet3d's / the
+# PointPillars paper's long pillars (100 points), Deformable DETR's 300
+# queries
+SWIN_T = dict(backbone_embed_dim=96, backbone_depths=(2, 2, 6, 2),
+              backbone_num_heads=(3, 6, 12, 24), backbone_window_size=7,
+              fuse_patch_embed=True)
+SWIN_B_384 = dict(backbone_embed_dim=128, backbone_depths=(2, 2, 18, 2),
+                  backbone_num_heads=(4, 8, 16, 32), backbone_window_size=12)
+
+
+def shapes_wide_phase(np, torch, card, results, failures, record) -> None:
+    """``[shapes wide]``: four served paths at full width and batch 8 (bf16
+    with int8 backbone products unless stated), each with its kernels'
+    inputs captured in one forward and held against their plain versions
+    (the main path's tolerances), 3 warm and 5 timed requests, the instance
+    counters and one traced request: Swin-T with the fused patch embed
+    (kernel 8 at E 96; kernels 3/4 at 49 tokens, head width 32); window 12
+    (kernels 3/4 at 144 tokens; then path K at window 12: kernel 7 at 144
+    tokens, one timed request); 100 points a pillar on scans with long
+    pillars (kernel 1; then path E: kernel 10); 300 queries in bf16 and in
+    f32 (kernel 5's split instance in clusters of 16). Then, at the
+    kernel level, on inputs drawn at the paths' widths: kernel 5 at Q = 512
+    and with 1 and 16 heads, kernels 3/4 and 7 at window 16, kernel 8 at
+    E = 48, kernels 1 and 10 at 64 and 128 points a pillar."""
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+
+    base = semantic_kitti_default().replace(
+        max_points_per_scan=131072, pseudo_image_norm="full",
+        compute_dtype="bfloat16")
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(**SWIN_T), ".swin_t", PATH_WARM, PATH_TIMED)
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(**SWIN_B_384), ".w12", PATH_WARM, PATH_TIMED)
+    path_phase(np, torch, card, results, failures, record, "K",
+               overrides=dict(backbone_window_size=12), tag=".w12",
+               requests=(1, 1))
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(max_num_points=100), ".k100", PATH_WARM,
+                PATH_TIMED, points=scans_long)
+    path_phase(np, torch, card, results, failures, record, "E",
+               overrides=dict(max_num_points=100), tag=".k100",
+               points=scans_long)
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(num_queries=300), ".q300", PATH_WARM,
+                PATH_TIMED)
+    serve_phase(np, torch, card, results, failures, record,
+                semantic_kitti_default().replace(max_points_per_scan=131072,
+                                                 num_queries=300),
+                ".q300.f32", PATH_WARM, PATH_TIMED)
+    wide_kernel_holds(np, torch, card, results, failures, record)
+
+
+def decoder_call(np, torch, cfg, seed):
+    """The decoder stack's arguments (args, keywords) as one forward of
+    ``cfg``'s model (random weights from ``seed``, batch 8 of scans) passes
+    them: the widths, levels and conditioning of a served path."""
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.models import mask2former as m2f
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+
+    pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(seed),
+                            device="cuda")
+    pts, msk = scans(np, BATCH, cfg.max_points_per_scan, seed)
+    captured, orig = [], m2f.decoder_stack
+
+    def rec(*a, **kw):
+        captured.append((a, kw))
+        return orig(*a, **kw)
+
+    m2f.decoder_stack = rec
+    try:
+        pred.forward(torch.as_tensor(pts), torch.as_tensor(msk))
+    finally:
+        m2f.decoder_stack = orig
+    (a, kw), = captured
+    return a, kw
+
+
+def launched(kb, results, name, instance) -> None:
+    """A kernel-level entry's launches: those of ``instance`` since the
+    last reset (its hold's calls; no served path runs it)."""
+    results[name]["launches"] = kb.INSTANCES.get(instance, 0)
+
+
+def wide_kernel_holds(np, torch, card, results, failures, record,
+                      dev="cuda") -> None:
+    """The ``[shapes wide]`` instances no served row reaches, each held
+    against its plain version at the main path's widths: the decoder's
+    split instance at Q = 512 (8 heads) and with 1 and 16 heads (Q 45), in
+    bf16 and f32, on the arguments one forward of the main path's
+    configuration so changed passes it (``decoder_call``; drawn weights
+    leave many mask logits near the ``m < 0`` threshold, so the
+    free-running comparison would measure their flips, not the kernel);
+    the window attention of kernels 3 and 7 and both chains
+    at window 16 (Swin-B's stage-0 grid, C 128 over 4 heads, shifted);
+    kernel 8 at E = 48 on the main path's canvas; kernels 1 and 10 at 64
+    and 128 points a pillar on scans with long pillars."""
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.models.swin import SwinBlock
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+    from mask_bev_tpu_torch.ops import pfn as kpfn
+    from mask_bev_tpu_torch.ops import stream_pillars as ksp
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    bf16 = torch.bfloat16
+    gh, gw = semantic_kitti_default().grid_hw
+    with torch.no_grad():
+        # ---- kernel 5: Q = 512, one head, 16 heads -------------------------
+        for tag, q, heads in ((".q512", 512, 8), (".heads1", 45, 1),
+                              (".heads16", 45, 16)):
+            for f32 in (False, True):
+                sfx = tag + (".f32" if f32 else "")
+                cfg = semantic_kitti_default().replace(
+                    max_points_per_scan=131072, num_queries=q,
+                    head_num_attn_heads=heads,
+                    **({} if f32 else dict(pseudo_image_norm="full",
+                                           compute_dtype="bfloat16")))
+                dargs, dkw = decoder_call(np, torch, cfg, SEED + 60 + q)
+                kb.reset_launches()
+                decoder_hold(torch, record, failures, card, dargs, dkw, f32,
+                             sfx, "shapes wide" + sfx.replace(".", " "))
+                launched(kb, results, "decoder_stack" + sfx,
+                         "decoder_stack/" + kdec.split_instance(q, heads,
+                                                                f32))
+                del dargs
+
+        # ---- kernels 3/4 and 7 at window 16 --------------------------------
+        b, hw, c, heads, win = BATCH, (gh // 4, gw // 4), 128, 4, 16
+        shift = kswin.effective_shift(hw, win, True)
+        g = torch.Generator().manual_seed(70)
+        x = torch.randn(b, hw[0] * hw[1], c, generator=g).to(dev, bf16)
+        blocks = []
+        for quant in (True, False):
+            blk = SwinBlock(c, heads, win, shift=True, quantize=quant)
+            blk.attn.w_msa.rel_pos_bias_table.normal_(0.0, 0.02,
+                                                      generator=g)
+            blocks.append(blk.to(dev, bf16).eval())
+        p8, p16 = blocks[0].weights(), blocks[1].weights()
+        kb.reset_launches()
+        got = kswin.swin_block(x, p8, hw, win, heads, shift, True)
+        want = kswin.swin_block_plain(x, p8, hw, win, heads, shift, True)
+        err = float((got.float() - want.float()).abs().max())
+        err_rel = err / float(want.float().abs().max())
+        ms_k = cuda_ms(torch, lambda: kswin.swin_block(
+            x, p8, hw, win, heads, shift, True), 3)
+        ms_p = cuda_ms(torch, lambda: kswin.swin_block_plain(
+            x, p8, hw, win, heads, shift, True), 1)
+        gemm_ops = 2.0 * b * hw[0] * hw[1] * 12 * c * c
+        hp = -(-hw[0] // win) * win
+        attn_ops = 4.0 * b * hp * hp * win * win * c
+        byts = 2 * b * hw[0] * hw[1] * c * 2 + 12 * c * c
+        record("swin_block.w16", *SOURCES["swin_block"], err, float("nan"),
+               ms_k, ms_p, bound(byts, gemm_ops / PEAK["int8"]
+                                 + attn_ops / PEAK["bf16"]),
+               f"one block, int8 products, {hw} grid, C {c} over {heads} "
+               f"heads, window {win} shifted {shift}; largest error "
+               f"relative to its max-abs {err_rel:.4g} (tolerance 2e-2)",
+               ok=err_rel <= 2e-2)
+        launched(kb, results, "swin_block.w16", "swin_block/attn_bf16_long")
+        del got, want
+        kb.reset_launches()
+        attn_phase(torch, kswin, record, "swin_attn.w16",
+                   "mask_bev_tpu/ops/pallas_swin_block.py:208",
+                   [(block_qkv(kswin, x, p8, True), p8.qkv.bias, p8.rel_bias,
+                     b, hw, heads, win, shift)], False, False, card)
+        launched(kb, results, "swin_attn.w16", "swin_block/attn_bf16_long")
+        kb.reset_launches()
+        window_msa_phase(torch, record, card, ".w16",
+                         [((x, hw, win, shift, p16.rel_bias, p16.qkv,
+                            p16.proj, heads), {})], False,
+                         what="blocks drawn at window 16")
+        results["window_msa.w16"]["launches"] = kb.LAUNCHES["window_msa"]
+        launched(kb, results, "window_msa_attn.w16",
+                 "window_msa/attn_bf16_long")
+        del x, blocks, p8, p16
+
+        # ---- kernel 8 at E = 48 on the main path's canvas ------------------
+        g = torch.Generator().manual_seed(71)
+        e = 48
+        canvas = torch.randn(BATCH, gh, gw, 128, generator=g).to(dev, bf16)
+        wm = (torch.randn(e, 4 * 4 * 128, generator=g) / 2048 ** 0.5).to(
+            dev, bf16)
+        vecs = [(base_ + 0.1 * torch.randn(e, generator=g)).to(dev, bf16)
+                for base_ in (0.0, 1.0, 0.0)]
+        kb.reset_launches()
+        patch_embed_hold(torch, record, ".e48",
+                         (canvas, wm, *vecs, 4, 1e-6), {}, False)
+        launched(kb, results, "patch_embed.e48", "patch_embed/bf16")
+        del canvas, wm, vecs
+
+        # ---- kernels 1 and 10 at 64 and 128 points a pillar ----------------
+        for k in (64, 128):
+            cfg = semantic_kitti_default().replace(
+                max_points_per_scan=131072, compute_dtype="bfloat16",
+                max_num_points=k)
+            model = MaskBev(cfg)
+            model.load_state_dict(model.random_state_dict(SEED + 72))
+            enc = model.to(dev, bf16).encoder.eval()
+            pts_np, mask_np = scans_long(np, BATCH, cfg.max_points_per_scan,
+                                         SEED + k)
+            pts = torch.as_tensor(pts_np).to(dev, bf16)
+            msk = torch.as_tensor(mask_np).to(dev)
+            net = enc.pillar_feature_net
+            weights, packed = enc._weights(pts.device)
+            kw = dict(with_distance=net.with_distance, grid_w=enc.grid_hw[1],
+                      voxel_size=enc.voxel_size, x0=enc.x_range[0],
+                      y0=enc.y_range[0], out_dtype=bf16)
+            macs = sum(w_.shape[0] * w_.shape[1] for (w_, _, _) in weights)
+            # kernel 1: every occupied cell
+            kb.reset_launches()
+            ps, table, stats = enc.pillar_table(pts, msk)
+            t_plain, s_plain = kpfn.pfn_plain(ps, weights,
+                                              point_dim=net.point_dim, **kw)
+            n_pil = ps.num_pillars.long()
+            rows = (torch.arange(table.shape[1], device=dev)[None]
+                    < n_pil[:, None])
+            err = float((table.float() - t_plain.float()).abs()[rows].max())
+            scale = float(t_plain.float().abs().max())
+            st_err = float(((stats - s_plain).abs()
+                            / s_plain.abs().clamp(min=1)).max())
+            ms_k = cuda_ms(torch, lambda: kpfn.pfn(
+                ps, weights, point_dim=net.point_dim,
+                max_points_per_pillar=k, packed=packed, **kw), 5)
+            ms_p = cuda_ms(torch, lambda: kpfn.pfn_plain(
+                ps, weights, point_dim=net.point_dim, **kw), 2)
+            kept = float(ps.counts.sum())
+            n_long = int((ps.counts > 32).sum())
+            byts = (BATCH * cfg.max_points_per_scan * 16
+                    + float(n_pil.sum()) * (12 + table.shape[-1] * 2))
+            record(f"pfn.k{k}", *SOURCES["pfn"], err, 2 ** -7 * scale, ms_k,
+                   ms_p, bound(byts, 2 * kept * macs / PEAK["bf16"]),
+                   f"{k} points a pillar: pillars over 32 kept points "
+                   f"{n_long} of {int(n_pil.sum())}, kept points "
+                   f"{int(kept)}; stats rel err {st_err:.3g} (tolerance "
+                   f"1e-3)")
+            if st_err > 1e-3 or n_long <= 0:
+                failures.append(f"pfn.k{k}: stats or no long pillar")
+            launched(kb, results, f"pfn.k{k}", "pfn/" + kpfn.instance(False,
+                                                                      k))
+            del ps, table, t_plain
+            # kernel 10: the capped stream of the same scans
+            kb.reset_launches()
+            sp, table, stats, nv = enc.capped_table(pts, msk)
+            want, wstats = kpfn.stream_pfn_plain(sp, weights, k=k, **kw)
+            err = float((table.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            st_err = float(((stats - wstats).abs()
+                            / wstats.abs().clamp(min=1)).max())
+            counts = ksp.kept_counts(sp.pid, sp.kept, sp.starts.shape[1])
+            ms_k = cuda_ms(torch, lambda: kpfn.stream_pfn(
+                sp, weights, k=k, num_valid=nv, packed=packed, **kw), 5)
+            ms_p = cuda_ms(torch, lambda: kpfn.stream_pfn_plain(
+                sp, weights, k=k, **kw), 2)
+            kept = float(sp.kept.sum())
+            b_, n_, d_ = sp.pts.shape
+            p_, c_ = table.shape[1], table.shape[2]
+            byts = b_ * n_ * (d_ * 2 + 4 + 1) + b_ * p_ * (8 + c_ * 2 + 8)
+            record(f"stream_pfn.k{k}", "mask_bev_tpu_torch/csrc/pfn.cu",
+                   "mask_bev_tpu/ops/pallas_pfn.py:168", err, 1e-2 * scale,
+                   ms_k, ms_p, bound(byts, 2 * kept * macs / PEAK["bf16"]),
+                   f"{k} points a pillar, {p_} slots (occupied "
+                   f"{nv.tolist()}): slots over 32 kept points "
+                   f"{int((counts > 32).sum())}; stats rel err "
+                   f"{st_err:.3g} (tolerance 1e-3)")
+            if st_err > 1e-3 or int((counts > 32).sum()) <= 0:
+                failures.append(f"stream_pfn.k{k}: stats or no long pillar")
+            launched(kb, results, f"stream_pfn.k{k}",
+                     "stream_pfn/" + kpfn.instance(False, k))
+            del sp, table, want, model, enc, pts, msk
+    torch.cuda.empty_cache()
 
 
 def trainer_phase(np, torch, card, failures, here) -> None:

@@ -35,11 +35,12 @@
 //
 // Each block owns 128-row tiles and all E outputs of them: two consumer
 // warpgroups of 64 rows each, so the LayerNorm runs on the accumulator
-// registers. bf16: one wgmma m64nEk16 a 16-deep step (E = 64 ... 256),
+// registers. bf16: one wgmma m64nEk16 a 16-deep step (E = 48, 64, 96,
+// 128, 192 or 256: each width its own instruction and instance),
 // one group of four kept in flight. f32: the 3xTF32 partial sums of a
 // stage and the f32 sums of all E columns do not fit one thread's
 // registers for E = 192 and 256, so a stage runs in column passes of
-// tf_cols<E>() (96 or 64) of m64n<cols>k8 .tf32, with A read from the
+// tf_cols<E>() (96 or 64; E itself up to 128) of m64n<cols>k8 .tf32, with A read from the
 // swizzled f32 tile into registers and split there once a stage. A
 // row's values sit in one lane quad: bias, sums, then two shfl_xor give
 // the statistics, and each lane stores its own column pairs; no f32 tile
@@ -47,9 +48,11 @@
 //
 // The weight is read from L2 once a pair of tiles: blocks run in clusters
 // of two whose tiles are neighbours, and each block loads half of a
-// stage's weight rows with TMA multicast into both. At 800^2 in bf16 that
-// is 1250 pairs x 786 KB = 0.98 GB of L2 reads (1.97 GB if each 128-token
-// tile read it alone), in f32 1250 x 3.1 MB (hi and lo) = 3.9 GB. Persistent
+// stage's weight rows with TMA multicast into both (E / 2 rows: a multiple
+// of 8 for every E taken, so each half starts on a whole 1024-byte swizzle
+// atom; E = 48, the narrowest, still fills a ring of 6 stages). At 800^2
+// in bf16 that is 1250 pairs x 786 KB = 0.98 GB of L2 reads (1.97 GB if
+// each 128-token tile read it alone), in f32 1250 x 3.1 MB (hi and lo) = 3.9 GB. Persistent
 // grid: one block an SM walks tile pairs; one producer thread keeps a ring
 // of stages in flight across tile boundaries, so one tile's epilogue
 // overlaps the next tile's loads; a stage is free again when the
@@ -133,6 +136,26 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
       : PE_F32(0)
       : "l"(da), "l"(db), "r"(acc));
 }
+__device__ __forceinline__ void wgmma_bf16(float (&d)[24], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %26, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      PE_R0 ", " PE_R1 ", " PE_R2
+      "}, %24, %25, p, 1, 1, 0, 0;\n}"
+      : PE_F16(0), PE_F4(16), PE_F4(20)
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %50, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      PE_R0 ", " PE_R1 ", " PE_R2 ", " PE_R3 ", " PE_R4 ", " PE_R5
+      "}, %48, %49, p, 1, 1, 0, 0;\n}"
+      : PE_F32(0), PE_F16(32)
+      : "l"(da), "l"(db), "r"(acc));
+}
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
                                            uint64_t db, int acc) {
   asm volatile(
@@ -168,6 +191,18 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
       "}, %128, %129, p, 1, 1, 0, 0;\n}"
       : PE_F32(0), PE_F32(32), PE_F32(64), PE_F32(96)
       : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[24],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      PE_R0 ", " PE_R1 ", " PE_R2
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}"
+      : PE_F16(0), PE_F4(16), PE_F4(20)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(acc));
 }
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
                                            const uint32_t (&a)[4],
@@ -537,8 +572,14 @@ static int dispatch(int E, const void* canvas, const void* wm,
                     const float* ln_b, void* out, int B, int H, int W, int C,
                     int p, int tx, int ty, float eps, cudaStream_t stream) {
   switch (E) {
+    case 48:
+      return launch<TF, 48>(canvas, wm, wm_lo, bias, ln_w, ln_b, out, B, H,
+                            W, C, p, tx, ty, eps, stream);
     case 64:
       return launch<TF, 64>(canvas, wm, wm_lo, bias, ln_w, ln_b, out, B, H,
+                            W, C, p, tx, ty, eps, stream);
+    case 96:
+      return launch<TF, 96>(canvas, wm, wm_lo, bias, ln_w, ln_b, out, B, H,
                             W, C, p, tx, ty, eps, stream);
     case 128:
       return launch<TF, 128>(canvas, wm, wm_lo, bias, ln_w, ln_b, out, B, H,
@@ -559,7 +600,7 @@ static int dispatch(int E, const void* canvas, const void* wm,
 // canvas (B, H, W, C); wm (E, p p C) K-major; bias, ln_w, ln_b (E,) f32;
 // out (B, H/p * W/p, E). bf16 (f32 == 0): canvas, wm, out bf16, wm_lo
 // unused; f32: canvas and out f32, wm and wm_lo the weight's TF32 halves
-// hi and lo. E one of 64, 128, 192, 256; p C a multiple of 64 (bf16) or
+// hi and lo. E one of 48, 64, 96, 128, 192, 256; p C a multiple of 64 (bf16) or
 // 32 (f32); (tile_x, tile_y) from ops/patch_embed.py::plan.
 MB_EXPORT int patch_embed_forward(const void* canvas, const void* wm,
                                   const void* wm_lo, const float* bias,

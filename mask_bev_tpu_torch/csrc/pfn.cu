@@ -37,9 +37,13 @@
 // This one works on tiles of whole pillars in compacted kept-point order
 // (ops/stream_pillars.py::pfn_tiles): tile t of a sample owns the pillars
 // whose first compacted row lies in [64 t, 64 t + 64), so it holds at most
-// 64 + 31 = 95 rows (6 m16 tiles), gathered into shared memory (one thread
-// a row, so every point load of the tile is in flight at once) and
-// decorated there. A persistent grid walks the tiles; a block loads the
+// 64 + K - 1 rows for K points a pillar: 95 rows (6 m16 tiles) at K <= 32,
+// the instance MT = 6, and 191 (12 m16 tiles) at K <= 128, the instance MT =
+// 12 (mmdet3d's 64 points a pillar, the PointPillars paper's 100). The rows
+// are gathered into shared memory (one thread a row, so every point load of
+// the tile is in flight at once) and decorated there; the products run over
+// them 6 m16 tiles at a time (MT = 12: twice, each chunk's epilogue after
+// its own products, so the register tiles are MT = 6's). A persistent grid walks the tiles; a block loads the
 // weights once into shared memory, in B-fragment order (packed on the host,
 // ops/pfn.py::pack_weights: one 8-byte load a lane and k-step).
 //   * bf16 instance: every layer's product is mma.sync m16n8k16 (bf16
@@ -69,8 +73,7 @@
 #include "common.cuh"
 
 #define PFN_MAXL 4
-#define PFN_ROWS 96   // rows of a tile: at most 64 + 31, in 6 m16 tiles
-#define PFN_MT 6
+#define PFN_MT 6      // m16 tiles of one product call (96 rows)
 #define PFN_PIL 64    // pillars of a tile at most (distinct first rows)
 #define PFN_THREADS 256  // threads of a tile group
 #define PFN_WARPS (PFN_THREADS / 32)
@@ -260,7 +263,8 @@ __device__ __forceinline__ void group_sync(int groups, int grp) {
                  : "memory");
 }
 
-template <typename T>
+// MT: m16 tiles of a tile's rows, 6 (K <= 32) or 12 (K <= 128)
+template <typename T, int MT>
 __global__ void __launch_bounds__(sizeof(T) == 2 ? PFN_THREADS
                                                  : 2 * PFN_THREADS)
 pfn_tile_kernel(
@@ -273,6 +277,7 @@ pfn_tile_kernel(
     int B, int N, int P, int ntiles, int point_dim, int with_distance,
     int grid_w, float vs, float cx0, float cy0, int zero_tail) {
   constexpr bool TC = sizeof(T) == 2;
+  constexpr int ROWS = 16 * MT;  // rows of a tile: at most 64 + K - 1
   extern __shared__ __align__(16) float smem[];
   float* gbs = smem;
   const uint2* wfr = reinterpret_cast<const uint2*>(smem + d.gbsz);
@@ -280,14 +285,14 @@ pfn_tile_kernel(
   const int grp = threadIdx.x / PFN_THREADS;
   T* Xs = reinterpret_cast<T*>(reinterpret_cast<char*>(smem + d.gbsz) +
                                sizeof(T) * d.wsz +
-                               (size_t)grp * d.group_bytes);  // PFN_ROWS x lda
-  int* pil_row = reinterpret_cast<int*>(Xs + PFN_ROWS * d.lda);
+                               (size_t)grp * d.group_bytes);  // ROWS x lda
+  int* pil_row = reinterpret_cast<int*>(Xs + ROWS * d.lda);
   int* pil_cnt = pil_row + PFN_PIL;
   int* pil_start = pil_cnt + PFN_PIL;
   int* pil_cell = pil_start + PFN_PIL;
-  int* rowpil = pil_cell + PFN_PIL;                       // PFN_ROWS
-  float* raw = reinterpret_cast<float*>(rowpil + PFN_ROWS);  // PFN_ROWS x 4
-  float* mean = raw + 4 * PFN_ROWS;                       // PFN_PIL x 4
+  int* rowpil = pil_cell + PFN_PIL;                       // ROWS
+  float* raw = reinterpret_cast<float*>(rowpil + ROWS);   // ROWS x 4
+  float* mean = raw + 4 * ROWS;                           // PFN_PIL x 4
 
   const int tid = threadIdx.x % PFN_THREADS, warp = tid >> 5, lane = tid & 31;
   unsigned long long t_prev = prof && tid == 0 ? gtimer() : 0;
@@ -386,23 +391,30 @@ pfn_tile_kernel(
       const float* g = gbs + d.gboff[li];
       const float* bb = g + u;
       const bool last = li == d.nl - 1;
-      // ---- products, then z = relu(acc * g + b) rounded, in place --------
-      if constexpr (TC) {
-        float acc[2][PFN_MT][4];
-        pfn_mma(acc, reinterpret_cast<const bf16*>(Xs), d.lda, nmt,
-                wfr + d.woff[li] / 4, kp, u, warp, lane);
-        group_sync(d.groups, grp);  // every warp has read this layer's input
-        PFN_MARK(4)
-        pfn_epilogue(acc, Xs, d.lda, g, bb, u, nmt, nrows, warp, PFN_WARPS, 0,
-                     1, lane);
-      } else {
-        float acc[4][3][4];
-        pfn_mma_tf32(acc, reinterpret_cast<const float*>(Xs), d.lda, nmt,
-                     wfr + d.woff[li] / 2, kp, u, warp, lane);
-        group_sync(d.groups, grp);  // every warp has read this layer's input
-        PFN_MARK(4)
-        pfn_epilogue(acc, Xs, d.lda, g, bb, u, nmt, nrows, warp & 3, 4,
-                     warp >> 2, 2, lane);
+      // ---- products, then z = relu(acc * g + b) rounded, in place, over
+      // chunks of PFN_MT m16 tiles (one at MT = 6): a chunk's epilogue
+      // writes only its own rows, which no later chunk's products read
+#pragma unroll
+      for (int m0 = 0; m0 < MT; m0 += PFN_MT) {
+        if (m0 > 0 && m0 >= nmt) break;
+        T* Xc = Xs + (size_t)16 * m0 * d.lda;
+        if constexpr (TC) {
+          float acc[2][PFN_MT][4];
+          pfn_mma(acc, reinterpret_cast<const bf16*>(Xc), d.lda, nmt - m0,
+                  wfr + d.woff[li] / 4, kp, u, warp, lane);
+          group_sync(d.groups, grp);  // every warp has read the chunk's input
+          PFN_MARK(4)
+          pfn_epilogue(acc, Xc, d.lda, g, bb, u, nmt - m0, nrows - 16 * m0,
+                       warp, PFN_WARPS, 0, 1, lane);
+        } else {
+          float acc[4][3][4];
+          pfn_mma_tf32(acc, reinterpret_cast<const float*>(Xc), d.lda,
+                       nmt - m0, wfr + d.woff[li] / 2, kp, u, warp, lane);
+          group_sync(d.groups, grp);  // every warp has read the chunk's input
+          PFN_MARK(4)
+          pfn_epilogue(acc, Xc, d.lda, g, bb, u, nmt - m0, nrows - 16 * m0,
+                       warp & 3, 4, warp >> 2, 2, lane);
+        }
       }
       group_sync(d.groups, grp);
       PFN_MARK(5)
@@ -506,17 +518,19 @@ static int parse_dims(const int* dims, PfnDims* d) {
   return 0;
 }
 
-// shared memory of a block of the instance T: g/b and the weights, then a
-// part for each tile group (+ 8 bf16 or + 4 f32 elements a row: rows 16
-// bytes apart mod 128, so that ldmatrix is free of bank conflicts).
-// The f32 instance runs two tile groups a block where they fit.
+// shared memory of a block of the instance (T, mt): g/b and the weights,
+// then a part for each tile group of 16 mt rows (+ 8 bf16 or + 4 f32
+// elements a row: rows 16 bytes apart mod 128, so that ldmatrix is free of
+// bank conflicts). The f32 instance runs two tile groups a block where
+// they fit (ops/pfn.py::smem_bytes mirrors this).
 template <typename T>
-static size_t pfn_smem(PfnDims* d) {
+static size_t pfn_smem(PfnDims* d, int mt) {
   const bool tc = sizeof(T) == 2;
+  const int rows = 16 * mt;
   d->lda += tc ? 8 : 4;
-  d->group_bytes = (int)(sizeof(T) * PFN_ROWS * d->lda +
-                         sizeof(int) * (4 * PFN_PIL + PFN_ROWS) +
-                         sizeof(float) * 4 * (PFN_ROWS + PFN_PIL));
+  d->group_bytes = (int)(sizeof(T) * rows * d->lda +
+                         sizeof(int) * (4 * PFN_PIL + rows) +
+                         sizeof(float) * 4 * (rows + PFN_PIL));
   const size_t shared = sizeof(float) * d->gbsz + sizeof(T) * d->wsz;
   d->groups = !tc && shared + 2 * (size_t)d->group_bytes <= PFN_SMEM_MAX
                   ? 2 : 1;
@@ -531,13 +545,15 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
                         T* table, float* partials, unsigned long long* prof,
                         int B, int N, int P, int ntiles, int point_dim,
                         int with_distance, int grid_w, float vs, float cx0,
-                        float cy0, int zero_tail, cudaStream_t stream) {
+                        float cy0, int zero_tail, int k,
+                        cudaStream_t stream) {
   PfnDims d;
-  if (parse_dims(dims, &d)) return MB_BAD_ARGS;
-  const size_t smem = pfn_smem<T>(&d);
+  if (parse_dims(dims, &d) || k < 1 || k > 128) return MB_BAD_ARGS;
+  const int mt = k <= 32 ? 6 : 12;  // m16 tiles of 64 + k - 1 rows
+  const size_t smem = pfn_smem<T>(&d, mt);
   if (smem > PFN_SMEM_MAX) return MB_BAD_ARGS;
   const int threads = PFN_THREADS * d.groups;
-  auto kern = pfn_tile_kernel<T>;
+  auto kern = mt == 6 ? pfn_tile_kernel<T, 6> : pfn_tile_kernel<T, 12>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
@@ -564,8 +580,9 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
 // layer zero-padded to kp rows; gb: f32 g, b per layer; table (B, N, units of
 // the last layer) and partials (B, N, 2): rows at and beyond num[b] are not
 // written. prof: null, or PFN_PARTS + 1 zeroed int64 (the parts' ns summed
-// over the tile groups, then the groups). f32: nonzero for the f32
-// instance (f32 weights and table).
+// over the tile groups, then the groups). k: the most kept points a pillar
+// holds (1 .. 128; above 32 the instance of 12 m16 tiles). f32: nonzero
+// for the f32 instance (f32 weights and table).
 MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* it, const int* starts,
                           const int* counts, const int* cells,
@@ -574,25 +591,26 @@ MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* gb, const int* dims, void* table,
                           float* partials, unsigned long long* prof, int B,
                           int N, int ntiles, int point_dim, int with_distance,
-                          int grid_w, float vs, float cx0, float cy0, int f32,
-                          cudaStream_t stream) {
+                          int grid_w, float vs, float cx0, float cy0, int k,
+                          int f32, cudaStream_t stream) {
   if (point_dim < 1 || point_dim > 4) return MB_BAD_ARGS;
   PfnPoints pp = {{x, y, z, it}, nullptr, 0};
   if (f32)
     return launch_tiles<float>(pp, starts, counts, cells, num, row0,
                                tile_first, wbuf, gb, dims, (float*)table,
                                partials, prof, B, N, N, ntiles, point_dim,
-                               with_distance, grid_w, vs, cx0, cy0, 0, stream);
+                               with_distance, grid_w, vs, cx0, cy0, 0, k,
+                               stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, num, row0, tile_first,
                             wbuf, gb, dims, (bf16*)table, partials, prof, B,
                             N, N, ntiles, point_dim, with_distance, grid_w, vs,
-                            cx0, cy0, 0, stream);
+                            cx0, cy0, 0, k, stream);
 }
 
 // Kernel 10. pts (B, N, D) sorted points in the instance's type, D 3 or 4;
 // starts, counts, cells, row0: (B, P) int32 slot directory; nvalid (B,);
 // table (B, P, units of the last layer), partials (B, P, 2): every row
-// written, zero at and beyond nvalid[b]; prof as for pfn_forward.
+// written, zero at and beyond nvalid[b]; prof and k as for pfn_forward.
 MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                  const int* counts, const int* cells,
                                  const int* nvalid, const int* row0,
@@ -602,18 +620,19 @@ MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                  unsigned long long* prof, int B, int N,
                                  int P, int ntiles, int with_distance,
                                  int grid_w, float vs, float cx0, float cy0,
-                                 int f32, cudaStream_t stream) {
+                                 int k, int f32, cudaStream_t stream) {
   if (D < 3 || D > 4) return MB_BAD_ARGS;
   PfnPoints pp = {{nullptr, nullptr, nullptr, nullptr}, pts, D};
   if (f32)
     return launch_tiles<float>(pp, starts, counts, cells, nvalid, row0,
                                tile_first, wbuf, gb, dims, (float*)table,
                                partials, prof, B, N, P, ntiles, D,
-                               with_distance, grid_w, vs, cx0, cy0, 1, stream);
+                               with_distance, grid_w, vs, cx0, cy0, 1, k,
+                               stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, nvalid, row0,
                             tile_first, wbuf, gb, dims, (bf16*)table,
                             partials, prof, B, N, P, ntiles, D, with_distance,
-                            grid_w, vs, cx0, cy0, 1, stream);
+                            grid_w, vs, cx0, cy0, 1, k, stream);
 }
 
 MB_EXPORT int pfn_stats(const float* partials, const int* num, float* stats,

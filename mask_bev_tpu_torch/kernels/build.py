@@ -23,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional
 
 import torch
@@ -88,19 +89,27 @@ def build() -> pathlib.Path:
     nvcc = _nvcc()
     procs = []
     objs = []
+    t0 = time.time()
     for src in _sources():
         obj = out_dir / (src.stem + ".o")
         objs.append(obj)
         cmd = [nvcc, *FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
                "-c", str(src), "-o", str(obj)]
-        procs.append((src, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        log = open(out_dir / (src.stem + ".log"), "w")
+        procs.append((src, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    # each source's compile time goes to the end of its log
+    left = list(procs)
+    while left:
+        time.sleep(0.2)
+        for item in [x for x in left if x[2].poll() is not None]:
+            left.remove(item)
+            item[1].write(f"\ncompiled in {time.time() - t0:.1f} s\n")
+            item[1].close()
     errors = []
-    for src, p in procs:
-        out, _ = p.communicate()
-        (out_dir / (src.stem + ".log")).write_text(out)
+    for src, _, p in procs:
         if p.returncode != 0:
+            out = (out_dir / (src.stem + ".log")).read_text()
             errors.append(f"{src.name} failed:\n{out}")
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))

@@ -44,7 +44,7 @@ Every launch counts under ``decoder_stack`` (and its instance under
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -286,21 +286,30 @@ SPLIT_TK = 32  # keys a tile of the split instance
 SMEM_LIMIT = 227 * 1024  # shared memory a block may use on the H100
 
 
-def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
-                     f32: bool = True) -> int:
-    """Shared memory of one block of the split instance, as
-    ``csrc/decoder_stack.cu::ds2_layout`` lays it out (4-byte words, every
-    part 16-byte aligned): its R = ceil(Q/8) rows of X, XA, QB and OB (row
-    stride C + 16), the mask bits of its rows against all keys, its row
-    flags, then one area that holds in turn the cross-attention's key-tile
-    slots (k or v of 32 keys: f32 at stride C + 16, bf16 C + 8; two
-    buffers of k and v where they fit in 227 KB, else one), the bf16 q copy
-    (ceil(R/16) 16-row tiles) and the (max, sum) exchange of 8 warps x the
-    padded rows, and the self-attention's own k rows, one head's k (then
-    v) of all Q rows and the (R, Q) scores."""
+def split_cluster(q: int) -> int:
+    """Blocks of a cluster of the split instance (``ds2_cluster``): 8 while
+    a block's ceil(Q/8) rows fit :data:`SPLIT_MAXR`, else 16 (Q up to
+    512)."""
+    return 8 if -(-q // 8) <= SPLIT_MAXR else 16
+
+
+def split_layout(q: int, c: int, heads: int, t_max: int,
+                 f32: bool = True) -> Tuple[int, int]:
+    """(bytes, QC): the shared memory of one block of the split instance
+    and the self-attention's keys a chunk, as ``csrc/decoder_split.cu::
+    ds2_layout`` lays it out (4-byte words, every part 16-byte aligned):
+    its R = ceil(Q/cs) rows of X, XA, QB and OB (row stride C + 16), the
+    mask bits of its rows against all keys, its row flags, then one area
+    that holds in turn the cross-attention's key-tile slots (k or v of 32
+    keys: f32 at stride C + 16, bf16 C + 8; two buffers of k and v where
+    they fit in 227 KB, else one), the bf16 q copy (ceil(R/16) 16-row
+    tiles) and the (max, sum) exchange of 8 warps x the padded rows, and
+    the self-attention's own k rows, one head's k (then v) of QC rows and
+    the (R, QC) scores: QC = Q where that fits, else the most keys, a
+    multiple of 32, that do (two sweeps over the chunks)."""
     def al(n):
         return -(-n // 4) * 4
-    r, ld, hd = -(-q // CLUSTER), c + 16, c // heads
+    r, ld, hd = -(-q // split_cluster(q)), c + 16, c // heads
     rp = 16 * -(-r // 16)
     rx = r * ld
     area = 4 * rx + al(r * -(-t_max // 32)) + al(r)
@@ -311,11 +320,23 @@ def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
         cross = 2 * buffers * slot + qt + 2 * SPLIT_WARPS * rp
         total = 4 * (area + al(max(cross, self_attn)))
         if total <= SMEM_LIMIT:
-            break
-    return total
+            return total, q
+    qc = (SMEM_LIMIT // 4 - area - rx) // (hd + 1 + r) // 32 * 32
+    if 32 <= qc < q:
+        total = 4 * (area + al(max(cross, rx + qc * (hd + 1) + r * qc)))
+        return total, qc
+    return total, q
+
+
+def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
+                     f32: bool = True) -> int:
+    """Shared memory of one block of the split instance
+    (:func:`split_layout`)."""
+    return split_layout(q, c, heads, t_max, f32)[0]
 
 
 SPLIT_HEAD_DIMS = (8, 16, 32, 64)  # the split kernel's HD instances
+SPLIT_ONE_HEAD_DIMS = (64, 128, 256)  # its one-head instances (HD = C)
 
 
 def split_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
@@ -324,13 +345,20 @@ def split_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
     """Why the split instance does not take these shapes (the C entry
     point's own check), or None where it does: C a multiple of 64 (32-deep
     product chunks, 16 output columns a warp), the FFN's hidden units in
-    chunks of C, 2, 4 or 8 heads (a head's warps split each key tile) of a
-    width in :data:`SPLIT_HEAD_DIMS`, at most 32 rows a block, and the
-    shared memory of :func:`smem_bytes_split`."""
-    smem = smem_bytes_split(q, c, heads, t_max, f32)
-    if (q < 1 or c % 64 or ffn % c or heads < 2 or SPLIT_WARPS % heads
-            or c % heads or c // heads not in SPLIT_HEAD_DIMS
-            or n_layers % nl or nl > 3 or -(-q // CLUSTER) > SPLIT_MAXR
+    chunks of C, one head of a width in :data:`SPLIT_ONE_HEAD_DIMS` (the 8
+    warps split its output columns), or 2, 4 or 8 heads (a head's warps
+    split each key tile) or a multiple of 8 (rounds of 8 heads) of a width
+    in :data:`SPLIT_HEAD_DIMS`, at most 32 rows a block in clusters of 8
+    or 16 (Q <= 512), and the shared memory of :func:`split_layout`."""
+    smem = smem_bytes_split(q, c, heads, t_max, f32) if heads >= 1 else 0
+    if heads == 1:
+        width_ok = c in SPLIT_ONE_HEAD_DIMS
+    else:
+        width_ok = (heads > 1 and not (SPLIT_WARPS % heads and heads % 8)
+                    and c % heads == 0 and c // heads in SPLIT_HEAD_DIMS)
+    if (q < 1 or c % 64 or ffn % c or not width_ok
+            or n_layers % nl or nl > 3
+            or -(-q // split_cluster(q)) > SPLIT_MAXR
             or smem > SMEM_LIMIT):
         return (f"decoder stack split instance: unsupported shape Q={q} "
                 f"C={c} FFN={ffn} heads={heads} levels={nl} "
@@ -375,6 +403,19 @@ def decoder_stack_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
                          dtype == torch.float32)
 
 
+def split_instance(q: int, heads: int, f32: bool) -> str:
+    """The name a split launch counts under: ``split_tc_f32`` or
+    ``split_tc_bf16``, with ``_cs16`` in clusters of 16 (Q > 256),
+    ``_heads1`` for one head (its columns split over the warps) and
+    ``_heads<n>`` for rounds of 8 heads (more than 8)."""
+    name = "split_tc_" + ("f32" if f32 else "bf16")
+    if split_cluster(q) > 8:
+        name += "_cs16"
+    if heads == 1 or heads > SPLIT_WARPS:
+        name += f"_heads{heads}"
+    return name
+
+
 SPLIT_PARTS = ("mask bits", "q projection", "cross-attention",
                "out projection + LN1", "self-attention + LN2", "FFN + LN3",
                "mask MLP")  # the parts ``profile`` times, in its order
@@ -391,8 +432,8 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     ``pack_weights`` at first use. ``return_bits`` (CUDA only):
     also return the kernel's effective blocked positions, (B, L, Q, T_l)
     bool per layer, to count disagreements with the plain version.
-    ``profile`` (split instance only): a zeroed (B * CLUSTER, 7) int64
-    CUDA tensor to which each block adds the ns it spent in each of
+    ``profile`` (split instance only): a zeroed (B * split_cluster(Q), 7)
+    int64 CUDA tensor to which each block adds the ns it spent in each of
     :data:`SPLIT_PARTS`, summed over the layers."""
     if not out0.is_cuda:
         return decoder_stack_plain(out0, emb0, qpos, mems, pes, feats,
@@ -416,7 +457,7 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         if flagship:
             raise ValueError("profile: only the split instance is timed")
         kb.check_cuda(profile, "profile", torch.int64,
-                      (b * CLUSTER, len(SPLIT_PARTS)))
+                      (b * split_cluster(q), len(SPLIT_PARTS)))
     if flagship:
         smem = smem_bytes(q, c, max(t))
     else:
@@ -469,7 +510,7 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   kb.ptr(bits), kb.ptr(profile), kb.ci(b), kb.ci(q),
                   kb.ci(c), kb.ci(ffn), kb.ci(num_heads), kb.ci(smem),
                   kb.cf(hd ** -0.5), kb.ci(f32), kb.stream(),
-                  instance="split_tc_f32" if f32 else "split_tc_bf16")
+                  instance=split_instance(q, num_heads, f32))
     if not return_bits:
         return out
     shifts = torch.arange(32, device=out0.device, dtype=torch.int32)

@@ -60,7 +60,9 @@ def patch_embed_plain(canvas: torch.Tensor, wm: torch.Tensor,
 TILE = 128
 STAGE_K_BYTES = 128
 SMEM_LIMIT = 232448
-EMBED_DIMS = (64, 128, 192, 256)
+# (each E its own wgmma m64nEk16 instruction and kernel instance: 48 the
+# narrow backbones', 96 Swin-T's and Swin-S's)
+EMBED_DIMS = (48, 64, 96, 128, 192, 256)
 
 
 def tile_shape(gw: int, rows: int) -> Tuple[int, int]:

@@ -34,8 +34,12 @@ dtype: a bf16 instance (layer products on ``mma.sync`` m16n8k16, counted
 as ``<kernel>/bf16``) or an f32 instance (3xTF32 on ``mma.sync`` m16n8k8,
 two tile groups a block sharing the f32 weights, counted as
 ``<kernel>/f32_3xtf32``; it took the place of an f32 instance whose
-products were FMAs on the CUDA cores, ``<kernel>/f32``). Each wrapper
-launches it and the statistics reduction, two launches a call.
+products were FMAs on the CUDA cores, ``<kernel>/f32``). Up to 32 points a
+pillar a tile spans at most 95 rows (6 m16 tiles); up to 128 (mmdet3d's
+64, the PointPillars paper's 100) it spans at most 191, the instances of
+12 m16 tiles (:data:`LONG_SUFFIX`: ``<kernel>/bf16_k128``,
+``<kernel>/f32_3xtf32_k128``). Each wrapper launches it and the statistics
+reduction, two launches a call.
 """
 from __future__ import annotations
 
@@ -123,6 +127,36 @@ def table_stats(table: torch.Tensor) -> torch.Tensor:
 
 # the f32 instance's name in ``kb.INSTANCES``
 F32_INSTANCE = "f32_3xtf32"
+# ``csrc/pfn.cu``: points a pillar of the instances of 6 and 12 m16 tiles
+# (a tile spans at most 64 + K - 1 rows), the suffix of the second one's
+# name, a block's shared memory
+SHORT_K, MAX_K = 32, 128
+LONG_SUFFIX = "_k128"
+SMEM_LIMIT = 232448
+
+
+def instance(f32: bool, k: int) -> str:
+    """The instance name a launch counts under for K points a pillar."""
+    return (F32_INSTANCE if f32 else "bf16") + (LONG_SUFFIX if k > SHORT_K
+                                                else "")
+
+
+def smem_bytes(dims: Sequence[Tuple[int, int]], f32: bool, k: int) -> int:
+    """A block's shared memory, as ``csrc/pfn.cu::pfn_smem`` lays it out:
+    the f32 g/b and the weights (each layer's input padded to 16 rows),
+    then per tile group its 16 MT rows (stride max padded input + 4 f32 or
+    + 8 bf16), the tile's directory and raw points; the f32 instance runs
+    two tile groups where they fit."""
+    esz = 4 if f32 else 2
+    kps = [-(-kk // 16) * 16 for kk, _ in dims]
+    wsz = sum(kp * u for kp, (_, u) in zip(kps, dims))
+    gbsz = (2 * sum(u for _, u in dims) + 3) & ~3
+    lda = max(kps) + (4 if f32 else 8)
+    rows = 16 * (6 if k <= SHORT_K else 12)
+    group = esz * rows * lda + 4 * (4 * 64 + rows) + 16 * (rows + 64)
+    shared = 4 * gbsz + esz * wsz
+    groups = 2 if f32 and shared + 2 * group <= SMEM_LIMIT else 1
+    return shared + groups * group
 # the parts of the tile walk that ``profile`` times, in its order
 # (``csrc/pfn.cu::PFN_PARTS``)
 PFN_PARTS = ("set-up", "directory", "gather", "decorate", "products",
@@ -201,28 +235,43 @@ def layers_refusal(dims: Sequence[Tuple[int, int]], in0: int, dtype,
     return None
 
 
+def tiles_refusal(k: int, dims: Sequence[Tuple[int, int]], dtype
+                  ) -> Optional[str]:
+    """Why the tile kernel's instance for K points a pillar does not take
+    these layers, or None: 1 to :data:`MAX_K` points a pillar and a
+    block's shared memory (:func:`smem_bytes`) within the card's."""
+    if not 1 <= k <= MAX_K:
+        return (f"pfn kernels take at most {MAX_K} points per pillar, got "
+                f"{k}")
+    smem = smem_bytes(dims, dtype == torch.float32, k)
+    if smem > SMEM_LIMIT:
+        return (f"pfn kernel: {smem} B of shared memory a block for layers "
+                f"{list(dims)} at {k} points a pillar, limit {SMEM_LIMIT}")
+    return None
+
+
 def pfn_refusal(max_points_per_pillar: int,
                 dims: Sequence[Tuple[int, int]], in0: int, dtype,
                 out_dtype) -> Optional[str]:
-    """Why kernel 1 does not take these shapes, or None where it does: at
-    most 32 points a pillar and :func:`layers_refusal`."""
-    if max_points_per_pillar > 32:
-        return (f"pfn kernel takes at most 32 points per pillar, got "
-                f"{max_points_per_pillar}")
-    return layers_refusal(dims, in0, dtype, out_dtype)
+    """Why kernel 1 does not take these shapes, or None where it does:
+    :func:`layers_refusal` and :func:`tiles_refusal` (at most 128 points a
+    pillar)."""
+    return (layers_refusal(dims, in0, dtype, out_dtype)
+            or tiles_refusal(max_points_per_pillar, dims, dtype))
 
 
 def stream_pfn_refusal(k: int, point_cols: int,
                        dims: Sequence[Tuple[int, int]], with_distance: bool,
                        dtype, out_dtype, points_dtype) -> Optional[str]:
-    """Why kernel 10 does not take these shapes, or None where it does: at
-    most 32 points a pillar, 3 or 4 point columns of the table's dtype and
-    :func:`layers_refusal`."""
-    if k > 32 or point_cols not in (3, 4):
-        return (f"stream pfn kernel takes at most 32 points per pillar and "
-                f"3 or 4 point columns, got k={k}, D={point_cols}")
-    reason = layers_refusal(dims, point_cols + 5 + int(with_distance),
-                            dtype, out_dtype)
+    """Why kernel 10 does not take these shapes, or None where it does: 3
+    or 4 point columns of the table's dtype, :func:`layers_refusal` and
+    :func:`tiles_refusal` (at most 128 points a pillar)."""
+    if point_cols not in (3, 4):
+        return (f"stream pfn kernel takes 3 or 4 point columns, got "
+                f"D={point_cols}")
+    reason = (layers_refusal(dims, point_cols + 5 + int(with_distance),
+                             dtype, out_dtype)
+              or tiles_refusal(k, dims, dtype))
     if reason is None and points_dtype != out_dtype:
         reason = (f"the stream pfn kernel takes points of the weights' "
                   f"dtype {out_dtype}; got {points_dtype}")
@@ -274,7 +323,7 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = F32_INSTANCE if f32 else "bf16"
+    inst = instance(f32, max_points_per_pillar)
     kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
               kb.ptr(ps.starts), kb.ptr(ps.counts), kb.ptr(ps.cells),
               kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
@@ -283,7 +332,8 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
               kb.ci(first.shape[1] - 1), kb.ci(point_dim),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(f32), kb.stream(), instance=inst)
+              kb.ci(max_points_per_pillar), kb.ci(f32), kb.stream(),
+              instance=inst)
     kb.launch("pfn", "pfn_stats", kb.ptr(partials), kb.ptr(ps.num_pillars),
               kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream(), instance=inst)
     return table, stats
@@ -367,7 +417,7 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
     partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = F32_INSTANCE if f32 else "bf16"
+    inst = instance(f32, k)
     kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
               kb.ptr(starts), kb.ptr(counts), kb.ptr(sp.cells),
               kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first), kb.ptr(wbuf),
@@ -376,7 +426,7 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
               kb.ci(first.shape[1] - 1),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(f32), kb.stream(), instance=inst)
+              kb.ci(k), kb.ci(f32), kb.stream(), instance=inst)
     kb.launch("stream_pfn", "pfn_stats", kb.ptr(partials), kb.ptr(num_valid),
               kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream(), instance=inst)
     return table, stats

@@ -394,9 +394,13 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     return out
 
 
-# the window attention's limits (``csrc/window_attn.cuh``, every instance)
+# the window attention's limits (``csrc/window_attn.cuh``, every instance):
+# up to 128 tokens a window in one pass over whole score rows
+# (``window_attn_kernel``), up to 256 in 64-key chunks with a running max and
+# sum (``window_attn_long_kernel``: windows 12 to 16)
 ATTN_HEAD_DIMS = (16, 32, 64)
-ATTN_MAX_TOKENS = 128
+ATTN_ONE_PASS_TOKENS = 128
+ATTN_MAX_TOKENS = 256
 
 
 def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
@@ -411,6 +415,15 @@ def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
                 f"{ATTN_HEAD_DIMS} and at most {ATTN_MAX_TOKENS} tokens a "
                 f"window")
     return None
+
+
+def attn_instance(f32: bool, win: int) -> str:
+    """The instance a window attention launch counts under: ``attn_bf16``
+    or ``attn_f32``, with ``_long`` for windows of more than
+    :data:`ATTN_ONE_PASS_TOKENS` tokens (``window_attn_long_kernel``)."""
+    pad = -(-win * win // 16) * 16
+    return ("attn_f32" if f32 else "attn_bf16") + (
+        "_long" if pad > ATTN_ONE_PASS_TOKENS else "")
 
 
 def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
@@ -438,15 +451,19 @@ def swin_block_refusal(c: int, heads: int, win: int, hidden: int,
 def attn_smem_bytes(win: int, hd: int, f32: bool = False,
                     msa: bool = False) -> int:
     """Shared memory of one attention block (``csrc/window_attn.cuh::
-    window_attn_smem``): q, k, v rows of the padded window (bf16, stride
-    hd + 8) or k, v rows (f32, stride hd + 4); the relative bias of its
-    head (stride NP + 8) as bf16 over NP rows (the Swin variant in bf16)
-    or as f32 over n rows; the token and label rows. A block takes one
-    head over 4 windows, so it reads the bias once for them."""
+    window_attn_smem``, ``window_attn_long_smem`` above
+    :data:`ATTN_ONE_PASS_TOKENS`): q, k, v rows of the padded window (bf16,
+    stride hd + 8) or k, v rows (f32, stride hd + 4); up to 128 tokens the
+    relative bias of its head (stride NP + 8) as bf16 over NP rows (the
+    Swin variant in bf16) or as f32 over n rows (longer windows read it
+    from device memory); the token and label rows. A block takes one head
+    over 4 windows, so it reads the bias once for them."""
     n = win * win
     n_pad = -(-n // 16) * 16
     rows = 2 * n_pad * (hd + 4) * 4 if f32 else 3 * n_pad * (hd + 8) * 2
     bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
+    if n_pad > ATTN_ONE_PASS_TOKENS:
+        bias = 0
     return rows + bias + 8 * n_pad
 
 
@@ -502,8 +519,8 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     """The window attention launch (``csrc/window_attn.cuh``) of kernel 3
     (``msa=False``) or kernel 7 (``msa=True``): (B*H*W, 3C) qkv of bf16 or
     f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
-    are its index math. Counted under ``name`` and ``name/attn_bf16`` or
-    ``name/attn_f32``; the plain version for CPU tensors."""
+    are its index math. Counted under ``name`` and ``name/``
+    :func:`attn_instance`; the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,
                                       shift, msa)
@@ -522,8 +539,7 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
               kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel), kb.ptr(o),
               kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads),
               kb.ci(win), kb.ci(shift), kb.cf((c // heads) ** -0.5),
-              kb.ci(f32), kb.stream(),
-              instance="attn_f32" if f32 else "attn_bf16")
+              kb.ci(f32), kb.stream(), instance=attn_instance(f32, win))
     return o
 
 

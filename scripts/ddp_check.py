@@ -2,7 +2,7 @@
 """``chip_smoke.py``'s ``[ddp]`` and ``[modules]`` phases alone, then the
 readings behind ``[ddp]`` (a)'s gradient tolerances.
 
-    python3 scripts/ddp_check.py
+    python3 scripts/ddp_check.py [--noise]
 
 Builds the kernels from this checkout, runs ``ddp_phase`` (two gloo
 ranks of the card against one process, and the times), ``ddp_nccl_phase``
@@ -14,7 +14,12 @@ twice (its run-to-run change) and two gloo ranks (``chip_smoke.py
 over the whole gradient's (``chip_smoke.GRAD_TOL``), over each module's,
 the leaves furthest by the change's norm over the leaf's
 (``chip_smoke.GRAD_LEAF_TOL``) and by the largest element over the leaf's
-largest. Needs one CUDA card; exits 1 when a phase failed.
+largest. ``--noise`` skips the phases and measures, against the one
+process as it is, what changes only the card's algorithms or the last bit
+of the input: the process repeated, cuDNN off
+(``torch.backends.cudnn.enabled = False``), every real point's
+coordinates moved up by one ulp, and the two ranks. Needs one CUDA card;
+exits 1 when a phase failed.
 """
 import json
 import os
@@ -73,21 +78,38 @@ def main() -> None:
     kb.build()
     kb.lib()
     failures = []
-    for name, phase in (("ddp", cs.ddp_phase), ("nccl", cs.ddp_nccl_phase)):
-        t0 = time.time()
-        phase(np, torch, card, failures, ROOT)
-        print(f"phase {name} took {time.time() - t0:.1f} s", flush=True)
-    cs.modules_phase(np, torch, card, failures)
+    noise = "--noise" in sys.argv[1:]
+    if not noise:
+        for name, phase in (("ddp", cs.ddp_phase),
+                            ("nccl", cs.ddp_nccl_phase)):
+            t0 = time.time()
+            phase(np, torch, card, failures, ROOT)
+            print(f"phase {name} took {time.time() - t0:.1f} s", flush=True)
+        cs.modules_phase(np, torch, card, failures)
 
     cfg, batch, mcs, lcs = cs.ddp_case(np, ROOT, {})
     state = create_train_state(cfg, seed=cs.SEED, device="cuda")
     coords = [(torch.as_tensor(m, device="cuda"),
                torch.as_tensor(c, device="cuda")) for m, c in zip(mcs, lcs)]
-    ones = []
-    for _ in range(2):
-        _, _, g = loss_and_grads(state, batch, coords=coords)
-        ones.append({k: v.cpu() for k, v in g.items()})
-        del g
+
+    def grads(b):
+        _, _, g = loss_and_grads(state, b, coords=coords)
+        return {k: v.cpu() for k, v in g.items()}
+
+    ones = [grads(batch) for _ in range(2)]
+    variants = []
+    if noise:
+        torch.backends.cudnn.enabled = False
+        variants.append(("cuDNN off", grads(batch)))
+        torch.backends.cudnn.enabled = True
+        pts = np.asarray(batch["points"], np.float32)
+        real = np.asarray(batch["point_mask"], bool)[..., None]
+        moved = dict(batch, points=np.where(
+            real, np.nextafter(pts, np.float32(np.inf)), pts))
+        print(f"one ulp: {int(real.sum())} points moved, largest step "
+              f"{float(np.abs(moved['points'] - pts).max()):.3g}",
+              flush=True)
+        variants.append(("input + 1 ulp", grads(moved)))
     del state, coords
     torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
@@ -105,6 +127,8 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     measures(ones[0], ones[1], f"one process repeated, {card}")
+    for name, g in variants:
+        measures(ones[0], g, f"{name} vs one process, {card}")
     measures(ones[0], ranks, f"two ranks vs one process, {card}")
     print("failures", failures, flush=True)
     sys.exit(1 if failures else 0)

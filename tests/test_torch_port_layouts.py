@@ -136,14 +136,15 @@ def test_attention_instances_share_an_sm(hd, f32, msa):
         228 * 1024)
 
 
-@pytest.mark.parametrize("c,heads,win", [(96, 2, 10), (192, 3, 12),
+@pytest.mark.parametrize("c,heads,win", [(96, 2, 10), (192, 3, 17),
                                          (100, 4, 10)])
 def test_attention_shape_check(c, heads, win):
     """One check of the attention template's limits (head widths 16, 32,
-    64; at most 128 tokens a window) serves kernels 3 and 7."""
+    64; at most 256 tokens a window) serves kernels 3 and 7."""
     with pytest.raises(ValueError, match="bad shape"):
         kswin.check_attn_shape("window MSA", c, heads, win)
-    kswin.check_attn_shape("swin block", 192, 3, 10)
+    for w in (10, 12, 16):
+        kswin.check_attn_shape("swin block", 192, 3, w)
 
 
 # ---- kernel 8: the patch embed's token tiles ---------------------------------
@@ -223,7 +224,7 @@ def test_patch_embed_plan_at_path_k():
 
 @pytest.mark.parametrize("b,h,w,c,e,f32", [
     (2, 32, 48, 100, 192, False),  # p C = 400: no whole 128-byte K slices
-    (2, 32, 48, 128, 96, False),   # E not one of the kernel's widths
+    (2, 32, 48, 128, 80, False),   # E not one of the kernel's widths
     (2, 30, 48, 128, 192, True),   # H not a multiple of p
     (2, 32, 48, 20, 192, True),    # p C = 80 f32: no whole slices
 ])

@@ -2,11 +2,14 @@
 a shape, or None), on the CPU where the rules are pure functions of shapes
 and dtype.
 
-* Each rule refuses the shapes its kernel does not take (a window of 12,
-  33 points a pillar, E = 96, K % 16 != 0, 16 decoder heads) and takes
-  every shape of the flagship's paths (``semantic_kitti_default()`` in
-  bf16 and f32, Waymo, paths K and E) and of ``tiny_test_config()``, whose
-  head width of 8 the decoder's split instance now takes.
+* Each rule refuses the shapes its kernel does not take (a window of 17,
+  129 points a pillar, E = 80, K % 16 != 0, a decoder head width of 4,
+  513 queries) and takes every shape of the flagship's paths
+  (``semantic_kitti_default()`` in bf16 and f32, Waymo, paths K and E), of
+  ``tiny_test_config()``, whose head width of 8 the decoder's split
+  instance takes, and the wider shapes the JAX package serves: windows 12
+  and 16, up to 128 points a pillar, E = 48 and 96, up to 512 queries, 1
+  and 16 heads.
 * Each wrapper raises on a CUDA tensor of a refused shape (before it
   builds or launches anything): on the card there is no plain route. The
   canvas wrapper splits 184 samples into launches of at most 183.
@@ -67,7 +70,7 @@ def test_decoder_takes_head_width_8():
 
 
 @pytest.mark.parametrize("c,heads,win,hidden", [
-    (192, 6, 12, 768),   # a window of 12: 144 tokens
+    (192, 6, 17, 768),   # a window of 17: 289 tokens
     (96, 12, 10, 384),   # head width 8
     (64, 2, 7, 200),     # fc2 K = 200: K % 16 != 0
 ])
@@ -76,14 +79,26 @@ def test_swin_chain_refuses(c, heads, win, hidden):
         assert kswin.swin_block_refusal(c, heads, win, hidden, dt)
     if hidden == 4 * c:
         assert "bad shape" in kwmsa.window_msa_refusal(c, heads, win, BF16)
+    if win > 16:
+        # windows 12 and 16 (144 and 256 tokens) are taken
+        for w, dt in ((12, BF16), (12, F32), (16, BF16), (16, F32)):
+            assert kswin.swin_block_refusal(c, heads, w, hidden, dt) is None
+            assert kwmsa.window_msa_refusal(c, heads, w, dt) is None
     assert "K % 16" in kswin.gemm_refusal(200, 64)
     assert kswin.gemm_refusal(192, 576) is None
 
 
 def test_pfn_refuses_33_points_a_pillar():
-    assert "32 points" in kpfn.pfn_refusal(33, PFN_DIMS, 10, BF16, BF16)
-    assert "32 points" in kpfn.stream_pfn_refusal(33, 4, PFN_DIMS, True,
-                                                  BF16, BF16, BF16)
+    """33 to 128 points a pillar are taken (the instances of 12 m16 tiles),
+    129 are not."""
+    for k in (33, 64, 100, 128):
+        for dt in (BF16, F32):
+            assert kpfn.pfn_refusal(k, PFN_DIMS, 10, dt, dt) is None
+            assert kpfn.stream_pfn_refusal(k, 4, PFN_DIMS, True, dt, dt,
+                                           dt) is None
+    assert "128 points" in kpfn.pfn_refusal(129, PFN_DIMS, 10, BF16, BF16)
+    assert "128 points" in kpfn.stream_pfn_refusal(129, 4, PFN_DIMS, True,
+                                                   BF16, BF16, BF16)
     assert kpfn.pfn_refusal(32, [(10, 64), (128, 64), (128, 136)], 10,
                             F32, F32)  # 136 units a layer
     assert kpfn.stream_pfn_refusal(32, 5, PFN_DIMS, True, BF16, BF16, BF16)
@@ -91,7 +106,11 @@ def test_pfn_refuses_33_points_a_pillar():
 
 
 def test_patch_embed_refuses_e96():
-    assert "E in" in kpe.patch_embed_refusal(2, 32, 48, 128, 96, 4, BF16)
+    """E = 48 and 96 are taken (their own wgmma widths), E = 80 is not."""
+    for e in (48, 96):
+        for dt in (BF16, F32):
+            assert kpe.patch_embed_refusal(2, 32, 48, 128, e, 4, dt) is None
+    assert "E in" in kpe.patch_embed_refusal(2, 32, 48, 128, 80, 4, BF16)
     assert kpe.patch_embed_refusal(2, 30, 48, 128, 192, 4, BF16)
     assert kpe.patch_embed_refusal(8, 500, 500, 128, 192, 4, BF16) is None
 
@@ -218,20 +237,23 @@ def test_wrappers_raise_on_refused_shapes():
     """A direct call with a refused shape raises before anything is built
     or launched."""
     g = torch.Generator().manual_seed(0)
-    x = on_card(torch.randn(2, 144, 96, generator=g))
+    x = on_card(torch.randn(2, 289, 96, generator=g))
     fc1 = kswin.Dense(torch.zeros(384, 96), torch.zeros(384))
     p = kswin.BlockWeights(None, None, None, None, None, None, fc1, None,
                            None)
+    # a window of 17 (289 tokens); 12 and 16 are taken
     with pytest.raises(ValueError, match="bad shape"):
-        kswin.swin_block(x.to(BF16), p, (12, 12), 12, 12, 0, False)
+        kswin.swin_block(x.to(BF16), p, (17, 17), 17, 3, 0, False)
     with pytest.raises(ValueError, match="bad shape"):
-        kwmsa.window_msa(x.to(BF16), (12, 12), 12, 0, None, None, None, 12)
+        kwmsa.window_msa(x.to(BF16), (17, 17), 17, 0, None, None, None, 3)
+    assert kswin.swin_block_refusal(96, 3, 12, 384, BF16) is None
     with pytest.raises(ValueError, match="2048"):
         kln.layer_norm(on_card(torch.zeros(4, 4096)), None, None)
     canvas = on_card(torch.zeros(2, 32, 48, 128, dtype=BF16))
-    wm = torch.zeros(96, 4 * 4 * 128, dtype=BF16)
+    wm = torch.zeros(80, 4 * 4 * 128, dtype=BF16)  # E = 80; 96 is taken
     with pytest.raises(ValueError, match="E in"):
         kpe.patch_embed(canvas, wm, None, None, None, 4)
+    assert kpe.patch_embed_refusal(2, 32, 48, 128, 96, 4, BF16) is None
     table = on_card(torch.zeros(2, 16, 12, dtype=BF16))
     ones = torch.ones(2)
     with pytest.raises(ValueError, match="16-byte words"):
@@ -241,9 +263,12 @@ def test_wrappers_raise_on_refused_shapes():
     layers = [kdec.LayerWeights(*(torch.zeros(64, 128),) * len(
         kdec.LayerWeights._fields))] * 3
     mems = [on_card(torch.zeros(2, n, 64)) for n in (9, 25, 100)]
+    # 16 heads of C 64: a head width of 4; 16 heads of C 256 are taken
     with pytest.raises(ValueError, match="split instance"):
         kdec.decoder_stack(out0, out0, None, mems, None, None, layers, None,
                            num_heads=16)
+    assert kdec.decoder_stack_refusal(45, 256, 2048, 16, 3, 9, 3969,
+                                      BF16) is None
 
 
 def _pfn_stream():
@@ -257,12 +282,15 @@ def _pfn_stream():
 
 
 def test_pfn_wrapper_raises_on_33_points():
+    """The wrapper raises past the kernel's 128 points a pillar; 33 to 128
+    are taken."""
     wts = [(torch.zeros(k, u, dtype=BF16), torch.zeros(u), torch.zeros(u))
            for k, u in PFN_DIMS]
-    with pytest.raises(ValueError, match="at most 32 points"):
+    with pytest.raises(ValueError, match="at most 128 points"):
         kpfn.pfn(_pfn_stream(), wts, point_dim=4, with_distance=True,
                  grid_w=80, voxel_size=0.25, x0=-10, y0=-10,
-                 max_points_per_pillar=33, out_dtype=BF16)
+                 max_points_per_pillar=129, out_dtype=BF16)
+    assert kpfn.pfn_refusal(33, PFN_DIMS, 10, BF16, BF16) is None
 
 
 def _decoder_inputs(cfg, seed):
@@ -465,6 +493,263 @@ def test_decoder_split_small_head_widths(dev, dtype, q, c, heads, f, hws):
            for kb_, m in zip(bits, same_logits)]
     print(f"decoder split {inst} hd {c // heads}: flips per layer {flips}, "
           f"on its own decisions {own}, of {[m.numel() for m in logits]}")
+    assert flips[0] <= 1e-4 * logits[0].numel()
+    for li, m in enumerate(logits):
+        assert flips[li] <= 0.05 * m.numel(), (li, flips)
+        assert own[li] <= 0.01 * m.numel(), (li, own)
+    assert _rel(got, same) <= (2e-2 if dtype == BF16 else 1e-3)
+
+
+# ---- the wider shapes on the card: each new instance against its plain
+# ---- version (marked cuda; skipped without one) ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("e", [48, 96])
+def test_patch_embed_new_widths_on_the_card(dev, dtype, e):
+    """Kernel 8's instances at E = 48 (a narrow backbone) and 96 (Swin-T,
+    Swin-S) on a ragged token grid (gw 70): bf16 within 1e-2 of the plain
+    version's largest value, as the other widths; f32 (3xTF32) within
+    1e-5 of a float64 product and LN."""
+    from test_torch_port_f32_kernels import _patch_embed_f64
+    from test_torch_port_kernels import _rel
+
+    g = torch.Generator().manual_seed(23)
+    b, h, w, c = 2, 40, 280, 128
+    canvas = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+    weight = (torch.randn(e, c, 4, 4, generator=g) / (16 * c) ** 0.5).to(
+        dev, dtype)
+    vecs = [(base + 0.1 * torch.randn(e, generator=g)).to(dev, dtype)
+            for base in (0.0, 1.0, 0.0)]
+    wm = kpe.embed_matrix(weight)
+    kb.reset_launches()
+    got = kpe.patch_embed(canvas, wm, *vecs, 4)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES == {
+        "patch_embed/" + ("f32" if dtype == F32 else "bf16"): 1}
+    assert got.shape == (b, (h // 4) * (w // 4), e) and got.dtype == dtype
+    if dtype == BF16:
+        assert _rel(got, kpe.patch_embed_plain(canvas, wm, *vecs, 4)) <= 1e-2
+    else:
+        assert _rel(got.double(), _patch_embed_f64(canvas, wm, *vecs,
+                                                   4)) <= 1e-5
+
+
+# a grid with pad tokens on both axes: 3 x 3 windows of 12, or of 16
+LONG_GRID = {12: (30, 27), 16: (35, 33)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("msa", [False, True], ids=["swin", "msa"])
+@pytest.mark.parametrize("win,shifted", [(12, False), (12, True),
+                                         (16, True)])
+def test_window_attention_long_windows_on_the_card(dev, dtype, msa, win,
+                                                   shifted):
+    """The attention template's long-window kernel (144 and 256 tokens: key
+    chunks of 64 with a running max and sum, the bias read from device
+    memory), Swin and MSA variants, C 64 over 2 heads: bf16 within 1e-2 of
+    the plain version's largest value (the flagship's tolerance); f32
+    within 1e-4 of the plain version and 1e-5 of a float64 attention."""
+    from test_torch_port_kernels import _attention_f64, _block_weights, _rel
+
+    c, heads, b = 64, 2, 2
+    hw = LONG_GRID[win]
+    p = _block_weights(dev, c, heads, win, False, seed=31, dtype=dtype)
+    g = torch.Generator().manual_seed(32)
+    qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(dev, dtype)
+    shift = kswin.effective_shift(hw, win, shifted)
+    name = "window_msa" if msa else "swin_block"
+    a = (qkv, p.qkv.bias, p.rel_bias, b, hw, heads, win, shift)
+    kb.reset_launches()
+    got = kswin.attention(name, *a, msa=msa)
+    torch.cuda.synchronize()
+    inst = kswin.attn_instance(dtype == F32, win)
+    assert inst.endswith("_long") and kb.INSTANCES == {f"{name}/{inst}": 1}
+    want = kswin.window_attention_plain(*a, msa=msa)
+    if dtype == BF16:
+        assert _rel(got, want) <= 1e-2
+    else:
+        exact = _attention_f64(*a, msa=msa)
+        print(f"long window {win} f32 msa={msa}: to the plain f32 "
+              f"{_rel(got, want):.3g}, to float64 "
+              f"{_rel(got.double(), exact):.3g}")
+        assert _rel(got, want) <= 1e-4
+        assert _rel(got.double(), exact) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("win", [12, 16])
+def test_swin_chain_long_windows_on_the_card(dev, quant, win):
+    """Kernels 3/4 (the whole block) at windows 12 and 16, shifted, bf16
+    with and without int8 products: within 2e-2 of the plain chain, as at
+    window 10."""
+    from test_torch_port_kernels import _block_weights, _rel
+
+    c, heads, hw = 64, 2, LONG_GRID[win]
+    p = _block_weights(dev, c, heads, win, quant, seed=33)
+    g = torch.Generator().manual_seed(34)
+    x = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, BF16)
+    shift = kswin.effective_shift(hw, win, True)
+    kb.reset_launches()
+    got = kswin.swin_block(x, p, hw, win, heads, shift, quant)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES["swin_block/attn_bf16_long"] == 1
+    want = kswin.swin_block_plain(x, p, hw, win, heads, shift, quant)
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("win", [12, 16])
+def test_window_msa_long_windows_on_the_card(dev, dtype, win):
+    """Kernel 7 (the window MSA on the token grid) at windows 12 and 16,
+    shifted: within 2e-2 (bf16) or 1e-4 (f32) of its plain version."""
+    from test_torch_port_kernels import _block_weights, _rel
+
+    c, heads, hw = 64, 2, LONG_GRID[win]
+    p = _block_weights(dev, c, heads, win, False, seed=35, dtype=dtype)
+    g = torch.Generator().manual_seed(36)
+    y = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, dtype)
+    shift = kswin.effective_shift(hw, win, True)
+    args = (y, hw, win, shift, p.rel_bias, p.qkv, p.proj, heads)
+    kb.reset_launches()
+    got = kwmsa.window_msa(*args)
+    torch.cuda.synchronize()
+    inst = kswin.attn_instance(dtype == F32, win)
+    assert kb.INSTANCES[f"window_msa/{inst}"] == 1
+    want = kwmsa.window_msa_grid_plain(*args)
+    assert _rel(got, want) <= (2e-2 if dtype == BF16 else 1e-4)
+
+
+def long_pillar_points(seed, b=2, n=8192):
+    """Scans with long pillars (cells of 0.25 m): sample 0 a dense patch of
+    3000 points over 0.75 m x 0.75 m (~330 a pillar), sample 1 one of 200
+    points over 0.5 m x 0.5 m (~50 a pillar) beside one of 900 over 0.5 m
+    (~225), over a uniform spread (1-3 points a pillar); sample 1 partly
+    masked."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-9.9, 9.9, (b, n, 4)).astype(np.float32)
+    pts[:, :, 2] = rng.uniform(-3, 3, (b, n))
+    pts[0, :3000, :2] = 1.1 + rng.uniform(0, 0.75, (3000, 2))
+    pts[1, :200, :2] = -4.0 + rng.uniform(0, 0.5, (200, 2))
+    pts[1, 200:1100, :2] = 5.1 + rng.uniform(0, 0.5, (900, 2))
+    msk = np.ones((b, n), bool)
+    msk[1, 6000:] = False
+    return pts, msk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [64, 100, 128])
+def test_pfn_long_pillars_on_the_card(dev, dtype, k):
+    """Kernel 1's instance of 12 m16 tiles (33 to 128 points a pillar) on
+    pillars of up to K kept points: bf16 within 2^-7 of the plain
+    version's largest value and its statistics within 1e-3 (the flagship
+    instance's tolerances); f32 within 1e-5 of the same layers in
+    float64, statistics too."""
+    from test_torch_port_f32_kernels import _pfn_weights
+    from test_torch_port_kernels import GEO, W, _rel
+    from mask_bev_tpu_torch.ops.stream_pillars import pillarize_stream_packed
+
+    pts, msk = long_pillar_points(40)
+    ps = pillarize_stream_packed(
+        torch.as_tensor(pts, device=dev).to(dtype),
+        torch.as_tensor(msk, device=dev), max_points_per_pillar=k, **GEO)
+    assert int(ps.counts.max()) == k and int((ps.counts > 32).sum()) >= 8
+    wts = _pfn_weights(dev, dtype, 10)
+    kw = dict(point_dim=4, with_distance=True, grid_w=W,
+              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
+              y0=GEO["y_range"][0])
+    kb.reset_launches()
+    table, stats = kpfn.pfn(ps, wts, max_points_per_pillar=k,
+                            out_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES == {f"pfn/{kpfn.instance(dtype == F32, k)}": 2}
+    want, wstats = kpfn.pfn_plain(
+        ps, wts, out_dtype=torch.float64 if dtype == F32 else dtype, **kw)
+    err = max(_rel(table[s, :int(ps.num_pillars[s])].double(),
+                   want[s, :int(ps.num_pillars[s])].double())
+              for s in range(2))
+    st_err = float(((stats.double() - wstats.double())
+                    / wstats.double().abs()).abs().max())
+    print(f"pfn {dtype} k={k}: {err:.3g}, statistics {st_err:.3g}")
+    assert err <= (2 ** -7 if dtype == BF16 else 1e-5)
+    assert st_err <= (1e-3 if dtype == BF16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,cap", [(64, 256), (128, 8192)])
+def test_stream_pfn_long_pillars_on_the_card(dev, dtype, k, cap):
+    """Kernel 10's instance of 12 m16 tiles on a capped stream of long
+    pillars, the cap binding (256) or not (8192): within 1e-2 (bf16) or
+    1e-5 of float64 (f32) of the largest value, as at 32 points."""
+    from test_torch_port_f32_kernels import _pfn_weights
+    from test_torch_port_kernels import GEO, W, _rel
+    from mask_bev_tpu_torch.ops.stream_pillars import pillarize_stream
+
+    pts, msk = long_pillar_points(41)
+    sp = pillarize_stream(torch.as_tensor(pts, device=dev).to(dtype),
+                          torch.as_tensor(msk, device=dev),
+                          max_points_per_pillar=k, max_pillars=cap, **GEO)
+    nv = sp.valid.sum(1).to(torch.int32)
+    wts = _pfn_weights(dev, dtype, 10)
+    kw = dict(k=k, with_distance=True, grid_w=W,
+              voxel_size=GEO["voxel_size"], x0=GEO["x_range"][0],
+              y0=GEO["y_range"][0])
+    kb.reset_launches()
+    table, stats = kpfn.stream_pfn(sp, wts, num_valid=nv, out_dtype=dtype,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert kb.INSTANCES == {
+        f"stream_pfn/{kpfn.instance(dtype == F32, k)}": 2}
+    want, _ = kpfn.stream_pfn_plain(
+        sp, wts, out_dtype=torch.float64 if dtype == F32 else dtype, **kw)
+    assert table.shape == (2, cap, 128)
+    assert _rel(table.double(), want.double()) <= (
+        1e-2 if dtype == BF16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("q,heads", [(300, 8), (512, 8), (45, 1), (45, 16),
+                                     (45, 32)],
+                         ids=["q300", "q512", "heads1", "heads16",
+                              "heads32"])
+def test_decoder_split_wide_on_the_card(dev, dtype, q, heads):
+    """The split instance at C 256 in clusters of 16 (Q = 300 and 512; Q =
+    512 in two sweeps over chunks of the self-attention's keys), with one
+    head (its columns split over the warps) and in rounds of 8 heads (16,
+    32), held as ``test_decoder_split_small_head_widths`` holds the
+    shipped widths."""
+    from test_torch_port_f32_kernels import _rel
+    from test_torch_port_kernels import _decoder_inputs as inputs
+
+    c, f, hws = 256, 512, [(8, 8), (16, 16), (32, 31)]
+    t_max = 32 * 31
+    assert kdec.decoder_stack_refusal(q, c, f, heads, 3, 3, t_max,
+                                      dtype) is None
+    args = inputs(dev, dtype, q, c, heads, f, hws, n_layers=3)
+    kb.reset_launches()
+    got, bits = kdec.decoder_stack(*args, num_heads=heads, return_bits=True)
+    torch.cuda.synchronize()
+    inst = kdec.split_instance(q, heads, dtype == F32)
+    assert kb.INSTANCES[f"decoder_stack/{inst}"] == 1, kb.INSTANCES
+    assert got.dtype == dtype and got.shape == (2, q, c)
+    _, logits = kdec.decoder_stack_plain(*args, num_heads=heads,
+                                         return_logits=True)
+    flips = [int((kb_ != kdec.blocked_positions(m)).sum())
+             for kb_, m in zip(bits, logits)]
+    same, same_logits = kdec.decoder_stack_plain(
+        *args, num_heads=heads, blocked=bits, return_logits=True)
+    own = [int((kb_ != kdec.blocked_positions(m)).sum())
+           for kb_, m in zip(bits, same_logits)]
+    print(f"decoder split {inst} q {q} heads {heads}: flips per layer "
+          f"{flips}, on its own decisions {own}, of "
+          f"{[m.numel() for m in logits]}, {_rel(got, same):.3g}")
     assert flips[0] <= 1e-4 * logits[0].numel()
     for li, m in enumerate(logits):
         assert flips[li] <= 0.05 * m.numel(), (li, flips)

@@ -140,12 +140,20 @@ def test_instance_choice(dtype, q, want):
                                s["n_layers"], s["t_max"], dtype) is want
 
 
+# the wider shapes: 300 and 512 queries (clusters of 16; 512 with the
+# self-attention in key chunks), one head, 16 heads
+WIDER_SHAPES = [dict(WAYMO, q=300), dict(WAYMO, q=512),
+               dict(FLAG, heads=1), dict(FLAG, heads=16)]
+WIDER_IDS = ["q300", "q512", "heads1", "heads16"]
+
+
 @pytest.mark.parametrize("shape", [WAYMO, FLAG,
                                    dict(WAYMO, c=128, heads=4, ffn=512),
                                    dict(WAYMO, heads=4),  # head width 64
                                    dict(WAYMO, q=8, c=64, heads=2, ffn=128,
-                                        n_layers=3, t_max=100)],
-                         ids=["waymo", "flagship", "c128", "hd64", "tiny"])
+                                        n_layers=3, t_max=100)] + WIDER_SHAPES,
+                         ids=["waymo", "flagship", "c128", "hd64",
+                              "tiny"] + WIDER_IDS)
 def test_split_shape_check_takes(shape):
     kdec.check_shape_split(**shape)
 
@@ -154,19 +162,20 @@ def test_split_shape_check_takes(shape):
                                    dict(WAYMO, c=128, heads=4, ffn=512),
                                    dict(WAYMO, heads=4),
                                    dict(WAYMO, q=8, c=64, heads=2, ffn=128,
-                                        n_layers=3, t_max=100)],
-                         ids=["waymo", "flagship", "c128", "hd64", "tiny"])
+                                        n_layers=3, t_max=100)] + WIDER_SHAPES,
+                         ids=["waymo", "flagship", "c128", "hd64",
+                              "tiny"] + WIDER_IDS)
 def test_split_shape_check_takes_bf16(shape):
     """The bf16 instance (Waymo's queries in bf16) takes the same shapes."""
     kdec.check_shape_split(**shape, f32=False)
 
 
 @pytest.mark.parametrize("shape", [
-    dict(WAYMO, heads=16),           # head width 16
-    dict(WAYMO, q=257),              # 33 rows a block
+    dict(WAYMO, c=64, heads=16, ffn=128),  # 16 heads of C 64: width 4
+    dict(WAYMO, q=513),              # 33 rows a block in clusters of 16
     dict(WAYMO, c=384, heads=12),    # 12 heads do not split the 8 warps
     dict(WAYMO, ffn=2000),           # hidden units not in chunks of C
-    dict(WAYMO, q=256),              # 32 rows of 256 queries: over 227 KB
+    dict(WAYMO, q=256, t_max=4 * 3969),  # mask bits of 32 rows: > 227 KB
 ], ids=["hd16", "rows", "width", "ffn", "smem"])
 def test_split_shape_check_rejects(shape):
     with pytest.raises(ValueError, match="split instance"):
