@@ -375,6 +375,10 @@ def main() -> None:
     shapes_wide_phase(np, torch, card, results, failures, record)
     print(f"[shapes wide] the phase took {time.time() - t1:.1f} s [{card}]",
           flush=True)
+    t1 = time.time()
+    shapes_tail_phase(np, torch, card, results, failures, record)
+    print(f"[shapes tail] the phase took {time.time() - t1:.1f} s [{card}]",
+          flush=True)
     trainer_phase(np, torch, card, failures, here)
     resume_phase(np, torch, card, failures, here)
     data_phase(np, torch, card, failures, here)
@@ -812,38 +816,7 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
                       (h, w), enc.norm.eps))
 
         # ---- kernels 3/4: Swin block (all blocks of the backbone) --------
-        err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes, fma_ops = (0.0,) * 7
-        quant = False
-        for (x, p, hw, win, heads, shift, quant) in captured_blocks:
-            a = (x, p, hw, win, heads, shift, quant)
-            got = kswin.swin_block(*a)
-            want = kswin.swin_block_plain(*a)
-            e = float((got.float() - want.float()).abs().max())
-            err_abs = max(err_abs, e)
-            err_rel = max(err_rel, e / float(want.float().abs().max()))
-            ms_k += cuda_ms(torch, lambda: kswin.swin_block(*a), 3)
-            ms_p += cuda_ms(torch, lambda: kswin.swin_block_plain(*a), 1)
-            b_, l_, c_ = x.shape
-            hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
-            gemm_ops = 2.0 * b_ * l_ * 12 * c_ * c_
-            attn_ops = 4.0 * b_ * hp * wp * win * win * c_
-            b_ops += (gemm_ops / PEAK["int8" if quant else prod]
-                      + attn_ops / PEAK[work])
-            fma_ops += gemm_ops / PEAK["int8" if quant else work] + (
-                attn_ops / PEAK[work])
-            b_bytes += (2 * b_ * l_ * c_ * esz
-                        + 12 * c_ * c_ * (1 if quant else esz))
-        # int8: rounding boundaries move by a step between two LayerNorms
-        # summed in another order (0.02 of each block's max-abs, as in bf16);
-        # bf16: the same; f32 products: 1e-3
-        blk_tol = 2e-2 if (quant or not f32) else 1e-3
-        rec("swin_block", err_abs, float("nan"), ms_k, ms_p,
-            bound(b_bytes, b_ops),
-            f"largest error relative to its block's max-abs {err_rel:.4g} "
-            f"(tolerance {blk_tol}); {len(captured_blocks)} blocks summed; "
-            f"bound with every product as f32 FMAs "
-            f"{bound(b_bytes, fma_ops)[0]:.4f} ms",
-            ok=err_rel <= blk_tol)
+        quant = block_hold(torch, kswin, rec, captured_blocks, f32)
         if f32 and not quant:
             # the f32 GEMM alone, against torch.addmm in full f32, at a
             # stage-0 and a stage-3 fc1 product of the captured blocks
@@ -934,7 +907,8 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
         if launches.get("patch_embed", 0) <= 0:
             failures.append(f"patch_embed never launched on [{label}]")
     attn_inst = "swin_block/" + kswin.attn_instance(
-        f32, cfg.backbone_window_size)
+        f32, cfg.backbone_window_size,
+        cfg.backbone_embed_dim // cfg.backbone_num_heads[0])
     results["swin_attn" + suffix]["launches"] = instances.get(attn_inst, 0)
     if instances.get(attn_inst, 0) <= 0:
         failures.append(f"{attn_inst} never launched on [{label}]")
@@ -990,6 +964,51 @@ def serve_phase(np, torch, card, results, failures, record, cfg, suffix,
            "profile" + label[3:], "request", card, 16 if main_path else 12)
     del pred, model, staged, cls_p, mask_p
     torch.cuda.empty_cache()
+
+
+def block_hold(torch, kswin, rec, blocks, f32) -> bool:
+    """Kernels 3/4 on every captured block's inputs (x, weights, grid,
+    window, heads, shift, quant) against the plain block, both timed and
+    summed; recorded through ``rec("swin_block", ...)``. Returns whether
+    the blocks are int8."""
+    esz = 4 if f32 else 2
+    work = "f32" if f32 else "bf16"
+    prod = "tf32x3" if f32 else "bf16"
+    err_abs, err_rel, ms_k, ms_p, b_ops, b_bytes, fma_ops = (0.0,) * 7
+    quant = False
+    for (x, p, hw, win, heads, shift, quant) in blocks:
+        a = (x, p, hw, win, heads, shift, quant)
+        got = kswin.swin_block(*a)
+        want = kswin.swin_block_plain(*a)
+        e = float((got.float() - want.float()).abs().max())
+        err_abs = max(err_abs, e)
+        err_rel = max(err_rel, e / float(want.float().abs().max()))
+        del got, want
+        ms_k += cuda_ms(torch, lambda: kswin.swin_block(*a), 3)
+        ms_p += cuda_ms(torch, lambda: kswin.swin_block_plain(*a), 1)
+        b_, l_, c_ = x.shape
+        hp, wp = -(-hw[0] // win) * win, -(-hw[1] // win) * win
+        gemm_ops = 2.0 * b_ * l_ * 12 * c_ * c_
+        attn_ops = 4.0 * b_ * hp * wp * win * win * c_
+        b_ops += (gemm_ops / PEAK["int8" if quant else prod]
+                  + attn_ops / PEAK[work])
+        fma_ops += gemm_ops / PEAK["int8" if quant else work] + (
+            attn_ops / PEAK[work])
+        b_bytes += (2 * b_ * l_ * c_ * esz
+                    + 12 * c_ * c_ * (1 if quant else esz))
+    # int8: rounding boundaries move by a step between two LayerNorms
+    # summed in another order (0.02 of each block's max-abs, as in bf16);
+    # bf16: the same; f32 products: 1e-3
+    blk_tol = 2e-2 if (quant or not f32) else 1e-3
+    rec("swin_block", err_abs, float("nan"), ms_k, ms_p,
+        bound(b_bytes, b_ops),
+        f"largest error relative to its block's max-abs {err_rel:.4g} "
+        f"(tolerance {blk_tol}); {len(blocks)} blocks summed; "
+        f"widths {sorted({x.shape[-1] for x, *_ in blocks})}; "
+        f"bound with every product as f32 FMAs "
+        f"{bound(b_bytes, fma_ops)[0]:.4f} ms",
+        ok=err_rel <= blk_tol)
+    return quant
 
 
 def swin_parts(torch, kswin, blocks, card) -> None:
@@ -1260,7 +1279,7 @@ def decoder_clusters(kb, kdec, dargs, card) -> None:
 
 def path_phase(np, torch, card, results, failures, record, path: str,
                f32: bool = False, overrides=None, tag: str = "",
-               points=scans, requests=None):
+               points=scans, requests=None, blocks=False):
     """Path K (KITTI, unfused backbone: kernels 7 and 8 with the PFN, the
     canvas and the decoder stack) or path E (the capped eval encoder with
     the fused token LN: kernels 10 and 9 with the canvas, the Swin blocks
@@ -1271,7 +1290,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
     timed requests, no trace. ``overrides`` change the configuration (the
     ``[shapes wide]`` rows: window 12, 100 points a pillar), recorded
     under the suffix ``tag``; ``points`` draws the scans; ``requests``:
-    (warm, timed) in place of the defaults."""
+    (warm, timed) in place of the defaults; ``blocks`` (path E): the Swin
+    blocks' inputs captured and held too (``block_hold``)."""
     import torch.nn.functional as F
 
     from mask_bev_tpu_torch.config import kitti_default, semantic_kitti_default
@@ -1302,8 +1322,10 @@ def path_phase(np, torch, card, results, failures, record, path: str,
         cfg = semantic_kitti_default().replace(
             max_points_per_scan=131072, compute_dtype=dtype,
             use_pallas_encoder=False)
-        names = ("layer_norm", "stream_pfn")
-        path_kernels = ("canvas_norm", "swin_block", "decoder_stack") + names
+        names = ("layer_norm", "stream_pfn") + (
+            ("swin_block",) if blocks else ())
+        path_kernels = ("canvas_norm", "decoder_stack") + names + (
+            () if blocks else ("swin_block",))
     cfg = cfg.replace(**(overrides or {}))
     label = f"path {path}" + sfx.replace(".", " ")
     t0 = time.time()
@@ -1322,7 +1344,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
             "patch_embed": (msw, msw.patch_embed),
             "layer_norm": (msw, msw.layer_norm),
             "stream_pfn": (menc, menc.stream_pfn),
-            "canvas_norm": (menc, menc.canvas_norm)}
+            "canvas_norm": (menc, menc.canvas_norm),
+            "swin_block": (msw, msw.swin_block)}
     # path K's kernel 2 records under its own name (the main path's and
     # phase F's are "canvas_norm" and "canvas_norm.f32")
     rec_name = {"canvas_norm": "canvas_norm.K"}
@@ -1450,6 +1473,11 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                 failures.append(f"stream_pfn{sfx} stats")
             pfn_breakdown(torch, kpfn, lambda prof: kpfn.stream_pfn(
                 *a, **kw, profile=prof), f"{label} stream_pfn", card)
+            if blocks:
+                # ---- kernels 3/4 at the path's widths ---------------------
+                block_hold(torch, kswin, lambda n, *r, **k: record(
+                    n + sfx, *SOURCES[n], *r, **k),
+                    [a for a, _ in cap["swin_block"]], f32)
     del cap
 
     # ---- the path: warm and timed requests ---------------------------------
@@ -1786,6 +1814,62 @@ def grad_norms(grads):
     return {k: v ** 0.5 for k, v in out.items()}
 
 
+def scatter_holds(torch, kcanvas, record, cap, suffix="") -> None:
+    """Kernels A and B on the inputs one training step passed them
+    (``cap["fwd"]``, ``cap["bwd"]``): held exactly against their plain
+    versions, timed beside them and beside one library call each."""
+    table, cells, hw = cap["fwd"]
+    b, p, c = table.shape
+    got = kcanvas.canvas_scatter_forward(table, cells, hw)
+    want = kcanvas.canvas_scatter_plain(table, cells, hw)
+    err = float((got.float() - want.float()).abs().max())
+    same = torch.equal(got, want)
+    ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_forward(
+        table, cells, hw), 20)
+    ms_p = cuda_ms(torch, lambda: kcanvas.canvas_scatter_plain(
+        table, cells, hw), 5)
+    n_valid = int((cells < hw[0] * hw[1]).sum())
+    esz = table.element_size()
+    bnd = bound(b * hw[0] * hw[1] * c * esz + b * p * (c * esz + 4), 0.0)
+    # library: Tensor.scatter_ into a zeroed (B, H*W + 1, C) canvas (the
+    # zero fill is part of the function: every cell is written)
+    lib_canvas = torch.empty((b, hw[0] * hw[1] + 1, c),
+                             dtype=table.dtype, device=table.device)
+    lib_idx = cells.long()[..., None].expand(b, p, c)
+    lib_a = cuda_ms(torch, lambda: lib_canvas.zero_().scatter_(
+        1, lib_idx, table), 20)
+    del lib_canvas
+    record("canvas_scatter" + suffix, "mask_bev_tpu_torch/csrc/canvas.cu",
+           "mask_bev_tpu/ops/pallas_canvas.py:216", err, 0.0, ms_k, ms_p,
+           bnd, f"table {tuple(table.shape)} {table.dtype}, {n_valid} "
+           f"valid pillars of {b * p} slots; library: zero_ + "
+           f"scatter_", ok=same, library_ms=lib_a)
+    # ---- kernel B: its gradient --------------------------------------
+    d_canvas, cells_b, hw = cap["bwd"]
+    got = kcanvas.canvas_scatter_backward(d_canvas, cells_b, hw)
+    want = kcanvas.canvas_gather_plain(d_canvas, cells_b, hw)
+    err = float((got.float() - want.float()).abs().max())
+    same = torch.equal(got, want)
+    ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_backward(
+        d_canvas, cells_b, hw), 20)
+    ms_p = cuda_ms(torch, lambda: kcanvas.canvas_gather_plain(
+        d_canvas, cells_b, hw), 5)
+    # the rows this run gathers (valid pillars), the table written, cells
+    bnd = bound(n_valid * c * esz + b * p * (c * esz + 4), 0.0)
+    # library: torch.gather of the gradient at the cells (clamped
+    # index; it leaves unused slots holding a row, not 0)
+    gf = d_canvas.reshape(b, hw[0] * hw[1], c)
+    lib_idx = cells_b.long().clamp(max=hw[0] * hw[1] - 1)[..., None] \
+        .expand(b, p, c)
+    lib_b = cuda_ms(torch, lambda: torch.gather(gf, 1, lib_idx), 20)
+    record("canvas_scatter_bwd" + suffix, "mask_bev_tpu_torch/csrc/canvas.cu",
+           "mask_bev_tpu/ops/pallas_canvas.py:230", err, 0.0, ms_k,
+           ms_p, bnd, f"d_canvas {tuple(d_canvas.shape)} "
+           f"{d_canvas.dtype}; library: gather", ok=same,
+           library_ms=lib_b)
+    del gf, lib_idx
+
+
 def train_phase(np, torch, card, results, failures, record):
     from mask_bev_tpu_torch.config import (
         semantic_kitti_default, tiny_test_config)
@@ -1852,57 +1936,7 @@ def train_phase(np, torch, card, results, failures, record):
     del grads
 
     with torch.no_grad():
-        # ---- kernel A: canvas scatter ------------------------------------
-        table, cells, hw = cap["fwd"]
-        b, p, c = table.shape
-        got = kcanvas.canvas_scatter_forward(table, cells, hw)
-        want = kcanvas.canvas_scatter_plain(table, cells, hw)
-        err = float((got.float() - want.float()).abs().max())
-        same = torch.equal(got, want)
-        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_forward(
-            table, cells, hw), 20)
-        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_scatter_plain(
-            table, cells, hw), 5)
-        n_valid = int((cells < hw[0] * hw[1]).sum())
-        esz = table.element_size()
-        bnd = bound(b * hw[0] * hw[1] * c * esz + b * p * (c * esz + 4), 0.0)
-        # library: Tensor.scatter_ into a zeroed (B, H*W + 1, C) canvas (the
-        # zero fill is part of the function: every cell is written)
-        lib_canvas = torch.empty((b, hw[0] * hw[1] + 1, c),
-                                 dtype=table.dtype, device=table.device)
-        lib_idx = cells.long()[..., None].expand(b, p, c)
-        lib_a = cuda_ms(torch, lambda: lib_canvas.zero_().scatter_(
-            1, lib_idx, table), 20)
-        del lib_canvas
-        record("canvas_scatter", "mask_bev_tpu_torch/csrc/canvas.cu",
-               "mask_bev_tpu/ops/pallas_canvas.py:216", err, 0.0, ms_k, ms_p,
-               bnd, f"table {tuple(table.shape)} {table.dtype}, {n_valid} "
-               f"valid pillars of {b * p} slots; library: zero_ + "
-               f"scatter_", ok=same, library_ms=lib_a)
-        # ---- kernel B: its gradient --------------------------------------
-        d_canvas, cells_b, hw = cap["bwd"]
-        got = kcanvas.canvas_scatter_backward(d_canvas, cells_b, hw)
-        want = kcanvas.canvas_gather_plain(d_canvas, cells_b, hw)
-        err = float((got.float() - want.float()).abs().max())
-        same = torch.equal(got, want)
-        ms_k = cuda_ms(torch, lambda: kcanvas.canvas_scatter_backward(
-            d_canvas, cells_b, hw), 20)
-        ms_p = cuda_ms(torch, lambda: kcanvas.canvas_gather_plain(
-            d_canvas, cells_b, hw), 5)
-        # the rows this run gathers (valid pillars), the table written, cells
-        bnd = bound(n_valid * c * esz + b * p * (c * esz + 4), 0.0)
-        # library: torch.gather of the gradient at the cells (clamped
-        # index; it leaves unused slots holding a row, not 0)
-        gf = d_canvas.reshape(b, hw[0] * hw[1], c)
-        lib_idx = cells_b.long().clamp(max=hw[0] * hw[1] - 1)[..., None] \
-            .expand(b, p, c)
-        lib_b = cuda_ms(torch, lambda: torch.gather(gf, 1, lib_idx), 20)
-        record("canvas_scatter_bwd", "mask_bev_tpu_torch/csrc/canvas.cu",
-               "mask_bev_tpu/ops/pallas_canvas.py:230", err, 0.0, ms_k,
-               ms_p, bnd, f"d_canvas {tuple(d_canvas.shape)} "
-               f"{d_canvas.dtype}; library: gather", ok=same,
-               library_ms=lib_b)
-        del gf, lib_idx
+        scatter_holds(torch, kcanvas, record, cap)
         # ---- kernel C: the matcher ---------------------------------------
         cost, n_rows = cap["hung"]
         got = khung.hungarian_rows(cost, n_rows)
@@ -1922,7 +1956,7 @@ def train_phase(np, torch, card, results, failures, record):
                f"{cost.shape[0]} problems of {tuple(cost.shape[1:])}, rows "
                f"{n_rows.tolist()}; assignments that differ: {n_diff}",
                ok=n_diff == 0)
-    del cap, table, cells, d_canvas, cells_b, got, want
+    del cap, got, want
 
     # ---- the main path: warm and timed steps -------------------------------
     before = {k: t.detach().clone()
@@ -2377,6 +2411,426 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
             launched(kb, results, f"stream_pfn.k{k}",
                      "stream_pfn/" + kpfn.instance(False, k))
             del sp, table, want, model, enc, pts, msk
+    torch.cuda.empty_cache()
+
+
+# ``[shapes tail]``: the last shape gaps, served at full width
+E384 = dict(backbone_embed_dim=384, backbone_num_heads=(6, 12, 24, 48))
+HD8 = dict(backbone_embed_dim=72, backbone_num_heads=(9, 18, 36, 72))
+HD40 = dict(backbone_embed_dim=120, backbone_num_heads=(3, 6, 12, 24))
+C100 = dict(encoder_encoding_type="fourier",
+            encoder_feat_channels=(128, 128, 100))
+TAIL_REQUESTS = (2, 3)
+
+
+def shapes_tail_phase(np, torch, card, results, failures, record) -> None:
+    """``[shapes tail]``: the shapes the last slice widened, served at full
+    width and batch 8 (bf16, int8 backbone products), each row's kernels
+    held against their plain versions on inputs captured in one forward,
+    then 2 warm and 3 timed requests with the instance counters and one
+    traced request: ``.e384`` path E at embed 384 (kernel 9 at C 384 to
+    3072, the walk above 2048; the Swin LN at C 3072, the walk), ``.hd8``
+    embed 72 over (9, 18, 36, 72) heads (head width 8 at every stage, the
+    int8 GEMM at K = 72 from rows at a 80-byte pitch), ``.hd40`` embed 120
+    over (3, 6, 12, 24) heads (head width 40, K = 120), ``.c100`` the
+    Fourier encoding with a 100-channel table (kernel 2 at C = 100, then a
+    training step: kernels A and B at C = 100). Then the kernel-level
+    holds (``tail_kernel_holds``)."""
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+
+    base = semantic_kitti_default().replace(
+        max_points_per_scan=131072, pseudo_image_norm="full",
+        compute_dtype="bfloat16")
+    path_phase(np, torch, card, results, failures, record, "E",
+               overrides=E384, tag=".e384", requests=TAIL_REQUESTS,
+               blocks=True)
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(**HD8), ".hd8", *TAIL_REQUESTS)
+    serve_phase(np, torch, card, results, failures, record,
+                base.replace(**HD40), ".hd40", *TAIL_REQUESTS)
+    c100_phase(np, torch, card, results, failures, record,
+               base.replace(**C100))
+    tail_kernel_holds(np, torch, card, results, failures, record)
+
+
+def c100_phase(np, torch, card, results, failures, record, cfg) -> None:
+    """``.c100``: ``cfg`` (the Fourier encoding, a 100-channel pillar
+    table: the capped stream and the plain pillar feature net, as the JAX
+    package's XLA route) served at batch 8: kernels 2 (at C = 100, 200-byte
+    rows), 3/4 and 5 captured in one forward and held, 2 warm and 3 timed
+    requests (kernels 2-5 must launch, kernel 2 as its 8-byte instance; 1
+    and 10 must not), one traced request; then the training step of the
+    same configuration (``train_phase``'s envelope): kernels A and B at C =
+    100 captured in one step and held exactly, 2 timed steps."""
+    from mask_bev_tpu_torch.datasets.synthetic import make_batch
+    from mask_bev_tpu_torch.inference import MaskBevPredictor
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models import encoder as menc
+    from mask_bev_tpu_torch.models import mask2former as m2f
+    from mask_bev_tpu_torch.models import swin as msw
+    from mask_bev_tpu_torch.models.maskbev import MaskBev
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+    from mask_bev_tpu_torch.train.step import (
+        create_train_state, loss_and_grads, train_step)
+
+    sfx, label = ".c100", "e2e c100"
+    pred = MaskBevPredictor(cfg, MaskBev(cfg).random_state_dict(SEED + 80),
+                            device="cuda")
+    staged = []
+    for s in range(4):
+        p_np, m_np = scans(np, BATCH, cfg.max_points_per_scan, 800 + s)
+        staged.append((torch.as_tensor(p_np).cuda().to(pred.dtype),
+                       torch.as_tensor(m_np).cuda()))
+    cap = {"canvas_norm": [], "swin_block": [], "decoder_stack": []}
+    mods = {"canvas_norm": menc, "swin_block": msw, "decoder_stack": m2f}
+    orig = {n: getattr(m, n) for n, m in mods.items()}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            cap[name].append((tuple(t.clone() if torch.is_tensor(t) else t
+                                    for t in a), kw))
+            return orig[name](*a, **kw)
+        return rec
+
+    for n, m in mods.items():
+        setattr(m, n, recorder(n))
+    try:
+        with torch.no_grad():
+            pred.model(*staged[0])
+    finally:
+        for n, m in mods.items():
+            setattr(m, n, orig[n])
+    (a_canvas, _), = cap["canvas_norm"]
+    (dargs, dkw), = cap["decoder_stack"]
+    with torch.no_grad():
+        canvas_phase(torch, kcanvas, lambda n, *r, **k: record(
+            n, *SOURCES["canvas_norm"], *r, **k), "canvas_norm" + sfx,
+            a_canvas)
+        block_hold(torch, kswin, lambda n, *r, **k: record(
+            n + sfx, *SOURCES[n], *r, **k),
+            [a for a, _ in cap["swin_block"]], False)
+        decoder_hold(torch, record, failures, card, dargs, dkw, False, sfx,
+                     label)
+    del cap, a_canvas, dargs, dkw
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    warm, timed = TAIL_REQUESTS
+    for i in range(warm):
+        pred.forward(*staged[i % 4])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(timed):
+        t1 = time.perf_counter()
+        cls_p, mask_p = pred.forward(*staged[i % 4])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches, instances = dict(kb.LAUNCHES), dict(kb.INSTANCES)
+    ms_batch = float(np.median(times) * 1e3)
+    print(f"[{label}] {warm + timed} requests of batch {BATCH}: median "
+          f"{ms_batch:.3f} ms/batch, {BATCH / (ms_batch / 1e3):.2f} scans/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB; launches {launches}; by instance {instances} [{card}]",
+          flush=True)
+    for k in ("canvas_norm", "swin_block", "decoder_stack"):
+        results[k + sfx]["launches"] = launches.get(k, 0)
+        if launches.get(k, 0) <= 0:
+            failures.append(f"{k} never launched on [{label}]")
+    for k in ("pfn", "stream_pfn"):
+        if launches.get(k, 0):
+            failures.append(f"[{label}] {k} launched {launches[k]} times")
+    if instances.get("canvas_norm/bf16_w8", 0) <= 0:
+        failures.append(f"[{label}] canvas_norm/bf16_w8 never launched")
+    if not (torch.isfinite(cls_p).all() and torch.isfinite(mask_p).all()):
+        failures.append(f"[{label}] non-finite outputs")
+    traced(torch, lambda: pred.forward(*staged[0]), "profile c100",
+           "request", card, 12)
+    del pred, staged, cls_p, mask_p
+    torch.cuda.empty_cache()
+
+    # ---- the training step of the same configuration ----------------------
+    tcfg = cfg.replace(max_num_pillars=32768, batch_size=TRAIN_BATCH)
+    state = create_train_state(tcfg, seed=SEED + 81, device="cuda")
+    batches = [make_batch(np.random.default_rng(810 + i), tcfg,
+                          batch_size=TRAIN_BATCH, noise_points=115_000,
+                          points_per_instance=1500) for i in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    cap = {}
+    orig_ab = (kcanvas.canvas_scatter_forward,
+               kcanvas.canvas_scatter_backward)
+
+    def rec_fwd(table, cells, grid_hw):
+        cap["fwd"] = (table.detach().clone(), cells.clone(), grid_hw)
+        return orig_ab[0](table, cells, grid_hw)
+
+    def rec_bwd(d_canvas, cells, grid_hw):
+        cap["bwd"] = (d_canvas.detach().contiguous().clone(), cells.clone(),
+                      grid_hw)
+        return orig_ab[1](d_canvas, cells, grid_hw)
+
+    kcanvas.canvas_scatter_forward, kcanvas.canvas_scatter_backward = (
+        rec_fwd, rec_bwd)
+    try:
+        logs, _, grads = loss_and_grads(state, batches[0], gen)
+        torch.cuda.synchronize()
+    finally:
+        kcanvas.canvas_scatter_forward, kcanvas.canvas_scatter_backward = (
+            orig_ab)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad or not np.isfinite(float(logs["loss"])):
+        failures.append(f"[train c100] non-finite loss or gradients "
+                        f"{bad[:5]}")
+    del grads
+    with torch.no_grad():
+        scatter_holds(torch, kcanvas, record, cap, sfx)
+    del cap
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    times = []
+    for i in range(2):
+        t1 = time.perf_counter()
+        state, logs, _ = train_step(state, batches[i % 2], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches, instances = dict(kb.LAUNCHES), dict(kb.INSTANCES)
+    print(f"[train c100] batch {TRAIN_BATCH}, table of "
+          f"{tcfg.encoder_feat_channels[-1]} channels: 2 timed steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms, loss "
+          f"{float(logs['loss']):.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {launches}; by instance {instances} [{card}]",
+          flush=True)
+    for k in ("canvas_scatter", "canvas_scatter_bwd"):
+        results[k + sfx]["launches"] = launches.get(k, 0)
+        if instances.get(f"{k}/w8", 0) <= 0:
+            failures.append(f"[train c100] {k}/w8 never launched")
+    if not np.isfinite(float(logs["loss"])):
+        failures.append("[train c100] non-finite loss")
+    del state, batches, logs
+    torch.cuda.empty_cache()
+
+
+def tail_kernel_holds(np, torch, card, results, failures, record,
+                      dev="cuda") -> None:
+    """The ``[shapes tail]`` instances no served row reaches, each held
+    against its plain version with the tolerance its flagship instance is
+    held to, and timed beside one library call where one computes the
+    same function: kernel 9 at C = 12, 100, 2056 and 4096 (bf16 and f32;
+    ``F.layer_norm``) on the stage-1 grid's tokens; kernels 2 (the main
+    path's grid, ~45k pillars a sample) and A/B (the training envelope) at
+    C = 100 in bf16 and C = 101 in f32; the GEMM at K = 24 and 40, N = 100
+    (bf16, int8, 3xTF32; ``torch.addmm``, ``torch._int_mm`` where it takes
+    the shape) on the stage-0 tokens; the attention at head widths 24, 48
+    and 56, windows 10 and 12 (bf16 and f32; SDPA) on the stage-0 grid;
+    kernel 7 at head width 8 (C 72, 9 heads, the stage-0 grid)."""
+    import torch.nn.functional as F
+
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.models.swin import SwinBlock
+    from mask_bev_tpu_torch.ops import canvas as kcanvas
+    from mask_bev_tpu_torch.ops import layer_norm as kln
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    gh, gw = semantic_kitti_default().grid_hw
+    hw0 = (gh // 4, gw // 4)                    # stage 0: 125 x 125
+    m1 = BATCH * (-(-hw0[0] // 2)) * (-(-hw0[1] // 2))  # stage 1 tokens
+    m0 = BATCH * hw0[0] * hw0[1]
+    g = torch.Generator().manual_seed(90)
+    with torch.no_grad():
+        # ---- kernel 9 at any C ---------------------------------------------
+        for c in (12, 100, 2056, 4096):
+            for dt in (torch.bfloat16, torch.float32):
+                f32 = dt == torch.float32
+                sfx = f".c{c}" + (".f32" if f32 else "")
+                rows = m1 if c < 2048 else m1 // 8
+                x = (0.5 + torch.randn(rows, c, generator=g)).to(dev, dt)
+                w = (1 + 0.1 * torch.randn(c, generator=g)).to(dev, dt)
+                b = (0.1 * torch.randn(c, generator=g)).to(dev, dt)
+                kb.reset_launches()
+                got = kln.layer_norm(x, w, b)
+                want = kln.layer_norm_plain(x, w, b)
+                err = float((got.float() - want.float()).abs().max())
+                top = float(want.float().abs().max())
+                del got, want
+                ms_k = cuda_ms(torch, lambda: kln.layer_norm(x, w, b), 20)
+                ms_p = cuda_ms(torch, lambda: kln.layer_norm_plain(x, w, b),
+                               5)
+                ms_l = cuda_ms(torch, lambda: F.layer_norm(
+                    x, (c,), w, b, 1e-6), 20)
+                record("layer_norm" + sfx,
+                       "mask_bev_tpu_torch/csrc/layer_norm.cu",
+                       "mask_bev_tpu/ops/pallas_layer_norm.py:33", err,
+                       (1e-4 if f32 else 1e-2) * top, ms_k, ms_p,
+                       bound(2 * x.numel() * x.element_size(), 0.0),
+                       f"{rows} tokens of C {c}, plan {kln.plan(c, f32)} "
+                       f"(the walk); library F.layer_norm", library_ms=ms_l)
+                launched(kb, results, "layer_norm" + sfx,
+                         "layer_norm/" + ("f32" if f32 else "bf16") + "_walk")
+                del x, w, b
+
+        # ---- kernels 2, A and B at C = 100 (bf16) and 101 (f32) ----------
+        rng = np.random.default_rng(91)
+        for c, dt in ((100, torch.bfloat16), (101, torch.float32)):
+            f32 = dt == torch.float32
+            # ".held": the served .c100 row records kernels 2, A and B too
+            sfx = f".c{c}" + (".f32" if f32 else "") + ".held"
+            h_, w_ = gh, gw
+            for train, b_, n_ in ((False, BATCH, 48000),
+                                  (True, TRAIN_BATCH, 32768)):
+                hw_ = h_ * w_
+                n_ = min(n_, hw_ // 2)
+                cells = np.full((b_, n_), hw_, np.int32)
+                npil = rng.integers(n_ * 3 // 4, n_ + 1, b_).astype(np.int32)
+                for s_, p_ in enumerate(npil):
+                    cells[s_, :p_] = np.sort(rng.choice(hw_, p_,
+                                                        replace=False))
+                cells_t = torch.as_tensor(cells, device=dev)
+                table = torch.randn(b_, n_, c, generator=g).to(dev, dt)
+                if not train:
+                    mean = torch.randn(b_, generator=g).to(dev) * 0.1
+                    var = torch.rand(b_, generator=g).to(dev) + 0.5
+                    scale = (1 + 0.1 * torch.randn(h_, w_, c, generator=g)
+                             ).to(dev, dt)
+                    bias = (0.1 * torch.randn(h_, w_, c, generator=g)).to(
+                        dev, dt)
+                    kb.reset_launches()
+                    canvas_phase(torch, kcanvas, lambda n, *r, **k: record(
+                        n, *SOURCES["canvas_norm"], *r, **k),
+                        "canvas_norm" + sfx,
+                        (table, cells_t, torch.as_tensor(npil, device=dev),
+                         mean, var, scale, bias, (h_, w_), 1e-3))
+                    launched(kb, results, "canvas_norm" + sfx,
+                             "canvas_norm/" + ("f32" if f32 else "bf16")
+                             + f"_w{4 if f32 else 8}")
+                    del scale, bias
+                else:
+                    d_canvas = torch.randn(b_, h_, w_, c, generator=g).to(
+                        dev, dt)
+                    kb.reset_launches()
+                    scatter_holds(torch, kcanvas, record, {
+                        "fwd": (table, cells_t, (h_, w_)),
+                        "bwd": (d_canvas, cells_t, (h_, w_))}, sfx)
+                    wb = f"w{4 if f32 else 8}"
+                    launched(kb, results, "canvas_scatter" + sfx,
+                             f"canvas_scatter/{wb}")
+                    launched(kb, results, "canvas_scatter_bwd" + sfx,
+                             f"canvas_scatter_bwd/{wb}")
+                    del d_canvas
+                del table, cells_t
+
+        # ---- the GEMM at K = 24 and 40, N = 100 --------------------------
+        for k in (24, 40):
+            n = 100
+            a32 = torch.randn(m0, k, generator=g).to(dev)
+            w32 = (torch.randn(n, k, generator=g) / k ** 0.5).to(dev)
+            bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+            for kind in ("bf16", "int8", "f32"):
+                sfx = f".k{k}.n{n}.{kind}"
+                dt = torch.float32 if kind == "f32" else torch.bfloat16
+                d = kswin.make_dense(w32.to(dt), bias, kind == "int8")
+                lib_ms = None
+                if kind == "int8":
+                    q, sx = kswin.quant_rows(a32.to(dt))
+                    a = kswin.pitched(q.to(torch.int8))
+                    sx = sx.reshape(-1).contiguous()
+                    run = lambda: kswin.gemm(  # noqa: E731
+                        "swin_block", a, d, kswin.EPI_BIAS, sx=sx)
+                    want = ((a.double() @ d.q8.double().t()).float()
+                            * sx[:, None] * d.sw[None] + d.bias).to(dt)
+                    plain = lambda: kswin.int8_sim_dense(  # noqa: E731
+                        a32.to(dt), d)
+                    tol = 0.0
+                    try:  # N % 8 != 0: not every torch build takes it
+                        a_c = a.contiguous()
+                        lib_ms = cuda_ms(torch, lambda: torch._int_mm(
+                            a_c, d.q8.t()), 10)
+                    except RuntimeError as e:
+                        print(f"[gemm{sfx}] torch._int_mm refuses the "
+                              f"shape: {str(e)[:120]}", flush=True)
+                    ops = 2.0 * m0 * n * k / PEAK["int8"]
+                    esz = 1
+                else:
+                    a = kswin.pitched(a32.to(dt))
+                    mode = kswin.EPI_BIAS | (
+                        0 if kind == "f32" else kswin.EPI_ROUND_ACC)
+                    run = lambda: kswin.gemm(  # noqa: E731
+                        "swin_block", a, d, mode)
+                    if kind == "f32":
+                        want = (a.double() @ w32.double().t() + bias).float()
+                    else:
+                        want = ((a.float() @ d.wt.float().t()).to(dt).float()
+                                + d.bias).to(dt)
+                    plain = lambda: kswin.dense(a, d, False)  # noqa: E731
+                    tol = 1e-5 if kind == "f32" else 2 ** -7
+                    wl = d.wt.t()
+                    bl = bias.to(dt)
+                    lib_ms = cuda_ms(torch, lambda: torch.addmm(bl, a, wl), 10)
+                    ops = 2.0 * m0 * n * k / PEAK[
+                        "tf32x3" if kind == "f32" else "bf16"]
+                    esz = 4 if kind == "f32" else 2
+                kb.reset_launches()
+                got = run()
+                err = float((got.float() - want.float()).abs().max())
+                top = float(want.float().abs().max())
+                del got, want
+                ms_k = cuda_ms(torch, run, 10)
+                ms_p = cuda_ms(torch, plain, 3)
+                out_esz = 4 if kind == "f32" else 2
+                byts = m0 * k * esz + n * k * esz + m0 * n * out_esz
+                inst = {"bf16": "gemm_bf16", "int8": "gemm_s8_bf16",
+                        "f32": "gemm_f32_3xtf32"}[kind] + "_ntail"
+                record("gemm" + sfx, "mask_bev_tpu_torch/csrc/gemm.cuh",
+                       "mask_bev_tpu/ops/pallas_swin_block.py:584", err,
+                       tol * top, ms_k, ms_p, bound(byts, ops),
+                       f"({m0} x {k}) . ({k} x {n}) {kind}, A at a pitch of "
+                       f"{a.stride(0)} values, bias epilogue; library "
+                       + ("torch._int_mm (the product only)" if kind == "int8"
+                          else "torch.addmm"), library_ms=lib_ms)
+                launched(kb, results, "gemm" + sfx, "swin_block/" + inst)
+                del a, d
+            del a32, w32, bias
+
+        # ---- the attention at head widths 24, 48 and 56 ------------------
+        for hd, heads in ((24, 8), (48, 4), (56, 3)):
+            c = hd * heads
+            for win in (10, 12):
+                for dt in (torch.bfloat16, torch.float32):
+                    f32 = dt == torch.float32
+                    sfx = f".hd{hd}.w{win}" + (".f32" if f32 else "")
+                    qkv = torch.randn(m0, 3 * c, generator=g).to(dev, dt)
+                    qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+                    table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                                generator=g)).to(dev, dt)
+                    rel = kswin.rel_bias_from_table(table, win)
+                    shift = kswin.effective_shift(hw0, win, True)
+                    kb.reset_launches()
+                    attn_phase(torch, kswin, record, "swin_attn" + sfx,
+                               "mask_bev_tpu/ops/pallas_swin_block.py:584",
+                               [(qkv, qb, rel, BATCH, hw0, heads, win,
+                                 shift)], False, f32, card)
+                    launched(kb, results, "swin_attn" + sfx, "swin_block/"
+                             + kswin.attn_instance(f32, win, hd))
+                    del qkv, qb, rel
+
+        # ---- kernel 7 at head width 8 (C 72, 9 heads) --------------------
+        c, heads, win = 72, 9, 10
+        blk = SwinBlock(c, heads, win, shift=True)
+        blk.attn.w_msa.rel_pos_bias_table.normal_(0.0, 0.02, generator=g)
+        p = blk.to(dev, torch.bfloat16).eval().weights()
+        y = torch.randn(BATCH, m0 // BATCH, c, generator=g).to(
+            dev, torch.bfloat16)
+        shift = kswin.effective_shift(hw0, win, True)
+        kb.reset_launches()
+        window_msa_phase(torch, record, card, ".hd8",
+                         [((y, hw0, win, shift, p.rel_bias, p.qkv, p.proj,
+                            heads), {})], False, what="a block drawn at "
+                         "head width 8")
+        results["window_msa.hd8"]["launches"] = kb.LAUNCHES["window_msa"]
+        launched(kb, results, "window_msa_attn.hd8",
+                 "window_msa/" + kswin.attn_instance(False, win, 8))
+        del blk, p, y
     torch.cuda.empty_cache()
 
 

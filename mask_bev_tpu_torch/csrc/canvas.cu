@@ -25,7 +25,12 @@
 // 0 with no load. The arithmetic is the same f32 operations in the same
 // order as the first version's (one warp a cell, a binary search per cell
 // and sample, ~17 dependent L2 loads before each store), so the output is
-// the same bit for bit.
+// the same bit for bit. Rows that are not whole 16-byte words (bf16 C % 8
+// != 0, f32 C % 4 != 0), or a table at an address that is not 16-byte
+// aligned, take canvas_norm_narrow_kernel: the same body moving words of
+// the widest power of two bytes that divides the row and every address (8,
+// 4 or 2 bytes: bf16 C = 100 moves 8-byte words, f32 C = 101 single
+// values).
 #include "common.cuh"
 
 #define CANVAS_RUN 64
@@ -64,15 +69,43 @@ template <> struct Word<float> {
   }
 };
 
+// a word of WB < 16 bytes (a divisor of the row's bytes) <-> WB / sizeof(T)
+// values as f32, one load or store of a WB-byte integer
+template <int WB> struct Bytes;
+template <> struct Bytes<8> { using U = uint2; };
+template <> struct Bytes<4> { using U = uint32_t; };
+template <> struct Bytes<2> { using U = uint16_t; };
+template <> struct Bytes<1> { using U = uint8_t; };
+
+template <typename T, int WB>
+struct NarrowWord {
+  static constexpr int EPW = WB / (int)sizeof(T);
+  using U = typename Bytes<WB>::U;
+  static __device__ __forceinline__ void load(const T* p, float* o) {
+    const U u = *reinterpret_cast<const U*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int q = 0; q < EPW; ++q) o[q] = to_f(e[q]);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* o) {
+    U u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int q = 0; q < EPW; ++q) e[q] = from_f<T>(o[q]);
+    *reinterpret_cast<U*>(p) = u;
+  }
+};
+
+// The kernel's body for words of type Wd (Word<T>, or NarrowWord<T, WB>).
 // T: the table's, the affine's and the canvas's type (bf16 or f32).
 // Dynamic shared memory: B (CANVAS_RUN + 3) ints.
-template <typename T>
-__global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_kernel(
+template <typename T, typename Wd>
+__device__ __forceinline__ void canvas_norm_body(
     const T* __restrict__ table, const int* __restrict__ cells,
     const int* __restrict__ num_pillars, const float* __restrict__ mv,
     const T* __restrict__ scale, const T* __restrict__ bias,
     int full, T* __restrict__ out, int B, int N, int HW, int C, float eps) {
-  constexpr int EPW = Word<T>::EPW;
+  constexpr int EPW = Wd::EPW;
   extern __shared__ int smi[];
   int* row_of = smi;                    // [B][CANVAS_RUN]: table row or -1
   int* first = smi + B * CANVAS_RUN;    // [B]: the run's first table row
@@ -105,13 +138,13 @@ __global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_kernel(
     const int cell = i / V, c = (i - cell * V) * EPW;
     float s[EPW], bi[EPW];
     const size_t aoff = full ? (size_t)(c0 + cell) * C + c : (size_t)c;
-    Word<T>::load(scale + aoff, s);
-    Word<T>::load(bias + aoff, bi);
+    Wd::load(scale + aoff, s);
+    Wd::load(bias + aoff, bi);
     for (int b = 0; b < B; ++b) {
       const int r = row_of[b * CANVAS_RUN + cell];
       float v[EPW];
       if (r >= 0) {
-        Word<T>::load(table + ((size_t)b * N + r) * C + c, v);
+        Wd::load(table + ((size_t)b * N + r) * C + c, v);
       } else {
 #pragma unroll
         for (int q = 0; q < EPW; ++q) v[q] = 0.f;
@@ -122,9 +155,42 @@ __global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_kernel(
       for (int q = 0; q < EPW; ++q)
         o[q] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[q], mean), rstd),
                                    s[q]), bi[q]);
-      Word<T>::store(out + ((size_t)b * HW + c0 + cell) * C + c, o);
+      Wd::store(out + ((size_t)b * HW + c0 + cell) * C + c, o);
     }
   }
+}
+
+// rows of whole 16-byte words
+template <typename T>
+__global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_kernel(
+    const T* __restrict__ table, const int* __restrict__ cells,
+    const int* __restrict__ num_pillars, const float* __restrict__ mv,
+    const T* __restrict__ scale, const T* __restrict__ bias,
+    int full, T* __restrict__ out, int B, int N, int HW, int C, float eps) {
+  canvas_norm_body<T, Word<T>>(table, cells, num_pillars, mv, scale, bias,
+                               full, out, B, N, HW, C, eps);
+}
+
+// rows (or addresses) of whole WB-byte words, WB < 16
+template <typename T, int WB>
+__global__ void __launch_bounds__(CANVAS_THREADS) canvas_norm_narrow_kernel(
+    const T* __restrict__ table, const int* __restrict__ cells,
+    const int* __restrict__ num_pillars, const float* __restrict__ mv,
+    const T* __restrict__ scale, const T* __restrict__ bias,
+    int full, T* __restrict__ out, int B, int N, int HW, int C, float eps) {
+  canvas_norm_body<T, NarrowWord<T, WB>>(table, cells, num_pillars, mv,
+                                         scale, bias, full, out, B, N, HW,
+                                         C, eps);
+}
+
+// the widest power of two up to 16 that divides every value of v: the word
+// bytes a row of ``row_bytes`` at these addresses moves in
+static inline int word_bytes(int row_bytes, const void* a, const void* b,
+                             const void* c = nullptr,
+                             const void* d = nullptr) {
+  const uintptr_t v = (uintptr_t)row_bytes | (uintptr_t)a | (uintptr_t)b |
+                      (uintptr_t)c | (uintptr_t)d | 16;
+  return (int)(v & (~v + 1));
 }
 
 template <typename T>
@@ -134,18 +200,34 @@ static int launch_canvas_norm(const void* table, const int* cells,
                               void* out, int B, int N, int HW, int C,
                               float eps, cudaStream_t stream) {
   const size_t smem = sizeof(int) * (size_t)B * (CANVAS_RUN + 3);
-  if ((C * (int)sizeof(T)) % 16 || smem > 48 * 1024) return MB_BAD_ARGS;
-  canvas_norm_kernel<T><<<ceil_div(HW, CANVAS_RUN), CANVAS_THREADS, smem,
-                          stream>>>(
-      (const T*)table, cells, num_pillars, mv, (const T*)scale,
-      (const T*)bias, full, (T*)out, B, N, HW, C, eps);
+  if (C < 1 || smem > 48 * 1024) return MB_BAD_ARGS;
+  const int wb = word_bytes(C * (int)sizeof(T), table, out, scale, bias);
+  if (wb < (int)sizeof(T)) return MB_BAD_ARGS;
+  const dim3 grid(ceil_div(HW, CANVAS_RUN));
+#define MB_CANVAS_ARGS                                                   \
+  (const T*)table, cells, num_pillars, mv, (const T*)scale,              \
+      (const T*)bias, full, (T*)out, B, N, HW, C, eps
+  if (wb == 16)
+    canvas_norm_kernel<T><<<grid, CANVAS_THREADS, smem, stream>>>(
+        MB_CANVAS_ARGS);
+  else if (wb == 8)
+    canvas_norm_narrow_kernel<T, 8><<<grid, CANVAS_THREADS, smem, stream>>>(
+        MB_CANVAS_ARGS);
+  else if (wb == 4)
+    canvas_norm_narrow_kernel<T, 4><<<grid, CANVAS_THREADS, smem, stream>>>(
+        MB_CANVAS_ARGS);
+  else if constexpr (sizeof(T) == 2)
+    canvas_norm_narrow_kernel<T, 2><<<grid, CANVAS_THREADS, smem, stream>>>(
+        MB_CANVAS_ARGS);
+#undef MB_CANVAS_ARGS
   return (int)cudaGetLastError();
 }
 
-// f32: nonzero for the f32 instance (f32 table, affine and canvas). Rows of
-// C values are whole 16-byte words (C % 8 == 0 in bf16, C % 4 in f32);
-// B <= 183 (the block's cell map in 48 KB of shared memory); each
-// sample's cells strictly ascending over its num_pillars rows.
+// f32: nonzero for the f32 instance (f32 table, affine and canvas). Any C:
+// rows of whole 16-byte words (C % 8 == 0 in bf16, C % 4 in f32) at
+// 16-byte aligned addresses take canvas_norm_kernel, others the narrow
+// instances; B <= 183 (the block's cell map in 48 KB of shared memory);
+// each sample's cells strictly ascending over its num_pillars rows.
 MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
                                   const int* num_pillars, const float* mv,
                                   const void* scale, const void* bias,
@@ -166,8 +248,11 @@ MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
 //
 // Replace mask_bev_tpu/ops/pallas_canvas.py::canvas_scatter (forward
 // through canvas_from_table without the norm epilogue; backward
-// _canvas_scatter_bwd, a row gather). Both only move rows, so they work on 16-byte words of any
-// element type (row bytes % 16 == 0) and are exact.
+// _canvas_scatter_bwd, a row gather). Both only move rows, so they work on
+// words of any element type and are exact: 16-byte words where the row's
+// bytes and the addresses allow, else the widest power of two bytes that
+// divides them (the narrow instances; a bf16 row of 100 values moves as 25
+// 8-byte words).
 //
 // A: table (B, P, row) + cells (B, P), ascending per sample, H*W on unused
 // slots -> canvas (B, H*W, row): every cell is written, its pillar's row or
@@ -186,9 +271,15 @@ MB_EXPORT int canvas_norm_forward(const void* table, const int* cells,
 
 #define SCATTER_CELLS 256
 
-__global__ void __launch_bounds__(256) canvas_scatter_kernel(
-    const uint4* __restrict__ table, const int* __restrict__ cells,
-    uint4* __restrict__ out, int P, int HW, int V) {
+// The bodies, for words of type V: uint4 (rows of whole 16-byte words, the
+// kernels below) or a narrower integer (canvas_*_narrow_kernel: rows of any
+// width, moved in the widest words that divide the row and the addresses,
+// word_bytes), V words a row.
+template <typename V>
+__device__ __forceinline__ void scatter_body(const V* __restrict__ table,
+                                             const int* __restrict__ cells,
+                                             V* __restrict__ out, int P,
+                                             int HW, int Vw) {
   __shared__ int row_of[SCATTER_CELLS];
   __shared__ int range[2];
   const int b = blockIdx.y;
@@ -202,57 +293,109 @@ __global__ void __launch_bounds__(256) canvas_scatter_kernel(
   for (int r = range[0] + threadIdx.x; r < range[1]; r += blockDim.x)
     row_of[__ldg(cb + r) - c0] = r;
   __syncthreads();
-  const size_t base_out = ((size_t)b * HW + c0) * V;
-  const size_t base_tab = (size_t)b * P * V;
-  const int words = nc * V;
+  const size_t base_out = ((size_t)b * HW + c0) * Vw;
+  const size_t base_tab = (size_t)b * P * Vw;
+  const int words = nc * Vw;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int c = i / V, v = i - c * V;
+    const int c = i / Vw, v = i - c * Vw;
     const int r = row_of[c];
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r >= 0) val = __ldg(table + base_tab + (size_t)r * V + v);
+    V val{};
+    if (r >= 0) val = __ldg(table + base_tab + (size_t)r * Vw + v);
     out[base_out + i] = val;
   }
+}
+
+template <typename V>
+__device__ __forceinline__ void gather_body(const V* __restrict__ d_canvas,
+                                            const int* __restrict__ cells,
+                                            V* __restrict__ d_table, int B,
+                                            int P, int HW, int Vw) {
+  const size_t total = (size_t)B * P * Vw;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / Vw;
+    const int v = (int)(i - row * Vw);
+    const int b = (int)(row / P);
+    const int cell = __ldg(cells + row);
+    V val{};
+    if (cell >= 0 && cell < HW)
+      val = __ldg(d_canvas + ((size_t)b * HW + cell) * Vw + v);
+    d_table[i] = val;
+  }
+}
+
+__global__ void __launch_bounds__(256) canvas_scatter_kernel(
+    const uint4* __restrict__ table, const int* __restrict__ cells,
+    uint4* __restrict__ out, int P, int HW, int V) {
+  scatter_body(table, cells, out, P, HW, V);
 }
 
 __global__ void __launch_bounds__(256) canvas_gather_kernel(
     const uint4* __restrict__ d_canvas, const int* __restrict__ cells,
     uint4* __restrict__ d_table, int B, int P, int HW, int V) {
-  const size_t total = (size_t)B * P * V;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / V;
-    const int v = (int)(i - row * V);
-    const int b = (int)(row / P);
-    const int cell = __ldg(cells + row);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (cell >= 0 && cell < HW)
-      val = __ldg(d_canvas + ((size_t)b * HW + cell) * V + v);
-    d_table[i] = val;
-  }
+  gather_body(d_canvas, cells, d_table, B, P, HW, V);
 }
 
+template <typename V>
+__global__ void __launch_bounds__(256) canvas_scatter_narrow_kernel(
+    const V* __restrict__ table, const int* __restrict__ cells,
+    V* __restrict__ out, int P, int HW, int Vw) {
+  scatter_body(table, cells, out, P, HW, Vw);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(256) canvas_gather_narrow_kernel(
+    const V* __restrict__ d_canvas, const int* __restrict__ cells,
+    V* __restrict__ d_table, int B, int P, int HW, int Vw) {
+  gather_body(d_canvas, cells, d_table, B, P, HW, Vw);
+}
+
+// Any row_bytes >= 1: rows of whole 16-byte words at 16-byte aligned
+// addresses take the 16-byte kernels, the rest the narrow instances with
+// word_bytes(row_bytes, table, out) bytes a word.
 MB_EXPORT int canvas_scatter_forward(const void* table, const int* cells,
                                      void* out, int B, int P, int HW,
                                      int row_bytes, cudaStream_t stream) {
-  if (row_bytes % 16 || B < 1 || P < 1 || HW < 1) return MB_BAD_ARGS;
+  if (row_bytes < 1 || B < 1 || P < 1 || HW < 1) return MB_BAD_ARGS;
   dim3 grid(ceil_div(HW, SCATTER_CELLS), B);
-  canvas_scatter_kernel<<<grid, 256, 0, stream>>>(
-      (const uint4*)table, cells, (uint4*)out, P, HW, row_bytes / 16);
+  const int wb = word_bytes(row_bytes, table, out);
+  const int vw = row_bytes / wb;
+#define MB_SCATTER(U)                                                  \
+  canvas_scatter_narrow_kernel<U><<<grid, 256, 0, stream>>>(           \
+      (const U*)table, cells, (U*)out, P, HW, vw)
+  if (wb == 16)
+    canvas_scatter_kernel<<<grid, 256, 0, stream>>>(
+        (const uint4*)table, cells, (uint4*)out, P, HW, vw);
+  else if (wb == 8) MB_SCATTER(uint2);
+  else if (wb == 4) MB_SCATTER(uint32_t);
+  else if (wb == 2) MB_SCATTER(uint16_t);
+  else MB_SCATTER(uint8_t);
+#undef MB_SCATTER
   return (int)cudaGetLastError();
 }
 
 MB_EXPORT int canvas_scatter_backward(const void* d_canvas, const int* cells,
                                       void* d_table, int B, int P, int HW,
                                       int row_bytes, cudaStream_t stream) {
-  if (row_bytes % 16 || B < 1 || P < 1 || HW < 1) return MB_BAD_ARGS;
+  if (row_bytes < 1 || B < 1 || P < 1 || HW < 1) return MB_BAD_ARGS;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t words = (size_t)B * P * (row_bytes / 16);
+  const int wb = word_bytes(row_bytes, d_canvas, d_table);
+  const int vw = row_bytes / wb;
+  const size_t words = (size_t)B * P * vw;
   const size_t need = (words + 255) / 256, most = (size_t)sms * 16;
   const int blocks = (int)(need < most ? need : most);
-  canvas_gather_kernel<<<blocks, 256, 0, stream>>>(
-      (const uint4*)d_canvas, cells, (uint4*)d_table, B, P, HW,
-      row_bytes / 16);
+#define MB_GATHER(U)                                                   \
+  canvas_gather_narrow_kernel<U><<<blocks, 256, 0, stream>>>(          \
+      (const U*)d_canvas, cells, (U*)d_table, B, P, HW, vw)
+  if (wb == 16)
+    canvas_gather_kernel<<<blocks, 256, 0, stream>>>(
+        (const uint4*)d_canvas, cells, (uint4*)d_table, B, P, HW, vw);
+  else if (wb == 8) MB_GATHER(uint2);
+  else if (wb == 4) MB_GATHER(uint32_t);
+  else if (wb == 2) MB_GATHER(uint16_t);
+  else MB_GATHER(uint8_t);
+#undef MB_GATHER
   return (int)cudaGetLastError();
 }

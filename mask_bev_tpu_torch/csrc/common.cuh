@@ -190,6 +190,94 @@ __device__ __forceinline__ void st8(float* p, const float* v) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// ---- rows of any width, walked in 8-value words --------------------------
+// Word wd of a row of C values holds values 8 wd .. 8 wd + 7, the last word
+// only n = C - 8 wd of them when C % 8 != 0. A whole word whose row starts
+// at a 16-byte aligned address (``vec``) is one 16-byte access in bf16 (two
+// in f32); any other word goes value by value, values past C reading as 0.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void ld_word(const T* p, int n, bool vec,
+                                        float (&v)[8]) {
+  if (vec && n >= 8) {
+    ld8(p, v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = q < n ? to_f(p[q]) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void st_word(T* p, int n, bool vec,
+                                        const float (&v)[8]) {
+  if (vec && n >= 8) {
+    st8(p, v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (q < n) p[q] = from_f<T>(v[q]);
+}
+
+// sum over the G lanes of an aligned group (G a power of two up to 32)
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The row walk: lane l of a group of G lanes visits words l, l + G, ... of
+// the row at xr, calling f(wd, n, v) with each word's n values (as f32,
+// zero past C). A row wider than a kernel's register tile is walked so,
+// once for each pass over it (the later passes read it from L1 or L2).
+template <typename T, typename F>
+__device__ __forceinline__ void row_walk(const T* xr, int C, int l, int G,
+                                         bool vec, F&& f) {
+  const int words = (C + 7) / 8;
+  for (int wd = l; wd < words; wd += G) {
+    const int n = min(8, C - 8 * wd);
+    float v[8];
+    ld_word(xr + 8 * wd, n, vec, v);
+    f(wd, n, v);
+  }
+}
+
+// LayerNorm statistics of a row of any width C by row_walk: f32 mean and
+// rstd = rsqrt(var + eps), the variance two-pass E[(x - mean)^2] (the Swin
+// blocks' LayerNormP) or, FAST, flax's max(0, E[x^2] - mean^2) (kernel 9).
+// Every lane of the group returns both.
+template <bool FAST, typename T>
+__device__ __forceinline__ void ln_row_stats(const T* xr, int C, int l, int G,
+                                             bool vec, float eps, float& mean,
+                                             float& rstd) {
+  float s = 0.f, s2 = 0.f;
+  row_walk(xr, C, l, G, vec, [&](int, int, const float (&v)[8]) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      s += v[q];
+      if (FAST) s2 = fmaf(v[q], v[q], s2);
+    }
+  });
+  mean = group_sum(s, G) / (float)C;
+  float var;
+  if (FAST) {
+    var = fmaxf(group_sum(s2, G) / (float)C - mean * mean, 0.f);
+  } else {
+    float d2 = 0.f;
+    row_walk(xr, C, l, G, vec, [&](int, int n, const float (&v)[8]) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float d = v[q] - mean;
+        if (q < n) d2 += d * d;
+      }
+    });
+    var = group_sum(d2, G) / (float)C;
+  }
+  rstd = rsqrtf(var + eps);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                    smem_addr(dst)),

@@ -6,9 +6,17 @@
 // fused_window_msa (:71).
 //
 // out[M, N] (bf16, or f32 for int8 and f32 operands) = epilogue(A[M, K] .
-// Bt[N, K]^T), N a multiple of 8, K a multiple of 16. A and Bt are both
-// K-contiguous (Bt is a torch Linear weight), as wgmma requires for 8-bit
-// and 32-bit operands. Three operand kinds:
+// Bt[N, K]^T), any K and N. A and Bt are both K-contiguous (Bt is a torch
+// Linear weight), as wgmma requires for 8-bit and 32-bit operands, their
+// rows lda and ldb elements apart: TMA takes only row pitches of whole
+// 16-byte steps, so an int8 A with K % 16 != 0 (a bf16 one with K % 8, an
+// f32 one with K % 4) is written by its producer at a padded pitch, and the
+// weight is padded when it is packed (ops/swin_block.py::pitched); TMA
+// reads the k past K as zeros, and the k-steps wholly past K are skipped,
+// so the padding is never multiplied. N % 8 != 0 takes the N-tail
+// instances (OP | OP_NTAIL), whose epilogue reads and stores value by
+// value; the flagship instances (N % 8 == 0) keep their 16-byte epilogue.
+// Three operand kinds:
 //   * bf16: f32 accumulation, wgmma m64n96k16;
 //   * int8: int32 accumulation, wgmma m64n96k32, then dequantised with a
 //     per-row activation scale and a per-column weight scale;
@@ -78,8 +86,9 @@
 
 namespace mbgemm {
 
-// operand kinds
-enum { OP_BF16 = 0, OP_S8 = 1, OP_TF32X3 = 2 };
+// operand kinds; | OP_NTAIL: the instance for N % 8 != 0
+enum { OP_BF16 = 0, OP_S8 = 1, OP_TF32X3 = 2, OP_NTAIL = 4 };
+__host__ __device__ constexpr int op_kind(int op) { return op & 3; }
 
 constexpr int BM = 128, BN = 96;
 constexpr int BKB = 128;  // bytes of K per stage: one 128-byte swizzle row
@@ -93,21 +102,21 @@ constexpr int ACC = BN / 2;  // accumulator registers a thread (m64n96)
 // accumulator registers) with 4 stages of 40 KB.
 template <int OP>
 __host__ __device__ constexpr int b_tiles() {
-  return OP == OP_TF32X3 ? 2 : 1;
+  return op_kind(OP) == OP_TF32X3 ? 2 : 1;
 }
 template <int OP>
 __host__ __device__ constexpr int stages() {
-  return OP == OP_TF32X3 ? 4 : 3;
+  return op_kind(OP) == OP_TF32X3 ? 4 : 3;
 }
 template <int OP>
 __host__ __device__ constexpr int blocks_per_sm() {
-  return OP == OP_TF32X3 ? 1 : 2;
+  return op_kind(OP) == OP_TF32X3 ? 1 : 2;
 }
 // threads a block: 3xTF32 gives the producer a whole warpgroup, so that
 // setmaxnreg can move its registers to the consumers (40 and 232 a thread)
 template <int OP>
 __host__ __device__ constexpr int threads() {
-  return OP == OP_TF32X3 ? 128 * CONSUMERS + 128 : THREADS;
+  return op_kind(OP) == OP_TF32X3 ? 128 * CONSUMERS + 128 : THREADS;
 }
 template <int OP>
 __host__ __device__ constexpr int stage_bytes() {
@@ -120,7 +129,7 @@ __host__ __device__ constexpr int smem_bytes() {
 }
 template <int OP>
 __host__ __device__ constexpr int elem_bytes() {
-  return OP == OP_S8 ? 1 : OP == OP_BF16 ? 2 : 4;
+  return op_kind(OP) == OP_S8 ? 1 : op_kind(OP) == OP_BF16 ? 2 : 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -315,7 +324,8 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
     const float* __restrict__ sw, const float* __restrict__ bias,
     const OT* __restrict__ residual, OT* __restrict__ out, int M, int N,
     int K, int mode) {
-  constexpr bool S8 = OP == OP_S8, TF = OP == OP_TF32X3;
+  constexpr bool S8 = op_kind(OP) == OP_S8, TF = op_kind(OP) == OP_TF32X3;
+  constexpr bool NT = (OP & OP_NTAIL) != 0;
   constexpr int STAGES = stages<OP>(), STAGE_BYTES = stage_bytes<OP>();
   extern __shared__ unsigned char smraw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -394,6 +404,34 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
         const int gm = row + 8 * h, gn = n0 + 8 * (4 * p + quad);
         if (gm >= M || gn >= N) continue;
         const size_t o = (size_t)gm * N + gn;
+        if constexpr (NT) {
+          // N % 8 != 0: the group's nv columns value by value (the rows
+          // are not 16-byte aligned); the same operations as below
+          const int nv = min(8, N - gn);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (c >= nv) continue;
+            const uint32_t raw = x[c >> 1][c & 1];
+            float v;
+            if (S8) {
+              const float a = (float)(int)raw;
+              v = __fadd_rn(__fmul_rn(__fmul_rn(a, sx[gm]), sw[gn + c]),
+                            bias[gn + c]);
+            } else {
+              float a = __uint_as_float(raw);
+              if (round_acc) a = rd<OT>(a);
+              v = __fadd_rn(a, bias[gn + c]);
+            }
+            v = rd<OT>(v);
+            if (kind == 1) {
+              v = gelu_erf(v);
+            } else if (kind == 2) {
+              v = __fadd_rn(to_f(residual[o + c]), v);
+            }
+            out[o + c] = from_f<OT>(v);
+          }
+          continue;
+        }
         const float4 b0 = *reinterpret_cast<const float4*>(bias + gn);
         const float4 b1 = *reinterpret_cast<const float4*>(bias + gn + 4);
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};

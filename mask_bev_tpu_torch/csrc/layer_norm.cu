@@ -22,7 +22,9 @@
 // shuffles within the group, and scale and bias are read once a step for
 // all R tokens as 16-byte words. The grid is sized to the SMs (as many
 // blocks as fit at once) and each warp walks its steps, so every SM keeps
-// ~100 KB in flight to cover the memory's latency.
+// ~100 KB in flight to cover the memory's latency. Rows of any other width
+// (C % 8 != 0 or C > 2048) take token_layernorm_walk_kernel: the same
+// arithmetic over the row walk of common.cuh, two passes over the row.
 #include "common.cuh"
 
 #define LN_THREADS 256
@@ -173,14 +175,63 @@ static int launch_ln_t(const void* x, const void* scale, const void* bias,
   }
 }
 
+// Rows the register tiles above do not take (C % 8 != 0, or C > 2048): a
+// group of G lanes a token walks its row in 8-value words
+// (common.cuh::row_walk; a partial last word, and every word of a row that
+// does not start 16-byte aligned, value by value), one pass for the sums
+// and one for the output, which reads the row again from L1/L2. Same
+// arithmetic as token_layernorm_kernel.
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS) token_layernorm_walk_kernel(
+    const T* __restrict__ x, const T* __restrict__ scale,
+    const T* __restrict__ bias, T* __restrict__ out, int M, int C, int G,
+    float eps) {
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (G - 1);
+  const int row = (blockIdx.x * LN_THREADS + threadIdx.x) / G;
+  // whole groups only: a group's lanes take the same row (G divides 32)
+  const T* xr = x + (size_t)min(row, M - 1) * C;
+  T* outr = out + (size_t)min(row, M - 1) * C;
+  const bool vec = aligned16(xr) && aligned16(outr) && aligned16(scale) &&
+                   aligned16(bias);
+  float mean, rstd;
+  ln_row_stats<true>(xr, C, l, G, vec, eps, mean, rstd);
+  if (row >= M) return;
+  row_walk(xr, C, l, G, vec, [&](int wd, int n, float (&v)[8]) {
+    float sc[8], bi[8];
+    ld_word(scale + 8 * wd, n, vec, sc);
+    ld_word(bias + 8 * wd, n, vec, bi);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __fadd_rn(__fmul_rn(v[e] - mean, rstd * sc[e]), bi[e]);
+    st_word(outr + 8 * wd, n, vec, v);
+  });
+}
+
 // G lanes a token, W 8-channel words a lane, R tokens a group at a step, as
 // ops/layer_norm.py::plan picks them for C (checked here: G a power of two
-// up to 32, every lane holding at least one word, R the plan's for W).
+// up to 32, every lane holding at least one word, R the plan's for W); W =
+// 0 (and R = 1): the walk above, for any C >= 1, G a power of two up to 32.
 // f32: nonzero for the f32 instance (tokens, scale, bias and output f32).
 MB_EXPORT int token_layernorm(const void* x, const void* scale,
                               const void* bias, void* out, int M, int C,
                               int G, int W, int R, float eps, int f32,
                               cudaStream_t stream) {
+  if (W == 0) {
+    if (C < 1 || M < 0 || G < 1 || G > 32 || (G & (G - 1)) || R != 1)
+      return MB_BAD_ARGS;
+    if (M == 0) return 0;
+    const int grid = ceil_div(M, LN_THREADS / G);
+    if (f32)
+      token_layernorm_walk_kernel<float><<<grid, LN_THREADS, 0, stream>>>(
+          (const float*)x, (const float*)scale, (const float*)bias,
+          (float*)out, M, C, G, eps);
+    else
+      token_layernorm_walk_kernel<bf16><<<grid, LN_THREADS, 0, stream>>>(
+          (const bf16*)x, (const bf16*)scale, (const bf16*)bias, (bf16*)out,
+          M, C, G, eps);
+    return (int)cudaGetLastError();
+  }
   const int words = C / 8;
   if (C % 8 || C < 8 || M < 0 || G < 1 || G > 32 || (G & (G - 1)) ||
       G > words || W < 1 || W > LN_MAX_WORDS || G * W < words ||

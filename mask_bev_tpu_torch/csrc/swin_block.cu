@@ -43,7 +43,10 @@
 // 8 channels (16-byte words in bf16) of the row in registers, so the row is
 // read once; two-pass f32 statistics, then T out or int8 + scale. T: the
 // tokens' and the affine's type (bf16, or f32 for the f32 instance).
+// Wider rows (and int8 rows at a padded pitch) take swin_rows_walk_kernel
+// below.
 #define SWIN_LN_MAX_WORDS 8  // C <= 8 * 8 * 32 = 2048
+#define SWIN_LN_TILE_C (8 * 32 * SWIN_LN_MAX_WORDS)
 
 template <typename T, int NW>
 __global__ void __launch_bounds__(256) swin_layernorm_kernel(
@@ -149,6 +152,69 @@ __global__ void __launch_bounds__(256) swin_quant_rows_kernel(
   if (lane == 0) sx[row] = scale;
 }
 
+// LN1/LN2 or the int8 quantisation of rows wider than the register tile
+// above or quantised at a padded pitch: one warp a row walks it in 8-value
+// words (common.cuh::row_walk), once for each pass (two-pass statistics,
+// then the output and the row's max, then the int8 values from the row
+// again), so any C works. LN: the row is normalised as swin_layernorm_kernel
+// does it (same operations in the same order); otherwise it is quantised as
+// it is (swin_quant_rows_kernel's rounding). q8 rows are ldq bytes apart,
+// ldq a multiple of 16 at least C, their columns C .. ldq - 1 zero, so the
+// int8 GEMM's TMA can read them (ops/swin_block.py::pitched).
+template <typename T, bool LN>
+__global__ void __launch_bounds__(256) swin_rows_walk_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ b, T* __restrict__ out,
+    signed char* __restrict__ q8, float* __restrict__ sx, int M, int C,
+    int ldq, float eps) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * C;
+  T* outr = out ? out + (size_t)row * C : nullptr;
+  const bool vec = aligned16(xr) && (!outr || aligned16(outr)) &&
+                   aligned16(w) && aligned16(b);
+  float mean = 0.f, rstd = 1.f;
+  if (LN) ln_row_stats<false>(xr, C, lane, 32, vec, eps, mean, rstd);
+  // the row's value at word wd, as LN (rounded to T) or as it is
+  auto value = [&](int wd, int n, float (&v)[8]) {
+    if (!LN) return;
+    float we[8], be[8];
+    ld_word(w + 8 * wd, n, vec, we);
+    ld_word(b + 8 * wd, n, vec, be);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      v[q] = rd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[q] - mean, rstd), we[q]),
+                             be[q]));
+  };
+  float amax = 0.f;
+  row_walk(xr, C, lane, 32, vec, [&](int wd, int n, float (&v)[8]) {
+    value(wd, n, v);
+    if (outr) st_word(outr + 8 * wd, n, vec, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < n) amax = fmaxf(amax, fabsf(v[q]));
+  });
+  if (!q8) return;
+  const float scale = __fmul_rn(fmaxf(warp_max(amax), 1e-6f), 1.f / 127.f);
+  signed char* qr = q8 + (size_t)row * ldq;
+  row_walk(xr, C, lane, 32, vec, [&](int wd, int n, float (&v)[8]) {
+    value(wd, n, v);
+    uint2 pk;
+    signed char* pq = reinterpret_cast<signed char*>(&pk);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      pq[q] = q < n ? (signed char)fminf(fmaxf(rintf(v[q] / scale), -127.f),
+                                         127.f)
+                    : (signed char)0;
+    // ldq is a multiple of 8 at least 8 ceil(C / 8): the word is in the row
+    reinterpret_cast<uint2*>(qr)[wd] = pk;
+  });
+  // the padding past the last word (ldq >= 8 ceil(C / 8))
+  for (int c = 8 * ((C + 7) / 8) + lane; c < ldq; c += 32) qr[c] = 0;
+  if (lane == 0) sx[row] = scale;
+}
+
 template <typename T, int NW>
 static void launch_ln(const void* x, const void* w, const void* b, void* out,
                       signed char* q8, float* sx, int M, int C, float eps,
@@ -157,48 +223,79 @@ static void launch_ln(const void* x, const void* w, const void* b, void* out,
       (const T*)x, (const T*)w, (const T*)b, (T*)out, q8, sx, M, C, eps);
 }
 
+template <typename T, bool LN>
+static void launch_walk(const void* x, const void* w, const void* b,
+                        void* out, signed char* q8, float* sx, int M, int C,
+                        int ldq, float eps, cudaStream_t stream) {
+  swin_rows_walk_kernel<T, LN><<<ceil_div(M, 8), 256, 0, stream>>>(
+      (const T*)x, (const T*)w, (const T*)b, (T*)out, q8, sx, M, C, ldq,
+      eps);
+}
+
 template <typename T>
 static void launch_ln_t(const void* x, const void* w, const void* b,
                         void* out, signed char* q8, float* sx, int M, int C,
-                        float eps, cudaStream_t stream) {
+                        int ldq, float eps, cudaStream_t stream) {
   const int nw = ceil_div(C / 8, 32);  // groups of 8 channels per lane
-  if (nw == 1) launch_ln<T, 1>(x, w, b, out, q8, sx, M, C, eps, stream);
+  if (C > SWIN_LN_TILE_C || (q8 && ldq != C))
+    launch_walk<T, true>(x, w, b, out, q8, sx, M, C, ldq, eps, stream);
+  else if (nw == 1) launch_ln<T, 1>(x, w, b, out, q8, sx, M, C, eps, stream);
   else if (nw == 2) launch_ln<T, 2>(x, w, b, out, q8, sx, M, C, eps, stream);
   else if (nw <= 4) launch_ln<T, 4>(x, w, b, out, q8, sx, M, C, eps, stream);
   else launch_ln<T, SWIN_LN_MAX_WORDS>(x, w, b, out, q8, sx, M, C, eps,
                                        stream);
 }
 
-// f32: nonzero for the f32 instance (f32 tokens, affine and output)
+// f32: nonzero for the f32 instance (f32 tokens, affine and output). Any C
+// % 8 == 0: up to SWIN_LN_TILE_C channels with the unquantised or int8
+// rows at pitch C, the register-tile kernel; wider rows, or int8 rows at a
+// padded pitch ldq (a multiple of 16, at least C), the walk.
 MB_EXPORT int swin_layernorm(const void* x, const void* w, const void* b,
                              void* out, signed char* q8, float* sx, int M,
-                             int C, float eps, int f32, cudaStream_t stream) {
-  if (C % 8 || C > 8 * 32 * SWIN_LN_MAX_WORDS) return MB_BAD_ARGS;
+                             int C, int ldq, float eps, int f32,
+                             cudaStream_t stream) {
+  if (C < 8 || C % 8 || (q8 && (ldq < C || (ldq % 16 && ldq != C))))
+    return MB_BAD_ARGS;
   if (f32)
-    launch_ln_t<float>(x, w, b, out, q8, sx, M, C, eps, stream);
+    launch_ln_t<float>(x, w, b, out, q8, sx, M, C, ldq, eps, stream);
   else
-    launch_ln_t<bf16>(x, w, b, out, q8, sx, M, C, eps, stream);
+    launch_ln_t<bf16>(x, w, b, out, q8, sx, M, C, ldq, eps, stream);
   return (int)cudaGetLastError();
 }
 
+// int8 rows of (M, K) T values: K % 8 == 0 at pitch K, the flagship
+// kernel; any other K, or a padded pitch ldq (a multiple of 16, at least
+// K), the walk.
 MB_EXPORT int swin_quant_rows(const void* x, signed char* q8, float* sx,
-                              int M, int K, int f32, cudaStream_t stream) {
-  if (K % 8) return MB_BAD_ARGS;
-  if (f32)
+                              int M, int K, int ldq, int f32,
+                              cudaStream_t stream) {
+  if (K < 1 || ldq < K || (ldq % 16 && ldq != K)) return MB_BAD_ARGS;
+  if (K % 8 || ldq != K) {
+    if (ldq % 16) return MB_BAD_ARGS;
+    if (f32)
+      launch_walk<float, false>(x, nullptr, nullptr, nullptr, q8, sx, M, K,
+                                ldq, 0.f, stream);
+    else
+      launch_walk<bf16, false>(x, nullptr, nullptr, nullptr, q8, sx, M, K,
+                               ldq, 0.f, stream);
+  } else if (f32) {
     swin_quant_rows_kernel<float><<<ceil_div(M, 8), 256, 0, stream>>>(
         (const float*)x, q8, sx, M, K);
-  else
+  } else {
     swin_quant_rows_kernel<bf16><<<ceil_div(M, 8), 256, 0, stream>>>(
         (const bf16*)x, q8, sx, M, K);
+  }
   return (int)cudaGetLastError();
 }
 
 // the window attention of the block (window_attn.cuh, Swin variant): f32
-// nonzero for f32 qkv and out, else bf16
+// nonzero for f32 qkv and out, else bf16; head widths 16, 32, 64 (the
+// others: attn_widths_swin.cu)
 MB_EXPORT int swin_window_attn(const void* qkv, const float* qkv_bias,
                                const float* rel, void* out, int B, int H,
                                int W, int C, int heads, int win, int shift,
                                float scale, int f32, cudaStream_t stream) {
-  return launch_window_attn<false>(qkv, qkv_bias, rel, out, B, H, W, C,
-                                   heads, win, shift, scale, f32, stream);
+  return launch_window_attn<false, 16, 32, 64>(qkv, qkv_bias, rel, out, B, H,
+                                               W, C, heads, win, shift,
+                                               scale, f32, stream);
 }

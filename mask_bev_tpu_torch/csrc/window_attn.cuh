@@ -43,6 +43,15 @@
 //     the same order). Inside each chunk of 32 channels (16 at hd 16) the
 //     channel index is permuted alike in q and k, so a lane's fragment
 //     values are contiguous and the sums are unchanged.
+// Head widths: HD is the head's width, any multiple of 8 up to 64; its rows
+// are staged in shared memory (and f32 q in registers) at HS =
+// staged_dim(HD), the least of the flagship widths 16, 32, 64 that holds
+// it, the columns HD .. HS - 1 zero, so the products run the flagship
+// width's code (zero columns add nothing to the scores; the scale is the
+// caller's, HD^-0.5) and P v and the stores cover the HD real columns. At
+// HD = 16, 32, 64 (the flagship instances) HS == HD and nothing changes.
+// The other widths' instances are built in their own sources
+// (attn_widths_swin.cu, attn_widths_msa.cu), in parallel with these.
 #pragma once
 
 #include <type_traits>
@@ -51,6 +60,11 @@
 
 constexpr int ATT_MAX_NPT = 8;  // n <= 128: at most 8 warps of 16 rows
 constexpr int ATT_WPB = 4;      // windows a block, so the bias is read once
+
+// the width a head of HD channels is staged at
+__host__ __device__ constexpr int staged_dim(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : 64;
+}
 
 __device__ __forceinline__ int shift_region(int r, int size, int win,
                                             int shift) {
@@ -71,16 +85,18 @@ static inline size_t window_attn_smem(int n, int hd, bool f32, bool msa) {
 // for both kernels: the token and shift-label rows (tok, lab), then q, k,
 // v (f32: k and v) by 16-byte copies, a pad token's row the qkv bias (zero
 // before the qkv product); f32: this warp's q rows into qv (chunk c of KC
-// channels, PER contiguous channels from c KC + PER t), in flight with the
-// copies. Returns with the rows in place for the whole block.
-template <typename T, int HD, int LD, int NQ, int PQ>
+// channels, PER contiguous channels from c KC + PER t; zero past HD), in
+// flight with the copies. Returns with the rows in place for the whole
+// block. The HD real columns are copied; columns HD .. HS - 1 of the staged
+// rows are zeroed once by the kernel (zero_staged_tail).
+template <typename T, int HD, int HS, int LD, int NQ, int PQ>
 __device__ __forceinline__ void stage_window(
     const T* __restrict__ qkv, const float* __restrict__ qkv_bias, T* qs,
     T* ks, T* vs, int* tok, int* lab, float (&qv)[NQ][2][PQ], int wi,
     int nww, int n, int b, int h, int H, int W, int C, int win, int shift,
     int hp, int wp) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int KC = HD < 32 ? HD : 32, PER = KC / 4;
+  constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int wy = wi / nww, wx = wi % nww;
@@ -132,7 +148,8 @@ __device__ __forceinline__ void stage_window(
 #pragma unroll
         for (int p4 = 0; p4 < PER / 4; ++p4) {
           float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (r < n)
+          // (HS == HD: a constant true, the flagship instances' code)
+          if (r < n && (HS == HD || c * KC + PER * t + 4 * p4 < HD))
             v = __ldg(reinterpret_cast<const float4*>(
                 src + h * HD + c * KC + PER * t + 4 * p4));
           qv[c][hh][4 * p4] = v.x;
@@ -146,6 +163,21 @@ __device__ __forceinline__ void stage_window(
   __syncthreads();
 }
 
+// zero columns HD .. HS - 1 of the n staged rows of q (bf16 only), k and
+// v: the copies never write them, so once a kernel
+template <typename T, int HD, int HS, int LD>
+__device__ __forceinline__ void zero_staged_tail(T* qs, T* ks, T* vs, int n) {
+  if constexpr (HS != HD) {
+    constexpr int TAIL = HS - HD;
+    for (int i = threadIdx.x; i < n * TAIL; i += blockDim.x) {
+      const int o = (i / TAIL) * LD + HD + i % TAIL;
+      if constexpr (sizeof(T) != 4) qs[o] = from_f<T>(0.f);
+      ks[o] = from_f<T>(0.f);
+      vs[o] = from_f<T>(0.f);
+    }
+  }
+}
+
 // MAXNPT: the register arrays' size in 16-key steps (7 for win 10); two
 // blocks share an SM. qkv (B*H*W, 3C) of T with channel order [q | k | v]
 // x heads x hd; qkv_bias (3C) f32; rel (heads, n, n) f32; out (B*H*W, C).
@@ -156,7 +188,8 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
     int win, int shift, float scale) {
   constexpr bool F32 = sizeof(T) == 4;
   using RelT = typename std::conditional<F32 || MSA, float, bf16>::type;
-  constexpr int LD = F32 ? HD + 4 : HD + 8;  // conflict-free row strides
+  constexpr int HS = staged_dim(HD);
+  constexpr int LD = F32 ? HS + 4 : HS + 8;  // conflict-free row strides
   extern __shared__ __align__(16) unsigned char smraw[];
   const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
   const int ldb = NP + 8;
@@ -185,17 +218,18 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
     ks[n * LD + i] = from_f<T>(0.f);
     vs[n * LD + i] = from_f<T>(0.f);
   }
+  zero_staged_tail<T, HD, HS, LD>(qs, ks, vs, n);
 
   // f32: the lane's q values of rows g, g + 8 (+ 16 warp): chunk c of KC
   // channels, PER contiguous channels from c KC + PER t; k-step st of the
   // chunk takes channel PER t + st as slot t and PER t + KS + st as t + 4
-  constexpr int KC = HD < 32 ? HD : 32, PER = KC / 4, KS = KC / 8;
-  constexpr int NCH = HD / KC;
+  constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4, KS = KC / 8;
+  constexpr int NCH = HS / KC;
   const int wend = min(w0 + ATT_WPB, nw);
   for (int wi = w0; wi < wend; ++wi) {
     float qv[F32 ? NCH : 1][2][F32 ? PER : 1];
-    stage_window<T, HD, LD>(qkv, qkv_bias, qs, ks, vs, tok, lab, qv, wi,
-                            nww, n, b, h, H, W, C, win, shift, hp, wp);
+    stage_window<T, HD, HS, LD>(qkv, qkv_bias, qs, ks, vs, tok, lab, qv, wi,
+                                nww, n, b, h, H, W, C, win, shift, hp, wp);
     if (warp >= npt) continue;
 
     // ---- S = q k^T, 16 rows x NP keys in registers ----------------------
@@ -241,9 +275,9 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
         }
       }
     } else {
-      uint32_t qa[HD / 16][4];
+      uint32_t qa[HS / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HS / 16; ++kk) {
         ldsm_x4(qa[kk], qs + (16 * warp + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
         if constexpr (!MSA) {
@@ -258,7 +292,7 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
       for (int j = 0; j < 2 * MAXNPT; ++j) {
         if (j < 2 * npt) {
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) {
+          for (int kk = 0; kk < HS / 16; ++kk) {
             uint32_t b0, b1;
             ldsm_x2(b0, b1, ks + (8 * j + (lane & 7)) * LD + kk * 16 +
                                 ((lane >> 3) & 1) * 8);
@@ -415,7 +449,8 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
                             T* __restrict__ out, int H, int W, int C,
                             int win, int shift, float scale) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int LD = F32 ? HD + 4 : HD + 8;
+  constexpr int HS = staged_dim(HD);
+  constexpr int LD = F32 ? HS + 4 : HS + 8;
   extern __shared__ __align__(16) unsigned char smraw[];
   const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
   T* qs = reinterpret_cast<T*>(smraw);  // bf16 only: f32 q is in registers
@@ -436,18 +471,19 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
     ks[n * LD + i] = from_f<T>(0.f);
     vs[n * LD + i] = from_f<T>(0.f);
   }
-  constexpr int KC = HD < 32 ? HD : 32, PER = KC / 4, KS = KC / 8;
-  constexpr int NCH = HD / KC;
+  zero_staged_tail<T, HD, HS, LD>(qs, ks, vs, n);
+  constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4, KS = KC / 8;
+  constexpr int NCH = HS / KC;
   const int wend = min(w0 + ATT_WPB, nw);
   for (int wi = w0; wi < wend; ++wi) {
     float qv[F32 ? NCH : 1][2][F32 ? PER : 1];
-    stage_window<T, HD, LD>(qkv, qkv_bias, qs, ks, vs, tok, lab, qv, wi,
-                            nww, n, b, h, H, W, C, win, shift, hp, wp);
+    stage_window<T, HD, HS, LD>(qkv, qkv_bias, qs, ks, vs, tok, lab, qv, wi,
+                                nww, n, b, h, H, W, C, win, shift, hp, wp);
 
-    uint32_t qa[F32 ? 1 : HD / 16][4];
+    uint32_t qa[F32 ? 1 : HS / 16][4];
     if constexpr (!F32) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HS / 16; ++kk) {
         ldsm_x4(qa[kk], qs + (16 * warp + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
         if constexpr (!MSA) {
@@ -519,7 +555,7 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
         for (int j = 0; j < 2 * ATT_KCH; ++j) {
           if (j0 + j < 2 * npt) {
 #pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
+            for (int kk = 0; kk < HS / 16; ++kk) {
               uint32_t b0, b1;
               ldsm_x2(b0, b1, ks + (8 * (j0 + j) + (lane & 7)) * LD +
                                   kk * 16 + ((lane >> 3) & 1) * 8);
@@ -660,8 +696,9 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
                                  float scale, cudaStream_t stream) {
   const int n = win * win, NP = (n + 15) / 16 * 16;
   const bool long_win = NP > 16 * ATT_MAX_NPT;
-  const size_t smem = long_win ? window_attn_long_smem(n, HD, sizeof(T) == 4)
-                               : window_attn_smem(n, HD, sizeof(T) == 4, MSA);
+  constexpr int HS = staged_dim(HD);
+  const size_t smem = long_win ? window_attn_long_smem(n, HS, sizeof(T) == 4)
+                               : window_attn_smem(n, HS, sizeof(T) == 4, MSA);
   auto kern = long_win    ? window_attn_long_kernel<T, HD, MSA>
               : NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
                           : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>;
@@ -676,27 +713,25 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
 }
 
 // The launch of either variant: f32 nonzero for f32 qkv and out, else
-// bf16; head widths 16, 32 or 64 and windows of at most 256 tokens (above
-// 128 the long-window kernel)
-template <bool MSA>
+// bf16; a head width of HDS (16, 32, 64 in the flagship sources; the others
+// in attn_widths_*.cu) and windows of at most 256 tokens (above 128 the
+// long-window kernel)
+template <bool MSA, int... HDS>
 static int launch_window_attn(const void* qkv, const float* qkv_bias,
                               const float* rel, void* out, int B, int H,
                               int W, int C, int heads, int win, int shift,
                               float scale, int f32, cudaStream_t stream) {
   if (C % heads || win * win > 16 * ATT_LONG_MAX_NPT) return MB_BAD_ARGS;
-#define MB_ATTN_HD(HD)                                                    \
-  case HD:                                                                \
-    return f32 ? launch_window_attn_hd<float, MSA, HD>(                   \
-                     qkv, qkv_bias, rel, out, B, H, W, C, heads, win,     \
-                     shift, scale, stream)                                \
-               : launch_window_attn_hd<bf16, MSA, HD>(                    \
-                     qkv, qkv_bias, rel, out, B, H, W, C, heads, win,     \
-                     shift, scale, stream);
-  switch (C / heads) {
-    MB_ATTN_HD(16)
-    MB_ATTN_HD(32)
-    MB_ATTN_HD(64)
-  }
-#undef MB_ATTN_HD
-  return MB_BAD_ARGS;
+  const int hd = C / heads;
+  int rc = MB_BAD_ARGS;
+  (void)((hd == HDS &&
+          ((rc = f32 ? launch_window_attn_hd<float, MSA, HDS>(
+                           qkv, qkv_bias, rel, out, B, H, W, C, heads, win,
+                           shift, scale, stream)
+                     : launch_window_attn_hd<bf16, MSA, HDS>(
+                           qkv, qkv_bias, rel, out, B, H, W, C, heads, win,
+                           shift, scale, stream)),
+           true)) ||
+         ...);
+  return rc;
 }

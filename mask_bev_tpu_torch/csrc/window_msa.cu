@@ -23,11 +23,13 @@
 #include "common.cuh"
 #include "window_attn.cuh"
 
-// the attention (MSA variant): f32 nonzero for f32 qkv and out, else bf16
+// the attention (MSA variant): f32 nonzero for f32 qkv and out, else bf16;
+// head widths 16, 32, 64 (the others: attn_widths_msa.cu)
 MB_EXPORT int window_msa_attn(const void* qkv, const float* qkv_bias,
                               const float* rel, void* out, int B, int H,
                               int W, int C, int heads, int win, int shift,
                               float scale, int f32, cudaStream_t stream) {
-  return launch_window_attn<true>(qkv, qkv_bias, rel, out, B, H, W, C, heads,
-                                  win, shift, scale, f32, stream);
+  return launch_window_attn<true, 16, 32, 64>(qkv, qkv_bias, rel, out, B, H,
+                                              W, C, heads, win, shift, scale,
+                                              f32, stream);
 }

@@ -15,7 +15,12 @@ kernel (``csrc/canvas.cu::canvas_norm_kernel``) gives each block a run of
 ``CANVAS_RUN`` cells of every sample, finds the run's first table row with
 one binary search a sample (the TPU kernel's ``lo`` at its block
 boundaries), maps the run's cells to rows in shared memory and streams the
-run's canvas rows in 16-byte words.
+run's canvas rows in 16-byte words. Rows of any other width (bf16 C % 8 !=
+0, f32 C % 4 != 0) take its narrow instances (``canvas_norm_narrow_kernel``):
+the same body in words of the widest power of two bytes that divides the
+row's bytes and the addresses (:func:`word_bytes`), counted under
+``canvas_norm/<dtype>_w<bytes>``; kernels A and B likewise
+(``canvas_scatter/w<bytes>``).
 
 Kernels A and B replace ``mask_bev_tpu/ops/pallas_canvas.py::canvas_scatter``
 (the training path, ``models/encoder.py:496-500``), the one Pallas kernel
@@ -68,15 +73,25 @@ def canvas_chunks(b: int) -> List[Tuple[int, int]]:
     return list(zip(edges[:-1], edges[1:]))
 
 
+def word_bytes(row_bytes: int, *ptrs: int) -> int:
+    """The bytes a word of kernels 2, A and B moves for rows of
+    ``row_bytes`` at these addresses: the widest power of two up to 16 that
+    divides all of them (``csrc/canvas.cu::word_bytes``)."""
+    v = row_bytes | 16
+    for p in ptrs:
+        v |= p
+    return v & -v
+
+
 def canvas_refusal(b: int, c: int, dtype) -> Optional[str]:
     """Why kernel 2 does not take a (B, N, C) table of ``dtype``, or None
-    where it does: bf16 or f32, rows of whole 16-byte words and B >= 1
-    (any B: :func:`canvas_norm` launches it on :func:`canvas_chunks`)."""
+    where it does: bf16 or f32, any C >= 1 (rows that are not whole 16-byte
+    words take the narrow instances) and B >= 1 (any B: :func:`canvas_norm`
+    launches it on :func:`canvas_chunks`)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return f"the canvas kernel takes a bf16 or f32 table, not {dtype}"
-    if (c * torch.finfo(dtype).bits // 8) % 16 or b < 1:
-        return (f"canvas kernel needs rows of whole 16-byte words and "
-                f"B >= 1; got C={c} ({dtype}), B={b}")
+    if c < 1 or b < 1:
+        return f"canvas kernel needs C >= 1 and B >= 1; got C={c}, B={b}"
     return None
 
 
@@ -109,14 +124,18 @@ def canvas_norm(table: torch.Tensor, cells: torch.Tensor,
     kb.check_cuda(bias, "bias", dt, tuple(scale.shape))
     mv = torch.stack([mean.float(), var.float()], dim=-1).contiguous()
     out = torch.empty((b, h, w, c), dtype=dt, device=table.device)
+    name = "f32" if dt == torch.float32 else "bf16"
     for i, j in canvas_chunks(b):
+        wb = word_bytes(c * table.element_size(), table[i:j].data_ptr(),
+                        out[i:j].data_ptr(), scale.data_ptr(),
+                        bias.data_ptr())
         kb.launch("canvas_norm", "canvas_norm_forward", kb.ptr(table[i:j]),
                   kb.ptr(cells[i:j]), kb.ptr(num_pillars[i:j]),
                   kb.ptr(mv[i:j]), kb.ptr(scale), kb.ptr(bias), kb.ci(full),
                   kb.ptr(out[i:j]), kb.ci(j - i), kb.ci(n), kb.ci(h * w),
                   kb.ci(c), kb.cf(eps), kb.ci(dt == torch.float32),
-                  kb.stream(),
-                  instance="f32" if dt == torch.float32 else "bf16")
+                  kb.stream(), instance=name + ("" if wb == 16 else
+                                                f"_w{wb}"))
     return out
 
 
@@ -165,13 +184,11 @@ def canvas_gather_plain(d_canvas: torch.Tensor, cells: torch.Tensor,
                        0.0)
 
 
-def _check_rows(t: torch.Tensor, name: str) -> int:
-    row_bytes = t.shape[-1] * t.element_size()
-    if row_bytes % 16 or t.data_ptr() % 16:
-        raise ValueError(f"{name}: the canvas scatter kernels move 16-byte "
-                         f"words; rows of {row_bytes} bytes at address "
-                         f"{t.data_ptr():#x} are not")
-    return row_bytes
+def _instance(row_bytes: int, *ts: torch.Tensor) -> Optional[str]:
+    """Kernels A and B count a narrow launch (rows or addresses not of
+    whole 16-byte words) under ``w<bytes>``."""
+    wb = word_bytes(row_bytes, *(t.data_ptr() for t in ts))
+    return None if wb == 16 else f"w{wb}"
 
 
 def canvas_scatter_forward(table: torch.Tensor, cells: torch.Tensor,
@@ -183,11 +200,12 @@ def canvas_scatter_forward(table: torch.Tensor, cells: torch.Tensor,
     h, w = grid_hw
     kb.check_cuda(table, "table")
     kb.check_cuda(cells, "cells", torch.int32, (b, p))
-    row_bytes = _check_rows(table, "table")
+    row_bytes = c * table.element_size()
     out = torch.empty((b, h, w, c), dtype=table.dtype, device=table.device)
     kb.launch("canvas_scatter", "canvas_scatter_forward", kb.ptr(table),
               kb.ptr(cells), kb.ptr(out), kb.ci(b), kb.ci(p), kb.ci(h * w),
-              kb.ci(row_bytes), kb.stream())
+              kb.ci(row_bytes), kb.stream(),
+              instance=_instance(row_bytes, table, out))
     return out
 
 
@@ -202,12 +220,13 @@ def canvas_scatter_backward(d_canvas: torch.Tensor, cells: torch.Tensor,
     c = d_canvas.shape[-1]
     kb.check_cuda(d_canvas, "d_canvas", shape=(b, h, w, c))
     kb.check_cuda(cells, "cells", torch.int32, (b, p))
-    row_bytes = _check_rows(d_canvas, "d_canvas")
+    row_bytes = c * d_canvas.element_size()
     d_table = torch.empty((b, p, c), dtype=d_canvas.dtype,
                           device=d_canvas.device)
     kb.launch("canvas_scatter_bwd", "canvas_scatter_backward",
               kb.ptr(d_canvas), kb.ptr(cells), kb.ptr(d_table), kb.ci(b),
-              kb.ci(p), kb.ci(h * w), kb.ci(row_bytes), kb.stream())
+              kb.ci(p), kb.ci(h * w), kb.ci(row_bytes), kb.stream(),
+              instance=_instance(row_bytes, d_canvas, d_table))
     return d_table
 
 

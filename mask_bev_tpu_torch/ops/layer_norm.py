@@ -16,7 +16,11 @@ The CUDA kernel (``csrc/layer_norm.cu``) takes bf16 or f32 tokens and a
 scale and bias of the same dtype (widened to f32 in the kernel); it counts
 under ``layer_norm``. A group of G lanes takes a token and R tokens at a
 step, each lane W 8-channel words of each (:func:`plan`), every load of a
-step issued before its reductions, on a grid sized to the SMs.
+step issued before its reductions, on a grid sized to the SMs. Rows of any
+other width (C % 8 != 0 or C > 2048) take its walk instance
+(``token_layernorm_walk_kernel``, plan ``(G, 0, 1)``): the same arithmetic
+over the row in 8-value words, the last one partial, two passes over it;
+it counts under ``layer_norm/bf16_walk`` or ``layer_norm/f32_walk``.
 """
 from __future__ import annotations
 
@@ -30,16 +34,21 @@ MAX_WORDS = 8  # 8-channel words a lane (``LN_MAX_WORDS``): C <= 2048
 
 
 def plan(c: int, f32: bool) -> Tuple[int, int, int]:
-    """Kernel 9's split of a row of ``c`` channels (c % 8 == 0, 8 <= c <=
-    2048) into 8-channel words: (G lanes a token, a power of two up to 32;
-    W words a lane; R tokens a group takes at a step). G is the largest
-    power of two dividing the words (so every lane holds W of them), unless
-    that leaves more than 8 a lane; then the fewest lanes that hold them
-    all. R keeps about 12 16-byte vectors in flight a lane (a word is one in
-    bf16, two in f32), at least two tokens while that holds
-    (``csrc/layer_norm.cu::ln_tokens``). Path E's rows in bf16: 192 -> (8,
-    3, 4), 384 -> (16, 3, 4), 768 -> (32, 3, 4), 1536 -> (32, 6, 2); in f32
-    R = 2 at all four."""
+    """Kernel 9's split of a row of ``c`` channels into 8-channel words:
+    (G lanes a token, a power of two up to 32; W words a lane; R tokens a
+    group takes at a step). For c % 8 == 0 and 8 <= c <= 2048 (the register
+    tiles): G is the largest power of two dividing the words (so every lane
+    holds W of them), unless that leaves more than 8 a lane; then the fewest
+    lanes that hold them all. R keeps about 12 16-byte vectors in flight a
+    lane (a word is one in bf16, two in f32), at least two tokens while that
+    holds (``csrc/layer_norm.cu::ln_tokens``). Path E's rows in bf16: 192 ->
+    (8, 3, 4), 384 -> (16, 3, 4), 768 -> (32, 3, 4), 1536 -> (32, 6, 2); in
+    f32 R = 2 at all four. Any other c >= 1: the walk, (G, 0, 1) with G the
+    fewest lanes, a power of two up to 32, that give each lane one of the
+    ceil(c / 8) words (12 -> 2, 100 -> 16, 2056 -> 32)."""
+    if c % 8 or c > MAX_WORDS * 8 * 32:
+        words = -(-c // 8)
+        return min(32, 1 << (words - 1).bit_length()), 0, 1
     words = c // 8
     g = min(32, words & -words)
     if -(-words // g) > MAX_WORDS:
@@ -64,12 +73,12 @@ def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def layer_norm_refusal(c: int, dtype) -> Optional[str]:
     """Why kernel 9 does not take rows of C values of ``dtype``, or None
-    where it does: bf16 or f32, C % 8 == 0 and 8 <= C <= 2048."""
+    where it does: bf16 or f32 and C >= 1 (the register tiles up to 2048
+    channels in whole words, the walk for every other width)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return f"the layer norm kernel takes bf16 or f32 tokens; got {dtype}"
-    if c % 8 or c < 8 or c > 2048:
-        return (f"layer norm kernel needs C % 8 == 0 and 8 <= C <= 2048, "
-                f"got {c}")
+    if c < 1:
+        return f"layer norm kernel needs C >= 1, got {c}"
     return None
 
 
@@ -94,5 +103,5 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     kb.launch("layer_norm", "token_layernorm", kb.ptr(x2), kb.ptr(w),
               kb.ptr(b), kb.ptr(out), kb.ci(x2.shape[0]), kb.ci(c), kb.ci(g),
               kb.ci(words), kb.ci(r), kb.cf(eps), kb.ci(f32), kb.stream(),
-              instance="f32" if f32 else "bf16")
+              instance=("f32" if f32 else "bf16") + ("" if words else "_walk"))
     return out.reshape(x.shape)

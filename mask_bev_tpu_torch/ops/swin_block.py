@@ -110,22 +110,45 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def row_pitch(k: int, esz: int) -> int:
+    """Elements between the rows of a GEMM operand of ``k`` values of
+    ``esz`` bytes: ``k`` rounded up to whole 16-byte steps, the only row
+    pitches TMA takes (``cuTensorMapEncodeTiled``'s global strides)."""
+    step = 16 // esz
+    return -(-k // step) * step
+
+
+def pitched(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, K) as the GEMM reads it: itself where its rows are whole
+    16-byte steps apart, else an (rows, K) view of a copy whose rows are
+    :func:`row_pitch` apart, the padding zero. Used once, when weights are
+    packed; the activations' producers write their rows at that pitch."""
+    rows, k = t.shape
+    kp = row_pitch(k, t.element_size())
+    if kp == k:
+        return t
+    buf = torch.zeros((rows, kp), dtype=t.dtype, device=t.device)
+    buf[:, :k] = t
+    return buf[:, :k]
+
+
 def make_dense(weight: torch.Tensor, bias: Optional[torch.Tensor],
                quant: bool) -> Dense:
     """From a torch Linear ``weight`` (N, K) and ``bias``; an f32 weight on
     a CUDA device also gets its TF32 halves (for the 3xTF32 GEMM: twice the
     weight's bytes more on the device; the CPU's plain version does not
-    read them)."""
+    read them). Each weight the GEMM reads is :func:`pitched` (padded only
+    where its rows are not whole 16-byte steps: an int8 K % 16 != 0)."""
     wt = weight.detach().contiguous()
     b = (torch.zeros(wt.shape[0], device=wt.device) if bias is None
          else bias.detach().float().contiguous())
     if quant:
         q8, sw = quantize_weight(wt)
-        return Dense(wt, b, q8, sw)
+        return Dense(wt, b, pitched(q8), sw)
     if wt.dtype == torch.float32 and wt.is_cuda:
         hi, lo = split_tf32(wt)
-        return Dense(wt, b, hi=hi, lo=lo)
-    return Dense(wt, b)
+        return Dense(wt, b, hi=pitched(hi), lo=pitched(lo))
+    return Dense(pitched(wt), b)
 
 
 def quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -289,6 +312,29 @@ def _f32(t: torch.Tensor) -> bool:
     return t.dtype == torch.float32
 
 
+# csrc/swin_block.cu: the widest row the LN's register tile holds
+# (SWIN_LN_TILE_C = 8 channels x 32 lanes x SWIN_LN_MAX_WORDS); wider rows,
+# and int8 rows at a padded pitch, take its walk (swin_rows_walk_kernel)
+SWIN_LN_MAX_WORDS = 8
+SWIN_LN_TILE_C = 8 * 32 * SWIN_LN_MAX_WORDS
+
+
+def _int8_rows(m: int, k: int, device) -> torch.Tensor:
+    """(m, k) int8 rows at the GEMM's pitch (:func:`row_pitch`): a view of
+    an (m, pitch) buffer where k % 16 != 0 (the kernel zeroes the
+    padding)."""
+    buf = torch.empty((m, row_pitch(k, 1)), dtype=torch.int8, device=device)
+    return buf[:, :k]
+
+
+def ln_instance(c: int, f32: bool, quant: bool) -> str:
+    """The instance a Swin LN launch counts under: ``bf16``/``f32`` (the
+    register tile), with ``_walk`` for rows over :data:`SWIN_LN_TILE_C` or
+    int8 rows at a padded pitch."""
+    walk = c > SWIN_LN_TILE_C or (quant and row_pitch(c, 1) != c)
+    return ("f32" if f32 else "bf16") + ("_walk" if walk else "")
+
+
 def _ln(x2, w, b, quant):
     m, c = x2.shape
     # the kernel reads rows and the affine in 16-byte words
@@ -299,7 +345,7 @@ def _ln(x2, w, b, quant):
     w, b = (t.to(x2.dtype) for t in (w, b))
     w, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, b))
     if quant:
-        q8 = torch.empty((m, c), dtype=torch.int8, device=x2.device)
+        q8 = _int8_rows(m, c, x2.device)
         sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
         out = None
     else:
@@ -307,29 +353,51 @@ def _ln(x2, w, b, quant):
         out = torch.empty_like(x2)
     kb.launch("swin_block", "swin_layernorm", kb.ptr(x2), kb.ptr(w),
               kb.ptr(b), kb.ptr(out), kb.ptr(q8), kb.ptr(sx), kb.ci(m),
-              kb.ci(c), kb.cf(1e-6), kb.ci(f32), kb.stream(),
-              instance="f32" if f32 else "bf16")
+              kb.ci(c), kb.ci(q8.stride(0) if quant else c), kb.cf(1e-6),
+              kb.ci(f32), kb.stream(), instance=ln_instance(c, f32, quant))
     return (q8, sx) if quant else out
 
 
 def _quant(x2):
     m, k = x2.shape
     f32 = _f32(x2)
-    q8 = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    q8 = _int8_rows(m, k, x2.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    walk = k % 8 or q8.stride(0) != k
     kb.launch("swin_block", "swin_quant_rows", kb.ptr(x2), kb.ptr(q8),
-              kb.ptr(sx), kb.ci(m), kb.ci(k), kb.ci(f32), kb.stream(),
-              instance="f32" if f32 else "bf16")
+              kb.ptr(sx), kb.ci(m), kb.ci(k), kb.ci(q8.stride(0)),
+              kb.ci(f32), kb.stream(),
+              instance=("f32" if f32 else "bf16") + ("_walk" if walk else ""))
     return q8, sx
 
 
 def gemm_refusal(k: int, n: int) -> Optional[str]:
     """Why the GEMM does not take a (K -> N) product, or None where it
-    does: K % 16 == 0 (16-deep k-steps) and N % 8 == 0."""
-    if k % 16 or n % 8:
-        return (f"gemm kernel needs K % 16 == 0 and N % 8 == 0, got K={k}, "
-                f"N={n}")
+    does: any K >= 1 (operands at :func:`row_pitch`; TMA reads the k past
+    K as zeros) and any N >= 1 (N % 8 != 0: the N-tail instance)."""
+    if k < 1 or n < 1:
+        return f"gemm kernel needs K >= 1 and N >= 1, got K={k}, N={n}"
     return None
+
+
+def _operand(t: torch.Tensor, what: str, dtype, shape) -> int:
+    """Check a GEMM operand read by TMA (device, dtype, shape, K-contiguous
+    rows at a pitch of whole 16-byte steps, a 16-byte aligned start) and
+    return its pitch in elements."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {t.dtype} {tuple(t.shape)}, expected "
+                         f"{dtype} {tuple(shape)}")
+    ld = t.stride(0) if t.shape[0] > 1 else row_pitch(t.shape[1],
+                                                      t.element_size())
+    if (t.stride(1) != 1 or ld < t.shape[1]
+            or (ld * t.element_size()) % 16 or t.data_ptr() % 16):
+        raise ValueError(f"gemm kernel: {what} must have K-contiguous rows "
+                         f"whole 16-byte steps apart from a 16-byte aligned "
+                         f"start (ops/swin_block.py::row_pitch), got strides "
+                         f"{t.stride()}")
+    return ld
 
 
 def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
@@ -338,8 +406,12 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     out, f32 with an f32 out (the 3xTF32 instance, ``d.hi``/``d.lo`` from
     :func:`make_dense`), or int8 with per-row scale ``sx`` (then
     ``d.q8``/``d.sw`` are used) and an ``out_dtype`` (bf16 or f32) out and
-    residual. Counted under ``name`` and ``name/gemm_bf16``,
-    ``gemm_s8_bf16``, ``gemm_s8_f32`` or ``gemm_f32_3xtf32``."""
+    residual. ``a`` and the weights are read at their row pitch
+    (:func:`_operand`): a producer writes rows whose bytes are not whole
+    16-byte steps at :func:`row_pitch` (``_ln``, ``_quant``), and
+    :func:`make_dense` pads such weights once. Counted under ``name`` and
+    ``name/gemm_bf16``, ``gemm_s8_bf16``, ``gemm_s8_f32`` or
+    ``gemm_f32_3xtf32``, with ``_ntail`` for N % 8 != 0."""
     m, k = a.shape
     n = d.wt.shape[0]
     reason = gemm_refusal(k, n)
@@ -355,52 +427,62 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
         kb.check_cuda(residual, "residual", out_dtype, (m, n))
     kb.check_cuda(d.bias, "bias", torch.float32, (n,))
     if sx is not None:
-        kb.check_cuda(a, "a", torch.int8)
-        kb.check_cuda(d.q8, "w8", torch.int8, (n, k))
-        ws = (d.q8, d.sw)
+        lda = _operand(a, "a", torch.int8, (m, k))
+        ldb = _operand(d.q8, "w8", torch.int8, (n, k))
     elif f32:
-        kb.check_cuda(a, "a", torch.float32)
+        lda = _operand(a, "a", torch.float32, (m, k))
         if d.hi is None or d.lo is None:
             raise ValueError("gemm kernel: an f32 weight needs its TF32 "
                              "halves (prepare it with make_dense)")
-        kb.check_cuda(d.hi, "w_hi", torch.float32, (n, k))
-        kb.check_cuda(d.lo, "w_lo", torch.float32, (n, k))
-        ws = (d.hi, d.lo)
+        ldb = _operand(d.hi, "w_hi", torch.float32, (n, k))
+        if _operand(d.lo, "w_lo", torch.float32, (n, k)) != ldb:
+            raise ValueError("gemm kernel: w_hi and w_lo differ in pitch")
     else:
-        kb.check_cuda(a, "a", out_dtype)
-        kb.check_cuda(d.wt, "w", out_dtype, (n, k))
-        ws = (d.wt,)
-    # TMA reads both operands, the epilogue reads 16-byte vectors
-    for t, what in ((a, "a"), *((w, "w") for w in ws), (d.bias, "bias"),
-                    (residual, "residual")):
+        lda = _operand(a, "a", out_dtype, (m, k))
+        ldb = _operand(d.wt, "w", out_dtype, (n, k))
+    # the epilogue reads 16-byte vectors of the bias and residual rows
+    for t, what in ((d.bias, "bias"), (residual, "residual")):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"gemm kernel: {what} must be 16-byte aligned")
+    tail = "" if n % 8 == 0 else "_ntail"
     if sx is not None:
         kb.launch(name, "gemm_s8", kb.ptr(a), kb.ptr(sx), kb.ptr(d.q8),
                   kb.ptr(d.sw), kb.ptr(d.bias), kb.ptr(residual),
-                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
-                  kb.ci(f32), kb.stream(),
-                  instance="gemm_s8_" + ("f32" if f32 else "bf16"))
+                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(lda),
+                  kb.ci(ldb), kb.ci(mode), kb.ci(f32), kb.stream(),
+                  instance="gemm_s8_" + ("f32" if f32 else "bf16") + tail)
     elif f32:
         kb.launch(name, "gemm_f32_3xtf32", kb.ptr(a), kb.ptr(d.hi),
                   kb.ptr(d.lo), kb.ptr(d.bias), kb.ptr(residual),
-                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(mode),
-                  kb.stream(), instance="gemm_f32_3xtf32")
+                  kb.ptr(out), kb.ci(m), kb.ci(n), kb.ci(k), kb.ci(lda),
+                  kb.ci(ldb), kb.ci(mode), kb.stream(),
+                  instance="gemm_f32_3xtf32" + tail)
     else:
         kb.launch(name, "gemm_bf16", kb.ptr(a), kb.ptr(d.wt),
                   kb.ptr(d.bias), kb.ptr(residual), kb.ptr(out), kb.ci(m),
-                  kb.ci(n), kb.ci(k), kb.ci(mode), kb.stream(),
-                  instance="gemm_bf16")
+                  kb.ci(n), kb.ci(k), kb.ci(lda), kb.ci(ldb), kb.ci(mode),
+                  kb.stream(), instance="gemm_bf16" + tail)
     return out
 
 
 # the window attention's limits (``csrc/window_attn.cuh``, every instance):
 # up to 128 tokens a window in one pass over whole score rows
 # (``window_attn_kernel``), up to 256 in 64-key chunks with a running max and
-# sum (``window_attn_long_kernel``: windows 12 to 16)
-ATTN_HEAD_DIMS = (16, 32, 64)
+# sum (``window_attn_long_kernel``: windows 12 to 16); head widths 16, 32
+# and 64 in the flagship sources (``swin_window_attn``, ``window_msa_attn``),
+# the others of ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu``, each staged in
+# shared memory at the next flagship width with its columns past the head
+# zero (ATTN_STAGED_DIM)
+ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
+ATTN_FLAGSHIP_DIMS = (16, 32, 64)
 ATTN_ONE_PASS_TOKENS = 128
 ATTN_MAX_TOKENS = 256
+
+
+def attn_staged_dim(hd: int) -> int:
+    """The width a head of ``hd`` channels is staged at: the least of
+    :data:`ATTN_FLAGSHIP_DIMS` that holds it."""
+    return next(d for d in ATTN_FLAGSHIP_DIMS if d >= hd)
 
 
 def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
@@ -417,13 +499,15 @@ def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
     return None
 
 
-def attn_instance(f32: bool, win: int) -> str:
+def attn_instance(f32: bool, win: int, hd: int = 32) -> str:
     """The instance a window attention launch counts under: ``attn_bf16``
     or ``attn_f32``, with ``_long`` for windows of more than
-    :data:`ATTN_ONE_PASS_TOKENS` tokens (``window_attn_long_kernel``)."""
+    :data:`ATTN_ONE_PASS_TOKENS` tokens (``window_attn_long_kernel``) and
+    ``_hd<hd>`` for a head width outside :data:`ATTN_FLAGSHIP_DIMS`."""
     pad = -(-win * win // 16) * 16
     return ("attn_f32" if f32 else "attn_bf16") + (
-        "_long" if pad > ATTN_ONE_PASS_TOKENS else "")
+        "_long" if pad > ATTN_ONE_PASS_TOKENS else "") + (
+        "" if hd in ATTN_FLAGSHIP_DIMS else f"_hd{hd}")
 
 
 def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
@@ -453,14 +537,16 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     """Shared memory of one attention block (``csrc/window_attn.cuh::
     window_attn_smem``, ``window_attn_long_smem`` above
     :data:`ATTN_ONE_PASS_TOKENS`): q, k, v rows of the padded window (bf16,
-    stride hd + 8) or k, v rows (f32, stride hd + 4); up to 128 tokens the
+    stride hs + 8) or k, v rows (f32, stride hs + 4), hs the staged width
+    (:func:`attn_staged_dim`); up to 128 tokens the
     relative bias of its head (stride NP + 8) as bf16 over NP rows (the
     Swin variant in bf16) or as f32 over n rows (longer windows read it
     from device memory); the token and label rows. A block takes one head
     over 4 windows, so it reads the bias once for them."""
     n = win * win
     n_pad = -(-n // 16) * 16
-    rows = 2 * n_pad * (hd + 4) * 4 if f32 else 3 * n_pad * (hd + 8) * 2
+    hs = attn_staged_dim(hd)
+    rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
     bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
     if n_pad > ATTN_ONE_PASS_TOKENS:
         bias = 0
@@ -535,11 +621,14 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
         raise ValueError(f"{name} attention kernel: qkv and its bias must "
                          f"be 16-byte aligned and C a multiple of 8")
     o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
-    kb.launch(name, "window_msa_attn" if msa else "swin_window_attn",
-              kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel), kb.ptr(o),
-              kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c), kb.ci(heads),
-              kb.ci(win), kb.ci(shift), kb.cf((c // heads) ** -0.5),
-              kb.ci(f32), kb.stream(), instance=attn_instance(f32, win))
+    hd = c // heads
+    fn = "window_msa_attn" if msa else "swin_window_attn"
+    if hd not in ATTN_FLAGSHIP_DIMS:
+        fn += "_widths"
+    kb.launch(name, fn, kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel),
+              kb.ptr(o), kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c),
+              kb.ci(heads), kb.ci(win), kb.ci(shift), kb.cf(hd ** -0.5),
+              kb.ci(f32), kb.stream(), instance=attn_instance(f32, win, hd))
     return o
 
 

@@ -35,8 +35,9 @@ Start-up (:func:`init_from_env`), the first of these that is set:
   ``MASKBEV_COORDINATOR`` naming task 0.
 
 A rank's card is ``cuda:LOCAL_RANK`` (``torchrun``), ``cuda:SLURM_LOCALID``
-or ``cuda:(rank % cards)``; the backend is NCCL on the card and gloo on the
-CPU (:func:`device`).
+or ``cuda:rank``, modulo the cards the process sees (a SLURM task bound to
+one card sees it as ``cuda:0``); the backend is NCCL on the card and gloo
+on the CPU (:func:`device`).
 """
 from __future__ import annotations
 
@@ -70,12 +71,15 @@ def world_size() -> int:
 
 
 def local_rank(rank_: Optional[int] = None) -> int:
-    """This process's index among the ranks of its host: ``LOCAL_RANK``,
-    ``SLURM_LOCALID``, else the rank modulo the host's cards."""
+    """This process's card: its index among the ranks of its host
+    (``LOCAL_RANK``, ``SLURM_LOCALID``, else the rank) modulo the cards it
+    sees. A task that SLURM binds to one card (``--gpus-per-task=1``)
+    sees that card alone, as ``cuda:0``."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     for var in ("LOCAL_RANK", "SLURM_LOCALID"):
         if os.environ.get(var) is not None:
-            return int(os.environ[var])
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            i = int(os.environ[var])
+            return i % n if n else i
     r = rank() if rank_ is None else rank_
     return r % n if n else 0
 

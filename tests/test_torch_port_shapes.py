@@ -3,8 +3,9 @@ a shape, or None), on the CPU where the rules are pure functions of shapes
 and dtype.
 
 * Each rule refuses the shapes its kernel does not take (a window of 17,
-  129 points a pillar, E = 80, K % 16 != 0, a decoder head width of 4,
-  513 queries) and takes every shape of the flagship's paths
+  129 points a pillar, E = 80, an attention head width of 4 or 12, a
+  decoder head width of 4, 513 queries, float16) and takes every shape of
+  the flagship's paths
   (``semantic_kitti_default()`` in bf16 and f32, Waymo, paths K and E), of
   ``tiny_test_config()``, whose head width of 8 the decoder's split
   instance takes, and the wider shapes the JAX package serves: windows 12
@@ -71,8 +72,8 @@ def test_decoder_takes_head_width_8():
 
 @pytest.mark.parametrize("c,heads,win,hidden", [
     (192, 6, 17, 768),   # a window of 17: 289 tokens
-    (96, 12, 10, 384),   # head width 8
-    (64, 2, 7, 200),     # fc2 K = 200: K % 16 != 0
+    (96, 24, 10, 384),   # head width 4 (8 is taken)
+    (96, 8, 7, 200),     # head width 12 (fc2 K = 200 is taken)
 ])
 def test_swin_chain_refuses(c, heads, win, hidden):
     for dt in (BF16, F32):
@@ -84,8 +85,10 @@ def test_swin_chain_refuses(c, heads, win, hidden):
         for w, dt in ((12, BF16), (12, F32), (16, BF16), (16, F32)):
             assert kswin.swin_block_refusal(c, heads, w, hidden, dt) is None
             assert kwmsa.window_msa_refusal(c, heads, w, dt) is None
-    assert "K % 16" in kswin.gemm_refusal(200, 64)
-    assert kswin.gemm_refusal(192, 576) is None
+    # the GEMM takes any K and N >= 1
+    assert "K >= 1" in kswin.gemm_refusal(0, 64)
+    for k, n in ((200, 64), (192, 576), (72, 100)):
+        assert kswin.gemm_refusal(k, n) is None
 
 
 def test_pfn_refuses_33_points_a_pillar():
@@ -116,8 +119,9 @@ def test_patch_embed_refuses_e96():
 
 
 def test_layer_norm_refuses():
-    assert kln.layer_norm_refusal(12, BF16)
-    assert "2048" in kln.layer_norm_refusal(4096, F32)
+    assert "C >= 1" in kln.layer_norm_refusal(0, BF16)
+    for c in (12, 4096):  # taken: the walk instance
+        assert kln.layer_norm_refusal(c, F32) is None
     assert kln.layer_norm_refusal(192, torch.float16)
     assert kln.layer_norm_refusal(1536, BF16) is None
 
@@ -132,7 +136,8 @@ def test_canvas_splits_184_samples():
     assert all(j - i <= kcanvas.CANVAS_MAX_BATCH
                for n in (1, 183, 184, 366, 367, 1000)
                for i, j in kcanvas.canvas_chunks(n))
-    assert "16-byte words" in kcanvas.canvas_refusal(8, 12, BF16)
+    assert kcanvas.canvas_refusal(8, 12, BF16) is None  # any C
+    assert "bf16 or f32" in kcanvas.canvas_refusal(8, 12, torch.float16)
 
 
 def _path_k():
@@ -247,16 +252,17 @@ def test_wrappers_raise_on_refused_shapes():
     with pytest.raises(ValueError, match="bad shape"):
         kwmsa.window_msa(x.to(BF16), (17, 17), 17, 0, None, None, None, 3)
     assert kswin.swin_block_refusal(96, 3, 12, 384, BF16) is None
-    with pytest.raises(ValueError, match="2048"):
-        kln.layer_norm(on_card(torch.zeros(4, 4096)), None, None)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kln.layer_norm(on_card(torch.zeros(4, 4096, dtype=torch.float16)),
+                       None, None)
     canvas = on_card(torch.zeros(2, 32, 48, 128, dtype=BF16))
     wm = torch.zeros(80, 4 * 4 * 128, dtype=BF16)  # E = 80; 96 is taken
     with pytest.raises(ValueError, match="E in"):
         kpe.patch_embed(canvas, wm, None, None, None, 4)
     assert kpe.patch_embed_refusal(2, 32, 48, 128, 96, 4, BF16) is None
-    table = on_card(torch.zeros(2, 16, 12, dtype=BF16))
+    table = on_card(torch.zeros(2, 16, 12, dtype=torch.float16))
     ones = torch.ones(2)
-    with pytest.raises(ValueError, match="16-byte words"):
+    with pytest.raises(ValueError, match="bf16 or f32"):
         kcanvas.canvas_norm(table, None, None, ones, ones, ones, ones,
                             (4, 4))
     out0 = on_card(torch.zeros(2, 8, 64))
@@ -755,3 +761,318 @@ def test_decoder_split_wide_on_the_card(dev, dtype, q, heads):
         assert flips[li] <= 0.05 * m.numel(), (li, flips)
         assert own[li] <= 0.01 * m.numel(), (li, own)
     assert _rel(got, same) <= (2e-2 if dtype == BF16 else 1e-3)
+
+
+# ---- the last shape gaps on the card: any C, K, N, head widths 8-64 --------
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp(min=1e-30))
+
+
+def _affine(c, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return ((1 + 0.1 * torch.randn(c, generator=g)).to(dev, dtype),
+            (0.1 * torch.randn(c, generator=g)).to(dev, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", [3, 12, 100, 2056, 3072, 4096])
+def test_layer_norm_any_width_on_the_card(dev, dtype, c):
+    """Kernel 9's walk instance at widths the register tiles do not take
+    (C % 8 != 0: rows at 6- and 24-byte steps in bf16; C > 2048): within
+    1e-2 (bf16) or 1e-4 (f32) of the plain version, as the tiles are."""
+    g = torch.Generator().manual_seed(c)
+    x = (0.5 + torch.randn(2, 37, c, generator=g)).to(dev, dtype)
+    w, b = _affine(c, dtype, dev, c + 1)
+    kb.reset_launches()
+    got = kln.layer_norm(x, w, b)
+    want = kln.layer_norm_plain(x, w, b)
+    torch.cuda.synchronize()
+    inst = "bf16" if dtype == BF16 else "f32"
+    assert kb.INSTANCES == {f"layer_norm/{inst}_walk": 1}
+    assert _rel_err(got, want) <= (1e-2 if dtype == BF16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", [72, 120, 2056, 3072])
+def test_swin_layernorm_walk_on_the_card(dev, dtype, c):
+    """The Swin LN at rows the register tile does not hold (C > 2048) and
+    int8 rows at a padded pitch (C % 16 == 8): the normalised rows within
+    1e-2 (bf16) or 1e-5 (f32) of ``layer_norm_p``; the int8 rows and scales
+    bit for bit the plain quantisation of the LN launch's own output, at
+    the GEMM's pitch with zero padding."""
+    g = torch.Generator().manual_seed(c)
+    x = (0.5 + torch.randn(301, c, generator=g)).to(dev, dtype)
+    w, b = _affine(c, dtype, dev, c + 2)
+    kb.reset_launches()
+    y = kswin._ln(x, w, b, False)
+    q8, sx = kswin._ln(x, w, b, True)
+    torch.cuda.synchronize()
+    f32 = dtype == F32
+    want_inst = {}
+    for quant in (False, True):
+        key = f"swin_block/{kswin.ln_instance(c, f32, quant)}"
+        want_inst[key] = want_inst.get(key, 0) + 1
+    assert kb.INSTANCES == want_inst
+    assert _rel_err(y, kswin.layer_norm_p(x, w, b)) <= (1e-5 if f32 else 1e-2)
+    q, s = kswin.quant_rows(y)
+    pitch = kswin.row_pitch(c, 1)
+    assert q8.stride(0) == pitch and q8.shape == (301, c)
+    assert torch.equal(q8.float(), q) and torch.equal(sx, s.reshape(-1))
+    full = torch.as_strided(q8, (301, pitch), (pitch, 1))
+    assert not bool(full[:, c:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [72, 120, 100])
+def test_quant_rows_walk_on_the_card(dev, dtype, k):
+    """int8 rows at the GEMM's pitch (K % 16 != 0; K = 100: a partial last
+    word): bit for bit the plain quantisation."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn(333, k, generator=g).to(dev, dtype)
+    kb.reset_launches()
+    q8, sx = kswin._quant(x)
+    torch.cuda.synchronize()
+    inst = "bf16" if dtype == BF16 else "f32"
+    assert kb.INSTANCES == {f"swin_block/{inst}_walk": 1}
+    q, s = kswin.quant_rows(x)
+    assert q8.stride(0) == kswin.row_pitch(k, 1)
+    assert torch.equal(q8.float(), q) and torch.equal(sx, s.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("mode", [kswin.EPI_BIAS, kswin.EPI_GELU,
+                                  kswin.EPI_RESIDUAL])
+@pytest.mark.parametrize("m,n,k", [
+    (333, 100, 24), (333, 100, 40),  # the held shapes: N % 8 != 0
+    (1000, 216, 72), (777, 360, 120),  # .hd8 / .hd40 stage-0 qkv
+    (65, 7, 13),                       # every tail at once
+])
+def test_gemm_any_k_n_on_the_card(dev, kind, mode, m, n, k):
+    """The GEMM at any K (operands at ``row_pitch``, the k past K read as
+    zeros) and N (the N-tail instance), held as ``test_gemm_kernel`` and
+    ``test_gemm_f32`` hold the flagship instances: int8 equal to a float64
+    product and the same f32 epilogue (GELU within one bf16 step); bf16
+    within 2^-7 of the XLA-order epilogue; 3xTF32 within 1e-5 of a float64
+    product."""
+    g = torch.Generator().manual_seed(m + n + k)
+    a32 = torch.randn(m, k, generator=g)
+    w32 = torch.randn(n, k, generator=g) / k ** 0.5
+    bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+    dt = F32 if kind == "f32" else BF16
+    res = torch.randn(m, n, generator=g).to(dev, dt)
+    residual = res if mode == kswin.EPI_RESIDUAL else None
+    d = kswin.make_dense(w32.to(dev, dt), bias, kind == "int8")
+    kb.reset_launches()
+    if kind == "int8":
+        q, sx = kswin.quant_rows(a32.to(dev, BF16))
+        a8 = kswin.pitched(q.to(torch.int8))
+        sx = sx.reshape(-1).contiguous()
+        got = kswin.gemm("swin_block", a8, d, mode, residual=residual, sx=sx)
+        v = ((a8.double() @ d.q8.double().t()).float() * sx[:, None]
+             * d.sw[None] + d.bias)
+    elif kind == "bf16":
+        mode = mode | kswin.EPI_ROUND_ACC
+        a = kswin.pitched(a32.to(dev, BF16))
+        got = kswin.gemm("swin_block", a, d, mode, residual=residual)
+        v = (a.float() @ d.wt.float().t()).to(BF16).float() + d.bias
+    else:
+        a = kswin.pitched(a32.to(dev))
+        got = kswin.gemm("swin_block", a, d, mode, residual=residual)
+        v = (a.double() @ w32.to(dev).double().t()).float() + d.bias
+    if kind != "f32":
+        v = v.to(BF16).float()
+    if mode & 15 == kswin.EPI_GELU:
+        v = torch.nn.functional.gelu(v, approximate="none")
+    elif mode & 15 == kswin.EPI_RESIDUAL:
+        v = res.float() + v
+    want = v.to(dt)
+    torch.cuda.synchronize()
+    tail = "" if n % 8 == 0 else "_ntail"
+    inst = {"int8": "gemm_s8_bf16", "bf16": "gemm_bf16",
+            "f32": "gemm_f32_3xtf32"}[kind] + tail
+    assert kb.INSTANCES == {f"swin_block/{inst}": 1}
+    assert got.shape == (m, n) and got.dtype == dt
+    if kind == "int8" and mode & 15 != kswin.EPI_GELU:
+        assert torch.equal(got, want)
+    elif kind == "int8":
+        step = want.float().abs().clamp(min=2 ** -126) * 2 ** -7
+        assert bool(((got.float() - want.float()).abs() <= step).all())
+    else:
+        assert _rel_err(got, want) <= (2 ** -7 if kind == "bf16" else 1e-5)
+
+
+def _attn_inputs(dev, dtype, c, heads, win, b, hw, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(dev, dtype)
+    qkv_bias = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+    table = (0.02 * torch.randn((2 * win - 1) ** 2, heads, generator=g)).to(
+        dev, dtype)
+    return qkv, qkv_bias, kswin.rel_bias_from_table(table, win)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("msa", [False, True], ids=["swin", "msa"])
+@pytest.mark.parametrize("hd", [8, 24, 40, 48, 56])
+@pytest.mark.parametrize("win", [10, 12])
+def test_window_attention_head_widths_on_the_card(dev, dtype, msa, hd, win):
+    """The attention at the head widths outside the flagship instances
+    (staged at 16, 32 or 64 with zero columns), one-pass (window 10) and
+    long-window (12), shifted, with pad tokens: within 1e-2 (bf16) or 1e-5
+    (f32) of the plain version, as the flagship widths are held."""
+    heads, b, hw = 3, 2, (23, 27)
+    c = heads * hd
+    qkv, qkv_bias, rel = _attn_inputs(dev, dtype, c, heads, win, b, hw,
+                                      hd + win)
+    shift = kswin.effective_shift(hw, win, True)
+    name = "window_msa" if msa else "swin_block"
+    kb.reset_launches()
+    got = kswin.attention(name, qkv, qkv_bias, rel, b, hw, heads, win, shift,
+                          msa)
+    torch.cuda.synchronize()
+    want = kswin.window_attention_plain(qkv.double() if dtype == F32 else qkv,
+                                        qkv_bias.double(), rel, b, hw, heads,
+                                        win, shift, msa)
+    assert kb.INSTANCES == {
+        f"{name}/{kswin.attn_instance(dtype == F32, win, hd)}": 1}
+    assert _rel_err(got, want) <= (1e-5 if dtype == F32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("c,heads,hw", [
+    (72, 9, (23, 27)),    # .hd8 stage 0: head width 8, int8 K = 72
+    (120, 3, (23, 27)),   # .hd40 stage 0: head width 40, K = 120
+    (3072, 48, (5, 4)),   # .e384 stage 3: the LN walk at C 3072
+])
+def test_swin_chain_new_widths_on_the_card(dev, quant, c, heads, hw):
+    """Whole Swin blocks at the new widths against the plain block (bf16,
+    within 2e-2 as ``test_swin_block_kernel``): every launch takes it."""
+    from test_torch_port_kernels import _block_weights
+
+    win = 10
+    p = _block_weights(dev, c, heads, win, quant, seed=c)
+    g = torch.Generator().manual_seed(c + 1)
+    x = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, BF16)
+    shift = kswin.effective_shift(hw, win, True)
+    got = kswin.swin_block(x, p, hw, win, heads, shift, quant)
+    want = kswin.swin_block_plain(x, p, hw, win, heads, shift, quant)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_window_msa_head_width_8_on_the_card(dev, dtype):
+    """Kernel 7 at head width 8 (C 64 over 8 heads, the tiny config's
+    refinement width) against its plain version: 2e-2 (bf16), 1e-5 (f32)."""
+    c, heads, win, hw = 64, 8, 10, (23, 27)
+    g = torch.Generator().manual_seed(8)
+    y = torch.randn(2, hw[0] * hw[1], c, generator=g).to(dev, dtype)
+    qkv = kswin.make_dense((torch.randn(3 * c, c, generator=g) / 8).to(
+        dev, dtype), (0.02 * torch.randn(3 * c, generator=g)).to(dev), False)
+    proj = kswin.make_dense((torch.randn(c, c, generator=g) / 8).to(
+        dev, dtype), (0.02 * torch.randn(c, generator=g)).to(dev), False)
+    table = (0.02 * torch.randn((2 * win - 1) ** 2, heads, generator=g)).to(
+        dev, dtype)
+    rel = kswin.rel_bias_from_table(table, win)
+    shift = kswin.effective_shift(hw, win, True)
+    kb.reset_launches()
+    got = kwmsa.window_msa(y, hw, win, shift, rel, qkv, proj, heads)
+    torch.cuda.synchronize()
+    want = kwmsa.window_msa_grid_plain(y, hw, win, shift, rel, qkv, proj,
+                                       heads)
+    assert kb.INSTANCES[
+        "window_msa/" + kswin.attn_instance(dtype == F32, win, 8)] == 1
+    assert _rel_err(got, want) <= (1e-5 if dtype == F32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,wb", [(BF16, 100, 8), (F32, 101, 4),
+                                        (BF16, 12, 8), (BF16, 3, 2)])
+def test_canvas_any_width_on_the_card(dev, dtype, c, wb):
+    """Kernel 2 at table rows of any width (its narrow instances: words
+    of ``wb`` bytes): bf16 bit for bit the plain version, f32 within 1e-5
+    of its largest value, both affine modes."""
+    table, cells, pillars, mean, var, scale, bias = (
+        t.to(dev) for t in canvas_batch(3, 48, 40, c, 700, seed=c))
+    table, scale, bias = (t.to(dtype) for t in (table, scale, bias))
+    name = "bf16" if dtype == BF16 else "f32"
+    for sc, bi in ((scale, bias), (scale[0, 0], bias[0, 0])):
+        kb.reset_launches()
+        got = kcanvas.canvas_norm(table, cells, pillars, mean, var, sc, bi,
+                                  (48, 40))
+        torch.cuda.synchronize()
+        assert kb.INSTANCES == {f"canvas_norm/{name}_w{wb}": 1}
+        want = kcanvas.canvas_norm_plain(table, cells, mean, var, sc, bi,
+                                         (48, 40))
+        if dtype == BF16:
+            assert torch.equal(got, want)
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [(BF16, 100), (F32, 101), (BF16, 7),
+                                     (F32, 128)])
+def test_canvas_scatter_any_width_on_the_card(dev, dtype, c):
+    """Kernels A and B at rows of any width (and at a table that starts
+    one value past a 16-byte step): exact, as the 16-byte kernels are."""
+    table, cells, *_ = (t.to(dev) for t in canvas_batch(2, 40, 36, c, 500,
+                                                        seed=c))
+    flat = torch.zeros(table.numel() + 1, device=dev, dtype=dtype)
+    flat[1:] = table.flatten()
+    table = flat[1:].view(table.shape)  # one value past a 16-byte step
+    kb.reset_launches()
+    got = kcanvas.canvas_scatter_forward(table, cells, (40, 36))
+    torch.cuda.synchronize()
+    assert torch.equal(got, kcanvas.canvas_scatter_plain(table, cells,
+                                                         (40, 36)))
+    g = torch.Generator().manual_seed(c)
+    d = torch.randn(2, 40, 36, c, generator=g).to(dev, dtype)
+    back = kcanvas.canvas_scatter_backward(d, cells, (40, 36))
+    torch.cuda.synchronize()
+    assert torch.equal(back, kcanvas.canvas_gather_plain(d, cells, (40, 36)))
+    assert kb.LAUNCHES["canvas_scatter"] == 1
+    assert kb.LAUNCHES["canvas_scatter_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_every_taken_shape_launches(dev):
+    """The rules and the kernels agree: every shape of a grid that a rule
+    takes launches (kernel 9, the Swin LN with and without int8, the GEMM,
+    the attention), and each rule refuses what it names."""
+    for c in (1, 7, 8, 12, 100, 2048, 2056, 3072, 4096):
+        for dt in (BF16, F32):
+            assert kln.layer_norm_refusal(c, dt) is None
+            w, b = _affine(c, dt, dev, c)
+            kln.layer_norm(torch.ones(5, c, device=dev, dtype=dt), w, b)
+    for c in (8, 16, 24, 72, 2048, 2056, 3072, 4096):
+        w, b = _affine(c, BF16, dev, c)
+        for quant in (False, True):
+            kswin._ln(torch.randn(9, c, device=dev, dtype=BF16), w, b, quant)
+        kswin._quant(torch.randn(9, c, device=dev, dtype=BF16))
+    for k, n in ((8, 8), (16, 3), (24, 100), (136, 9), (1, 1)):
+        assert kswin.gemm_refusal(k, n) is None
+        d = kswin.make_dense(torch.randn(n, k, device=dev, dtype=BF16),
+                             torch.zeros(n, device=dev), True)
+        q8 = kswin.pitched(torch.ones(7, k, device=dev, dtype=torch.int8))
+        kswin.gemm("swin_block", q8, d, kswin.EPI_BIAS,
+                   sx=torch.ones(7, device=dev))
+    for hd in kswin.ATTN_HEAD_DIMS:
+        for win in (7, 10, 12, 16):
+            for dt in (BF16, F32):
+                assert kswin.attn_refusal("x", 2 * hd, 2, win) is None
+                qkv, qb, rel = _attn_inputs(dev, dt, 2 * hd, 2, win, 1,
+                                            (win, win + 3), hd)
+                kswin.attention("swin_block", qkv, qb, rel, 1, (win, win + 3),
+                                2, win, 0, False)
+    torch.cuda.synchronize()
+    assert kswin.attn_refusal("x", 8, 2, 10)  # head width 4
+    assert kswin.attn_refusal("x", 96, 2, 17)  # 289 tokens

@@ -29,50 +29,10 @@ from __future__ import annotations
 
 import argparse
 
-
-def build_datamodule(cfg, root: str):
-    if cfg.dataset == "kitti":
-        from mask_bev_tpu_torch.datasets.kitti.kitti_data import (
-            KittiMaskDataModule)
-
-        return KittiMaskDataModule(root, cfg)
-    if cfg.dataset == "semantic_kitti":
-        from mask_bev_tpu_torch.datasets.semantic_kitti.mask_data import (
-            SemanticKittiMaskDataModule)
-
-        return SemanticKittiMaskDataModule(root, cfg)
-    if cfg.dataset == "waymo":
-        from mask_bev_tpu_torch.datasets.waymo.waymo_data import (
-            WaymoDataModule)
-
-        return WaymoDataModule(root, cfg)
-    if cfg.dataset == "synthetic":
-        import numpy as np
-
-        from mask_bev_tpu_torch.datasets.synthetic import make_batch
-
-        from mask_bev_tpu_torch.parallel.distributed import shard_batch
-
-        class SyntheticModule:
-            """The global batches drawn in sequence from one generator;
-            each rank keeps its rows (the draws of a batch depend on those
-            of the rows before it)."""
-
-            def train_batches(self, seed=0):
-                rng = np.random.default_rng(seed)
-                for _ in range(cfg.limit_train_batches or 16):
-                    yield shard_batch(make_batch(rng, cfg))
-
-            def val_batches(self, seed=0):
-                rng = np.random.default_rng(seed + 10_000)
-                for _ in range(cfg.limit_val_batches or 4):
-                    yield shard_batch(make_batch(rng, cfg))
-
-        return SyntheticModule()
-    raise ValueError(f"unknown dataset: {cfg.dataset}")
+from mask_bev_tpu_torch.datasets.modules import build_datamodule
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True, help="flat YAML config")
     parser.add_argument("--train", action="store_true")
@@ -83,7 +43,11 @@ def main(argv=None):
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     import torch
 
