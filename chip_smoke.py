@@ -2726,6 +2726,7 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
             a32 = torch.randn(m0, k, generator=g).to(dev)
             w32 = (torch.randn(n, k, generator=g) / k ** 0.5).to(dev)
             bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+            gemm_split(torch, kswin, a32, k)
             for kind in ("bf16", "int8", "f32"):
                 sfx = f".k{k}.n{n}.{kind}"
                 dt = torch.float32 if kind == "f32" else torch.bfloat16
@@ -2781,7 +2782,7 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                 byts = m0 * k * esz + n * k * esz + m0 * n * out_esz
                 inst = {"bf16": "gemm_bf16", "int8": "gemm_s8_bf16",
                         "f32": "gemm_f32_3xtf32"}[kind] + "_ntail"
-                record("gemm" + sfx, "mask_bev_tpu_torch/csrc/gemm.cuh",
+                record("gemm" + sfx, "mask_bev_tpu_torch/csrc/gemm_ntail.cu",
                        "mask_bev_tpu/ops/pallas_swin_block.py:584", err,
                        tol * top, ms_k, ms_p, bound(byts, ops),
                        f"({m0} x {k}) . ({k} x {n}) {kind}, A at a pitch of "
@@ -2832,6 +2833,37 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                  "window_msa/" + kswin.attn_instance(False, win, 8))
         del blk, p, y
     torch.cuda.empty_cache()
+
+
+def gemm_split(torch, kswin, a32, k) -> None:
+    """The flagship GEMM instances (N % 8 == 0) at N 96 and 104 on the rows
+    ``a32`` (M x K, at the N-tail rows' pitch), bias epilogue, bf16 / int8
+    / 3xTF32: a small K's own cost beside the N-tail rows' times (N 100),
+    printed, not recorded."""
+    parts = []
+    g = torch.Generator().manual_seed(k)
+    for kind in ("bf16", "int8", "f32"):
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        ms = []
+        for n in (96, 104):
+            w = (torch.randn(n, k, generator=g) / k ** 0.5).to(a32.device)
+            d = kswin.make_dense(w.to(dt), torch.zeros(n, device=a32.device),
+                                 kind == "int8")
+            if kind == "int8":
+                q, sx = kswin.quant_rows(a32.to(dt))
+                a = kswin.pitched(q.to(torch.int8))
+                sx = sx.reshape(-1).contiguous()
+                run = lambda: kswin.gemm(  # noqa: E731
+                    "swin_block", a, d, kswin.EPI_BIAS, sx=sx)
+            else:
+                a = kswin.pitched(a32.to(dt))
+                run = lambda: kswin.gemm(  # noqa: E731
+                    "swin_block", a, d, kswin.EPI_BIAS)
+            ms.append(cuda_ms(torch, run, 10))
+            del a, d
+        parts.append(f"{kind} N 96 {ms[0]:.4f} ms, N 104 {ms[1]:.4f} ms")
+    print(f"[gemm split] ({a32.shape[0]} x {k}) flagship instances: "
+          + "; ".join(parts), flush=True)
 
 
 def trainer_phase(np, torch, card, failures, here) -> None:

@@ -16,19 +16,17 @@ static int encode(CUtensorMap* map, const void* base, int esz, int k,
 
 // Bt2: the weight's lo half for 3xTF32 (Bt its hi half), else unused. lda,
 // ldb: the elements between rows of A and of the weight(s), at least K and
-// whole 16-byte steps. N % 8 != 0 takes the instance OP | OP_NTAIL.
+// whole 16-byte steps. N % 8 != 0 takes the N-tail instances
+// (gemm_ntail.cu).
 template <int OP, typename OT>
 static int launch_gemm(const void* A, const float* sx, const void* Bt,
                        const void* Bt2, const float* sw, const float* bias,
                        const OT* residual, OT* out, int M, int N, int K,
                        int lda, int ldb, int mode, cudaStream_t stream) {
   using namespace mbgemm;
-  if constexpr (!(OP & OP_NTAIL)) {
-    if (N % 8)
-      return launch_gemm<OP | OP_NTAIL, OT>(A, sx, Bt, Bt2, sw, bias,
-                                            residual, out, M, N, K, lda, ldb,
-                                            mode, stream);
-  }
+  if (N % 8)
+    return gemm_ntail(OP, sizeof(OT) == 4, A, sx, Bt, Bt2, sw, bias,
+                      residual, out, M, N, K, lda, ldb, mode, stream);
   const int esz = elem_bytes<OP>();
   if (M <= 0 || K <= 0 || N <= 0 || lda < K || ldb < K ||
       (lda * esz) % 16 || (ldb * esz) % 16 ||

@@ -14,8 +14,8 @@
 // weight is padded when it is packed (ops/swin_block.py::pitched); TMA
 // reads the k past K as zeros, and the k-steps wholly past K are skipped,
 // so the padding is never multiplied. N % 8 != 0 takes the N-tail
-// instances (OP | OP_NTAIL), whose epilogue reads and stores value by
-// value; the flagship instances (N % 8 == 0) keep their 16-byte epilogue.
+// instances (gemm_ntail.cu: tiles fitted to N, a staged epilogue with
+// 16-byte stores); the flagship instances (N % 8 == 0) are these.
 // Three operand kinds:
 //   * bf16: f32 accumulation, wgmma m64n96k16;
 //   * int8: int32 accumulation, wgmma m64n96k32, then dequantised with a
@@ -86,8 +86,8 @@
 
 namespace mbgemm {
 
-// operand kinds; | OP_NTAIL: the instance for N % 8 != 0
-enum { OP_BF16 = 0, OP_S8 = 1, OP_TF32X3 = 2, OP_NTAIL = 4 };
+// operand kinds
+enum { OP_BF16 = 0, OP_S8 = 1, OP_TF32X3 = 2 };
 __host__ __device__ constexpr int op_kind(int op) { return op & 3; }
 
 constexpr int BM = 128, BN = 96;
@@ -325,7 +325,6 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
     const OT* __restrict__ residual, OT* __restrict__ out, int M, int N,
     int K, int mode) {
   constexpr bool S8 = op_kind(OP) == OP_S8, TF = op_kind(OP) == OP_TF32X3;
-  constexpr bool NT = (OP & OP_NTAIL) != 0;
   constexpr int STAGES = stages<OP>(), STAGE_BYTES = stage_bytes<OP>();
   extern __shared__ unsigned char smraw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -404,34 +403,6 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
         const int gm = row + 8 * h, gn = n0 + 8 * (4 * p + quad);
         if (gm >= M || gn >= N) continue;
         const size_t o = (size_t)gm * N + gn;
-        if constexpr (NT) {
-          // N % 8 != 0: the group's nv columns value by value (the rows
-          // are not 16-byte aligned); the same operations as below
-          const int nv = min(8, N - gn);
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            if (c >= nv) continue;
-            const uint32_t raw = x[c >> 1][c & 1];
-            float v;
-            if (S8) {
-              const float a = (float)(int)raw;
-              v = __fadd_rn(__fmul_rn(__fmul_rn(a, sx[gm]), sw[gn + c]),
-                            bias[gn + c]);
-            } else {
-              float a = __uint_as_float(raw);
-              if (round_acc) a = rd<OT>(a);
-              v = __fadd_rn(a, bias[gn + c]);
-            }
-            v = rd<OT>(v);
-            if (kind == 1) {
-              v = gelu_erf(v);
-            } else if (kind == 2) {
-              v = __fadd_rn(to_f(residual[o + c]), v);
-            }
-            out[o + c] = from_f<OT>(v);
-          }
-          continue;
-        }
         const float4 b0 = *reinterpret_cast<const float4*>(bias + gn);
         const float4 b1 = *reinterpret_cast<const float4*>(bias + gn + 4);
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
@@ -597,6 +568,14 @@ __global__ void __launch_bounds__(threads<OP>(), blocks_per_sm<OP>())
 }
 
 }  // namespace mbgemm
+
+// the N-tail instances' launch (gemm_ntail.cu): op an operand kind,
+// out_f32 nonzero for an f32 output (int8; 3xTF32 always writes f32); the
+// arguments as gemm.cu's entry points take them
+int gemm_ntail(int op, int out_f32, const void* A, const float* sx,
+               const void* Bt, const void* Bt2, const float* sw,
+               const float* bias, const void* residual, void* out, int M,
+               int N, int K, int lda, int ldb, int mode, cudaStream_t stream);
 
 // ---- host side: TMA tensor maps (gemm.cu, patch_embed.cu) ---------------
 // cuTensorMapEncodeTiled is looked up at run time through the CUDA runtime,

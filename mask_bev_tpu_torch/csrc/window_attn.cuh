@@ -421,28 +421,60 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
 // max and sum (FlashAttention-2): per chunk S = q k^T, bias and mask, the
 // chunk's max m', the accumulator and the sum rescaled by exp(m - m'), P =
 // exp(s - m') (unnormalized; bf16: rounded to bf16 as the A operand) and O
-// += P v; at the end O / sum. Up to 16 warps of 16 query rows (512 threads,
-// one block an SM). The relative bias of a head, (2w - 1)^2 distinct values
-// but expanded to n x n (256 KB in f32 at n = 256), no longer fits shared
-// memory beside the rows, so each lane reads its scores' bias from device
-// memory (L2-resident: a head's table is read by every window); the shift
-// labels and token rows stay in shared memory. Windows of at most 128
-// tokens keep window_attn_kernel above (one pass over whole score rows), so
-// their outputs are unchanged. Both stage a window with stage_window.
+// += P v; at the end O / sum. Up to 16 warps of 16 query rows. Windows of at
+// most 128 tokens keep window_attn_kernel above (one pass over whole score
+// rows), so their outputs are unchanged. Both stage a window with
+// stage_window.
+//
+// The Hopper redesign (the first version read every score's bias from the
+// expanded (heads, n, n) table in L2 and ran one block of 128 registers a
+// thread an SM: 9 warps an SM at window 12):
+//   * the head's bias is staged in shared memory once a block as the
+//     compact table of the (2 win - 1)^2 relative offsets (2.1 KB at window
+//     12, 3.8 KB at 16, f32; the bf16 Swin variant's values rounded to bf16
+//     once, as the model's table holds them). Entry (dy, dx) is gathered
+//     from rel at a pair of tokens (dy, dx) apart; a score's bias is then
+//     tab[ro(i) - co(j)], ro and co the offsets of the tokens' window
+//     coordinates (ops/swin_block.py::rel_offsets mirrors the index math).
+//     It is the f32 value the expanded table holds, so the outputs are
+//     unchanged; rel must be a relative-position bias, as every caller
+//     gathers it (ops/swin_block.py::rel_bias_from_table);
+//   * window 12 (9 warps) is an instance of its own, built for two blocks
+//     an SM in bf16 (long_blocks): one block's staging, barriers and
+//     softmax overlap the other's products. f32 and windows 13-16 stay at
+//     one block an SM (f32 keeps q in registers; 16 warps hold an SM's
+//     registers at 128 a thread; splitting a window's query rows over two
+//     blocks of 8 warps, k and v staged by both, gained nothing at window
+//     16 on the H100).
+// One pass over whole score rows at window 12 (18 tiles of 8 keys: 72 f32 a
+// thread for S) would not fit two blocks' registers (113 a thread), so the
+// 64-key chunks stay.
 constexpr int ATT_LONG_MAX_NPT = 16;  // n <= 256: 16 warps of 16 rows
+constexpr int ATT_W12_NPT = 9;        // window 12: 144 tokens, 9 warps
 constexpr int ATT_KCH = 4;            // 16-key steps of a key chunk
 
-// shared memory of one block of window_attn_long_kernel: q, k, v rows
-// (bf16, stride hd + 8) or k, v rows (f32, stride hd + 4); the token and
-// label rows
-static inline size_t window_attn_long_smem(int n, int hd, bool f32) {
-  const size_t np = (n + 15) / 16 * 16;
-  const size_t rows = f32 ? 2 * np * (hd + 4) * 4 : 3 * np * (hd + 8) * 2;
-  return rows + 2 * np * 4;
+// blocks an SM an instance is built for: two at window 12 in bf16
+template <typename T, int NPT>
+__host__ __device__ constexpr int long_blocks() {
+  return sizeof(T) == 2 && NPT <= ATT_W12_NPT ? 2 : 1;
 }
 
-template <typename T, int HD, bool MSA>
-__global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
+// floats of the compact relative-offset table, padded to 16 bytes
+__host__ __device__ constexpr int rel_table_floats(int win) {
+  return ((2 * win - 1) * (2 * win - 1) + 3) / 4 * 4;
+}
+
+// shared memory of one block of window_attn_long_kernel: q, k, v rows
+// (bf16, stride hd + 8) or k, v rows (f32, stride hd + 4); the token,
+// label and column-offset rows; the compact bias table
+static inline size_t window_attn_long_smem(int win, int hd, bool f32) {
+  const size_t np = (win * win + 15) / 16 * 16;
+  const size_t rows = f32 ? 2 * np * (hd + 4) * 4 : 3 * np * (hd + 8) * 2;
+  return rows + 3 * np * 4 + rel_table_floats(win) * 4;
+}
+
+template <typename T, int HD, bool MSA, int NPT>
+__global__ void __launch_bounds__(32 * NPT, long_blocks<T, NPT>())
     window_attn_long_kernel(const T* __restrict__ qkv,
                             const float* __restrict__ qkv_bias,
                             const float* __restrict__ rel,
@@ -458,14 +490,30 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
   T* vs = ks + NP * LD;
   int* tok = reinterpret_cast<int*>(vs + NP * LD);
   int* lab = tok + NP;
+  int* co = lab + NP;  // column offsets (j / win) tw + j % win
+  float* tab = reinterpret_cast<float*>(co + NP);
 
   const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
   const int nww = wp / win, nw = (hp / win) * nww;
   const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * ATT_WPB;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const float* relh = rel + (size_t)h * n * n;
+  const int tw = 2 * win - 1;
 
+  // the head's compact table (stage_window's first barrier publishes it):
+  // offset (dy, dx) from the tokens (max(dy, 0), max(dx, 0)) and
+  // (max(dy, 0) - dy, max(dx, 0) - dx) of the window
+  const float* relh = rel + (size_t)h * n * n;
+  for (int i = tid; i < tw * tw; i += nthr) {
+    const int dy = i / tw - (win - 1), dx = i % tw - (win - 1);
+    const int ry = max(dy, 0), rx = max(dx, 0);
+    float v = __ldg(relh + (size_t)(ry * win + rx) * n + (ry - dy) * win +
+                    (rx - dx));
+    if constexpr (!F32 && !MSA) v = to_f(__float2bfloat16_rn(v));
+    tab[i] = v;
+  }
+  for (int j = tid; j < NP; j += nthr)
+    co[j] = j < n ? (j / win) * tw + j % win : 0;
   for (int i = tid; i < (NP - n) * LD; i += nthr) {
     if constexpr (!F32) qs[n * LD + i] = from_f<T>(0.f);
     ks[n * LD + i] = from_f<T>(0.f);
@@ -497,6 +545,9 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
     }
     const int r0 = 16 * warp + g, r1 = r0 + 8;
     const int l0 = r0 < n ? lab[r0] : 0, l1 = r1 < n ? lab[r1] : 0;
+    // the rows' table offsets: ro(i) - co(j) indexes tab
+    const int ro0 = (r0 / win) * tw + r0 % win + (win - 1) * (tw + 1);
+    const int ro1 = (r1 / win) * tw + r1 % win + (win - 1) * (tw + 1);
     float m0 = -INFINITY, m1 = -INFINITY;  // running row max (quad-uniform)
     float l0s = 0.f, l1s = 0.f;            // this lane's running row sums
     float acc[HD / 8][4];
@@ -565,7 +616,7 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
         }
       }
 
-      // ---- bias (from device memory), shift mask, the chunk's max --------
+      // ---- bias (the staged table), shift mask, the chunk's max ----------
       float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 2 * ATT_KCH; ++j) {
@@ -574,12 +625,7 @@ __global__ void __launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)
           const int r = e < 2 ? r0 : r1, c = 8 * (j0 + j) + 2 * t + (e & 1);
           float v = -INFINITY;
           if (c < n) {
-            float bias = 0.f;
-            if (r < n) {
-              bias = __ldg(relh + (size_t)r * n + c);
-              if constexpr (!F32 && !MSA)  // the bf16 table's values
-                bias = to_f(__float2bfloat16_rn(bias));
-            }
+            float bias = r < n ? tab[(e < 2 ? ro0 : ro1) - co[c]] : 0.f;
             if (shift && (e < 2 ? l0 : l1) != lab[c])
               bias = __fadd_rn(bias, -100.f);
             v = __fadd_rn(MSA ? __fmul_rn(s[j][e], scale) : s[j][e], bias);
@@ -697,11 +743,15 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
   const int n = win * win, NP = (n + 15) / 16 * 16;
   const bool long_win = NP > 16 * ATT_MAX_NPT;
   constexpr int HS = staged_dim(HD);
-  const size_t smem = long_win ? window_attn_long_smem(n, HS, sizeof(T) == 4)
-                               : window_attn_smem(n, HS, sizeof(T) == 4, MSA);
-  auto kern = long_win    ? window_attn_long_kernel<T, HD, MSA>
-              : NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
-                          : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>;
+  const size_t smem = long_win
+                           ? window_attn_long_smem(win, HS, sizeof(T) == 4)
+                           : window_attn_smem(n, HS, sizeof(T) == 4, MSA);
+  auto kern =
+      !long_win ? (NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
+                             : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>)
+      : NP <= 16 * ATT_W12_NPT
+          ? window_attn_long_kernel<T, HD, MSA, ATT_W12_NPT>
+          : window_attn_long_kernel<T, HD, MSA, ATT_LONG_MAX_NPT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;

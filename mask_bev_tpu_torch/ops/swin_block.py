@@ -224,6 +224,30 @@ def rel_bias_from_table(table: torch.Tensor, win: int) -> torch.Tensor:
             .contiguous())
 
 
+def rel_offsets(win: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The long-window attention's bias index (``csrc/window_attn.cuh::
+    window_attn_long_kernel``): the score of query token i and key token j
+    takes entry ``ro[i] - co[j]`` of the compact ((2w-1)²) table, ``co[j] =
+    (j // w)(2w-1) + j % w`` and ``ro[i] = co[i] + (w-1)(2w)``; equal to
+    :func:`rel_pos_index`."""
+    tw = 2 * win - 1
+    j = np.arange(win * win)
+    co = (j // win) * tw + j % win
+    return co + (win - 1) * (tw + 1), co
+
+
+def rel_table_tokens(win: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The token pair (i, j) the long-window attention reads each compact
+    table entry from in the expanded (heads, w², w²) bias: entry (dy, dx)
+    (offsets -(w-1)..w-1, row-major) at i = (max(dy, 0), max(dx, 0)) and
+    j = i - (dy, dx), whose :func:`rel_offsets` index is the entry."""
+    tw = 2 * win - 1
+    e = np.arange(tw * tw)
+    dy, dx = e // tw - (win - 1), e % tw - (win - 1)
+    ry, rx = np.maximum(dy, 0), np.maximum(dx, 0)
+    return ry * win + rx, (ry - dy) * win + (rx - dx)
+
+
 def effective_shift(hw: Tuple[int, int], win: int, shifted: bool) -> int:
     hp = -(-hw[0] // win) * win
     wp = -(-hw[1] // win) * win
@@ -380,6 +404,40 @@ def gemm_refusal(k: int, n: int) -> Optional[str]:
     return None
 
 
+# csrc/gemm.cuh: the flagship instances' tile width (N % 8 == 0, 16-byte
+# epilogue from the registers); csrc/gemm_ntail.cu: the N-tail instances'
+# widest tile (NT_MAXW), every operand kind
+GEMM_BN = 96
+NTAIL_MAX_WIDTH = 112
+
+
+class TilePlan(NamedTuple):
+    """How the GEMM covers N: the instance (``flagship`` or ``ntail``), the
+    tile width, the tiles across N and how a tile's output is stored:
+    ``registers`` (the flagship's 16-byte stores from the accumulators),
+    ``span`` (one N-tail tile spans N: its rows are one contiguous run of
+    rows x N values, staged and stored in 16-byte words) or ``rows`` (each
+    row segment's aligned interior in 16-byte words, its ends value by
+    value)."""
+
+    instance: str
+    width: int
+    tiles: int
+    store: str
+
+
+def gemm_tile_plan(n: int) -> TilePlan:
+    """The GEMM's plan for N output columns, every operand kind, as
+    ``csrc/gemm_ntail.cu::nt_width`` computes it for N % 8 != 0: N over
+    ceil(N / :data:`NTAIL_MAX_WIDTH`) tiles, rounded up to 8 (wgmma slices
+    of n 8, valid for .s8 too)."""
+    if n % 8 == 0:
+        return TilePlan("flagship", GEMM_BN, -(-n // GEMM_BN), "registers")
+    tiles = -(-n // NTAIL_MAX_WIDTH)
+    width = -(-(-(-n // tiles)) // 8) * 8
+    return TilePlan("ntail", width, tiles, "span" if tiles == 1 else "rows")
+
+
 def _operand(t: torch.Tensor, what: str, dtype, shape) -> int:
     """Check a GEMM operand read by TMA (device, dtype, shape, K-contiguous
     rows at a pitch of whole 16-byte steps, a 16-byte aligned start) and
@@ -409,7 +467,8 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
     residual. ``a`` and the weights are read at their row pitch
     (:func:`_operand`): a producer writes rows whose bytes are not whole
     16-byte steps at :func:`row_pitch` (``_ln``, ``_quant``), and
-    :func:`make_dense` pads such weights once. Counted under ``name`` and
+    :func:`make_dense` pads such weights once. N % 8 != 0 takes the
+    N-tail instances (:func:`gemm_tile_plan`). Counted under ``name`` and
     ``name/gemm_bf16``, ``gemm_s8_bf16``, ``gemm_s8_f32`` or
     ``gemm_f32_3xtf32``, with ``_ntail`` for N % 8 != 0."""
     m, k = a.shape
@@ -441,6 +500,7 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
         lda = _operand(a, "a", out_dtype, (m, k))
         ldb = _operand(d.wt, "w", out_dtype, (n, k))
     # the epilogue reads 16-byte vectors of the bias and residual rows
+    # (the N tail: whole 16-byte words of its output and residual spans)
     for t, what in ((d.bias, "bias"), (residual, "residual")):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"gemm kernel: {what} must be 16-byte aligned")
@@ -468,7 +528,9 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 # the window attention's limits (``csrc/window_attn.cuh``, every instance):
 # up to 128 tokens a window in one pass over whole score rows
 # (``window_attn_kernel``), up to 256 in 64-key chunks with a running max and
-# sum (``window_attn_long_kernel``: windows 12 to 16); head widths 16, 32
+# sum and the compact bias table in shared memory (``window_attn_long_kernel``:
+# windows 12 to 16; ``rel`` must then be a relative-position bias, as
+# :func:`rel_bias_from_table` builds it); head widths 16, 32
 # and 64 in the flagship sources (``swin_window_attn``, ``window_msa_attn``),
 # the others of ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu``, each staged in
 # shared memory at the next flagship width with its columns past the head
@@ -540,16 +602,18 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     stride hs + 8) or k, v rows (f32, stride hs + 4), hs the staged width
     (:func:`attn_staged_dim`); up to 128 tokens the
     relative bias of its head (stride NP + 8) as bf16 over NP rows (the
-    Swin variant in bf16) or as f32 over n rows (longer windows read it
-    from device memory); the token and label rows. A block takes one head
+    Swin variant in bf16) or as f32 over n rows, longer windows the
+    compact (2w-1)² f32 table and a row of column offsets
+    (:func:`rel_offsets`); the token and label rows. A block takes one head
     over 4 windows, so it reads the bias once for them."""
     n = win * win
     n_pad = -(-n // 16) * 16
     hs = attn_staged_dim(hd)
     rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
-    bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
     if n_pad > ATTN_ONE_PASS_TOKENS:
-        bias = 0
+        # the compact table (16-byte padded f32) and the column offsets
+        return rows + 12 * n_pad + 16 * -(-(2 * win - 1) ** 2 // 4)
+    bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
     return rows + bias + 8 * n_pad
 
 
@@ -605,8 +669,11 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     """The window attention launch (``csrc/window_attn.cuh``) of kernel 3
     (``msa=False``) or kernel 7 (``msa=True``): (B*H*W, 3C) qkv of bf16 or
     f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
-    are its index math. Counted under ``name`` and ``name/``
-    :func:`attn_instance`; the plain version for CPU tensors."""
+    are its index math. ``rel`` (heads, n, n) f32 is the relative-position
+    bias (:func:`rel_bias_from_table`): above
+    :data:`ATTN_ONE_PASS_TOKENS` tokens the kernel reads one entry a
+    relative offset (:func:`rel_table_tokens`). Counted under ``name`` and
+    ``name/`` :func:`attn_instance`; the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,
                                       shift, msa)

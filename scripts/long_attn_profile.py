@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Profile of the long-window attention (``csrc/window_attn.cuh::
+window_attn_long_kernel``) on the card: two checkouts and ablations of the
+first, timed in turns in one run.
+
+    python3 scripts/long_attn_profile.py <old_root> <new_root> [--out DIR]
+
+(DIR, the variants' builds, defaults to ``_checkout/profile_build``.)
+
+For each variant the attention's sources (``swin_block.cu``,
+``window_msa.cu``, ``errors.cu`` with their headers) are built alone with
+``nvcc -Xptxas -v`` into ``DIR/<variant>/`` (all variants at once), and a
+process of its own loads that library into the checkout's
+``mask_bev_tpu_torch`` (``kernels.build._lib``) and times, with CUDA
+events over back-to-back launches:
+
+* ``.w12``: the attention launches of one forward of Swin-B at 384 px on
+  the main path's grid (batch 8; stages (125^2, C 128, 4 heads), (63^2,
+  256, 8), (32^2, 512, 16), (16^2, 1024, 32), head width 32, window 12;
+  2, 2, 18, 2 blocks, every other block shifted), bf16, the Swin and the
+  MSA variant, summed as one forward launches them (24 launches);
+* ``w16``: window 16 at the stage-0 widths (125^2, C 128, 4 heads,
+  shifted), both variants;
+* ``F.scaled_dot_product_attention`` on the same windows with the float
+  mask rel + shift mask (the library call ``chip_smoke.py`` times).
+
+Variants: the old checkout as it is (``old``), the old kernel with its
+per-score bias read replaced by 0 (``old_bias0``: what the L2 reads cost;
+its outputs are not the attention's), the old kernel with launch bounds for
+two blocks of 9 warps an SM (``old_occ2``: window 12 only), and the new
+checkout (``new``). Order: old, old_bias0, old_occ2, new, new, old. Each
+variant's registers, spills and the blocks an SM they allow at window 12
+(288 threads) come from its ptxas log. ``ncu`` does not run on the card's
+machine, so stall reasons and achieved occupancy are not measured.
+Prints one JSON line a run and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+SOURCES = ("swin_block.cu", "window_msa.cu", "errors.cu")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-lineinfo"]
+# (old text, ablation text) in the old checkout's window_attn.cuh
+ABLATIONS = {
+    "old_bias0": [("bias = __ldg(relh + (size_t)r * n + c);", "bias = 0.f;")],
+    "old_occ2": [("__launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)",
+                  "__launch_bounds__(32 * 9, 2)")],
+}
+# Swin-B at 384 px on the main path's 500 x 500 grid: (grid, C, heads,
+# blocks)
+W12_STAGES = (((125, 125), 128, 4, 2), ((63, 63), 256, 8, 2),
+              ((32, 32), 512, 16, 18), ((16, 16), 1024, 32, 2))
+BATCH = 8
+
+
+def prepare(root: pathlib.Path, variant: str, out: pathlib.Path,
+            sources=SOURCES, header="window_attn.cuh", ablations=ABLATIONS):
+    """Copy ``root``'s kernel sources into ``out/variant`` with the
+    variant's substitutions in ``header``; start nvcc on ``sources``."""
+    d = out / variant
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(root / "mask_bev_tpu_torch" / "csrc", d / "csrc")
+    path = d / "csrc" / header
+    text = path.read_text()
+    for old, new in ablations.get(variant, []):
+        if old not in text:
+            raise SystemExit(f"{variant}: {old!r} not in {path}")
+        text = text.replace(old, new)
+    path.write_text(text)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = []
+    for src in sources:
+        obj = d / (pathlib.Path(src).stem + ".o")
+        log = open(d / (pathlib.Path(src).stem + ".log"), "w")
+        procs.append(subprocess.Popen(
+            [nvcc, *FLAGS, "-Xptxas", "-v", "-I", str(d / "csrc"), "-c",
+             str(d / "csrc" / src), "-o", str(obj)],
+            stdout=log, stderr=subprocess.STDOUT))
+    return d, procs
+
+
+def link(d: pathlib.Path, sources=SOURCES) -> pathlib.Path:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    lib = d / "libattn.so"
+    objs = [str(d / (pathlib.Path(s).stem + ".o")) for s in sources]
+    subprocess.run([nvcc, "-shared", "-gencode",
+                    "arch=compute_90a,code=sm_90a", *objs, "-o", str(lib)],
+                   check=True)
+    return lib
+
+
+def registers(d: pathlib.Path) -> dict:
+    """The long kernel's bf16 head-width-32 instances: registers, spill
+    bytes and the blocks of 288 threads an SM their registers allow."""
+    spec = importlib.util.spec_from_file_location(
+        "ptxas_lines", HERE / "ptxas_lines.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = {}
+    filt = shutil.which("c++filt")
+    for name, (regs, _, st, ld) in mod.kernels(d).items():
+        dem = (subprocess.run([filt, name], capture_output=True,
+                              text=True).stdout.strip() if filt else name)
+        if (("window_attn_long_kernel<__nv_bfloat16, 32" in dem
+             or "window_attn_long_kernelI13__nv_bfloat16Li32E" in dem)
+                and regs is not None):
+            # registers are allocated per warp in units of 256
+            per_warp = -(-regs * 32 // 256) * 256
+            got[dem.split("(")[0]] = dict(
+                registers=regs, spill_stores=st, spill_loads=ld,
+                blocks_w12=min(65536 // (per_warp * 9), 64 // 9))
+    return got
+
+
+def child(root: str, lib: str, variant: str) -> None:
+    """Time the attention of ``root``'s package on ``lib``."""
+    sys.path.insert(0, root)
+    import torch
+    import torch.nn.functional as F
+
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    kb._lib = ctypes.CDLL(lib)
+    dev = "cuda"
+
+    def cuda_ms(fn, reps=20, warm=2):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def inputs(hw, c, heads, win, seed):
+        g = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c, generator=g).to(
+            dev, torch.bfloat16)
+        qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+        table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                    generator=g)).to(dev, torch.bfloat16)
+        return qkv, qb, kswin.rel_bias_from_table(table, win)
+
+    def sdpa(qkv, qb, rel, hw, heads, win, shift):
+        q, k, v = (t.contiguous() for t in kswin.qkv_windows(
+            qkv, qb, BATCH, hw, heads, win, shift))
+        mask = rel.float()[None]
+        sm = kswin.shift_mask(hw, win, shift, qkv.device)
+        if sm is not None:
+            mask = (mask + sm[:, None]).repeat(BATCH, 1, 1, 1)
+        mask = mask.to(qkv.dtype).contiguous()
+        hd = q.shape[-1]
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=hd ** -0.5), reps=5)
+
+    res = {"variant": variant, "root": root}
+    with torch.no_grad():
+        for msa in (False, True):
+            name = "window_msa" if msa else "swin_block"
+            key = "msa" if msa else "swin"
+            total, lib_total, stages = 0.0, 0.0, []
+            for i, (hw, c, heads, blocks) in enumerate(W12_STAGES):
+                qkv, qb, rel = inputs(hw, c, heads, 12, 40 + i)
+                for shifted in (False, True):
+                    shift = kswin.effective_shift(hw, 12, shifted)
+                    a = (qkv, qb, rel, BATCH, hw, heads, 12, shift)
+                    ms = cuda_ms(lambda: kswin.attention(name, *a, msa=msa))
+                    total += ms * blocks / 2
+                    stages.append(round(ms, 5))
+                    if variant == "new":
+                        lib_total += sdpa(qkv, qb, rel, hw, heads, 12,
+                                          shift) * blocks / 2
+                del qkv, qb, rel
+            res[f"w12_{key}_ms"] = round(total, 4)
+            res[f"w12_{key}_stages_ms"] = stages
+            if variant == "new":
+                res[f"w12_{key}_sdpa_ms"] = round(lib_total, 4)
+            if variant != "old_occ2":  # its bounds take 288 threads only
+                hw, c, heads = (125, 125), 128, 4
+                qkv, qb, rel = inputs(hw, c, heads, 16, 50)
+                shift = kswin.effective_shift(hw, 16, True)
+                a = (qkv, qb, rel, BATCH, hw, heads, 16, shift)
+                res[f"w16_{key}_ms"] = round(cuda_ms(
+                    lambda: kswin.attention(name, *a, msa=msa)), 4)
+                if variant == "new":
+                    res[f"w16_{key}_sdpa_ms"] = round(sdpa(
+                        qkv, qb, rel, hw, heads, 16, shift), 4)
+                del qkv, qb, rel
+    print(json.dumps(res), flush=True)
+
+
+def main() -> None:
+    if sys.argv[1] == "--child":
+        child(*sys.argv[2:5])
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the profile runs on the card")
+    old, new = (pathlib.Path(a).resolve() for a in sys.argv[1:3])
+    out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1]
+                       if "--out" in sys.argv else "_checkout/profile_build")
+    out = out.resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    roots = {"old": old, "old_bias0": old, "old_occ2": old, "new": new}
+    started = {v: prepare(r, v, out) for v, r in roots.items()}
+    libs = {}
+    for v, (d, procs) in started.items():
+        if any(p.wait() for p in procs):
+            logs = "".join(p.read_text() for p in d.glob("*.log"))
+            raise SystemExit(f"{v}: build failed\n{logs[-4000:]}")
+        libs[v] = link(d)
+        print(json.dumps({"variant": v, "ptxas": registers(d)}), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+    for v in ("old", "old_bias0", "old_occ2", "new", "new", "old"):
+        subprocess.run([sys.executable, __file__, "--child",
+                        str(roots[v]), str(libs[v]), v], check=True,
+                       env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,10 @@ Imports ``chip_smoke.py`` and the port from the checkout given (its own
 sources, built at first use) and runs the phases named (default ``K F``)
 on the card:
 
+* ``main``: the main path (``semantic_kitti_default()`` in bf16 with the
+  int8 backbone, kernels 1-5, as ``chip_smoke.py`` serves it);
+* ``w12``: the main path with Swin-B at 384 px (window 12: the long-window
+  attention), as ``chip_smoke.py``'s ``[shapes wide]`` ``.w12``;
 * ``K``: path K (``kitti_default()`` with the unfused backbone, kernels 7
   and 8, bf16);
 * ``F``: phase F (``semantic_kitti_default()`` as shipped, f32);
@@ -126,8 +130,18 @@ def main() -> None:
         print(f"[ab] {root} {name}: max_abs_err {err:.6g} kernel {ms:.4f} "
               f"ms plain {plain_ms:.4f} ms [{card}]", flush=True)
 
+    bf16 = semantic_kitti_default().replace(
+        max_points_per_scan=131072, pseudo_image_norm="full",
+        compute_dtype="bfloat16")
     for phase in phases:
-        if phase == "K":
+        if phase == "main":
+            cs.serve_phase(np, torch, card, results, failures, record, bf16,
+                           "", cs.WARM, cs.TIMED, main_path=True)
+        elif phase == "w12":
+            cs.serve_phase(np, torch, card, results, failures, record,
+                           bf16.replace(**cs.SWIN_B_384), ".w12",
+                           cs.PATH_WARM, cs.PATH_TIMED)
+        elif phase == "K":
             cs.path_phase(np, torch, card, results, failures, record, "K")
         elif phase == "F":
             cs.serve_phase(np, torch, card, results, failures, record,

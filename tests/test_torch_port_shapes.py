@@ -544,24 +544,32 @@ def test_patch_embed_new_widths_on_the_card(dev, dtype, e):
 
 # a grid with pad tokens on both axes: 3 x 3 windows of 12, or of 16
 LONG_GRID = {12: (30, 27), 16: (35, 33)}
+# grids of 2 x 4 windows whose last row and column are mostly padding
+RAGGED_GRID = {12: (13, 37), 16: (17, 50)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("msa", [False, True], ids=["swin", "msa"])
-@pytest.mark.parametrize("win,shifted", [(12, False), (12, True),
-                                         (16, True)])
+@pytest.mark.parametrize("win,shifted,grid", [
+    (12, False, LONG_GRID), (12, True, LONG_GRID), (16, True, LONG_GRID),
+    (12, True, RAGGED_GRID), (16, True, RAGGED_GRID),
+    (16, False, RAGGED_GRID)],
+    ids=lambda v: (("ragged" if v is RAGGED_GRID else "long")
+                   if isinstance(v, dict) else None))
 def test_window_attention_long_windows_on_the_card(dev, dtype, msa, win,
-                                                   shifted):
+                                                   shifted, grid):
     """The attention template's long-window kernel (144 and 256 tokens: key
-    chunks of 64 with a running max and sum, the bias read from device
-    memory), Swin and MSA variants, C 64 over 2 heads: bf16 within 1e-2 of
-    the plain version's largest value (the flagship's tolerance); f32
-    within 1e-4 of the plain version and 1e-5 of a float64 attention."""
+    chunks of 64 with a running max and sum, the bias from the head's
+    compact table in shared memory), Swin and MSA variants, C 64 over 2
+    heads, shifted and not, on grids that are not whole windows: bf16
+    within 1e-2 of the plain version's largest value (the flagship's
+    tolerance); f32 within 1e-4 of the plain version and 1e-5 of a float64
+    attention."""
     from test_torch_port_kernels import _attention_f64, _block_weights, _rel
 
     c, heads, b = 64, 2, 2
-    hw = LONG_GRID[win]
+    hw = grid[win]
     p = _block_weights(dev, c, heads, win, False, seed=31, dtype=dtype)
     g = torch.Generator().manual_seed(32)
     qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(dev, dtype)
@@ -861,6 +869,26 @@ def test_gemm_any_k_n_on_the_card(dev, kind, mode, m, n, k):
     product and the same f32 epilogue (GELU within one bf16 step); bf16
     within 2^-7 of the XLA-order epilogue; 3xTF32 within 1e-5 of a float64
     product."""
+    _hold_gemm(dev, kind, mode, m, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("mode", [kswin.EPI_BIAS, kswin.EPI_GELU,
+                                  kswin.EPI_RESIDUAL])
+@pytest.mark.parametrize("k", [24, 40])
+@pytest.mark.parametrize("n", [4, 12, 100, 260])
+def test_gemm_n_tail_on_the_card(dev, kind, mode, k, n):
+    """The N-tail instances (``csrc/gemm_ntail.cu``: tiles fitted to N, the
+    output and residual staged and moved in 16-byte words) at one tile of
+    8, 16 and 104 columns and three of 88 (``gemm_tile_plan``), 1000 rows
+    (a part tile), K 24 and 40, every epilogue and operand kind, held as
+    ``test_gemm_any_k_n_on_the_card`` holds them (``chip_smoke.py``'s
+    tolerances: 2^-7 relative in bf16, 1e-5 in 3xTF32, int8 exact)."""
+    _hold_gemm(dev, kind, mode, 1000, n, k)
+
+
+def _hold_gemm(dev, kind, mode, m, n, k):
     g = torch.Generator().manual_seed(m + n + k)
     a32 = torch.randn(m, k, generator=g)
     w32 = torch.randn(n, k, generator=g) / k ** 0.5
