@@ -205,22 +205,36 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Device time of the kernels ``fn`` launches, per call: the profiler's
-    CUDA kernel rows over ``reps`` back-to-back calls, without the host's
-    time between them (which ``cuda_ms`` includes)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call, without the
+    host's time between calls: the ``reps`` calls are queued behind a sleep
+    kernel that outlasts their launch, so the device runs them back to back
+    between the two events. The sleep is doubled until the start event is
+    still pending when the last call is queued (at most 6 tries; the last
+    reading is kept). The profiler's CUDA kernel rows read 0 for some of
+    these launches on the H100's machine."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # SM cycles for twice the calls' wall time with the device's (an upper
+    # bound of the host's), at most 2 GHz; at least 2 ms
+    cycles = int(2e9 * max(2e-3, 2 * reps * (time.perf_counter() - t0)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        covered = not start.query()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
+        if covered:
+            break
+        cycles *= 2
+    return start.elapsed_time(end) / reps
 
 
 def bound(bytes_moved: float, op_seconds: float):
@@ -307,7 +321,7 @@ def main() -> None:
     failures = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd, extra="",
-               ok=None, library_ms=None):
+               ok=None, library_ms=None, **keys):
         ok = err <= tol if ok is None else ok
         tol_s = f"tolerance {tol:.6g}" if tol == tol else "see below"
         lib_s = "" if library_ms is None else f" library {library_ms:.4f} ms"
@@ -322,7 +336,8 @@ def main() -> None:
             launches=0, max_abs_err=float(err), ms=float(ms),
             plain_ms=float(plain_ms), bound_ms=float(bnd[0]),
             bound_by=bnd[1],
-            library_ms=None if library_ms is None else float(library_ms))
+            library_ms=None if library_ms is None else float(library_ms),
+            **{k: float(v) for k, v in keys.items()})
 
     # ---- the main path: the bf16 serving path, kernels 1-5 ----------------
     cfg = semantic_kitti_default().replace(
@@ -1402,8 +1417,8 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                 ms_p += cuda_ms(torch, lambda: kln.layer_norm_plain(*a, **kw),
                                 5)
                 ms_l += cuda_ms(torch, run_l, 20)
-                dev_k += device_ms(torch, run_k, 20)
-                dev_l += device_ms(torch, run_l, 20)
+                dev_k += queued_ms(torch, run_k, 20)
+                dev_l += queued_ms(torch, run_l, 20)
                 byts += 2 * x_.numel() * esz
                 plans.append(kln.plan(x_.shape[-1], f32))
             record("layer_norm" + sfx, "mask_bev_tpu_torch/csrc/layer_norm.cu",
@@ -1412,11 +1427,12 @@ def path_phase(np, torch, card, results, failures, record, path: str,
                    bound(byts, 0.0),
                    f"{len(cap['layer_norm'])} calls summed: "
                    f"{[tuple(a[0].shape) for a, _ in cap['layer_norm']]}, "
-                   f"(lanes, words, tokens) {plans}; device time (profiler, "
-                   f"no host): kernel {dev_k:.4f} ms, F.layer_norm "
+                   f"(lanes, words, tokens) {plans}; device time (calls "
+                   f"queued, no host): kernel {dev_k:.4f} ms, F.layer_norm "
                    f"{dev_l:.4f} ms (kernel and library above: CUDA events "
                    f"over back-to-back calls, host included)",
-                   library_ms=ms_l)
+                   library_ms=ms_l, device_ms=dev_k,
+                   library_device_ms=dev_l)
             # ---- kernel 10: v1 PFN on the capped stream ----------------------
             (a, kw), = cap["stream_pfn"]
             sp, weights = a[0], a[1]
@@ -1770,11 +1786,16 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
     mask rel + shift mask; used on no path). Bound: qkv read and the
     output written once, the bias read once a head, against the products
     (4 n C a real token; the padded tokens are keys only) at the bf16 or
-    3xTF32 rate."""
+    3xTF32 rate. At the head widths outside the flagship instances (the
+    head-width kernel) also the device time of the kernel and of SDPA
+    (``queued_ms``: without the host's time between calls)."""
     import torch.nn.functional as F
 
     err_rel = err_abs = ms_k = ms_p = ms_l = byts = ops = 0.0
+    dev_k = dev_l = 0.0
     kname = "window_msa" if msa else "swin_block"
+    widths = any(a[0].shape[1] // 3 // a[5] not in kswin.ATTN_FLAGSHIP_DIMS
+                 for a in calls)
     for (qkv, qb, rel, b, hw, heads, win, shift) in calls:
         a = (qkv, qb, rel, b, hw, heads, win, shift)
         got = kswin.attention(kname, *a, msa=msa)
@@ -1790,19 +1811,28 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
         hd = q.shape[-1]
         ms_l += cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
+        if widths:
+            dev_k += queued_ms(torch, lambda: kswin.attention(
+                kname, *a, msa=msa), 5)
+            dev_l += queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
         del q, k, v, mask, got, want
         c = qkv.shape[1] // 3
         byts += 4 * qkv.shape[0] * c * qkv.element_size() + rel.numel() * 4
         ops += 4.0 * b * hw[0] * hw[1] * win * win * c
     tol = 1e-4 if f32 else 1e-2
+    dev_s = (f"; device kernel {dev_k:.4f} ms, SDPA {dev_l:.4f} ms"
+             if widths else "")
     record(name, ATTN_SOURCE, replaces, err_abs, float("nan"), ms_k, ms_p,
            bound(byts, ops / PEAK["tf32x3" if f32 else "bf16"]),
            f"{'MSA' if msa else 'Swin'} variant, "
            f"{'f32 (3xTF32)' if f32 else 'bf16'}; largest error relative "
            f"to its block's max-abs {err_rel:.4g} (tolerance {tol}); "
            f"{len(calls)} blocks summed; library = "
-           f"F.scaled_dot_product_attention on the same windows",
-           ok=err_rel <= tol, library_ms=ms_l)
+           f"F.scaled_dot_product_attention on the same windows{dev_s}",
+           ok=err_rel <= tol, library_ms=ms_l,
+           **(dict(device_ms=dev_k, library_device_ms=dev_l) if widths
+              else {}))
 
 
 def grad_norms(grads):
@@ -2218,10 +2248,12 @@ def decoder_call(np, torch, cfg, seed):
     return a, kw
 
 
-def launched(kb, results, name, instance) -> None:
+def launched(kb, results, failures, name, instance) -> None:
     """A kernel-level entry's launches: those of ``instance`` since the
-    last reset (its hold's calls; no served path runs it)."""
+    last reset (its hold's calls; no served path runs it). None fails."""
     results[name]["launches"] = kb.INSTANCES.get(instance, 0)
+    if results[name]["launches"] <= 0:
+        failures.append(f"[{name}] {instance} never launched")
 
 
 def wide_kernel_holds(np, torch, card, results, failures, record,
@@ -2263,7 +2295,7 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
                 kb.reset_launches()
                 decoder_hold(torch, record, failures, card, dargs, dkw, f32,
                              sfx, "shapes wide" + sfx.replace(".", " "))
-                launched(kb, results, "decoder_stack" + sfx,
+                launched(kb, results, failures, "decoder_stack" + sfx,
                          "decoder_stack/" + kdec.split_instance(q, heads,
                                                                 f32))
                 del dargs
@@ -2300,21 +2332,23 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
                f"heads, window {win} shifted {shift}; largest error "
                f"relative to its max-abs {err_rel:.4g} (tolerance 2e-2)",
                ok=err_rel <= 2e-2)
-        launched(kb, results, "swin_block.w16", "swin_block/attn_bf16_long")
+        launched(kb, results, failures, "swin_block.w16",
+                 "swin_block/attn_bf16_long")
         del got, want
         kb.reset_launches()
         attn_phase(torch, kswin, record, "swin_attn.w16",
                    "mask_bev_tpu/ops/pallas_swin_block.py:208",
                    [(block_qkv(kswin, x, p8, True), p8.qkv.bias, p8.rel_bias,
                      b, hw, heads, win, shift)], False, False, card)
-        launched(kb, results, "swin_attn.w16", "swin_block/attn_bf16_long")
+        launched(kb, results, failures, "swin_attn.w16",
+                 "swin_block/attn_bf16_long")
         kb.reset_launches()
         window_msa_phase(torch, record, card, ".w16",
                          [((x, hw, win, shift, p16.rel_bias, p16.qkv,
                             p16.proj, heads), {})], False,
                          what="blocks drawn at window 16")
         results["window_msa.w16"]["launches"] = kb.LAUNCHES["window_msa"]
-        launched(kb, results, "window_msa_attn.w16",
+        launched(kb, results, failures, "window_msa_attn.w16",
                  "window_msa/attn_bf16_long")
         del x, blocks, p8, p16
 
@@ -2329,7 +2363,8 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
         kb.reset_launches()
         patch_embed_hold(torch, record, ".e48",
                          (canvas, wm, *vecs, 4, 1e-6), {}, False)
-        launched(kb, results, "patch_embed.e48", "patch_embed/bf16")
+        launched(kb, results, failures, "patch_embed.e48",
+                 "patch_embed/bf16")
         del canvas, wm, vecs
 
         # ---- kernels 1 and 10 at 64 and 128 points a pillar ----------------
@@ -2379,8 +2414,8 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
                    f"1e-3)")
             if st_err > 1e-3 or n_long <= 0:
                 failures.append(f"pfn.k{k}: stats or no long pillar")
-            launched(kb, results, f"pfn.k{k}", "pfn/" + kpfn.instance(False,
-                                                                      k))
+            launched(kb, results, failures, f"pfn.k{k}",
+                     "pfn/" + kpfn.instance(False, k))
             del ps, table, t_plain
             # kernel 10: the capped stream of the same scans
             kb.reset_launches()
@@ -2408,7 +2443,7 @@ def wide_kernel_holds(np, torch, card, results, failures, record,
                    f"{st_err:.3g} (tolerance 1e-3)")
             if st_err > 1e-3 or int((counts > 32).sum()) <= 0:
                 failures.append(f"stream_pfn.k{k}: stats or no long pillar")
-            launched(kb, results, f"stream_pfn.k{k}",
+            launched(kb, results, failures, f"stream_pfn.k{k}",
                      "stream_pfn/" + kpfn.instance(False, k))
             del sp, table, want, model, enc, pts, msk
     torch.cuda.empty_cache()
@@ -2617,12 +2652,16 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
     against its plain version with the tolerance its flagship instance is
     held to, and timed beside one library call where one computes the
     same function: kernel 9 at C = 12, 100, 2056 and 4096 (bf16 and f32;
-    ``F.layer_norm``) on the stage-1 grid's tokens; kernels 2 (the main
-    path's grid, ~45k pillars a sample) and A/B (the training envelope) at
-    C = 100 in bf16 and C = 101 in f32; the GEMM at K = 24 and 40, N = 100
-    (bf16, int8, 3xTF32; ``torch.addmm``, ``torch._int_mm`` where it takes
-    the shape) on the stage-0 tokens; the attention at head widths 24, 48
-    and 56, windows 10 and 12 (bf16 and f32; SDPA) on the stage-0 grid;
+    ``F.layer_norm``; event and device times) on the stage-1 grid's
+    tokens; kernels 2 (the main path's grid, ~45k pillars a sample) and
+    A/B (the training envelope) at C = 100 in bf16 and C = 101 in f32; the
+    GEMM at K = 24 and 40, N = 100 (bf16, int8, 3xTF32; ``torch.addmm``,
+    ``torch._int_mm`` where it takes the shape) on the stage-0 tokens; the
+    attention on the stage-0 grid (bf16 and f32; SDPA; event and device
+    times) at head widths 8, 24, 40, 48 and 56 at window 10 (the head-width
+    kernel's instance of 7 warps), 8 and 48 at window 7 in both variants
+    (its instance of 8 warps, which serves the other windows up to 11),
+    and 24, 48 and 56 at window 12 (the long-window kernel);
     kernel 7 at head width 8 (C 72, 9 heads, the stage-0 grid)."""
     import torch.nn.functional as F
 
@@ -2659,15 +2698,24 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                                5)
                 ms_l = cuda_ms(torch, lambda: F.layer_norm(
                     x, (c,), w, b, 1e-6), 20)
+                # the device's time alone: the event times above include
+                # the host's time a call between back-to-back launches
+                dev_k = queued_ms(torch, lambda: kln.layer_norm(x, w, b), 20)
+                dev_l = queued_ms(torch, lambda: F.layer_norm(
+                    x, (c,), w, b, 1e-6), 20)
                 record("layer_norm" + sfx,
                        "mask_bev_tpu_torch/csrc/layer_norm.cu",
                        "mask_bev_tpu/ops/pallas_layer_norm.py:33", err,
                        (1e-4 if f32 else 1e-2) * top, ms_k, ms_p,
                        bound(2 * x.numel() * x.element_size(), 0.0),
                        f"{rows} tokens of C {c}, plan {kln.plan(c, f32)} "
-                       f"(the walk); library F.layer_norm", library_ms=ms_l)
-                launched(kb, results, "layer_norm" + sfx,
-                         "layer_norm/" + ("f32" if f32 else "bf16") + "_walk")
+                       f"(the walk); library F.layer_norm; device kernel "
+                       f"{dev_k:.4f} ms, F.layer_norm {dev_l:.4f} ms",
+                       library_ms=ms_l, device_ms=dev_k,
+                       library_device_ms=dev_l)
+                launched(kb, results, failures, "layer_norm" + sfx,
+                         "layer_norm/" + ("f32" if f32 else "bf16")
+                         + "_walk")
                 del x, w, b
 
         # ---- kernels 2, A and B at C = 100 (bf16) and 101 (f32) ----------
@@ -2701,7 +2749,7 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                         "canvas_norm" + sfx,
                         (table, cells_t, torch.as_tensor(npil, device=dev),
                          mean, var, scale, bias, (h_, w_), 1e-3))
-                    launched(kb, results, "canvas_norm" + sfx,
+                    launched(kb, results, failures, "canvas_norm" + sfx,
                              "canvas_norm/" + ("f32" if f32 else "bf16")
                              + f"_w{4 if f32 else 8}")
                     del scale, bias
@@ -2713,9 +2761,10 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                         "fwd": (table, cells_t, (h_, w_)),
                         "bwd": (d_canvas, cells_t, (h_, w_))}, sfx)
                     wb = f"w{4 if f32 else 8}"
-                    launched(kb, results, "canvas_scatter" + sfx,
+                    launched(kb, results, failures, "canvas_scatter" + sfx,
                              f"canvas_scatter/{wb}")
-                    launched(kb, results, "canvas_scatter_bwd" + sfx,
+                    launched(kb, results, failures,
+                             "canvas_scatter_bwd" + sfx,
                              f"canvas_scatter_bwd/{wb}")
                     del d_canvas
                 del table, cells_t
@@ -2789,17 +2838,25 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                        f"{a.stride(0)} values, bias epilogue; library "
                        + ("torch._int_mm (the product only)" if kind == "int8"
                           else "torch.addmm"), library_ms=lib_ms)
-                launched(kb, results, "gemm" + sfx, "swin_block/" + inst)
+                launched(kb, results, failures, "gemm" + sfx,
+                         "swin_block/" + inst)
                 del a, d
             del a32, w32, bias
 
-        # ---- the attention at head widths 24, 48 and 56 ------------------
-        for hd, heads in ((24, 8), (48, 4), (56, 3)):
+        # ---- the attention at head widths 8, 24, 40, 48 and 56 ----------
+        for hd, heads in ((8, 9), (24, 8), (40, 3), (48, 4), (56, 3)):
             c = hd * heads
-            for win in (10, 12):
+            # 8 and 40 are served at window 10 (.hd8, .hd40); window 7 is
+            # the instance of 8 warps, held at 8 and 48 in both variants;
+            # window 12 is the long-window kernel, held at 24, 48 and 56
+            wins = {8: (10, 7), 40: (10,), 48: (10, 7, 12)}.get(hd, (10, 12))
+            for win, msa in [(w, m) for w in wins
+                             for m in ((False, True) if w == 7 else (False,))]:
                 for dt in (torch.bfloat16, torch.float32):
                     f32 = dt == torch.float32
-                    sfx = f".hd{hd}.w{win}" + (".f32" if f32 else "")
+                    what = "window_msa" if msa else "swin_block"
+                    name = ("window_msa_attn" if msa else "swin_attn") + (
+                        f".hd{hd}.w{win}" + (".f32" if f32 else ""))
                     qkv = torch.randn(m0, 3 * c, generator=g).to(dev, dt)
                     qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
                     table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
@@ -2807,11 +2864,13 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                     rel = kswin.rel_bias_from_table(table, win)
                     shift = kswin.effective_shift(hw0, win, True)
                     kb.reset_launches()
-                    attn_phase(torch, kswin, record, "swin_attn" + sfx,
+                    attn_phase(torch, kswin, record, name,
+                               "mask_bev_tpu/ops/pallas_window_msa.py:71"
+                               if msa else
                                "mask_bev_tpu/ops/pallas_swin_block.py:584",
                                [(qkv, qb, rel, BATCH, hw0, heads, win,
-                                 shift)], False, f32, card)
-                    launched(kb, results, "swin_attn" + sfx, "swin_block/"
+                                 shift)], msa, f32, card)
+                    launched(kb, results, failures, name, what + "/"
                              + kswin.attn_instance(f32, win, hd))
                     del qkv, qb, rel
 
@@ -2829,7 +2888,7 @@ def tail_kernel_holds(np, torch, card, results, failures, record,
                             heads), {})], False, what="a block drawn at "
                          "head width 8")
         results["window_msa.hd8"]["launches"] = kb.LAUNCHES["window_msa"]
-        launched(kb, results, "window_msa_attn.hd8",
+        launched(kb, results, failures, "window_msa_attn.hd8",
                  "window_msa/" + kswin.attn_instance(False, win, 8))
         del blk, p, y
     torch.cuda.empty_cache()

@@ -1,12 +1,13 @@
 // Kernel 3's window attention (the Swin variant, swin_block.cu) at the head
-// widths outside its flagship instances: 8, 24, 40, 48 and 56, each staged
-// at the next flagship width (window_attn.cuh: 16, 32, 64, 64, 64) with its
-// columns past the head zero in shared memory. A source of its own, so that
-// these instances compile in parallel with the flagship ones. It replaces
-// the attention of mask_bev_tpu/ops/pallas_swin_block.py::fused_swin_block
-// (:208) and ::fused_swin_block_col (:584) at head widths whose Pallas gate
-// sends the JAX package to XLA; bound by bytes, as the flagship widths, with
-// the products at the staged width.
+// widths outside its flagship instances: 8, 24, 40, 48 and 56. Up to 128
+// tokens a window they run window_attn_width_kernel (window_attn.cuh: the
+// rows at the exact width, the head's compact bias table in shared memory,
+// blocks an SM sized to the instance), above it window_attn_long_kernel. A
+// source of its own, so that these instances compile in parallel with the
+// flagship ones. It replaces the attention of
+// mask_bev_tpu/ops/pallas_swin_block.py::fused_swin_block (:208) and
+// ::fused_swin_block_col (:584) at head widths whose Pallas gate sends the
+// JAX package to XLA; bound by bytes, as the flagship widths.
 #include "common.cuh"
 #include "window_attn.cuh"
 

@@ -65,6 +65,18 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// bf16 m16n8k8 (f32 accumulation), the k8 half of m16n8k16: a0 = row g,
+// columns 2t, 2t+1; a1 = row g+8; b0 = rows 2t, 2t+1 of column g
+__device__ __forceinline__ void mma_1688_bf16(float (&c)[4],
+                                              const uint32_t (&a)[2],
+                                              uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
 // TF32 (m16n8k8, f32 accumulation). Lane (g, t): A (16 x 8): a0 = (g, t),
 // a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4); B (8 x 8, k x
 // n): b0 = (t, g), b1 = (t + 4, g); C as for m16n8k16.
@@ -140,6 +152,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x1(uint32_t& r0, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];"
+               : "=r"(r0)
+               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,

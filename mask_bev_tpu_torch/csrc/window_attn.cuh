@@ -43,15 +43,15 @@
 //     the same order). Inside each chunk of 32 channels (16 at hd 16) the
 //     channel index is permuted alike in q and k, so a lane's fragment
 //     values are contiguous and the sums are unchanged.
-// Head widths: HD is the head's width, any multiple of 8 up to 64; its rows
-// are staged in shared memory (and f32 q in registers) at HS =
-// staged_dim(HD), the least of the flagship widths 16, 32, 64 that holds
-// it, the columns HD .. HS - 1 zero, so the products run the flagship
-// width's code (zero columns add nothing to the scores; the scale is the
-// caller's, HD^-0.5) and P v and the stores cover the HD real columns. At
-// HD = 16, 32, 64 (the flagship instances) HS == HD and nothing changes.
-// The other widths' instances are built in their own sources
-// (attn_widths_swin.cu, attn_widths_msa.cu), in parallel with these.
+// Head widths: HD is the head's width, any multiple of 8 up to 64. The
+// flagship widths 16, 32 and 64 run window_attn_kernel; the others (8, 24,
+// 40, 48, 56) run window_attn_width_kernel (below) up to 128 tokens a
+// window, built in their own sources (attn_widths_swin.cu,
+// attn_widths_msa.cu) in parallel with these. Above 128 tokens every
+// width runs window_attn_long_kernel, which stages a head's rows at HS =
+// staged_dim(HD), the least flagship width that holds it, the columns HD ..
+// HS - 1 zero (zero columns add nothing to the scores; the scale is the
+// caller's, HD^-0.5); P v and the stores cover the HD real columns.
 #pragma once
 
 #include <type_traits>
@@ -735,6 +735,477 @@ __global__ void __launch_bounds__(32 * NPT, long_blocks<T, NPT>())
   }
 }
 
+// ---------------------------------------------------------------------------
+// The head-width instances (HD 8, 24, 40, 48, 56) at windows of at most 128
+// tokens: window_attn_width_kernel. It computes what window_attn_kernel
+// computes, in each variant's order of arithmetic. The first version ran
+// window_attn_kernel with the rows staged at the next flagship width, and
+// lost 1.1-1.5x to SDPA at 3-25x its byte bound: every block staged its
+// head's expanded (n, n) bias (40 KB of f32 read from L2 at window 10, more
+// than its 4 windows of bf16 qkv at HD 8), the products ran at the staged
+// width (2x the work at HD 8, 1.6x at 40), and two blocks shared an SM
+// whatever the width. The Hopper redesign:
+//   * the head's compact (2 win - 1)^2 bias table in shared memory once a
+//     block, a score's bias tab[ro(i) - co(j)], as window_attn_long_kernel
+//     stages and reads it (the bf16 Swin variant's values rounded to bf16
+//     once): the values the expanded table holds, so no output changes;
+//   * the rows at the exact width, with no zero tail: bf16 rows at a stride
+//     of an odd number of 16-byte words (width_ld: HD where HD / 8 is odd,
+//     HD + 8 where it is even), so each ldmatrix reads 8 distinct bank
+//     groups; q k^T as HD / 16 m16n8k16 steps plus one m16n8k8 step where
+//     HD % 16 == 8 (only the zero terms of the staged product leave the
+//     sums); f32 rows at HD + 4, q k^T as 3xTF32 m16n8k8 over HD / 8 steps,
+//     the channels in chunks of 32, 16 and 8 (a lane holds KC / 4
+//     contiguous channels of each chunk of KC);
+//   * blocks an SM sized to the instance (width_blocks): the bf16 instances
+//     pack P to bf16 before P v, so the scores' registers die before the
+//     accumulators live, and run four blocks of 7 warps an SM at window 10
+//     (72 registers a thread, 32-136 bytes spilled: on the H100 faster
+//     than three blocks at 80 registers or two at 128) and three of 8
+//     warps (faster than two or four); f32 keeps two (128 registers).
+//     Latency sets the pace (blocks an SM moved the time most); copying
+//     the next window's rows into a second buffer while the current one
+//     computes, and one barrier a window fewer, gained nothing and were
+//     taken out.
+constexpr int ATT_WIDTH_WPB = 4;  // windows a block
+// blocks an SM the instances are built for (their launch bounds): bf16 at
+// 7 warps (windows of 97-112 tokens: window 10), bf16 at 8 warps (every
+// other window up to 128 tokens), f32; ops/swin_block.py mirrors these
+#define ATT_WIDTH_BLOCKS_BF16_NPT7 4
+#define ATT_WIDTH_BLOCKS_BF16_NPT8 3
+#define ATT_WIDTH_BLOCKS_F32 2
+
+// row stride of the staged q, k, v rows (values)
+__host__ __device__ constexpr int width_ld(int hd, bool f32) {
+  return f32 ? hd + 4 : ((hd / 8) % 2 ? hd : hd + 8);
+}
+
+__host__ __device__ constexpr int width_blocks(bool f32, int maxnpt) {
+  return f32 ? ATT_WIDTH_BLOCKS_F32
+             : maxnpt <= 7 ? ATT_WIDTH_BLOCKS_BF16_NPT7
+                           : ATT_WIDTH_BLOCKS_BF16_NPT8;
+}
+
+// shared memory of one block: the q, k, v rows (bf16) or k, v rows (f32);
+// the token, label and column-offset rows; the compact bias table
+static inline size_t window_attn_width_smem(int win, int hd, bool f32) {
+  const size_t np = (win * win + 15) / 16 * 16, ld = width_ld(hd, f32);
+  const size_t rows = f32 ? 2 * np * ld * 4 : 3 * np * ld * 2;
+  return rows + 3 * np * 4 + rel_table_floats(win) * 4;
+}
+
+// the token and shift-label rows of window wi (nww windows a row)
+__device__ __forceinline__ void window_tokens(int* tok, int* lab, int wi,
+                                              int nww, int n, int b, int H,
+                                              int W, int win, int shift,
+                                              int hp, int wp) {
+  const int wy = wi / nww, wx = wi % nww;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const int gy = wy * win + r / win, gx = wx * win + r % win;  // rolled
+    const int ro = (gy + shift) % hp, co = (gx + shift) % wp;    // padded
+    tok[r] = (ro < H && co < W) ? (b * H + ro) * W + co : -1;
+    lab[r] = shift ? shift_region(gy, hp, win, shift) * 3 +
+                         shift_region(gx, wp, win, shift)
+                   : 0;
+  }
+}
+
+// the n rows of head h (bf16: q, k, v; f32: k, v) of the tokens tok into
+// shared memory by 16-byte cp.async (a pad token's row the qkv bias, zero
+// before the qkv product, stored directly); the caller waits. (The same
+// steps as stage_window's, kept apart so that the flagship instances
+// compile as they did: routing stage_window through these changed the
+// registers and spills of 54 of its instances.)
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void window_rows(const T* __restrict__ qkv,
+                                            const float* __restrict__ qkv_bias,
+                                            T* qs, T* ks, T* vs,
+                                            const int* tok, int n, int h,
+                                            int C) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int EV = 16 / sizeof(T), CH = HD / EV;
+  constexpr int P0 = F32 ? 1 : 0, NPART = 3 - P0;
+  for (int i = threadIdx.x; i < n * NPART * CH; i += blockDim.x) {
+    const int r = i / (NPART * CH), part = P0 + (i / CH) % NPART;
+    const int c = (i % CH) * EV;
+    T* dst = (part == 0 ? qs : part == 1 ? ks : vs) + r * LD + c;
+    const int tk = tok[r];
+    if (tk >= 0) {
+      cp_async16(dst, qkv + (size_t)tk * 3 * C + part * C + h * HD + c);
+    } else {
+      const float* bsrc = qkv_bias + part * C + h * HD + c;
+      if constexpr (F32) {
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(bsrc);
+      } else {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack_bf16(bsrc[0], bsrc[1]),
+                       pack_bf16(bsrc[2], bsrc[3]),
+                       pack_bf16(bsrc[4], bsrc[5]),
+                       pack_bf16(bsrc[6], bsrc[7]));
+      }
+    }
+  }
+}
+
+// PER consecutive f32 values from p (8, 4 or 2: 16- or 8-byte loads)
+template <int PER, bool GLOBAL>
+__device__ __forceinline__ void ld_per(float* v, const float* p) {
+  if constexpr (PER == 2) {
+    const float2 a = GLOBAL ? __ldg(reinterpret_cast<const float2*>(p))
+                            : *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int p4 = 0; p4 < PER / 4; ++p4) {
+      const float4 a =
+          GLOBAL ? __ldg(reinterpret_cast<const float4*>(p + 4 * p4))
+                 : *reinterpret_cast<const float4*>(p + 4 * p4);
+      v[4 * p4] = a.x;
+      v[4 * p4 + 1] = a.y;
+      v[4 * p4 + 2] = a.z;
+      v[4 * p4 + 3] = a.w;
+    }
+  }
+}
+
+// f32 q k^T over one chunk of KC channels at offset off (8, 16 or 32): the
+// lane's q values (rows g, g + 8) are qa0, qa1 (KC / 4 contiguous channels
+// from off + (KC / 4) t); k-step st takes channel PER t + st as slot t and
+// PER t + KS + st as slot t + 4, in q and k alike
+template <int KC, int LD, int MAXNPT, bool MSA>
+__device__ __forceinline__ void qk_chunk_f32(float (&s)[2 * MAXNPT][4],
+                                             const float* qa0,
+                                             const float* qa1,
+                                             const float* ks, int off,
+                                             int npt, float scale, int g,
+                                             int t) {
+  constexpr int PER = KC / 4, KS = KC / 8;
+  Tf32x2<4> qf[KS];
+#pragma unroll
+  for (int st = 0; st < KS; ++st) {
+    const float q4[4] = {qa0[st], qa1[st], qa0[KS + st], qa1[KS + st]};
+    uint32_t a[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[e] = __float_as_uint(MSA ? q4[e] : q4[e] * scale);
+    qf[st] = split_frag(a);
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * MAXNPT; ++j) {
+    if (j < 2 * npt) {
+      float kv[PER];
+      ld_per<PER, false>(kv, ks + (8 * j + g) * LD + off + PER * t);
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        const uint32_t bw[2] = {__float_as_uint(kv[st]),
+                                __float_as_uint(kv[KS + st])};
+        mma_3xtf32(s[j], qf[st], split_frag(bw));
+      }
+    }
+  }
+}
+
+// f32: this warp's q rows (16 warp + g, + 8) of the tokens tok into
+// registers, chunk by chunk as qk_chunk_f32 reads them (zero past n)
+template <int HD>
+__device__ __forceinline__ void load_q_f32(float (&qv)[2][HD / 4],
+                                           const float* __restrict__ qkv,
+                                           const float* __restrict__ qkv_bias,
+                                           const int* tok, int n, int h,
+                                           int C) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    const int tk = r < n ? tok[r] : -1;
+    const float* src =
+        (tk >= 0 ? qkv + (size_t)tk * 3 * C : qkv_bias) + h * HD;
+    if (r < n) {
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c)
+        ld_per<8, true>(&qv[hh][8 * c], src + 32 * c + 8 * t);
+      if constexpr (HD % 32 >= 16)
+        ld_per<4, true>(&qv[hh][HD / 32 * 8], src + HD / 32 * 32 + 4 * t);
+      if constexpr (HD % 16 == 8)
+        ld_per<2, true>(&qv[hh][HD / 4 - 2], src + HD - 8 + 2 * t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < HD / 4; ++i) qv[hh][i] = 0.f;
+    }
+  }
+}
+
+// MAXNPT: the register arrays' size in 16-key steps (7 for win 10);
+// arguments as window_attn_kernel's
+template <typename T, int HD, int MAXNPT, bool MSA>
+__global__ void __launch_bounds__(32 * MAXNPT,
+                                  width_blocks(sizeof(T) == 4, MAXNPT))
+    window_attn_width_kernel(const T* __restrict__ qkv,
+                             const float* __restrict__ qkv_bias,
+                             const float* __restrict__ rel,
+                             T* __restrict__ out, int H, int W, int C,
+                             int win, int shift, float scale) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int LD = width_ld(HD, F32);
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
+  T* qs = reinterpret_cast<T*>(smraw);  // bf16 only: f32 q is in registers
+  T* ks = qs + (F32 ? 0 : NP * LD);
+  T* vs = ks + NP * LD;
+  int* tok = reinterpret_cast<int*>(vs + NP * LD);
+  int* lab = tok + NP;
+  int* co = lab + NP;  // column offsets (j / win) tw + j % win
+  float* tab = reinterpret_cast<float*>(co + NP);
+
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  const int nww = wp / win, nw = (hp / win) * nww;
+  const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * ATT_WIDTH_WPB;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int tw = 2 * win - 1;
+
+  // the head's compact table, as window_attn_long_kernel gathers it
+  const float* relh = rel + (size_t)h * n * n;
+  for (int i = tid; i < tw * tw; i += nthr) {
+    const int dy = i / tw - (win - 1), dx = i % tw - (win - 1);
+    const int ry = max(dy, 0), rx = max(dx, 0);
+    float v = __ldg(relh + (size_t)(ry * win + rx) * n + (ry - dy) * win +
+                    (rx - dx));
+    if constexpr (!F32 && !MSA) v = to_f(__float2bfloat16_rn(v));
+    tab[i] = v;
+  }
+  for (int j = tid; j < NP; j += nthr)
+    co[j] = j < n ? (j / win) * tw + j % win : 0;
+  // rows n .. NP - 1 are zero (v's must be finite: their probabilities
+  // are 0)
+  for (int i = tid; i < (NP - n) * LD; i += nthr) {
+    if constexpr (!F32) qs[n * LD + i] = from_f<T>(0.f);
+    ks[n * LD + i] = from_f<T>(0.f);
+    vs[n * LD + i] = from_f<T>(0.f);
+  }
+
+  const int wend = min(w0 + ATT_WIDTH_WPB, nw);
+  for (int wi = w0; wi < wend; ++wi) {
+    __syncthreads();  // the previous window's rows are read
+    window_tokens(tok, lab, wi, nww, n, b, H, W, win, shift, hp, wp);
+    __syncthreads();
+    window_rows<T, HD, LD>(qkv, qkv_bias, qs, ks, vs, tok, n, h, C);
+    float qv[2][F32 ? HD / 4 : 1];  // f32: in flight with the copies
+    if constexpr (F32)
+      load_q_f32<HD>(qv, (const float*)qkv, qkv_bias, tok, n, h, C);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // ---- S = q k^T at the exact width, 16 rows x NP keys in registers ----
+    float s[2 * MAXNPT][4];
+#pragma unroll
+    for (int j = 0; j < 2 * MAXNPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (F32) {
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c)
+        qk_chunk_f32<32, LD, MAXNPT, MSA>(s, &qv[0][8 * c], &qv[1][8 * c],
+                                          ks, 32 * c, npt, scale, g, t);
+      if constexpr (HD % 32 >= 16)
+        qk_chunk_f32<16, LD, MAXNPT, MSA>(s, &qv[0][HD / 32 * 8],
+                                          &qv[1][HD / 32 * 8], ks,
+                                          HD / 32 * 32, npt, scale, g, t);
+      if constexpr (HD % 16 == 8)
+        qk_chunk_f32<8, LD, MAXNPT, MSA>(s, &qv[0][HD / 4 - 2],
+                                         &qv[1][HD / 4 - 2], ks, HD - 8, npt,
+                                         scale, g, t);
+    } else {
+      constexpr int K16 = HD / 16;
+      uint32_t qa[K16 ? K16 : 1][4], q8[2];
+      const T* qrow = qs + (16 * warp + (lane & 15)) * LD;
+#pragma unroll
+      for (int kk = 0; kk < K16; ++kk)
+        ldsm_x4(qa[kk], qrow + kk * 16 + (lane >> 4) * 8);
+      if constexpr (HD % 16 == 8) ldsm_x2(q8[0], q8[1], qrow + HD - 8);
+      if constexpr (!MSA) {
+#pragma unroll
+        for (int kk = 0; kk < K16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16(qa[kk][e]);
+            qa[kk][e] = pack_bf16(f.x * scale, f.y * scale);
+          }
+        if constexpr (HD % 16 == 8) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float2 f = unpack_bf16(q8[e]);
+            q8[e] = pack_bf16(f.x * scale, f.y * scale);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * MAXNPT; ++j) {
+        if (j < 2 * npt) {
+#pragma unroll
+          for (int kk = 0; kk < K16; ++kk) {
+            uint32_t b0, b1;
+            ldsm_x2(b0, b1, ks + (8 * j + (lane & 7)) * LD + kk * 16 +
+                                ((lane >> 3) & 1) * 8);
+            mma_16816(s[j], qa[kk], b0, b1);
+          }
+          if constexpr (HD % 16 == 8) {
+            uint32_t b0;
+            ldsm_x1(b0, ks + (8 * j + (lane & 7)) * LD + HD - 8);
+            mma_1688_bf16(s[j], q8, b0);
+          }
+        }
+      }
+    }
+
+    // ---- bias (the staged table), shift mask, exact softmax -------------
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+    const int l0 = r0 < n ? lab[r0] : 0, l1 = r1 < n ? lab[r1] : 0;
+    const int ro0 = (r0 / win) * tw + r0 % win + (win - 1) * (tw + 1);
+    const int ro1 = (r1 / win) * tw + r1 % win + (win - 1) * (tw + 1);
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2 * MAXNPT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? r0 : r1, c = 8 * j + 2 * t + (e & 1);
+        float v = -INFINITY;
+        if (c < n) {
+          float bias = r < n ? tab[(e < 2 ? ro0 : ro1) - co[c]] : 0.f;
+          if (shift && (e < 2 ? l0 : l1) != lab[c])
+            bias = __fadd_rn(bias, -100.f);
+          v = __fadd_rn(MSA ? __fmul_rn(s[j][e], scale) : s[j][e], bias);
+        }
+        s[j][e] = v;
+        if (e < 2)
+          m0 = fmaxf(m0, v);
+        else
+          m1 = fmaxf(m1, v);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0s = 0.f, l1s = 0.f;  // row sums, then their reciprocals
+#pragma unroll
+    for (int j = 0; j < 2 * MAXNPT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - (e < 2 ? m0 : m1));
+        s[j][e] = x;
+        if (e < 2)
+          l0s += x;
+        else
+          l1s += x;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l0s += __shfl_xor_sync(0xffffffffu, l0s, o);
+      l1s += __shfl_xor_sync(0xffffffffu, l1s, o);
+    }
+    l0s = 1.f / l0s;
+    l1s = 1.f / l1s;
+
+    // ---- O = P v: P in registers is the A operand ------------------------
+    float acc[HD / 8][4];
+    if constexpr (F32) {
+#pragma unroll
+      for (int jd = 0; jd < HD / 8; ++jd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * MAXNPT; ++j) {
+        if (j < 2 * npt) {
+          // keys 8j + 2t, 8j + 2t + 1 as the logical slots t, t + 4
+          const uint32_t a[4] = {__float_as_uint(s[j][0] * l0s),
+                                 __float_as_uint(s[j][2] * l1s),
+                                 __float_as_uint(s[j][1] * l0s),
+                                 __float_as_uint(s[j][3] * l1s)};
+          const Tf32x2<4> pa = split_frag(a);
+          const T* v0 = vs + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+          for (int jd = 0; jd < HD / 8; ++jd) {
+            const uint32_t bw[2] = {__float_as_uint(v0[8 * jd]),
+                                    __float_as_uint(v0[LD + 8 * jd])};
+            mma_3xtf32(acc[jd], pa, split_frag(bw));
+          }
+        }
+      }
+    } else {
+      // P packed to bf16 first: the f32 scores die before acc lives
+      uint32_t pa[MAXNPT][4];
+#pragma unroll
+      for (int s2 = 0; s2 < MAXNPT; ++s2) {
+        pa[s2][0] = pack_bf16(s[2 * s2][0] * l0s, s[2 * s2][1] * l0s);
+        pa[s2][1] = pack_bf16(s[2 * s2][2] * l1s, s[2 * s2][3] * l1s);
+        pa[s2][2] = pack_bf16(s[2 * s2 + 1][0] * l0s, s[2 * s2 + 1][1] * l0s);
+        pa[s2][3] = pack_bf16(s[2 * s2 + 1][2] * l1s, s[2 * s2 + 1][3] * l1s);
+      }
+#pragma unroll
+      for (int jd = 0; jd < HD / 8; ++jd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+#pragma unroll
+      for (int s2 = 0; s2 < MAXNPT; ++s2) {
+        if (s2 >= npt) continue;
+#pragma unroll
+        for (int jd = 0; jd < HD / 8; ++jd) {
+          uint32_t b0, b1;
+          ldsm_x2_trans(b0, b1, vs + (16 * s2 + (lane & 15)) * LD + 8 * jd);
+          mma_16816(acc[jd], pa[s2], b0, b1);
+        }
+      }
+    }
+    const int tk0 = r0 < n ? tok[r0] : -1, tk1 = r1 < n ? tok[r1] : -1;
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd) {
+      const int col = h * HD + 8 * jd + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tk = hh ? tk1 : tk0;
+        if (tk < 0) continue;
+        T* dst = out + (size_t)tk * C + col;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
+        else
+          *reinterpret_cast<uint32_t*>(dst) =
+              pack_bf16(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, bool MSA, int HD>
+static int launch_window_attn_width(const void* qkv, const float* qkv_bias,
+                                    const float* rel, void* out, int B,
+                                    int H, int W, int C, int heads, int win,
+                                    int shift, float scale,
+                                    cudaStream_t stream) {
+  const int NP = (win * win + 15) / 16 * 16;
+  const size_t smem = window_attn_width_smem(win, HD, sizeof(T) == 4);
+  auto kern = NP == 112 ? window_attn_width_kernel<T, HD, 7, MSA>
+                        : window_attn_width_kernel<T, HD, ATT_MAX_NPT, MSA>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  dim3 grid(ceil_div((hp / win) * (wp / win), ATT_WIDTH_WPB), heads, B);
+  kern<<<grid, 32 * (NP / 16), smem, stream>>>(
+      (const T*)qkv, qkv_bias, rel, (T*)out, H, W, C, win, shift, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool MSA, int HD>
 static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
                                  const float* rel, void* out, int B, int H,
@@ -742,16 +1213,24 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
                                  float scale, cudaStream_t stream) {
   const int n = win * win, NP = (n + 15) / 16 * 16;
   const bool long_win = NP > 16 * ATT_MAX_NPT;
+  if constexpr (staged_dim(HD) != HD) {
+    if (!long_win)
+      return launch_window_attn_width<T, MSA, HD>(
+          qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
+          stream);
+  }
   constexpr int HS = staged_dim(HD);
   const size_t smem = long_win
                            ? window_attn_long_smem(win, HS, sizeof(T) == 4)
                            : window_attn_smem(n, HS, sizeof(T) == 4, MSA);
-  auto kern =
-      !long_win ? (NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
-                             : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>)
-      : NP <= 16 * ATT_W12_NPT
-          ? window_attn_long_kernel<T, HD, MSA, ATT_W12_NPT>
-          : window_attn_long_kernel<T, HD, MSA, ATT_LONG_MAX_NPT>;
+  auto kern = NP <= 16 * ATT_W12_NPT
+                  ? window_attn_long_kernel<T, HD, MSA, ATT_W12_NPT>
+                  : window_attn_long_kernel<T, HD, MSA, ATT_LONG_MAX_NPT>;
+  if constexpr (HS == HD) {  // the flagship widths' one-pass kernel
+    if (!long_win)
+      kern = NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
+                       : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;

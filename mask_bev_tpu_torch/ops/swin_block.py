@@ -38,7 +38,7 @@ and attention. Every launch counts under ``swin_block``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -225,8 +225,8 @@ def rel_bias_from_table(table: torch.Tensor, win: int) -> torch.Tensor:
 
 
 def rel_offsets(win: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The long-window attention's bias index (``csrc/window_attn.cuh::
-    window_attn_long_kernel``): the score of query token i and key token j
+    """The compact bias table's index (``csrc/window_attn.cuh::
+    window_attn_long_kernel`` and ``window_attn_width_kernel``): the score of query token i and key token j
     takes entry ``ro[i] - co[j]`` of the compact ((2w-1)²) table, ``co[j] =
     (j // w)(2w-1) + j % w`` and ``ro[i] = co[i] + (w-1)(2w)``; equal to
     :func:`rel_pos_index`."""
@@ -237,8 +237,8 @@ def rel_offsets(win: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def rel_table_tokens(win: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The token pair (i, j) the long-window attention reads each compact
-    table entry from in the expanded (heads, w², w²) bias: entry (dy, dx)
+    """The token pair (i, j) the long-window and head-width attentions read
+    each compact table entry from in the expanded (heads, w², w²) bias: entry (dy, dx)
     (offsets -(w-1)..w-1, row-major) at i = (max(dy, 0), max(dx, 0)) and
     j = i - (dy, dx), whose :func:`rel_offsets` index is the entry."""
     tw = 2 * win - 1
@@ -526,25 +526,66 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 
 
 # the window attention's limits (``csrc/window_attn.cuh``, every instance):
-# up to 128 tokens a window in one pass over whole score rows
-# (``window_attn_kernel``), up to 256 in 64-key chunks with a running max and
-# sum and the compact bias table in shared memory (``window_attn_long_kernel``:
-# windows 12 to 16; ``rel`` must then be a relative-position bias, as
-# :func:`rel_bias_from_table` builds it); head widths 16, 32
-# and 64 in the flagship sources (``swin_window_attn``, ``window_msa_attn``),
-# the others of ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu``, each staged in
-# shared memory at the next flagship width with its columns past the head
-# zero (ATTN_STAGED_DIM)
+# up to 128 tokens a window in one pass over whole score rows, up to 256 in
+# 64-key chunks with a running max and sum and the compact bias table in
+# shared memory (``window_attn_long_kernel``: windows 12 to 16); head widths
+# 16, 32 and 64 in the flagship sources (``swin_window_attn``,
+# ``window_msa_attn``; one pass: ``window_attn_kernel``), the others of
+# ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` (one pass:
+# ``window_attn_width_kernel``, the rows at the exact width and the compact
+# table; long windows staged at the next flagship width, its columns past
+# the head zero: :func:`attn_staged_dim`). Where the compact table is read,
+# ``rel`` must be a relative-position bias, as :func:`rel_bias_from_table`
+# builds it.
 ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
 ATTN_FLAGSHIP_DIMS = (16, 32, 64)
 ATTN_ONE_PASS_TOKENS = 128
 ATTN_MAX_TOKENS = 256
+# the head-width instances' blocks an SM: bf16 at 7 warps (windows of
+# 97-112 tokens), bf16 at 8 warps, f32 (``csrc/window_attn.cuh``:
+# ATT_WIDTH_BLOCKS_BF16_NPT7, ATT_WIDTH_BLOCKS_BF16_NPT8, ATT_WIDTH_BLOCKS_F32)
+ATTN_WIDTH_BLOCKS = (4, 3, 2)
 
 
 def attn_staged_dim(hd: int) -> int:
     """The width a head of ``hd`` channels is staged at: the least of
     :data:`ATTN_FLAGSHIP_DIMS` that holds it."""
     return next(d for d in ATTN_FLAGSHIP_DIMS if d >= hd)
+
+
+def attn_width_ld(hd: int, f32: bool) -> int:
+    """Row stride (values) of the head-width kernel's staged rows
+    (``width_ld``): f32 hd + 4; bf16 an odd number of 16-byte words (hd
+    where hd / 8 is odd, else hd + 8), so an ldmatrix's 8 rows fall in 8
+    distinct bank groups."""
+    if f32:
+        return hd + 4
+    return hd if (hd // 8) % 2 else hd + 8
+
+
+def attn_width_blocks(f32: bool, win: int) -> int:
+    """Blocks an SM the head-width instance of ``win`` x ``win`` windows
+    is built for (``width_blocks``, its launch bounds): the window-10
+    instance (7 warps) and the 8-warp one differ in bf16."""
+    if f32:
+        return ATTN_WIDTH_BLOCKS[2]
+    return ATTN_WIDTH_BLOCKS[0 if -(-win * win // 16) == 7 else 1]
+
+
+def attn_width_steps(hd: int) -> List[Tuple[int, int]]:
+    """The bf16 q k^T k-steps of the head-width kernel, (first channel,
+    width): ``hd // 16`` m16n8k16 steps, then one m16n8k8 step where hd %
+    16 == 8."""
+    return [(16 * i, 16) for i in range(hd // 16)] + (
+        [(hd - 8, 8)] if hd % 16 else [])
+
+
+def attn_width_chunks(hd: int) -> List[Tuple[int, int]]:
+    """The f32 q k^T chunks of the head-width kernel, (first channel,
+    width): chunks of 32 channels, then one of 16 and one of 8 where the
+    rest holds them; a lane holds width / 4 contiguous channels of each."""
+    sizes = [32] * (hd // 32) + [16] * (hd % 32 // 16) + [8] * (hd % 16 // 8)
+    return [(sum(sizes[:i]), kc) for i, kc in enumerate(sizes)]
 
 
 def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
@@ -597,7 +638,8 @@ def swin_block_refusal(c: int, heads: int, win: int, hidden: int,
 def attn_smem_bytes(win: int, hd: int, f32: bool = False,
                     msa: bool = False) -> int:
     """Shared memory of one attention block (``csrc/window_attn.cuh::
-    window_attn_smem``, ``window_attn_long_smem`` above
+    window_attn_smem``, ``window_attn_width_smem`` for a head width outside
+    :data:`ATTN_FLAGSHIP_DIMS`, ``window_attn_long_smem`` above
     :data:`ATTN_ONE_PASS_TOKENS`): q, k, v rows of the padded window (bf16,
     stride hs + 8) or k, v rows (f32, stride hs + 4), hs the staged width
     (:func:`attn_staged_dim`); up to 128 tokens the
@@ -605,14 +647,21 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     Swin variant in bf16) or as f32 over n rows, longer windows the
     compact (2w-1)² f32 table and a row of column offsets
     (:func:`rel_offsets`); the token and label rows. A block takes one head
-    over 4 windows, so it reads the bias once for them."""
+    over 4 windows, so it reads the bias once for them. The head-width
+    kernel: its rows at stride :func:`attn_width_ld`, the token, label and
+    column-offset rows, the compact table."""
     n = win * win
     n_pad = -(-n // 16) * 16
+    table = 16 * -(-(2 * win - 1) ** 2 // 4)
+    if hd not in ATTN_FLAGSHIP_DIMS and n_pad <= ATTN_ONE_PASS_TOKENS:
+        ld = attn_width_ld(hd, f32)
+        rows = 2 * n_pad * ld * 4 if f32 else 3 * n_pad * ld * 2
+        return rows + 12 * n_pad + table
     hs = attn_staged_dim(hd)
     rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
     if n_pad > ATTN_ONE_PASS_TOKENS:
         # the compact table (16-byte padded f32) and the column offsets
-        return rows + 12 * n_pad + 16 * -(-(2 * win - 1) ** 2 // 4)
+        return rows + 12 * n_pad + table
     bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
     return rows + bias + 8 * n_pad
 
@@ -671,8 +720,9 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
     are its index math. ``rel`` (heads, n, n) f32 is the relative-position
     bias (:func:`rel_bias_from_table`): above
-    :data:`ATTN_ONE_PASS_TOKENS` tokens the kernel reads one entry a
-    relative offset (:func:`rel_table_tokens`). Counted under ``name`` and
+    :data:`ATTN_ONE_PASS_TOKENS` tokens, and at head widths outside
+    :data:`ATTN_FLAGSHIP_DIMS`, the kernel reads one entry a relative
+    offset (:func:`rel_table_tokens`). Counted under ``name`` and
     ``name/`` :func:`attn_instance`; the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,

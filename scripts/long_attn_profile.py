@@ -33,6 +33,27 @@ variant's registers, spills and the blocks an SM they allow at window 12
 (288 threads) come from its ptxas log. ``ncu`` does not run on the card's
 machine, so stall reasons and achieved occupancy are not measured.
 Prints one JSON line a run and the card's name and power limit.
+
+    python3 scripts/long_attn_profile.py --widths <old_root> <new_root> \
+        [--variants old,new,...]
+
+profiles the head-width instances instead (``attn_widths_swin.cu``: the
+old checkout's ``window_attn_kernel`` staged at the next flagship width,
+the new one's ``window_attn_width_kernel``): the Swin attention at head
+widths 8, 24, 40, 48 and 56 on the stage-0 grid (8 x 125^2, C 72 / 192 /
+120 / 192 / 168 over 9 / 8 / 3 / 4 / 3 heads, window 10, shifted), bf16
+(and f32 for ``old`` and ``new``), each call's error against its plain
+version (ablations are wrong by design), SDPA beside ``new``. Variants:
+``old``; ``old_bias0`` (the expanded bias neither staged nor read: what
+(a) costs); ``old_exact48`` (head width 48 staged at 48: what (b) costs
+there; the other widths have no exact layout in the old kernel);
+``old_occ3`` (launch bounds for three blocks an SM: (c)); ``new``;
+``new_occ2`` / ``new_occ3`` (the bf16 instances built for two / three
+blocks an SM); ``new_npt8_2`` / ``new_npt8_4`` (the 8-warp bf16 instances
+for two / four); ``new_wpb2`` / ``new_wpb1`` (2 / 1 windows a block).
+Each variant also times the bf16 attention at windows 7 and 11 (the
+8-warp instances) at head widths 8 and 48. Order: old, the old ablations,
+new, the new variants, new, old (``--variants`` picks some, in order).
 """
 from __future__ import annotations
 
@@ -41,6 +62,7 @@ import importlib.util
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -49,12 +71,47 @@ HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = ("swin_block.cu", "window_msa.cu", "errors.cu")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-lineinfo"]
-# (old text, ablation text) in the old checkout's window_attn.cuh
+# (pattern, ablation text) in a checkout's window_attn.cuh: plain text
+# (re.escape) or a regular expression, each to match at least once
 ABLATIONS = {
-    "old_bias0": [("bias = __ldg(relh + (size_t)r * n + c);", "bias = 0.f;")],
-    "old_occ2": [("__launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)",
+    "old_bias0": [(re.escape("bias = __ldg(relh + (size_t)r * n + c);"),
+                   "bias = 0.f;")],
+    "old_occ2": [(re.escape("__launch_bounds__(32 * ATT_LONG_MAX_NPT, 1)"),
                   "__launch_bounds__(32 * 9, 2)")],
 }
+WIDTH_SOURCES = ("attn_widths_swin.cu", "errors.cu")
+WIDTH_ABLATIONS = {
+    "old_bias0": [
+        (re.escape("for (int e = tid; e < n * n; e += nthr) {"),
+         "for (int e = tid; e < 0; e += nthr) {"),
+        (re.escape("float bias = r < n ? to_f(bs[r * ldb + c]) : 0.f;"),
+         "float bias = 0.f;")],
+    "old_exact48": [
+        (re.escape("return hd <= 16 ? 16 : hd <= 32 ? 32 : 64;"),
+         "return hd == 48 ? 48 : hd <= 16 ? 16 : hd <= 32 ? 32 : 64;")],
+    "old_occ3": [(re.escape("__launch_bounds__(32 * MAXNPT, 2) "
+                            "window_attn_kernel("),
+                  "__launch_bounds__(32 * MAXNPT, 3) window_attn_kernel(")],
+    "new_occ2": [(r"#define ATT_WIDTH_BLOCKS_BF16_NPT(\d) \d+",
+                  r"#define ATT_WIDTH_BLOCKS_BF16_NPT\1 2")],
+    "new_occ3": [(r"#define ATT_WIDTH_BLOCKS_BF16_NPT7 \d+",
+                  "#define ATT_WIDTH_BLOCKS_BF16_NPT7 3")],
+    "new_npt8_2": [(r"#define ATT_WIDTH_BLOCKS_BF16_NPT8 \d+",
+                    "#define ATT_WIDTH_BLOCKS_BF16_NPT8 2")],
+    "new_npt8_4": [(r"#define ATT_WIDTH_BLOCKS_BF16_NPT8 \d+",
+                    "#define ATT_WIDTH_BLOCKS_BF16_NPT8 4")],
+    "new_wpb2": [(r"constexpr int ATT_WIDTH_WPB = \d+;",
+                  "constexpr int ATT_WIDTH_WPB = 2;")],
+    "new_wpb1": [(r"constexpr int ATT_WIDTH_WPB = \d+;",
+                  "constexpr int ATT_WIDTH_WPB = 1;")],
+}
+# (head width, heads) at the stage-0 grid
+WIDTH_CASES = ((8, 9), (24, 8), (40, 3), (48, 4), (56, 3))
+# the 8-warp instances: windows 7 and 11 at these widths
+WIDTH_NPT8 = ((8, 9), (48, 4))
+WIDTH_ORDER = ("old", "old_bias0", "old_exact48", "old_occ3", "new",
+               "new_occ2", "new_occ3", "new_npt8_2", "new_npt8_4",
+               "new_wpb2", "new_wpb1", "new", "old")
 # Swin-B at 384 px on the main path's 500 x 500 grid: (grid, C, heads,
 # blocks)
 W12_STAGES = (((125, 125), 128, 4, 2), ((63, 63), 256, 8, 2),
@@ -71,10 +128,10 @@ def prepare(root: pathlib.Path, variant: str, out: pathlib.Path,
     shutil.copytree(root / "mask_bev_tpu_torch" / "csrc", d / "csrc")
     path = d / "csrc" / header
     text = path.read_text()
-    for old, new in ablations.get(variant, []):
-        if old not in text:
-            raise SystemExit(f"{variant}: {old!r} not in {path}")
-        text = text.replace(old, new)
+    for pat, new in ablations.get(variant, []):
+        text, hits = re.subn(pat, new, text)
+        if not hits:
+            raise SystemExit(f"{variant}: {pat!r} not in {path}")
     path.write_text(text)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = []
@@ -96,6 +153,29 @@ def link(d: pathlib.Path, sources=SOURCES) -> pathlib.Path:
                     "arch=compute_90a,code=sm_90a", *objs, "-o", str(lib)],
                    check=True)
     return lib
+
+
+def width_registers(d: pathlib.Path) -> dict:
+    """The one-pass head-width instances (7 or 8 warps): registers, spill
+    bytes and the blocks an SM their registers allow (registers go to a
+    warp in units of 256)."""
+    spec = importlib.util.spec_from_file_location(
+        "ptxas_lines", HERE / "ptxas_lines.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = {}
+    ks = mod.kernels(d)
+    names = mod.demangle(ks)
+    for name, (regs, _, st, ld) in ks.items():
+        dem = names[name].split("(")[0]
+        m = re.search(r"window_attn_(width_)?kernel<[^,]+, \d+, ([78]),",
+                      dem)
+        if regs is None or not m:
+            continue
+        per_warp = -(-regs * 32 // 256) * 256
+        got[dem] = dict(registers=regs, spill_stores=st, spill_loads=ld,
+                        blocks=65536 // per_warp // int(m.group(2)))
+    return got
 
 
 def registers(d: pathlib.Path) -> dict:
@@ -203,10 +283,117 @@ def child(root: str, lib: str, variant: str) -> None:
     print(json.dumps(res), flush=True)
 
 
+def child_widths(root: str, lib: str, variant: str) -> None:
+    """Time the head-width instances of ``root``'s package on ``lib``."""
+    sys.path.insert(0, root)
+    import torch
+    import torch.nn.functional as F
+
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    kb._lib = ctypes.CDLL(lib)
+    dev, hw, win = "cuda", (125, 125), 10
+
+    def cuda_ms(fn, reps=20, warm=2):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    res = {"variant": variant, "root": root}
+    shift = kswin.effective_shift(hw, win, True)
+    dtypes = ((torch.bfloat16, torch.float32)
+              if variant in ("old", "new") else (torch.bfloat16,))
+    with torch.no_grad():
+        for hd, heads in WIDTH_CASES:
+            c = hd * heads
+            for dt in dtypes:
+                key = f"hd{hd}" + ("_f32" if dt == torch.float32 else "")
+                g = torch.Generator().manual_seed(hd)
+                qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c,
+                                  generator=g).to(dev, dt)
+                qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+                table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                            generator=g)).to(dev, dt)
+                rel = kswin.rel_bias_from_table(table, win)
+                a = (qkv, qb, rel, BATCH, hw, heads, win, shift)
+                got = kswin.attention("swin_block", *a, msa=False)
+                want = kswin.window_attention_plain(*a, msa=False)
+                res[key + "_err"] = float(
+                    (got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+                del got, want
+                res[key + "_ms"] = round(cuda_ms(
+                    lambda: kswin.attention("swin_block", *a, msa=False)), 5)
+                if variant == "new":
+                    q, k, v = (t.contiguous() for t in kswin.qkv_windows(
+                        qkv, qb, BATCH, hw, heads, win, shift))
+                    mask = (rel.float()[None] + kswin.shift_mask(
+                        hw, win, shift, qkv.device)[:, None]).repeat(
+                        BATCH, 1, 1, 1).to(dt).contiguous()
+                    res[key + "_sdpa_ms"] = round(cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, scale=hd ** -0.5),
+                        reps=5), 5)
+                    del q, k, v, mask
+                del qkv, qb, rel
+        for (hd, heads), w in ((x, w) for x in WIDTH_NPT8 for w in (7, 11)):
+            c = hd * heads
+            g = torch.Generator().manual_seed(hd + w)
+            qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c, generator=g).to(
+                dev, torch.bfloat16)
+            qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+            table = (0.02 * torch.randn((2 * w - 1) ** 2, heads,
+                                        generator=g)).to(dev, torch.bfloat16)
+            a = (qkv, qb, kswin.rel_bias_from_table(table, w), BATCH, hw,
+                 heads, w, kswin.effective_shift(hw, w, True))
+            res[f"hd{hd}_w{w}_ms"] = round(cuda_ms(
+                lambda: kswin.attention("swin_block", *a, msa=False)), 5)
+            del qkv, qb, a
+    print(json.dumps(res), flush=True)
+
+
+def main_widths(old: pathlib.Path, new: pathlib.Path, out: pathlib.Path,
+                order=WIDTH_ORDER) -> None:
+    roots = {v: old if v.startswith("old") else new for v in order}
+    started = {v: prepare(r, v, out, WIDTH_SOURCES, ablations=WIDTH_ABLATIONS)
+               for v, r in roots.items()}
+    libs = {}
+    for v, (d, procs) in started.items():
+        if any(p.wait() for p in procs):
+            logs = "".join(p.read_text() for p in d.glob("*.log"))
+            raise SystemExit(f"{v}: build failed\n{logs[-4000:]}")
+        libs[v] = link(d, WIDTH_SOURCES)
+        print(json.dumps({"variant": v, "ptxas": width_registers(d)}),
+              flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+    for v in order:
+        subprocess.run([sys.executable, __file__, "--child-widths",
+                        str(roots[v]), str(libs[v]), v], check=True,
+                       env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+
+
 def main() -> None:
     if sys.argv[1] == "--child":
         child(*sys.argv[2:5])
         return
+    if sys.argv[1] == "--child-widths":
+        child_widths(*sys.argv[2:5])
+        return
+    widths = sys.argv[1] == "--widths"
+    if widths:
+        del sys.argv[1]
     import torch
 
     if not torch.cuda.is_available():
@@ -216,6 +403,11 @@ def main() -> None:
                        if "--out" in sys.argv else "_checkout/profile_build")
     out = out.resolve()
     out.mkdir(parents=True, exist_ok=True)
+    if widths:
+        order = (sys.argv[sys.argv.index("--variants") + 1].split(",")
+                 if "--variants" in sys.argv else WIDTH_ORDER)
+        main_widths(old, new, out, order)
+        return
     roots = {"old": old, "old_bias0": old, "old_occ2": old, "new": new}
     started = {v: prepare(r, v, out) for v, r in roots.items()}
     libs = {}

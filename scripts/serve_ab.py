@@ -11,6 +11,10 @@ on the card:
   int8 backbone, kernels 1-5, as ``chip_smoke.py`` serves it);
 * ``w12``: the main path with Swin-B at 384 px (window 12: the long-window
   attention), as ``chip_smoke.py``'s ``[shapes wide]`` ``.w12``;
+* ``hd8``, ``hd40``: the main path at embed 72 over head width 8 and at
+  embed 120 over head width 40 (the window attention's head-width
+  instances), as ``chip_smoke.py``'s ``[shapes tail]`` ``.hd8`` and
+  ``.hd40``;
 * ``K``: path K (``kitti_default()`` with the unfused backbone, kernels 7
   and 8, bf16);
 * ``F``: phase F (``semantic_kitti_default()`` as shipped, f32);
@@ -141,6 +145,10 @@ def main() -> None:
             cs.serve_phase(np, torch, card, results, failures, record,
                            bf16.replace(**cs.SWIN_B_384), ".w12",
                            cs.PATH_WARM, cs.PATH_TIMED)
+        elif phase in ("hd8", "hd40"):
+            cs.serve_phase(np, torch, card, results, failures, record,
+                           bf16.replace(**getattr(cs, phase.upper())),
+                           "." + phase, cs.PATH_WARM, cs.PATH_TIMED)
         elif phase == "K":
             cs.path_phase(np, torch, card, results, failures, record, "K")
         elif phase == "F":

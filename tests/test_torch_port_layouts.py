@@ -129,10 +129,15 @@ def test_attention_smem_instances(win, hd, f32, msa, want):
                                      (True, True)])
 @pytest.mark.parametrize("hd", kswin.ATTN_HEAD_DIMS)
 def test_attention_instances_share_an_sm(hd, f32, msa):
-    """Every instance of the attention template is built for two blocks an
-    SM: at win 10 two blocks' shared memory, with the 1 KB the card
-    reserves for each, fits the SM's 228 KB."""
-    assert 2 * (kswin.attn_smem_bytes(10, hd, f32, msa) + 1024) <= (
+    """Every one-pass instance of the attention template shares an SM with
+    the blocks it is built for: two at the flagship widths, the head-width
+    kernel's ``attn_width_blocks`` at the others. At win 10 their shared
+    memory, with the 1 KB the card reserves for each block, fits the SM's
+    228 KB."""
+    blocks = (2 if hd in kswin.ATTN_FLAGSHIP_DIMS
+              else kswin.attn_width_blocks(f32, 10))
+    assert blocks >= 2
+    assert blocks * (kswin.attn_smem_bytes(10, hd, f32, msa) + 1024) <= (
         228 * 1024)
 
 

@@ -7,7 +7,9 @@ GEMM's N-tail plan, on the CPU.
   pair an entry (``rel_table_tokens``), and gives the score of tokens i, j
   entry ``ro[i] - co[j]`` (``rel_offsets``). Held exactly against the JAX
   package's own gather (``WindowMSA.rel_bias`` through ``_rel_pos_index``)
-  on the same seeded table, at windows 12, 13 and 16 and every head.
+  on the same seeded table, at windows 2, 7, 10, 11 (the head-width
+  kernel's windows, ``window_attn_width_kernel``), 12, 13 and 16 and every
+  head.
 * The GEMM's plan (``gemm_tile_plan``): the flagship's 96-wide tiles for
   N % 8 == 0, else tiles fitted to N (``csrc/gemm_ntail.cu::nt_width``):
   N 4, 12, 100, 104 and 260 (one plan for every operand kind).
@@ -42,7 +44,7 @@ def _jax_rel_bias(table: np.ndarray, win: int) -> np.ndarray:
                                 method=WindowMSA.rel_bias))
 
 
-@pytest.mark.parametrize("win", [12, 13, 16])
+@pytest.mark.parametrize("win", [2, 7, 10, 11, 12, 13, 16])
 def test_rel_offsets_index_the_jax_table(win):
     """ro[i] - co[j] is the JAX package's ``_rel_pos_index`` (and the
     port's), and the table tokens of each entry sit at that entry."""
@@ -58,7 +60,7 @@ def test_rel_offsets_index_the_jax_table(win):
     np.testing.assert_array_equal(idx[ti, tj], np.arange(tw * tw))
 
 
-@pytest.mark.parametrize("win", [12, 13, 16])
+@pytest.mark.parametrize("win", [2, 7, 10, 11, 12, 13, 16])
 def test_compact_table_reproduces_rel_bias(win):
     """The kernel's compact table, gathered from the expanded bias, is the
     seeded table exactly, and its index gives back every head's expanded

@@ -952,9 +952,10 @@ def _attn_inputs(dev, dtype, c, heads, win, b, hw, seed):
 @pytest.mark.parametrize("win", [10, 12])
 def test_window_attention_head_widths_on_the_card(dev, dtype, msa, hd, win):
     """The attention at the head widths outside the flagship instances
-    (staged at 16, 32 or 64 with zero columns), one-pass (window 10) and
-    long-window (12), shifted, with pad tokens: within 1e-2 (bf16) or 1e-5
-    (f32) of the plain version, as the flagship widths are held."""
+    (window 10: the head-width kernel, rows at the exact width; window 12:
+    the long-window kernel, rows staged at 16, 32 or 64 with zero columns),
+    shifted, with pad tokens: within 1e-2 (bf16) or 1e-5 (f32) of the plain
+    version, as the flagship widths are held."""
     heads, b, hw = 3, 2, (23, 27)
     c = heads * hd
     qkv, qkv_bias, rel = _attn_inputs(dev, dtype, c, heads, win, b, hw,

@@ -101,9 +101,14 @@ def test_attention_takes_head_widths_8_to_64(hd):
     assert hs in kswin.ATTN_FLAGSHIP_DIMS and hs >= hd > hs // 2 - 8
     for f32 in (False, True):
         for msa in (False, True):
-            # staged at the flagship width: two blocks still share an SM
-            assert kswin.attn_smem_bytes(10, hd, f32, msa) == \
+            # one pass: the head-width kernel's rows at the exact width and
+            # the compact table, less than the staged layout took; long
+            # windows: staged at the flagship width
+            assert kswin.attn_smem_bytes(10, hd, f32, msa) < \
                 kswin.attn_smem_bytes(10, hs, f32, msa)
+            assert kswin.attn_smem_bytes(12, hd, f32, msa) == \
+                kswin.attn_smem_bytes(12, hs, f32, msa)
+            assert hd <= kswin.attn_width_ld(hd, f32) < hs + 8
     assert kswin.attn_instance(False, 10, hd) == f"attn_bf16_hd{hd}"
     assert kswin.attn_instance(True, 12, hd) == f"attn_f32_long_hd{hd}"
 
