@@ -1,0 +1,22 @@
+// Kernel 7's window attention (the MSA variant, window_msa.cu) at the head
+// widths over 64: 72, 80, ..., 128. Up to 128 tokens a window they
+// run window_attn_width_kernel (window_attn.cuh: the rows at the exact
+// width, the head's compact bias table in shared memory; one instance of 8
+// warps, two blocks an SM in bf16, one in f32); longer windows take the
+// streaming kernel (attn_stream_*.cu). A source of its own, so that these
+// instances compile in parallel with the others. It replaces the attention of
+// mask_bev_tpu/ops/pallas_window_msa.py::fused_window_msa (:71) at head
+// widths whose Pallas gate sends the JAX package to XLA; bound by bytes,
+// as the flagship widths.
+#include "common.cuh"
+#include "window_attn.cuh"
+
+// f32 nonzero for f32 qkv and out, else bf16
+MB_EXPORT int window_msa_attn_wide(const void* qkv, const float* qkv_bias,
+                   const float* rel, void* out, int B, int H, int W, int C,
+                   int heads, int win, int shift, float scale, int f32,
+                   cudaStream_t stream) {
+  return launch_window_attn<true, 72, 80, 88, 96, 104, 112, 120, 128>(
+      qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale, f32,
+      stream);
+}

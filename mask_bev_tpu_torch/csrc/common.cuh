@@ -296,6 +296,116 @@ __device__ __forceinline__ void ln_row_stats(const T* xr, int C, int l, int G,
   rstd = rsqrtf(var + eps);
 }
 
+// ---- rows held in registers across S warps (C % 8 == 0) -------------------
+// The redesign of the walk for rows over 2048 values: the row is read from
+// device memory once, every 16-byte load of a lane issued before the first
+// reduction, and kept packed in registers for the statistics, the output
+// and (Swin) the int8 values. Lane l of warp s of the row's S warps holds
+// words l + 32 (s W + i), i < W: row_walk's order at G = 32, cut into S
+// runs of W words, so warp s continues the per-lane sums that warp s - 1
+// left (chain_sums) and every sum is row_walk's, bit for bit.
+// A lane holds at most 16 / S words of a row of 4096 values. Each kernel
+// that holds rows so sets its S (LN_WIDE_WARPS, SWIN_LN_WIDE_WARPS).
+template <typename T, int WMAX>
+struct RowRegs {
+  static constexpr int N = sizeof(T) / 2;  // 16-byte vectors a word
+  uint4 u[WMAX][N];
+};
+
+// this lane's words w0 + 32 i (i < W, below ``words``) of the row at xr
+template <typename T, int WMAX>
+__device__ __forceinline__ void row_regs_load(RowRegs<T, WMAX>& r,
+                                              const T* xr, int w0, int W,
+                                              int words) {
+  constexpr int N = RowRegs<T, WMAX>::N;
+#pragma unroll
+  for (int i = 0; i < WMAX; ++i) {
+    const uint4* src = reinterpret_cast<const uint4*>(xr + 8 * (w0 + 32 * i));
+    if (i < W && w0 + 32 * i < words) {
+#pragma unroll
+      for (int h = 0; h < N; ++h) r.u[i][h] = src[h];
+    }
+  }
+}
+
+// a held word as 8 f32 values, and 8 values (already of T) back into it
+__device__ __forceinline__ void unpack_word(const uint4 (&u)[1], float* v) {
+  const bf16* e = reinterpret_cast<const bf16*>(u);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = __bfloat162float(e[q]);
+}
+__device__ __forceinline__ void unpack_word(const uint4 (&u)[2], float* v) {
+  const float* e = reinterpret_cast<const float*>(u);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v[q] = e[q];
+}
+__device__ __forceinline__ void pack_word(uint4 (&u)[1], const float* v) {
+  u[0] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void pack_word(uint4 (&u)[2], const float* v) {
+  u[0] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+  u[1] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
+                    __float_as_uint(v[6]), __float_as_uint(v[7]));
+}
+
+// K row sums in the walk's order: warp sw of the row's S warps runs
+// add(acc) on its words after warp sw - 1's per-lane sums (handed over in
+// ``part``, K x 32 floats of shared memory a row; one block barrier a
+// warp), then the last warp sums its lanes (warp_sum, as group_sum at G =
+// 32) and hands the totals to every warp of the row through ``tot`` (K
+// floats). Every thread of the block calls it, rows past M included (the
+// barriers are the block's). S = 1: no shared memory, no barrier.
+template <int S, int K, typename F>
+__device__ __forceinline__ void chain_sums(float (&acc)[K], float* part,
+                                           float* tot, int sw, int lane,
+                                           F&& add) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (sw == k) {
+      if (k > 0) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[j] = part[32 * j + lane];
+      }
+      add(acc);
+      if (k < S - 1) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) part[32 * j + lane] = acc[j];
+      }
+    }
+    if (S > 1) __syncthreads();
+  }
+  if (sw == S - 1) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = warp_sum(acc[j]);
+    if (S > 1 && lane == 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) tot[j] = acc[j];
+    }
+  }
+  if (S > 1) {
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = tot[j];
+  }
+}
+
+// the largest value over the row's S warps (exact in any order); ``red``:
+// S floats of shared memory a row, written once a block
+template <int S>
+__device__ __forceinline__ float chain_max(float v, float* red, int sw,
+                                           int lane) {
+  v = warp_max(v);
+  if (S == 1) return v;
+  if (lane == 0) red[sw] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int k = 1; k < S; ++k) m = fmaxf(m, red[k]);
+  return m;
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
                    smem_addr(dst)),

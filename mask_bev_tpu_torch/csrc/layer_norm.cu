@@ -22,9 +22,11 @@
 // shuffles within the group, and scale and bias are read once a step for
 // all R tokens as 16-byte words. The grid is sized to the SMs (as many
 // blocks as fit at once) and each warp walks its steps, so every SM keeps
-// ~100 KB in flight to cover the memory's latency. Rows of any other width
-// (C % 8 != 0 or C > 2048) take token_layernorm_walk_kernel: the same
-// arithmetic over the row walk of common.cuh, two passes over the row.
+// ~100 KB in flight to cover the memory's latency. Rows of 2048 < C <= 4096
+// in whole words take token_layernorm_wide_kernel (LN_WIDE_WARPS warps a
+// token, the row held in registers); rows of any other width (C % 8 != 0
+// or C > 4096) token_layernorm_walk_kernel: the same arithmetic over the
+// row walk of common.cuh, two passes over the row.
 #include "common.cuh"
 
 #define LN_THREADS 256
@@ -175,8 +177,9 @@ static int launch_ln_t(const void* x, const void* scale, const void* bias,
   }
 }
 
-// Rows the register tiles above do not take (C % 8 != 0, or C > 2048): a
-// group of G lanes a token walks its row in 8-value words
+// Rows the register tiles above and the wide instance below do not take
+// (C % 8 != 0, or C > 4096): a group of G lanes a token walks its row in
+// 8-value words
 // (common.cuh::row_walk; a partial last word, and every word of a row that
 // does not start 16-byte aligned, value by value), one pass for the sums
 // and one for the output, which reads the row again from L1/L2. Same
@@ -208,15 +211,120 @@ __global__ void __launch_bounds__(LN_THREADS) token_layernorm_walk_kernel(
   });
 }
 
+// Rows of 2048 < C <= LN_WIDE_C values, C % 8 == 0 (the walk read them
+// one 16-byte word at a time, about one load in flight a lane, and twice:
+// 1.23x F.layer_norm's device time at C 4096 in bf16, 1.14x in f32): the
+// row is read once and written once. The S warps of a token hold it in
+// registers, a lane W <= 16 / S words (common.cuh::RowRegs; S =
+// LN_WIDE_WARPS), every load issued before the first reduction. The sums
+// run in the walk's order (chain_sums: the warps hand their per-lane sums
+// over in shared memory) and the variance's product
+// mean * mean is rounded before the subtraction, as the walk computes it
+// (a fused multiply-add there changed the last bit of some outputs), so
+// the outputs equal the walk's bit for bit. One step a block: LN_THREADS /
+// 32 / S tokens (a plan's G = 32 S).
+#define LN_WIDE_C 4096  // 32 lanes x 16 words x 8 values
+// warps a token, bf16 and f32 (ops/layer_norm.py::WIDE_WARPS): a lane holds
+// at most 4 words (16 registers of data in bf16, 32 in f32). Of one (two in
+// f32), two and four, four was the fastest on the H100
+// (scripts/row_walk_profile.py)
+#define LN_WIDE_WARPS 4
+// blocks an SM at least (launch bounds): without them the bf16 instance
+// at one warp a token took 164 registers (the scale and bias words of the
+// whole row loaded ahead) and one block an SM
+#define LN_WIDE_BLOCKS 2
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS, LN_WIDE_BLOCKS)
+    token_layernorm_wide_kernel(const T* __restrict__ x,
+                                const T* __restrict__ scale,
+                                const T* __restrict__ bias,
+                                T* __restrict__ out, int M, int C, int W,
+                                float eps) {
+  constexpr int S = LN_WIDE_WARPS, WMAX = 16 / S;
+  constexpr int ROWS = LN_THREADS / 32 / S;  // tokens a block
+  __shared__ float part[ROWS][2 * 32], tot[ROWS][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp / S, sw = warp % S;
+  const int row = blockIdx.x * ROWS + slot;
+  const int words = C / 8, w0 = lane + 32 * sw * W;  // the lane's first word
+  // rows past M load the last row, take part in the barriers, store nothing
+  const T* xr = x + (size_t)min(row, M - 1) * C;
+  RowRegs<T, WMAX> r;
+  row_regs_load(r, xr, w0, W, words);
+  float acc[2] = {0.f, 0.f};
+  chain_sums<S>(acc, part[slot], tot[slot], sw, lane, [&](float (&a)[2]) {
+#pragma unroll
+    for (int i = 0; i < WMAX; ++i) {
+      if (i < W && w0 + 32 * i < words) {
+        float v[8];
+        unpack_word(r.u[i], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          a[0] += v[e];
+          a[1] = fmaf(v[e], v[e], a[1]);
+        }
+      }
+    }
+  });
+  const float mean = acc[0] / (float)C;
+  const float var =
+      fmaxf(__fsub_rn(acc[1] / (float)C, __fmul_rn(mean, mean)), 0.f);
+  const float rstd = rsqrtf(var + eps);
+  if (row >= M) return;
+  T* outr = out + (size_t)row * C;
+#pragma unroll
+  for (int i = 0; i < WMAX; ++i) {
+    const int wd = w0 + 32 * i;
+    if (i < W && wd < words) {
+      float v[8], sc[8], bi[8];
+      unpack_word(r.u[i], v);  // the held row (not read again)
+      ld8(scale + 8 * wd, sc);
+      ld8(bias + 8 * wd, bi);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = __fadd_rn(__fmul_rn(v[e] - mean, rstd * sc[e]), bi[e]);
+      st8(outr + 8 * wd, v);
+    }
+  }
+}
+
+// the wide instance: G = 32 LN_WIDE_WARPS lanes a token, W the fewest
+// words a lane that hold the row
+template <typename T>
+static int launch_ln_wide(const void* x, const void* scale, const void* bias,
+                          void* out, int M, int C, int G, int W, int R,
+                          float eps, cudaStream_t stream) {
+  constexpr int S = LN_WIDE_WARPS, ROWS = LN_THREADS / 32 / S;
+  if (C % 8 || C > LN_WIDE_C || G != 32 * S || R != 1 || W < 1 ||
+      W > 16 / S || G * W < C / 8 || G * (W - 1) >= C / 8)
+    return MB_BAD_ARGS;
+  token_layernorm_wide_kernel<T><<<ceil_div(M, ROWS), LN_THREADS, 0,
+                                   stream>>>(
+      (const T*)x, (const T*)scale, (const T*)bias, (T*)out, M, C, W, eps);
+  return 0;
+}
+
 // G lanes a token, W 8-channel words a lane, R tokens a group at a step, as
 // ops/layer_norm.py::plan picks them for C (checked here: G a power of two
 // up to 32, every lane holding at least one word, R the plan's for W); W =
-// 0 (and R = 1): the walk above, for any C >= 1, G a power of two up to 32.
-// f32: nonzero for the f32 instance (tokens, scale, bias and output f32).
+// 0 (and R = 1): the walk above, for any C >= 1, G a power of two up to 32;
+// C > 2048 with W > 0: the wide instance above (G = 32 lanes a warp times
+// LN_WIDE_WARPS warps a token, W words a lane, R = 1). f32: nonzero for the f32
+// instance (tokens, scale, bias and output f32).
 MB_EXPORT int token_layernorm(const void* x, const void* scale,
                               const void* bias, void* out, int M, int C,
                               int G, int W, int R, float eps, int f32,
                               cudaStream_t stream) {
+  if (W > 0 && C > 32 * 8 * LN_MAX_WORDS) {
+    if (M < 0) return MB_BAD_ARGS;
+    if (M == 0) return 0;
+    const int rc = f32 ? launch_ln_wide<float>(x, scale, bias, out, M, C,
+                                               G, W, R, eps, stream)
+                       : launch_ln_wide<bf16>(x, scale, bias, out, M, C, G,
+                                              W, R, eps, stream);
+    return rc ? rc : (int)cudaGetLastError();
+  }
   if (W == 0) {
     if (C < 1 || M < 0 || G < 1 || G > 32 || (G & (G - 1)) || R != 1)
       return MB_BAD_ARGS;

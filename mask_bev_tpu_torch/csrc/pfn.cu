@@ -70,9 +70,22 @@
 // as the [z, pooled] half of the next layer's input, or as the table row.
 // The pooled half is not split off as a separate per-pillar product: each
 // row's product is the reference's W [z; pooled] with its rounding.
+//
+// Widths. Layers of 1 to 256 units, up to PFN_MAXL layers: the
+// wrapper pads each layer's units to a multiple of 8 (ops/pfn.py::
+// kernel_dims: zero weight columns and a zero affine, so the padded z and
+// pooled columns are exact zeros, and zero rows for them in the next
+// layer's weight) and the table is written at its true width c_out. Layers
+// of more than 128 units run the WIDE instances: the output-column tiles
+// of a warp double (bf16: four over chunks of 3 m16 tiles, in place of
+// two over 6; f32: eight over 4 m16 tiles, in place of four over 6, and
+// one tile group a block), so the accumulators a thread holds stay as
+// they are. The shared memory a block needs (ops/pfn.py::smem_bytes) is
+// the rule for what no instance takes.
 #include "common.cuh"
 
-#define PFN_MAXL 4
+#define PFN_MAXL 8
+#define PFN_MAXU 256  // units a layer
 #define PFN_MT 6      // m16 tiles of one product call (96 rows)
 #define PFN_PIL 64    // pillars of a tile at most (distinct first rows)
 #define PFN_THREADS 256  // threads of a tile group
@@ -112,33 +125,35 @@ __device__ __forceinline__ float load_pt(const PfnPoints& pp, size_t row,
 }
 
 // bf16 instance: acc[jj][mt] += Xs[16 mt.., :kp] . W[:, 8 (warp + 8 jj)..]
-__device__ __forceinline__ void pfn_mma(float (&acc)[2][PFN_MT][4],
+// over NJ column tiles a warp and MC m16 tiles (2 and 6; WIDE: 4 and 3)
+template <int NJ, int MC>
+__device__ __forceinline__ void pfn_mma(float (&acc)[NJ][MC][4],
                                         const bf16* Xs, int lda, int nmt,
                                         const uint2* wfr, int kp, int u,
                                         int warp, int lane) {
   const int nnt = u / 8, nks = kp / 16;
 #pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
+  for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-    for (int mt = 0; mt < PFN_MT; ++mt)
+    for (int mt = 0; mt < MC; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[jj][mt][e] = 0.f;
   for (int ks = 0; ks < nks; ++ks) {
-    uint2 bfr[2];
+    uint2 bfr[NJ];
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
+    for (int jj = 0; jj < NJ; ++jj) {
       const int j = warp + PFN_WARPS * jj;
       bfr[jj] = j < nnt ? wfr[((size_t)j * nks + ks) * 32 + lane]
                         : make_uint2(0u, 0u);
     }
 #pragma unroll
-    for (int mt = 0; mt < PFN_MT; ++mt) {
+    for (int mt = 0; mt < MC; ++mt) {
       if (mt >= nmt) break;
       uint32_t a[4];
       ldsm_x4(a, Xs + (16 * mt + (lane & 15)) * lda + 16 * ks +
                      (lane >> 4) * 8);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
+      for (int jj = 0; jj < NJ; ++jj)
         if (warp + PFN_WARPS * jj < nnt)
           mma_16816(acc[jj][mt], a, bfr[jj].x, bfr[jj].y);
     }
@@ -154,20 +169,22 @@ __device__ __forceinline__ void pfn_mma(float (&acc)[2][PFN_MT][4],
 // one ldmatrix (an 8 x 4 f32 block is an 8 x 8 b16 matrix, lane (g, t)
 // receiving element (g, t)) and is split once for the warp's column
 // tiles, whose three products run pass by pass, so that no product waits
-// on the one before it
-__device__ __forceinline__ void pfn_mma_tf32(float (&acc)[4][3][4],
+// on the one before it. NJ column tiles a warp over NI of its m16 tiles
+// (4 and 3; WIDE: 8 and 2)
+template <int NJ, int NI>
+__device__ __forceinline__ void pfn_mma_tf32(float (&acc)[NJ][NI][4],
                                              const float* Xs, int lda,
                                              int nmt, const uint2* wfr,
                                              int kp, int u, int warp,
                                              int lane) {
   const int nnt = u / 8, nks = kp / 8, cg = warp & 3, rh = warp >> 2;
-  bool has[4];
+  bool has[NJ];
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) has[jj] = cg + 4 * jj < nnt;
+  for (int jj = 0; jj < NJ; ++jj) has[jj] = cg + 4 * jj < nnt;
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
+  for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[jj][i][e] = 0.f;
   if (!has[0]) return;
@@ -177,9 +194,9 @@ __device__ __forceinline__ void pfn_mma_tf32(float (&acc)[4][3][4],
       Xs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * lda + 4 * (lane >> 4);
 #pragma unroll 2  // kp is a multiple of 16: two k-steps of 8
   for (int ks = 0; ks < nks; ++ks) {
-    Tf32x2<2> bfr[4];
+    Tf32x2<2> bfr[NJ];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < NJ; ++jj) {
       const uint2 w = has[jj]
           ? wfr[((size_t)(cg + 4 * jj) * nks + ks) * 32 + lane]
           : make_uint2(0u, 0u);
@@ -187,7 +204,7 @@ __device__ __forceinline__ void pfn_mma_tf32(float (&acc)[4][3][4],
       bfr[jj] = split_frag(v);
     }
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const int mt = rh + 2 * i;
       if (mt >= nmt) break;
       uint32_t a[4];
@@ -196,7 +213,7 @@ __device__ __forceinline__ void pfn_mma_tf32(float (&acc)[4][3][4],
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < NJ; ++jj) {
           if (!has[jj]) continue;
           const Tf32x2<2>& bf = bfr[jj];
           if (pass == 0)
@@ -263,10 +280,11 @@ __device__ __forceinline__ void group_sync(int groups, int grp) {
                  : "memory");
 }
 
-// MT: m16 tiles of a tile's rows, 6 (K <= 32) or 12 (K <= 128)
-template <typename T, int MT>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? PFN_THREADS
-                                                 : 2 * PFN_THREADS)
+// MT: m16 tiles of a tile's rows, 6 (K <= 32) or 12 (K <= 128); WIDE:
+// layers of up to PFN_MAXU units (one tile group a block)
+template <typename T, int MT, bool WIDE>
+__global__ void __launch_bounds__(sizeof(T) == 2 || WIDE ? PFN_THREADS
+                                                         : 2 * PFN_THREADS)
 pfn_tile_kernel(
     PfnPoints pp, const int* __restrict__ starts,
     const int* __restrict__ counts, const int* __restrict__ cells,
@@ -275,8 +293,10 @@ pfn_tile_kernel(
     const float* __restrict__ gb, PfnDims d, T* __restrict__ table,
     float* __restrict__ partials, unsigned long long* __restrict__ prof,
     int B, int N, int P, int ntiles, int point_dim, int with_distance,
-    int grid_w, float vs, float cx0, float cy0, int zero_tail) {
+    int grid_w, float vs, float cx0, float cy0, int zero_tail, int c_out) {
   constexpr bool TC = sizeof(T) == 2;
+  // m16 tiles a chunk of the products: bf16 6 (WIDE 3), f32 6 (WIDE 4)
+  constexpr int CH = WIDE ? (TC ? PFN_MT / 2 : 4) : PFN_MT;
   constexpr int ROWS = 16 * MT;  // rows of a tile: at most 64 + K - 1
   extern __shared__ __align__(16) float smem[];
   float* gbs = smem;
@@ -312,7 +332,6 @@ pfn_tile_kernel(
   }
   if (d.groups > 1) __syncthreads();  // both groups read every weight
   PFN_MARK(0)
-  const int c_out = d.units[d.nl - 1];
 
   for (int tile = blockIdx.x * d.groups + grp; tile < B * ntiles;
        tile += gridDim.x * d.groups) {
@@ -392,14 +411,15 @@ pfn_tile_kernel(
       const float* bb = g + u;
       const bool last = li == d.nl - 1;
       // ---- products, then z = relu(acc * g + b) rounded, in place, over
-      // chunks of PFN_MT m16 tiles (one at MT = 6): a chunk's epilogue
-      // writes only its own rows, which no later chunk's products read
+      // chunks of CH m16 tiles (one at MT = 6 but WIDE): a chunk's
+      // epilogue writes only its own rows, which no later chunk's products
+      // read
 #pragma unroll
-      for (int m0 = 0; m0 < MT; m0 += PFN_MT) {
+      for (int m0 = 0; m0 < MT; m0 += CH) {
         if (m0 > 0 && m0 >= nmt) break;
         T* Xc = Xs + (size_t)16 * m0 * d.lda;
         if constexpr (TC) {
-          float acc[2][PFN_MT][4];
+          float acc[WIDE ? 4 : 2][CH][4];
           pfn_mma(acc, reinterpret_cast<const bf16*>(Xc), d.lda, nmt - m0,
                   wfr + d.woff[li] / 4, kp, u, warp, lane);
           group_sync(d.groups, grp);  // every warp has read the chunk's input
@@ -407,7 +427,7 @@ pfn_tile_kernel(
           pfn_epilogue(acc, Xc, d.lda, g, bb, u, nmt - m0, nrows - 16 * m0,
                        warp, PFN_WARPS, 0, 1, lane);
         } else {
-          float acc[4][3][4];
+          float acc[WIDE ? 8 : 4][CH / 2][4];
           pfn_mma_tf32(acc, reinterpret_cast<const float*>(Xc), d.lda,
                        nmt - m0, wfr + d.woff[li] / 2, kp, u, warp, lane);
           group_sync(d.groups, grp);  // every warp has read the chunk's input
@@ -430,7 +450,10 @@ pfn_tile_kernel(
             const T mv = from_f<T>(m);
             for (int rr = 0; rr < n; ++rr) Xs[(r0 + rr) * d.lda + u + c] = mv;
           } else {
-            table[(dir + p0 + i) * (size_t)c_out + c] = from_f<T>(m);
+            // the padded columns (c >= c_out) are zeros: not stored, and
+            // adding them leaves the sums as they are
+            if (c < c_out) table[(dir + p0 + i) * (size_t)c_out + c] =
+                from_f<T>(m);
             s1 += m;
             s2 += m * m;
           }
@@ -494,14 +517,16 @@ __global__ void __launch_bounds__(1024) pfn_stats_kernel(
 }
 
 // dims: [n_layers, in_0, units_0, in_1, units_1, ...] (host memory);
-// every width a multiple of 8 up to 128, the next layer's input 2 units
+// every width a multiple of 8 up to PFN_MAXU, the next layer's input 2
+// units. The row stride holds every layer's input and its z (a last layer
+// may have more units than inputs).
 static int parse_dims(const int* dims, PfnDims* d) {
   d->nl = dims[0];
   if (d->nl < 1 || d->nl > PFN_MAXL) return MB_BAD_ARGS;
   int woff = 0, gboff = 0, kmax = 0;
   for (int l = 0; l < d->nl; ++l) {
     const int in = dims[1 + 2 * l], u = dims[2 + 2 * l];
-    if (u < 8 || u > 128 || u % 8 || in < 1) return MB_BAD_ARGS;
+    if (u < 8 || u > PFN_MAXU || u % 8 || in < 1) return MB_BAD_ARGS;
     if (l > 0 && in != 2 * d->units[l - 1]) return MB_BAD_ARGS;
     d->in[l] = in;
     d->kp[l] = (in + 15) / 16 * 16;
@@ -511,6 +536,7 @@ static int parse_dims(const int* dims, PfnDims* d) {
     d->gboff[l] = gboff;
     gboff += 2 * u;
     kmax = d->kp[l] > kmax ? d->kp[l] : kmax;
+    kmax = u > kmax ? u : kmax;
   }
   d->wsz = woff;
   d->gbsz = (gboff + 3) & ~3;
@@ -524,7 +550,7 @@ static int parse_dims(const int* dims, PfnDims* d) {
 // bank conflicts). The f32 instance runs two tile groups a block where
 // they fit (ops/pfn.py::smem_bytes mirrors this).
 template <typename T>
-static size_t pfn_smem(PfnDims* d, int mt) {
+static size_t pfn_smem(PfnDims* d, int mt, bool wide) {
   const bool tc = sizeof(T) == 2;
   const int rows = 16 * mt;
   d->lda += tc ? 8 : 4;
@@ -532,7 +558,8 @@ static size_t pfn_smem(PfnDims* d, int mt) {
                          sizeof(int) * (4 * PFN_PIL + rows) +
                          sizeof(float) * 4 * (rows + PFN_PIL));
   const size_t shared = sizeof(float) * d->gbsz + sizeof(T) * d->wsz;
-  d->groups = !tc && shared + 2 * (size_t)d->group_bytes <= PFN_SMEM_MAX
+  d->groups = !tc && !wide &&
+                      shared + 2 * (size_t)d->group_bytes <= PFN_SMEM_MAX
                   ? 2 : 1;
   return shared + (size_t)d->groups * d->group_bytes;
 }
@@ -545,15 +572,22 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
                         T* table, float* partials, unsigned long long* prof,
                         int B, int N, int P, int ntiles, int point_dim,
                         int with_distance, int grid_w, float vs, float cx0,
-                        float cy0, int zero_tail, int k,
+                        float cy0, int zero_tail, int k, int c_out,
                         cudaStream_t stream) {
   PfnDims d;
   if (parse_dims(dims, &d) || k < 1 || k > 128) return MB_BAD_ARGS;
+  const int u_last = d.units[d.nl - 1];
+  if (c_out < 1 || c_out > u_last || u_last - c_out >= 8) return MB_BAD_ARGS;
+  bool wide = false;
+  for (int l = 0; l < d.nl; ++l) wide = wide || d.units[l] > 128;
   const int mt = k <= 32 ? 6 : 12;  // m16 tiles of 64 + k - 1 rows
-  const size_t smem = pfn_smem<T>(&d, mt);
+  const size_t smem = pfn_smem<T>(&d, mt, wide);
   if (smem > PFN_SMEM_MAX) return MB_BAD_ARGS;
   const int threads = PFN_THREADS * d.groups;
-  auto kern = mt == 6 ? pfn_tile_kernel<T, 6> : pfn_tile_kernel<T, 12>;
+  auto kern = wide ? (mt == 6 ? pfn_tile_kernel<T, 6, true>
+                              : pfn_tile_kernel<T, 12, true>)
+                   : (mt == 6 ? pfn_tile_kernel<T, 6, false>
+                              : pfn_tile_kernel<T, 12, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
@@ -569,7 +603,7 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
   kern<<<grid, threads, smem, stream>>>(
       pp, starts, counts, cells, num, row0, tile_first, wbuf, gb, d, table,
       partials, prof, B, N, P, ntiles, point_dim, with_distance, grid_w, vs,
-      cx0, cy0, zero_tail);
+      cx0, cy0, zero_tail, c_out);
   return (int)cudaGetLastError();
 }
 
@@ -577,12 +611,13 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
 // row0: (B, N) int32 pillar directory; num: (B,) occupied rows; tile_first:
 // (B, ntiles + 1) int32 (ops/stream_pillars.py::pfn_tiles); wbuf: the
 // weights in B-fragment order (bf16 for m16n8k16, f32 for m16n8k8), each
-// layer zero-padded to kp rows; gb: f32 g, b per layer; table (B, N, units of
-// the last layer) and partials (B, N, 2): rows at and beyond num[b] are not
-// written. prof: null, or PFN_PARTS + 1 zeroed int64 (the parts' ns summed
-// over the tile groups, then the groups). k: the most kept points a pillar
-// holds (1 .. 128; above 32 the instance of 12 m16 tiles). f32: nonzero
-// for the f32 instance (f32 weights and table).
+// layer zero-padded to kp rows and its units to a multiple of 8; gb: f32
+// g, b per layer; table (B, N, c_out: the last layer's true units, its
+// padded units less at most 7) and partials (B, N, 2): rows at and beyond
+// num[b] are not written. prof: null, or PFN_PARTS + 1 zeroed int64 (the
+// parts' ns summed over the tile groups, then the groups). k: the most
+// kept points a pillar holds (1 .. 128; above 32 the instance of 12 m16
+// tiles). f32: nonzero for the f32 instance (f32 weights and table).
 MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           const float* it, const int* starts,
                           const int* counts, const int* cells,
@@ -592,7 +627,7 @@ MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                           float* partials, unsigned long long* prof, int B,
                           int N, int ntiles, int point_dim, int with_distance,
                           int grid_w, float vs, float cx0, float cy0, int k,
-                          int f32, cudaStream_t stream) {
+                          int c_out, int f32, cudaStream_t stream) {
   if (point_dim < 1 || point_dim > 4) return MB_BAD_ARGS;
   PfnPoints pp = {{x, y, z, it}, nullptr, 0};
   if (f32)
@@ -600,17 +635,17 @@ MB_EXPORT int pfn_forward(const float* x, const float* y, const float* z,
                                tile_first, wbuf, gb, dims, (float*)table,
                                partials, prof, B, N, N, ntiles, point_dim,
                                with_distance, grid_w, vs, cx0, cy0, 0, k,
-                               stream);
+                               c_out, stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, num, row0, tile_first,
                             wbuf, gb, dims, (bf16*)table, partials, prof, B,
                             N, N, ntiles, point_dim, with_distance, grid_w, vs,
-                            cx0, cy0, 0, k, stream);
+                            cx0, cy0, 0, k, c_out, stream);
 }
 
 // Kernel 10. pts (B, N, D) sorted points in the instance's type, D 3 or 4;
 // starts, counts, cells, row0: (B, P) int32 slot directory; nvalid (B,);
-// table (B, P, units of the last layer), partials (B, P, 2): every row
-// written, zero at and beyond nvalid[b]; prof and k as for pfn_forward.
+// table (B, P, c_out), partials (B, P, 2): every row written, zero at and
+// beyond nvalid[b]; prof, k and c_out as for pfn_forward.
 MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                  const int* counts, const int* cells,
                                  const int* nvalid, const int* row0,
@@ -620,7 +655,8 @@ MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                  unsigned long long* prof, int B, int N,
                                  int P, int ntiles, int with_distance,
                                  int grid_w, float vs, float cx0, float cy0,
-                                 int k, int f32, cudaStream_t stream) {
+                                 int k, int c_out, int f32,
+                                 cudaStream_t stream) {
   if (D < 3 || D > 4) return MB_BAD_ARGS;
   PfnPoints pp = {{nullptr, nullptr, nullptr, nullptr}, pts, D};
   if (f32)
@@ -628,11 +664,11 @@ MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                                tile_first, wbuf, gb, dims, (float*)table,
                                partials, prof, B, N, P, ntiles, D,
                                with_distance, grid_w, vs, cx0, cy0, 1, k,
-                               stream);
+                               c_out, stream);
   return launch_tiles<bf16>(pp, starts, counts, cells, nvalid, row0,
                             tile_first, wbuf, gb, dims, (bf16*)table,
                             partials, prof, B, N, P, ntiles, D, with_distance,
-                            grid_w, vs, cx0, cy0, 1, k, stream);
+                            grid_w, vs, cx0, cy0, 1, k, c_out, stream);
 }
 
 MB_EXPORT int pfn_stats(const float* partials, const int* num, float* stats,

@@ -43,8 +43,8 @@
 // 8 channels (16-byte words in bf16) of the row in registers, so the row is
 // read once; two-pass f32 statistics, then T out or int8 + scale. T: the
 // tokens' and the affine's type (bf16, or f32 for the f32 instance).
-// Wider rows (and int8 rows at a padded pitch) take swin_rows_walk_kernel
-// below.
+// Wider rows take swin_rows_wide_kernel up to SWIN_LN_WIDE_C channels,
+// swin_rows_walk_kernel above it (and for int8 rows at a padded pitch).
 #define SWIN_LN_MAX_WORDS 8  // C <= 8 * 8 * 32 = 2048
 #define SWIN_LN_TILE_C (8 * 32 * SWIN_LN_MAX_WORDS)
 
@@ -152,8 +152,10 @@ __global__ void __launch_bounds__(256) swin_quant_rows_kernel(
   if (lane == 0) sx[row] = scale;
 }
 
-// LN1/LN2 or the int8 quantisation of rows wider than the register tile
-// above or quantised at a padded pitch: one warp a row walks it in 8-value
+// LN1/LN2 or the int8 quantisation of rows the register tile above and the
+// wide kernel below do not take (LN rows over SWIN_LN_WIDE_C, LN rows
+// quantised at a padded pitch, int8 rows of any K): one warp a row walks it
+// in 8-value
 // words (common.cuh::row_walk), once for each pass (two-pass statistics,
 // then the output and the row's max, then the int8 values from the row
 // again), so any C works. LN: the row is normalised as swin_layernorm_kernel
@@ -215,6 +217,120 @@ __global__ void __launch_bounds__(256) swin_rows_walk_kernel(
   if (lane == 0) sx[row] = scale;
 }
 
+// LN1/LN2 (+ int8) of rows of SWIN_LN_TILE_C < C <= SWIN_LN_WIDE_C values
+// (the .e384 stage 3's 3072), the redesign of swin_rows_walk_kernel's LN
+// for them: it walked the row three times, one 16-byte word at a time (the
+// two-pass statistics, then the output and the max, then the int8 values),
+// about one load in flight a lane. Here the row is read from device memory
+// once: the S = SWIN_LN_WIDE_WARPS warps of a row hold it in registers
+// (common.cuh::RowRegs, as kernel 9's wide instance), every load issued
+// before the first reduction; the mean, the second pass of the two-pass
+// variance, the output, the max and the int8 values all read the
+// registers, the normalised values (rounded to T) written back into them.
+// The sums run in the walk's order (chain_sums) and every operation is the
+// walk's, so the outputs, the int8 values and the scales equal its bit for
+// bit. q8 rows are ldq bytes apart, their padding zero, as the walk writes
+// them. One block a step: 8 / S rows.
+#define SWIN_LN_WIDE_C 4096  // 32 lanes x 16 words x 8 values
+// warps a row, bf16 and f32: two, where kernel 9's wide instance takes four
+// (LN_WIDE_WARPS). Here three sums are chained from warp to warp (the mean,
+// the variance, the max), each waiting on the one before and costing a
+// block barrier a warp, against kernel 9's one; of one (two in f32), two
+// and four warps, two was the fastest on the H100 in bf16 and f32 out and
+// in bf16 int8 rows, four in f32 int8 rows (scripts/row_walk_profile.py)
+#define SWIN_LN_WIDE_WARPS 2
+template <typename T>
+__global__ void __launch_bounds__(256) swin_rows_wide_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ b, T* __restrict__ out,
+    signed char* __restrict__ q8, float* __restrict__ sx, int M, int C,
+    int ldq, int W, float eps) {
+  constexpr int S = SWIN_LN_WIDE_WARPS, WMAX = 16 / S, ROWS = 8 / S;
+  __shared__ float part[ROWS][32], tot[ROWS][1], red[ROWS][S];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp / S, sw = warp % S;
+  const int row = blockIdx.x * ROWS + slot;
+  const int words = C / 8, w0 = lane + 32 * sw * W;
+  // rows past M load the last row, take part in the barriers, store nothing
+  const T* xr = x + (size_t)min(row, M - 1) * C;
+  RowRegs<T, WMAX> r;
+  row_regs_load(r, xr, w0, W, words);
+  auto held = [&](int i) { return i < W && w0 + 32 * i < words; };
+  float acc[1] = {0.f};
+  chain_sums<S>(acc, part[slot], tot[slot], sw, lane, [&](float (&a)[1]) {
+#pragma unroll
+    for (int i = 0; i < WMAX; ++i) {
+      if (held(i)) {
+        float v[8];
+        unpack_word(r.u[i], v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) a[0] += v[q];
+      }
+    }
+  });
+  const float mean = acc[0] / (float)C;
+  acc[0] = 0.f;
+  chain_sums<S>(acc, part[slot], tot[slot], sw, lane, [&](float (&a)[1]) {
+#pragma unroll
+    for (int i = 0; i < WMAX; ++i) {
+      if (held(i)) {
+        float v[8];
+        unpack_word(r.u[i], v);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float d = v[q] - mean;
+          a[0] += d * d;
+        }
+      }
+    }
+  });
+  const float rstd = rsqrtf(acc[0] / (float)C + eps);
+  T* outr = out && row < M ? out + (size_t)row * C : nullptr;
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < WMAX; ++i) {
+    const int wd = w0 + 32 * i;
+    if (held(i)) {
+      float v[8], we[8], be[8];
+      unpack_word(r.u[i], v);
+      ld8(w + 8 * wd, we);
+      ld8(b + 8 * wd, be);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        v[q] = rd<T>(__fadd_rn(
+            __fmul_rn(__fmul_rn(v[q] - mean, rstd), we[q]), be[q]));
+        amax = fmaxf(amax, fabsf(v[q]));
+      }
+      if (outr) st8(outr + 8 * wd, v);
+      pack_word(r.u[i], v);  // the values as T, for the int8 rows
+    }
+  }
+  if (!q8) return;
+  const float scale =
+      __fmul_rn(fmaxf(chain_max<S>(amax, red[slot], sw, lane), 1e-6f),
+                1.f / 127.f);
+  if (row >= M) return;
+  signed char* qr = q8 + (size_t)row * ldq;
+#pragma unroll
+  for (int i = 0; i < WMAX; ++i) {
+    if (held(i)) {
+      float v[8];
+      unpack_word(r.u[i], v);
+      uint2 pk;
+      signed char* pq = reinterpret_cast<signed char*>(&pk);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        pq[q] = (signed char)fminf(fmaxf(rintf(v[q] / scale), -127.f),
+                                   127.f);
+      reinterpret_cast<uint2*>(qr)[w0 + 32 * i] = pk;
+    }
+  }
+  if (sw == 0) {
+    for (int c = C + lane; c < ldq; c += 32) qr[c] = 0;  // the padding
+    if (lane == 0) sx[row] = scale;
+  }
+}
+
 template <typename T, int NW>
 static void launch_ln(const void* x, const void* w, const void* b, void* out,
                       signed char* q8, float* sx, int M, int C, float eps,
@@ -237,7 +353,12 @@ static void launch_ln_t(const void* x, const void* w, const void* b,
                         void* out, signed char* q8, float* sx, int M, int C,
                         int ldq, float eps, cudaStream_t stream) {
   const int nw = ceil_div(C / 8, 32);  // groups of 8 channels per lane
-  if (C > SWIN_LN_TILE_C || (q8 && ldq != C))
+  if (C > SWIN_LN_TILE_C && C <= SWIN_LN_WIDE_C) {
+    constexpr int S = SWIN_LN_WIDE_WARPS;
+    swin_rows_wide_kernel<T><<<ceil_div(M, 8 / S), 256, 0, stream>>>(
+        (const T*)x, (const T*)w, (const T*)b, (T*)out, q8, sx, M, C, ldq,
+        ceil_div(C / 8, 32 * S), eps);
+  } else if (C > SWIN_LN_TILE_C || (q8 && ldq != C))
     launch_walk<T, true>(x, w, b, out, q8, sx, M, C, ldq, eps, stream);
   else if (nw == 1) launch_ln<T, 1>(x, w, b, out, q8, sx, M, C, eps, stream);
   else if (nw == 2) launch_ln<T, 2>(x, w, b, out, q8, sx, M, C, eps, stream);
@@ -248,8 +369,10 @@ static void launch_ln_t(const void* x, const void* w, const void* b,
 
 // f32: nonzero for the f32 instance (f32 tokens, affine and output). Any C
 // % 8 == 0: up to SWIN_LN_TILE_C channels with the unquantised or int8
-// rows at pitch C, the register-tile kernel; wider rows, or int8 rows at a
-// padded pitch ldq (a multiple of 16, at least C), the walk.
+// rows at pitch C, the register-tile kernel; up to SWIN_LN_WIDE_C, the
+// wide kernel (int8 rows at pitch ldq); wider rows, or int8 rows of at
+// most SWIN_LN_TILE_C channels at a padded pitch ldq (a multiple of 16, at
+// least C), the walk.
 MB_EXPORT int swin_layernorm(const void* x, const void* w, const void* b,
                              void* out, signed char* q8, float* sx, int M,
                              int C, int ldq, float eps, int f32,

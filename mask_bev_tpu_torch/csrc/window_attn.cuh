@@ -45,13 +45,15 @@
 //     values are contiguous and the sums are unchanged.
 // Head widths: HD is the head's width, any multiple of 8 up to 64. The
 // flagship widths 16, 32 and 64 run window_attn_kernel; the others (8, 24,
-// 40, 48, 56) run window_attn_width_kernel (below) up to 128 tokens a
-// window, built in their own sources (attn_widths_swin.cu,
-// attn_widths_msa.cu) in parallel with these. Above 128 tokens every
-// width runs window_attn_long_kernel, which stages a head's rows at HS =
-// staged_dim(HD), the least flagship width that holds it, the columns HD ..
-// HS - 1 zero (zero columns add nothing to the scores; the scale is the
-// caller's, HD^-0.5); P v and the stores cover the HD real columns.
+// 40, 48, 56; and 72-128) run window_attn_width_kernel (below) up to 128
+// tokens a window, built in their own sources (attn_widths_*.cu,
+// attn_wide_*.cu) in parallel with these. From 129 to 256 tokens every
+// width up to 64 runs window_attn_long_kernel, which stages a head's rows at
+// HS = staged_dim(HD), the least flagship width that holds it, the columns
+// HD .. HS - 1 zero (zero columns add nothing to the scores; the scale is
+// the caller's, HD^-0.5); P v and the stores cover the HD real columns.
+// Longer windows (to 576 tokens), and windows over 128 tokens at widths
+// over 64, run window_attn_stream_kernel (attn_stream_*.cu).
 #pragma once
 
 #include <type_traits>
@@ -770,20 +772,28 @@ __global__ void __launch_bounds__(32 * NPT, long_blocks<T, NPT>())
 constexpr int ATT_WIDTH_WPB = 4;  // windows a block
 // blocks an SM the instances are built for (their launch bounds): bf16 at
 // 7 warps (windows of 97-112 tokens: window 10), bf16 at 8 warps (every
-// other window up to 128 tokens), f32; ops/swin_block.py mirrors these
+// other window up to 128 tokens), f32; the head widths over 64 (72-128,
+// one instance of 8 warps for every window up to 11) in bf16 and
+// f32, whose scores, q and accumulators hold 2-4x the registers;
+// ops/swin_block.py mirrors these
 #define ATT_WIDTH_BLOCKS_BF16_NPT7 4
 #define ATT_WIDTH_BLOCKS_BF16_NPT8 3
 #define ATT_WIDTH_BLOCKS_F32 2
+#define ATT_WIDTH_BLOCKS_WIDE_BF16 2
+#define ATT_WIDTH_BLOCKS_WIDE_F32 1
 
 // row stride of the staged q, k, v rows (values)
 __host__ __device__ constexpr int width_ld(int hd, bool f32) {
   return f32 ? hd + 4 : ((hd / 8) % 2 ? hd : hd + 8);
 }
 
-__host__ __device__ constexpr int width_blocks(bool f32, int maxnpt) {
-  return f32 ? ATT_WIDTH_BLOCKS_F32
-             : maxnpt <= 7 ? ATT_WIDTH_BLOCKS_BF16_NPT7
-                           : ATT_WIDTH_BLOCKS_BF16_NPT8;
+__host__ __device__ constexpr int width_blocks(bool f32, int maxnpt,
+                                               int hd) {
+  return hd > 64 ? (f32 ? ATT_WIDTH_BLOCKS_WIDE_F32
+                        : ATT_WIDTH_BLOCKS_WIDE_BF16)
+         : f32   ? ATT_WIDTH_BLOCKS_F32
+         : maxnpt <= 7 ? ATT_WIDTH_BLOCKS_BF16_NPT7
+                       : ATT_WIDTH_BLOCKS_BF16_NPT8;
 }
 
 // shared memory of one block: the q, k, v rows (bf16) or k, v rows (f32);
@@ -942,7 +952,7 @@ __device__ __forceinline__ void load_q_f32(float (&qv)[2][HD / 4],
 // arguments as window_attn_kernel's
 template <typename T, int HD, int MAXNPT, bool MSA>
 __global__ void __launch_bounds__(32 * MAXNPT,
-                                  width_blocks(sizeof(T) == 4, MAXNPT))
+                                  width_blocks(sizeof(T) == 4, MAXNPT, HD))
     window_attn_width_kernel(const T* __restrict__ qkv,
                              const float* __restrict__ qkv_bias,
                              const float* __restrict__ rel,
@@ -1182,6 +1192,367 @@ __global__ void __launch_bounds__(32 * MAXNPT,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Windows of 257 to 576 tokens (windows 17-24: Swin V2's 24 at 384 px), and
+// windows of 129 to 256 tokens at head widths over 64:
+// window_attn_stream_kernel. There the whole window's staged rows
+// no longer fit a block's shared memory (window 24 at head width 64: 249
+// KB of bf16 q, k, v; 608 KB of f32 k, v at width 128), so the keys and
+// values stream through it in chunks of ATT_KCH 16-key steps (64 keys),
+// with the running row max and sum of window_attn_long_kernel, and the
+// queries go in rounds: one block a window, 8 warps of 16 query rows a
+// round (bf16: the round's q rows staged once, ldmatrix; f32: the warp's q
+// rows into registers), each round walking every chunk (the window's k and
+// v are read once a round, from L2 after the first). The head's compact
+// (2 win - 1)^2 bias table, the token, label and column-offset rows stay in
+// shared memory for the window. Rows are staged at HS = stream_dim(hd)
+// (16, 32, 64 or 128; hd runtime), the columns hd .. HS - 1 zero (zero
+// terms add nothing to the scores; the scale is the caller's hd^-0.5), so
+// one instance serves every width up to HS; P v and the stores cover the
+// hd real columns. Everything per score (bias, shift mask, exp, the
+// rescaling) is the long kernel's, in each variant's order.
+constexpr int ATT_STREAM_WARPS = 8;      // 16 query rows each a round
+constexpr int ATT_STREAM_TOKENS = 576;   // window 24
+
+// the width a head of hd channels is staged at in the streaming kernel
+__host__ __device__ constexpr int stream_dim(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
+
+// blocks an SM the streaming instances are built for: two bf16 blocks up to
+// HS 64, else one
+template <typename T, int HS>
+__host__ __device__ constexpr int stream_blocks() {
+  return sizeof(T) == 2 && HS <= 64 ? 2 : 1;
+}
+
+// shared memory of one block of window_attn_stream_kernel: a round's q rows
+// (bf16), a chunk's k and v rows; the token, label and column-offset rows;
+// the compact bias table
+static inline size_t window_attn_stream_smem(int win, int hd, bool f32) {
+  const size_t np = (win * win + 15) / 16 * 16, hs = stream_dim(hd);
+  const size_t ld = f32 ? hs + 4 : hs + 8, esz = f32 ? 4 : 2;
+  const size_t q = f32 ? 0 : 16 * ATT_STREAM_WARPS * ld * esz;
+  return q + 2 * 16 * ATT_KCH * ld * esz + 3 * np * 4 +
+         rel_table_floats(win) * 4;
+}
+
+// rows [r0, r0 + cnt) of part (0 q, 1 k, 2 v) of head h of the window's
+// tokens tok (n of them) into dst (stride LD) by 16-byte cp.async: the hd
+// real columns; a pad token's row the qkv bias, a row past n zero. The
+// caller waits.
+template <typename T, int LD>
+__device__ __forceinline__ void stream_rows(
+    const T* __restrict__ qkv, const float* __restrict__ qkv_bias, T* dst,
+    const int* tok, int part, int r0, int cnt, int n, int h, int hd,
+    int C) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int EV = 16 / sizeof(T);
+  const int ch = hd / EV;
+  for (int i = threadIdx.x; i < cnt * ch; i += blockDim.x) {
+    const int r = i / ch, c = (i % ch) * EV, rr = r0 + r;
+    T* d = dst + r * LD + c;
+    const int tk = rr < n ? tok[rr] : -1;
+    if (tk >= 0) {
+      cp_async16(d, qkv + (size_t)tk * 3 * C + part * C + h * hd + c);
+    } else if (rr >= n) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else {  // pad token: zero before the qkv product, its row the bias
+      const float* bsrc = qkv_bias + part * C + h * hd + c;
+      if constexpr (F32) {
+        *reinterpret_cast<float4*>(d) =
+            *reinterpret_cast<const float4*>(bsrc);
+      } else {
+        *reinterpret_cast<uint4*>(d) =
+            make_uint4(pack_bf16(bsrc[0], bsrc[1]),
+                       pack_bf16(bsrc[2], bsrc[3]),
+                       pack_bf16(bsrc[4], bsrc[5]),
+                       pack_bf16(bsrc[6], bsrc[7]));
+      }
+    }
+  }
+}
+
+// qkv (B*H*W, 3C) of T, channel order [q | k | v] x heads x hd; qkv_bias
+// (3C) f32; rel (heads, n, n) f32, a relative-position bias (its compact
+// table is gathered from it); out (B*H*W, C). Grid (windows, heads, B).
+template <typename T, int HS, bool MSA>
+__global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
+                                  stream_blocks<T, HS>())
+    window_attn_stream_kernel(const T* __restrict__ qkv,
+                              const float* __restrict__ qkv_bias,
+                              const float* __restrict__ rel,
+                              T* __restrict__ out, int H, int W, int C,
+                              int hd, int win, int shift, float scale) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int LD = F32 ? HS + 4 : HS + 8;
+  constexpr int QR = 16 * ATT_STREAM_WARPS, KR = 16 * ATT_KCH;
+  constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4, NCH = HS / KC;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
+  T* qs = reinterpret_cast<T*>(smraw);  // bf16: a round's q rows
+  T* ks = qs + (F32 ? 0 : QR * LD);      // a chunk's k rows
+  T* vs = ks + KR * LD;                  // and v rows
+  int* tok = reinterpret_cast<int*>(vs + KR * LD);
+  int* lab = tok + NP;
+  int* co = lab + NP;
+  float* tab = reinterpret_cast<float*>(co + NP);
+
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  const int nww = wp / win;
+  const int b = blockIdx.z, h = blockIdx.y, wi = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int tw = 2 * win - 1;
+
+  // the head's compact table, as window_attn_long_kernel gathers it
+  const float* relh = rel + (size_t)h * n * n;
+  for (int i = tid; i < tw * tw; i += nthr) {
+    const int dy = i / tw - (win - 1), dx = i % tw - (win - 1);
+    const int ry = max(dy, 0), rx = max(dx, 0);
+    float v = __ldg(relh + (size_t)(ry * win + rx) * n + (ry - dy) * win +
+                    (rx - dx));
+    if constexpr (!F32 && !MSA) v = to_f(__float2bfloat16_rn(v));
+    tab[i] = v;
+  }
+  for (int j = tid; j < NP; j += nthr)
+    co[j] = j < n ? (j / win) * tw + j % win : 0;
+  // the staged columns past hd stay zero (the copies never write them)
+  for (int i = tid; i < (F32 ? 0 : QR) * (HS - hd); i += nthr)
+    qs[(i / (HS - hd)) * LD + hd + i % (HS - hd)] = from_f<T>(0.f);
+  for (int i = tid; i < KR * (HS - hd); i += nthr) {
+    const int o = (i / (HS - hd)) * LD + hd + i % (HS - hd);
+    ks[o] = from_f<T>(0.f);
+    vs[o] = from_f<T>(0.f);
+  }
+  window_tokens(tok, lab, wi, nww, n, b, H, W, win, shift, hp, wp);
+  __syncthreads();
+
+  for (int q0 = 0; q0 < npt; q0 += ATT_STREAM_WARPS) {
+    const int qt = q0 + warp;  // this warp's 16 query rows
+    const int r0 = 16 * qt + g, r1 = r0 + 8;
+    __syncthreads();  // the previous round is done with q, k and v
+    float qv[2][F32 ? HS / 4 : 1];
+    if constexpr (F32) {
+      // chunk c of KC channels: the lane's PER contiguous channels from
+      // c KC + PER t (qk_chunk_f32's layout), zero past hd and n
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 8 * hh;
+        const int tk = r < n ? tok[r] : -1;
+        const float* src = (tk >= 0 ? (const float*)qkv + (size_t)tk * 3 * C
+                                    : qkv_bias) + h * hd;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            const int chn = c * KC + PER * t + p;
+            qv[hh][c * PER + p] = r < n && chn < hd ? __ldg(src + chn) : 0.f;
+          }
+      }
+    } else {
+      stream_rows<T, LD>(qkv, qkv_bias, qs, tok, 0, 16 * q0, QR, n, h, hd,
+                         C);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    uint32_t qa[F32 ? 1 : HS / 16][4];
+    if constexpr (!F32) {
+#pragma unroll
+      for (int kk = 0; kk < HS / 16; ++kk) {
+        ldsm_x4(qa[kk], qs + (16 * warp + (lane & 15)) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+        if constexpr (!MSA) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16(qa[kk][e]);
+            qa[kk][e] = pack_bf16(f.x * scale, f.y * scale);
+          }
+        }
+      }
+    }
+    const int l0 = r0 < n ? lab[r0] : 0, l1 = r1 < n ? lab[r1] : 0;
+    const int ro0 = (r0 / win) * tw + r0 % win + (win - 1) * (tw + 1);
+    const int ro1 = (r1 / win) * tw + r1 % win + (win - 1) * (tw + 1);
+    float m0 = -INFINITY, m1 = -INFINITY;  // running row max (quad-uniform)
+    float l0s = 0.f, l1s = 0.f;            // this lane's running row sums
+    float acc[HS / 8][4];
+#pragma unroll
+    for (int jd = 0; jd < HS / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+
+    for (int j0 = 0; j0 < NP; j0 += KR) {  // key chunks: every one holds a
+                                           // real key (NP - 16 < n)
+      __syncthreads();  // the previous chunk's k and v are read
+      stream_rows<T, LD>(qkv, qkv_bias, ks, tok, 1, j0, KR, n, h, hd, C);
+      stream_rows<T, LD>(qkv, qkv_bias, vs, tok, 2, j0, KR, n, h, hd, C);
+      cp_async_wait_all();
+      __syncthreads();
+      if (qt >= npt) continue;
+      const int cnpt = min(ATT_KCH, npt - j0 / 16);  // 16-key steps here
+      // ---- S = q k^T over the chunk's 8-key tiles ------------------------
+      float s[2 * ATT_KCH][4];
+#pragma unroll
+      for (int j = 0; j < 2 * ATT_KCH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (F32) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          qk_chunk_f32<KC, LD, ATT_KCH, MSA>(s, &qv[0][c * PER],
+                                             &qv[1][c * PER], ks, c * KC,
+                                             cnpt, scale, g, t);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2 * ATT_KCH; ++j) {
+          if (j < 2 * cnpt) {
+#pragma unroll
+            for (int kk = 0; kk < HS / 16; ++kk) {
+              uint32_t b0, b1;
+              ldsm_x2(b0, b1, ks + (8 * j + (lane & 7)) * LD + kk * 16 +
+                                  ((lane >> 3) & 1) * 8);
+              mma_16816(s[j], qa[kk], b0, b1);
+            }
+          }
+        }
+      }
+
+      // ---- bias (the staged table), shift mask, the chunk's max ----------
+      float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2 * ATT_KCH; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? r0 : r1, c = j0 + 8 * j + 2 * t + (e & 1);
+          float v = -INFINITY;
+          if (c < n) {
+            float bias = r < n ? tab[(e < 2 ? ro0 : ro1) - co[c]] : 0.f;
+            if (shift && (e < 2 ? l0 : l1) != lab[c])
+              bias = __fadd_rn(bias, -100.f);
+            v = __fadd_rn(MSA ? __fmul_rn(s[j][e], scale) : s[j][e], bias);
+          }
+          s[j][e] = v;
+          if (e < 2)
+            c0 = fmaxf(c0, v);
+          else
+            c1 = fmaxf(c1, v);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
+        c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
+      }
+      const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+      const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      l0s *= a0;
+      l1s *= a1;
+#pragma unroll
+      for (int jd = 0; jd < HS / 8; ++jd) {
+        acc[jd][0] *= a0;
+        acc[jd][1] *= a0;
+        acc[jd][2] *= a1;
+        acc[jd][3] *= a1;
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * ATT_KCH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = expf(s[j][e] - (e < 2 ? m0 : m1));
+          s[j][e] = x;
+          if (e < 2)
+            l0s += x;
+          else
+            l1s += x;
+        }
+
+      // ---- O += P v over the chunk: P in registers is the A operand -------
+      if constexpr (F32) {
+#pragma unroll
+        for (int j = 0; j < 2 * ATT_KCH; ++j) {
+          if (j < 2 * cnpt) {
+            const uint32_t a[4] = {
+                __float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
+                __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
+            const Tf32x2<4> pa = split_frag(a);
+            const T* v0 = vs + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+            for (int jd = 0; jd < HS / 8; ++jd) {
+              const uint32_t bw[2] = {__float_as_uint(v0[8 * jd]),
+                                      __float_as_uint(v0[LD + 8 * jd])};
+              mma_3xtf32(acc[jd], pa, split_frag(bw));
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s2 = 0; s2 < ATT_KCH; ++s2) {
+          if (s2 >= cnpt) break;
+          const uint32_t pa[4] = {pack_bf16(s[2 * s2][0], s[2 * s2][1]),
+                                  pack_bf16(s[2 * s2][2], s[2 * s2][3]),
+                                  pack_bf16(s[2 * s2 + 1][0],
+                                            s[2 * s2 + 1][1]),
+                                  pack_bf16(s[2 * s2 + 1][2],
+                                            s[2 * s2 + 1][3])};
+#pragma unroll
+          for (int jd = 0; jd < HS / 8; ++jd) {
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, vs + (16 * s2 + (lane & 15)) * LD + 8 * jd);
+            mma_16816(acc[jd], pa, b0, b1);
+          }
+        }
+      }
+    }
+    if (qt >= npt) continue;
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l0s += __shfl_xor_sync(0xffffffffu, l0s, o);
+      l1s += __shfl_xor_sync(0xffffffffu, l1s, o);
+    }
+    l0s = 1.f / l0s;
+    l1s = 1.f / l1s;
+    const int tk0 = r0 < n ? tok[r0] : -1, tk1 = r1 < n ? tok[r1] : -1;
+#pragma unroll
+    for (int jd = 0; jd < HS / 8; ++jd) {
+      if (8 * jd >= hd) break;
+      const int col = h * hd + 8 * jd + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tk = hh ? tk1 : tk0;
+        if (tk < 0) continue;
+        const float inv = hh ? l1s : l0s;
+        const float o0 = acc[jd][2 * hh] * inv, o1 = acc[jd][2 * hh + 1] * inv;
+        T* dst = out + (size_t)tk * C + col;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
+      }
+    }
+  }
+}
+
+template <typename T, bool MSA, int HS>
+static int launch_window_attn_stream(const void* qkv, const float* qkv_bias,
+                                     const float* rel, void* out, int B,
+                                     int H, int W, int C, int heads, int hd,
+                                     int win, int shift, float scale,
+                                     cudaStream_t stream) {
+  const size_t smem = window_attn_stream_smem(win, hd, sizeof(T) == 4);
+  auto kern = window_attn_stream_kernel<T, HS, MSA>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  dim3 grid((hp / win) * (wp / win), heads, B);
+  kern<<<grid, 32 * ATT_STREAM_WARPS, smem, stream>>>(
+      (const T*)qkv, qkv_bias, rel, (T*)out, H, W, C, hd, win, shift, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool MSA, int HD>
 static int launch_window_attn_width(const void* qkv, const float* qkv_bias,
                                     const float* rel, void* out, int B,
@@ -1190,8 +1561,9 @@ static int launch_window_attn_width(const void* qkv, const float* qkv_bias,
                                     cudaStream_t stream) {
   const int NP = (win * win + 15) / 16 * 16;
   const size_t smem = window_attn_width_smem(win, HD, sizeof(T) == 4);
-  auto kern = NP == 112 ? window_attn_width_kernel<T, HD, 7, MSA>
-                        : window_attn_width_kernel<T, HD, ATT_MAX_NPT, MSA>;
+  auto kern = window_attn_width_kernel<T, HD, ATT_MAX_NPT, MSA>;
+  if constexpr (HD <= 64)  // the wide heads: one instance of 8 warps
+    if (NP == 112) kern = window_attn_width_kernel<T, HD, 7, MSA>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -1206,19 +1578,15 @@ static int launch_window_attn_width(const void* qkv, const float* qkv_bias,
   return (int)cudaGetLastError();
 }
 
+// the flagship widths' one-pass kernel up to 128 tokens, the long-window
+// kernel above (every width up to 64, staged at staged_dim(HD))
 template <typename T, bool MSA, int HD>
-static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
-                                 const float* rel, void* out, int B, int H,
-                                 int W, int C, int heads, int win, int shift,
-                                 float scale, cudaStream_t stream) {
+static int launch_window_attn_staged(const void* qkv, const float* qkv_bias,
+                                     const float* rel, void* out, int B,
+                                     int H, int W, int C, int heads, int win,
+                                     int shift, float scale,
+                                     cudaStream_t stream, bool long_win) {
   const int n = win * win, NP = (n + 15) / 16 * 16;
-  const bool long_win = NP > 16 * ATT_MAX_NPT;
-  if constexpr (staged_dim(HD) != HD) {
-    if (!long_win)
-      return launch_window_attn_width<T, MSA, HD>(
-          qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
-          stream);
-  }
   constexpr int HS = staged_dim(HD);
   const size_t smem = long_win
                            ? window_attn_long_smem(win, HS, sizeof(T) == 4)
@@ -1241,10 +1609,34 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool MSA, int HD>
+static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
+                                 const float* rel, void* out, int B, int H,
+                                 int W, int C, int heads, int win, int shift,
+                                 float scale, cudaStream_t stream) {
+  const int n = win * win, NP = (n + 15) / 16 * 16;
+  const bool long_win = NP > 16 * ATT_MAX_NPT;
+  // windows over 256 tokens, or over 128 at head widths over 64: the
+  // streaming kernel's entry (launch_window_attn_streamed), not this one
+  if (NP > 16 * ATT_LONG_MAX_NPT || (HD > 64 && long_win)) return MB_BAD_ARGS;
+  if constexpr (staged_dim(HD) != HD) {
+    if (!long_win)
+      return launch_window_attn_width<T, MSA, HD>(
+          qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
+          stream);
+  }
+  if constexpr (HD <= 64)
+    return launch_window_attn_staged<T, MSA, HD>(
+        qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
+        stream, long_win);
+  return MB_BAD_ARGS;
+}
+
 // The launch of either variant: f32 nonzero for f32 qkv and out, else
-// bf16; a head width of HDS (16, 32, 64 in the flagship sources; the others
-// in attn_widths_*.cu) and windows of at most 256 tokens (above 128 the
-// long-window kernel)
+// bf16; a head width of HDS (16, 32, 64 in the flagship sources; 8-56 in
+// attn_widths_*.cu, 72-128 in attn_wide_*.cu) and windows of at most 256
+// tokens (above 128 the long-window kernel, up to head width 64); the
+// streaming kernel's windows go to launch_window_attn_streamed
 template <bool MSA, int... HDS>
 static int launch_window_attn(const void* qkv, const float* qkv_bias,
                               const float* rel, void* out, int B, int H,
@@ -1263,4 +1655,40 @@ static int launch_window_attn(const void* qkv, const float* qkv_bias,
            true)) ||
          ...);
   return rc;
+}
+
+// The streaming kernel's launch (attn_stream_*.cu): windows of 129 to 576
+// tokens at any head width hd % 8 == 0 up to 128, staged at stream_dim(hd)
+// (windows up to 256 tokens at head widths up to 64 take the long-window
+// kernel above; ops/swin_block.py::attn_route chooses). f32 nonzero for f32
+// qkv and out, else bf16.
+template <bool MSA>
+static int launch_window_attn_streamed(const void* qkv,
+                                       const float* qkv_bias,
+                                       const float* rel, void* out, int B,
+                                       int H, int W, int C, int heads,
+                                       int win, int shift, float scale,
+                                       int f32, cudaStream_t stream) {
+  const int NP = (win * win + 15) / 16 * 16;
+  if (C % heads || win * win > ATT_STREAM_TOKENS || NP <= 16 * ATT_MAX_NPT)
+    return MB_BAD_ARGS;
+  const int hd = C / heads;
+  if (hd % 8 || hd > 128 || (hd <= 64 && NP <= 16 * ATT_LONG_MAX_NPT))
+    return MB_BAD_ARGS;
+  const int hs = stream_dim(hd);
+  auto go = [&](auto tag, auto hs_tag) {
+    using T = decltype(tag);
+    return launch_window_attn_stream<T, MSA, decltype(hs_tag)::value>(
+        qkv, qkv_bias, rel, out, B, H, W, C, heads, hd, win, shift, scale,
+        stream);
+  };
+  using I16 = std::integral_constant<int, 16>;
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (f32)
+    return hs == 16 ? go(float(), I16()) : hs == 32 ? go(float(), I32())
+         : hs == 64 ? go(float(), I64()) : go(float(), I128());
+  return hs == 16 ? go(bf16(), I16()) : hs == 32 ? go(bf16(), I32())
+       : hs == 64 ? go(bf16(), I64()) : go(bf16(), I128());
 }

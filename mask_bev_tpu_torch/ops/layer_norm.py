@@ -16,11 +16,17 @@ The CUDA kernel (``csrc/layer_norm.cu``) takes bf16 or f32 tokens and a
 scale and bias of the same dtype (widened to f32 in the kernel); it counts
 under ``layer_norm``. A group of G lanes takes a token and R tokens at a
 step, each lane W 8-channel words of each (:func:`plan`), every load of a
-step issued before its reductions, on a grid sized to the SMs. Rows of any
-other width (C % 8 != 0 or C > 2048) take its walk instance
-(``token_layernorm_walk_kernel``, plan ``(G, 0, 1)``): the same arithmetic
-over the row in 8-value words, the last one partial, two passes over it;
-it counts under ``layer_norm/bf16_walk`` or ``layer_norm/f32_walk``.
+step issued before its reductions, on a grid sized to the SMs. Rows of
+2048 < C <= 4096 in whole words take its wide instance
+(``token_layernorm_wide_kernel``, plan ``(32 S, W, 1)``: S =
+:data:`WIDE_WARPS` warps a token, each lane holding W words of the row in
+registers, the row read once; counted under ``layer_norm/bf16_wide`` or
+``layer_norm/f32_wide``). Rows of any other width (C % 8 != 0 or C > 4096)
+take its walk instance (``token_layernorm_walk_kernel``, plan ``(G, 0,
+1)``): the same arithmetic over the row in 8-value words, the last one
+partial, two passes over it; it counts under ``layer_norm/bf16_walk`` or
+``layer_norm/f32_walk``. The wide instance sums in the walk's order, so
+both give the same bits.
 """
 from __future__ import annotations
 
@@ -31,6 +37,10 @@ import torch
 from mask_bev_tpu_torch.kernels import build as kb
 
 MAX_WORDS = 8  # 8-channel words a lane (``LN_MAX_WORDS``): C <= 2048
+WIDE_C = 4096  # the wide instance's widest row (``LN_WIDE_C``)
+# the wide instance's warps a token in bf16 and f32 (``LN_WIDE_WARPS``), a
+# lane holding at most 16 / S words of the row
+WIDE_WARPS = 4
 
 
 def plan(c: int, f32: bool) -> Tuple[int, int, int]:
@@ -43,9 +53,16 @@ def plan(c: int, f32: bool) -> Tuple[int, int, int]:
     lane (a word is one in bf16, two in f32), at least two tokens while that
     holds (``csrc/layer_norm.cu::ln_tokens``). Path E's rows in bf16: 192 ->
     (8, 3, 4), 384 -> (16, 3, 4), 768 -> (32, 3, 4), 1536 -> (32, 6, 2); in
-    f32 R = 2 at all four. Any other c >= 1: the walk, (G, 0, 1) with G the
-    fewest lanes, a power of two up to 32, that give each lane one of the
-    ceil(c / 8) words (12 -> 2, 100 -> 16, 2056 -> 32)."""
+    f32 R = 2 at all four. For c % 8 == 0 and 2048 < c <= 4096 (the wide
+    instance): (32 S, W, 1), S = :data:`WIDE_WARPS` warps a token, W the
+    fewest words a lane that hold the row (2056 -> (128, 3, 1), 3072 ->
+    (128, 3, 1), 4096 -> (128, 4, 1)). Any other
+    c >= 1: the walk, (G, 0, 1) with G the fewest lanes, a power of two up
+    to 32, that give each lane one of the ceil(c / 8) words (12 -> 2, 100
+    -> 16, 4104 -> 32)."""
+    if c % 8 == 0 and MAX_WORDS * 8 * 32 < c <= WIDE_C:
+        g = 32 * WIDE_WARPS
+        return g, -(-(c // 8) // g), 1
     if c % 8 or c > MAX_WORDS * 8 * 32:
         words = -(-c // 8)
         return min(32, 1 << (words - 1).bit_length()), 0, 1
@@ -57,6 +74,14 @@ def plan(c: int, f32: bool) -> Tuple[int, int, int]:
     vecs = w * (2 if f32 else 1)
     r = 1 if vecs > 12 else max(2, 12 // vecs)
     return g, w, r
+
+
+def instance_suffix(c: int) -> str:
+    """The suffix of the instance a row of ``c`` values takes: ``""`` (the
+    register tiles), ``"_wide"`` or ``"_walk"``."""
+    if c % 8 == 0 and c <= MAX_WORDS * 8 * 32:
+        return ""
+    return "_wide" if c % 8 == 0 and c <= WIDE_C else "_walk"
 
 
 def layer_norm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -103,5 +128,5 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     kb.launch("layer_norm", "token_layernorm", kb.ptr(x2), kb.ptr(w),
               kb.ptr(b), kb.ptr(out), kb.ci(x2.shape[0]), kb.ci(c), kb.ci(g),
               kb.ci(words), kb.ci(r), kb.cf(eps), kb.ci(f32), kb.stream(),
-              instance=("f32" if f32 else "bf16") + ("" if words else "_walk"))
+              instance=("f32" if f32 else "bf16") + instance_suffix(c))
     return out.reshape(x.shape)

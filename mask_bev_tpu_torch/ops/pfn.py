@@ -40,10 +40,20 @@ pillar a tile spans at most 95 rows (6 m16 tiles); up to 128 (mmdet3d's
 12 m16 tiles (:data:`LONG_SUFFIX`: ``<kernel>/bf16_k128``,
 ``<kernel>/f32_3xtf32_k128``). Each wrapper launches it and the statistics
 reduction, two launches a call.
+
+Widths: 1 to :data:`MAX_UNITS` units a layer, up to :data:`MAX_LAYERS`
+layers, each fed ``[z, pooled]`` of the one before, as the JAX package's
+stream PFN takes them. The kernel works on units padded to a multiple of 8
+(:func:`kernel_dims`, :func:`pack_weights`: zero weight columns and a zero
+affine, so the padded z and pooled columns are exact zeros, and zero rows
+for them in the next layer's weight) and writes the table at its true
+width. Layers of more than 128 units take the wide instances (suffix
+:data:`WIDE_SUFFIX`); a block's shared memory (:func:`smem_bytes`) is the
+rule for what no instance takes.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,29 +143,60 @@ F32_INSTANCE = "f32_3xtf32"
 SHORT_K, MAX_K = 32, 128
 LONG_SUFFIX = "_k128"
 SMEM_LIMIT = 232448
+# ``csrc/pfn.cu``: units a layer (``PFN_MAXU``), layers (``PFN_MAXL``), the
+# widest layer of the instances that are not wide, their name's suffix
+MAX_UNITS, MAX_LAYERS = 256, 8
+NARROW_UNITS = 128
+WIDE_SUFFIX = "_u256"
 
 
-def instance(f32: bool, k: int) -> str:
-    """The instance name a launch counts under for K points a pillar."""
-    return (F32_INSTANCE if f32 else "bf16") + (LONG_SUFFIX if k > SHORT_K
-                                                else "")
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def kernel_dims(dims: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The (in, units) of the layers the kernel runs for true layers
+    ``dims``: units padded to a multiple of 8, so a layer after the first
+    takes [z, pooled] of the padded width."""
+    out, prev = [], None
+    for k, u in dims:
+        out.append((k if prev is None else 2 * prev, _pad(u, 8)))
+        prev = out[-1][1]
+    return out
+
+
+def is_wide(dims: Sequence[Tuple[int, int]]) -> bool:
+    """Whether layers ``dims`` take the wide instances (a layer over
+    :data:`NARROW_UNITS` units)."""
+    return any(u > NARROW_UNITS for _, u in dims)
+
+
+def instance(f32: bool, k: int, wide: bool = False) -> str:
+    """The instance name a launch counts under for K points a pillar (and
+    layers over :data:`NARROW_UNITS` units: ``wide``)."""
+    return ((F32_INSTANCE if f32 else "bf16")
+            + (LONG_SUFFIX if k > SHORT_K else "")
+            + (WIDE_SUFFIX if wide else ""))
 
 
 def smem_bytes(dims: Sequence[Tuple[int, int]], f32: bool, k: int) -> int:
-    """A block's shared memory, as ``csrc/pfn.cu::pfn_smem`` lays it out:
-    the f32 g/b and the weights (each layer's input padded to 16 rows),
-    then per tile group its 16 MT rows (stride max padded input + 4 f32 or
-    + 8 bf16), the tile's directory and raw points; the f32 instance runs
-    two tile groups where they fit."""
+    """A block's shared memory for true layers ``dims``, as ``csrc/pfn.cu::
+    pfn_smem`` lays it out for :func:`kernel_dims`: the f32 g/b and the
+    weights (each layer's input padded to 16 rows), then per tile group its
+    16 MT rows (stride the widest padded input or units + 4 f32 or + 8
+    bf16), the tile's directory and raw points; the f32 instance that is
+    not wide runs two tile groups where they fit."""
+    kd = kernel_dims(dims)
     esz = 4 if f32 else 2
-    kps = [-(-kk // 16) * 16 for kk, _ in dims]
-    wsz = sum(kp * u for kp, (_, u) in zip(kps, dims))
-    gbsz = (2 * sum(u for _, u in dims) + 3) & ~3
-    lda = max(kps) + (4 if f32 else 8)
+    kps = [_pad(kk, 16) for kk, _ in kd]
+    wsz = sum(kp * u for kp, (_, u) in zip(kps, kd))
+    gbsz = (2 * sum(u for _, u in kd) + 3) & ~3
+    lda = max(kps + [u for _, u in kd]) + (4 if f32 else 8)
     rows = 16 * (6 if k <= SHORT_K else 12)
     group = esz * rows * lda + 4 * (4 * 64 + rows) + 16 * (rows + 64)
     shared = 4 * gbsz + esz * wsz
-    groups = 2 if f32 and shared + 2 * group <= SMEM_LIMIT else 1
+    groups = (2 if f32 and not is_wide(kd)
+              and shared + 2 * group <= SMEM_LIMIT else 1)
     return shared + groups * group
 # the parts of the tile walk that ``profile`` times, in its order
 # (``csrc/pfn.cu::PFN_PARTS``)
@@ -189,22 +230,50 @@ def unpack_fragments_tf32(p: torch.Tensor, k: int, n: int) -> torch.Tensor:
             .permute(1, 4, 3, 0, 2).reshape(k, n))
 
 
+def padded_layers(weights: Weights) -> List[Tuple[torch.Tensor,
+                                                 torch.Tensor, torch.Tensor]]:
+    """The layers the kernel runs (:func:`kernel_dims`): each W (in, units)
+    at (kernel in, units padded to 8), its true rows placed at the
+    kernel's z and pooled columns and every other entry zero, g and b f32
+    with zeros past the true units. The padded z and pooled columns are
+    relu(0 * acc + 0) = 0, so the rows, pooled values and table columns the
+    true layers give are unchanged (held against the true layers in
+    float64 on the CPU: ``tests/test_torch_port_audit.py``)."""
+    out, prev = [], None
+    for (w, g, b), (kk, up) in zip(weights, kernel_dims(
+            [tuple(w.shape) for (w, _, _) in weights])):
+        k, u = w.shape
+        wp = torch.zeros((kk, up), dtype=w.dtype, device=w.device)
+        if prev is None:
+            wp[:k, :u] = w
+        else:  # rows [z (prev units), pooled (prev units)] at [0, kk / 2)
+            wp[:prev, :u] = w[:prev]
+            wp[kk // 2:kk // 2 + prev, :u] = w[prev:]
+        gp, bp = (torch.zeros(up, dtype=torch.float32, device=w.device)
+                  for _ in range(2))
+        gp[:u] = g.float().reshape(-1)
+        bp[:u] = b.float().reshape(-1)
+        out.append((wp, gp, bp))
+        prev = u
+    return out
+
+
 def pack_weights(weights: Weights, device):
-    """The kernels' weights: (weights, g/b, dims). Each layer's W (in,
-    units) is zero-padded to ``kp`` = in rounded up to 16 rows, in
-    ``mma.sync`` B-fragment order: bf16 weights for m16n8k16
+    """The kernels' weights: (weights, g/b, dims) of :func:`padded_layers`.
+    Each layer's W (in, units) is zero-padded to ``kp`` = in rounded up to
+    16 rows, in ``mma.sync`` B-fragment order: bf16 weights for m16n8k16
     (``ops/decoder_stack.py::pack_fragments``), f32 weights for m16n8k8
     (:func:`pack_fragments_tf32`). g and b are f32 per layer; dims
-    ``[n_layers, in_0, units_0, ...]``."""
+    ``[n_layers, in_0, units_0, ...]`` of the padded layers."""
     wparts, gbparts, dims = [], [], [len(weights)]
-    for (w, g, b) in weights:
+    for (w, g, b) in padded_layers(weights):
         k, u = w.shape
         kp = -(-k // 16) * 16
         wp = torch.zeros((kp, u), dtype=w.dtype, device=w.device)
         wp[:k] = w
         wparts.append(pack_fragments(wp) if w.dtype == torch.bfloat16
                       else pack_fragments_tf32(wp))
-        gbparts += [g.float().reshape(-1), b.float().reshape(-1)]
+        gbparts += [g, b]
         dims += [k, u]
     gb = torch.cat(gbparts)
     gb = torch.cat([gb, gb.new_zeros(-gb.numel() % 4)])
@@ -216,22 +285,23 @@ def layers_refusal(dims: Sequence[Tuple[int, int]], in0: int, dtype,
                    out_dtype) -> Optional[str]:
     """Why the tile kernels do not take layers of (in, units) ``dims`` with
     weights of ``dtype`` (None: mixed) and a table of ``out_dtype``, or
-    None where they do: bf16 or f32, one dtype for both, at most 4 layers
-    of a multiple of 8 units up to 128, each fed [z, pooled] of the one
-    before."""
+    None where they do: bf16 or f32, one dtype for both, 1 to
+    :data:`MAX_LAYERS` layers of 1 to :data:`MAX_UNITS` units, each fed
+    [z, pooled] of the one before."""
     if dtype not in (torch.bfloat16, torch.float32) or out_dtype != dtype:
         return (f"the pfn kernels take bf16 or f32 weights with a table of "
                 f"the same dtype; got {dtype} weights and a {out_dtype} "
                 f"table")
     prev = None
     for i, (k, u) in enumerate(dims):
-        if (u % 8 or u > 128 or (i == 0 and k != in0)
+        if (not 1 <= u <= MAX_UNITS or (i == 0 and k != in0)
                 or (prev is not None and k != 2 * prev)):
-            return (f"pfn kernels take layers of a multiple of 8 units up "
-                    f"to 128, each fed [z, pooled]; got {list(dims)}")
+            return (f"pfn kernels take layers of 1 to {MAX_UNITS} units, "
+                    f"each fed [z, pooled]; got {list(dims)}")
         prev = u
-    if not 1 <= len(dims) <= 4:
-        return f"pfn kernels take 1 to 4 layers; got {len(dims)}"
+    if not 1 <= len(dims) <= MAX_LAYERS:
+        return (f"pfn kernels take 1 to {MAX_LAYERS} layers; got "
+                f"{len(dims)}")
     return None
 
 
@@ -318,12 +388,12 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
     kb.check_cuda(wbuf, "weights", out_dtype)
     kb.check_cuda(gb, "g/b", torch.float32)
     row0, first = pfn_tiles(ps.counts, ps.num_pillars, n)
-    c_out = dims[-1]
+    c_out = shapes[-1][1]
     table = torch.empty((b, n, c_out), dtype=out_dtype, device=x.device)
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = instance(f32, max_points_per_pillar)
+    inst = instance(f32, max_points_per_pillar, is_wide(shapes))
     kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
               kb.ptr(ps.starts), kb.ptr(ps.counts), kb.ptr(ps.cells),
               kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
@@ -332,8 +402,8 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
               kb.ci(first.shape[1] - 1), kb.ci(point_dim),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(max_points_per_pillar), kb.ci(f32), kb.stream(),
-              instance=inst)
+              kb.ci(max_points_per_pillar), kb.ci(c_out), kb.ci(f32),
+              kb.stream(), instance=inst)
     kb.launch("pfn", "pfn_stats", kb.ptr(partials), kb.ptr(ps.num_pillars),
               kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream(), instance=inst)
     return table, stats
@@ -412,12 +482,12 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
     kb.check_cuda(gb, "g/b", torch.float32)
     counts = kept_counts(sp.pid, sp.kept, p)
     row0, first = pfn_tiles(counts, num_valid, n)
-    c_out = dims[-1]
+    c_out = shapes[-1][1]
     table = torch.empty((b, p, c_out), dtype=out_dtype, device=pts.device)
     partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = instance(f32, k)
+    inst = instance(f32, k, is_wide(shapes))
     kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
               kb.ptr(starts), kb.ptr(counts), kb.ptr(sp.cells),
               kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first), kb.ptr(wbuf),
@@ -426,7 +496,8 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
               kb.ci(first.shape[1] - 1),
               kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
               kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(k), kb.ci(f32), kb.stream(), instance=inst)
+              kb.ci(k), kb.ci(c_out), kb.ci(f32), kb.stream(),
+              instance=inst)
     kb.launch("stream_pfn", "pfn_stats", kb.ptr(partials), kb.ptr(num_valid),
               kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream(), instance=inst)
     return table, stats

@@ -337,10 +337,14 @@ def _f32(t: torch.Tensor) -> bool:
 
 
 # csrc/swin_block.cu: the widest row the LN's register tile holds
-# (SWIN_LN_TILE_C = 8 channels x 32 lanes x SWIN_LN_MAX_WORDS); wider rows,
-# and int8 rows at a padded pitch, take its walk (swin_rows_walk_kernel)
+# (SWIN_LN_TILE_C = 8 channels x 32 lanes x SWIN_LN_MAX_WORDS); wider rows
+# up to SWIN_LN_WIDE_C take its wide kernel (swin_rows_wide_kernel: the row
+# held in registers by SWIN_LN_WIDE_WARPS = 2 warps), wider ones, and int8
+# rows of at most SWIN_LN_TILE_C values at a padded pitch, its walk
+# (swin_rows_walk_kernel)
 SWIN_LN_MAX_WORDS = 8
 SWIN_LN_TILE_C = 8 * 32 * SWIN_LN_MAX_WORDS
+SWIN_LN_WIDE_C = 4096
 
 
 def _int8_rows(m: int, k: int, device) -> torch.Tensor:
@@ -353,10 +357,16 @@ def _int8_rows(m: int, k: int, device) -> torch.Tensor:
 
 def ln_instance(c: int, f32: bool, quant: bool) -> str:
     """The instance a Swin LN launch counts under: ``bf16``/``f32`` (the
-    register tile), with ``_walk`` for rows over :data:`SWIN_LN_TILE_C` or
-    int8 rows at a padded pitch."""
-    walk = c > SWIN_LN_TILE_C or (quant and row_pitch(c, 1) != c)
-    return ("f32" if f32 else "bf16") + ("_walk" if walk else "")
+    register tile), with ``_wide`` for rows over :data:`SWIN_LN_TILE_C` up
+    to :data:`SWIN_LN_WIDE_C`, ``_walk`` for wider rows and for int8 rows
+    of at most :data:`SWIN_LN_TILE_C` values at a padded pitch."""
+    if SWIN_LN_TILE_C < c <= SWIN_LN_WIDE_C:
+        kind = "_wide"
+    elif c > SWIN_LN_TILE_C or (quant and row_pitch(c, 1) != c):
+        kind = "_walk"
+    else:
+        kind = ""
+    return ("f32" if f32 else "bf16") + kind
 
 
 def _ln(x2, w, b, quant):
@@ -528,23 +538,36 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 # the window attention's limits (``csrc/window_attn.cuh``, every instance):
 # up to 128 tokens a window in one pass over whole score rows, up to 256 in
 # 64-key chunks with a running max and sum and the compact bias table in
-# shared memory (``window_attn_long_kernel``: windows 12 to 16); head widths
-# 16, 32 and 64 in the flagship sources (``swin_window_attn``,
+# shared memory (``window_attn_long_kernel``: windows 12 to 16, head widths
+# up to 64), up to 576 (window 24) with the keys and values streamed
+# through shared memory in those chunks and the queries in rounds of 128
+# rows (``window_attn_stream_kernel``, also for windows over 128 tokens at
+# head widths over 64: the rows staged at :func:`attn_stream_dim`); head
+# widths 16, 32 and 64 in the flagship sources (``swin_window_attn``,
 # ``window_msa_attn``; one pass: ``window_attn_kernel``), the others of
-# ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` (one pass:
-# ``window_attn_width_kernel``, the rows at the exact width and the compact
-# table; long windows staged at the next flagship width, its columns past
-# the head zero: :func:`attn_staged_dim`). Where the compact table is read,
-# ``rel`` must be a relative-position bias, as :func:`rel_bias_from_table`
-# builds it.
+# ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` and those of ATTN_WIDE_DIMS
+# in ``csrc/attn_wide_*.cu`` (one pass: ``window_attn_width_kernel``, the
+# rows at the exact width and the compact table; long windows staged at the
+# next flagship width, its columns past the head zero:
+# :func:`attn_staged_dim`); the streaming kernel in ``csrc/attn_stream_*.cu``
+# (``swin_window_attn_stream``, ``window_msa_attn_stream``). Where the
+# compact table is read, ``rel`` must be a relative-position bias, as
+# :func:`rel_bias_from_table` builds it.
 ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
+ATTN_WIDE_DIMS = (72, 80, 88, 96, 104, 112, 120, 128)
 ATTN_FLAGSHIP_DIMS = (16, 32, 64)
 ATTN_ONE_PASS_TOKENS = 128
-ATTN_MAX_TOKENS = 256
+ATTN_LONG_TOKENS = 256
+ATTN_MAX_TOKENS = 576
+ATTN_STREAM_WARPS = 8  # ``ATT_STREAM_WARPS``: 16 query rows each a round
+ATTN_KEY_CHUNK = 64    # ``16 ATT_KCH``: keys a chunk
 # the head-width instances' blocks an SM: bf16 at 7 warps (windows of
 # 97-112 tokens), bf16 at 8 warps, f32 (``csrc/window_attn.cuh``:
-# ATT_WIDTH_BLOCKS_BF16_NPT7, ATT_WIDTH_BLOCKS_BF16_NPT8, ATT_WIDTH_BLOCKS_F32)
+# ATT_WIDTH_BLOCKS_BF16_NPT7, ATT_WIDTH_BLOCKS_BF16_NPT8, ATT_WIDTH_BLOCKS_F32);
+# at head widths over 64, bf16 and f32 (ATT_WIDTH_BLOCKS_WIDE_BF16,
+# ATT_WIDTH_BLOCKS_WIDE_F32)
 ATTN_WIDTH_BLOCKS = (4, 3, 2)
+ATTN_WIDE_BLOCKS = (2, 1)
 
 
 def attn_staged_dim(hd: int) -> int:
@@ -563,10 +586,31 @@ def attn_width_ld(hd: int, f32: bool) -> int:
     return hd if (hd // 8) % 2 else hd + 8
 
 
-def attn_width_blocks(f32: bool, win: int) -> int:
+def attn_stream_dim(hd: int) -> int:
+    """The width the streaming kernel stages a head of ``hd`` channels at
+    (``stream_dim``): 16, 32, 64 or 128."""
+    return next(d for d in (16, 32, 64, 128) if d >= hd)
+
+
+def attn_route(win: int, hd: int) -> str:
+    """The kernel a window attention of ``win`` x ``win`` windows at head
+    width ``hd`` runs (``launch_window_attn_hd``): ``one_pass`` (up to
+    :data:`ATTN_ONE_PASS_TOKENS` tokens, the flagship or the head-width
+    kernel), ``long`` (up to :data:`ATTN_LONG_TOKENS` at head widths up to
+    64) or ``stream``."""
+    pad = -(-win * win // 16) * 16
+    if pad > ATTN_LONG_TOKENS or (hd > 64 and pad > ATTN_ONE_PASS_TOKENS):
+        return "stream"
+    return "long" if pad > ATTN_ONE_PASS_TOKENS else "one_pass"
+
+
+def attn_width_blocks(f32: bool, win: int, hd: int = 8) -> int:
     """Blocks an SM the head-width instance of ``win`` x ``win`` windows
-    is built for (``width_blocks``, its launch bounds): the window-10
-    instance (7 warps) and the 8-warp one differ in bf16."""
+    at head width ``hd`` is built for (``width_blocks``, its launch
+    bounds): the window-10 instance (7 warps) and the 8-warp one differ in
+    bf16; head widths over 64 have one instance of 8 warps."""
+    if hd > 64:
+        return ATTN_WIDE_BLOCKS[1 if f32 else 0]
     if f32:
         return ATTN_WIDTH_BLOCKS[2]
     return ATTN_WIDTH_BLOCKS[0 if -(-win * win // 16) == 7 else 1]
@@ -591,25 +635,26 @@ def attn_width_chunks(hd: int) -> List[Tuple[int, int]]:
 def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
     """Why the window attention kernel (of kernel ``what``) does not take C
     channels over ``heads`` heads in ``win`` x ``win`` windows, or None
-    where it does: a head width of :data:`ATTN_HEAD_DIMS` and at most
-    :data:`ATTN_MAX_TOKENS` tokens a window."""
-    if (c % heads or c // heads not in ATTN_HEAD_DIMS
+    where it does: a head width of :data:`ATTN_HEAD_DIMS` or
+    :data:`ATTN_WIDE_DIMS` (a multiple of 8 up to 128) and at most
+    :data:`ATTN_MAX_TOKENS` tokens a window (window 24)."""
+    if (c % heads or c // heads not in ATTN_HEAD_DIMS + ATTN_WIDE_DIMS
             or win * win > ATTN_MAX_TOKENS):
         return (f"{what} kernel: bad shape, C={c} over {heads} heads in "
                 f"windows of {win}x{win}: the attention takes head widths "
-                f"{ATTN_HEAD_DIMS} and at most {ATTN_MAX_TOKENS} tokens a "
-                f"window")
+                f"of a multiple of 8 up to 128 and at most "
+                f"{ATTN_MAX_TOKENS} tokens a window")
     return None
 
 
 def attn_instance(f32: bool, win: int, hd: int = 32) -> str:
     """The instance a window attention launch counts under: ``attn_bf16``
-    or ``attn_f32``, with ``_long`` for windows of more than
-    :data:`ATTN_ONE_PASS_TOKENS` tokens (``window_attn_long_kernel``) and
+    or ``attn_f32``, with ``_long`` or ``_stream`` for windows the
+    long-window or the streaming kernel takes (:func:`attn_route`) and
     ``_hd<hd>`` for a head width outside :data:`ATTN_FLAGSHIP_DIMS`."""
-    pad = -(-win * win // 16) * 16
+    route = attn_route(win, hd)
     return ("attn_f32" if f32 else "attn_bf16") + (
-        "_long" if pad > ATTN_ONE_PASS_TOKENS else "") + (
+        "" if route == "one_pass" else "_" + route) + (
         "" if hd in ATTN_FLAGSHIP_DIMS else f"_hd{hd}")
 
 
@@ -649,10 +694,18 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     (:func:`rel_offsets`); the token and label rows. A block takes one head
     over 4 windows, so it reads the bias once for them. The head-width
     kernel: its rows at stride :func:`attn_width_ld`, the token, label and
+    column-offset rows, the compact table. The streaming kernel: a round's
+    q rows (bf16, 128 of them) and a chunk's k and v rows (64 each) at
+    :func:`attn_stream_dim` (+ 8 bf16, + 4 f32), the token, label and
     column-offset rows, the compact table."""
     n = win * win
     n_pad = -(-n // 16) * 16
     table = 16 * -(-(2 * win - 1) ** 2 // 4)
+    if attn_route(win, hd) == "stream":
+        hs = attn_stream_dim(hd)
+        ld, esz = (hs + 4, 4) if f32 else (hs + 8, 2)
+        q = 0 if f32 else 16 * ATTN_STREAM_WARPS * ld * esz
+        return q + 2 * ATTN_KEY_CHUNK * ld * esz + 12 * n_pad + table
     if hd not in ATTN_FLAGSHIP_DIMS and n_pad <= ATTN_ONE_PASS_TOKENS:
         ld = attn_width_ld(hd, f32)
         rows = 2 * n_pad * ld * 4 if f32 else 3 * n_pad * ld * 2
@@ -740,7 +793,11 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
     hd = c // heads
     fn = "window_msa_attn" if msa else "swin_window_attn"
-    if hd not in ATTN_FLAGSHIP_DIMS:
+    if attn_route(win, hd) == "stream":
+        fn += "_stream"
+    elif hd in ATTN_WIDE_DIMS:
+        fn += "_wide"
+    elif hd not in ATTN_FLAGSHIP_DIMS:
         fn += "_widths"
     kb.launch(name, fn, kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel),
               kb.ptr(o), kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c),

@@ -54,6 +54,18 @@ for two / four); ``new_wpb2`` / ``new_wpb1`` (2 / 1 windows a block).
 Each variant also times the bf16 attention at windows 7 and 11 (the
 8-warp instances) at head widths 8 and 48. Order: old, the old ablations,
 new, the new variants, new, old (``--variants`` picks some, in order).
+
+    python3 scripts/long_attn_profile.py --stream <root>
+
+holds the two kernels of windows over 128 tokens against each other in
+one checkout, where both take the window: ``long`` (as it is: windows of
+129-256 tokens at head widths up to 64 run ``window_attn_long_kernel``)
+and ``stream`` (the streaming entry's refusal of those windows taken out
+of ``window_attn.cuh`` and ``ops/swin_block.py::attn_route`` sending every
+window over 128 tokens to it, so they run ``window_attn_stream_kernel``).
+Each times ``.w12`` (24 launches, as above) and window 16 at the stage-0
+widths, both variants, bf16 and f32, each call's error against its plain
+version beside it. Order: long, stream, stream, long.
 """
 from __future__ import annotations
 
@@ -105,6 +117,13 @@ WIDTH_ABLATIONS = {
     "new_wpb1": [(r"constexpr int ATT_WIDTH_WPB = \d+;",
                   "constexpr int ATT_WIDTH_WPB = 1;")],
 }
+STREAM_SOURCES = ("swin_block.cu", "window_msa.cu", "attn_stream_swin.cu",
+                  "attn_stream_msa.cu", "errors.cu")
+STREAM_ABLATIONS = {
+    "stream": [(re.escape("if (hd % 8 || hd > 128 || (hd <= 64 && NP <= 16 "
+                          "* ATT_LONG_MAX_NPT))"),
+                "if (hd % 8 || hd > 128)")],
+}
 # (head width, heads) at the stage-0 grid
 WIDTH_CASES = ((8, 9), (24, 8), (40, 3), (48, 4), (56, 3))
 # the 8-warp instances: windows 7 and 11 at these widths
@@ -122,17 +141,19 @@ BATCH = 8
 def prepare(root: pathlib.Path, variant: str, out: pathlib.Path,
             sources=SOURCES, header="window_attn.cuh", ablations=ABLATIONS):
     """Copy ``root``'s kernel sources into ``out/variant`` with the
-    variant's substitutions in ``header``; start nvcc on ``sources``."""
+    variant's substitutions (in ``header`` unless an entry names its
+    file); start nvcc on ``sources``."""
     d = out / variant
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(root / "mask_bev_tpu_torch" / "csrc", d / "csrc")
-    path = d / "csrc" / header
-    text = path.read_text()
-    for pat, new in ablations.get(variant, []):
-        text, hits = re.subn(pat, new, text)
+    # (pattern, text) in ``header``, or (file, pattern, text)
+    for item in ablations.get(variant, []):
+        name, pat, new = item if len(item) == 3 else (header, *item)
+        path = d / "csrc" / name
+        text, hits = re.subn(pat, new, path.read_text())
         if not hits:
             raise SystemExit(f"{variant}: {pat!r} not in {path}")
-    path.write_text(text)
+        path.write_text(text)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = []
     for src in sources:
@@ -361,6 +382,101 @@ def child_widths(root: str, lib: str, variant: str) -> None:
     print(json.dumps(res), flush=True)
 
 
+def child_stream(root: str, lib: str, variant: str) -> None:
+    """Time ``root``'s attention at windows 12 and 16 on ``lib``, through
+    the long-window kernel or (``stream``) the streaming one."""
+    sys.path.insert(0, root)
+    import torch
+
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    kb._lib = ctypes.CDLL(lib)
+    if variant == "stream":
+        route = kswin.attn_route
+        kswin.attn_route = lambda win, hd: (
+            "stream" if route(win, hd) == "long" else route(win, hd))
+    dev = "cuda"
+
+    def cuda_ms(fn, reps=20, warm=2):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def inputs(hw, c, heads, win, seed, dt):
+        g = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c, generator=g).to(
+            dev, dt)
+        qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+        table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                    generator=g)).to(dev, dt)
+        return qkv, qb, kswin.rel_bias_from_table(table, win)
+
+    res = {"variant": variant, "root": root}
+    # (label, grid, C, heads, window, blocks): .w12's stages, then two
+    # blocks at window 16 on the stage-0 grid
+    cases = [("w12", hw, c, heads, 12, blocks)
+             for hw, c, heads, blocks in W12_STAGES]
+    cases.append(("w16", (125, 125), 128, 4, 16, 2))
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            sfx = "_f32" if dt == torch.float32 else ""
+            for msa in (False, True):
+                name = "window_msa" if msa else "swin_block"
+                key = ("msa" if msa else "swin") + sfx
+                kb.reset_launches()
+                ms, err = {"w12": 0.0, "w16": 0.0}, 0.0
+                for label, hw, c, heads, win, blocks in cases:
+                    qkv, qb, rel = inputs(hw, c, heads, win, 60 + c, dt)
+                    for shifted in (False, True):
+                        shift = kswin.effective_shift(hw, win, shifted)
+                        a = (qkv, qb, rel, BATCH, hw, heads, win, shift)
+                        got = kswin.attention(name, *a, msa=msa)
+                        want = kswin.window_attention_plain(*a, msa=msa)
+                        err = max(err, float(
+                            (got.float() - want.float()).abs().max()
+                            / want.float().abs().max()))
+                        del got, want
+                        ms[label] += cuda_ms(lambda: kswin.attention(
+                            name, *a, msa=msa)) * blocks / 2
+                    del qkv, qb, rel
+                # ms: the launches of one forward (.w12: 24; w16: one
+                # block unshifted, one shifted)
+                for label in ms:
+                    res[f"{label}_{key}_ms"] = round(ms[label], 5)
+                res[f"{key}_err"] = err
+                res[f"{key}_instances"] = dict(kb.INSTANCES)
+    print(json.dumps(res), flush=True)
+
+
+def main_stream(root: pathlib.Path, out: pathlib.Path) -> None:
+    order = ("long", "stream", "stream", "long")
+    started = {v: prepare(root, v, out, STREAM_SOURCES,
+                          ablations=STREAM_ABLATIONS) for v in set(order)}
+    libs = {}
+    for v, (d, procs) in started.items():
+        if any(p.wait() for p in procs):
+            logs = "".join(p.read_text() for p in d.glob("*.log"))
+            raise SystemExit(f"{v}: build failed\n{logs[-4000:]}")
+        libs[v] = link(d, STREAM_SOURCES)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+    for v in order:
+        subprocess.run([sys.executable, __file__, "--child-stream",
+                        str(root), str(libs[v]), v], check=True,
+                       env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+
+
 def main_widths(old: pathlib.Path, new: pathlib.Path, out: pathlib.Path,
                 order=WIDTH_ORDER) -> None:
     roots = {v: old if v.startswith("old") else new for v in order}
@@ -391,13 +507,23 @@ def main() -> None:
     if sys.argv[1] == "--child-widths":
         child_widths(*sys.argv[2:5])
         return
+    if sys.argv[1] == "--child-stream":
+        child_stream(*sys.argv[2:5])
+        return
     widths = sys.argv[1] == "--widths"
-    if widths:
+    stream = sys.argv[1] == "--stream"
+    if widths or stream:
         del sys.argv[1]
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile runs on the card")
+    if stream:
+        out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1]
+                           if "--out" in sys.argv
+                           else "_checkout/profile_build")
+        main_stream(pathlib.Path(sys.argv[1]).resolve(), out.resolve())
+        return
     old, new = (pathlib.Path(a).resolve() for a in sys.argv[1:3])
     out = pathlib.Path(sys.argv[sys.argv.index("--out") + 1]
                        if "--out" in sys.argv else "_checkout/profile_build")

@@ -141,14 +141,14 @@ def test_attention_instances_share_an_sm(hd, f32, msa):
         228 * 1024)
 
 
-@pytest.mark.parametrize("c,heads,win", [(96, 24, 10), (192, 3, 17),
+@pytest.mark.parametrize("c,heads,win", [(96, 24, 10), (192, 3, 25),
                                          (100, 4, 10)])
 def test_attention_shape_check(c, heads, win):
-    """One check of the attention template's limits (head widths 8 to 64
-    in steps of 8; at most 256 tokens a window) serves kernels 3 and 7."""
+    """One check of the attention template's limits (head widths 8 to 128
+    in steps of 8; at most 576 tokens a window) serves kernels 3 and 7."""
     with pytest.raises(ValueError, match="bad shape"):
         kswin.check_attn_shape("window MSA", c, heads, win)
-    for w in (10, 12, 16):
+    for w in (10, 12, 16, 17, 24):
         kswin.check_attn_shape("swin block", 192, 3, w)
 
 

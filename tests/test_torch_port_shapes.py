@@ -71,7 +71,7 @@ def test_decoder_takes_head_width_8():
 
 
 @pytest.mark.parametrize("c,heads,win,hidden", [
-    (192, 6, 17, 768),   # a window of 17: 289 tokens
+    (192, 6, 25, 768),   # a window of 25: 625 tokens
     (96, 24, 10, 384),   # head width 4 (8 is taken)
     (96, 8, 7, 200),     # head width 12 (fc2 K = 200 is taken)
 ])
@@ -80,9 +80,10 @@ def test_swin_chain_refuses(c, heads, win, hidden):
         assert kswin.swin_block_refusal(c, heads, win, hidden, dt)
     if hidden == 4 * c:
         assert "bad shape" in kwmsa.window_msa_refusal(c, heads, win, BF16)
-    if win > 16:
-        # windows 12 and 16 (144 and 256 tokens) are taken
-        for w, dt in ((12, BF16), (12, F32), (16, BF16), (16, F32)):
+    if win > 24:
+        # windows 12, 16 and 24 (144, 256 and 576 tokens) are taken
+        for w, dt in ((12, BF16), (12, F32), (16, BF16), (16, F32),
+                      (24, BF16), (24, F32)):
             assert kswin.swin_block_refusal(c, heads, w, hidden, dt) is None
             assert kwmsa.window_msa_refusal(c, heads, w, dt) is None
     # the GEMM takes any K and N >= 1
@@ -102,8 +103,8 @@ def test_pfn_refuses_33_points_a_pillar():
     assert "128 points" in kpfn.pfn_refusal(129, PFN_DIMS, 10, BF16, BF16)
     assert "128 points" in kpfn.stream_pfn_refusal(129, 4, PFN_DIMS, True,
                                                    BF16, BF16, BF16)
-    assert kpfn.pfn_refusal(32, [(10, 64), (128, 64), (128, 136)], 10,
-                            F32, F32)  # 136 units a layer
+    assert kpfn.pfn_refusal(32, [(10, 64), (128, 64), (128, 264)], 10,
+                            F32, F32)  # 264 units a layer
     assert kpfn.stream_pfn_refusal(32, 5, PFN_DIMS, True, BF16, BF16, BF16)
     assert kpfn.pfn_refusal(32, PFN_DIMS, 10, F32, F32) is None
 
@@ -242,16 +243,17 @@ def test_wrappers_raise_on_refused_shapes():
     """A direct call with a refused shape raises before anything is built
     or launched."""
     g = torch.Generator().manual_seed(0)
-    x = on_card(torch.randn(2, 289, 96, generator=g))
+    x = on_card(torch.randn(2, 625, 96, generator=g))
     fc1 = kswin.Dense(torch.zeros(384, 96), torch.zeros(384))
     p = kswin.BlockWeights(None, None, None, None, None, None, fc1, None,
                            None)
-    # a window of 17 (289 tokens); 12 and 16 are taken
+    # a window of 25 (625 tokens); 12, 16 and 24 are taken
     with pytest.raises(ValueError, match="bad shape"):
-        kswin.swin_block(x.to(BF16), p, (17, 17), 17, 3, 0, False)
+        kswin.swin_block(x.to(BF16), p, (25, 25), 25, 3, 0, False)
     with pytest.raises(ValueError, match="bad shape"):
-        kwmsa.window_msa(x.to(BF16), (17, 17), 17, 0, None, None, None, 3)
-    assert kswin.swin_block_refusal(96, 3, 12, 384, BF16) is None
+        kwmsa.window_msa(x.to(BF16), (25, 25), 25, 0, None, None, None, 3)
+    for win in (12, 16, 24):
+        assert kswin.swin_block_refusal(96, 3, win, 384, BF16) is None
     with pytest.raises(ValueError, match="bf16 or f32"):
         kln.layer_norm(on_card(torch.zeros(4, 4096, dtype=torch.float16)),
                        None, None)
@@ -789,9 +791,10 @@ def _affine(c, dtype, dev, seed):
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("c", [3, 12, 100, 2056, 3072, 4096])
 def test_layer_norm_any_width_on_the_card(dev, dtype, c):
-    """Kernel 9's walk instance at widths the register tiles do not take
-    (C % 8 != 0: rows at 6- and 24-byte steps in bf16; C > 2048): within
-    1e-2 (bf16) or 1e-4 (f32) of the plain version, as the tiles are."""
+    """Kernel 9 at widths the register tiles do not take: the walk (C % 8
+    != 0: rows at 6- and 24-byte steps in bf16) and the wide instance
+    (2048 < C <= 4096, the row held in registers): within 1e-2 (bf16) or
+    1e-4 (f32) of the plain version, as the tiles are."""
     g = torch.Generator().manual_seed(c)
     x = (0.5 + torch.randn(2, 37, c, generator=g)).to(dev, dtype)
     w, b = _affine(c, dtype, dev, c + 1)
@@ -799,8 +802,8 @@ def test_layer_norm_any_width_on_the_card(dev, dtype, c):
     got = kln.layer_norm(x, w, b)
     want = kln.layer_norm_plain(x, w, b)
     torch.cuda.synchronize()
-    inst = "bf16" if dtype == BF16 else "f32"
-    assert kb.INSTANCES == {f"layer_norm/{inst}_walk": 1}
+    inst = ("bf16" if dtype == BF16 else "f32") + kln.instance_suffix(c)
+    assert kb.INSTANCES == {f"layer_norm/{inst}": 1}
     assert _rel_err(got, want) <= (1e-2 if dtype == BF16 else 1e-4)
 
 
@@ -1104,4 +1107,4 @@ def test_every_taken_shape_launches(dev):
                                 2, win, 0, False)
     torch.cuda.synchronize()
     assert kswin.attn_refusal("x", 8, 2, 10)  # head width 4
-    assert kswin.attn_refusal("x", 96, 2, 17)  # 289 tokens
+    assert kswin.attn_refusal("x", 96, 2, 25)  # 625 tokens

@@ -64,6 +64,12 @@ def test_layer_norm_takes_any_width(c):
     for dt in (BF16, F32):
         assert kln.layer_norm_refusal(c, dt) is None
         g, w, r = kln.plan(c, dt == F32)
+        if c % 8 == 0 and c > 2048:
+            # the wide instance: four warps a token, the fewest words a
+            # lane
+            assert (g, r) == (128, 1)
+            assert g * (w - 1) < c // 8 <= g * w <= 16 * 32
+            continue
         # the walk: a power of two up to 32 lanes, none of them idle
         assert (w, r) == (0, 1) and g in (1, 2, 4, 8, 16, 32)
         assert g == 32 or g >= -(-c // 8) > g // 2
@@ -73,6 +79,8 @@ def test_layer_norm_takes_any_width(c):
     assert kln.plan(192, False) == (8, 3, 4)
     assert kln.plan(2048, True) == (32, 8, 1)
     assert kln.MAX_WORDS == _define("layer_norm.cu", "LN_MAX_WORDS")
+    assert kln.WIDE_C == _define("layer_norm.cu", "LN_WIDE_C")
+    assert kln.plan(4104, False) == (32, 0, 1)  # over the wide rows: walk
 
 
 def test_swin_ln_limit_is_the_kernels():
@@ -84,7 +92,10 @@ def test_swin_ln_limit_is_the_kernels():
     assert kswin.swin_block_refusal(3072, 48, 10, 12288, BF16) is None
     assert kswin.swin_block_refusal(3072, 48, 10, 12288, F32) is None
     assert kswin.ln_instance(2048, False, True) == "bf16"
-    assert kswin.ln_instance(2056, False, False) == "bf16_walk"
+    assert kswin.SWIN_LN_WIDE_C == _define("swin_block.cu", "SWIN_LN_WIDE_C")
+    assert kswin.ln_instance(2056, False, False) == "bf16_wide"
+    assert kswin.ln_instance(4096, True, True) == "f32_wide"
+    assert kswin.ln_instance(4104, False, False) == "bf16_walk"
     assert kswin.ln_instance(72, True, True) == "f32_walk"  # int8 pitch 80
     assert kswin.ln_instance(72, True, False) == "f32"
 
@@ -114,9 +125,9 @@ def test_attention_takes_head_widths_8_to_64(hd):
 
 
 @pytest.mark.parametrize("c,heads,win", [(12, 3, 10), (96, 24, 10),
-                                         (216, 3, 10), (96, 3, 17)])
+                                         (408, 3, 10), (96, 3, 25)])
 def test_attention_still_refuses(c, heads, win):
-    """Head widths 4, 4, 72 and a window of 17 stay refused."""
+    """Head widths 4, 4, 136 and a window of 25 stay refused."""
     assert "bad shape" in kswin.attn_refusal("x", c, heads, win)
     assert kwmsa.window_msa_refusal(c, heads, win, BF16)
 
@@ -219,7 +230,8 @@ def launches(monkeypatch):
 
 
 @pytest.mark.parametrize("c,dt,inst", [(12, BF16, "bf16_walk"),
-                                       (4096, F32, "f32_walk"),
+                                       (4096, F32, "f32_wide"),
+                                       (4104, BF16, "bf16_walk"),
                                        (192, BF16, "bf16")])
 def test_layer_norm_route_on_the_card(launches, c, dt, inst):
     x = on_card(torch.ones(3, 5, c, dtype=dt))
@@ -231,8 +243,8 @@ def test_layer_norm_route_on_the_card(launches, c, dt, inst):
 
 
 def test_swin_ln_and_quant_route_on_the_card(launches):
-    """LN at C 3072 (the walk), LN + int8 at C 72 (rows at pitch 80, the
-    walk), int8 rows of K 72 and 120 (pitch 80 and 128)."""
+    """LN at C 3072 (the wide kernel), LN + int8 at C 72 (rows at pitch
+    80, the walk), int8 rows of K 72 and 120 (pitch 80 and 128)."""
     w = on_card(torch.ones(3072, dtype=BF16))
     kswin._ln(on_card(torch.ones(4, 3072, dtype=BF16)), w, w, False)
     w = on_card(torch.ones(72, dtype=BF16))
@@ -242,7 +254,7 @@ def test_swin_ln_and_quant_route_on_the_card(launches):
         q8, _ = kswin._quant(on_card(torch.ones(4, k, dtype=F32)))
         assert q8.stride() == (kswin.row_pitch(k, 1), 1)
     assert [(fn, inst, ints[-2]) for fn, inst, ints in launches] == [
-        ("swin_layernorm", "bf16_walk", 3072),
+        ("swin_layernorm", "bf16_wide", 3072),
         ("swin_layernorm", "bf16_walk", 80),
         ("swin_quant_rows", "f32_walk", 80),
         ("swin_quant_rows", "f32_walk", 128)]
