@@ -11,7 +11,9 @@
 // (ops/decoder_stack.py::smem_bytes_split); prof: null, or (B cs,
 // DS2_PARTS) counters to which each block adds its ns per part, cs =
 // ds2_cluster(Q). Heads: 1 (C 64, 128 or 256), 2, 4, 8 or a multiple of 8,
-// of a width 8, 16, 32 or 64; Q up to 512.
+// of a width 8, 16, 32 or 64; Q up to 512. ht, nh: the true head width and
+// heads of a padded model (ops/decoder_stack.py::split_padding; C / heads
+// and heads where nothing is padded).
 MB_EXPORT int decoder_split_forward(const float* x0, const float* emb0,
                                     const float* qpos, void* const* ptrs,
                                     const int* T, int nl, int G,
@@ -19,10 +21,11 @@ MB_EXPORT int decoder_split_forward(const float* x0, const float* emb0,
                                     void* out, unsigned* dbg,
                                     unsigned long long* prof, int B, int Q,
                                     int C, int F, int heads, int smem,
-                                    float scale, int f32,
+                                    float scale, int ht, int nh, int f32,
                                     cudaStream_t stream) {
   if (nl < 1 || nl > 3 || heads < 1 || (DS2_WARPS % heads && heads % 8) ||
-      C % heads || C % 64 || F % C || Q < 1 ||
+      C % heads || C % 64 || F % C || Q < 1 || ht < 1 || ht > C / heads ||
+      nh < 1 || nh > heads ||
       (Q + ds2_cluster(Q) - 1) / ds2_cluster(Q) > DS2_MAXR)
     return MB_BAD_ARGS;
   DecPtrs p;
@@ -39,9 +42,9 @@ MB_EXPORT int decoder_split_forward(const float* x0, const float* emb0,
   const int words = (tmax + 31) / 32;
   if (f32)
     return ds2_dispatch_f32(x0, emb0, qpos, p, nl, G, wd, wf, out, dbg, prof,
-                            B, Q, C, F, heads, words, tmax, smem, scale,
-                            stream);
+                            B, Q, C, F, heads, words, tmax, smem, scale, ht,
+                            nh, stream);
   return ds2_dispatch_bf16(x0, emb0, qpos, p, nl, G, wd, wf, out, dbg, prof,
-                           B, Q, C, F, heads, words, tmax, smem, scale,
-                           stream);
+                           B, Q, C, F, heads, words, tmax, smem, scale, ht,
+                           nh, stream);
 }

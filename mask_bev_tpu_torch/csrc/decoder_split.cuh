@@ -72,7 +72,14 @@
 //     (the keys' chunk gathered again);
 //   * the dense products, the mask bits and cross-attention are functions
 //     that are not inlined, so each gets the registers to itself (inlined
-//     into one kernel body they spilled).
+//     into one kernel body they spilled);
+//   * every other width runs padded (ops/decoder_stack.py::split_padding):
+//     a head's width to the next instance, the heads to a count the warps
+//     split, the FFN to whole chunks of C, with zero weights, biases and LN
+//     affine on the padded columns, so that they stay exact zeros through
+//     every product, softmax and residual; the LNs walk only the nh x ht
+//     true columns (the centred variance would count the padded zeros), a
+//     column c being true where c / HD < nh and c % HD < ht.
 // Measured: with its arithmetic skipped, cross-attention runs ~5x faster;
 // with its key loads skipped, ~1.2x. Its instructions and their latency,
 // not its bytes, set its pace, and it is half the kernel's time (PERF.md).
@@ -767,12 +774,15 @@ __device__ __noinline__ void ds2_cross_attn(float* sm, const Ds2Layout Ly,
   }  // round
 }
 
-// LN of own rows of (X [+ Y]) -> dst (rounded to T when round_t), eps 1e-6
-template <typename T>
+// LN of own rows of (X [+ Y]) -> dst (rounded to T when round_t), eps 1e-6,
+// over the true columns (c / HD < nh, c % HD < ht; a padded column's w and
+// b are 0, so it stays 0)
+template <typename T, int HD>
 __device__ void ds2_layer_norm(float* X, const float* Y, float* dst, int nr,
                                int C, int ld, const float* w, const float* b,
-                               bool round_t) {
+                               bool round_t, int ht, int nh) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float n = (float)(nh * ht);
   for (int m = warp; m < nr; m += DS2_WARPS) {
     float* xr = X + m * ld;
     float s = 0.f;
@@ -784,13 +794,14 @@ __device__ void ds2_layer_norm(float* X, const float* Y, float* dst, int nr,
       }
       s += v;
     }
-    const float mean = warp_sum(s) / (float)C;
+    const float mean = warp_sum(s) / n;
     float q = 0.f;
     for (int c = lane; c < C; c += 32) {
+      if (c / HD >= nh || c % HD >= ht) continue;
       const float d = xr[c] - mean;
       q += d * d;
     }
-    const float rstd = rsqrtf(warp_sum(q) / (float)C + 1e-6f);
+    const float rstd = rsqrtf(warp_sum(q) / n + 1e-6f);
     for (int c = lane; c < C; c += 32) {
       const float v = __fadd_rn(
           __fmul_rn(__fmul_rn(xr[c] - mean, rstd), w[c]), b[c]);
@@ -808,7 +819,7 @@ __global__ void __launch_bounds__(DS2_THREADS, 1) decoder_split_tc_kernel(
     const T* __restrict__ wd, const float* __restrict__ wf,
     T* __restrict__ out, unsigned* __restrict__ dbg,
     unsigned long long* __restrict__ prof, int Q, int C, int F, int heads,
-    int words, int tmax, float scale) {
+    int words, int tmax, float scale, int ht, int nh) {
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cl = cg::this_cluster();
@@ -901,7 +912,8 @@ __global__ void __launch_bounds__(DS2_THREADS, 1) decoder_split_tc_kernel(
     ds2_cross_attn<T, HD, NCS>(sm, Ly, nr, T_, Kb, Vb, ldkv, scale);
     DS2_PART(2);
     tc_dense<T>(OB, ld, nr, C, wl_ + CC, C, C, fl + C, QB, EPI_RAW, false);
-    ds2_layer_norm<T>(X, QB, X, nr, C, ld, fl + 6 * C, fl + 7 * C, false);
+    ds2_layer_norm<T, HD>(X, QB, X, nr, C, ld, fl + 6 * C, fl + 7 * C,
+                          false, ht, nh);
     DS2_PART(3);
 
     // 4. self-attention: v from x (into OB), q and k from x + qpos (q into
@@ -1078,7 +1090,8 @@ __global__ void __launch_bounds__(DS2_THREADS, 1) decoder_split_tc_kernel(
     cl.sync();  // no block reads another's k or v any more
     tc_dense<T>(XA, ld, nr, C, wl_ + 5 * CC, C, C, fl + 5 * C, QB, EPI_RAW,
                 false);
-    ds2_layer_norm<T>(X, QB, X, nr, C, ld, fl + 8 * C, fl + 9 * C, false);
+    ds2_layer_norm<T, HD>(X, QB, X, nr, C, ld, fl + 8 * C, fl + 9 * C,
+                          false, ht, nh);
     DS2_PART(4);
 
     // 5. ReLU FFN in chunks of C hidden units: QB the chunk, OB the sum;
@@ -1100,12 +1113,14 @@ __global__ void __launch_bounds__(DS2_THREADS, 1) decoder_split_tc_kernel(
                     h0 + C >= F ? fb2 : nullptr, OB, EPI_RAW, h0 > 0);
       }
     }
-    ds2_layer_norm<T>(X, OB, X, nr, C, ld, fl + 10 * C, fl + 11 * C, false);
+    ds2_layer_norm<T, HD>(X, OB, X, nr, C, ld, fl + 10 * C, fl + 11 * C,
+                          false, ht, nh);
     DS2_PART(5);
 
     // 6. next mask embedding: decoder norm + 3-layer MLP -> OB
     if (li + 1 < L) {
-      ds2_layer_norm<T>(X, nullptr, XA, nr, C, ld, fh, fh + C, true);
+      ds2_layer_norm<T, HD>(X, nullptr, XA, nr, C, ld, fh, fh + C, true,
+                            ht, nh);
       tc_dense<T>(XA, ld, nr, C, wh, C, C, fh + 2 * C, QB, EPI_RELU_RD,
                   false);
       tc_dense<T>(QB, ld, nr, C, wh + CC, C, C, fh + 3 * C, XA, EPI_RELU_RD,
@@ -1129,7 +1144,8 @@ static int launch_split(const float* x0, const float* emb0,
                         const void* wd, const float* wf, void* out,
                         unsigned* dbg, unsigned long long* prof, int B,
                         int Q, int C, int F, int heads, int words, int tmax,
-                        int smem, float scale, cudaStream_t stream) {
+                        int smem, float scale, int ht, int nh,
+                        cudaStream_t stream) {
   auto kern = decoder_split_tc_kernel<T, HD, NCS>;
   const int cs = ds2_cluster(Q);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1152,7 +1168,7 @@ static int launch_split(const float* x0, const float* emb0,
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, x0, emb0, qpos, p, nl, G,
                          (const T*)wd, wf, (T*)out, dbg, prof, Q, C, F,
-                         heads, words, tmax, scale);
+                         heads, words, tmax, scale, ht, nh);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1163,7 +1179,7 @@ static int launch_split(const float* x0, const float* emb0,
   const float *x0, const float *emb0, const float *qpos, const DecPtrs &p,  \
       int nl, int G, const void *wd, const float *wf, void *out,            \
       unsigned *dbg, unsigned long long *prof, int B, int Q, int C, int F,  \
-      int heads, int words, int tmax, int smem, float scale,                \
+      int heads, int words, int tmax, int smem, float scale, int ht, int nh, \
       cudaStream_t stream
 int ds2_dispatch_f32(DS2_DISPATCH_ARGS);
 int ds2_dispatch_bf16(DS2_DISPATCH_ARGS);
@@ -1186,4 +1202,4 @@ int ds2_dispatch_bf16(DS2_DISPATCH_ARGS);
 #define DS2_LAUNCH(TT, H, N)                                                \
   return launch_split<TT, H, N>(x0, emb0, qpos, p, nl, G, wd, wf, out, dbg, \
                                 prof, B, Q, C, F, heads, words, tmax, smem, \
-                                scale, stream)
+                                scale, ht, nh, stream)

@@ -82,6 +82,24 @@
 // one tile group a block), so the accumulators a thread holds stay as
 // they are. The shared memory a block needs (ops/pfn.py::smem_bytes) is
 // the rule for what no instance takes.
+//
+// The layered route (pfn_layered_forward) takes what the tiles cannot
+// hold: pillars of more than 128 kept points (a tile spans 64 + K - 1 rows
+// in shared memory) and layer stacks whose weights do not fit a block (two
+// layers of 256 units: 512 x 256 bf16 weights alone are 256 KB). It runs
+// the PFN one layer at a time over all of its pillars' kept rows, with the
+// activations in device memory (rows in the compacted order of its own
+// directory, ops/pfn.py::layered_directory): decorate the rows (one warp a
+// pillar: the means by a warp sum, then the rows); then, a layer at a
+// time, the product of each row's [z, pooled] with W by the tile kernel's
+// own mma.sync code (pfn_layered_mma_kernel: 96 rows a block in bf16, 64
+// in f32, the rows staged in shared memory, W read from L2 in the same
+// B-fragment order), its epilogue into the rows in place, and the max over
+// each pillar's contiguous rows (one warp a pillar; order-free, so
+// deterministic), written back as the pooled half or, at the last layer,
+// as the table row and its [sum, sum of squares] partials, which
+// pfn_stats reduces as it does the tiles'. Each row's product is the
+// reference's single W [z; pooled] with its rounding, as in the tiles.
 #include "common.cuh"
 
 #define PFN_MAXL 8
@@ -255,6 +273,31 @@ __device__ __forceinline__ void pfn_epilogue(const float (&acc)[NJ][NI][4],
   }
 }
 
+// one decorated row into a (kp0 columns, rounded to T): the point's
+// columns pt[:point_dim], xyz less the pillar's mean, x and y less the
+// cell's centre, |xyz| with_distance, then zeros
+template <typename T>
+__device__ __forceinline__ void pfn_decorate(T* a, const float* pt,
+                                             const float* mean, int cell,
+                                             int point_dim, int with_distance,
+                                             int grid_w, float vs, float cx0,
+                                             float cy0, int kp0) {
+  const float x = pt[0], y = pt[1], z = pt[2];
+  const float cx = __fadd_rn(__fmul_rn((float)(cell % grid_w), vs), cx0);
+  const float cy = __fadd_rn(__fmul_rn((float)(cell / grid_w), vs), cy0);
+  int j = 0;
+  for (int q = 0; q < point_dim; ++q) a[j++] = from_f<T>(pt[q]);
+  a[j++] = from_f<T>(x - mean[0]);
+  a[j++] = from_f<T>(y - mean[1]);
+  a[j++] = from_f<T>(z - mean[2]);
+  a[j++] = from_f<T>(x - cx);
+  a[j++] = from_f<T>(y - cy);
+  if (with_distance)
+    a[j++] = from_f<T>(sqrtf(__fadd_rn(
+        __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))));
+  for (; j < kp0; ++j) a[j] = from_f<T>(0.f);
+}
+
 // parts of the walk timed by ``prof`` (ns of %globaltimer read by each tile
 // group's first thread after the part's closing barrier, summed over the
 // tiles and groups): set-up (weights into shared memory), directory (the
@@ -382,22 +425,9 @@ pfn_tile_kernel(
     group_sync(d.groups, grp);
     const int kp0 = d.kp[0];
     for (int r = tid; r < nrows; r += PFN_THREADS) {
-      const int i = rowpil[r], cell = pil_cell[i];
-      const float x = raw[4 * r], y = raw[4 * r + 1], z = raw[4 * r + 2];
-      const float cx = __fadd_rn(__fmul_rn((float)(cell % grid_w), vs), cx0);
-      const float cy = __fadd_rn(__fmul_rn((float)(cell / grid_w), vs), cy0);
-      T* a = Xs + r * d.lda;
-      int j = 0;
-      for (int q = 0; q < point_dim; ++q) a[j++] = from_f<T>(raw[4 * r + q]);
-      a[j++] = from_f<T>(x - mean[4 * i]);
-      a[j++] = from_f<T>(y - mean[4 * i + 1]);
-      a[j++] = from_f<T>(z - mean[4 * i + 2]);
-      a[j++] = from_f<T>(x - cx);
-      a[j++] = from_f<T>(y - cy);
-      if (with_distance)
-        a[j++] = from_f<T>(sqrtf(__fadd_rn(
-            __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))));
-      for (; j < kp0; ++j) a[j] = from_f<T>(0.f);
+      const int i = rowpil[r];
+      pfn_decorate(Xs + r * d.lda, raw + 4 * r, mean + 4 * i, pil_cell[i],
+                   point_dim, with_distance, grid_w, vs, cx0, cy0, kp0);
     }
     // rows of the last m16 tile past the tile's rows: zero inputs
     for (int i = tid; i < (16 * nmt - nrows) * kp0; i += PFN_THREADS)
@@ -516,6 +546,158 @@ __global__ void __launch_bounds__(1024) pfn_stats_kernel(
   }
 }
 
+// ---- the layered route ------------------------------------------------------
+
+// rows of a block of the layered product: bf16 two chunks of 3 m16 tiles,
+// f32 one of 4 (the wide register tiles of pfn_mma, pfn_mma_tf32: 256
+// columns a chunk)
+template <typename T>
+__host__ __device__ constexpr int layered_mt() {
+  return sizeof(T) == 2 ? 6 : 4;
+}
+
+// blocks an SM of the kernels that run one warp a pillar. The route's
+// pillar pil = b P + r holds counts[pil] kept rows (0: not on this route),
+// rows b N + lrow0[pil] .. of the workspace X
+#define PFN_LAYERED_BLOCKS 8
+
+// decorated rows of every pillar on the route into X (row stride lda):
+// one warp a pillar, the means by a warp sum
+template <typename T>
+__global__ void __launch_bounds__(PFN_THREADS) pfn_layered_decorate_kernel(
+    PfnPoints pp, const int* __restrict__ starts,
+    const int* __restrict__ counts, const int* __restrict__ cells,
+    const int* __restrict__ num, const int* __restrict__ lrow0,
+    T* __restrict__ X, int lda, int kp0, int B, int N, int P, int point_dim,
+    int with_distance, int grid_w, float vs, float cx0, float cy0) {
+  const int lane = threadIdx.x & 31;
+  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
+  for (size_t pil = (size_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+       pil < (size_t)B * P; pil += warps) {
+    const int b = (int)(pil / P), r = (int)(pil % P);
+    const int n = counts[pil];
+    if (r >= num[b] || n == 0) continue;
+    const size_t src = (size_t)b * N + starts[pil];
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      sx += load_pt<T>(pp, src + i, 0);
+      sy += load_pt<T>(pp, src + i, 1);
+      sz += load_pt<T>(pp, src + i, 2);
+    }
+    const float cnt = fmaxf((float)n, 1.f);
+    const float mean[3] = {warp_sum(sx) / cnt, warp_sum(sy) / cnt,
+                           warp_sum(sz) / cnt};
+    T* rows = X + ((size_t)b * N + lrow0[pil]) * lda;
+    for (int i = lane; i < n; i += 32) {
+      float pt[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pt[q] = load_pt<T>(pp, src + i, q);
+      pfn_decorate(rows + (size_t)i * lda, pt, mean, cells[pil], point_dim,
+                   with_distance, grid_w, vs, cx0, cy0, kp0);
+    }
+  }
+}
+
+// one layer's product and epilogue over the rows of sample blockIdx.y:
+// block x takes rows [ROWS x, ROWS x + ROWS) of the tot[b] rows, stages
+// them in shared memory (row stride kp + 8 bf16, + 4 f32) and writes z =
+// relu(acc g + b), rounded to T, into the rows in place
+template <typename T>
+__global__ void __launch_bounds__(PFN_THREADS) pfn_layered_mma_kernel(
+    T* __restrict__ X, int lda, const int* __restrict__ tot, int N,
+    const uint2* __restrict__ wfr, const float* __restrict__ g,
+    const float* __restrict__ bb, int kp, int u) {
+  constexpr bool TC = sizeof(T) == 2;
+  constexpr int MT = layered_mt<T>(), ROWS = 16 * MT;
+  constexpr int CH = TC ? 3 : 4;  // m16 tiles a chunk
+  extern __shared__ __align__(16) float smem[];
+  T* Xs = reinterpret_cast<T*>(smem);
+  const int b = blockIdx.y, r0 = ROWS * blockIdx.x;
+  const int nrows = min(ROWS, tot[b] - r0);
+  if (nrows <= 0) return;
+  const int nmt = (nrows + 15) / 16;
+  const int lds = kp + (TC ? 8 : 4);
+  T* Xg = X + ((size_t)b * N + r0) * lda;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // 16-byte words of a row; rows past nrows (to the last m16 tile) zero
+  const int wr = kp * (int)sizeof(T) / 16;
+  for (int i = tid; i < 16 * nmt * wr; i += PFN_THREADS) {
+    const int row = i / wr, c = i % wr;
+    reinterpret_cast<uint4*>(Xs + row * lds)[c] =
+        row < nrows ? reinterpret_cast<const uint4*>(Xg + (size_t)row * lda)[c]
+                    : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m0 = 0; m0 < MT; m0 += CH) {
+    if (m0 >= nmt) break;
+    if constexpr (TC) {
+      float acc[4][CH][4];
+      pfn_mma(acc, reinterpret_cast<const bf16*>(Xs + 16 * m0 * lds), lds,
+              nmt - m0, wfr, kp, u, warp, lane);
+      pfn_epilogue(acc, Xg + (size_t)16 * m0 * lda, lda, g, bb, u, nmt - m0,
+                   nrows - 16 * m0, warp, PFN_WARPS, 0, 1, lane);
+    } else {
+      float acc[8][CH / 2][4];
+      pfn_mma_tf32(acc, reinterpret_cast<const float*>(Xs + 16 * m0 * lds),
+                   lds, nmt - m0, wfr, kp, u, warp, lane);
+      pfn_epilogue(acc, Xg + (size_t)16 * m0 * lda, lda, g, bb, u, nmt - m0,
+                   nrows - 16 * m0, warp & 3, 4, warp >> 2, 2, lane);
+    }
+  }
+}
+
+// the max over each pillar's rows of z (u columns), one warp a pillar:
+// written back as every row's pooled half, or at the last layer as the
+// table row and its [sum, sum of squares] partials (the tile kernel's own
+// order); zero_tail: the last layer also zeroes the rows at and beyond
+// num[b] (kernel 10)
+template <typename T>
+__global__ void __launch_bounds__(PFN_THREADS) pfn_layered_max_kernel(
+    T* __restrict__ X, int lda, const int* __restrict__ counts,
+    const int* __restrict__ num, const int* __restrict__ lrow0, int B, int N,
+    int P, int u, int last, T* __restrict__ table,
+    float* __restrict__ partials, int c_out, int zero_tail) {
+  const int lane = threadIdx.x & 31;
+  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
+  for (size_t pil = (size_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+       pil < (size_t)B * P; pil += warps) {
+    const int b = (int)(pil / P), r = (int)(pil % P);
+    if (r >= num[b]) {
+      if (last && zero_tail) {
+        for (int c = lane; c < c_out; c += 32)
+          table[pil * c_out + c] = from_f<T>(0.f);
+        if (lane == 0) partials[pil * 2] = partials[pil * 2 + 1] = 0.f;
+      }
+      continue;
+    }
+    const int n = counts[pil];
+    if (n == 0) continue;
+    T* rows = X + ((size_t)b * N + lrow0[pil]) * lda;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < u; c += 32) {
+      float m = 0.f;  // post-ReLU values are >= 0
+      for (int rr = 0; rr < n; ++rr) m = fmaxf(m, to_f(rows[rr * lda + c]));
+      if (!last) {
+        const T mv = from_f<T>(m);
+        for (int rr = 0; rr < n; ++rr) rows[rr * lda + u + c] = mv;
+      } else {
+        if (c < c_out) table[pil * c_out + c] = from_f<T>(m);
+        s1 += m;
+        s2 += m * m;
+      }
+    }
+    if (last) {
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        partials[pil * 2] = s1;
+        partials[pil * 2 + 1] = s2;
+      }
+    }
+  }
+}
+
 // dims: [n_layers, in_0, units_0, in_1, units_1, ...] (host memory);
 // every width a multiple of 8 up to PFN_MAXU, the next layer's input 2
 // units. The row stride holds every layer's input and its z (a last layer
@@ -607,6 +789,51 @@ static int launch_tiles(const PfnPoints& pp, const int* starts,
   return (int)cudaGetLastError();
 }
 
+// the layered route on X, a (B N, lda) workspace of the instance's type
+// (lda: the widest padded layer input or units, ops/pfn.py::layered_lda)
+template <typename T>
+static int launch_layered(const PfnPoints& pp, const int* starts,
+                          const int* counts, const int* cells, const int* num,
+                          const int* lrow0, const int* tot, const void* wbuf,
+                          const float* gb, const int* dims, T* X, int lda,
+                          T* table, float* partials, int B, int N, int P,
+                          int point_dim, int with_distance, int grid_w,
+                          float vs, float cx0, float cy0, int zero_tail,
+                          int c_out, cudaStream_t stream) {
+  PfnDims d;
+  if (parse_dims(dims, &d) || lda < d.lda || lda % 8) return MB_BAD_ARGS;
+  const int u_last = d.units[d.nl - 1];
+  if (c_out < 1 || c_out > u_last || u_last - c_out >= 8) return MB_BAD_ARGS;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int wgrid = sms * PFN_LAYERED_BLOCKS;
+  constexpr int ROWS = 16 * layered_mt<T>();
+  int kpmax = 0;
+  for (int l = 0; l < d.nl; ++l) kpmax = d.kp[l] > kpmax ? d.kp[l] : kpmax;
+  const int smem =
+      ROWS * (kpmax + (sizeof(T) == 2 ? 8 : 4)) * (int)sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      pfn_layered_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  pfn_layered_decorate_kernel<T><<<wgrid, PFN_THREADS, 0, stream>>>(
+      pp, starts, counts, cells, num, lrow0, X, lda, d.kp[0], B, N, P,
+      point_dim, with_distance, grid_w, vs, cx0, cy0);
+  const uint2* wfr = reinterpret_cast<const uint2*>(wbuf);
+  const dim3 mgrid(ceil_div(N, ROWS), B);
+  for (int li = 0; li < d.nl; ++li) {
+    const float* g = gb + d.gboff[li];
+    pfn_layered_mma_kernel<T><<<mgrid, PFN_THREADS, smem, stream>>>(
+        X, lda, tot, N, wfr + d.woff[li] / (8 / (int)sizeof(T)), g,
+        g + d.units[li], d.kp[li], d.units[li]);
+    pfn_layered_max_kernel<T><<<wgrid, PFN_THREADS, 0, stream>>>(
+        X, lda, counts, num, lrow0, B, N, P, d.units[li], li == d.nl - 1,
+        table, partials, c_out, zero_tail);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Kernel 1. cols: four sorted (B, N) f32 columns; starts, counts, cells,
 // row0: (B, N) int32 pillar directory; num: (B,) occupied rows; tile_first:
 // (B, ntiles + 1) int32 (ops/stream_pillars.py::pfn_tiles); wbuf: the
@@ -669,6 +896,40 @@ MB_EXPORT int stream_pfn_forward(const void* pts, int D, const int* starts,
                             tile_first, wbuf, gb, dims, (bf16*)table,
                             partials, prof, B, N, P, ntiles, D, with_distance,
                             grid_w, vs, cx0, cy0, 1, k, c_out, stream);
+}
+
+// The layered route of kernels 1 and 10: cols (kernel 1: four sorted (B,
+// N) f32 columns) or pts (kernel 10: (B, N, D) sorted points of the
+// instance's type, cols null); starts, counts, cells, lrow0: (B, P) int32,
+// the route's directory (counts 0: a pillar the tiles take), tot (B,) its
+// rows a sample; X: a (B N, lda) workspace; table (B, P, c_out), partials
+// (B, P, 2) at the route's pillars (zero_tail: also zero at and beyond
+// num[b]); the rest as for pfn_forward.
+MB_EXPORT int pfn_layered_forward(const float* x, const float* y,
+                                  const float* z, const float* it,
+                                  const void* pts, int D, const int* starts,
+                                  const int* counts, const int* cells,
+                                  const int* num, const int* lrow0,
+                                  const int* tot, const void* wbuf,
+                                  const float* gb, const int* dims, void* X,
+                                  int lda, void* table, float* partials,
+                                  int B, int N, int P, int point_dim,
+                                  int with_distance, int grid_w, float vs,
+                                  float cx0, float cy0, int zero_tail,
+                                  int c_out, int f32, cudaStream_t stream) {
+  if (point_dim < 1 || point_dim > 4 || (pts && (D < 3 || D > 4)))
+    return MB_BAD_ARGS;
+  PfnPoints pp = {{x, y, z, it}, pts, D};
+  if (f32)
+    return launch_layered<float>(pp, starts, counts, cells, num, lrow0, tot,
+                                 wbuf, gb, dims, (float*)X, lda,
+                                 (float*)table, partials, B, N, P, point_dim,
+                                 with_distance, grid_w, vs, cx0, cy0,
+                                 zero_tail, c_out, stream);
+  return launch_layered<bf16>(pp, starts, counts, cells, num, lrow0, tot,
+                              wbuf, gb, dims, (bf16*)X, lda, (bf16*)table,
+                              partials, B, N, P, point_dim, with_distance,
+                              grid_w, vs, cx0, cy0, zero_tail, c_out, stream);
 }
 
 MB_EXPORT int pfn_stats(const float* partials, const int* num, float* stats,

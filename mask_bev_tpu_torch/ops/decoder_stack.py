@@ -35,7 +35,13 @@ held in shared memory throughout. Two instances:
   TF32 halves, ``csrc/common.cuh::split_tf32``; m16n8k16 in bf16) with the
   weights stored (N, K) and the block's rows on the MMA's 8-wide side, and
   self-attention reads the other blocks' k and v through distributed
-  shared memory (:func:`check_shape_split`, :func:`smem_bytes_split`).
+  shared memory (:func:`check_shape_split`, :func:`smem_bytes_split`). A
+  width it has no instance for runs padded (:func:`split_padding`,
+  :func:`padded_split`): a head's width to the next instance with zero q,
+  k and v columns and zero out-projection rows (the scale stays the true
+  width's), the heads to a count its warps split with all-zero heads, the
+  FFN to whole chunks of C with zero weights and bias; the LNs walk the
+  true columns only.
 
 Every launch counts under ``decoder_stack`` (and its instance under
 ``decoder_stack/flagship``, ``decoder_stack/split_tc_bf16`` or
@@ -339,32 +345,115 @@ SPLIT_HEAD_DIMS = (8, 16, 32, 64)  # the split kernel's HD instances
 SPLIT_ONE_HEAD_DIMS = (64, 128, 256)  # its one-head instances (HD = C)
 
 
+def _heads_taken(heads: int) -> bool:
+    """2, 4 or 8 heads (a head's warps split each key tile) or a multiple
+    of 8 (rounds of 8 heads)."""
+    return heads > 1 and not (SPLIT_WARPS % heads and heads % 8)
+
+
+def split_padding(c: int, heads: int, ffn: int
+                  ) -> Optional[Tuple[int, int, int]]:
+    """(heads, head width, FFN) the split instance runs C over ``heads``
+    heads with an FFN of ``ffn`` units as: one head at the narrowest of
+    :data:`SPLIT_ONE_HEAD_DIMS` that holds C; else the head width at the
+    narrowest of :data:`SPLIT_HEAD_DIMS` that holds it and the fewest
+    heads at least ``heads`` that the warps split (:func:`_heads_taken`)
+    and that make the padded C a multiple of 64 (32-deep product chunks, 16
+    output columns a warp); the FFN in whole chunks of the padded C. None
+    where no instance holds the head: a width over 64 at more than one
+    head, or one head over C 256. Shapes the instances take are their own
+    padding."""
+    if heads < 1 or c < 1 or ffn < 1 or c % heads:
+        return None
+    if heads == 1:
+        hp, widths, hd = 1, SPLIT_ONE_HEAD_DIMS, c
+    else:
+        hp, widths, hd = heads, SPLIT_HEAD_DIMS, c // heads
+    hdp = next((w for w in widths if w >= hd), None)
+    if hdp is None:
+        return None
+    while heads > 1 and (not _heads_taken(hp) or hp * hdp % 64):
+        hp += 1
+    cp = hp * hdp
+    return hp, hdp, -(-ffn // cp) * cp
+
+
 def split_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
                   n_layers: int, t_max: int,
                   f32: bool = True) -> Optional[str]:
     """Why the split instance does not take these shapes (the C entry
-    point's own check), or None where it does: C a multiple of 64 (32-deep
-    product chunks, 16 output columns a warp), the FFN's hidden units in
-    chunks of C, one head of a width in :data:`SPLIT_ONE_HEAD_DIMS` (the 8
-    warps split its output columns), or 2, 4 or 8 heads (a head's warps
-    split each key tile) or a multiple of 8 (rounds of 8 heads) of a width
-    in :data:`SPLIT_HEAD_DIMS`, at most 32 rows a block in clusters of 8
-    or 16 (Q <= 512), and the shared memory of :func:`split_layout`."""
-    smem = smem_bytes_split(q, c, heads, t_max, f32) if heads >= 1 else 0
-    if heads == 1:
-        width_ok = c in SPLIT_ONE_HEAD_DIMS
-    else:
-        width_ok = (heads > 1 and not (SPLIT_WARPS % heads and heads % 8)
-                    and c % heads == 0 and c // heads in SPLIT_HEAD_DIMS)
-    if (q < 1 or c % 64 or ffn % c or not width_ok
-            or n_layers % nl or nl > 3
+    point's own check on the padded shapes), or None where it does: a head
+    an instance holds (:func:`split_padding`: one head up to C 256, else a
+    head width up to 64, any FFN), at most 32 rows a block in clusters of
+    8 or 16 (Q <= 512), and the shared memory of :func:`split_layout` at
+    the padded width."""
+    pad = split_padding(c, heads, ffn)
+    smem = (smem_bytes_split(q, pad[0] * pad[1], pad[0], t_max, f32)
+            if pad and q >= 1 else 0)
+    if (q < 1 or pad is None or n_layers % nl or nl > 3
             or -(-q // split_cluster(q)) > SPLIT_MAXR
             or smem > SMEM_LIMIT):
         return (f"decoder stack split instance: unsupported shape Q={q} "
                 f"C={c} FFN={ffn} heads={heads} levels={nl} "
-                f"layers={n_layers} keys={t_max} ({smem} B of shared memory "
-                f"a block, limit {SMEM_LIMIT})")
+                f"layers={n_layers} keys={t_max} (one head up to C 256, "
+                f"else head widths up to 64; Q up to 512; {smem} B of "
+                f"shared memory a block, limit {SMEM_LIMIT})")
     return None
+
+
+def padded_columns(c: int, heads: int, hdp: int) -> torch.Tensor:
+    """(C,) int64: the padded column of each true column j, head j // hd's
+    column j % hd in a head of width ``hdp``."""
+    hd = c // heads
+    j = torch.arange(c)
+    return (j // hd) * hdp + j % hd
+
+
+def padded_split(layers: Sequence[LayerWeights], head: HeadWeights,
+                 c: int, heads: int, ffn: int
+                 ) -> Tuple[List[LayerWeights], HeadWeights]:
+    """The weights of the padded model :func:`split_padding` gives: every
+    C axis at the padded width (the true columns at
+    :func:`padded_columns`, zeros elsewhere: matrices, biases and LN
+    affine; the cross-attention's k and v projections only on their
+    output axis, as their GEMM reads the memory at its true width), the
+    FFN's hidden units at the padded FFN (zero rows of W1's output, of its
+    bias and of W2's input)."""
+    hp, hdp, fp = split_padding(c, heads, ffn)
+    cp = hp * hdp
+    col = padded_columns(c, heads, hdp)
+
+    def vec(t, n=cp, idx=col):
+        out = t.new_zeros(n)
+        out[idx.to(t.device)] = t
+        return out
+
+    def mat(t, rows, cols, nr, nc):
+        out = t.new_zeros(nr, nc)
+        out[rows.to(t.device)[:, None], cols.to(t.device)[None]] = t
+        return out
+
+    hid = torch.arange(ffn)
+    out = []
+    for lw in layers:
+        d = {}
+        for name, t in lw._asdict().items():
+            if name == "f1":
+                d[name] = mat(t, col, hid, cp, fp)
+            elif name == "fb1":
+                d[name] = vec(t, fp, hid)
+            elif name == "f2":
+                d[name] = mat(t, hid, col, fp, cp)
+            elif name in ("wk", "wv"):  # their GEMM reads the true memory
+                d[name] = mat(t, torch.arange(c), col, c, cp)
+            elif t.dim() == 2:
+                d[name] = mat(t, col, col, cp, cp)
+            else:
+                d[name] = vec(t)
+        out.append(LayerWeights(**d))
+    hw = HeadWeights(**{name: mat(t, col, col, cp, cp) if t.dim() == 2
+                        else vec(t) for name, t in head._asdict().items()})
+    return out, hw
 
 
 def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
@@ -403,17 +492,25 @@ def decoder_stack_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
                          dtype == torch.float32)
 
 
-def split_instance(q: int, heads: int, f32: bool) -> str:
+def split_instance(q: int, heads: int, f32: bool, c: Optional[int] = None,
+                   ffn: Optional[int] = None) -> str:
     """The name a split launch counts under: ``split_tc_f32`` or
     ``split_tc_bf16``, with ``_cs16`` in clusters of 16 (Q > 256),
     ``_heads1`` for one head (its columns split over the warps) and
-    ``_heads<n>`` for rounds of 8 heads (more than 8)."""
+    ``_heads<n>`` for rounds of 8 heads (more than 8), of the heads the
+    kernel runs; given C and the FFN, ``_padded`` where the model runs
+    padded (:func:`split_padding`)."""
+    padded = False
+    if c is not None:
+        hp, hdp, fp = split_padding(c, heads, ffn)
+        padded = (hp, hp * hdp, fp) != (heads, c, ffn)
+        heads = hp
     name = "split_tc_" + ("f32" if f32 else "bf16")
     if split_cluster(q) > 8:
         name += "_cs16"
     if heads == 1 or heads > SPLIT_WARPS:
         name += f"_heads{heads}"
-    return name
+    return name + ("_padded" if padded else "")
 
 
 SPLIT_PARTS = ("mask bits", "q projection", "cross-attention",
@@ -458,18 +555,36 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
             raise ValueError("profile: only the split instance is timed")
         kb.check_cuda(profile, "profile", torch.int64,
                       (b * split_cluster(q), len(SPLIT_PARTS)))
+    heads, cp, fp, pad = num_heads, c, ffn, None
     if flagship:
         smem = smem_bytes(q, c, max(t))
     else:
         f32 = dt == torch.float32
-        smem = smem_bytes_split(q, c, num_heads, max(t), f32)
+        heads, hdp, fp = split_padding(c, num_heads, ffn)
+        cp = heads * hdp
+        if (heads, cp, fp) != (num_heads, c, ffn):
+            pad = padded_columns(c, num_heads, hdp).to(out0.device)
+        smem = smem_bytes_split(q, cp, heads, max(t), f32)
     kind = "flagship" if flagship else "split"
     if packed is None:
         packed = ({}, kv_weights(layers, nl))
     wpacks, kvw = packed
     if kind not in wpacks:
+        if pad is not None:
+            layers, head = padded_split(layers, head, c, num_heads, ffn)
+            wpacks["split_kv"] = kv_weights(layers, nl)
         wpacks[kind] = pack_weights(layers, head, fragments=flagship)
     wd, wf = wpacks[kind]
+    if pad is not None:
+        kvw = wpacks["split_kv"]
+
+    def widen(x):
+        """x's last (C) axis at the padded width (zeros elsewhere)."""
+        if pad is None:
+            return x
+        out = x.new_zeros(*x.shape[:-1], cp)
+        out[..., pad] = x
+        return out
     kb.check_cuda(wd, "wd", dt)
     kb.check_cuda(wf, "wf", torch.float32)
     groups = n_layers // nl
@@ -481,13 +596,13 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         ks.append(gemm("decoder_stack", kin, kvw[lvl][0], EPI_BIAS))
         vs.append(gemm("decoder_stack", mem.reshape(b * t[lvl], c),
                        kvw[lvl][1], EPI_BIAS))
-    feats = [f.float().contiguous() for f in feats]
+    feats = [widen(f.float()).contiguous() for f in feats]
     for lvl, f in enumerate(feats):
-        kb.check_cuda(f, f"feats[{lvl}]", torch.float32, (b, t[lvl], c))
-    x0 = out0.float().contiguous()
-    e0 = emb0.float().contiguous()
-    qp = qpos.float().contiguous()
-    out = torch.empty((b, q, c), dtype=dt, device=out0.device)
+        kb.check_cuda(f, f"feats[{lvl}]", torch.float32, (b, t[lvl], cp))
+    x0 = widen(out0.float()).contiguous()
+    e0 = widen(emb0.float()).contiguous()
+    qp = widen(qpos.float()).contiguous()
+    out = torch.empty((b, q, cp), dtype=dt, device=out0.device)
     words = (max(t) + 31) // 32
     bits = (torch.empty((b, n_layers, q, words), dtype=torch.int32,
                         device=out0.device) if return_bits else None)
@@ -508,9 +623,12 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
                   kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
                   kb.ptr(bits), kb.ptr(profile), kb.ci(b), kb.ci(q),
-                  kb.ci(c), kb.ci(ffn), kb.ci(num_heads), kb.ci(smem),
-                  kb.cf(hd ** -0.5), kb.ci(f32), kb.stream(),
-                  instance=split_instance(q, num_heads, f32))
+                  kb.ci(cp), kb.ci(fp), kb.ci(heads), kb.ci(smem),
+                  kb.cf(hd ** -0.5), kb.ci(hd), kb.ci(num_heads), kb.ci(f32),
+                  kb.stream(),
+                  instance=split_instance(q, num_heads, f32, c, ffn))
+        if pad is not None:
+            out = out[..., pad].contiguous()
     if not return_bits:
         return out
     shifts = torch.arange(32, device=out0.device, dtype=torch.int32)

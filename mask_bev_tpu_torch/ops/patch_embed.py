@@ -14,11 +14,16 @@ with ``patch(b, t)`` the p rows of p*C contiguous channels under token
 E[y]^2)`` (eps 1e-6) and the LN affine in f32, rounded once to the canvas
 dtype, as the TPU kernel computes it.
 
-The CUDA kernel (``csrc/patch_embed.cu``) is an implicit GEMM on wgmma fed
+The CUDA kernel (``csrc/patch_embed.cuh``) is an implicit GEMM on wgmma fed
 by TMA straight from the canvas, in 128-token tiles of ``plan``'s shape,
 with the LayerNorm on its accumulators: bf16 products for a bf16 canvas,
 3xTF32 for an f32 canvas (its f32 instance, with the weight's TF32 halves,
-``split``); it counts under ``patch_embed``.
+``split``); it counts under ``patch_embed``. Each width of
+:data:`EMBED_DIMS` is an instance of its own; any other E from 1 to
+:data:`MAX_EMBED` runs on the next one up (:func:`instance_width`), its
+weight rows, bias and LN affine padded with zeros (:func:`padded_embed`:
+a padded column's y is exactly 0, so it adds nothing to the fast-variance
+sums), the statistics divided by the true E and only its columns stored.
 """
 from __future__ import annotations
 
@@ -55,14 +60,36 @@ def patch_embed_plain(canvas: torch.Tensor, wm: torch.Tensor,
     return out.to(canvas.dtype).reshape(b, gh * gw, -1)
 
 
-# csrc/patch_embed.cu: a tile's token rows, the bytes of K a stage (one
+# csrc/patch_embed.cuh: a tile's token rows, the bytes of K a stage (one
 # 128-byte swizzle row), a block's shared memory, the widths it takes
 TILE = 128
 STAGE_K_BYTES = 128
 SMEM_LIMIT = 232448
 # (each E its own wgmma m64nEk16 instruction and kernel instance: 48 the
-# narrow backbones', 96 Swin-T's and Swin-S's)
+# narrow backbones', 96 Swin-T's and Swin-S's); every other E up to
+# MAX_EMBED is padded to the next (wgmma's N ends at 256, and the LN needs a
+# token's columns in one warpgroup's accumulators)
 EMBED_DIMS = (48, 64, 96, 128, 192, 256)
+MAX_EMBED = 256
+
+
+def instance_width(e: int) -> int:
+    """The width of the instance that runs E: the narrowest of
+    :data:`EMBED_DIMS` that holds it (``csrc/patch_embed.cuh::
+    pe_instance_width``)."""
+    return next(w for w in EMBED_DIMS if w >= e)
+
+
+def padded_embed(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Tensors of E leading rows (the weight matrix, its halves, the bias
+    and LN affine) at the instance width of E: zero rows appended (as they
+    are where E has its own instance)."""
+    e = ts[0].shape[0]
+    ep = instance_width(e)
+    if ep == e:
+        return ts
+    return tuple(torch.cat([t, t.new_zeros((ep - e,) + tuple(t.shape[1:]))])
+                 for t in ts)
 
 
 def tile_shape(gw: int, rows: int) -> Tuple[int, int]:
@@ -84,13 +111,15 @@ def tile_shape(gw: int, rows: int) -> Tuple[int, int]:
 def plan(b: int, h: int, w: int, c: int, e: int, patch: int,
          f32: bool) -> Dict[str, float]:
     """The CUDA kernel's plan for a (b, h, w, c) canvas and width ``e``,
-    as ``csrc/patch_embed.cu`` computes it: the tile shape, tile count and
+    as ``csrc/patch_embed.cuh`` computes it (at the instance width of
+    ``e``): the tile shape, tile count and
     pairs (a cluster of two blocks takes a pair and reads the weight once
     for both), k-steps and ring stages, a block's shared memory, the share
     of tile rows that hold no token, and the weight bytes read from L2."""
     p = patch
     gh, gw = h // p, w // p
     rows = b * gh
+    e = instance_width(e)
     esz = 4 if f32 else 2
     tx, ty = tile_shape(gw, rows)
     tiles_x = -(-gw // tx)
@@ -111,8 +140,11 @@ def patch_embed_refusal(b: int, h: int, w: int, c: int, e: int,
     """Why kernel 8 does not take a (B, H, W, C) canvas of ``dtype`` into E
     channels by ``patch`` x ``patch`` patches, or None where it does: bf16
     or f32, H and W whole multiples of the patch, whole 128-byte K slices
-    (p C), E in :data:`EMBED_DIMS`, and a ring of at least two stages in
-    shared memory."""
+    (p C), E from 1 to :data:`MAX_EMBED`, and a ring of at least two stages
+    in shared memory. The K slices cannot be missed by a model: the port
+    (``models/maskbev.py::MaskBev.flat_embed_ok``), as the JAX package,
+    fuses the patch embed only on the slot path, whose canvas is a
+    multiple of 128 channels."""
     if dtype not in (torch.bfloat16, torch.float32):
         return (f"the patch embed kernel takes a bf16 or f32 canvas; got "
                 f"{dtype}")
@@ -122,13 +154,21 @@ def patch_embed_refusal(b: int, h: int, w: int, c: int, e: int,
     if h % p or w % p or h < p or w < p or b < 1:
         return (f"patch embed needs H, W whole multiples of {p}; got "
                 f"{(h, w)}")
-    if (p * c) % bk or e not in EMBED_DIMS:
-        return (f"patch embed kernel needs p*C % {bk} == 0 and E in "
-                f"{EMBED_DIMS}; got C={c}, p={p}, E={e}")
+    if (p * c) % bk or not 1 <= e <= MAX_EMBED:
+        return (f"patch embed kernel needs p*C % {bk} == 0 and E from 1 "
+                f"to {MAX_EMBED}; got C={c}, p={p}, E={e}")
     pl = plan(b, h, w, c, e, p, f32)
     if pl["smem_bytes"] > SMEM_LIMIT or pl["stages"] < 2:
         return f"patch embed ring does not fit: {pl}"
     return None
+
+
+def instance(f32: bool, e: int) -> str:
+    """The instance name a launch at width E counts under: ``bf16`` or
+    ``f32``, with ``_e<EP>`` where E runs padded on the instance of width
+    EP."""
+    ep = instance_width(e)
+    return ("f32" if f32 else "bf16") + ("" if ep == e else f"_e{ep}")
 
 
 def check_shape(b: int, h: int, w: int, c: int, e: int, patch: int,
@@ -167,6 +207,7 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
         raise ValueError(reason)
     f32 = dt == torch.float32
     pl = plan(b, h, w, c, e, p, f32)
+    ep = instance_width(e)
     kb.check_cuda(canvas, "canvas", dt)
     kb.check_cuda(wm, "wm", dt, (e, p * p * c))
     hi = lo = None
@@ -174,9 +215,13 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
         hi, lo = split if split is not None else split_tf32(wm)
         kb.check_cuda(hi, "wm hi", dt, (e, p * p * c))
         kb.check_cuda(lo, "wm lo", dt, (e, p * p * c))
-    vecs = [t.float().contiguous() for t in (bias, ln_w, ln_b)]
+        hi, lo = padded_embed(hi, lo)
+    else:
+        wm, = padded_embed(wm)
+    vecs = [t.contiguous() for t in padded_embed(
+        *(t.float() for t in (bias, ln_w, ln_b)))]
     for t, name in zip(vecs, ("bias", "ln_w", "ln_b")):
-        kb.check_cuda(t, name, torch.float32, (e,))
+        kb.check_cuda(t, name, torch.float32, (ep,))
     gh, gw = h // p, w // p
     out = torch.empty((b, gh * gw, e), dtype=dt, device=canvas.device)
     kb.launch("patch_embed", "patch_embed_forward", kb.ptr(canvas),
@@ -184,5 +229,5 @@ def patch_embed(canvas: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
               *(kb.ptr(t) for t in vecs), kb.ptr(out), kb.ci(b), kb.ci(h),
               kb.ci(w), kb.ci(c), kb.ci(e), kb.ci(p), kb.ci(pl["tile_x"]),
               kb.ci(pl["tile_y"]), kb.cf(eps), kb.ci(f32), kb.stream(),
-              instance="f32" if f32 else "bf16")
+              instance=instance(f32, e))
     return out

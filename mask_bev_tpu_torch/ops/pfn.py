@@ -48,8 +48,18 @@ stream PFN takes them. The kernel works on units padded to a multiple of 8
 affine, so the padded z and pooled columns are exact zeros, and zero rows
 for them in the next layer's weight) and writes the table at its true
 width. Layers of more than 128 units take the wide instances (suffix
-:data:`WIDE_SUFFIX`); a block's shared memory (:func:`smem_bytes`) is the
-rule for what no instance takes.
+:data:`WIDE_SUFFIX`).
+
+What the tiles cannot hold, a block's shared memory (:func:`smem_bytes`:
+two layers of 256 units) or pillars of more than :data:`MAX_K` kept points
+(any K the JAX package takes), runs on the layered route
+(``csrc/pfn.cu::pfn_layered_forward``, counted as ``<kernel>/bf16_layered``
+or ``<kernel>/f32_3xtf32_layered``): the same decoration, products and
+rounding, one layer at a time over all of its pillars' kept rows with the
+activations in device memory (:func:`layered_lda`). Where the tiles take
+the layers, only the pillars of more than :data:`MAX_K` kept points go
+there (:func:`layered_directory`); the tiles take the rest as they do at K
+= :data:`MAX_K` (:func:`route`).
 """
 from __future__ import annotations
 
@@ -172,11 +182,54 @@ def is_wide(dims: Sequence[Tuple[int, int]]) -> bool:
 
 
 def instance(f32: bool, k: int, wide: bool = False) -> str:
-    """The instance name a launch counts under for K points a pillar (and
-    layers over :data:`NARROW_UNITS` units: ``wide``)."""
+    """The instance name a launch of the tiles counts under for K points a
+    pillar (and layers over :data:`NARROW_UNITS` units: ``wide``)."""
     return ((F32_INSTANCE if f32 else "bf16")
             + (LONG_SUFFIX if k > SHORT_K else "")
             + (WIDE_SUFFIX if wide else ""))
+
+
+LAYERED_SUFFIX = "_layered"
+
+
+def layered_instance(f32: bool) -> str:
+    """The instance name a launch of the layered route counts under."""
+    return (F32_INSTANCE if f32 else "bf16") + LAYERED_SUFFIX
+
+
+def layered_lda(dims: Sequence[Tuple[int, int]]) -> int:
+    """The layered route's row stride in its workspace: the widest of the
+    kernel layers' inputs (padded to 16) and units."""
+    kd = kernel_dims(dims)
+    return max([_pad(k, 16) for k, _ in kd] + [u for _, u in kd])
+
+
+def layered_directory(counts: torch.Tensor, num: torch.Tensor,
+                      all_pillars: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layered route's directory, from the (B, P) kept counts and (B,)
+    occupied pillars: (counts, lrow0, tot) int32, each pillar's kept rows
+    on the route (every occupied pillar's where ``all_pillars``, else only
+    those of more than :data:`MAX_K`; 0 elsewhere), its first row among the
+    route's rows of its sample (an exclusive cumulative sum, so a pillar's
+    rows stay in sorted order: its first K points), and the route's rows a
+    sample."""
+    occupied = (torch.arange(counts.shape[1], device=counts.device)[None]
+                < num.to(counts.device)[:, None])
+    on = occupied if all_pillars else occupied & (counts > MAX_K)
+    lc = torch.where(on, counts, 0).to(torch.int64)
+    lrow0 = torch.cumsum(lc, dim=1) - lc
+    return (lc.to(torch.int32).contiguous(),
+            lrow0.to(torch.int32).contiguous(),
+            lc.sum(dim=1).to(torch.int32).contiguous())
+
+
+def tile_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The kept counts the tiles take beside the layered route: a pillar
+    of more than :data:`MAX_K` kept points counts one (its row is written
+    again by the layered route, which runs after), so that each pillar of
+    a tile keeps a first row of its own."""
+    return torch.where(counts > MAX_K, 1, counts).to(torch.int32)
 
 
 def smem_bytes(dims: Sequence[Tuple[int, int]], f32: bool, k: int) -> int:
@@ -309,25 +362,43 @@ def tiles_refusal(k: int, dims: Sequence[Tuple[int, int]], dtype
                   ) -> Optional[str]:
     """Why the tile kernel's instance for K points a pillar does not take
     these layers, or None: 1 to :data:`MAX_K` points a pillar and a
-    block's shared memory (:func:`smem_bytes`) within the card's."""
+    block's shared memory (:func:`smem_bytes`) within the card's. What it
+    refuses runs on the layered route (:func:`route`)."""
     if not 1 <= k <= MAX_K:
-        return (f"pfn kernels take at most {MAX_K} points per pillar, got "
+        return (f"pfn tiles take at most {MAX_K} points per pillar, got "
                 f"{k}")
     smem = smem_bytes(dims, dtype == torch.float32, k)
     if smem > SMEM_LIMIT:
-        return (f"pfn kernel: {smem} B of shared memory a block for layers "
+        return (f"pfn tiles: {smem} B of shared memory a block for layers "
                 f"{list(dims)} at {k} points a pillar, limit {SMEM_LIMIT}")
     return None
+
+
+def route(k: int, dims: Sequence[Tuple[int, int]], dtype
+          ) -> Tuple[Optional[int], bool]:
+    """(tile K, layered) for K points a pillar: the tiles at K (at most
+    :data:`MAX_K`) where their shared memory holds the layers, else None;
+    and whether the layered route runs, for every pillar where the tiles
+    do not, or for those of more than :data:`MAX_K` kept points."""
+    kt = min(k, MAX_K)
+    if tiles_refusal(kt, dims, dtype) is not None:
+        return None, True
+    return kt, k > MAX_K
+
+
+def _points_refusal(k: int) -> Optional[str]:
+    return (None if k >= 1 else
+            f"pfn kernels take at least 1 point per pillar, got {k}")
 
 
 def pfn_refusal(max_points_per_pillar: int,
                 dims: Sequence[Tuple[int, int]], in0: int, dtype,
                 out_dtype) -> Optional[str]:
     """Why kernel 1 does not take these shapes, or None where it does:
-    :func:`layers_refusal` and :func:`tiles_refusal` (at most 128 points a
-    pillar)."""
+    :func:`layers_refusal` and at least one point a pillar (the tiles or
+    the layered route take any K, :func:`route`)."""
     return (layers_refusal(dims, in0, dtype, out_dtype)
-            or tiles_refusal(max_points_per_pillar, dims, dtype))
+            or _points_refusal(max_points_per_pillar))
 
 
 def stream_pfn_refusal(k: int, point_cols: int,
@@ -335,13 +406,13 @@ def stream_pfn_refusal(k: int, point_cols: int,
                        dtype, out_dtype, points_dtype) -> Optional[str]:
     """Why kernel 10 does not take these shapes, or None where it does: 3
     or 4 point columns of the table's dtype, :func:`layers_refusal` and
-    :func:`tiles_refusal` (at most 128 points a pillar)."""
+    at least one point a pillar."""
     if point_cols not in (3, 4):
         return (f"stream pfn kernel takes 3 or 4 point columns, got "
                 f"D={point_cols}")
     reason = (layers_refusal(dims, point_cols + 5 + int(with_distance),
                              dtype, out_dtype)
-              or tiles_refusal(k, dims, dtype))
+              or _points_refusal(k))
     if reason is None and points_dtype != out_dtype:
         reason = (f"the stream pfn kernel takes points of the weights' "
                   f"dtype {out_dtype}; got {points_dtype}")
@@ -361,9 +432,10 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         packed=None, profile=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pillar table + statistics: the CUDA kernel for CUDA tensors (its
     bf16 or 3xTF32 f32 instance, by the weights' dtype), the plain version
-    for CPU tensors. ``packed``: cached ``pack_weights``; ``profile``: a
-    zeroed (len(PFN_PARTS) + 1,) int64 tensor the kernel adds its time by
-    part to (:data:`PFN_PARTS`)."""
+    for CPU tensors; the tiles, the layered route or both (:func:`route`).
+    ``packed``: cached ``pack_weights``; ``profile``: a zeroed
+    (len(PFN_PARTS) + 1,) int64 tensor the tiles add their time by part to
+    (:data:`PFN_PARTS`; the layered route is not timed by part)."""
     x = ps.cols[0]
     if not x.is_cuda:
         return pfn_plain(ps, weights, point_dim=point_dim,
@@ -387,26 +459,59 @@ def pfn(ps: PillarStream, weights: Weights, *, point_dim: int,
         weights, x.device)
     kb.check_cuda(wbuf, "weights", out_dtype)
     kb.check_cuda(gb, "g/b", torch.float32)
-    row0, first = pfn_tiles(ps.counts, ps.num_pillars, n)
     c_out = shapes[-1][1]
     table = torch.empty((b, n, c_out), dtype=out_dtype, device=x.device)
     partials = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = instance(f32, max_points_per_pillar, is_wide(shapes))
-    kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
-              kb.ptr(ps.starts), kb.ptr(ps.counts), kb.ptr(ps.cells),
-              kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
-              kb.ptr(wbuf), kb.ptr(gb), dims_arr, kb.ptr(table),
-              kb.ptr(partials), _check_profile(profile), kb.ci(b), kb.ci(n),
-              kb.ci(first.shape[1] - 1), kb.ci(point_dim),
-              kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
-              kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(max_points_per_pillar), kb.ci(c_out), kb.ci(f32),
-              kb.stream(), instance=inst)
+    geom = (kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
+            kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size))
+    kt, layered = route(max_points_per_pillar, shapes, dt)
+    if kt is not None:
+        counts = tile_counts(ps.counts) if layered else ps.counts
+        row0, first = pfn_tiles(counts, ps.num_pillars, n)
+        inst = instance(f32, kt, is_wide(shapes))
+        kb.launch("pfn", "pfn_forward", *(kb.ptr(c) for c in ps.cols),
+                  kb.ptr(ps.starts), kb.ptr(counts), kb.ptr(ps.cells),
+                  kb.ptr(ps.num_pillars), kb.ptr(row0), kb.ptr(first),
+                  kb.ptr(wbuf), kb.ptr(gb), dims_arr, kb.ptr(table),
+                  kb.ptr(partials), _check_profile(profile), kb.ci(b),
+                  kb.ci(n), kb.ci(first.shape[1] - 1), kb.ci(point_dim),
+                  *geom, kb.ci(kt), kb.ci(c_out), kb.ci(f32), kb.stream(),
+                  instance=inst)
+    if layered:
+        inst = _launch_layered("pfn", ps.cols, None, point_dim, ps.starts,
+                               ps.counts, ps.cells, ps.num_pillars,
+                               kt is None, wbuf, gb, dims_arr, shapes, table,
+                               partials, geom, 0, f32)
     kb.launch("pfn", "pfn_stats", kb.ptr(partials), kb.ptr(ps.num_pillars),
               kb.ptr(stats), kb.ci(b), kb.ci(n), kb.stream(), instance=inst)
     return table, stats
+
+
+def _launch_layered(name, cols, pts, point_dim, starts, counts, cells, num,
+                    all_pillars, wbuf, gb, dims_arr, shapes, table, partials,
+                    geom, zero_tail, f32) -> str:
+    """Launch the layered route of kernel ``name`` (kernel 1: the sorted
+    ``cols``; kernel 10: the sorted ``pts``) on its directory
+    (:func:`layered_directory`) and a workspace of the table's dtype;
+    return its instance name."""
+    b, p = counts.shape
+    n = (pts if pts is not None else cols[0]).shape[1]
+    lc, lrow0, tot = layered_directory(counts, num, all_pillars)
+    lda = layered_lda(shapes)
+    work = torch.empty((b * n, lda), dtype=table.dtype, device=table.device)
+    inst = layered_instance(f32)
+    kb.launch(name, "pfn_layered_forward",
+              *(kb.ptr(c) for c in (cols if pts is None else [None] * 4)),
+              kb.ptr(pts), kb.ci(point_dim if pts is not None else 0),
+              kb.ptr(starts), kb.ptr(lc), kb.ptr(cells), kb.ptr(num),
+              kb.ptr(lrow0), kb.ptr(tot), kb.ptr(wbuf), kb.ptr(gb), dims_arr,
+              kb.ptr(work), kb.ci(lda), kb.ptr(table), kb.ptr(partials),
+              kb.ci(b), kb.ci(n), kb.ci(p), kb.ci(point_dim), *geom,
+              kb.ci(zero_tail), kb.ci(table.shape[-1]), kb.ci(f32),
+              kb.stream(), instance=inst)
+    return inst
 
 
 # --------------------------------------------------------------- kernel 10
@@ -481,23 +586,32 @@ def stream_pfn(sp: StreamPillars, weights: Weights, *, k: int,
     kb.check_cuda(wbuf, "weights", out_dtype)
     kb.check_cuda(gb, "g/b", torch.float32)
     counts = kept_counts(sp.pid, sp.kept, p)
-    row0, first = pfn_tiles(counts, num_valid, n)
     c_out = shapes[-1][1]
     table = torch.empty((b, p, c_out), dtype=out_dtype, device=pts.device)
     partials = torch.empty((b, p, 2), dtype=torch.float32, device=pts.device)
     stats = torch.empty((b, 2), dtype=torch.float32, device=pts.device)
     dims_arr = (kb.ctypes.c_int * len(dims))(*dims)
-    inst = instance(f32, k, is_wide(shapes))
-    kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
-              kb.ptr(starts), kb.ptr(counts), kb.ptr(sp.cells),
-              kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first), kb.ptr(wbuf),
-              kb.ptr(gb), dims_arr, kb.ptr(table), kb.ptr(partials),
-              _check_profile(profile), kb.ci(b), kb.ci(n), kb.ci(p),
-              kb.ci(first.shape[1] - 1),
-              kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
-              kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size),
-              kb.ci(k), kb.ci(c_out), kb.ci(f32), kb.stream(),
-              instance=inst)
+    geom = (kb.ci(with_distance), kb.ci(grid_w), kb.cf(voxel_size),
+            kb.cf(x0 + 0.5 * voxel_size), kb.cf(y0 + 0.5 * voxel_size))
+    kt, layered = route(k, shapes, dt)
+    if kt is not None:
+        tc = tile_counts(counts) if layered else counts
+        row0, first = pfn_tiles(tc, num_valid, n)
+        inst = instance(f32, kt, is_wide(shapes))
+        kb.launch("stream_pfn", "stream_pfn_forward", kb.ptr(pts), kb.ci(d),
+                  kb.ptr(starts), kb.ptr(tc), kb.ptr(sp.cells),
+                  kb.ptr(num_valid), kb.ptr(row0), kb.ptr(first),
+                  kb.ptr(wbuf), kb.ptr(gb), dims_arr, kb.ptr(table),
+                  kb.ptr(partials), _check_profile(profile), kb.ci(b),
+                  kb.ci(n), kb.ci(p), kb.ci(first.shape[1] - 1), *geom,
+                  kb.ci(kt), kb.ci(c_out), kb.ci(f32), kb.stream(),
+                  instance=inst)
+    if layered:
+        # the tiles zero the unused slots where they run, else this route
+        inst = _launch_layered("stream_pfn", None, pts, d, starts, counts,
+                               sp.cells, num_valid, kt is None, wbuf, gb,
+                               dims_arr, shapes, table, partials, geom,
+                               int(kt is None), f32)
     kb.launch("stream_pfn", "pfn_stats", kb.ptr(partials), kb.ptr(num_valid),
               kb.ptr(stats), kb.ci(b), kb.ci(p), kb.stream(), instance=inst)
     return table, stats

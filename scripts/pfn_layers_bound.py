@@ -9,8 +9,10 @@ The case is ``chip_smoke.py``'s ``pfn.l8``: ``feat_channels`` (64,) * 7 +
 (32,), i.e. 8 layers of 32 units, each fed [z, pooled] of the one before,
 on ``semantic_kitti_default`` at 131072 point slots a scan, the main
 path's batch of scans (``chip_smoke.scans``), the encoder's weights drawn
-from ``torch.manual_seed`` (its batch norms fresh: the folded affine is
-about scale 0.9995, bias 0). The error is ``chip_smoke.py``'s: the
+from ``torch.manual_seed`` and its batch norms' running statistics and
+affine from the next seed (``chip_smoke.draw_pfn_norms``: each layer's
+folded affine far from the identity, so a fault in it shows). The error
+is ``chip_smoke.py``'s: the
 largest absolute difference over the occupied rows of the pillar table,
 over the largest absolute value of the plain version's.
 
@@ -111,7 +113,9 @@ def main() -> None:
         enc = MaskBevEncoder(
             cfg.x_range, cfg.y_range, cfg.z_range, cfg.voxel_size,
             feat_channels=LAYERS, max_points_per_pillar=cfg.max_num_points,
-            max_pillars=cfg.max_num_pillars).to(dev, dt).eval()
+            max_pillars=cfg.max_num_pillars)
+        smoke.draw_pfn_norms(torch, enc, wseed + 1)
+        enc = enc.to(dev, dt).eval()
         pts_np, mask_np = smoke.scans(np, smoke.BATCH,
                                       cfg.max_points_per_scan, sseed)
         pts = torch.as_tensor(pts_np).to(dev, dt)

@@ -229,7 +229,7 @@ def test_patch_embed_plan_at_path_k():
 
 @pytest.mark.parametrize("b,h,w,c,e,f32", [
     (2, 32, 48, 100, 192, False),  # p C = 400: no whole 128-byte K slices
-    (2, 32, 48, 128, 80, False),   # E not one of the kernel's widths
+    (2, 32, 48, 128, 264, False),  # E over 256 (80 runs padded to 96)
     (2, 30, 48, 128, 192, True),   # H not a multiple of p
     (2, 32, 48, 20, 192, True),    # p C = 80 f32: no whole slices
 ])

@@ -2,9 +2,10 @@
 a shape, or None), on the CPU where the rules are pure functions of shapes
 and dtype.
 
-* Each rule refuses the shapes its kernel does not take (a window of 17,
-  129 points a pillar, E = 80, an attention head width of 4 or 12, a
-  decoder head width of 4, 513 queries, float16) and takes every shape of
+* Each rule refuses the shapes its kernel does not take (a window of 25,
+  no point a pillar, E = 264, an attention head width of 4 or 12, a
+  decoder head width of 128 at 2 heads, 513 queries, float16) and takes
+  every shape of
   the flagship's paths
   (``semantic_kitti_default()`` in bf16 and f32, Waymo, paths K and E), of
   ``tiny_test_config()``, whose head width of 8 the decoder's split
@@ -56,8 +57,9 @@ def on_card(t):
 
 def test_decoder_takes_head_width_8():
     """The split instance takes head widths 8 and 16 (``tiny_test_config()``
-    and ``00_quick_test.yml``: C 64 over 8 heads); 16 heads do not split
-    its 8 warps."""
+    and ``00_quick_test.yml``: C 64 over 8 heads), and 16 heads of C 64
+    (head width 4, padded to 8); a head width of 128 at 2 heads it does
+    not."""
     tiny = dict(q=8, c=64, ffn=128, heads=8, nl=3, n_layers=3, t_max=100)
     for dt in (BF16, F32):
         assert kdec.decoder_stack_refusal(**tiny, dtype=dt) is None
@@ -65,7 +67,9 @@ def test_decoder_takes_head_width_8():
                                           dtype=dt) is None  # width 16
     assert not kdec.flagship_takes(**tiny, dtype=BF16)
     assert kdec.split_refusal(**tiny) is None
-    assert "split instance" in kdec.split_refusal(**dict(tiny, heads=16))
+    assert kdec.split_refusal(**dict(tiny, heads=16)) is None
+    assert "split instance" in kdec.split_refusal(**dict(tiny, c=256,
+                                                         heads=2))
     assert "bf16 or f32" in kdec.decoder_stack_refusal(
         **tiny, dtype=torch.float16)
 
@@ -94,15 +98,19 @@ def test_swin_chain_refuses(c, heads, win, hidden):
 
 def test_pfn_refuses_33_points_a_pillar():
     """33 to 128 points a pillar are taken (the instances of 12 m16 tiles),
-    129 are not."""
-    for k in (33, 64, 100, 128):
+    and 129 (the layered route beside them); no point a pillar and 257
+    units are not."""
+    for k in (33, 64, 100, 128, 129):
         for dt in (BF16, F32):
             assert kpfn.pfn_refusal(k, PFN_DIMS, 10, dt, dt) is None
             assert kpfn.stream_pfn_refusal(k, 4, PFN_DIMS, True, dt, dt,
                                            dt) is None
-    assert "128 points" in kpfn.pfn_refusal(129, PFN_DIMS, 10, BF16, BF16)
-    assert "128 points" in kpfn.stream_pfn_refusal(129, 4, PFN_DIMS, True,
-                                                   BF16, BF16, BF16)
+    assert "at least 1 point" in kpfn.pfn_refusal(0, PFN_DIMS, 10, BF16,
+                                                  BF16)
+    assert "at least 1 point" in kpfn.stream_pfn_refusal(
+        0, 4, PFN_DIMS, True, BF16, BF16, BF16)
+    assert "1 to 256 units" in kpfn.pfn_refusal(
+        129, [(10, 64), (128, 64), (128, 257)], 10, BF16, BF16)
     assert kpfn.pfn_refusal(32, [(10, 64), (128, 64), (128, 264)], 10,
                             F32, F32)  # 264 units a layer
     assert kpfn.stream_pfn_refusal(32, 5, PFN_DIMS, True, BF16, BF16, BF16)
@@ -110,11 +118,13 @@ def test_pfn_refuses_33_points_a_pillar():
 
 
 def test_patch_embed_refuses_e96():
-    """E = 48 and 96 are taken (their own wgmma widths), E = 80 is not."""
-    for e in (48, 96):
+    """E = 48 and 96 are taken (their own wgmma widths), and E = 80 (on
+    the instance of 96, padded); E = 264 is not."""
+    for e in (48, 80, 96):
         for dt in (BF16, F32):
             assert kpe.patch_embed_refusal(2, 32, 48, 128, e, 4, dt) is None
-    assert "E in" in kpe.patch_embed_refusal(2, 32, 48, 128, 80, 4, BF16)
+    assert "E from 1 to 256" in kpe.patch_embed_refusal(2, 32, 48, 128, 264,
+                                                        4, BF16)
     assert kpe.patch_embed_refusal(2, 30, 48, 128, 192, 4, BF16)
     assert kpe.patch_embed_refusal(8, 500, 500, 128, 192, 4, BF16) is None
 
@@ -258,8 +268,9 @@ def test_wrappers_raise_on_refused_shapes():
         kln.layer_norm(on_card(torch.zeros(4, 4096, dtype=torch.float16)),
                        None, None)
     canvas = on_card(torch.zeros(2, 32, 48, 128, dtype=BF16))
-    wm = torch.zeros(80, 4 * 4 * 128, dtype=BF16)  # E = 80; 96 is taken
-    with pytest.raises(ValueError, match="E in"):
+    # E = 264; 96 is taken, and 80 (padded to 96)
+    wm = torch.zeros(264, 4 * 4 * 128, dtype=BF16)
+    with pytest.raises(ValueError, match="E from 1 to 256"):
         kpe.patch_embed(canvas, wm, None, None, None, 4)
     assert kpe.patch_embed_refusal(2, 32, 48, 128, 96, 4, BF16) is None
     table = on_card(torch.zeros(2, 16, 12, dtype=torch.float16))
@@ -267,11 +278,12 @@ def test_wrappers_raise_on_refused_shapes():
     with pytest.raises(ValueError, match="bf16 or f32"):
         kcanvas.canvas_norm(table, None, None, ones, ones, ones, ones,
                             (4, 4))
-    out0 = on_card(torch.zeros(2, 8, 64))
+    out0 = on_card(torch.zeros(2, 513, 64))
     layers = [kdec.LayerWeights(*(torch.zeros(64, 128),) * len(
         kdec.LayerWeights._fields))] * 3
     mems = [on_card(torch.zeros(2, n, 64)) for n in (9, 25, 100)]
-    # 16 heads of C 64: a head width of 4; 16 heads of C 256 are taken
+    # 513 queries: 33 rows a block in clusters of 16; 16 heads of C 256
+    # are taken, and of C 64 (a head width of 4, padded to 8)
     with pytest.raises(ValueError, match="split instance"):
         kdec.decoder_stack(out0, out0, None, mems, None, None, layers, None,
                            num_heads=16)
@@ -290,15 +302,16 @@ def _pfn_stream():
 
 
 def test_pfn_wrapper_raises_on_33_points():
-    """The wrapper raises past the kernel's 128 points a pillar; 33 to 128
-    are taken."""
+    """The wrapper raises at no point a pillar; 33 to 128 are taken by
+    the tiles, and more by the layered route beside them."""
     wts = [(torch.zeros(k, u, dtype=BF16), torch.zeros(u), torch.zeros(u))
            for k, u in PFN_DIMS]
-    with pytest.raises(ValueError, match="at most 128 points"):
+    with pytest.raises(ValueError, match="at least 1 point"):
         kpfn.pfn(_pfn_stream(), wts, point_dim=4, with_distance=True,
                  grid_w=80, voxel_size=0.25, x0=-10, y0=-10,
-                 max_points_per_pillar=129, out_dtype=BF16)
-    assert kpfn.pfn_refusal(33, PFN_DIMS, 10, BF16, BF16) is None
+                 max_points_per_pillar=0, out_dtype=BF16)
+    for k in (33, 129, 4096):
+        assert kpfn.pfn_refusal(k, PFN_DIMS, 10, BF16, BF16) is None
 
 
 def _decoder_inputs(cfg, seed):

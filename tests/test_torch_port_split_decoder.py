@@ -171,10 +171,14 @@ def test_split_shape_check_takes_bf16(shape):
 
 
 @pytest.mark.parametrize("shape", [
-    dict(WAYMO, c=64, heads=16, ffn=128),  # 16 heads of C 64: width 4
+    # 16 heads of C 2048: width 128 (16 heads of C 64, width 4, run
+    # padded to 8)
+    dict(WAYMO, c=2048, heads=16),
     dict(WAYMO, q=513),              # 33 rows a block in clusters of 16
-    dict(WAYMO, c=384, heads=12),    # 12 heads do not split the 8 warps
-    dict(WAYMO, ffn=2000),           # hidden units not in chunks of C
+    # 12 heads pad to 16 (the 8 warps split no 12): C 512 passes 227 KB
+    dict(WAYMO, c=384, heads=12),
+    # no hidden unit (any other FFN runs padded to whole chunks of C)
+    dict(WAYMO, ffn=0),
     dict(WAYMO, q=256, t_max=4 * 3969),  # mask bits of 32 rows: > 227 KB
 ], ids=["hd16", "rows", "width", "ffn", "smem"])
 def test_split_shape_check_rejects(shape):
