@@ -1898,16 +1898,13 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
     mask rel + shift mask; used on no path). Bound: qkv read and the
     output written once, the bias read once a head, against the products
     (4 n C a real token; the padded tokens are keys only) at the bf16 or
-    3xTF32 rate. At the head widths outside the flagship instances (the
-    head-width kernel) also the device time of the kernel and of SDPA
+    3xTF32 rate. Also the device time of the kernel and of SDPA
     (``queued_ms``: without the host's time between calls)."""
     import torch.nn.functional as F
 
     err_rel = err_abs = ms_k = ms_p = ms_l = byts = ops = 0.0
     dev_k = dev_l = 0.0
     kname = "window_msa" if msa else "swin_block"
-    widths = any(a[0].shape[1] // 3 // a[5] not in kswin.ATTN_FLAGSHIP_DIMS
-                 for a in calls)
     for (qkv, qb, rel, b, hw, heads, win, shift) in calls:
         a = (qkv, qb, rel, b, hw, heads, win, shift)
         got = kswin.attention(kname, *a, msa=msa)
@@ -1923,28 +1920,25 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
         hd = q.shape[-1]
         ms_l += cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
-        if widths:
-            dev_k += queued_ms(torch, lambda: kswin.attention(
-                kname, *a, msa=msa), 5)
-            dev_l += queued_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
+        dev_k += queued_ms(torch, lambda: kswin.attention(
+            kname, *a, msa=msa), 5)
+        dev_l += queued_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
         del q, k, v, mask, got, want
         c = qkv.shape[1] // 3
         byts += 4 * qkv.shape[0] * c * qkv.element_size() + rel.numel() * 4
         ops += 4.0 * b * hw[0] * hw[1] * win * win * c
     tol = 1e-4 if f32 else 1e-2
-    dev_s = (f"; device kernel {dev_k:.4f} ms, SDPA {dev_l:.4f} ms"
-             if widths else "")
     record(name, ATTN_SOURCE, replaces, err_abs, float("nan"), ms_k, ms_p,
            bound(byts, ops / PEAK["tf32x3" if f32 else "bf16"]),
            f"{'MSA' if msa else 'Swin'} variant, "
            f"{'f32 (3xTF32)' if f32 else 'bf16'}; largest error relative "
            f"to its block's max-abs {err_rel:.4g} (tolerance {tol}); "
            f"{len(calls)} blocks summed; library = "
-           f"F.scaled_dot_product_attention on the same windows{dev_s}",
-           ok=err_rel <= tol, library_ms=ms_l,
-           **(dict(device_ms=dev_k, library_device_ms=dev_l) if widths
-              else {}))
+           f"F.scaled_dot_product_attention on the same windows; device "
+           f"kernel {dev_k:.4f} ms, SDPA {dev_l:.4f} ms",
+           ok=err_rel <= tol, library_ms=ms_l, device_ms=dev_k,
+           library_device_ms=dev_l)
 
 
 def grad_norms(grads):

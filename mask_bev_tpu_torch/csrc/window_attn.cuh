@@ -20,15 +20,14 @@
 // in bf16, under the ~295 that the bf16 tensor cores need, and ~75 TF32
 // operations a byte as 3xTF32 in f32, under TF32's ~148.
 //
-// Design (FlashAttention-2 style, the scores never leave registers):
-// grid (ceil(nW / ATT_WPB), heads, B); a block takes ATT_WPB windows of one
-// head of one sample, so the head's relative bias is read into shared
-// memory once for them; one warp per 16 query rows of the window padded to
-// NP = 16 ceil(n / 16) rows (7 warps at win 10). Windows, padding and the
-// cyclic shift are index math on the (hp, wp) padded grid: token rows come
-// from the unpadded (B*H*W, 3C) qkv, pad tokens (zero before the qkv
-// product) take the qkv bias, rows past the window are zero, and the
-// shift-region labels are computed, not read.
+// Design (FlashAttention-2 style, the scores never leave registers): one
+// warp per 16 query rows of the window padded to NP = 16 ceil(n / 16) rows
+// (7 warps at win 10). Windows, padding and the cyclic shift are index math
+// on the (hp, wp) padded grid: token rows come from the unpadded (B*H*W,
+// 3C) qkv, pad tokens (zero before the qkv product) take the qkv bias, rows
+// past the window are zero, and the shift-region labels are computed, not
+// read. Every kernel reads the head's bias as the compact (2 win - 1)^2
+// table of relative offsets, gathered from rel into shared memory.
 //   bf16: q, k, v rows by 16-byte cp.async into shared memory; S = q k^T on
 //     mma.sync m16n8k16 (bf16 operands, f32 accumulation); the exact
 //     softmax over the row with quad shuffles; P rounded to bf16 in
@@ -43,11 +42,13 @@
 //     the same order). Inside each chunk of 32 channels (16 at hd 16) the
 //     channel index is permuted alike in q and k, so a lane's fragment
 //     values are contiguous and the sums are unchanged.
-// Head widths: HD is the head's width, any multiple of 8 up to 64. The
-// flagship widths 16, 32 and 64 run window_attn_kernel; the others (8, 24,
-// 40, 48, 56; and 72-128) run window_attn_width_kernel (below) up to 128
-// tokens a window, built in their own sources (attn_widths_*.cu,
-// attn_wide_*.cu) in parallel with these. From 129 to 256 tokens every
+// Kernels, up to 128 tokens a window: the flagship widths 16, 32 and 64 in
+// bf16 run window_attn_ring_kernel (a persistent grid walking (head,
+// sample, window) items, a ring of two window buffers); every other width
+// (8, 24, 40, 48, 56; 72-128), and the flagship widths in f32, run
+// window_attn_width_kernel (a grid of (windows / 4, heads, B) blocks; the
+// other widths built in their own sources, attn_widths_*.cu and
+// attn_wide_*.cu, in parallel with these). From 129 to 256 tokens every
 // width up to 64 runs window_attn_long_kernel, which stages a head's rows at
 // HS = staged_dim(HD), the least flagship width that holds it, the columns
 // HD .. HS - 1 zero (zero columns add nothing to the scores; the scale is
@@ -56,12 +57,13 @@
 // over 64, run window_attn_stream_kernel (attn_stream_*.cu).
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
 
 constexpr int ATT_MAX_NPT = 8;  // n <= 128: at most 8 warps of 16 rows
-constexpr int ATT_WPB = 4;      // windows a block, so the bias is read once
+constexpr int ATT_WPB = 4;      // windows a block (the long-window kernel)
 
 // the width a head of HD channels is staged at
 __host__ __device__ constexpr int staged_dim(int hd) {
@@ -71,16 +73,6 @@ __host__ __device__ constexpr int staged_dim(int hd) {
 __device__ __forceinline__ int shift_region(int r, int size, int win,
                                             int shift) {
   return r < size - win ? 0 : (r < size - shift ? 1 : 2);
-}
-
-// shared memory of one block: q, k, v rows (bf16, stride hd + 8) or k, v
-// rows (f32, stride hd + 4); the head's bias (stride NP + 8) as bf16 over
-// NP rows (Swin bf16) or as f32 over n rows; the token and label rows
-static inline size_t window_attn_smem(int n, int hd, bool f32, bool msa) {
-  const size_t np = (n + 15) / 16 * 16, ldb = np + 8;
-  const size_t rows = f32 ? 2 * np * (hd + 4) * 4 : 3 * np * (hd + 8) * 2;
-  const size_t bias = (f32 || msa) ? n * ldb * 4 : np * ldb * 2;
-  return rows + bias + 2 * np * 4;
 }
 
 // The rows of window wi (nww windows a row) of head h in shared memory,
@@ -180,241 +172,6 @@ __device__ __forceinline__ void zero_staged_tail(T* qs, T* ks, T* vs, int n) {
   }
 }
 
-// MAXNPT: the register arrays' size in 16-key steps (7 for win 10); two
-// blocks share an SM. qkv (B*H*W, 3C) of T with channel order [q | k | v]
-// x heads x hd; qkv_bias (3C) f32; rel (heads, n, n) f32; out (B*H*W, C).
-template <typename T, int HD, int MAXNPT, bool MSA>
-__global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
-    const T* __restrict__ qkv, const float* __restrict__ qkv_bias,
-    const float* __restrict__ rel, T* __restrict__ out, int H, int W, int C,
-    int win, int shift, float scale) {
-  constexpr bool F32 = sizeof(T) == 4;
-  using RelT = typename std::conditional<F32 || MSA, float, bf16>::type;
-  constexpr int HS = staged_dim(HD);
-  constexpr int LD = F32 ? HS + 4 : HS + 8;  // conflict-free row strides
-  extern __shared__ __align__(16) unsigned char smraw[];
-  const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
-  const int ldb = NP + 8;
-  T* qs = reinterpret_cast<T*>(smraw);  // bf16 only: f32 q is in registers
-  T* ks = qs + (F32 ? 0 : NP * LD);
-  T* vs = ks + NP * LD;
-  RelT* bs = reinterpret_cast<RelT*>(vs + NP * LD);
-  int* tok = reinterpret_cast<int*>(bs + (F32 || MSA ? n : NP) * ldb);
-  int* lab = tok + NP;
-
-  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
-  const int nww = wp / win, nw = (hp / win) * nww;
-  const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * ATT_WPB;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-
-  for (int e = tid; e < n * n; e += nthr) {
-    const float v = rel[(size_t)h * n * n + e];
-    if constexpr (F32 || MSA)
-      bs[(e / n) * ldb + e % n] = v;
-    else
-      bs[(e / n) * ldb + e % n] = __float2bfloat16_rn(v);
-  }
-  for (int i = tid; i < (NP - n) * LD; i += nthr) {
-    if constexpr (!F32) qs[n * LD + i] = from_f<T>(0.f);
-    ks[n * LD + i] = from_f<T>(0.f);
-    vs[n * LD + i] = from_f<T>(0.f);
-  }
-  zero_staged_tail<T, HD, HS, LD>(qs, ks, vs, n);
-
-  // f32: the lane's q values of rows g, g + 8 (+ 16 warp): chunk c of KC
-  // channels, PER contiguous channels from c KC + PER t; k-step st of the
-  // chunk takes channel PER t + st as slot t and PER t + KS + st as t + 4
-  constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4, KS = KC / 8;
-  constexpr int NCH = HS / KC;
-  const int wend = min(w0 + ATT_WPB, nw);
-  for (int wi = w0; wi < wend; ++wi) {
-    float qv[F32 ? NCH : 1][2][F32 ? PER : 1];
-    stage_window<T, HD, HS, LD>(qkv, qkv_bias, qs, ks, vs, tok, lab, qv, wi,
-                                nww, n, b, h, H, W, C, win, shift, hp, wp);
-    if (warp >= npt) continue;
-
-    // ---- S = q k^T, 16 rows x NP keys in registers ----------------------
-    float s[2 * MAXNPT][4];
-#pragma unroll
-    for (int j = 0; j < 2 * MAXNPT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (F32) {
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        Tf32x2<4> qa[KS];
-#pragma unroll
-        for (int st = 0; st < KS; ++st) {
-          float q4[4] = {qv[c][0][st], qv[c][1][st], qv[c][0][KS + st],
-                         qv[c][1][KS + st]};
-          uint32_t a[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            a[e] = __float_as_uint(MSA ? q4[e] : q4[e] * scale);
-          qa[st] = split_frag(a);
-        }
-#pragma unroll
-        for (int j = 0; j < 2 * MAXNPT; ++j) {
-          if (j < 2 * npt) {
-            const float* kr = ks + (8 * j + g) * LD + c * KC + PER * t;
-            float kv[PER];
-#pragma unroll
-            for (int p4 = 0; p4 < PER / 4; ++p4) {
-              const float4 v = *reinterpret_cast<const float4*>(kr + 4 * p4);
-              kv[4 * p4] = v.x;
-              kv[4 * p4 + 1] = v.y;
-              kv[4 * p4 + 2] = v.z;
-              kv[4 * p4 + 3] = v.w;
-            }
-#pragma unroll
-            for (int st = 0; st < KS; ++st) {
-              const uint32_t bw[2] = {__float_as_uint(kv[st]),
-                                      __float_as_uint(kv[KS + st])};
-              mma_3xtf32(s[j], qa[st], split_frag(bw));
-            }
-          }
-        }
-      }
-    } else {
-      uint32_t qa[HS / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        ldsm_x4(qa[kk], qs + (16 * warp + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-        if constexpr (!MSA) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = unpack_bf16(qa[kk][e]);
-            qa[kk][e] = pack_bf16(f.x * scale, f.y * scale);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2 * MAXNPT; ++j) {
-        if (j < 2 * npt) {
-#pragma unroll
-          for (int kk = 0; kk < HS / 16; ++kk) {
-            uint32_t b0, b1;
-            ldsm_x2(b0, b1, ks + (8 * j + (lane & 7)) * LD + kk * 16 +
-                                ((lane >> 3) & 1) * 8);
-            mma_16816(s[j], qa[kk], b0, b1);
-          }
-        }
-      }
-    }
-
-    // ---- bias, shift mask, exact softmax over the n real keys -----------
-    const int r0 = 16 * warp + g, r1 = r0 + 8;
-    const int l0 = r0 < n ? lab[r0] : 0, l1 = r1 < n ? lab[r1] : 0;
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 2 * MAXNPT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r0 : r1, c = 8 * j + 2 * t + (e & 1);
-        float v = -INFINITY;
-        if (c < n) {
-          float bias = r < n ? to_f(bs[r * ldb + c]) : 0.f;
-          if (shift && (e < 2 ? l0 : l1) != lab[c])
-            bias = __fadd_rn(bias, -100.f);
-          v = __fadd_rn(MSA ? __fmul_rn(s[j][e], scale) : s[j][e], bias);
-        }
-        s[j][e] = v;
-        if (e < 2)
-          m0 = fmaxf(m0, v);
-        else
-          m1 = fmaxf(m1, v);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
-    float l0s = 0.f, l1s = 0.f;  // row sums, then their reciprocals
-#pragma unroll
-    for (int j = 0; j < 2 * MAXNPT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = expf(s[j][e] - (e < 2 ? m0 : m1));
-        s[j][e] = x;
-        if (e < 2)
-          l0s += x;
-        else
-          l1s += x;
-      }
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      l0s += __shfl_xor_sync(0xffffffffu, l0s, o);
-      l1s += __shfl_xor_sync(0xffffffffu, l1s, o);
-    }
-    l0s = 1.f / l0s;
-    l1s = 1.f / l1s;
-
-    // ---- O = P v: P in registers is the A operand ------------------------
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
-    if constexpr (F32) {
-#pragma unroll
-      for (int j = 0; j < 2 * MAXNPT; ++j) {
-        if (j < 2 * npt) {
-          // keys 8j + 2t, 8j + 2t + 1 as the logical slots t, t + 4
-          const uint32_t a[4] = {__float_as_uint(s[j][0] * l0s),
-                                 __float_as_uint(s[j][2] * l1s),
-                                 __float_as_uint(s[j][1] * l0s),
-                                 __float_as_uint(s[j][3] * l1s)};
-          const Tf32x2<4> pa = split_frag(a);
-          const T* v0 = vs + (8 * j + 2 * t) * LD + g;
-#pragma unroll
-          for (int jd = 0; jd < HD / 8; ++jd) {
-            const uint32_t bw[2] = {__float_as_uint(v0[8 * jd]),
-                                    __float_as_uint(v0[LD + 8 * jd])};
-            mma_3xtf32(acc[jd], pa, split_frag(bw));
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int s2 = 0; s2 < MAXNPT; ++s2) {
-        if (s2 >= npt) continue;
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * s2][0] * l0s, s[2 * s2][1] * l0s),
-            pack_bf16(s[2 * s2][2] * l1s, s[2 * s2][3] * l1s),
-            pack_bf16(s[2 * s2 + 1][0] * l0s, s[2 * s2 + 1][1] * l0s),
-            pack_bf16(s[2 * s2 + 1][2] * l1s, s[2 * s2 + 1][3] * l1s)};
-#pragma unroll
-        for (int jd = 0; jd < HD / 8; ++jd) {
-          uint32_t b0, b1;
-          ldsm_x2_trans(b0, b1, vs + (16 * s2 + (lane & 15)) * LD + 8 * jd);
-          mma_16816(acc[jd], pa, b0, b1);
-        }
-      }
-    }
-    const int tk0 = r0 < n ? tok[r0] : -1, tk1 = r1 < n ? tok[r1] : -1;
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd) {
-      const int col = h * HD + 8 * jd + 2 * t;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int tk = hh ? tk1 : tk0;
-        if (tk < 0) continue;
-        T* dst = out + (size_t)tk * C + col;
-        if constexpr (F32)
-          *reinterpret_cast<float2*>(dst) =
-              make_float2(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
-        else
-          *reinterpret_cast<uint32_t*>(dst) =
-              pack_bf16(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Windows of 129 to 256 tokens (window 12: Swin-B/L at 384 px; window 16:
 // Swin V2): window_attn_long_kernel. A warp's whole score row no longer fits
@@ -424,8 +181,8 @@ __global__ void __launch_bounds__(32 * MAXNPT, 2) window_attn_kernel(
 // chunk's max m', the accumulator and the sum rescaled by exp(m - m'), P =
 // exp(s - m') (unnormalized; bf16: rounded to bf16 as the A operand) and O
 // += P v; at the end O / sum. Up to 16 warps of 16 query rows. Windows of at
-// most 128 tokens keep window_attn_kernel above (one pass over whole score
-// rows), so their outputs are unchanged. Both stage a window with
+// most 128 tokens keep one pass over whole score rows (the width and ring
+// kernels below), so their outputs are unchanged. It stages a window with
 // stage_window.
 //
 // The Hopper redesign (the first version read every score's bias from the
@@ -738,15 +495,16 @@ __global__ void __launch_bounds__(32 * NPT, long_blocks<T, NPT>())
 }
 
 // ---------------------------------------------------------------------------
-// The head-width instances (HD 8, 24, 40, 48, 56) at windows of at most 128
-// tokens: window_attn_width_kernel. It computes what window_attn_kernel
-// computes, in each variant's order of arithmetic. The first version ran
-// window_attn_kernel with the rows staged at the next flagship width, and
-// lost 1.1-1.5x to SDPA at 3-25x its byte bound: every block staged its
-// head's expanded (n, n) bias (40 KB of f32 read from L2 at window 10, more
-// than its 4 windows of bf16 qkv at HD 8), the products ran at the staged
-// width (2x the work at HD 8, 1.6x at 40), and two blocks shared an SM
-// whatever the width. The Hopper redesign:
+// The head-width instances (HD 8, 24, 40, 48, 56; 72-128; and 16, 32, 64 in
+// f32) at windows of at most 128 tokens: window_attn_width_kernel. It
+// computes what the flagship widths' first kernel (window_attn_kernel, the
+// head's (n, n) bias staged a block) computed, in each variant's order of
+// arithmetic. The first version ran that kernel with the rows staged at
+// the next flagship width, and lost 1.1-1.5x to SDPA at 3-25x its byte
+// bound: every block staged its head's expanded (n, n) bias (40 KB of f32
+// read from L2 at window 10, more than its 4 windows of bf16 qkv at HD 8),
+// the products ran at the staged width (2x the work at HD 8, 1.6x at 40),
+// and two blocks shared an SM whatever the width. The Hopper redesign:
 //   * the head's compact (2 win - 1)^2 bias table in shared memory once a
 //     block, a score's bias tab[ro(i) - co(j)], as window_attn_long_kernel
 //     stages and reads it (the bf16 Swin variant's values rounded to bf16
@@ -948,8 +706,10 @@ __device__ __forceinline__ void load_q_f32(float (&qv)[2][HD / 4],
   }
 }
 
-// MAXNPT: the register arrays' size in 16-key steps (7 for win 10);
-// arguments as window_attn_kernel's
+// MAXNPT: the register arrays' size in 16-key steps (7 for win 10); qkv
+// (B*H*W, 3C) of T with channel order [q | k | v] x heads x HD; qkv_bias
+// (3C) f32; rel (heads, n, n) f32, a relative-position bias; out (B*H*W,
+// C). Grid (ceil(nW / ATT_WIDTH_WPB), heads, B).
 template <typename T, int HD, int MAXNPT, bool MSA>
 __global__ void __launch_bounds__(32 * MAXNPT,
                                   width_blocks(sizeof(T) == 4, MAXNPT, HD))
@@ -1187,6 +947,391 @@ __global__ void __launch_bounds__(32 * MAXNPT,
         else
           *reinterpret_cast<uint32_t*>(dst) =
               pack_bf16(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The flagship head widths (16, 32, 64) in bf16 at windows of at most 128
+// tokens, both variants: window_attn_ring_kernel, the main path's attention
+// (kernel 3's at head width 64, window 10, 12 launches a forward) and kernel
+// 7's (path K; the refinement at 32). It computes what the first version,
+// window_attn_kernel, computed, in the same order of every sum (the key
+// steps of S, the row max and sum, P rounded to bf16 before P v), so its
+// outputs are that kernel's bit for bit. The first version lost 1.9x to
+// SDPA's device time at ~5.3x its byte bound (1.49 device ms a forward
+// against 0.28): a grid of (windows / 4, heads, B) blocks, two of 128
+// registers a thread an SM, each staging its head's expanded (n, n) bias
+// from L2 and then, a window at a time, copying the window's rows and
+// waiting for all of them before any warp computed; the last wave partly
+// empty (stage 2: 1.45 waves; stage 3: 192 blocks for 264 slots, each
+// walking its 4 windows in turn). Ablations of the redesign on the H100
+// (scripts/flagship_attn_profile.py, PERF.md) showed the work bound by
+// instructions and their latency, not by bytes: taking out the row copies
+// saved 5 % of the main path's attention, the first redesign's per-score
+// gather from the compact table 21 %, the exp 8 %, the S products 14 %,
+// the P v products 4 %. The Hopper redesign:
+//   * a persistent grid of whole waves: as many blocks as fit the SMs at
+//     once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each walking a
+//     contiguous range of the (head, sample, window) items, head-major, so
+//     no wave runs partly empty and a block's head changes once or twice;
+//   * the head's bias gathered as the compact (2 win - 1)^2 table of
+//     relative offsets (one rel entry an offset, as the width, long and
+//     stream kernels read it; the Swin variant rounded to bf16, as the
+//     model's table holds it) and expanded in shared memory to the n rows
+//     of NP keys a score reads with one load a pair of keys, when the block's
+//     head changes: the keys past the window hold -inf, so no score tests
+//     its column; rows past the window read the last row (never stored);
+//   * the shift mask's label compare only in the windows whose tokens
+//     carry different labels (the last row and column of windows of a
+//     shifted block): a branch uniform over the block picks the loop;
+//   * ldmatrix.x4 for k (two k-steps) and v (two column tiles): half the
+//     shared-memory load instructions of the x2 form;
+//   * one window buffer (q, k, v rows at stride width_ld, an odd number of
+//     16-byte words: conflict-free ldmatrix) whose parts are refilled in
+//     turn by cp.async commit groups: item k + 1's q and k while the warps
+//     run item k's P v, item k's v while they run its S and softmax; the
+//     block waits with cp.async.wait_group 0 at its two barriers an item.
+//     A ring of two whole buffers (measured first) halved the blocks an SM
+//     and was slower; pad tokens take the qkv bias by plain stores, the
+//     cyclic shift and the padding are index math (TMA would need a window
+//     unwrapped inside the grid);
+//   * mma.sync m16n8k16 with the scores and P in registers (FlashAttention-2
+//     style): at ~25 operations a byte the products are not the limit, and
+//     wgmma's 64-row tiles (128 rows for 100 tokens) would buy nothing; P is
+//     packed to bf16 before the accumulators live (fewer registers).
+// The token rows of an item (tok: the token or -1 for a pad token) and its
+// shift labels sit in a ring of ATT_RING_SLOTS slots, written two items
+// ahead of the item's copies.
+constexpr int ATT_RING_SLOTS = 3;  // token and label slots
+// blocks an SM the instances are built for (their launch bounds: 128
+// registers a thread at 7 or 8 warps, no spill at any width; three blocks
+// at head width 64, 80 registers, spilled and were slower on the H100);
+// the launch sizes the grid by the occupancy the card reports.
+// ops/swin_block.py mirrors it
+constexpr int ATT_RING_BLOCKS = 2;
+
+// shared memory of one block: the q, k, v rows (bf16, stride width_ld),
+// ATT_RING_SLOTS slots of token and label rows, the column offsets, the
+// compact table, and the (n, NP + 8) bias (bf16 in the Swin variant, f32 in
+// the MSA variant)
+static inline size_t window_attn_ring_smem(int win, int hd, bool msa) {
+  const size_t n = win * win, np = (n + 15) / 16 * 16;
+  const size_t ld = width_ld(hd, false);
+  return 3 * np * ld * 2 + ATT_RING_SLOTS * 2 * np * 4 + np * 4 +
+         rel_table_floats(win) * 4 + n * (np + 8) * (msa ? 4 : 2);
+}
+
+// the work item `it` of a grid walking (head, sample, window) head-major
+__device__ __forceinline__ void ring_item(int it, int B, int nw, int& h,
+                                          int& b, int& wi) {
+  const int hb = it / nw;
+  wi = it - hb * nw;
+  h = hb / B;
+  b = hb - h * B;
+}
+
+// the bias of keys c, c + 1 (c even) of a bias row
+__device__ __forceinline__ float2 bias_pair(const bf16* row, int c) {
+  return unpack_bf16(*reinterpret_cast<const uint32_t*>(row + c));
+}
+__device__ __forceinline__ float2 bias_pair(const float* row, int c) {
+  return *reinterpret_cast<const float2*>(row + c);
+}
+
+// MAXNPT: the register arrays' size in 16-key steps (7 for win 10); qkv
+// (B*H*W, 3C) bf16 with channel order [q | k | v] x heads x HD; qkv_bias
+// (3C) f32; rel (heads, n, n) f32, a relative-position bias (its compact
+// table is gathered from it); out (B*H*W, C) bf16. Any grid: block k walks
+// items [k items / grid, (k + 1) items / grid).
+template <int HD, int MAXNPT, bool MSA>
+__global__ void __launch_bounds__(32 * MAXNPT, ATT_RING_BLOCKS)
+    window_attn_ring_kernel(const bf16* __restrict__ qkv,
+                            const float* __restrict__ qkv_bias,
+                            const float* __restrict__ rel,
+                            bf16* __restrict__ out, int B, int H, int W,
+                            int C, int heads, int win, int shift,
+                            float scale) {
+  using BiasT = typename std::conditional<MSA, float, bf16>::type;
+  constexpr int LD = width_ld(HD, false);
+  constexpr int CH = HD / 8;  // 16-byte words of a head's row
+  constexpr int NS = ATT_RING_SLOTS;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
+  const int LDB = NP + 8;  // bias row stride: conflict-free pair loads
+  const int TF = rel_table_floats(win);
+  bf16* qs = reinterpret_cast<bf16*>(smraw);  // q, k, v rows [NP][LD] each
+  bf16* ks = qs + NP * LD;
+  bf16* vs = ks + NP * LD;
+  int* tok = reinterpret_cast<int*>(vs + NP * LD);  // [NS][NP]
+  int* lab = tok + NS * NP;                         // [NS][NP]
+  int* co = lab + NS * NP;                          // [NP]
+  float* tab = reinterpret_cast<float*>(co + NP);   // [TF]
+  BiasT* bias = reinterpret_cast<BiasT*>(tab + TF);  // [n][LDB]
+
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  const int nww = wp / win, nwh = hp / win, nw = nwh * nww;
+  const int tw = 2 * win - 1;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // (items < 2^31, the launch's check)
+  const long long items = (long long)heads * B * nw;
+  const int lo = (int)(items * blockIdx.x / gridDim.x);
+  const int cnt = (int)(items * (blockIdx.x + 1) / gridDim.x) - lo;
+
+  // the token and label rows of item k into slot k % NS
+  auto stage_tokens = [&](int k) {
+    int h, b, wi;
+    ring_item(lo + k, B, nw, h, b, wi);
+    int* tk = tok + (k % NS) * NP;
+    int* lb = lab + (k % NS) * NP;
+    const int wy = wi / nww, wx = wi % nww;
+    for (int r = tid; r < n; r += nthr) {
+      const int gy = wy * win + r / win, gx = wx * win + r % win;  // rolled
+      const int ro = (gy + shift) % hp, cq = (gx + shift) % wp;    // padded
+      tk[r] = (ro < H && cq < W) ? (b * H + ro) * W + cq : -1;
+      lb[r] = shift ? shift_region(gy, hp, win, shift) * 3 +
+                          shift_region(gx, wp, win, shift)
+                    : 0;
+    }
+  };
+  // parts p0 .. p0 + np - 1 (0 q, 1 k, 2 v) of item k's rows by cp.async
+  // (a pad token's row the qkv bias, stored directly), one commit group
+  auto stage_rows = [&](int k, int p0, int np) {
+    int h, b, wi;
+    ring_item(lo + k, B, nw, h, b, wi);
+    const int* tk = tok + (k % NS) * NP;
+    for (int i = tid; i < n * np * CH; i += nthr) {
+      const int r = i / (np * CH), part = p0 + (i / CH) % np;
+      const int c = (i % CH) * 8;
+      bf16* dst = qs + (part * NP + r) * LD + c;
+      const int tr = tk[r];
+      if (tr >= 0) {
+        cp_async16(dst, qkv + (size_t)tr * 3 * C + part * C + h * HD + c);
+      } else {
+        const float* bsrc = qkv_bias + part * C + h * HD + c;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack_bf16(bsrc[0], bsrc[1]),
+                       pack_bf16(bsrc[2], bsrc[3]),
+                       pack_bf16(bsrc[4], bsrc[5]),
+                       pack_bf16(bsrc[6], bsrc[7]));
+      }
+    }
+    cp_async_commit();
+  };
+  // the head's bias: its compact table, offset (dy, dx) from the tokens
+  // (max(dy, 0), max(dx, 0)) and (max(dy, 0) - dy, max(dx, 0) - dx), then
+  // expanded: row r, key c the entry ro(r) - co(c); -inf past the keys
+  auto stage_bias = [&](int h) {
+    const float* relh = rel + (size_t)h * n * n;
+    for (int i = tid; i < tw * tw; i += nthr) {
+      const int dy = i / tw - (win - 1), dx = i % tw - (win - 1);
+      const int ry = max(dy, 0), rx = max(dx, 0);
+      float v = __ldg(relh + (size_t)(ry * win + rx) * n + (ry - dy) * win +
+                      (rx - dx));
+      if constexpr (!MSA) v = to_f(__float2bfloat16_rn(v));
+      tab[i] = v;
+    }
+    __syncthreads();
+    for (int r = warp; r < n; r += nthr / 32) {
+      const int ro = co[r] + (win - 1) * (tw + 1);
+      for (int c = lane; c < NP; c += 32) {
+        const float v = c < n ? tab[ro - co[c]] : -INFINITY;
+        if constexpr (MSA)
+          bias[r * LDB + c] = v;
+        else
+          bias[r * LDB + c] = __float2bfloat16_rn(v);
+      }
+    }
+  };
+
+  // rows n .. NP - 1 are zero (v's must be finite: their probabilities are
+  // 0); the copies never write them
+  for (int i = tid; i < 3 * (NP - n) * LD; i += nthr) {
+    const int per = (NP - n) * LD, part = i / per;
+    qs[(size_t)part * NP * LD + n * LD + i % per] = __float2bfloat16_rn(0.f);
+  }
+  for (int j = tid; j < NP; j += nthr)
+    co[j] = j < n ? (j / win) * tw + j % win : 0;
+  for (int k = 0; k < 2 && k < cnt; ++k) stage_tokens(k);
+  __syncthreads();
+  int head = -1;  // the head whose bias the block holds
+  if (cnt > 0) {
+    stage_rows(0, 0, 2);  // item 0's q and k
+    int h, b, wi;
+    ring_item(lo, B, nw, h, b, wi);
+    stage_bias(h);
+    head = h;
+  }
+
+  // Item k: its q and k rows were copied while item k - 1's P v ran; its v
+  // rows are copied while its S and softmax run; item k + 1's q and k while
+  // its P v runs. Two barriers an item, as one buffer's parts are refilled.
+  for (int k = 0; k < cnt; ++k) {
+    cp_async_wait<0>();
+    __syncthreads();  // q, k, tokens and bias of item k in place; v free
+    stage_rows(k, 2, 1);
+    if (k + 2 < cnt) stage_tokens(k + 2);  // slot (k - 1) % NS: read
+    int h, b, wi;
+    ring_item(lo + k, B, nw, h, b, wi);
+    const int* tk = tok + (k % NS) * NP;
+    const int* lb = lab + (k % NS) * NP;
+    // labels differ only in the last row and column of windows
+    const bool mixed = shift && (wi / nww == nwh - 1 || wi % nww == nww - 1);
+
+    // ---- S = q k^T, 16 rows x NP keys in registers ----------------------
+    float s[2 * MAXNPT][4];
+#pragma unroll
+    for (int j = 0; j < 2 * MAXNPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    {
+      uint32_t qa[HD / 16][4];
+      const bf16* qrow = qs + (16 * warp + (lane & 15)) * LD;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        ldsm_x4(qa[kk], qrow + kk * 16 + (lane >> 4) * 8);
+        if constexpr (!MSA) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16(qa[kk][e]);
+            qa[kk][e] = pack_bf16(f.x * scale, f.y * scale);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * MAXNPT; ++j) {
+        if (j < 2 * npt) {
+          const bf16* kr = ks + (8 * j + (lane & 7)) * LD;
+          if constexpr (HD == 16) {
+            uint32_t b0, b1;
+            ldsm_x2(b0, b1, kr + ((lane >> 3) & 1) * 8);
+            mma_16816(s[j], qa[0], b0, b1);
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; kk += 2) {
+              uint32_t kb[4];  // k-steps kk and kk + 1
+              ldsm_x4(kb, kr + kk * 16 + (lane >> 3) * 8);
+              mma_16816(s[j], qa[kk], kb[0], kb[1]);
+              mma_16816(s[j], qa[kk + 1], kb[2], kb[3]);
+            }
+          }
+        }
+      }
+    }
+
+    // ---- bias (the expanded table), shift mask, exact softmax -----------
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+    const BiasT* b0r = bias + min(r0, n - 1) * LDB + 2 * t;
+    const BiasT* b1r = bias + min(r1, n - 1) * LDB + 2 * t;
+    float m0 = -INFINITY, m1 = -INFINITY;
+    auto scores = [&](auto masked) {
+      const int l0 = r0 < n ? lb[r0] : 0, l1 = r1 < n ? lb[r1] : 0;
+#pragma unroll
+      for (int j = 0; j < 2 * MAXNPT; ++j) {
+        if (j >= 2 * npt) {  // past the padded window: no key
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = -INFINITY;
+          continue;
+        }
+        const float2 p0 = bias_pair(b0r, 8 * j), p1 = bias_pair(b1r, 8 * j);
+        float bb[4] = {p0.x, p0.y, p1.x, p1.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (decltype(masked)::value) {
+            const int c = 8 * j + 2 * t + (e & 1);
+            if ((e < 2 ? l0 : l1) != (c < n ? lb[c] : 0))
+              bb[e] = __fadd_rn(bb[e], -100.f);
+          }
+          const float v =
+              __fadd_rn(MSA ? __fmul_rn(s[j][e], scale) : s[j][e], bb[e]);
+          s[j][e] = v;
+          if (e < 2)
+            m0 = fmaxf(m0, v);
+          else
+            m1 = fmaxf(m1, v);
+        }
+      }
+    };
+    if (mixed)
+      scores(std::true_type());
+    else
+      scores(std::false_type());
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0s = 0.f, l1s = 0.f;  // row sums, then their reciprocals
+#pragma unroll
+    for (int j = 0; j < 2 * MAXNPT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - (e < 2 ? m0 : m1));
+        s[j][e] = x;
+        if (e < 2)
+          l0s += x;
+        else
+          l1s += x;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l0s += __shfl_xor_sync(0xffffffffu, l0s, o);
+      l1s += __shfl_xor_sync(0xffffffffu, l1s, o);
+    }
+    l0s = 1.f / l0s;
+    l1s = 1.f / l1s;
+
+    // ---- O = P v: P packed to bf16 first (the f32 scores die before acc
+    // lives), the A operand in registers --------------------------------
+    cp_async_wait<0>();
+    __syncthreads();  // item k's v in place; its q, k and bias read
+    if (k + 1 < cnt) {
+      stage_rows(k + 1, 0, 2);
+      int h1, b1, w1;
+      ring_item(lo + k + 1, B, nw, h1, b1, w1);
+      if (h1 != head) {
+        stage_bias(h1);
+        head = h1;
+      }
+    }
+    uint32_t pa[MAXNPT][4];
+#pragma unroll
+    for (int s2 = 0; s2 < MAXNPT; ++s2) {
+      pa[s2][0] = pack_bf16(s[2 * s2][0] * l0s, s[2 * s2][1] * l0s);
+      pa[s2][1] = pack_bf16(s[2 * s2][2] * l1s, s[2 * s2][3] * l1s);
+      pa[s2][2] = pack_bf16(s[2 * s2 + 1][0] * l0s, s[2 * s2 + 1][1] * l0s);
+      pa[s2][3] = pack_bf16(s[2 * s2 + 1][2] * l1s, s[2 * s2 + 1][3] * l1s);
+    }
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+#pragma unroll
+    for (int s2 = 0; s2 < MAXNPT; ++s2) {
+      if (s2 >= npt) continue;
+      const bf16* vr = vs + (16 * s2 + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int jd = 0; jd < HD / 8; jd += 2) {
+        uint32_t vb[4];  // column tiles jd and jd + 1
+        ldsm_x4_trans(vb, vr + 8 * jd);
+        mma_16816(acc[jd], pa[s2], vb[0], vb[1]);
+        mma_16816(acc[jd + 1], pa[s2], vb[2], vb[3]);
+      }
+    }
+    const int tk0 = r0 < n ? tk[r0] : -1, tk1 = r1 < n ? tk[r1] : -1;
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd) {
+      const int cc = h * HD + 8 * jd + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tr = hh ? tk1 : tk0;
+        if (tr < 0) continue;
+        *reinterpret_cast<uint32_t*>(out + (size_t)tr * C + cc) =
+            pack_bf16(acc[jd][2 * hh], acc[jd][2 * hh + 1]);
       }
     }
   }
@@ -1578,27 +1723,60 @@ static int launch_window_attn_width(const void* qkv, const float* qkv_bias,
   return (int)cudaGetLastError();
 }
 
-// the flagship widths' one-pass kernel up to 128 tokens, the long-window
-// kernel above (every width up to 64, staged at staged_dim(HD))
+// the flagship widths' bf16 kernel up to 128 tokens: a persistent grid of
+// as many blocks as fit the SMs at once, walking the items
+template <bool MSA, int HD>
+static int launch_window_attn_ring(const void* qkv, const float* qkv_bias,
+                                   const float* rel, void* out, int B, int H,
+                                   int W, int C, int heads, int win,
+                                   int shift, float scale,
+                                   cudaStream_t stream) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int NP = (win * win + 15) / 16 * 16;
+  const size_t smem = window_attn_ring_smem(win, HD, MSA);
+  auto kern = NP == 112 ? window_attn_ring_kernel<HD, 7, MSA>
+                        : window_attn_ring_kernel<HD, ATT_MAX_NPT, MSA>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      32 * (NP / 16), smem);
+  if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
+  if (per_sm < 1) return MB_BAD_ARGS;
+  const int hp = (H + win - 1) / win * win, wp = (W + win - 1) / win * win;
+  const long long items = (long long)(hp / win) * (wp / win) * heads * B;
+  if (items >= (1ll << 31)) return MB_BAD_ARGS;
+  const int grid = (int)std::min<long long>(items, (long long)per_sm * sms);
+  kern<<<grid, 32 * (NP / 16), smem, stream>>>(
+      (const bf16*)qkv, qkv_bias, rel, (bf16*)out, B, H, W, C, heads, win,
+      shift, scale);
+  return (int)cudaGetLastError();
+}
+
+// windows of 129 to 256 tokens: the long-window kernel (every width up to
+// 64, staged at staged_dim(HD))
 template <typename T, bool MSA, int HD>
-static int launch_window_attn_staged(const void* qkv, const float* qkv_bias,
-                                     const float* rel, void* out, int B,
-                                     int H, int W, int C, int heads, int win,
-                                     int shift, float scale,
-                                     cudaStream_t stream, bool long_win) {
-  const int n = win * win, NP = (n + 15) / 16 * 16;
+static int launch_window_attn_long(const void* qkv, const float* qkv_bias,
+                                   const float* rel, void* out, int B, int H,
+                                   int W, int C, int heads, int win,
+                                   int shift, float scale,
+                                   cudaStream_t stream) {
+  const int NP = (win * win + 15) / 16 * 16;
   constexpr int HS = staged_dim(HD);
-  const size_t smem = long_win
-                           ? window_attn_long_smem(win, HS, sizeof(T) == 4)
-                           : window_attn_smem(n, HS, sizeof(T) == 4, MSA);
+  const size_t smem = window_attn_long_smem(win, HS, sizeof(T) == 4);
   auto kern = NP <= 16 * ATT_W12_NPT
                   ? window_attn_long_kernel<T, HD, MSA, ATT_W12_NPT>
                   : window_attn_long_kernel<T, HD, MSA, ATT_LONG_MAX_NPT>;
-  if constexpr (HS == HD) {  // the flagship widths' one-pass kernel
-    if (!long_win)
-      kern = NP == 112 ? window_attn_kernel<T, HD, 7, MSA>
-                       : window_attn_kernel<T, HD, ATT_MAX_NPT, MSA>;
-  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return MB_ATTR_FAILED + (int)e;
@@ -1609,6 +1787,9 @@ static int launch_window_attn_staged(const void* qkv, const float* qkv_bias,
   return (int)cudaGetLastError();
 }
 
+// up to 128 tokens: the flagship widths' ring kernel in bf16, the
+// head-width kernel otherwise (the flagship widths in f32 too); above, the
+// long-window kernel
 template <typename T, bool MSA, int HD>
 static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
                                  const float* rel, void* out, int B, int H,
@@ -1619,16 +1800,20 @@ static int launch_window_attn_hd(const void* qkv, const float* qkv_bias,
   // windows over 256 tokens, or over 128 at head widths over 64: the
   // streaming kernel's entry (launch_window_attn_streamed), not this one
   if (NP > 16 * ATT_LONG_MAX_NPT || (HD > 64 && long_win)) return MB_BAD_ARGS;
-  if constexpr (staged_dim(HD) != HD) {
-    if (!long_win)
-      return launch_window_attn_width<T, MSA, HD>(
-          qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
-          stream);
+  if (!long_win) {
+    if constexpr (sizeof(T) == 2 && staged_dim(HD) == HD)
+      return launch_window_attn_ring<MSA, HD>(qkv, qkv_bias, rel, out, B, H,
+                                              W, C, heads, win, shift, scale,
+                                              stream);
+    else
+      return launch_window_attn_width<T, MSA, HD>(qkv, qkv_bias, rel, out,
+                                                  B, H, W, C, heads, win,
+                                                  shift, scale, stream);
   }
   if constexpr (HD <= 64)
-    return launch_window_attn_staged<T, MSA, HD>(
-        qkv, qkv_bias, rel, out, B, H, W, C, heads, win, shift, scale,
-        stream, long_win);
+    return launch_window_attn_long<T, MSA, HD>(qkv, qkv_bias, rel, out, B, H,
+                                               W, C, heads, win, shift, scale,
+                                               stream);
   return MB_BAD_ARGS;
 }
 

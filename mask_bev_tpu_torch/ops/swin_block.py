@@ -544,15 +544,17 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 # rows (``window_attn_stream_kernel``, also for windows over 128 tokens at
 # head widths over 64: the rows staged at :func:`attn_stream_dim`); head
 # widths 16, 32 and 64 in the flagship sources (``swin_window_attn``,
-# ``window_msa_attn``; one pass: ``window_attn_kernel``), the others of
-# ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` and those of ATTN_WIDE_DIMS
-# in ``csrc/attn_wide_*.cu`` (one pass: ``window_attn_width_kernel``, the
-# rows at the exact width and the compact table; long windows staged at the
-# next flagship width, its columns past the head zero:
+# ``window_msa_attn``; one pass in bf16: ``window_attn_ring_kernel``, a
+# persistent grid walking (head, sample, window) items, one window buffer
+# whose parts are refilled in turn; in f32 the head-width kernel), the
+# others of ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` and those of
+# ATTN_WIDE_DIMS in ``csrc/attn_wide_*.cu`` (one pass:
+# ``window_attn_width_kernel``, the rows at the exact width; long windows
+# staged at the next flagship width, its columns past the head zero:
 # :func:`attn_staged_dim`); the streaming kernel in ``csrc/attn_stream_*.cu``
-# (``swin_window_attn_stream``, ``window_msa_attn_stream``). Where the
-# compact table is read, ``rel`` must be a relative-position bias, as
-# :func:`rel_bias_from_table` builds it.
+# (``swin_window_attn_stream``, ``window_msa_attn_stream``). Every kernel
+# reads the compact table (:func:`rel_offsets`), so ``rel`` must be a
+# relative-position bias, as :func:`rel_bias_from_table` builds it.
 ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
 ATTN_WIDE_DIMS = (72, 80, 88, 96, 104, 112, 120, 128)
 ATTN_FLAGSHIP_DIMS = (16, 32, 64)
@@ -568,6 +570,11 @@ ATTN_KEY_CHUNK = 64    # ``16 ATT_KCH``: keys a chunk
 # ATT_WIDTH_BLOCKS_WIDE_F32)
 ATTN_WIDTH_BLOCKS = (4, 3, 2)
 ATTN_WIDE_BLOCKS = (2, 1)
+# the flagship widths' bf16 ring kernel: token and label slots a block
+# (``ATT_RING_SLOTS``) and the blocks an SM it is built for
+# (``ATT_RING_BLOCKS``)
+ATTN_RING_SLOTS = 3
+ATTN_RING_BLOCKS = 2
 
 
 def attn_staged_dim(hd: int) -> int:
@@ -682,41 +689,52 @@ def swin_block_refusal(c: int, heads: int, win: int, hidden: int,
 
 def attn_smem_bytes(win: int, hd: int, f32: bool = False,
                     msa: bool = False) -> int:
-    """Shared memory of one attention block (``csrc/window_attn.cuh::
-    window_attn_smem``, ``window_attn_width_smem`` for a head width outside
-    :data:`ATTN_FLAGSHIP_DIMS`, ``window_attn_long_smem`` above
-    :data:`ATTN_ONE_PASS_TOKENS`): q, k, v rows of the padded window (bf16,
-    stride hs + 8) or k, v rows (f32, stride hs + 4), hs the staged width
-    (:func:`attn_staged_dim`); up to 128 tokens the
-    relative bias of its head (stride NP + 8) as bf16 over NP rows (the
-    Swin variant in bf16) or as f32 over n rows, longer windows the
-    compact (2w-1)² f32 table and a row of column offsets
-    (:func:`rel_offsets`); the token and label rows. A block takes one head
-    over 4 windows, so it reads the bias once for them. The head-width
-    kernel: its rows at stride :func:`attn_width_ld`, the token, label and
-    column-offset rows, the compact table. The streaming kernel: a round's
-    q rows (bf16, 128 of them) and a chunk's k and v rows (64 each) at
-    :func:`attn_stream_dim` (+ 8 bf16, + 4 f32), the token, label and
-    column-offset rows, the compact table."""
+    """Shared memory of one attention block (``csrc/window_attn.cuh``).
+    The ring kernel (the flagship widths in bf16 up to
+    :data:`ATTN_ONE_PASS_TOKENS` tokens, ``window_attn_ring_smem``): the
+    q, k, v rows at stride :func:`attn_width_ld`, :data:`ATTN_RING_SLOTS`
+    slots of token and label rows, the column offsets, the compact (2w-1)²
+    f32 table (16-byte padded) and the bias expanded to n rows at stride
+    n_pad + 8 (bf16 in the Swin variant, f32 in the MSA variant). The
+    head-width kernel (every other width, and the flagship widths in f32,
+    ``window_attn_width_smem``): its rows at stride :func:`attn_width_ld`
+    (bf16 q, k, v or f32 k, v), the token, label and column-offset rows,
+    the compact table. Above: the long-window kernel
+    (``window_attn_long_smem``: q, k, v rows (bf16, stride hs + 8) or k, v
+    rows (f32, stride hs + 4) at :func:`attn_staged_dim`, the three rows,
+    the table) and the streaming kernel (a round's q rows (bf16, 128 of
+    them) and a chunk's k and v rows (64 each) at :func:`attn_stream_dim`
+    (+ 8 bf16, + 4 f32), the three rows, the table); ``msa`` changes only
+    the ring kernel's."""
     n = win * win
     n_pad = -(-n // 16) * 16
     table = 16 * -(-(2 * win - 1) ** 2 // 4)
-    if attn_route(win, hd) == "stream":
+    route = attn_route(win, hd)
+    if route == "stream":
         hs = attn_stream_dim(hd)
         ld, esz = (hs + 4, 4) if f32 else (hs + 8, 2)
         q = 0 if f32 else 16 * ATTN_STREAM_WARPS * ld * esz
         return q + 2 * ATTN_KEY_CHUNK * ld * esz + 12 * n_pad + table
-    if hd not in ATTN_FLAGSHIP_DIMS and n_pad <= ATTN_ONE_PASS_TOKENS:
-        ld = attn_width_ld(hd, f32)
-        rows = 2 * n_pad * ld * 4 if f32 else 3 * n_pad * ld * 2
+    if route == "long":
+        hs = attn_staged_dim(hd)
+        rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
         return rows + 12 * n_pad + table
-    hs = attn_staged_dim(hd)
-    rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
-    if n_pad > ATTN_ONE_PASS_TOKENS:
-        # the compact table (16-byte padded f32) and the column offsets
-        return rows + 12 * n_pad + table
-    bias = n * (n_pad + 8) * 4 if (f32 or msa) else n_pad * (n_pad + 8) * 2
-    return rows + bias + 8 * n_pad
+    ld = attn_width_ld(hd, f32)
+    if hd in ATTN_FLAGSHIP_DIMS and not f32:
+        return (3 * n_pad * ld * 2 + ATTN_RING_SLOTS * 8 * n_pad + 4 * n_pad
+                + table + n * (n_pad + 8) * (4 if msa else 2))
+    rows = 2 * n_pad * ld * 4 if f32 else 3 * n_pad * ld * 2
+    return rows + 12 * n_pad + table
+
+
+def attn_blocks(f32: bool, win: int, hd: int) -> int:
+    """Blocks an SM the one-pass instance of ``win`` x ``win`` windows at
+    head width ``hd`` is built for (its launch bounds): the ring kernel's
+    :data:`ATTN_RING_BLOCKS` for the flagship widths in bf16, else the
+    head-width kernel's :func:`attn_width_blocks`."""
+    if hd in ATTN_FLAGSHIP_DIMS and not f32:
+        return ATTN_RING_BLOCKS
+    return attn_width_blocks(f32, win, hd)
 
 
 def qkv_windows(qkv: torch.Tensor, qkv_bias: torch.Tensor, b: int,
@@ -772,11 +790,10 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     (``msa=False``) or kernel 7 (``msa=True``): (B*H*W, 3C) qkv of bf16 or
     f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
     are its index math. ``rel`` (heads, n, n) f32 is the relative-position
-    bias (:func:`rel_bias_from_table`): above
-    :data:`ATTN_ONE_PASS_TOKENS` tokens, and at head widths outside
-    :data:`ATTN_FLAGSHIP_DIMS`, the kernel reads one entry a relative
-    offset (:func:`rel_table_tokens`). Counted under ``name`` and
-    ``name/`` :func:`attn_instance`; the plain version for CPU tensors."""
+    bias (:func:`rel_bias_from_table`): on every route the kernel reads
+    one entry a relative offset (:func:`rel_table_tokens`) into its compact
+    table. Counted under ``name`` and ``name/`` :func:`attn_instance`; the
+    plain version for CPU tensors."""
     if not qkv.is_cuda:
         return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,
                                       shift, msa)

@@ -29,7 +29,9 @@ instances and the split decoder are held in
 product of the int8 values (an int32 sum is exact in any order) followed
 by the same f32 epilogue; the Swin chain's attention launch alone within
 1e-2, and in bf16 bit for bit against its output before the
-window-attention template (a recorded sha256). Kernel 2, both instances,
+window-attention template (a recorded sha256), and the flagship widths'
+bf16 attention in both variants against the digests its first kernel gave
+before the Hopper redesign. Kernel 2, both instances,
 bit for bit against the sha256 digests its first design (one warp a cell)
 gave on the same seeded inputs.
 """
@@ -536,6 +538,66 @@ def test_window_attention_bf16_keeps_its_output(dev, key):
         got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
     print(f"swin attention bf16 {key}: sha256 {digest}")
     assert digest == SWIN_ATTN_BF16_SHA256[key]
+
+
+# sha256 of the bf16 attention's output bytes as the flagship widths'
+# one-pass kernel before its Hopper redesign (window_attn_kernel: the
+# head's (n, n) bias staged a block, one window's rows at a time) gave them
+# on the H100, for (C, heads, grid, shifted, MSA variant): the MSA variant
+# at head width 64 on path K's stage-0 widths, both variants at head width
+# 32 (the refinement's C 256 over 8 heads on its 63^2 grid) and 16; inputs
+# as test_window_attention_bf16_keeps_its_output's (window 10, batch 2).
+# At head widths 64 and 16 the scale (1/8, 1/4) is a power of two and the
+# bias a bf16 table's, so the two variants' outputs are the same bytes
+FLAGSHIP_ATTN_BF16_SHA256 = {
+    (192, 3, (125, 125), False, True):
+        "263eacda11002256e0178c21a03c726f83a83148007c3be2f5e36bb21f7d42cf",
+    (192, 3, (125, 125), True, True):
+        "920e57768452bc8d799b517907626a1dee0c456f83e77156562a48456b132fc7",
+    (256, 8, (63, 63), False, False):
+        "8e503baa849b84b1344aaf0df0aac8865158bbaffa9bbb59ab20124f4fee2425",
+    (256, 8, (63, 63), True, False):
+        "ed6871d8b6b563037e1b513e0a778ef107f73abc4bc71247a439c29ed29699e3",
+    (256, 8, (63, 63), False, True):
+        "3c024ad7d4bc18ec02818b4d4a2a78db675f06c92cc1e0308c5c4f364cda0604",
+    (256, 8, (63, 63), True, True):
+        "1cfe8ca7d0457f2dcac7ee2e62f9f92713f58a66b3d05606dbf0689323a2522c",
+    (128, 8, (63, 63), False, False):
+        "e4289c1292e202eacbc1673f83d40e91a4b1e326339af36d266d3237138f4419",
+    (128, 8, (63, 63), True, False):
+        "d35f1e696a651c8e4d8e9bfd3ddec8648a4eae072e3635997f7e605016b4608d",
+    (128, 8, (63, 63), False, True):
+        "e4289c1292e202eacbc1673f83d40e91a4b1e326339af36d266d3237138f4419",
+    (128, 8, (63, 63), True, True):
+        "d35f1e696a651c8e4d8e9bfd3ddec8648a4eae072e3635997f7e605016b4608d",
+}
+
+
+@pytest.mark.parametrize("key", list(FLAGSHIP_ATTN_BF16_SHA256),
+                         ids=lambda k: f"{k[0]}-{k[1]}-{k[3]}-"
+                                       f"{'msa' if k[4] else 'swin'}")
+def test_window_attention_flagship_keeps_its_output(dev, key):
+    """The bf16 attention at the flagship head widths gives the output of
+    the kernel before the redesign bit for bit, in both variants."""
+    import hashlib
+
+    c, heads, hw, shifted, msa = key
+    win, b = 10, 2
+    p = _block_weights(dev, c, heads, win, False, seed=17)
+    g = torch.Generator().manual_seed(18)
+    qkv = torch.randn(b * hw[0] * hw[1], 3 * c, generator=g).to(
+        dev, torch.bfloat16)
+    shift = kswin.effective_shift(hw, win, shifted)
+    kb.reset_launches()
+    got = kswin.attention("window_msa" if msa else "swin_block", qkv,
+                          p.qkv.bias, p.rel_bias, b, hw, heads, win, shift,
+                          msa=msa)
+    digest = hashlib.sha256(
+        got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    print(f"flagship attention bf16 {key}: sha256 {digest}")
+    assert kb.INSTANCES == {
+        ("window_msa" if msa else "swin_block") + "/attn_bf16": 1}
+    assert digest == FLAGSHIP_ATTN_BF16_SHA256[key]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -102,26 +102,34 @@ def test_decoder_smem_budget():
 
 
 @pytest.mark.parametrize("win,hd,want", [
-    (10, 64, 76160), (10, 32, 54656), (5, 16, 7424)])
+    (10, 64, 76976), (10, 32, 55472), (5, 16, 7840)])
 def test_attention_smem(win, hd, want):
+    """The flagship widths in bf16 (the ring kernel): one buffer of q, k,
+    v rows at stride hd + 8, three slots of token and label rows, the column
+    offsets, the compact f32 table and the bias expanded to n bf16 rows at
+    stride n_pad + 8."""
     assert kswin.attn_smem_bytes(win, hd) == want
 
 
 @pytest.mark.parametrize("hd", kswin.ATTN_HEAD_DIMS)
 def test_attention_blocks_share_an_sm(hd):
-    """The attention kernel is built for two blocks an SM (its launch
-    bounds): at win 10 two blocks' shared memory fits the SM's 228 KB."""
-    assert 2 * kswin.attn_smem_bytes(10, hd) <= 228 * 1024
+    """The bf16 attention is built for ``attn_blocks`` blocks an SM (its
+    launch bounds; at least two): at win 10 their shared memory fits the
+    SM's 228 KB."""
+    blocks = kswin.attn_blocks(False, 10, hd)
+    assert blocks >= 2
+    assert blocks * kswin.attn_smem_bytes(10, hd) <= 228 * 1024
 
 
 @pytest.mark.parametrize("win,hd,f32,msa,want", [
-    (10, 64, True, False, 109824), (10, 64, True, True, 109824),
-    (10, 64, False, True, 97280), (10, 32, True, True, 81152),
-    (5, 16, True, False, 9376)])
+    (10, 64, True, False, 63728), (10, 64, True, True, 63728),
+    (10, 64, False, True, 100976), (10, 32, True, True, 35056),
+    (5, 16, True, False, 5840)])
 def test_attention_smem_instances(win, hd, f32, msa, want):
-    """The f32 instances hold k, v (f32, stride hd + 4) and an f32 bias of
-    n rows, q going to registers; the MSA variant's bf16 instance holds its
-    bias in f32."""
+    """The f32 instances (the head-width kernel) hold k, v (f32, stride
+    hd + 4), the token, label and column-offset rows and the compact table,
+    q going to registers; the MSA variant's bf16 instance (the ring kernel)
+    holds its expanded bias in f32."""
     assert kswin.attn_smem_bytes(win, hd, f32, msa) == want
 
 
@@ -129,13 +137,13 @@ def test_attention_smem_instances(win, hd, f32, msa, want):
                                      (True, True)])
 @pytest.mark.parametrize("hd", kswin.ATTN_HEAD_DIMS)
 def test_attention_instances_share_an_sm(hd, f32, msa):
-    """Every one-pass instance of the attention template shares an SM with
-    the blocks it is built for: two at the flagship widths, the head-width
-    kernel's ``attn_width_blocks`` at the others. At win 10 their shared
+    """Every one-pass instance of the attention shares an SM with the
+    blocks it is built for (``attn_blocks``): the ring kernel's two at
+    the flagship widths in bf16, the head-width kernel's
+    ``attn_width_blocks`` at the others and in f32. At win 10 their shared
     memory, with the 1 KB the card reserves for each block, fits the SM's
     228 KB."""
-    blocks = (2 if hd in kswin.ATTN_FLAGSHIP_DIMS
-              else kswin.attn_width_blocks(f32, 10))
+    blocks = kswin.attn_blocks(f32, 10, hd)
     assert blocks >= 2
     assert blocks * (kswin.attn_smem_bytes(10, hd, f32, msa) + 1024) <= (
         228 * 1024)
