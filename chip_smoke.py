@@ -124,7 +124,8 @@
    padded to 96; the decoder's split instance at C 96 over 8 heads, padded
    to head width 16; the instance counters must show all three); then, at
    the kernel level (``audit_kernel_holds``), the attention at head widths
-   72-128 at windows 10 and 24 (bf16, f32; SDPA beside it) and kernels 1
+   72-128 at windows 10 and 24 (bf16, f32; Swin, and the MSA variant at
+   72 and 128; SDPA beside it) and kernels 1
    and 10 at 256 units and 8 layers, and (``rest_kernel_holds``) kernel 8
    at E 72, 120 and 168, kernels 1 and 10 at 129, 256 and 1024 points a
    pillar and kernel 1 at two layers of 256 units (the layered route), the
@@ -3094,7 +3095,7 @@ def shapes_audit_phase(np, torch, card, results, failures, record) -> None:
     and one traced request: ``.u100`` path E with PFN layers of 64, 64 and
     100 units (kernel 10 at units that are not a multiple of 8, its table
     100 channels wide; kernel 2 at C 100), ``.hd96`` heads (2, 4, 8, 16)
-    at embed 192 (head width 96 at every stage: the head-width kernel),
+    at embed 192 (head width 96 at every stage: the ring kernel),
     ``.w24`` window 24 (576 tokens: the streaming kernel). Then the
     kernel-level holds (``audit_kernel_holds``)."""
     from mask_bev_tpu_torch.config import semantic_kitti_default
@@ -3145,9 +3146,11 @@ def audit_kernel_holds(np, torch, card, results, failures, record,
     plain versions at their flagship instances' tolerances and timed beside
     one library call where one computes the same function: the window
     attention (Swin variant, shifted) at head widths 72-128 over 2 heads
-    at window 10 on the stage-0 grid (8 x 125^2: the head-width kernel)
-    and at window 24 on the stage-1 grid (8 x 63^2: the streaming kernel),
-    bf16 and f32, beside SDPA (event and device times); kernel 1 at one
+    at window 10 on the stage-0 grid (8 x 125^2: the ring kernel in bf16,
+    the head-width kernel in f32) and at window 24 on the stage-1 grid (8 x
+    63^2: the streaming kernel), bf16 and f32, and the MSA variant at head
+    widths 72 and 128 (window 10 in bf16, window 24 in bf16 and f32),
+    beside SDPA (event and device times); kernel 1 at one
     layer of 256 units (the wide instance) and at 8 layers of 32 units,
     bf16 and f32 (f32 against float64 within 1e-5; bf16 within 2^-7 of the
     largest value at one layer, as the flagship, and 1e-2 at 8 layers:
@@ -3171,29 +3174,41 @@ def audit_kernel_holds(np, torch, card, results, failures, record,
     g = torch.Generator().manual_seed(95)
     with torch.no_grad():
         # ---- the attention at head widths 72-128, windows 10 and 24 -------
-        for hd in kswin.ATTN_WIDE_DIMS:
+        # (Swin at every width; the MSA variant's instances at 72 and 128:
+        # the ring kernel in bf16 at window 10, the streaming kernel at 24)
+        holds = [(hd, win, hw, dt, False) for hd in kswin.ATTN_WIDE_DIMS
+                 for win, hw in ((10, hw0), (24, hw1))
+                 for dt in (torch.bfloat16, torch.float32)]
+        holds += [(hd, win, hw, dt, True) for hd in (72, 128)
+                  for win, hw in ((10, hw0), (24, hw1))
+                  for dt in (torch.bfloat16, torch.float32)
+                  if win == 24 or dt == torch.bfloat16]
+        # (qkv drawn on the device: up to 96 M values a hold, which the
+        # host's generator took seconds to draw)
+        gd = torch.Generator(device=dev).manual_seed(96)
+        for hd, win, hw, dt, msa in holds:
             heads = 2
             c = hd * heads
-            for win, hw in ((10, hw0), (24, hw1)):
-                for dt in (torch.bfloat16, torch.float32):
-                    f32 = dt == torch.float32
-                    name = f"swin_attn.hd{hd}.w{win}" + (".f32" if f32
-                                                         else "")
-                    qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c,
-                                      generator=g).to(dev, dt)
-                    qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
-                    table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
-                                                generator=g)).to(dev, dt)
-                    rel = kswin.rel_bias_from_table(table, win)
-                    shift = kswin.effective_shift(hw, win, True)
-                    kb.reset_launches()
-                    attn_phase(torch, kswin, record, name,
-                               "mask_bev_tpu/ops/pallas_swin_block.py:584",
-                               [(qkv, qb, rel, BATCH, hw, heads, win,
-                                 shift)], False, f32, card)
-                    launched(kb, results, failures, name, "swin_block/"
-                             + kswin.attn_instance(f32, win, hd))
-                    del qkv, qb, rel
+            f32 = dt == torch.float32
+            kname = "window_msa" if msa else "swin_block"
+            name = (f"{'window_msa' if msa else 'swin'}_attn.hd{hd}.w{win}"
+                    + (".f32" if f32 else ""))
+            qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c, generator=gd,
+                              device=dev).to(dt)
+            qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+            table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                        generator=g)).to(dev, dt)
+            rel = kswin.rel_bias_from_table(table, win)
+            shift = kswin.effective_shift(hw, win, True)
+            kb.reset_launches()
+            attn_phase(torch, kswin, record, name,
+                       "mask_bev_tpu/ops/pallas_window_msa.py:71" if msa else
+                       "mask_bev_tpu/ops/pallas_swin_block.py:584",
+                       [(qkv, qb, rel, BATCH, hw, heads, win, shift)], msa,
+                       f32, card)
+            launched(kb, results, failures, name,
+                     f"{kname}/" + kswin.attn_instance(f32, win, hd))
+            del qkv, qb, rel
 
         # ---- kernels 1 and 10 at 256 units and at 8 layers ---------------
         scans_np = scans(np, BATCH, cfg.max_points_per_scan, SEED + 95)

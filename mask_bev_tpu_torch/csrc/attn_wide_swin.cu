@@ -1,9 +1,11 @@
 // Kernel 3's window attention (the Swin variant, swin_block.cu) at the head
 // widths over 64: 72, 80, ..., 128. Up to 128 tokens a window they
-// run window_attn_width_kernel (window_attn.cuh: the rows at the exact
-// width, the head's compact bias table in shared memory; one instance of 8
-// warps, two blocks an SM in bf16, one in f32); longer windows take the
-// streaming kernel (attn_stream_*.cu). A source of its own, so that these
+// run window_attn_ring_kernel in bf16 (window_attn.cuh: a persistent grid,
+// the head's bias expanded in shared memory, q in registers, two blocks an
+// SM where shared memory allows) and window_attn_width_kernel in f32 (the
+// rows at the exact width, the head's compact bias table in shared memory;
+// one block of 8 warps an SM); longer windows take the streaming kernel
+// (attn_stream_*.cu). A source of its own, so that these
 // instances compile in parallel with the others. It replaces the attention of
 // mask_bev_tpu/ops/pallas_swin_block.py::fused_swin_block (:208) and
 // ::fused_swin_block_col (:584) at head widths whose Pallas gate sends the

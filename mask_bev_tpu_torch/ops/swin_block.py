@@ -540,19 +540,24 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 # 64-key chunks with a running max and sum and the compact bias table in
 # shared memory (``window_attn_long_kernel``: windows 12 to 16, head widths
 # up to 64), up to 576 (window 24) with the keys and values streamed
-# through shared memory in those chunks and the queries in rounds of 128
-# rows (``window_attn_stream_kernel``, also for windows over 128 tokens at
-# head widths over 64: the rows staged at :func:`attn_stream_dim`); head
-# widths 16, 32 and 64 in the flagship sources (``swin_window_attn``,
-# ``window_msa_attn``; one pass in bf16: ``window_attn_ring_kernel``, a
-# persistent grid walking (head, sample, window) items, one window buffer
-# whose parts are refilled in turn; in f32 the head-width kernel), the
-# others of ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` and those of
-# ATTN_WIDE_DIMS in ``csrc/attn_wide_*.cu`` (one pass:
-# ``window_attn_width_kernel``, the rows at the exact width; long windows
-# staged at the next flagship width, its columns past the head zero:
-# :func:`attn_staged_dim`); the streaming kernel in ``csrc/attn_stream_*.cu``
-# (``swin_window_attn_stream``, ``window_msa_attn_stream``). Every kernel
+# through shared memory in those chunks, in a ring of two buffers, by a
+# persistent grid pulling 128-row query tiles of the windows' real tokens
+# from a counter (wgmma in bf16 at staged widths 64 and 128:
+# :data:`ATTN_STREAM_WGMMA`; ``window_attn_stream_kernel``,
+# also for windows over 128 tokens at head widths over 64: the rows staged
+# at :func:`attn_stream_dim`); head widths 16, 32 and 64 in the flagship
+# sources (``swin_window_attn``, ``window_msa_attn``), the others of
+# ATTN_HEAD_DIMS in ``csrc/attn_widths_*.cu`` and those of ATTN_WIDE_DIMS in
+# ``csrc/attn_wide_*.cu``; one pass in bf16 at the flagship widths and those
+# of ATTN_WIDE_DIMS: ``window_attn_ring_kernel``, a persistent grid walking
+# (head, sample, window) items, one window buffer whose parts are refilled
+# in turn (over 64 q read from device memory:
+# :func:`attn_ring_q_in_registers`); otherwise, and in
+# f32, ``window_attn_width_kernel``, the rows at the exact width; long
+# windows staged at the next flagship width, its columns past the head zero
+# (:func:`attn_staged_dim`); the streaming kernel in
+# ``csrc/attn_stream_*.cu`` (``swin_window_attn_stream``,
+# ``window_msa_attn_stream``). Every kernel
 # reads the compact table (:func:`rel_offsets`), so ``rel`` must be a
 # relative-position bias, as :func:`rel_bias_from_table` builds it.
 ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
@@ -561,18 +566,24 @@ ATTN_FLAGSHIP_DIMS = (16, 32, 64)
 ATTN_ONE_PASS_TOKENS = 128
 ATTN_LONG_TOKENS = 256
 ATTN_MAX_TOKENS = 576
-ATTN_STREAM_WARPS = 8  # ``ATT_STREAM_WARPS``: 16 query rows each a round
+ATTN_STREAM_WARPS = 8  # ``ATT_STREAM_WARPS``: 16 query rows each a tile
+ATTN_QUERY_TILE = 16 * ATTN_STREAM_WARPS  # query rows an item
 ATTN_KEY_CHUNK = 64    # ``16 ATT_KCH``: keys a chunk
+ATTN_STREAM_STAGES = 2  # ``ATT_STREAM_STAGES``: k and v chunk buffers
+ATTN_STREAM_SLOTS = 2   # ``ATT_STREAM_SLOTS``: item slots
+# ``ATT_STREAM_WGMMA``: the bf16 streaming instances at staged widths 64 and
+# 128 take wgmma, their rows unpadded in its 128-byte swizzle
+ATTN_STREAM_WGMMA = True
 # the head-width instances' blocks an SM: bf16 at 7 warps (windows of
 # 97-112 tokens), bf16 at 8 warps, f32 (``csrc/window_attn.cuh``:
 # ATT_WIDTH_BLOCKS_BF16_NPT7, ATT_WIDTH_BLOCKS_BF16_NPT8, ATT_WIDTH_BLOCKS_F32);
-# at head widths over 64, bf16 and f32 (ATT_WIDTH_BLOCKS_WIDE_BF16,
-# ATT_WIDTH_BLOCKS_WIDE_F32)
+# at head widths over 64 (f32 only: bf16 runs the ring kernel there),
+# ATT_WIDTH_BLOCKS_WIDE_F32
 ATTN_WIDTH_BLOCKS = (4, 3, 2)
-ATTN_WIDE_BLOCKS = (2, 1)
-# the flagship widths' bf16 ring kernel: token and label slots a block
-# (``ATT_RING_SLOTS``) and the blocks an SM it is built for
-# (``ATT_RING_BLOCKS``)
+ATTN_WIDE_F32_BLOCKS = 1
+# the bf16 ring kernel (the flagship widths and those over 64): token and
+# label slots a block (``ATT_RING_SLOTS``) and the blocks an SM it is built
+# for (``ATT_RING_BLOCKS``)
 ATTN_RING_SLOTS = 3
 ATTN_RING_BLOCKS = 2
 
@@ -615,9 +626,9 @@ def attn_width_blocks(f32: bool, win: int, hd: int = 8) -> int:
     """Blocks an SM the head-width instance of ``win`` x ``win`` windows
     at head width ``hd`` is built for (``width_blocks``, its launch
     bounds): the window-10 instance (7 warps) and the 8-warp one differ in
-    bf16; head widths over 64 have one instance of 8 warps."""
+    bf16; head widths over 64 have one f32 instance of 8 warps."""
     if hd > 64:
-        return ATTN_WIDE_BLOCKS[1 if f32 else 0]
+        return ATTN_WIDE_F32_BLOCKS
     if f32:
         return ATTN_WIDTH_BLOCKS[2]
     return ATTN_WIDTH_BLOCKS[0 if -(-win * win // 16) == 7 else 1]
@@ -702,38 +713,67 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     the compact table. Above: the long-window kernel
     (``window_attn_long_smem``: q, k, v rows (bf16, stride hs + 8) or k, v
     rows (f32, stride hs + 4) at :func:`attn_staged_dim`, the three rows,
-    the table) and the streaming kernel (a round's q rows (bf16, 128 of
-    them) and a chunk's k and v rows (64 each) at :func:`attn_stream_dim`
-    (+ 8 bf16, + 4 f32), the three rows, the table); ``msa`` changes only
-    the ring kernel's."""
+    the table) and the streaming kernel (two tiles' q rows (bf16,
+    :data:`ATTN_QUERY_TILE` each) and :data:`ATTN_STREAM_STAGES` chunks
+    of k and v rows (64 each) at :func:`attn_stream_dim` (+ 8 bf16, + 4
+    f32; unpadded where :data:`ATTN_STREAM_WGMMA` takes the instance, with
+    1024 bytes to align them), the column offsets,
+    :data:`ATTN_STREAM_SLOTS` slots of token, label and query rows and a
+    table, 16 bytes for the pulled items);
+    ``msa`` changes only the ring kernel's, which stages no q rows where
+    :func:`attn_ring_q_in_registers` (but a zero row and the q bias row,
+    bf16)."""
     n = win * win
     n_pad = -(-n // 16) * 16
     table = 16 * -(-(2 * win - 1) ** 2 // 4)
     route = attn_route(win, hd)
     if route == "stream":
         hs = attn_stream_dim(hd)
-        ld, esz = (hs + 4, 4) if f32 else (hs + 8, 2)
-        q = 0 if f32 else 16 * ATTN_STREAM_WARPS * ld * esz
-        return q + 2 * ATTN_KEY_CHUNK * ld * esz + 12 * n_pad + table
+        wg = ATTN_STREAM_WGMMA and not f32 and hs >= 64
+        ld, esz = (hs + 4, 4) if f32 else (hs if wg else hs + 8, 2)
+        q = 0 if f32 else 2 * ATTN_QUERY_TILE * ld * esz
+        return (q + ATTN_STREAM_STAGES * 2 * ATTN_KEY_CHUNK * ld * esz
+                + 4 * n_pad + ATTN_STREAM_SLOTS * (12 * n_pad + table) + 16
+                + (1024 if wg else 0))
     if route == "long":
         hs = attn_staged_dim(hd)
         rows = 2 * n_pad * (hs + 4) * 4 if f32 else 3 * n_pad * (hs + 8) * 2
         return rows + 12 * n_pad + table
     ld = attn_width_ld(hd, f32)
-    if hd in ATTN_FLAGSHIP_DIMS and not f32:
-        return (3 * n_pad * ld * 2 + ATTN_RING_SLOTS * 8 * n_pad + 4 * n_pad
-                + table + n * (n_pad + 8) * (4 if msa else 2))
+    if attn_ring(f32, hd):
+        qreg = attn_ring_q_in_registers(hd)
+        return ((2 if qreg else 3) * n_pad * ld * 2
+                + ATTN_RING_SLOTS * 8 * n_pad + 4 * n_pad + table
+                + n * (n_pad + 8) * (4 if msa else 2)
+                + (4 * hd if qreg else 0))
     rows = 2 * n_pad * ld * 4 if f32 else 3 * n_pad * ld * 2
     return rows + 12 * n_pad + table
+
+
+def attn_ring(f32: bool, hd: int) -> bool:
+    """Whether a one-pass window attention at head width ``hd`` runs the
+    ring kernel (bf16 at the flagship widths and those over 64) rather than
+    the head-width kernel."""
+    return not f32 and (hd in ATTN_FLAGSHIP_DIMS or hd > 64)
+
+
+def attn_ring_q_in_registers(hd: int) -> bool:
+    """Whether the bf16 ring kernel at head width ``hd`` reads q's
+    fragments from device memory rather than staging q's rows
+    (``ring_q_in_registers``): over 64."""
+    return hd > 64
 
 
 def attn_blocks(f32: bool, win: int, hd: int) -> int:
     """Blocks an SM the one-pass instance of ``win`` x ``win`` windows at
     head width ``hd`` is built for (its launch bounds): the ring kernel's
-    :data:`ATTN_RING_BLOCKS` for the flagship widths in bf16, else the
-    head-width kernel's :func:`attn_width_blocks`."""
-    if hd in ATTN_FLAGSHIP_DIMS and not f32:
-        return ATTN_RING_BLOCKS
+    :data:`ATTN_RING_BLOCKS` (:func:`attn_ring`; ``ring_blocks``: one for
+    its 8-warp instances, every window but 10, that read q from device
+    memory), else the head-width kernel's :func:`attn_width_blocks`."""
+    if attn_ring(f32, hd):
+        eight = -(-win * win // 16) != 7
+        return (1 if eight and attn_ring_q_in_registers(hd)
+                else ATTN_RING_BLOCKS)
     return attn_width_blocks(f32, win, hd)
 
 
@@ -810,16 +850,22 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
     o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
     hd = c // heads
     fn = "window_msa_attn" if msa else "swin_window_attn"
+    scratch = ()
     if attn_route(win, hd) == "stream":
         fn += "_stream"
+        # the item counter, zeroed by the launch on the stream (the name
+        # keeps the tensor alive through the launch)
+        counter = torch.empty(1, dtype=torch.int32, device=qkv.device)
+        scratch = (kb.ptr(counter),)
     elif hd in ATTN_WIDE_DIMS:
         fn += "_wide"
     elif hd not in ATTN_FLAGSHIP_DIMS:
         fn += "_widths"
     kb.launch(name, fn, kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel),
-              kb.ptr(o), kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]), kb.ci(c),
-              kb.ci(heads), kb.ci(win), kb.ci(shift), kb.cf(hd ** -0.5),
-              kb.ci(f32), kb.stream(), instance=attn_instance(f32, win, hd))
+              kb.ptr(o), *scratch, kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]),
+              kb.ci(c), kb.ci(heads), kb.ci(win), kb.ci(shift),
+              kb.cf(hd ** -0.5), kb.ci(f32), kb.stream(),
+              instance=attn_instance(f32, win, hd))
     return o
 
 

@@ -197,12 +197,17 @@ def test_capped_encoder_matches_xla(fc):
 
 
 def test_attention_limits_are_the_sources():
-    assert kswin.ATTN_WIDE_BLOCKS == (
-        _define("window_attn.cuh", "ATT_WIDTH_BLOCKS_WIDE_BF16"),
-        _define("window_attn.cuh", "ATT_WIDTH_BLOCKS_WIDE_F32"))
+    assert kswin.ATTN_WIDE_F32_BLOCKS == _define(
+        "window_attn.cuh", "ATT_WIDTH_BLOCKS_WIDE_F32")
     text = (CSRC / "window_attn.cuh").read_text()
+    assert "ATT_WIDTH_BLOCKS_WIDE_BF16" not in text  # bf16: the ring kernel
     assert f"ATT_STREAM_TOKENS = {kswin.ATTN_MAX_TOKENS};" in text
     assert f"ATT_STREAM_WARPS = {kswin.ATTN_STREAM_WARPS};" in text
+    assert f"ATT_STREAM_STAGES = {kswin.ATTN_STREAM_STAGES};" in text
+    assert f"ATT_STREAM_SLOTS = {kswin.ATTN_STREAM_SLOTS};" in text
+    assert (f"ATT_STREAM_WGMMA = {str(kswin.ATTN_STREAM_WGMMA).lower()};"
+            in text)
+    assert f"ATT_KCH = {kswin.ATTN_KEY_CHUNK // 16};" in text
     for name in ("swin", "msa"):
         assert "launch_window_attn_streamed<" in (
             CSRC / f"attn_stream_{name}.cu").read_text()
@@ -228,10 +233,13 @@ def test_attention_takes_head_widths_to_128(hd):
 @pytest.mark.parametrize("win", range(1, 25))
 def test_attention_instances_fit_their_blocks(win):
     """Every new instance's shared memory (``attn_smem_bytes``, as the C
-    source sizes it) fits the blocks an SM it is built for: the head-width
-    kernel at widths 72-128 (two blocks in bf16, one in f32) up to window
-    11, the streaming kernel (two bf16 blocks up to a staged width of 64,
-    else one) at windows over 16 and at widths over 64 above window 11."""
+    source sizes it) fits the blocks an SM it is built for: at widths
+    72-128 up to window 11 the ring kernel in bf16 (q in registers; two
+    blocks at window 10 in both variants, one at least at every window: its
+    launch sizes the grid by the occupancy the card reports) and the
+    head-width kernel in f32 (one block), the streaming kernel (two bf16
+    blocks up to a staged width of 64, else one) at windows over 16 and at
+    widths over 64 above window 11."""
     for hd in kswin.ATTN_HEAD_DIMS + kswin.ATTN_WIDE_DIMS:
         route = kswin.attn_route(win, hd)
         if hd <= 64 and route != "stream":
@@ -244,7 +252,13 @@ def test_attention_instances_fit_their_blocks(win):
                               <= 64 else 1)
                 else:
                     assert route == "one_pass"
-                    blocks = kswin.attn_width_blocks(f32, win, hd)
+                    blocks = kswin.attn_blocks(f32, win, hd)
+                    if kswin.attn_ring(f32, hd):
+                        n_pad = -(-win * win // 16) * 16
+                        if n_pad == 112:  # window 10: two blocks fit
+                            assert blocks == kswin.ATTN_RING_BLOCKS
+                        else:  # one at least (the grid follows occupancy)
+                            blocks = 1
                 assert blocks * (smem + SMEM_RESERVED) <= SMEM_SM
 
 
