@@ -507,6 +507,7 @@ def main() -> None:
     timed("shapes wide", shapes_wide_phase, *serving)
     timed("shapes tail", shapes_tail_phase, *serving)
     timed("shapes audit", shapes_audit_phase, *serving)
+    timed("shapes last", shapes_last_phase, *serving)
     timed("trainer", trainer_phase, failures, here)
     timed("resume", resume_phase, failures, here)
     timed("data", data_phase, failures, here)
@@ -1233,8 +1234,10 @@ def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
                  label, main_path=False) -> None:
     """Kernel 5 on one call's arguments (``dargs``, ``dkw``): its
     ``m < 0`` decisions against the plain version's (at most 5 % of a
-    layer's entries differ free-running, 1 % on the kernel's own
-    decisions), its output on its own decisions (bf16 2e-2, f32 1e-3 of the
+    layer's entries differ free-running; on the kernel's own decisions at
+    most 1 % stray beyond rounding, ``kdec.decision_flips``: a decision
+    outside its logit's rounding band, a row whose every-key-blocked rule
+    turns over counted once), its output on its own decisions (bf16 2e-2, f32 1e-3 of the
     largest value) and against the plain version (5e-2), both timed;
     recorded as ``decoder_stack{suffix}``. The main path also prints the
     clusters the card holds, the f32 calls the split instance's time by
@@ -1256,9 +1259,9 @@ def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
     total = sum(m.numel() for m in plogits)
     err = float((out_k.float() - out_p.float()).abs().max())
     scale = float(out_p.float().abs().max())
-    same, same_logits = kdec.decoder_stack_plain(
+    same, same_logits, bands = kdec.decoder_stack_plain(
         *dargs[:8], num_heads=dkw["num_heads"], blocked=kbits,
-        return_logits=True)
+        return_logits=True, return_bands=True)
     err_same = float((out_k.float() - same.float()).abs().max())
     same_tol = (1e-3 if f32 else 2e-2) * scale
     if err_same > same_tol:
@@ -1267,8 +1270,9 @@ def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
     # given the kernel's decisions, the plain version's own logits (its
     # decoder norm and mask MLP) may decide otherwise only within
     # rounding of 0; free-running flips compound, bounded more loosely
-    own = [int((kb_ != kdec.blocked_positions(m)).sum())
-           for kb_, m in zip(kbits, same_logits)]
+    own = kdec.decision_flips(kbits, same_logits, bands)
+    own_all = [int((kb_ != kdec.blocked_positions(m)).sum())
+               for kb_, m in zip(kbits, same_logits)]
     for li, m in enumerate(plogits):
         if flips[li] > 0.05 * m.numel() or own[li] > 0.01 * m.numel():
             failures.append(f"decoder_stack{suffix} bias flips in layer "
@@ -1287,6 +1291,7 @@ def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
            f"instance {instance}, Q={q_}, heads {dkw['num_heads']}; bias "
            f"entries that differ: {sum(flips)} of {total}, per layer "
            f"{flips} (tolerance 5 % a layer), on the kernel's own decisions "
+           f"{own_all}, of which beyond rounding (a turned-over row once) "
            f"{own} (tolerance 1 % a layer); max_abs_err on the kernel's own "
            f"blocked positions {err_same:.6g} (tolerance {same_tol:.6g}); "
            f"bound as {work} FMAs {bound(byts, ops / PEAK[work])[0]:.4f} ms")
@@ -1294,23 +1299,27 @@ def decoder_hold(torch, record, failures, card, dargs, dkw, f32, suffix,
 
 def decoder_work(dargs, esz):
     """(operations, bytes) of a decoder-stack call on ``dargs``: the
-    query-side products of every layer (the 9 C x C products, the FFN,
-    cross-attention over the level's keys, self-attention) and the k and v
-    projections of the levels; the levels' memories, features and k/v read
-    once, the weights once, the output written once."""
+    query-side products of every layer (8 C x C products and the mask
+    MLP's last, C x D, the FFN, the mask bits over D and cross-attention
+    over the level's keys, self-attention) and the k and v projections of
+    the levels; the levels' memories, features and k/v read once, the
+    weights once (the mask MLP's too), the output written once."""
     layers = dargs[6]
     b_, q_, c_ = dargs[0].shape
+    d_ = dargs[1].shape[-1]  # the mask embedding's width
     ts = [m.shape[1] for m in dargs[3]]
     f_ = layers[0].f1.shape[1]
     n_l = len(layers)
     ops = 0.0
     for li in range(n_l):
         t_ = ts[li % len(ts)]
-        ops += b_ * (2 * q_ * c_ * c_ * 9 + 4 * q_ * c_ * f_
-                     + 6 * q_ * t_ * c_ + 4 * q_ * q_ * c_)
+        ops += b_ * (2 * q_ * c_ * (8 * c_ + d_) + 4 * q_ * c_ * f_
+                     + 2 * q_ * t_ * d_ + 4 * q_ * t_ * c_
+                     + 4 * q_ * q_ * c_)
     ops += 2 * 2 * b_ * sum(ts) * c_ * c_ * (n_l // len(ts))
-    byts = (b_ * sum(ts) * c_ * (esz + 4) + sum(ts) * c_ * esz
-            + n_l * (8 * c_ * c_ + 2 * c_ * f_) * esz + b_ * q_ * c_ * esz)
+    byts = (b_ * sum(ts) * (c_ * esz + d_ * 4) + sum(ts) * c_ * esz
+            + n_l * (8 * c_ * c_ + 2 * c_ * f_) * esz
+            + c_ * (2 * c_ + d_) * esz + b_ * q_ * c_ * esz)
     return ops, byts
 
 
@@ -1816,13 +1825,15 @@ def window_msa_phase(torch, record, card, sfx, captured, f32,
     calls, shapes = [], []
     for (a, kw) in captured:
         got = kwmsa.window_msa(*a, **kw)
-        want = kwmsa.window_msa_grid_plain(*a, **kw)
+        # the plain version on the true layers (not the kernels' padded)
+        pkw = {k: v for k, v in kw.items() if k != "padded"}
+        want = kwmsa.window_msa_grid_plain(*a, **pkw)
         e = float((got.float() - want.float()).abs().max())
         err_abs = max(err_abs, e)
         err_rel = max(err_rel, e / float(want.float().abs().max()))
         ms_k += cuda_ms(torch, lambda: kwmsa.window_msa(*a, **kw), 5)
         ms_p += cuda_ms(torch, lambda: kwmsa.window_msa_grid_plain(
-            *a, **kw), 1)
+            *a, **pkw), 1)
         y, hw, win, shift, rel, qkv, proj, heads = a
         b_, l_, c_ = y.shape
         g_ops += 2.0 * b_ * l_ * 4 * c_ * c_
@@ -1908,24 +1919,30 @@ def attn_phase(torch, kswin, record, name, replaces, calls, msa, f32,
     kname = "window_msa" if msa else "swin_block"
     for (qkv, qb, rel, b, hw, heads, win, shift) in calls:
         a = (qkv, qb, rel, b, hw, heads, win, shift)
-        got = kswin.attention(kname, *a, msa=msa)
+        # a head width that is no multiple of 8: the kernel on the heads'
+        # columns zero-padded to the next (kswin.padded_heads' layout), at
+        # the true width's scale; its output's true columns held
+        hd = qkv.shape[1] // 3 // heads
+        qkv_k, qb_k, cols = kswin.padded_qkv(qkv, qb, heads)
+        ak = (qkv_k, qb_k, rel, b, hw, heads, win, shift)
+
+        def run(ak=ak, hd=hd):
+            return kswin.attention(kname, *ak, msa=msa, hd=hd)
+        got = run()[:, cols]
         want = kswin.window_attention_plain(*a, msa=msa)
         e = float((got.float() - want.float()).abs().max())
         err_abs = max(err_abs, e)
         err_rel = max(err_rel, e / float(want.float().abs().max()))
-        ms_k += cuda_ms(torch, lambda: kswin.attention(kname, *a, msa=msa),
-                        5)
+        ms_k += cuda_ms(torch, run, 5)
         ms_p += cuda_ms(torch, lambda: kswin.window_attention_plain(
             *a, msa=msa), 1)
         q, k, v, mask = sdpa_windows(torch, kswin, *a)
-        hd = q.shape[-1]
         ms_l += cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
-        dev_k += queued_ms(torch, lambda: kswin.attention(
-            kname, *a, msa=msa), 5)
+        dev_k += queued_ms(torch, run, 5)
         dev_l += queued_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=hd ** -0.5), 5)
-        del q, k, v, mask, got, want
+        del q, k, v, mask, got, want, qkv_k, qb_k, ak
         c = qkv.shape[1] // 3
         byts += 4 * qkv.shape[0] * c * qkv.element_size() + rel.numel() * 4
         ops += 4.0 * b * hw[0] * hw[1] * win * win * c
@@ -2562,7 +2579,8 @@ HD8 = dict(backbone_embed_dim=72, backbone_num_heads=(9, 18, 36, 72))
 HD40 = dict(backbone_embed_dim=120, backbone_num_heads=(3, 6, 12, 24))
 C100 = dict(encoder_encoding_type="fourier",
             encoder_feat_channels=(128, 128, 100))
-TAIL_REQUESTS = (2, 3)
+# (1 warm + 2 timed: cut from 2 + 3 to pay for ``[shapes last]``'s rows)
+TAIL_REQUESTS = (1, 2)
 # ``[shapes audit]``: the refusal audit's PFN and attention entries, served
 U100 = dict(encoder_feat_channels=(128, 128, 100))
 HD96 = dict(backbone_num_heads=(2, 4, 8, 16))
@@ -2580,7 +2598,7 @@ def shapes_tail_phase(np, torch, card, results, failures, record) -> None:
     """``[shapes tail]``: the shapes the last slice widened, served at full
     width and batch 8 (bf16, int8 backbone products), each row's kernels
     held against their plain versions on inputs captured in one forward,
-    then 2 warm and 3 timed requests with the instance counters and one
+    then 1 warm and 2 timed requests with the instance counters and one
     traced request: ``.e384`` path E at embed 384 (kernel 9 at C 384 to
     3072, the walk above 2048; the Swin LN at C 3072, the walk), ``.hd8``
     embed 72 over (9, 18, 36, 72) heads (head width 8 at every stage, the
@@ -2610,7 +2628,7 @@ def c100_phase(np, torch, card, results, failures, record, cfg) -> None:
     """``.c100``: ``cfg`` (the Fourier encoding, a 100-channel pillar
     table: the capped stream and the plain pillar feature net, as the JAX
     package's XLA route) served at batch 8: kernels 2 (at C = 100, 200-byte
-    rows), 3/4 and 5 captured in one forward and held, 2 warm and 3 timed
+    rows), 3/4 and 5 captured in one forward and held, 1 warm and 2 timed
     requests (kernels 2-5 must launch, kernel 2 as its 8-byte instance; 1
     and 10 must not), one traced request; then the training step of the
     same configuration (``train_phase``'s envelope): kernels A and B at C =
@@ -3091,7 +3109,7 @@ def shapes_audit_phase(np, torch, card, results, failures, record) -> None:
     """``[shapes audit]``: the refusal audit's entries 1 and 3 served at
     full width and batch 8 (bf16, int8 backbone products), each row's
     kernels held against their plain versions on inputs captured in one
-    forward, then 2 warm and 3 timed requests with the instance counters
+    forward, then 1 warm and 2 timed requests with the instance counters
     and one traced request: ``.u100`` path E with PFN layers of 64, 64 and
     100 units (kernel 10 at units that are not a multiple of 8, its table
     100 channels wide; kernel 2 at C 100), ``.hd96`` heads (2, 4, 8, 16)
@@ -3458,6 +3476,216 @@ def rest_kernel_holds(np, torch, card, results, failures, record,
                              dcfg.head_ffn_dim))
                 del dargs
     torch.cuda.empty_cache()
+
+
+# ``[shapes last]``: the refusal audit's decoder and attention entries,
+# served at full width: ``.emb128`` the main path with a mask embedding of
+# 128 columns (the flagship decoder instance, the embedding zero-padded to
+# C 256); ``.audit2`` two decoder heads of 128 and a mask embedding of 384
+# columns (the split instance: a head a round, the embedding wider than C in
+# device memory) over a backbone of embed 144 and (1, 8, 16, 32) heads
+# (head width 144 at stage 0: the streaming attention staged at 256; 36 at
+# stages 1-3, padded to 40)
+EMB128 = dict(head_out_channels=128)
+AUDIT2 = dict(head_num_attn_heads=2, head_out_channels=384,
+              backbone_embed_dim=144, backbone_num_heads=(1, 8, 16, 32))
+LAST_REQUESTS = (2, 3)
+# the decoder's memories on the main path's 500 x 500 grid: /32, /16, /8
+LEVEL_TOKENS = (16 * 16, 32 * 32, 63 * 63)
+
+
+def shapes_last_phase(np, torch, card, results, failures, record) -> None:
+    """``[shapes last]``: ``.emb128`` and ``.audit2`` served at batch 8
+    (bf16, int8 backbone products), each row's kernels held against their
+    plain versions on inputs captured in one forward, then 2 warm and 3
+    timed requests with the instance counters (which must show the new
+    instances) and one traced request; then the kernel-level holds
+    (``last_kernel_holds``)."""
+    last_rows(np, torch, card, results, failures, record)
+    last_kernel_holds(np, torch, card, results, failures, record)
+
+
+def last_rows(np, torch, card, results, failures, record) -> None:
+    """``.emb128`` and ``.audit2`` through ``serve_phase``; the requests'
+    counters must show the flagship decoder at D < C (``.emb128``), the
+    split decoder at head width 128 with the wide embedding, the streaming
+    attention at head width 144 and the padded attention at 36
+    (``.audit2``)."""
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    base = semantic_kitti_default().replace(
+        max_points_per_scan=131072, pseudo_image_norm="full",
+        compute_dtype="bfloat16")
+    for tag, over in ((".emb128", EMB128), (".audit2", AUDIT2)):
+        cfg = base.replace(**over)
+        serve_phase(np, torch, card, results, failures, record, cfg, tag,
+                    *LAST_REQUESTS)
+        if tag == ".emb128":
+            need = ["decoder_stack/flagship_embpad"]
+        else:
+            c, heads = cfg.head_feat_channels, cfg.head_num_attn_heads
+            need = ["decoder_stack/" + kdec.split_instance(
+                cfg.num_queries, heads, False, c, cfg.head_ffn_dim,
+                max(LEVEL_TOKENS), cfg.head_out_channels)]
+            need += sorted({"swin_block/" + kswin.attn_instance(
+                False, cfg.backbone_window_size,
+                cfg.backbone_embed_dim * 2 ** i // h)
+                for i, h in enumerate(cfg.backbone_num_heads)})
+        got = {k: kb.INSTANCES.get(k, 0) for k in need}
+        print(f"[e2e {tag[1:]}] the new instances over the requests: {got} "
+              f"[{card}]", flush=True)
+        missing = [k for k, v in got.items() if v <= 0]
+        if missing:
+            failures.append(f"[e2e {tag[1:]}] never launched: {missing}")
+
+
+def synth_decoder(torch, q, c, heads, d, f32, seed, ffn=2048):
+    """Decoder-stack arguments (args, keywords) drawn on the device from
+    ``seed``: batch 8, ``q`` queries, C ``c`` over ``heads`` heads, a mask
+    embedding of ``d`` columns, an FFN of ``ffn`` units, 9 layers over the
+    main path's three memory levels (``LEVEL_TOKENS``); weights scaled by
+    1 / sqrt(fan-in), LN scales near 1, the initial embedding the mask MLP
+    of the queries (``mask_embed``), as a forward computes it."""
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+
+    dev = "cuda"
+    dt = torch.float32 if f32 else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, s=1.0, base=0.0):
+        return base + s * torch.randn(*shape, generator=g, device=dev)
+
+    def mat(k, n):
+        return rn(k, n, s=k ** -0.5).to(dt)
+
+    def vec(n, base=0.0):
+        return rn(n, s=0.1, base=base).to(dt).float()
+
+    layers = []
+    for _ in range(9):
+        w = {}
+        for nm in kdec.LayerWeights._fields:
+            if nm == "f1":
+                w[nm] = mat(c, ffn)
+            elif nm == "f2":
+                w[nm] = mat(ffn, c)
+            elif nm == "fb1":
+                w[nm] = vec(ffn)
+            elif nm in ("n1w", "n2w", "n3w"):
+                w[nm] = vec(c, 1.0)
+            elif nm[0] in "ws" and len(nm) == 2:
+                w[nm] = mat(c, c)
+            else:
+                w[nm] = vec(c)
+        layers.append(kdec.LayerWeights(**w))
+    head = kdec.HeadWeights(vec(c, 1.0), vec(c), mat(c, c), vec(c),
+                            mat(c, c), vec(c), mat(c, d), vec(d))
+    out0 = rn(BATCH, q, c).to(dt)
+    mems = [rn(BATCH, t, c).to(dt) for t in LEVEL_TOKENS]
+    pes = [rn(t, c, s=0.5).to(dt) for t in LEVEL_TOKENS]
+    feats = [rn(BATCH, t, d) for t in LEVEL_TOKENS]
+    emb0 = kdec.mask_embed(out0.float(), head, dt)
+    return ((out0, emb0, rn(q, c).to(dt), mems, pes, feats, layers, head),
+            {"num_heads": heads})
+
+
+def last_kernel_holds(np, torch, card, results, failures, record,
+                      dev="cuda") -> None:
+    """The audit's decoder and attention instances no served row reaches,
+    each held against its plain version at its flagship instance's
+    tolerance and timed, bf16 and f32: the split decoder (``decoder_hold``
+    on one forward's arguments, ``decoder_call``, of the main path's
+    configuration at Q 45 unless named, C 256 over 8 heads, an FFN of 2048;
+    at C 2048 on ``synth_decoder``'s) at Q 513 and 1024
+    (the rows in the device-memory workspace, 33 and 64 a block), 2 heads
+    of 128, 8 heads of 256 (C 2048), one head of C 384 (padded to 512) and
+    512, and a mask embedding of D 1, 64, 257 and 512 (bf16 at D <= C: the
+    flagship instance, zero-padded to C; else the split instance); the
+    window attention, Swin and MSA variants, shifted, beside SDPA (event
+    and device times), at head widths 12, 36, 100 (padded to 16, 40, 104),
+    136, 192 and 256 (the streaming kernel at 256) over 2 heads at window
+    10 on the stage-0 grid (8 x 125^2), and at windows 25 and 32 at head
+    widths 32 and 64 on the stage-1 grid (8 x 63^2, ``.w24``'s)."""
+    from mask_bev_tpu_torch.config import semantic_kitti_default
+    from mask_bev_tpu_torch.kernels import build as kb
+    from mask_bev_tpu_torch.ops import decoder_stack as kdec
+    from mask_bev_tpu_torch.ops import swin_block as kswin
+
+    base = semantic_kitti_default().replace(max_points_per_scan=131072)
+    with torch.no_grad():
+        # ---- kernel 5: queries, head widths, embedding widths -------------
+        cases = [(".q513", 513, 256, 8, 256), (".q1024", 1024, 256, 8, 256),
+                 (".h2x128", 45, 256, 2, 256),
+                 (".h8x256", 45, 2048, 8, 2048),
+                 (".c384h1", 45, 384, 1, 384), (".c512h1", 45, 512, 1, 512)]
+        cases += [(f".d{d}", 45, 256, 8, d) for d in (1, 64, 257, 512)]
+        for i, (tag, q, c, heads, d) in enumerate(cases):
+            for f32 in (False, True):
+                sfx = tag + (".f32" if f32 else "")
+                dcfg = base.replace(
+                    num_queries=q, head_feat_channels=c,
+                    head_out_channels=d, head_num_attn_heads=heads,
+                    **({} if f32 else dict(pseudo_image_norm="full",
+                                           compute_dtype="bfloat16")))
+                # one forward's arguments; C 2048 drawn (its model's pixel
+                # decoder at 2048 channels would cost more than the hold)
+                seed = SEED + 130 + i
+                dargs, dkw = (synth_decoder(torch, q, c, heads, d, f32, seed)
+                              if c > 512 else
+                              decoder_call(np, torch, dcfg, seed))
+                kb.reset_launches()
+                decoder_hold(torch, record, failures, card, dargs, dkw, f32,
+                             sfx, "shapes last" + sfx.replace(".", " "))
+                t_max = max(LEVEL_TOKENS)
+                inst = ("flagship" + ("_embpad" if d < c else "")
+                        if kdec.flagship_takes(q, c, 2048, heads, 3, 9,
+                                               t_max, dargs[0].dtype, d)
+                        else kdec.split_instance(q, heads, f32, c, 2048,
+                                                 t_max, d))
+                launched(kb, results, failures, "decoder_stack" + sfx,
+                         "decoder_stack/" + inst)
+                del dargs
+                torch.cuda.empty_cache()
+
+        # ---- the window attention: head widths 1-256, windows to 32 ------
+        cfg = semantic_kitti_default()
+        gh, gw = cfg.grid_hw
+        hw0 = (gh // 4, gw // 4)
+        hw1 = (-(-hw0[0] // 2), -(-hw0[1] // 2))
+        holds = [(hd, 10, hw0) for hd in (12, 36, 100, 136, 192, 256)]
+        holds += [(hd, win, hw1) for win in (25, 32) for hd in (32, 64)]
+        g = torch.Generator().manual_seed(140)
+        gd = torch.Generator(device=dev).manual_seed(141)
+        for hd, win, hw in holds:
+            for msa in (False, True):
+                for dt in (torch.bfloat16, torch.float32):
+                    heads = 2
+                    c = hd * heads
+                    f32 = dt == torch.float32
+                    kname = "window_msa" if msa else "swin_block"
+                    name = (f"{'window_msa' if msa else 'swin'}_attn.hd{hd}"
+                            f".w{win}" + (".f32" if f32 else ""))
+                    qkv = torch.randn(BATCH * hw[0] * hw[1], 3 * c,
+                                      generator=gd, device=dev).to(dt)
+                    qb = (0.1 * torch.randn(3 * c, generator=g)).to(dev)
+                    table = (0.02 * torch.randn((2 * win - 1) ** 2, heads,
+                                                generator=g)).to(dev, dt)
+                    rel = kswin.rel_bias_from_table(table, win)
+                    shift = kswin.effective_shift(hw, win, True)
+                    kb.reset_launches()
+                    attn_phase(torch, kswin, record, name,
+                               "mask_bev_tpu/ops/pallas_window_msa.py:71"
+                               if msa else
+                               "mask_bev_tpu/ops/pallas_swin_block.py:584",
+                               [(qkv, qb, rel, BATCH, hw, heads, win,
+                                 shift)], msa, f32, card)
+                    launched(kb, results, failures, name,
+                             f"{kname}/" + kswin.attn_instance(f32, win, hd))
+                    del qkv, qb, rel
+            torch.cuda.empty_cache()
 
 
 def gemm_split(torch, kswin, a32, k) -> None:

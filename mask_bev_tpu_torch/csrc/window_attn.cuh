@@ -1551,15 +1551,29 @@ __global__ void __launch_bounds__(32 * MAXNPT, ring_blocks(HD, MAXNPT))
 // An item slot (ATT_STREAM_SLOTS of them) holds an item's token, label and
 // query rows and its head's compact bias table, gathered again only when
 // the slot's head changes.
+// Head widths of 136 to 256 run at a staged width of 256 (HS 256: any
+// window, the items' chunks in a schedule of one q buffer and one k / v
+// stage, stream_single): two stages of k and v and two q tiles at 256
+// columns pass a block's shared memory, and the accumulators of P v at N
+// 256 (128 registers a thread) leave no room for q's f32 values in
+// registers, so the f32 instance reads q's 32-channel slices from device
+// memory each chunk. A window of up to 32 x 32 tokens (ATT_STREAM_TOKENS)
+// fits: window_masks' ballots hold 32 rows and columns, and the slots and
+// the compact table are sized by the window at run time.
 constexpr int ATT_STREAM_WARPS = 8;      // 16 query rows each: a tile of 128
-constexpr int ATT_STREAM_TOKENS = 576;   // window 24
+constexpr int ATT_STREAM_TOKENS = 1024;  // window 32
 constexpr int ATT_STREAM_STAGES = 2;     // k and v chunk buffers
 constexpr int ATT_STREAM_SLOTS = 2;      // item slots
 
 // the width a head of hd channels is staged at in the streaming kernel
 __host__ __device__ constexpr int stream_dim(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
+                                                                   : 256;
 }
+
+// the HS 256 instances' schedule: one q tile buffer and one k / v stage,
+// each chunk's copies issued after the previous chunk is read (no overlap)
+__host__ __device__ constexpr bool stream_single(int hs) { return hs > 128; }
 
 // blocks an SM the streaming instances are built for: two bf16 blocks up to
 // HS 64, else one
@@ -1581,7 +1595,7 @@ __host__ __device__ constexpr int stream_blocks() {
 constexpr bool ATT_STREAM_WGMMA = true;
 
 __host__ __device__ constexpr bool stream_wgmma(bool f32, int hs) {
-  return ATT_STREAM_WGMMA && !f32 && hs >= 64;
+  return ATT_STREAM_WGMMA && !f32 && hs >= 64 && hs <= 128;
 }
 
 // element (r, c) of a bf16 buffer of R rows staged at a width of 64 or 128
@@ -1697,10 +1711,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // align the swizzled buffers)
 static inline size_t window_attn_stream_smem(int win, int hd, bool f32) {
   const size_t np = (win * win + 15) / 16 * 16, hs = stream_dim(hd);
-  const bool wg = stream_wgmma(f32, hs);
+  const bool wg = stream_wgmma(f32, hs), one = stream_single(hs);
   const size_t ld = wg ? hs : f32 ? hs + 4 : hs + 8, esz = f32 ? 4 : 2;
-  const size_t q = f32 ? 0 : 2 * 16 * ATT_STREAM_WARPS * ld * esz;
-  return q + ATT_STREAM_STAGES * 2 * 16 * ATT_KCH * ld * esz + np * 4 +
+  const size_t q =
+      f32 ? 0 : (one ? 1 : 2) * 16 * ATT_STREAM_WARPS * ld * esz;
+  return q + (one ? 1 : ATT_STREAM_STAGES) * 2 * 16 * ATT_KCH * ld * esz +
+         np * 4 +
          ATT_STREAM_SLOTS * (3 * np + rel_table_floats(win)) * 4 + 16 +
          (wg ? 1024 : 0);
 }
@@ -1775,7 +1791,8 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
   constexpr int QR = 16 * ATT_STREAM_WARPS, KR = 16 * ATT_KCH;
   // wgmma: the q, k and v buffers in the 128-byte swizzle of QR / KR rows
   constexpr int QSW = WG ? QR : 0, KSW = WG ? KR : 0;
-  constexpr int NST = ATT_STREAM_STAGES;
+  constexpr bool ONE = stream_single(HS);  // one q buffer, one stage
+  constexpr int NST = ONE ? 1 : ATT_STREAM_STAGES, NQB = ONE ? 1 : 2;
   constexpr int KC = HS < 32 ? HS : 32, PER = KC / 4, NCH = HS / KC;
   extern __shared__ __align__(16) unsigned char smraw[];
   unsigned char* sm = smraw;
@@ -1783,7 +1800,7 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
   const int n = win * win, npt = (n + 15) / 16, NP = 16 * npt;
   const int TF = rel_table_floats(win);
   T* qs = reinterpret_cast<T*>(sm);  // bf16: slot p's tile's q rows
-  T* kvs = qs + (F32 ? 0 : 2 * QR * LD);  // stage s: k rows, then v rows
+  T* kvs = qs + (F32 ? 0 : NQB * QR * LD);  // stage s: k rows, then v rows
   int* co = reinterpret_cast<int*>(kvs + NST * 2 * KR * LD);
   int* slots = co + NP;  // slot p: tok, lab, query rows [NP] each, tab
   int* ring = slots + ATT_STREAM_SLOTS * (3 * NP + TF);  // [4]: items
@@ -1870,8 +1887,8 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
     const int* tk = slot_tok(p);
     T* ks = kvs + st * 2 * KR * LD;
     if (!F32 && j0 == 0)
-      stream_rows<T, LD, QSW>(qkv, qkv_bias, qs + p * QR * LD, tk,
-                              tk + 2 * NP, 0, qt * QR, QR, n, h, hd, C);
+      stream_rows<T, LD, QSW>(qkv, qkv_bias, qs + (ONE ? 0 : p) * QR * LD,
+                              tk, tk + 2 * NP, 0, qt * QR, QR, n, h, hd, C);
     stream_rows<T, LD, KSW>(qkv, qkv_bias, ks, tk, nullptr, 1, j0, KR, n, h,
                             hd, C);
     stream_rows<T, LD, KSW>(qkv, qkv_bias, ks + KR * LD, tk, nullptr, 2, j0,
@@ -1887,7 +1904,7 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
     for (int i = tid; i < (2 * QR + NST * 2 * KR) * HS / 8; i += nthr)
       z[i] = make_uint4(0u, 0u, 0u, 0u);
   } else {
-    for (int i = tid; i < (F32 ? 0 : 2 * QR) * (HS - hd); i += nthr)
+    for (int i = tid; i < (F32 ? 0 : NQB * QR) * (HS - hd); i += nthr)
       qs[(i / (HS - hd)) * LD + hd + i % (HS - hd)] = from_f<T>(0.f);
     for (int i = tid; i < NST * 2 * KR * (HS - hd); i += nthr)
       kvs[(i / (HS - hd)) * LD + hd + i % (HS - hd)] = from_f<T>(0.f);
@@ -1905,12 +1922,13 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
   if (ring[0] < 0) return;
   stage_slot(0, ring[0], true);
   __syncthreads();
-  copy_step(ring[0], 0, 0, 0);
+  if constexpr (!ONE) copy_step(ring[0], 0, 0, 0);
 
-  const int nch = (NP + KR - 1) / KR;  // chunks an item (3 at least)
+  // chunks an item (3 at least, but in the HS 256 schedule)
+  const int nch = (NP + KR - 1) / KR;
   auto head_of = [&](int it) { return it / (tpw * nw * B); };
   for (int k = 0; ring[k & 3] >= 0; ++k) {
-    const int p = k & 1;
+    const int p = k & 1, qb = ONE ? 0 : p;  // the slot; the q buffer
     const int* tk = slot_tok(p);
     const int* lb = tk + NP;
     const int* qr = lb + NP;
@@ -1928,7 +1946,8 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
              __popc(my) * __popc(mx);
     }
 
-    float qv[2][F32 ? HS / 4 : 1];
+    float qv[2][F32 && !ONE ? HS / 4 : 1];
+    const float* qsrc[2] = {nullptr, nullptr};  // ONE, f32: q's rows
     int l0 = 0, l1 = 0, ro0 = 0, ro1 = 0;
     float m0 = -INFINITY, m1 = -INFINITY;  // running row max (quad-uniform)
     float l0s = 0.f, l1s = 0.f;            // this lane's running row sums
@@ -1939,11 +1958,15 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
       for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
 
     for (int j0 = 0; j0 < NP; j0 += KR) {
+      if constexpr (ONE) {
+        __syncthreads();  // the last chunk (and item) is read
+        copy_step(ring[k & 3], p, j0, 0);
+      }
       cp_async_wait<0>();
       if constexpr (WG) fence_proxy_async();  // for wgmma's reads
       __syncthreads();  // chunk j0 (and the tile's q) in place; the other
                         // buffer read
-      const int st = (k * nch + j0 / KR) % NST;
+      const int st = ONE ? 0 : (k * nch + j0 / KR) % NST;
       const bool last = j0 + KR >= NP;
       if (j0 == 0) {
         int h, b, wi, qt;
@@ -1958,7 +1981,17 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
         // the rows' table offsets: ro(i) - co(j) indexes tab
         ro0 = co[max(o0, 0)] + (win - 1) * (tw + 1);
         ro1 = co[max(o1, 0)] + (win - 1) * (tw + 1);
-        if constexpr (F32) {
+        if constexpr (F32 && ONE) {
+          // q's rows, read a chunk of channels at a time below (null: zero)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int o = hh ? o1 : o0;
+            const int tr = o >= 0 ? tk[o] : -1;
+            qsrc[hh] = o < 0 ? nullptr
+                             : (tr >= 0 ? (const float*)qkv + (size_t)tr * 3 * C
+                                        : qkv_bias) + h * hd;
+          }
+        } else if constexpr (F32) {
           // chunk c of KC channels: the lane's PER contiguous channels from
           // c KC + PER t (qk_chunk_f32's layout), zero past hd and n
 #pragma unroll
@@ -1980,7 +2013,7 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
         } else if constexpr (!MSA) {
           // the Swin variant scales q before the product, rounded to bf16:
           // each warp scales its own 16 staged rows in place, once an item
-          T* qw = qs + (p * QR + (WG ? 0 : 16 * warp)) * LD;
+          T* qw = qs + (qb * QR + (WG ? 0 : 16 * warp)) * LD;
           for (int i = lane; i < 16 * (hd / 8); i += 32) {
             const int r = i / (hd / 8), c = (i % (hd / 8)) * 8;
             uint4* w = reinterpret_cast<uint4*>(
@@ -2012,11 +2045,14 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
         }
       }
       // the next step's copies into the other buffer (after the last chunk
-      // the next item's q rows, into the other q buffer)
-      if (!last)
-        copy_step(ring[k & 3], p, j0 + KR, st ^ 1);
-      else if (ring[(k + 1) & 3] >= 0)
-        copy_step(ring[(k + 1) & 3], p ^ 1, 0, st ^ 1);
+      // the next item's q rows, into the other q buffer; ONE: at the next
+      // chunk's start)
+      if constexpr (!ONE) {
+        if (!last)
+          copy_step(ring[k & 3], p, j0 + KR, st ^ 1);
+        else if (ring[(k + 1) & 3] >= 0)
+          copy_step(ring[(k + 1) & 3], p ^ 1, 0, st ^ 1);
+      }
       if (!live) continue;
       const T* ks = kvs + st * 2 * KR * LD;
       const T* vs = ks + KR * LD;
@@ -2044,17 +2080,35 @@ __global__ void __launch_bounds__(32 * ATT_STREAM_WARPS,
       } else if constexpr (F32) {
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
-          if (c * KC < hd)
-            qk_chunk_f32<KC, LD, ATT_KCH, MSA>(s, &qv[0][c * PER],
-                                               &qv[1][c * PER], ks, c * KC,
-                                               cnpt, scale, g, t);
+          if (c * KC < hd) {
+            if constexpr (ONE) {
+              // the lane's PER channels of the chunk (all real or all past
+              // hd: hd % 8 == 0), from device memory
+              float qa[2][PER];
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                if (qsrc[hh] && c * KC + PER * t < hd) {
+                  ld_per<PER, true>(qa[hh], qsrc[hh] + c * KC + PER * t);
+                } else {
+#pragma unroll
+                  for (int pp = 0; pp < PER; ++pp) qa[hh][pp] = 0.f;
+                }
+              }
+              qk_chunk_f32<KC, LD, ATT_KCH, MSA>(s, qa[0], qa[1], ks, c * KC,
+                                                 cnpt, scale, g, t);
+            } else {
+              qk_chunk_f32<KC, LD, ATT_KCH, MSA>(s, &qv[0][c * PER],
+                                                 &qv[1][c * PER], ks, c * KC,
+                                                 cnpt, scale, g, t);
+            }
+          }
       } else {
         // The k-steps outermost, q's fragments two k-steps at a time from
         // the tile's staged rows each chunk, so that the q rows hold no
         // registers between chunks (held, they spilled at two blocks an
         // SM). Each score still sums its k-steps in order (the Swin
         // variant's q scaled in place at chunk 0).
-        const T* qrow = qs + (p * QR + 16 * warp + (lane & 15)) * LD;
+        const T* qrow = qs + (qb * QR + 16 * warp + (lane & 15)) * LD;
 #pragma unroll
         for (int kk = 0; kk < HS / 16; kk += 2) {
           if (16 * kk >= hd) break;
@@ -2438,8 +2492,9 @@ static int launch_window_attn(const void* qkv, const float* qkv_bias,
   return rc;
 }
 
-// The streaming kernel's launch (attn_stream_*.cu): windows of 129 to 576
-// tokens at any head width hd % 8 == 0 up to 128, staged at stream_dim(hd)
+// The streaming kernel's launch (attn_stream_*.cu): windows of 129 to 1024
+// tokens at any head width hd % 8 == 0 up to 128, and any window up to
+// 1024 tokens at head widths 136-256, staged at stream_dim(hd)
 // (windows up to 256 tokens at head widths up to 64 take the long-window
 // kernel above; ops/swin_block.py::attn_route chooses). f32 nonzero for f32
 // qkv and out, else bf16.
@@ -2452,13 +2507,13 @@ static int launch_window_attn_streamed(const void* qkv,
                                        float scale, int f32,
                                        cudaStream_t stream) {
   const int NP = (win * win + 15) / 16 * 16;
-  // (over 128 tokens: at least three chunks, which the kernel's schedule
-  // of its q rows needs)
-  if (!next || C % heads || win * win > ATT_STREAM_TOKENS ||
-      NP <= 16 * ATT_MAX_NPT)
+  if (!next || C % heads || win < 1 || win * win > ATT_STREAM_TOKENS)
     return MB_BAD_ARGS;
   const int hd = C / heads;
-  if (hd % 8 || hd > 128 || (hd <= 64 && NP <= 16 * ATT_LONG_MAX_NPT))
+  // up to head width 128 over 128 tokens: at least three chunks, which the
+  // two-buffer schedule of its q rows needs (HS 256's schedule takes any)
+  if (hd % 8 || hd > 256 || (hd <= 128 && NP <= 16 * ATT_MAX_NPT) ||
+      (hd <= 64 && NP <= 16 * ATT_LONG_MAX_NPT))
     return MB_BAD_ARGS;
   const int hs = stream_dim(hd);
   auto go = [&](auto tag, auto hs_tag) {
@@ -2471,9 +2526,12 @@ static int launch_window_attn_streamed(const void* qkv,
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
   if (f32)
     return hs == 16 ? go(float(), I16()) : hs == 32 ? go(float(), I32())
-         : hs == 64 ? go(float(), I64()) : go(float(), I128());
+         : hs == 64 ? go(float(), I64()) : hs == 128 ? go(float(), I128())
+         : go(float(), I256());
   return hs == 16 ? go(bf16(), I16()) : hs == 32 ? go(bf16(), I32())
-       : hs == 64 ? go(bf16(), I64()) : go(bf16(), I128());
+       : hs == 64 ? go(bf16(), I64()) : hs == 128 ? go(bf16(), I128())
+       : go(bf16(), I256());
 }

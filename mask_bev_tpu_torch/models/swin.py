@@ -47,7 +47,7 @@ from mask_bev_tpu_torch.ops.patch_embed import embed_matrix, patch_embed
 from mask_bev_tpu_torch.ops.resize import resize_bicubic
 from mask_bev_tpu_torch.ops.swin_block import (
     BlockWeights, Dense, dense, effective_shift, int8_sim_dense, layer_norm_p,
-    make_dense, rel_bias_from_table, split_tf32, swin_block,
+    make_dense, padded_heads, rel_bias_from_table, split_tf32, swin_block,
     window_msa_plain)
 from mask_bev_tpu_torch.ops.window_msa import window_msa
 from mask_bev_tpu_torch.parallel.distributed import rand_rows
@@ -126,20 +126,25 @@ class SwinBlock(nn.Module):
 
     def weights(self) -> BlockWeights:
         """Kernel-ready weights (transposed, f32 biases, int8 when
-        quantised, gathered relative-position bias), built once."""
+        quantised, gathered relative-position bias; where the heads' width
+        is no multiple of 8 also the kernels' padded qkv and projection),
+        built once."""
         if self._packed is None:
             msa = self.attn.w_msa
             q = self.quantize
             with torch.no_grad():
+                qkv = make_dense(msa.qkv.weight, msa.qkv.bias, q)
+                proj = make_dense(msa.proj.weight, msa.proj.bias, q)
+                qkv_k, proj_k = padded_heads(qkv, proj, self.num_heads)
                 self._packed = BlockWeights(
                     self.norm1.weight.detach(), self.norm1.bias.detach(),
-                    make_dense(msa.qkv.weight, msa.qkv.bias, q),
-                    make_dense(msa.proj.weight, msa.proj.bias, q),
+                    qkv, proj,
                     self.norm2.weight.detach(), self.norm2.bias.detach(),
                     make_dense(self.ffn_1.weight, self.ffn_1.bias, q),
                     make_dense(self.ffn_2.weight, self.ffn_2.bias, q),
                     rel_bias_from_table(msa.rel_pos_bias_table.detach(),
-                                        self.window))
+                                        self.window),
+                    *((qkv_k, proj_k) if qkv_k is not qkv else ()))
         return self._packed
 
     def live_weights(self) -> BlockWeights:
@@ -172,7 +177,9 @@ class SwinBlock(nn.Module):
         if (not train and fused_attention and not quant
                 and x.shape[-1] % self.num_heads == 0):
             y = window_msa(y, hw, self.window, shift, p.rel_bias, p.qkv,
-                           p.proj, self.num_heads)
+                           p.proj, self.num_heads,
+                           **({} if p.qkv_k is None
+                              else {"padded": (p.qkv_k, p.proj_k)}))
         else:
             y = window_msa_plain(y, p, hw, self.window, self.num_heads,
                                  shift, quant)

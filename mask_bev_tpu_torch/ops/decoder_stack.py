@@ -29,11 +29,13 @@ held in shared memory throughout. Two instances:
   on the tensor cores with the weights in fragment order
   (:func:`pack_fragments`);
 * the split-query instance (everything else: f32, the shipped
-  configurations' dtype, and Waymo's 170 queries): block r owns rows
-  [r ceil(Q/8), (r+1) ceil(Q/8)) of the state and every intermediate, the
-  products run on the tensor cores (3xTF32 in f32: both operands split into
-  TF32 halves, ``csrc/common.cuh::split_tf32``; m16n8k16 in bf16) with the
-  weights stored (N, K) and the block's rows on the MMA's 8-wide side, and
+  configurations' dtype, Waymo's 170 queries, up to 1024): block r owns
+  rows [r ceil(Q/cs), (r+1) ceil(Q/cs)) of the state and every
+  intermediate (in shared memory, or where they do not fit in a
+  device-memory workspace, :func:`split_plan`), the products run on the
+  tensor cores (3xTF32 in f32: both operands split into TF32 halves,
+  ``csrc/common.cuh::split_tf32``; m16n8k16 in bf16) with the weights
+  stored (N, K) and the block's rows on the MMA's 8-wide side, and
   self-attention reads the other blocks' k and v through distributed
   shared memory (:func:`check_shape_split`, :func:`smem_bytes_split`). A
   width it has no instance for runs padded (:func:`split_padding`,
@@ -43,9 +45,17 @@ held in shared memory throughout. Two instances:
   FFN to whole chunks of C with zero weights and bias; the LNs walk the
   true columns only.
 
+The mask embedding may have any width D (``head_out_channels``): D < C
+runs zero-padded to C on either instance (the mask MLP's last layer and
+bias, the initial embedding and the resized features: the padded terms of
+``emb . feat^T`` are exact zeros, :func:`embed_padding`); D > C runs on the
+split instance with the embedding at :func:`embed_width` columns in a
+device-memory buffer.
+
 Every launch counts under ``decoder_stack`` (and its instance under
 ``decoder_stack/flagship``, ``decoder_stack/split_tc_bf16`` or
-``decoder_stack/split_tc_f32``).
+``decoder_stack/split_tc_f32``, with the suffixes of :func:`split_instance`
+and ``_embpad`` for D < C).
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ import torch
 
 from mask_bev_tpu_torch.kernels import build as kb
 from mask_bev_tpu_torch.ops.swin_block import (
-    EPI_BIAS, Dense, gemm, make_dense)
+    EPI_BIAS, Dense, gemm, make_dense, padded_columns)
 
 NEG = -1e9
 
@@ -138,12 +148,64 @@ def blocked_positions(m: torch.Tensor) -> torch.Tensor:
     return blocked & ~blocked.all(dim=-1, keepdim=True)
 
 
-def mask_embed(x32: torch.Tensor, hw: HeadWeights, dtype) -> torch.Tensor:
-    """Decoder norm + 3-layer mask MLP on the f32 query state -> D values."""
+def mask_embed(x32: torch.Tensor, hw: HeadWeights, dtype,
+               magnitude: bool = False):
+    """Decoder norm + 3-layer mask MLP on the f32 query state -> D values
+    (with ``magnitude``, also each value's size beside its terms: ``|e|``
+    plus the root-sum-square of its product's terms, sqrt(sum_j (z_j
+    W3_ji)^2), z the last layer's input)."""
     z = _ln(x32, hw.dnw, hw.dnb).to(dtype)
     z = torch.relu(_dot(z, hw.m1, hw.mb1)).to(dtype)
     z = torch.relu(_dot(z, hw.m2, hw.mb2)).to(dtype)
-    return _dot(z, hw.m3, hw.mb3).to(dtype)
+    e = _dot(z, hw.m3, hw.mb3).to(dtype)
+    if not magnitude:
+        return e
+    size = (z.double() ** 2 @ hw.m3.double() ** 2).sqrt().float() + e.float(
+        ).abs()
+    return e, size
+
+
+# A logit m = emb . feat decides m < 0 within rounding of 0 where |m| is at
+# most BAND_ROUNDINGS roundings of the operand type (``BAND_UNIT``: bf16
+# 2^-8; f32 2^-21, 3xTF32) of sqrt(sum_i (M_i f_i)^2), M the embedding's
+# size (:func:`mask_embed`'s ``magnitude``; the first layer's emb0 |emb0|):
+# the size of the difference that independent roundings of the embedding's
+# terms give the logit. An embedding value that is near 0 beside its terms
+# (at D 1, a whole row's sign) so lies in the band.
+BAND_ROUNDINGS = 4
+BAND_UNIT = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -21}
+
+
+def logit_band(size: torch.Tensor, feat: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, Q, T) rounding band of the logits ``emb . feat^T`` given the
+    embedding's (B, Q, D) magnitude ``size`` and the (B, T, D) features."""
+    sq = (size.double() ** 2) @ (feat.double() ** 2).transpose(-1, -2)
+    return (BAND_ROUNDINGS * BAND_UNIT[dtype] * sq.sqrt()).float()
+
+
+def decision_flips(bits, logits, bands) -> List[int]:
+    """Per layer, how far the kernel's blocked positions ``bits`` (B, Q, T)
+    stray from the plain version's ``logits`` beyond rounding: the raw
+    ``m < 0`` decisions that differ where |m| passes its ``band``
+    (:func:`logit_band`), plus one for each row whose every-key-blocked
+    rule (:func:`blocked_positions`) the two sides apply differently, in
+    place of the whole row that the rule turns over. A kernel row with no
+    blocked position was either open or blocked at every key (and
+    cleared): it is read as whichever differs less from the plain row
+    outside the band (on a tie, as the plain row's rule)."""
+    out = []
+    for kb_, m, band in zip(bits, logits, bands):
+        raw = m < 0.0
+        far = m.abs() > band
+        blocked_all = raw.all(dim=-1)
+        miss_open = (raw & far).sum(dim=-1)
+        miss_blocked = (~raw & far).sum(dim=-1)
+        cleared = ~kb_.any(dim=-1) & ((miss_blocked < miss_open) | (
+            (miss_blocked == miss_open) & blocked_all))
+        k_raw = kb_ | cleared[..., None]
+        out.append(int(((k_raw != raw) & far).sum())
+                   + int((cleared != blocked_all).sum()))
+    return out
 
 
 def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
@@ -151,9 +213,10 @@ def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
                         feats: Sequence[torch.Tensor],
                         layers: Sequence[LayerWeights], head: HeadWeights,
                         *, num_heads: int, return_logits: bool = False,
-                        blocked=None):
+                        blocked=None, return_bands: bool = False):
     """Plain PyTorch version: final (B, Q, C) query state in D (and, with
-    ``return_logits``, every layer's f32 mask logits ``emb . feat^T``).
+    ``return_logits``, every layer's f32 mask logits ``emb . feat^T``; with
+    ``return_bands`` too, every layer's :func:`logit_band`).
     ``blocked``: per-layer (B, Q, T) positions to block instead of the ones
     the logits give (to hold the kernel's arithmetic against this version
     apart from its threshold decisions)."""
@@ -161,12 +224,15 @@ def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
     nl = len(mems)
     x32 = out0.float()
     emb = emb0.float()
+    size = emb.abs()
     qp = qpos.float()
-    logits = []
+    logits, bands = [], []
     for li, lw in enumerate(layers):
         lvl = li % nl
         m = emb @ feats[lvl].float().transpose(-1, -2)
         logits.append(m)
+        if return_bands:
+            bands.append(logit_band(size, feats[lvl], dtype))
         bias = torch.where(blocked_positions(m) if blocked is None
                            else blocked[li], NEG, 0.0)
         mem = mems[lvl]
@@ -182,8 +248,14 @@ def decoder_stack_plain(out0, emb0, qpos, mems: Sequence[torch.Tensor],
         x32 = _ln(x32 + y, lw.n2w, lw.n2b)
         y = _dot(torch.relu(_dot(x32, lw.f1, lw.fb1)), lw.f2, lw.fb2)
         x32 = _ln(x32 + y, lw.n3w, lw.n3b)
-        emb = mask_embed(x32, head, dtype).float()
+        if return_bands:
+            emb, size = mask_embed(x32, head, dtype, magnitude=True)
+            emb = emb.float()
+        else:
+            emb = mask_embed(x32, head, dtype).float()
     out = x32.to(dtype)
+    if return_bands:
+        return out, logits, bands
     return (out, logits) if return_logits else out
 
 
@@ -287,67 +359,108 @@ def smem_bytes(q: int, c: int, t_max: int) -> int:
 
 
 SPLIT_WARPS = 8  # ``DS2_WARPS`` of the split instance
-SPLIT_MAXR = 32  # rows a block of the split instance owns at most
+SPLIT_RG = 32  # ``DS2_RG``: rows a group (and a block of a cluster of 8)
+SPLIT_MAXR = 64  # ``DS2_MAXR``: rows a block of the split instance owns
+SPLIT_MAXQ = 16 * SPLIT_MAXR  # queries the split instance takes
 SPLIT_TK = 32  # keys a tile of the split instance
 SMEM_LIMIT = 227 * 1024  # shared memory a block may use on the H100
 
 
 def split_cluster(q: int) -> int:
     """Blocks of a cluster of the split instance (``ds2_cluster``): 8 while
-    a block's ceil(Q/8) rows fit :data:`SPLIT_MAXR`, else 16 (Q up to
-    512)."""
-    return 8 if -(-q // 8) <= SPLIT_MAXR else 16
+    a block's ceil(Q/8) rows fit :data:`SPLIT_RG`, else 16 (Q up to
+    :data:`SPLIT_MAXQ`)."""
+    return 8 if -(-q // 8) <= SPLIT_RG else 16
 
 
-def split_layout(q: int, c: int, heads: int, t_max: int,
-                 f32: bool = True) -> Tuple[int, int]:
-    """(bytes, QC): the shared memory of one block of the split instance
-    and the self-attention's keys a chunk, as ``csrc/decoder_split.cu::
-    ds2_layout`` lays it out (4-byte words, every part 16-byte aligned):
-    its R = ceil(Q/cs) rows of X, XA, QB and OB (row stride C + 16), the
-    mask bits of its rows against all keys, its row flags, then one area
-    that holds in turn the cross-attention's key-tile slots (k or v of 32
-    keys: f32 at stride C + 16, bf16 C + 8; two buffers of k and v where
-    they fit in 227 KB, else one), the bf16 q copy (ceil(R/16) 16-row
-    tiles) and the (max, sum) exchange of 8 warps x the padded rows, and
-    the self-attention's own k rows, one head's k (then v) of QC rows and
-    the (R, QC) scores: QC = Q where that fits, else the most keys, a
-    multiple of 32, that do (two sweeps over the chunks)."""
+def column_slices(heads: int, hd: int) -> bool:
+    """Whether the split instance's cross-attention splits a head's output
+    columns over its 8 warps, a head a round (``ds2_column_slices``): one
+    head, or head widths over 64."""
+    return heads == 1 or hd > 64
+
+
+class SplitLayout(NamedTuple):
+    """One block of the split instance (``ds2_layout``): its shared memory
+    in bytes, the self-attention's keys a chunk, and whether its row
+    buffers live in the device-memory workspace."""
+
+    nbytes: int
+    qc: int
+    glob: bool
+
+
+def split_plan(q: int, c: int, heads: int, t_max: int,
+               f32: bool = True) -> SplitLayout:
+    """The split instance's layout, as ``csrc/decoder_split.cuh::
+    ds2_layout`` lays it out (4-byte words, every part 16-byte aligned): its
+    R = ceil(Q/cs) rows of X, XA, QB and OB (row stride C + 16), the mask
+    bits of its rows against all keys, its row flags, then one area that
+    holds in turn the cross-attention's key-tile slots (k or v of 32 keys
+    at the staged width SW, C or a head's width where
+    :func:`column_slices`: f32 at stride SW + 16, bf16 SW + 8; two buffers
+    of k and v where they fit in 227 KB, else one), the bf16 q copy
+    (ceil(RG/16) 16-row tiles, RG = min(R, 32)) and the (max, sum) exchange
+    of 8 warps x the padded rows, and the self-attention's own k rows, one
+    head's k (then v) of QC rows and the (R, QC) scores: QC = Q where that
+    fits, else the most keys, a multiple of 32, that do (two sweeps over
+    the chunks). Where that passes 227 KB, or R > 32, the four row buffers
+    and the own k rows move to the workspace (``glob``), and shared memory
+    keeps the rest."""
     def al(n):
         return -(-n // 4) * 4
     r, ld, hd = -(-q // split_cluster(q)), c + 16, c // heads
-    rp = 16 * -(-r // 16)
+    rg = min(r, SPLIT_RG)
+    rp = 16 * -(-rg // 16)
     rx = r * ld
-    area = 4 * rx + al(r * -(-t_max // 32)) + al(r)
-    slot = SPLIT_TK * (c + 16) if f32 else SPLIT_TK * (c + 8) // 2
+    sw = hd if column_slices(heads, hd) else c
+    slot = SPLIT_TK * (sw + 16) if f32 else SPLIT_TK * (sw + 8) // 2
     qt = 0 if f32 else rp * (c + 8) // 2
-    self_attn = rx + q * (hd + 1) + r * q
-    for buffers in (2, 1):
-        cross = 2 * buffers * slot + qt + 2 * SPLIT_WARPS * rp
-        total = 4 * (area + al(max(cross, self_attn)))
+    for glob in ((False, True) if r <= SPLIT_RG else (True,)):
+        kown = 0 if glob else rx
+        area = (0 if glob else 4 * rx) + al(r * -(-t_max // 32)) + al(r)
+        self_attn = kown + q * (hd + 1) + r * q
+        for buffers in (2, 1):
+            cross = 2 * buffers * slot + qt + 2 * SPLIT_WARPS * rp
+            total = 4 * (area + al(max(cross, self_attn)))
+            if total <= SMEM_LIMIT:
+                break
+        qc = q
+        if total > SMEM_LIMIT:
+            chunk = (SMEM_LIMIT // 4 - area - kown) // (hd + 1 + r) // 32 * 32
+            if 32 <= chunk < q:
+                qc = chunk
+                total = 4 * (area + al(max(cross, kown + qc * (hd + 1)
+                                           + r * qc)))
         if total <= SMEM_LIMIT:
-            return total, q
-    qc = (SMEM_LIMIT // 4 - area - rx) // (hd + 1 + r) // 32 * 32
-    if 32 <= qc < q:
-        total = 4 * (area + al(max(cross, rx + qc * (hd + 1) + r * qc)))
-        return total, qc
-    return total, q
+            break
+    return SplitLayout(total, qc, glob)
+
+
+def split_workspace(b: int, q: int, c: int) -> int:
+    """f32 values of the workspace a launch of B elements needs where
+    ``split_plan(...).glob``: 5 R (C + 16) a block."""
+    cs = split_cluster(q)
+    return b * cs * 5 * -(-q // cs) * (c + 16)
 
 
 def smem_bytes_split(q: int, c: int, heads: int, t_max: int,
                      f32: bool = True) -> int:
     """Shared memory of one block of the split instance
-    (:func:`split_layout`)."""
-    return split_layout(q, c, heads, t_max, f32)[0]
+    (:func:`split_plan`)."""
+    return split_plan(q, c, heads, t_max, f32).nbytes
 
 
-SPLIT_HEAD_DIMS = (8, 16, 32, 64)  # the split kernel's HD instances
-SPLIT_ONE_HEAD_DIMS = (64, 128, 256)  # its one-head instances (HD = C)
+SPLIT_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the split kernel's HD instances
+SPLIT_ONE_HEAD_DIMS = (64, 128, 256, 512)  # its one-head instances (HD = C)
 
 
-def _heads_taken(heads: int) -> bool:
+def _heads_taken(heads: int, hd: int = 8) -> bool:
     """2, 4 or 8 heads (a head's warps split each key tile) or a multiple
-    of 8 (rounds of 8 heads)."""
+    of 8 (rounds of 8 heads); any count at head widths over 64 (a head a
+    round, :func:`column_slices`)."""
+    if hd > 64:
+        return heads >= 1
     return heads > 1 and not (SPLIT_WARPS % heads and heads % 8)
 
 
@@ -356,13 +469,13 @@ def split_padding(c: int, heads: int, ffn: int
     """(heads, head width, FFN) the split instance runs C over ``heads``
     heads with an FFN of ``ffn`` units as: one head at the narrowest of
     :data:`SPLIT_ONE_HEAD_DIMS` that holds C; else the head width at the
-    narrowest of :data:`SPLIT_HEAD_DIMS` that holds it and the fewest
-    heads at least ``heads`` that the warps split (:func:`_heads_taken`)
-    and that make the padded C a multiple of 64 (32-deep product chunks, 16
-    output columns a warp); the FFN in whole chunks of the padded C. None
-    where no instance holds the head: a width over 64 at more than one
-    head, or one head over C 256. Shapes the instances take are their own
-    padding."""
+    narrowest of :data:`SPLIT_HEAD_DIMS` that holds it and, up to width 64,
+    the fewest heads at least ``heads`` that the warps split
+    (:func:`_heads_taken`) and that make the padded C a multiple of 64
+    (32-deep product chunks, 16 output columns a warp); the FFN in whole
+    chunks of the padded C. None where no instance holds the head: a width
+    over 256 at more than one head, or one head over C 512. Shapes the
+    instances take are their own padding."""
     if heads < 1 or c < 1 or ffn < 1 or c % heads:
         return None
     if heads == 1:
@@ -372,41 +485,58 @@ def split_padding(c: int, heads: int, ffn: int
     hdp = next((w for w in widths if w >= hd), None)
     if hdp is None:
         return None
-    while heads > 1 and (not _heads_taken(hp) or hp * hdp % 64):
+    while heads > 1 and (not _heads_taken(hp, hdp) or hp * hdp % 64):
         hp += 1
     cp = hp * hdp
     return hp, hdp, -(-ffn // cp) * cp
 
 
+def embed_width(c: int, d: int) -> int:
+    """The columns the stack holds a mask embedding of width ``d`` at, for
+    a decoder of C columns: C where d <= C (zero-padded), else d rounded up
+    to a multiple of 32 (the split instance's 32-deep product chunks)."""
+    return c if d <= c else -(-d // 32) * 32
+
+
 def split_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
                   n_layers: int, t_max: int,
-                  f32: bool = True) -> Optional[str]:
+                  f32: bool = True, d: Optional[int] = None
+                  ) -> Optional[str]:
     """Why the split instance does not take these shapes (the C entry
     point's own check on the padded shapes), or None where it does: a head
-    an instance holds (:func:`split_padding`: one head up to C 256, else a
-    head width up to 64, any FFN), at most 32 rows a block in clusters of
-    8 or 16 (Q <= 512), and the shared memory of :func:`split_layout` at
-    the padded width."""
+    an instance holds (:func:`split_padding`: one head up to C 512, else a
+    head width up to 256, any FFN), at most 64 rows a block in clusters of
+    8 or 16 (Q <= 1024), the shared memory of :func:`split_plan` at the
+    padded width (the rows in the workspace where they do not fit beside
+    the rest), and a mask embedding of ``d`` >= 1 columns (any width: a
+    wider one than C lives in device memory)."""
     pad = split_padding(c, heads, ffn)
     smem = (smem_bytes_split(q, pad[0] * pad[1], pad[0], t_max, f32)
             if pad and q >= 1 else 0)
     if (q < 1 or pad is None or n_layers % nl or nl > 3
             or -(-q // split_cluster(q)) > SPLIT_MAXR
-            or smem > SMEM_LIMIT):
+            or smem > SMEM_LIMIT or (d is not None and d < 1)):
         return (f"decoder stack split instance: unsupported shape Q={q} "
                 f"C={c} FFN={ffn} heads={heads} levels={nl} "
-                f"layers={n_layers} keys={t_max} (one head up to C 256, "
-                f"else head widths up to 64; Q up to 512; {smem} B of "
-                f"shared memory a block, limit {SMEM_LIMIT})")
+                f"layers={n_layers} keys={t_max} embedding={d} (one head "
+                f"up to C 512, else head widths up to 256; Q up to "
+                f"{SPLIT_MAXQ}; {smem} B of shared memory a block, limit "
+                f"{SMEM_LIMIT})")
     return None
 
 
-def padded_columns(c: int, heads: int, hdp: int) -> torch.Tensor:
-    """(C,) int64: the padded column of each true column j, head j // hd's
-    column j % hd in a head of width ``hdp``."""
-    hd = c // heads
-    j = torch.arange(c)
-    return (j // hd) * hdp + j % hd
+def embed_padding(head: HeadWeights, de: int) -> HeadWeights:
+    """``head`` with the mask MLP's last layer (C, D) and its bias at ``de``
+    >= D output columns, zeros past D (the embedding's padded columns are
+    exact zeros)."""
+    d = head.m3.shape[1]
+    if d == de:
+        return head
+    m3 = head.m3.new_zeros(head.m3.shape[0], de)
+    m3[:, :d] = head.m3
+    mb3 = head.mb3.new_zeros(de)
+    mb3[:d] = head.mb3
+    return head._replace(m3=m3, mb3=mb3)
 
 
 def padded_split(layers: Sequence[LayerWeights], head: HeadWeights,
@@ -418,7 +548,9 @@ def padded_split(layers: Sequence[LayerWeights], head: HeadWeights,
     affine; the cross-attention's k and v projections only on their
     output axis, as their GEMM reads the memory at its true width), the
     FFN's hidden units at the padded FFN (zero rows of W1's output, of its
-    bias and of W2's input)."""
+    bias and of W2's input). A mask embedding wider than C
+    (:func:`embed_padding` to :func:`embed_width`) keeps its columns: the
+    last mask-MLP layer is padded on its input axis only."""
     hp, hdp, fp = split_padding(c, heads, ffn)
     cp = hp * hdp
     col = padded_columns(c, heads, hdp)
@@ -451,9 +583,17 @@ def padded_split(layers: Sequence[LayerWeights], head: HeadWeights,
             else:
                 d[name] = vec(t)
         out.append(LayerWeights(**d))
-    hw = HeadWeights(**{name: mat(t, col, col, cp, cp) if t.dim() == 2
-                        else vec(t) for name, t in head._asdict().items()})
-    return out, hw
+    de = head.m3.shape[1]
+    wide = torch.arange(de)
+    hw = {}
+    for name, t in head._asdict().items():
+        if de > c and name == "m3":
+            hw[name] = mat(t, col, wide, cp, de)
+        elif de > c and name == "mb3":
+            hw[name] = t
+        else:
+            hw[name] = mat(t, col, col, cp, cp) if t.dim() == 2 else vec(t)
+    return out, HeadWeights(**hw)
 
 
 def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
@@ -465,11 +605,13 @@ def check_shape_split(q: int, c: int, ffn: int, heads: int, nl: int,
 
 
 def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
-                   n_layers: int, t_max: int, dtype) -> bool:
+                   n_layers: int, t_max: int, dtype,
+                   d: Optional[int] = None) -> bool:
     """True iff the flagship instance takes this call: bf16, the widths of
-    :func:`check_shape` and its shared memory. Every other call goes to
-    the split instance."""
-    if dtype != torch.bfloat16:
+    :func:`check_shape`, its shared memory and a mask embedding of ``d``
+    <= C columns (default C; a narrower one zero-padded). Every other call
+    goes to the split instance."""
+    if dtype != torch.bfloat16 or (d is not None and not 1 <= d <= c):
         return False
     try:
         check_shape(q, c, ffn, heads, nl, n_layers)
@@ -479,28 +621,35 @@ def flagship_takes(q: int, c: int, ffn: int, heads: int, nl: int,
 
 
 def decoder_stack_refusal(q: int, c: int, ffn: int, heads: int, nl: int,
-                          n_layers: int, t_max: int, dtype) -> Optional[str]:
+                          n_layers: int, t_max: int, dtype,
+                          d: Optional[int] = None) -> Optional[str]:
     """Why :func:`decoder_stack` launches no kernel for these shapes on a
     CUDA device, or None where it launches one: bf16 or f32, and the
     flagship instance (:func:`flagship_takes`) or the split instance
-    (:func:`split_refusal`) takes them."""
+    (:func:`split_refusal`) takes them; ``d`` the mask embedding's width
+    (default C)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return f"the decoder stack kernels take bf16 or f32; got {dtype}"
-    if flagship_takes(q, c, ffn, heads, nl, n_layers, t_max, dtype):
+    if flagship_takes(q, c, ffn, heads, nl, n_layers, t_max, dtype, d):
         return None
     return split_refusal(q, c, ffn, heads, nl, n_layers, t_max,
-                         dtype == torch.float32)
+                         dtype == torch.float32, d)
 
 
 def split_instance(q: int, heads: int, f32: bool, c: Optional[int] = None,
-                   ffn: Optional[int] = None) -> str:
+                   ffn: Optional[int] = None, t_max: Optional[int] = None,
+                   d: Optional[int] = None) -> str:
     """The name a split launch counts under: ``split_tc_f32`` or
     ``split_tc_bf16``, with ``_cs16`` in clusters of 16 (Q > 256),
-    ``_heads1`` for one head (its columns split over the warps) and
-    ``_heads<n>`` for rounds of 8 heads (more than 8), of the heads the
-    kernel runs; given C and the FFN, ``_padded`` where the model runs
-    padded (:func:`split_padding`)."""
-    padded = False
+    ``_heads1`` for one head (its columns split over the warps),
+    ``_heads<n>`` for rounds of 8 heads (more than 8) and ``_hd<w>`` for
+    head widths over 64 at more than one head (a head a round), of the
+    heads the kernel runs; given C and the FFN, ``_padded`` where the model
+    runs padded (:func:`split_padding`); given the keys, ``_glob`` where the
+    rows live in the workspace (:func:`split_plan`); given the
+    embedding's width ``d``, ``_embpad`` where it is narrower than C and
+    ``_embwide`` where it is wider."""
+    padded, hdp = False, None
     if c is not None:
         hp, hdp, fp = split_padding(c, heads, ffn)
         padded = (hp, hp * hdp, fp) != (heads, c, ffn)
@@ -508,8 +657,15 @@ def split_instance(q: int, heads: int, f32: bool, c: Optional[int] = None,
     name = "split_tc_" + ("f32" if f32 else "bf16")
     if split_cluster(q) > 8:
         name += "_cs16"
-    if heads == 1 or heads > SPLIT_WARPS:
+    if heads == 1 or (heads > SPLIT_WARPS and not (hdp or 0) > 64):
         name += f"_heads{heads}"
+    if heads > 1 and (hdp or 0) > 64:
+        name += f"_hd{hdp}"
+    if t_max is not None and split_plan(q, heads * hdp, heads, t_max,
+                                        f32).glob:
+        name += "_glob"
+    if d is not None and d != c:
+        name += "_embpad" if d < c else "_embwide"
     return name + ("_padded" if padded else "")
 
 
@@ -524,9 +680,11 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
                   profile=None):
     """Final (B, Q, C) query state: the CUDA chain for CUDA tensors (the
     flagship instance where :func:`flagship_takes`, else the split
-    instance), the plain version for CPU tensors. ``packed``: cached
-    ``({}, kv_weights(...))``, its dict filled with each instance's
-    ``pack_weights`` at first use. ``return_bits`` (CUDA only):
+    instance), the plain version for CPU tensors. ``emb0`` and ``feats``
+    hold the mask embedding's D columns (any D >= 1: narrower than C
+    zero-padded to C, wider on the split instance at :func:`embed_width`).
+    ``packed``: cached ``({}, kv_weights(...))``, its dict filled with each
+    instance's ``pack_weights`` at first use. ``return_bits`` (CUDA only):
     also return the kernel's effective blocked positions, (B, L, Q, T_l)
     bool per layer, to count disagreements with the plain version.
     ``profile`` (split instance only): a zeroed (B * split_cluster(Q), 7)
@@ -541,21 +699,24 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     dt = out0.dtype
     hd = c // num_heads
     ffn = layers[0].f1.shape[1]
-    if emb0.shape[-1] != c:
-        raise ValueError(f"decoder stack kernel: emb0 width "
-                         f"{emb0.shape[-1]} != C={c}")
+    d = emb0.shape[-1]
     t = [m.shape[1] for m in mems]
     reason = decoder_stack_refusal(q, c, ffn, num_heads, nl, n_layers,
-                                   max(t), dt)
+                                   max(t), dt, d)
     if reason:
         raise ValueError(reason)
-    flagship = flagship_takes(q, c, ffn, num_heads, nl, n_layers, max(t), dt)
+    if head.m3.shape[1] != d or head.mb3.shape[0] != d:
+        raise ValueError(f"decoder stack kernel: emb0 width {d} is not the "
+                         f"mask MLP's {tuple(head.m3.shape)}")
+    flagship = flagship_takes(q, c, ffn, num_heads, nl, n_layers, max(t),
+                              dt, d)
     if profile is not None:
         if flagship:
             raise ValueError("profile: only the split instance is timed")
         kb.check_cuda(profile, "profile", torch.int64,
                       (b * split_cluster(q), len(SPLIT_PARTS)))
-    heads, cp, fp, pad = num_heads, c, ffn, None
+    de = embed_width(c, d)
+    heads, cp, fp, pad, glob = num_heads, c, ffn, None, False
     if flagship:
         smem = smem_bytes(q, c, max(t))
     else:
@@ -564,12 +725,14 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         cp = heads * hdp
         if (heads, cp, fp) != (num_heads, c, ffn):
             pad = padded_columns(c, num_heads, hdp).to(out0.device)
-        smem = smem_bytes_split(q, cp, heads, max(t), f32)
+        plan = split_plan(q, cp, heads, max(t), f32)
+        smem, glob = plan.nbytes, plan.glob
     kind = "flagship" if flagship else "split"
     if packed is None:
         packed = ({}, kv_weights(layers, nl))
     wpacks, kvw = packed
     if kind not in wpacks:
+        head = embed_padding(head, de)
         if pad is not None:
             layers, head = padded_split(layers, head, c, num_heads, ffn)
             wpacks["split_kv"] = kv_weights(layers, nl)
@@ -578,9 +741,13 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
     if pad is not None:
         kvw = wpacks["split_kv"]
 
-    def widen(x):
-        """x's last (C) axis at the padded width (zeros elsewhere)."""
-        if pad is None:
+    def widen(x, emb=False):
+        """x's last axis (C, or the embedding's D) at the kernel's width:
+        the embedding's D zero-padded to :func:`embed_width` (and, where it
+        is C, then as C), C at the padded columns (zeros elsewhere)."""
+        if emb and x.shape[-1] != de:
+            x = torch.nn.functional.pad(x, (0, de - x.shape[-1]))
+        if pad is None or (emb and de > c):
             return x
         out = x.new_zeros(*x.shape[:-1], cp)
         out[..., pad] = x
@@ -596,11 +763,14 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         ks.append(gemm("decoder_stack", kin, kvw[lvl][0], EPI_BIAS))
         vs.append(gemm("decoder_stack", mem.reshape(b * t[lvl], c),
                        kvw[lvl][1], EPI_BIAS))
-    feats = [widen(f.float()).contiguous() for f in feats]
+    fw = de if de > c else cp
+    feats = [widen(f.float(), emb=True).contiguous() for f in feats]
     for lvl, f in enumerate(feats):
-        kb.check_cuda(f, f"feats[{lvl}]", torch.float32, (b, t[lvl], cp))
+        kb.check_cuda(f, f"feats[{lvl}]", torch.float32, (b, t[lvl], fw))
     x0 = widen(out0.float()).contiguous()
-    e0 = widen(emb0.float()).contiguous()
+    e0 = widen(emb0.float(), emb=True).contiguous()
+    if de > c and e0.data_ptr() == emb0.data_ptr():
+        e0 = e0.clone()  # the kernel's own (B, Q, De) buffer, emb0 in it
     qp = widen(qpos.float()).contiguous()
     out = torch.empty((b, q, cp), dtype=dt, device=out0.device)
     words = (max(t) + 31) // 32
@@ -611,22 +781,27 @@ def decoder_stack(out0, emb0, qpos, mems, pes, feats,
         + [v.data_ptr() for v in vs] + [0] * (3 - nl)
         + [f.data_ptr() for f in feats] + [0] * (3 - nl)))
     tarr = (ctypes.c_int * 3)(*(t + [0] * (3 - nl)))
+    emb_inst = "" if d == c else "_embpad"
     if flagship:
         kb.launch("decoder_stack", "decoder_stack_forward", kb.ptr(x0),
                   kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
                   kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
                   kb.ptr(bits), kb.ci(b), kb.ci(q), kb.ci(c), kb.ci(ffn),
                   kb.ci(num_heads), kb.ci(smem), kb.cf(hd ** -0.5),
-                  kb.stream(), instance="flagship")
+                  kb.stream(), instance="flagship" + emb_inst)
     else:
+        ws = (torch.empty(split_workspace(b, q, cp), dtype=torch.float32,
+                          device=out0.device) if glob else None)
         kb.launch("decoder_stack", "decoder_split_forward", kb.ptr(x0),
-                  kb.ptr(e0), kb.ptr(qp), ptrs, tarr, kb.ci(nl),
-                  kb.ci(groups), kb.ptr(wd), kb.ptr(wf), kb.ptr(out),
-                  kb.ptr(bits), kb.ptr(profile), kb.ci(b), kb.ci(q),
-                  kb.ci(cp), kb.ci(fp), kb.ci(heads), kb.ci(smem),
-                  kb.cf(hd ** -0.5), kb.ci(hd), kb.ci(num_heads), kb.ci(f32),
-                  kb.stream(),
-                  instance=split_instance(q, num_heads, f32, c, ffn))
+                  kb.ptr(e0 if de <= c else None), kb.ptr(qp), ptrs, tarr,
+                  kb.ci(nl), kb.ci(groups), kb.ptr(wd), kb.ptr(wf),
+                  kb.ptr(out), kb.ptr(bits), kb.ptr(profile), kb.ptr(ws),
+                  kb.ptr(e0 if de > c else None), kb.ci(de if de > c else cp),
+                  kb.ci(b), kb.ci(q), kb.ci(cp), kb.ci(fp), kb.ci(heads),
+                  kb.ci(smem), kb.cf(hd ** -0.5), kb.ci(hd),
+                  kb.ci(num_heads), kb.ci(f32), kb.stream(),
+                  instance=split_instance(q, num_heads, f32, c, ffn, max(t),
+                                          d))
         if pad is not None:
             out = out[..., pad].contiguous()
     if not return_bits:

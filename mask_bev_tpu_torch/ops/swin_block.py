@@ -77,6 +77,11 @@ class BlockWeights(NamedTuple):
     fc1: Dense
     fc2: Dense
     rel_bias: torch.Tensor  # (heads, win², win²) f32 holding D values
+    # the kernels' qkv and projection where the heads' width is no multiple
+    # of 8 (:func:`padded_heads`), made once with the weights; None: made
+    # by the call
+    qkv_k: Optional[Dense] = None
+    proj_k: Optional[Dense] = None
 
 
 def quantize_weight(wt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -559,13 +564,20 @@ def gemm(name: str, a, d: Dense, mode: int, residual=None, sx=None,
 # ``csrc/attn_stream_*.cu`` (``swin_window_attn_stream``,
 # ``window_msa_attn_stream``). Every kernel
 # reads the compact table (:func:`rel_offsets`), so ``rel`` must be a
-# relative-position bias, as :func:`rel_bias_from_table` builds it.
+# relative-position bias, as :func:`rel_bias_from_table` builds it. Head
+# widths 136 to 256 take the streaming kernel at every window (staged at
+# 256, one q buffer and one k / v stage: ``stream_single``), windows up to
+# 32 (1024 tokens) too; a head width that is no multiple of 8 runs on the
+# instance of the next multiple of 8, its heads' q, k and v columns and the
+# projection's rows zero-padded (:func:`padded_heads`), at the true width's
+# scale.
 ATTN_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
 ATTN_WIDE_DIMS = (72, 80, 88, 96, 104, 112, 120, 128)
 ATTN_FLAGSHIP_DIMS = (16, 32, 64)
+ATTN_MAX_HEAD_DIM = 256
 ATTN_ONE_PASS_TOKENS = 128
 ATTN_LONG_TOKENS = 256
-ATTN_MAX_TOKENS = 576
+ATTN_MAX_TOKENS = 1024
 ATTN_STREAM_WARPS = 8  # ``ATT_STREAM_WARPS``: 16 query rows each a tile
 ATTN_QUERY_TILE = 16 * ATTN_STREAM_WARPS  # query rows an item
 ATTN_KEY_CHUNK = 64    # ``16 ATT_KCH``: keys a chunk
@@ -606,8 +618,14 @@ def attn_width_ld(hd: int, f32: bool) -> int:
 
 def attn_stream_dim(hd: int) -> int:
     """The width the streaming kernel stages a head of ``hd`` channels at
-    (``stream_dim``): 16, 32, 64 or 128."""
-    return next(d for d in (16, 32, 64, 128) if d >= hd)
+    (``stream_dim``): 16, 32, 64, 128 or 256."""
+    return next(d for d in (16, 32, 64, 128, 256) if d >= hd)
+
+
+def attn_kernel_dim(hd: int) -> int:
+    """The head width the attention kernels run a head of ``hd`` channels
+    at: ``hd`` rounded up to a multiple of 8 (:func:`padded_heads`)."""
+    return -(-hd // 8) * 8
 
 
 def attn_route(win: int, hd: int) -> str:
@@ -615,9 +633,10 @@ def attn_route(win: int, hd: int) -> str:
     width ``hd`` runs (``launch_window_attn_hd``): ``one_pass`` (up to
     :data:`ATTN_ONE_PASS_TOKENS` tokens, the flagship or the head-width
     kernel), ``long`` (up to :data:`ATTN_LONG_TOKENS` at head widths up to
-    64) or ``stream``."""
+    64) or ``stream`` (every window at head widths over 128)."""
     pad = -(-win * win // 16) * 16
-    if pad > ATTN_LONG_TOKENS or (hd > 64 and pad > ATTN_ONE_PASS_TOKENS):
+    if (pad > ATTN_LONG_TOKENS or hd > 128
+            or (hd > 64 and pad > ATTN_ONE_PASS_TOKENS)):
         return "stream"
     return "long" if pad > ATTN_ONE_PASS_TOKENS else "one_pass"
 
@@ -653,27 +672,94 @@ def attn_width_chunks(hd: int) -> List[Tuple[int, int]]:
 def attn_refusal(what: str, c: int, heads: int, win: int) -> Optional[str]:
     """Why the window attention kernel (of kernel ``what``) does not take C
     channels over ``heads`` heads in ``win`` x ``win`` windows, or None
-    where it does: a head width of :data:`ATTN_HEAD_DIMS` or
-    :data:`ATTN_WIDE_DIMS` (a multiple of 8 up to 128) and at most
-    :data:`ATTN_MAX_TOKENS` tokens a window (window 24)."""
-    if (c % heads or c // heads not in ATTN_HEAD_DIMS + ATTN_WIDE_DIMS
+    where it does: a head width from 1 to :data:`ATTN_MAX_HEAD_DIM` (one
+    that is no multiple of 8 zero-padded to the next, :func:`padded_heads`)
+    and at most :data:`ATTN_MAX_TOKENS` tokens a window (window 32)."""
+    if (heads < 1 or c < 1 or c % heads
+            or not 1 <= c // heads <= ATTN_MAX_HEAD_DIM or win < 1
             or win * win > ATTN_MAX_TOKENS):
         return (f"{what} kernel: bad shape, C={c} over {heads} heads in "
                 f"windows of {win}x{win}: the attention takes head widths "
-                f"of a multiple of 8 up to 128 and at most "
+                f"from 1 to {ATTN_MAX_HEAD_DIM} and at most "
                 f"{ATTN_MAX_TOKENS} tokens a window")
     return None
 
 
 def attn_instance(f32: bool, win: int, hd: int = 32) -> str:
-    """The instance a window attention launch counts under: ``attn_bf16``
-    or ``attn_f32``, with ``_long`` or ``_stream`` for windows the
-    long-window or the streaming kernel takes (:func:`attn_route`) and
-    ``_hd<hd>`` for a head width outside :data:`ATTN_FLAGSHIP_DIMS`."""
-    route = attn_route(win, hd)
+    """The instance a window attention launch at head width ``hd`` counts
+    under: ``attn_bf16`` or ``attn_f32``, with ``_long`` or ``_stream`` for
+    windows the long-window or the streaming kernel takes
+    (:func:`attn_route`), ``_hd<w>`` for a kernel width w
+    (:func:`attn_kernel_dim`) outside :data:`ATTN_FLAGSHIP_DIMS`, and
+    ``_padded`` where ``hd`` is no multiple of 8."""
+    w = attn_kernel_dim(hd)
+    route = attn_route(win, w)
     return ("attn_f32" if f32 else "attn_bf16") + (
         "" if route == "one_pass" else "_" + route) + (
-        "" if hd in ATTN_FLAGSHIP_DIMS else f"_hd{hd}")
+        "" if w in ATTN_FLAGSHIP_DIMS else f"_hd{w}") + (
+        "_padded" if w != hd else "")
+
+
+def padded_columns(c: int, heads: int, hdp: int,
+                   device=None) -> torch.Tensor:
+    """(C,) int64: the padded column of each true column j of C over
+    ``heads`` heads, head j // hd's column j % hd in a head of width
+    ``hdp`` (the kernels' padded heads here and in the decoder stack)."""
+    hd = c // heads
+    j = torch.arange(c, device=device)
+    return (j // hd) * hdp + j % hd
+
+
+def padded_qkv(qkv: torch.Tensor, qkv_bias: torch.Tensor, heads: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(qkv, bias, columns) at the kernels' head width: each head's q, k
+    and v columns of an (N, 3C) qkv activation and of its bias zero-padded
+    to :func:`attn_kernel_dim` (the layout :func:`padded_heads` gives the
+    weights), and the padded attention output's columns that hold the
+    true ones; the inputs as they are where the width is a multiple of
+    8."""
+    c = qkv.shape[1] // 3
+    hd = c // heads
+    w = attn_kernel_dim(hd)
+    cols = padded_columns(c, heads, w, qkv.device)
+    if w == hd:
+        return qkv, qkv_bias, cols
+    rows = torch.cat([cols + part * heads * w for part in range(3)])
+    qp = qkv.new_zeros(qkv.shape[0], 3 * heads * w)
+    qp[:, rows] = qkv
+    bp = qkv_bias.new_zeros(3 * heads * w)
+    bp[rows] = qkv_bias
+    return qp, bp, cols
+
+
+def padded_heads(qkv: Dense, proj: Dense, heads: int
+                 ) -> Tuple[Dense, Dense]:
+    """The qkv and projection layers of C channels over ``heads`` heads at
+    the kernels' head width (:func:`attn_kernel_dim`): each head's q, k and
+    v output columns of qkv at the padded width (zero rows of the (3C', C)
+    weight and zero bias between), the projection's input rows alike (its
+    (C, C') weight zero on the padded columns). The padded q, k and v
+    columns are exact zeros, so every score, softmax and output column of
+    the true widths is unchanged (the kernel takes the true width's scale);
+    int8 layers are quantised again (a zero row's scale is the floor, its
+    values 0; a row's absolute maximum is its true part's). Layers whose
+    width is a multiple of 8 are returned as they are."""
+    c = proj.wt.shape[0]
+    hd = c // heads
+    w = attn_kernel_dim(hd)
+    if w == hd:
+        return qkv, proj
+    cp = heads * w
+    col = padded_columns(c, heads, w, qkv.wt.device)
+    rows = torch.cat([col + part * cp for part in range(3)])
+    quant = qkv.q8 is not None
+    wq = qkv.wt.new_zeros(3 * cp, qkv.wt.shape[1])
+    wq[rows] = qkv.wt
+    bq = qkv.bias.new_zeros(3 * cp)
+    bq[rows] = qkv.bias
+    wp = proj.wt.new_zeros(c, cp)
+    wp[:, col] = proj.wt
+    return make_dense(wq, bq, quant), make_dense(wp, proj.bias, quant)
 
 
 def check_attn_shape(what: str, c: int, heads: int, win: int) -> None:
@@ -717,7 +803,8 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     :data:`ATTN_QUERY_TILE` each) and :data:`ATTN_STREAM_STAGES` chunks
     of k and v rows (64 each) at :func:`attn_stream_dim` (+ 8 bf16, + 4
     f32; unpadded where :data:`ATTN_STREAM_WGMMA` takes the instance, with
-    1024 bytes to align them), the column offsets,
+    1024 bytes to align them; at 256 one q tile and one chunk), the column
+    offsets,
     :data:`ATTN_STREAM_SLOTS` slots of token, label and query rows and a
     table, 16 bytes for the pulled items);
     ``msa`` changes only the ring kernel's, which stages no q rows where
@@ -729,10 +816,12 @@ def attn_smem_bytes(win: int, hd: int, f32: bool = False,
     route = attn_route(win, hd)
     if route == "stream":
         hs = attn_stream_dim(hd)
-        wg = ATTN_STREAM_WGMMA and not f32 and hs >= 64
+        wg = ATTN_STREAM_WGMMA and not f32 and 64 <= hs <= 128
+        one = hs > 128  # ``stream_single``: one q buffer, one k / v stage
         ld, esz = (hs + 4, 4) if f32 else (hs if wg else hs + 8, 2)
-        q = 0 if f32 else 2 * ATTN_QUERY_TILE * ld * esz
-        return (q + ATTN_STREAM_STAGES * 2 * ATTN_KEY_CHUNK * ld * esz
+        q = 0 if f32 else (1 if one else 2) * ATTN_QUERY_TILE * ld * esz
+        stages = 1 if one else ATTN_STREAM_STAGES
+        return (q + stages * 2 * ATTN_KEY_CHUNK * ld * esz
                 + 4 * n_pad + ATTN_STREAM_SLOTS * (12 * n_pad + table) + 16
                 + (1024 if wg else 0))
     if route == "long":
@@ -799,15 +888,17 @@ def qkv_windows(qkv: torch.Tensor, qkv_bias: torch.Tensor, b: int,
 
 def window_attention_plain(qkv: torch.Tensor, qkv_bias: torch.Tensor,
                            rel: torch.Tensor, b: int, hw: Tuple[int, int],
-                           heads: int, win: int, shift: int, msa: bool
-                           ) -> torch.Tensor:
+                           heads: int, win: int, shift: int, msa: bool,
+                           hd: Optional[int] = None) -> torch.Tensor:
     """Plain version of the attention launch: (B*H*W, 3C) qkv -> (B*H*W,
     C) on :func:`qkv_windows`. The Swin variant scales q before the
     product and rounds it, the MSA variant scales the f32 score; rel plus
     the shift mask summed first; f32 softmax rounded to the dtype; f32
-    ``p v``."""
+    ``p v``. ``hd``: the heads' true width where ``qkv`` holds them padded
+    (the scale's; default C / heads)."""
     c = qkv.shape[1] // 3
-    hd, n = c // heads, win * win
+    n = win * win
+    hd = c // heads if hd is None else hd
     t = qkv_windows(qkv, qkv_bias, b, hw, heads, win, shift)
     if msa:
         attn = (t[0].float() @ t[1].float().transpose(-1, -2)) * hd ** -0.5
@@ -825,21 +916,30 @@ def window_attention_plain(qkv: torch.Tensor, qkv_bias: torch.Tensor,
 
 def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
               rel: torch.Tensor, b: int, hw: Tuple[int, int], heads: int,
-              win: int, shift: int, msa: bool) -> torch.Tensor:
+              win: int, shift: int, msa: bool,
+              hd: Optional[int] = None) -> torch.Tensor:
     """The window attention launch (``csrc/window_attn.cuh``) of kernel 3
     (``msa=False``) or kernel 7 (``msa=True``): (B*H*W, 3C) qkv of bf16 or
     f32 -> (B*H*W, C) of the same dtype; windows, padding and the shift
     are its index math. ``rel`` (heads, n, n) f32 is the relative-position
     bias (:func:`rel_bias_from_table`): on every route the kernel reads
     one entry a relative offset (:func:`rel_table_tokens`) into its compact
-    table. Counted under ``name`` and ``name/`` :func:`attn_instance`; the
-    plain version for CPU tensors."""
+    table. ``hd``: the heads' true width where ``qkv`` holds them padded to
+    :func:`attn_kernel_dim` (:func:`padded_heads`; its scale is the true
+    width's); default C / heads. Counted under ``name`` and ``name/``
+    :func:`attn_instance`; the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return window_attention_plain(qkv, qkv_bias, rel, b, hw, heads, win,
-                                      shift, msa)
+                                      shift, msa, hd)
     c = qkv.shape[1] // 3
     f32 = _f32(qkv)
-    check_attn_shape(name, c, heads, win)
+    kd = c // heads
+    hd = kd if hd is None else hd
+    check_attn_shape(name, heads * hd, heads, win)
+    if c % heads or kd != attn_kernel_dim(hd):
+        raise ValueError(f"{name} attention kernel: qkv holds heads of "
+                         f"{kd} columns; a head of {hd} runs at "
+                         f"{attn_kernel_dim(hd)}")
     kb.check_cuda(qkv, "qkv", qkv.dtype, (b * hw[0] * hw[1], 3 * c))
     kb.check_cuda(qkv_bias, "qkv_bias", torch.float32, (3 * c,))
     kb.check_cuda(rel, "rel", torch.float32, (heads, win * win, win * win))
@@ -848,18 +948,17 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
         raise ValueError(f"{name} attention kernel: qkv and its bias must "
                          f"be 16-byte aligned and C a multiple of 8")
     o = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
-    hd = c // heads
     fn = "window_msa_attn" if msa else "swin_window_attn"
     scratch = ()
-    if attn_route(win, hd) == "stream":
+    if attn_route(win, kd) == "stream":
         fn += "_stream"
         # the item counter, zeroed by the launch on the stream (the name
         # keeps the tensor alive through the launch)
         counter = torch.empty(1, dtype=torch.int32, device=qkv.device)
         scratch = (kb.ptr(counter),)
-    elif hd in ATTN_WIDE_DIMS:
+    elif kd in ATTN_WIDE_DIMS:
         fn += "_wide"
-    elif hd not in ATTN_FLAGSHIP_DIMS:
+    elif kd not in ATTN_FLAGSHIP_DIMS:
         fn += "_widths"
     kb.launch(name, fn, kb.ptr(qkv), kb.ptr(qkv_bias), kb.ptr(rel),
               kb.ptr(o), *scratch, kb.ci(b), kb.ci(hw[0]), kb.ci(hw[1]),
@@ -870,12 +969,13 @@ def attention(name: str, qkv: torch.Tensor, qkv_bias: torch.Tensor,
 
 
 def window_attention(qkv: torch.Tensor, p: BlockWeights, b: int,
-                     hw: Tuple[int, int], heads: int, win: int, shift: int
-                     ) -> torch.Tensor:
+                     hw: Tuple[int, int], heads: int, win: int, shift: int,
+                     hd: Optional[int] = None) -> torch.Tensor:
     """The Swin chain's attention (one launch, counted under
-    ``swin_block``): (B*H*W, 3C) qkv -> (B*H*W, C) of the same dtype."""
+    ``swin_block``): (B*H*W, 3C) qkv -> (B*H*W, C) of the same dtype (at
+    the heads' true width ``hd``, :func:`attention`)."""
     return attention("swin_block", qkv, p.qkv.bias, p.rel_bias, b, hw,
-                     heads, win, shift, msa=False)
+                     heads, win, shift, msa=False, hd=hd)
 
 
 def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
@@ -894,6 +994,10 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     if reason:
         raise ValueError(reason)
     kb.check_cuda(x, "x", x.dtype)
+    hd = c // heads
+    qkv_d, proj_d = ((p.qkv_k, p.proj_k) if p.qkv_k is not None
+                     else padded_heads(p.qkv, p.proj, heads))
+    p = p._replace(qkv=qkv_d, proj=proj_d)
     x2 = x.reshape(b * l, c)
     dt = x.dtype
     mode_d = EPI_BIAS if quant else EPI_BIAS | EPI_ROUND_ACC
@@ -903,7 +1007,7 @@ def swin_block(x: torch.Tensor, p: BlockWeights, hw: Tuple[int, int],
     else:
         qkv = gemm("swin_block", _ln(x2, p.ln1_w, p.ln1_b, False), p.qkv,
                    mode_d)
-    o = window_attention(qkv, p, b, hw, heads, win, shift)
+    o = window_attention(qkv, p, b, hw, heads, win, shift, hd)
     res = EPI_RESIDUAL | (0 if quant else EPI_ROUND_ACC)
     gelu = EPI_GELU | (0 if quant else EPI_ROUND_ACC)
     if quant:

@@ -36,8 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from mask_bev_tpu_torch.ops.swin_block import (
-    EPI_BIAS, Dense, attention, attn_refusal, gemm, merge_windows,
-    partition_windows, shift_mask)
+    EPI_BIAS, Dense, attention, attn_kernel_dim, attn_refusal, gemm,
+    merge_windows, partition_windows, pitched, shift_mask)
 
 
 def _project(x: torch.Tensor, d: Dense) -> torch.Tensor:
@@ -81,21 +81,25 @@ def window_msa_refusal(c: int, heads: int, win: int,
     """Why kernel 7 does not take C channels over ``heads`` heads in
     ``win`` x ``win`` windows on tokens of ``dtype``, or None where it
     does: bf16 or f32 and :func:`~mask_bev_tpu_torch.ops.swin_block.
-    attn_refusal` (whose head widths make C a multiple of 16, as the qkv
-    and projection products need)."""
+    attn_refusal` (a head width that is no multiple of 8 runs padded,
+    :func:`~mask_bev_tpu_torch.ops.swin_block.padded_heads`)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return f"the window MSA kernels take bf16 or f32 tokens; got {dtype}"
     return attn_refusal("window MSA", c, heads, win)
 
 
 def window_msa(y: torch.Tensor, hw: Tuple[int, int], win: int, shift: int,
-               rel: torch.Tensor, qkv: Dense, proj: Dense, heads: int
+               rel: torch.Tensor, qkv: Dense, proj: Dense, heads: int,
+               padded: Optional[Tuple[Dense, Dense]] = None
                ) -> torch.Tensor:
     """Window MSA of an unfused Swin block on its LN1 output ``y`` (B,
     H*W, C): the CUDA chain for CUDA tensors (its bf16 or f32 instance),
     the plain version for CPU tensors. ``rel`` (h, n, n) f32, ``shift``
     the cyclic shift (0 unshifted), ``qkv``/``proj`` with (N, K) weights
-    and f32 biases."""
+    and f32 biases. ``padded``: where the head width is no multiple of 8,
+    the layers the kernels run, ``padded_heads(qkv, proj, heads)``, made
+    once by the caller with its weights (the CUDA chain raises without
+    them)."""
     if not y.is_cuda:
         return window_msa_grid_plain(y, hw, win, shift, rel, qkv, proj,
                                      heads)
@@ -105,8 +109,16 @@ def window_msa(y: torch.Tensor, hw: Tuple[int, int], win: int, shift: int,
         raise ValueError(reason)
     if l != hw[0] * hw[1]:
         raise ValueError(f"window MSA kernel: {l} tokens for a grid {hw}")
-    y2 = y.contiguous().reshape(b * l, c)
+    # (rows whose bytes are no whole 16-byte steps: at the GEMM's pitch)
+    y2 = pitched(y.contiguous().reshape(b * l, c))
+    if attn_kernel_dim(c // heads) != c // heads:
+        if padded is None:
+            raise ValueError(
+                f"window MSA kernel: head width {c // heads} runs on the "
+                "layers padded_heads(qkv, proj, heads) gives; pass them as "
+                "padded=")
+        qkv, proj = padded
     t = gemm("window_msa", y2, qkv, EPI_BIAS)
     o = attention("window_msa", t, qkv.bias, rel, b, hw, heads, win, shift,
-                  msa=True)
+                  msa=True, hd=c // heads)
     return gemm("window_msa", o, proj, EPI_BIAS).reshape(b, l, c)

@@ -8,10 +8,12 @@ reports them, and a comparison of two checkouts.
 Each checkout's kernels are built from its own sources
 (``mask_bev_tpu_torch/kernels/build.py``, ``nvcc -Xptxas -v``: the logs of
 the build directory), both at once with ``--compare``. A line a kernel:
-its demangled name, registers, stack frame and spill bytes. ``--compare``
-prints the kernels present in both builds whose lines differ, and those
-that only one has, and exits 1 if a kernel of both differs: a change that
-adds instances must leave the ones it had compiling as before.
+its demangled name, registers, stack frame and spill bytes; a function a
+kernel calls that is not inlined gets a line of its own (its stack frame
+and spills; ptxas gives its registers only with the kernel's). ``--compare``
+prints the kernels and functions present in both builds whose lines
+differ, and those that only one has, and exits 1 if one of both differs: a
+change that adds instances must leave the ones it had compiling as before.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+PROPS = re.compile(r"Function properties for (\S+)")
+# a static function's name carries hashes of its translation unit
+INTERNAL = re.compile(r"_INTERNAL_[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}")
 FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                    r"(\d+) bytes spill loads")
 USED = re.compile(r"Used (\d+) registers")
@@ -41,24 +46,28 @@ def build_dir(root: str) -> pathlib.Path:
 
 
 def kernels(logs: pathlib.Path) -> dict:
-    """mangled name -> (registers, stack frame, spill stores, spill loads),
-    from every ``*.log`` of a build directory."""
+    """mangled name -> (registers, stack frame, spill stores, spill loads)
+    of every kernel and every function not inlined (registers None), from
+    every ``*.log`` of a build directory."""
     got = {}
     for log in sorted(logs.glob("*.log")):
-        name = None
+        name = props = None
         for line in log.read_text().splitlines():
             m = ENTRY.search(line)
             if m:
                 name = m.group(1)
                 got[name] = [None, 0, 0, 0]
                 continue
-            if name is None:
+            m = PROPS.search(line)
+            if m:
+                props = INTERNAL.sub(r"_INTERNAL_\1", m.group(1))
+                got.setdefault(props, [None, 0, 0, 0])
                 continue
             m = FRAME.search(line)
-            if m:
-                got[name][1:] = [int(v) for v in m.groups()]
+            if m and props is not None:
+                got[props][1:] = [int(v) for v in m.groups()]
             m = USED.search(line)
-            if m:
+            if m and name is not None:
                 got[name][0] = int(m.group(1))
     return {k: tuple(v) for k, v in got.items()}
 
@@ -86,7 +95,8 @@ def main(argv) -> int:
         names = demangle(set(old) | set(new))
         both = sorted(set(old) & set(new), key=names.get)
         changed = [k for k in both if old[k] != new[k]]
-        print(f"[ptxas compare] {len(both)} kernels in both builds, "
+        print(f"[ptxas compare] {len(both)} kernels and functions in both "
+              "builds, "
               f"{len(changed)} changed, {len(set(new) - set(old))} new, "
               f"{len(set(old) - set(new))} gone", flush=True)
         for k in changed:

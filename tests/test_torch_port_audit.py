@@ -262,12 +262,20 @@ def test_attention_instances_fit_their_blocks(win):
                 assert blocks * (smem + SMEM_RESERVED) <= SMEM_SM
 
 
-@pytest.mark.parametrize("c,heads,win", [(12, 3, 10), (408, 3, 10),
-                                         (96, 3, 25), (60, 5, 10)],
-                         ids=["hd4", "hd136", "win25", "hd12"])
-def test_attention_still_refuses_the_rest(c, heads, win):
+@pytest.mark.parametrize("c,heads,win,refused", [
+    (12, 3, 10, False), (408, 3, 10, False), (96, 3, 25, False),
+    (60, 5, 10, False), (792, 3, 10, True), (96, 3, 33, True)],
+    ids=["hd4", "hd136", "win25", "hd12", "hd264", "win33"])
+def test_attention_still_refuses_the_rest(c, heads, win, refused):
+    """Head widths 4, 136 and 12 and a window of 25 (the refusals of the
+    first audit) are taken; a head width of 264 and a window of 33 are
+    still refused, with the rule's reason."""
     reason = kswin.attn_refusal("x", c, heads, win)
-    assert "multiple of 8 up to 128" in reason and "576 tokens" in reason
+    if not refused:
+        assert reason is None
+        assert kwmsa.window_msa_refusal(c, heads, win, BF16) is None
+        return
+    assert "from 1 to 256" in reason and "1024 tokens" in reason
     assert kwmsa.window_msa_refusal(c, heads, win, BF16)
 
 

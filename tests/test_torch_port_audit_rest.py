@@ -132,8 +132,11 @@ def test_split_takes_every_c_and_head_count(f32):
     """C 32 to 256 in steps of 32, over one head and every head count up to
     a head width of 64, at the main path's queries and memories, with the
     default FFN of 2048 and one that is no multiple of C: all taken but
-    where the shared memory rule refuses the padded shape, head widths of 1
-    and 2 at 80 heads or more (padded to width 8: C 640 to 2048)."""
+    where the shared memory rule refuses the padded shape even with the rows
+    in the device-memory workspace, head widths of 1 and 2 at 112 heads or
+    more (padded to width 8: key tiles of 32 keys at C 896 to 2048 in f32,
+    1536 to 2048 in bf16); the rows move to the workspace only at widths of
+    1 and 2 at 80 heads or more."""
     taken = 0
     for c, heads in _split_domain():
         hp, hdp, fp = kdec.split_padding(c, heads, 1000)
@@ -145,19 +148,34 @@ def test_split_takes_every_c_and_head_count(f32):
                 taken += 1
                 continue
             assert "B of shared memory" in reason
+            assert c // heads <= 2 and heads >= 112
+            assert hp * hdp >= (896 if f32 else 1536)
+        if kdec.split_plan(45, hp * hdp, hp, 3969, f32).glob:
             assert c // heads <= 2 and heads >= 80 and hp * hdp >= 640
-    assert taken == 2 * 76 - 2 * (10 if f32 else 7)
+    assert taken == 2 * 76 - 2 * (7 if f32 else 3)
 
 
 @pytest.mark.parametrize("shape,why", [
-    (dict(q=513, c=256, heads=8), "Q=513"),
-    (dict(q=45, c=256, heads=2), "heads=2"),
-    (dict(q=45, c=288, heads=1), "C=288")], ids=["q513", "hd128", "c288"])
+    (dict(q=513, c=256, heads=8), None),
+    (dict(q=45, c=256, heads=2), None),
+    (dict(q=45, c=288, heads=1), None),
+    (dict(q=1025, c=256, heads=8), "Q=1025"),
+    (dict(q=45, c=528, heads=2), "heads=2"),
+    (dict(q=45, c=576, heads=1), "C=576")],
+    ids=["q513", "hd128", "c288", "q1025", "hd264", "c576"])
 def test_split_still_refuses_the_rest(shape, why):
+    """513 queries, a head width of 128 at 2 heads and one head of C 288
+    (the refusals of the first audit) are taken; 1025 queries, a head width
+    of 264 at 2 heads and one head of C 576 are still refused, each with
+    the rule's reason."""
     reason = kdec.split_refusal(ffn=2048, nl=3, n_layers=9, t_max=3969,
                                 **shape)
+    if why is None:
+        assert reason is None
+        return
     assert "split instance" in reason and why in reason
-    assert "one head up to C 256, else head widths up to 64" in reason
+    assert "one head up to C 512, else head widths up to 256" in reason
+    assert "Q up to 1024" in reason
 
 
 def test_split_keeps_the_shapes_it_took():

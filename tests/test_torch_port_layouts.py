@@ -149,14 +149,23 @@ def test_attention_instances_share_an_sm(hd, f32, msa):
         228 * 1024)
 
 
-@pytest.mark.parametrize("c,heads,win", [(96, 24, 10), (192, 3, 25),
-                                         (100, 4, 10)])
-def test_attention_shape_check(c, heads, win):
-    """One check of the attention template's limits (head widths 8 to 128
-    in steps of 8; at most 576 tokens a window) serves kernels 3 and 7."""
-    with pytest.raises(ValueError, match="bad shape"):
+@pytest.mark.parametrize("c,heads,win,refused", [
+    pytest.param(96, 24, 10, False, id="96-24-10"),
+    pytest.param(192, 3, 25, False, id="192-3-25"),
+    pytest.param(100, 4, 10, False, id="100-4-10"),
+    pytest.param(528, 2, 10, True, id="528-2-10"),
+    pytest.param(192, 3, 33, True, id="192-3-33")])
+def test_attention_shape_check(c, heads, win, refused):
+    """One check of the attention template's limits (head widths 1 to 256,
+    those that are no multiple of 8 padded; at most 1024 tokens a window)
+    serves kernels 3 and 7: head widths 4 and 25 and a window of 25 are
+    taken, a head width of 264 and a window of 33 are not."""
+    if refused:
+        with pytest.raises(ValueError, match="bad shape"):
+            kswin.check_attn_shape("window MSA", c, heads, win)
+    else:
         kswin.check_attn_shape("window MSA", c, heads, win)
-    for w in (10, 12, 16, 17, 24):
+    for w in (10, 12, 16, 17, 24, 25, 32):
         kswin.check_attn_shape("swin block", 192, 3, w)
 
 

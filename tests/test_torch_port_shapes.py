@@ -58,8 +58,8 @@ def on_card(t):
 def test_decoder_takes_head_width_8():
     """The split instance takes head widths 8 and 16 (``tiny_test_config()``
     and ``00_quick_test.yml``: C 64 over 8 heads), and 16 heads of C 64
-    (head width 4, padded to 8); a head width of 128 at 2 heads it does
-    not."""
+    (head width 4, padded to 8); a head width of 512 at 2 heads it does
+    not (128 and 256 it takes)."""
     tiny = dict(q=8, c=64, ffn=128, heads=8, nl=3, n_layers=3, t_max=100)
     for dt in (BF16, F32):
         assert kdec.decoder_stack_refusal(**tiny, dtype=dt) is None
@@ -68,26 +68,38 @@ def test_decoder_takes_head_width_8():
     assert not kdec.flagship_takes(**tiny, dtype=BF16)
     assert kdec.split_refusal(**tiny) is None
     assert kdec.split_refusal(**dict(tiny, heads=16)) is None
-    assert "split instance" in kdec.split_refusal(**dict(tiny, c=256,
+    for c in (256, 512):
+        assert kdec.split_refusal(**dict(tiny, c=c, heads=2)) is None
+    assert "split instance" in kdec.split_refusal(**dict(tiny, c=1024,
                                                          heads=2))
     assert "bf16 or f32" in kdec.decoder_stack_refusal(
         **tiny, dtype=torch.float16)
 
 
-@pytest.mark.parametrize("c,heads,win,hidden", [
-    (192, 6, 25, 768),   # a window of 25: 625 tokens
-    (96, 24, 10, 384),   # head width 4 (8 is taken)
-    (96, 8, 7, 200),     # head width 12 (fc2 K = 200 is taken)
+@pytest.mark.parametrize("c,heads,win,hidden,refused", [
+    # a window of 25: 625 tokens (up to 32 are taken)
+    pytest.param(192, 6, 25, 768, False, id="192-6-25-768"),
+    # head width 4 (padded to 8)
+    pytest.param(96, 24, 10, 384, False, id="96-24-10-384"),
+    # head width 12 (padded to 16; fc2 K = 200 is taken)
+    pytest.param(96, 8, 7, 200, False, id="96-8-7-200"),
+    # a window of 33: 1089 tokens
+    pytest.param(192, 6, 33, 768, True, id="192-6-33-768"),
+    # head width 264 (up to 256 are taken)
+    pytest.param(528, 2, 10, 2112, True, id="528-2-10-2112"),
+    pytest.param(264, 1, 7, 200, True, id="264-1-7-200"),
 ])
-def test_swin_chain_refuses(c, heads, win, hidden):
+def test_swin_chain_refuses(c, heads, win, hidden, refused):
     for dt in (BF16, F32):
-        assert kswin.swin_block_refusal(c, heads, win, hidden, dt)
-    if hidden == 4 * c:
+        reason = kswin.swin_block_refusal(c, heads, win, hidden, dt)
+        assert bool(reason) == refused, reason
+    if hidden == 4 * c and refused:
         assert "bad shape" in kwmsa.window_msa_refusal(c, heads, win, BF16)
     if win > 24:
-        # windows 12, 16 and 24 (144, 256 and 576 tokens) are taken
+        # windows 12, 16, 24 and 32 (144, 256, 576 and 1024 tokens) are
+        # taken
         for w, dt in ((12, BF16), (12, F32), (16, BF16), (16, F32),
-                      (24, BF16), (24, F32)):
+                      (24, BF16), (24, F32), (32, BF16), (32, F32)):
             assert kswin.swin_block_refusal(c, heads, w, hidden, dt) is None
             assert kwmsa.window_msa_refusal(c, heads, w, dt) is None
     # the GEMM takes any K and N >= 1
@@ -210,7 +222,8 @@ def refusals(cfg, batch, dtype, fuse_ln=False):
         out["decoder_stack"] = kdec.decoder_stack_refusal(
             dec.query_feat.shape[0], dec.query_feat.shape[1],
             dec.layer0.ffn.fc1.weight.shape[0], dec.num_heads, 3,
-            dec.num_layers, max(hh * ww for hh, ww in hws[1:4]), dtype)
+            dec.num_layers, max(hh * ww for hh, ww in hws[1:4]), dtype,
+            dec.heads.mask_mlp3.weight.shape[0])
     return out
 
 
@@ -253,16 +266,16 @@ def test_wrappers_raise_on_refused_shapes():
     """A direct call with a refused shape raises before anything is built
     or launched."""
     g = torch.Generator().manual_seed(0)
-    x = on_card(torch.randn(2, 625, 96, generator=g))
+    x = on_card(torch.randn(2, 1089, 96, generator=g))
     fc1 = kswin.Dense(torch.zeros(384, 96), torch.zeros(384))
     p = kswin.BlockWeights(None, None, None, None, None, None, fc1, None,
                            None)
-    # a window of 25 (625 tokens); 12, 16 and 24 are taken
+    # a window of 33 (1089 tokens); 12, 16, 24, 25 and 32 are taken
     with pytest.raises(ValueError, match="bad shape"):
-        kswin.swin_block(x.to(BF16), p, (25, 25), 25, 3, 0, False)
+        kswin.swin_block(x.to(BF16), p, (33, 33), 33, 3, 0, False)
     with pytest.raises(ValueError, match="bad shape"):
-        kwmsa.window_msa(x.to(BF16), (25, 25), 25, 0, None, None, None, 3)
-    for win in (12, 16, 24):
+        kwmsa.window_msa(x.to(BF16), (33, 33), 33, 0, None, None, None, 3)
+    for win in (12, 16, 24, 25, 32):
         assert kswin.swin_block_refusal(96, 3, win, 384, BF16) is None
     with pytest.raises(ValueError, match="bf16 or f32"):
         kln.layer_norm(on_card(torch.zeros(4, 4096, dtype=torch.float16)),
@@ -278,12 +291,13 @@ def test_wrappers_raise_on_refused_shapes():
     with pytest.raises(ValueError, match="bf16 or f32"):
         kcanvas.canvas_norm(table, None, None, ones, ones, ones, ones,
                             (4, 4))
-    out0 = on_card(torch.zeros(2, 513, 64))
+    out0 = on_card(torch.zeros(2, 1025, 64))
     layers = [kdec.LayerWeights(*(torch.zeros(64, 128),) * len(
         kdec.LayerWeights._fields))] * 3
     mems = [on_card(torch.zeros(2, n, 64)) for n in (9, 25, 100)]
-    # 513 queries: 33 rows a block in clusters of 16; 16 heads of C 256
-    # are taken, and of C 64 (a head width of 4, padded to 8)
+    # 1025 queries: 65 rows a block in clusters of 16 (up to 1024 are
+    # taken); 16 heads of C 256 are taken, and of C 64 (a head width of 4,
+    # padded to 8)
     with pytest.raises(ValueError, match="split instance"):
         kdec.decoder_stack(out0, out0, None, mems, None, None, layers, None,
                            num_heads=16)
@@ -1119,5 +1133,5 @@ def test_every_taken_shape_launches(dev):
                 kswin.attention("swin_block", qkv, qb, rel, 1, (win, win + 3),
                                 2, win, 0, False)
     torch.cuda.synchronize()
-    assert kswin.attn_refusal("x", 8, 2, 10)  # head width 4
-    assert kswin.attn_refusal("x", 96, 2, 25)  # 625 tokens
+    assert kswin.attn_refusal("x", 528, 2, 10)  # head width 264
+    assert kswin.attn_refusal("x", 96, 2, 33)  # 1089 tokens

@@ -124,10 +124,21 @@ def test_attention_takes_head_widths_8_to_64(hd):
     assert kswin.attn_instance(True, 12, hd) == f"attn_f32_long_hd{hd}"
 
 
-@pytest.mark.parametrize("c,heads,win", [(12, 3, 10), (96, 24, 10),
-                                         (408, 3, 10), (96, 3, 25)])
-def test_attention_still_refuses(c, heads, win):
-    """Head widths 4, 4, 136 and a window of 25 stay refused."""
+@pytest.mark.parametrize("c,heads,win,refused", [
+    pytest.param(12, 3, 10, False, id="12-3-10"),
+    pytest.param(96, 24, 10, False, id="96-24-10"),
+    pytest.param(408, 3, 10, False, id="408-3-10"),
+    pytest.param(96, 3, 25, False, id="96-3-25"),
+    pytest.param(792, 3, 10, True, id="792-3-10"),
+    pytest.param(96, 3, 33, True, id="96-3-33")])
+def test_attention_still_refuses(c, heads, win, refused):
+    """Head widths 4, 4, 136 and a window of 25 are taken (the first two
+    padded to 8, the third on the streaming kernel at 256); a head width of
+    264 and a window of 33 stay refused."""
+    if not refused:
+        assert kswin.attn_refusal("x", c, heads, win) is None
+        assert kwmsa.window_msa_refusal(c, heads, win, BF16) is None
+        return
     assert "bad shape" in kswin.attn_refusal("x", c, heads, win)
     assert kwmsa.window_msa_refusal(c, heads, win, BF16)
 

@@ -171,15 +171,16 @@ def test_split_shape_check_takes_bf16(shape):
 
 
 @pytest.mark.parametrize("shape", [
-    # 16 heads of C 2048: width 128 (16 heads of C 64, width 4, run
-    # padded to 8)
-    dict(WAYMO, c=2048, heads=16),
-    dict(WAYMO, q=513),              # 33 rows a block in clusters of 16
-    # 12 heads pad to 16 (the 8 warps split no 12): C 512 passes 227 KB
-    dict(WAYMO, c=384, heads=12),
+    # 8 heads of C 4096: width 512 (16 heads of C 2048, width 128, and 16
+    # of C 4096, width 256, are taken)
+    dict(WAYMO, c=4096, heads=8),
+    dict(WAYMO, q=1025),             # 65 rows a block in clusters of 16
+    # 16 heads of 64 at C 1024: the f32 key tiles of 32 keys x C (one
+    # buffer of k and v) pass 227 KB even with the rows in the workspace
+    dict(WAYMO, c=1024, heads=16),
     # no hidden unit (any other FFN runs padded to whole chunks of C)
     dict(WAYMO, ffn=0),
-    dict(WAYMO, q=256, t_max=4 * 3969),  # mask bits of 32 rows: > 227 KB
+    dict(WAYMO, q=256, t_max=16 * 3969),  # mask bits of 32 rows: > 227 KB
 ], ids=["hd16", "rows", "width", "ffn", "smem"])
 def test_split_shape_check_rejects(shape):
     with pytest.raises(ValueError, match="split instance"):
